@@ -1,0 +1,58 @@
+"""soap3dp-torch: the aligner CLI of the PyTorch / CUDA port.
+
+  soap3dp-torch pair <index> <reads1> <reads2> [options] [--device cuda]
+
+The same flags as ``soap3dp pair`` (soap3dp_tpu/cli/main.py, whose
+option parsing this reuses), plus ``--device``: ``cuda`` (the default;
+an error when no CUDA device exists) or ``cpu``. Single-end, list-file
+and multi-device modes are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    from soap3dp_tpu.cli.main import _add_common
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] != "pair":
+        print(__doc__, file=sys.stderr)
+        return 0 if argv and argv[0] in ("--help", "-help") else 2
+    sub = argparse.ArgumentParser(prog="soap3dp-torch pair", add_help=False)
+    sub.add_argument("index")
+    sub.add_argument("reads1")
+    sub.add_argument("reads2", nargs="?", default=None)
+    sub.add_argument("-u", type=int, default=500, dest="max_insert")
+    sub.add_argument("-v", type=int, default=1, dest="min_insert")
+    sub.add_argument("--device", default="cuda", dest="torch_device",
+                     help="torch device: cuda (default) or cpu")
+    _add_common(sub)
+    args = sub.parse_args(argv[1:])
+    if args.devices != 1 or (args.hosts or 1) > 1:
+        print("[soap3dp] error: multi-device and multi-host runs are not "
+              "ported to PyTorch yet", file=sys.stderr)
+        return 2
+
+    from soap3dp_tpu_torch.cli.runner import run_pair
+
+    t0 = time.time()
+    try:
+        rc = run_pair(args)
+    except (FileNotFoundError, IsADirectoryError, PermissionError) as e:
+        print(f"[soap3dp] error: {e.strerror or e}: "
+              f"{e.filename or ''}".rstrip(": "), file=sys.stderr)
+        return 1
+    except ValueError as e:
+        print(f"[soap3dp] error: {e}", file=sys.stderr)
+        return 1
+    print(f"[soap3dp] total wall time: {time.time() - t0:.2f}s",
+          file=sys.stderr)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

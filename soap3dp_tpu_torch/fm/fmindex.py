@@ -1,0 +1,441 @@
+"""Batched FM-index primitives on torch tensors.
+
+Port of soap3dp_tpu/fm/fmindex.py (same function names and results).
+
+Dtype policy: torch has no usable uint32 (no shifts, adds, compares or
+popcount on it), so the index tables live on the device as int32 BIT
+PATTERNS of the host uint32 arrays — the same footprint as the
+reference's uint32 tables — and every gathered value is widened to
+int64 with ``& 0xFFFFFFFF`` (``_u32``). All arithmetic then runs in
+int64 on values in [0, 2^32); where the reference relies on uint32
+wrap-around the port masks explicitly (``mul32``). Positions and SA
+intervals are int64 tensors.
+
+``n`` and ``primary`` are host ints on the DeviceIndex, so no search
+step ever reads a device scalar back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import warnings
+
+import numpy as np
+import torch
+
+from soap3dp_tpu.index.builder import Index
+
+MASK32 = 0xFFFFFFFF
+_LANES = 0x5555_5555  # one bit per 2-bit base slot
+
+
+@dataclasses.dataclass
+class DeviceIndex:
+    """Device-resident index tables (int32 bit patterns of the uint32
+    host arrays). Host metadata stays on the Index."""
+
+    occ: torch.Tensor         # (4 * nw,) occ[4w+c]
+    bwt: torch.Tensor         # (nw,) packed BWT words
+    mark_rank: torch.Tensor   # (nmw,) exclusive rank per mark word
+    mark_words: torch.Tensor  # (nmw,) SA-sample bitvector
+    sa_samples: torch.Tensor  # (num_samples,)
+    counts: torch.Tensor      # (5,) int64 C array
+    pac: torch.Tensor         # (n_words + pad,) packed genome
+    lut_lo: torch.Tensor      # (4^lut_k,)
+    lut_hi: torch.Tensor      # (4^lut_k,)
+    primary: int
+    n: int
+    sa_rate: int
+    lut_k: int
+    repeat_heavy: bool = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.bwt.device
+
+
+# ------------------------------------------------------------------
+# uint32 emulation helpers
+# ------------------------------------------------------------------
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern (or any int tensor) -> int64 value in [0, 2^32)."""
+    return t.to(torch.int64) & MASK32
+
+
+def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32) and a constant c.
+
+    The plain int64 product can pass 2^63; splitting c into 16-bit
+    halves keeps every partial product below 2^49, so the low 32 bits
+    are exact without relying on signed overflow."""
+    lo, hi = c & 0xFFFF, (c >> 16) & 0xFFFF
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of int64 values in [0, 2^32) (torch has none)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & MASK32) >> 24
+
+
+# ------------------------------------------------------------------
+# Upload
+# ------------------------------------------------------------------
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    with warnings.catch_warnings():
+        # mmap'd index arrays are read-only; the copy below never writes
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(a)
+    return t.to(device, copy=True)
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """Host array -> tensor on ``device`` without stalling the host: a
+    CUDA upload goes through pinned memory as a non-blocking copy
+    (a pageable copy would wait for the stream's queued kernels)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def device_index(index: Index, device) -> DeviceIndex:
+    """Upload a host Index to ``device`` (the analog of GPUINDEXUpload,
+    alignment.cu:27-116). Same host arrays as the reference's
+    device_index, stored as int32 bit patterns."""
+    device = torch.device(device)
+    return DeviceIndex(
+        occ=_upload(index.occ, device),
+        bwt=_upload(index.bwt, device),
+        mark_rank=_upload(index.mark_rank, device),
+        mark_words=_upload(index.mark_words, device),
+        sa_samples=_upload(index.sa_samples, device),
+        counts=torch.as_tensor(np.asarray(index.counts, np.int64),
+                               device=device),
+        pac=_upload(index.pac, device),
+        lut_lo=_upload(index.lut_lo, device),
+        lut_hi=_upload(index.lut_hi, device),
+        primary=int(index.primary),
+        n=int(index.n),
+        sa_rate=int(index.sa_rate),
+        lut_k=int(index.lut_k),
+        repeat_heavy=_repeat_heavy(index),
+    )
+
+
+def _repeat_heavy(index: Index, thresh: float = 0.05,
+                  heavy_x: float = 50.0) -> bool:
+    """Is a material fraction of the TEXT inside high-copy repeats?
+    (Same measurement as the reference: k-mer interval widths from the
+    LUT, strided sample.) SOAP3DP_REPEAT_HEAVY=0/1 overrides."""
+    env = os.environ.get("SOAP3DP_REPEAT_HEAVY")
+    if env is not None:
+        return env not in ("", "0")
+    lo = np.asarray(index.lut_lo)
+    hi = np.asarray(index.lut_hi)
+    size = len(lo)
+    if size < 2 or index.n < (1 << 20):
+        return False
+    step = max(size // (1 << 20), 1)
+    w = (hi[::step] - lo[::step]).astype(np.float64)
+    total = w.sum()
+    if total <= 0:
+        return False
+    expect = max(float(index.n) / size, 1.0)
+    heavy = w[w > heavy_x * expect].sum() / total
+    return bool(heavy > thresh)
+
+
+def is_oom_error(exc: BaseException) -> bool:
+    """True for a device (or host) memory exhaustion error."""
+    if isinstance(exc, (torch.OutOfMemoryError, MemoryError)):
+        return True
+    msg = str(exc).upper()
+    return "OUT OF MEMORY" in msg or "RESOURCE_EXHAUSTED" in msg
+
+
+def index_hbm_bytes(index: Index) -> int:
+    """Estimated device footprint of device_index(index)."""
+    total = 0
+    for name in ("occ", "bwt", "mark_rank", "mark_words", "sa_samples",
+                 "counts", "pac", "lut_lo", "lut_hi"):
+        total += int(np.asarray(getattr(index, name)).nbytes)
+    return total
+
+
+def device_index_ladder(index: Index, device, hbm_budget: int | None = None,
+                        max_rate: int = 256) -> tuple[DeviceIndex, Index]:
+    """Upload with a degradation ladder: on device OOM (or a predicted
+    over-budget upload), re-sample the SA to double the rate and retry,
+    up to ``max_rate`` (the reference's tryAlloc ladder analog,
+    DV-DPfunctions.cu:554-612). Returns (device index, host index)."""
+    from soap3dp_tpu.index.builder import resample_sa
+
+    while True:
+        try:
+            need = index_hbm_bytes(index)
+            if hbm_budget is not None and need > hbm_budget:
+                raise MemoryError(
+                    f"predicted out of memory: index needs {need / 1e9:.2f} "
+                    f"GB of {hbm_budget / 1e9:.2f} GB device memory")
+            return device_index(index, device), index
+        except (torch.OutOfMemoryError, MemoryError):
+            if index.sa_rate >= max_rate:
+                raise
+            new_rate = index.sa_rate * 2
+            print(f"[soap3dp] device OOM uploading index "
+                  f"(sa_rate={index.sa_rate}); degrading to "
+                  f"sa_rate={new_rate}", file=sys.stderr)
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+            index = resample_sa(index, new_rate)
+
+
+# ------------------------------------------------------------------
+# Occ queries
+# ------------------------------------------------------------------
+
+def _match_bits(word: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """One bit per 2-bit base slot of `word` that equals base c."""
+    x = word ^ (c * _LANES)
+    return (~(x | (x >> 1))) & _LANES
+
+
+def _count_in_word(word: torch.Tensor, c: torch.Tensor,
+                   q: torch.Tensor) -> torch.Tensor:
+    """#occurrences of base c in the first q (0..15) bases of a word
+    (q == 0 shifts the lane mask out entirely)."""
+    qm = _LANES >> (2 * (16 - q))
+    return popcount32(_match_bits(word, c) & qm)
+
+
+def occ(idx: DeviceIndex, c: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Occ(c, k): occurrences of base c in the conceptual BWT[0:k]; the
+    sentinel row (primary) is skipped (2bwt-lib/BWT.c BWTOccValue)."""
+    kp = k - (k > idx.primary).to(torch.int64)
+    w = kp >> 4
+    word = _u32(idx.bwt[w])
+    base = _u32(idx.occ[w * 4 + c])
+    return base + _count_in_word(word, c, kp & 15)
+
+
+def backward_extend(idx: DeviceIndex, l: torch.Tensor, r: torch.Tensor,
+                    c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One backward-search step: prepend base c to the current pattern."""
+    cc = idx.counts[c]
+    return cc + occ(idx, c, l), cc + occ(idx, c, r)
+
+
+# ------------------------------------------------------------------
+# Backward search over read segments
+# ------------------------------------------------------------------
+
+def backward_search(idx: DeviceIndex, seqs: torch.Tensor, start: torch.Tensor,
+                    length: torch.Tensor, max_steps: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SA interval [l, r) of each read segment, searched right-to-left:
+    one LUT lookup for the last lut_k characters of a segment at least
+    that long, then ``max_steps`` masked steps for every lane."""
+    B, L = seqs.shape
+    n1 = idx.n + 1
+    k = idx.lut_k
+    start = start.to(torch.int64)
+    length = length.to(torch.int64)
+    tail = start + length - k
+    j = torch.arange(k, device=seqs.device)
+    pos = (tail[:, None] + j[None, :]).clamp(0, L - 1)
+    ch = torch.gather(seqs, 1, pos).to(torch.int64)
+    m = (ch << (2 * (k - 1 - j))[None, :]).sum(dim=1) & MASK32
+    can_lut = length >= k
+    zero = torch.zeros_like(m)
+    l = torch.where(can_lut, _u32(idx.lut_lo[m]), zero)
+    r = torch.where(can_lut, _u32(idx.lut_hi[m]), zero + n1)
+    rem = torch.where(can_lut, length - k, length)
+    for s in range(max_steps):
+        p = (start + rem - 1 - s).clamp(0, L - 1)
+        c = torch.gather(seqs, 1, p[:, None])[:, 0].to(torch.int64)
+        l2, r2 = backward_extend(idx, l, r, c)
+        active = (s < rem) & (l < r)
+        l = torch.where(active, l2, l)
+        r = torch.where(active, r2, r)
+    return l, r
+
+
+def rolling_kmer_codes(seqs: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, L) codes -> (B, L) int64 MSB-first k-mer code starting at each
+    position (positions past L-k are zero-filled = 'A' padded)."""
+    B, L = seqs.shape
+    s = seqs.to(torch.int64)
+    km = torch.zeros((B, L), dtype=torch.int64, device=seqs.device)
+    for j in range(k):
+        if j >= L:
+            break
+        km[:, :L - j] |= s[:, j:] << (2 * (k - 1 - j))
+    return km
+
+
+def backward_search_packed(idx: DeviceIndex, roll16: torch.Tensor,
+                           seq_rows: torch.Tensor, start: torch.Tensor,
+                           length: torch.Tensor, max_steps: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seed search whose per-lane characters come from two gathers of a
+    rolling 16-char code array (length <= lut_k + 16)."""
+    k = idx.lut_k
+    n1 = idx.n + 1
+    R, L = roll16.shape
+    r16 = roll16.reshape(-1)
+    flat = seq_rows.to(torch.int64) * L
+    start = start.to(torch.int64)
+    length = length.to(torch.int64)
+    tail = (start + length - k).clamp(0, L - 1)
+    wtail = r16[flat + tail]
+    m = wtail >> (2 * (16 - k))
+    can_lut = length >= k
+    zero = torch.zeros_like(m)
+    l = torch.where(can_lut, _u32(idx.lut_lo[m]), zero)
+    r = torch.where(can_lut, _u32(idx.lut_hi[m]), zero + n1)
+    wext = r16[flat + start.clamp(0, L - 1)]
+    ext = torch.where(can_lut, length - k, length)
+    for s in range(max_steps):
+        d = (ext - 1 - s).clamp(0, 15)
+        c = (wext >> (2 * (15 - d))) & 3
+        l2, r2 = backward_extend(idx, l, r, c)
+        active = (s < ext) & (l < r)
+        l = torch.where(active, l2, l)
+        r = torch.where(active, r2, r)
+    return l, r
+
+
+# ------------------------------------------------------------------
+# SA decode: row -> text position
+# ------------------------------------------------------------------
+
+def sa_decode(idx: DeviceIndex, rows: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """Text position of each SA row via the bounded LF walk (BWTSaValue,
+    2bwt-lib/BWT.c:1694); one gather per row when sa_rate == 1."""
+    rows = torch.where(valid, rows, torch.zeros_like(rows))
+    zero = torch.zeros_like(rows)
+    if idx.sa_rate == 1:
+        return torch.where(valid, _u32(idx.sa_samples[rows]), zero)
+    done = ~valid
+    mw_hit = zero
+    below_hit = zero
+    t_hit = zero
+
+    def mark_probe(rows):
+        mw = rows >> 5
+        word = _u32(idx.mark_words[mw])
+        bsel = rows & 31
+        is_marked = ((word >> bsel) & 1) == 1
+        partial = torch.where(bsel == 0, zero, MASK32 >> (32 - bsel))
+        return mw, is_marked, popcount32(word & partial)
+
+    for t in range(idx.sa_rate - 1):
+        mw, is_marked, below = mark_probe(rows)
+        newly = is_marked & ~done
+        mw_hit = torch.where(newly, mw, mw_hit)
+        below_hit = torch.where(newly, below, below_hit)
+        t_hit = torch.where(newly, zero + t, t_hit)
+        done = done | is_marked
+        kp = rows - (rows > idx.primary).to(torch.int64)
+        wsel = kp >> 4
+        word_b = _u32(idx.bwt[wsel])
+        q = kp & 15
+        c = (word_b >> (2 * q)) & 3
+        base = _u32(idx.occ[wsel * 4 + c])
+        lf = idx.counts[c] + base + _count_in_word(word_b, c, q)
+        rows = torch.where(done, rows, lf)
+    # final probe: a value-sampled SA guarantees a mark within sa_rate
+    mw, is_marked, below = mark_probe(rows)
+    newly = is_marked & ~done
+    mw_hit = torch.where(newly, mw, mw_hit)
+    below_hit = torch.where(newly, below, below_hit)
+    t_hit = torch.where(newly, zero + (idx.sa_rate - 1), t_hit)
+    rank = _u32(idx.mark_rank[mw_hit]) + below_hit
+    value = _u32(idx.sa_samples[rank.clamp(max=idx.sa_samples.shape[0] - 1)])
+    return torch.where(valid, (value + t_hit) & MASK32, zero)
+
+
+# ------------------------------------------------------------------
+# Genome windows and packed verification
+# ------------------------------------------------------------------
+
+def aligned_genome_words(idx: DeviceIndex, tp: torch.Tensor,
+                         W: int) -> torch.Tensor:
+    """Packed genome words for [tp, tp+16*W), funnel-shifted to the
+    2-bit grid: (M, W) int64 values in [0, 2^32)."""
+    tp = tp.to(torch.int64)
+    w0 = tp >> 4
+    j = torch.arange(W + 1, device=tp.device)[None, :]
+    words = _u32(idx.pac[(w0[:, None] + j).clamp(0, idx.pac.shape[0] - 1)])
+    sh = (2 * (tp & 15))[:, None]
+    lo = words[:, :-1] >> sh
+    hi = torch.where(sh == 0, torch.zeros_like(lo),
+                     (words[:, 1:] << ((32 - sh) & 31)) & MASK32)
+    return lo | hi
+
+
+def extract_genome(idx: DeviceIndex, tp: torch.Tensor, L: int) -> torch.Tensor:
+    """Genome codes at [tp, tp+L) as an (M, L) uint8 tensor."""
+    W = (L + 15) // 16
+    aligned = aligned_genome_words(idx, tp, W)              # (M, W)
+    shifts = 2 * torch.arange(16, device=aligned.device)
+    codes = (aligned[:, :, None] >> shifts[None, None, :]) & 3
+    return codes.reshape(codes.shape[0], -1)[:, :L].to(torch.uint8)
+
+
+def pack_reads(codes: torch.Tensor, max_len: int | None = None) -> torch.Tensor:
+    """Pack (B, L) codes into (B, ceil(L/16)) int64 words (LSB-first 2-bit
+    layout, as the genome)."""
+    B, L = codes.shape
+    W = ((max_len or L) + 15) // 16
+    padded = torch.zeros((B, W * 16), dtype=torch.int64, device=codes.device)
+    padded[:, :L] = codes.to(torch.int64)
+    shifts = 2 * torch.arange(16, device=codes.device)
+    return (padded.reshape(B, W, 16) << shifts[None, None, :]).sum(dim=-1)
+
+
+def count_mismatches_packed(idx: DeviceIndex, tp: torch.Tensor,
+                            read_words: torch.Tensor,
+                            read_len: torch.Tensor) -> torch.Tensor:
+    """Hamming distance in the packed 2-bit domain: XOR + popcount."""
+    M, W = read_words.shape
+    g = aligned_genome_words(idx, tp, W)
+    x = g ^ read_words
+    bits = (x | (x >> 1)) & _LANES
+    j16 = torch.arange(W, device=tp.device)[None, :] * 16
+    m = (read_len.to(torch.int64)[:, None] - j16).clamp(0, 16)
+    lane_mask = _LANES >> (2 * (16 - m))
+    return popcount32(bits & lane_mask).sum(dim=1)
+
+
+def revcomp_reads(reads: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Length-aware reverse complement: rc[i] = 3 - read[len-1-i], zero-padded."""
+    B, L = reads.shape
+    i = torch.arange(L, device=reads.device)[None, :]
+    lens = lens.to(torch.int64)
+    src = (lens[:, None] - 1 - i).clamp(0, L - 1)
+    vals = (3 - torch.gather(reads, 1, src).to(torch.int16)) & 0xFF
+    out = torch.where(i < lens[:, None], vals, torch.zeros_like(vals))
+    return out.to(reads.dtype)
+
+
+def revcomp_reads_uniform(reads: torch.Tensor, n: int) -> torch.Tensor:
+    """revcomp_reads for a batch whose reads ALL have length ``n``."""
+    B, L = reads.shape
+    rc = ((3 - torch.flip(reads[:, :n], dims=(1,)).to(torch.int16))
+          & 0xFF).to(reads.dtype)
+    if n == L:
+        return rc
+    return torch.cat([rc, torch.zeros((B, L - n), dtype=reads.dtype,
+                                      device=reads.device)], dim=1)

@@ -1,0 +1,460 @@
+"""Seed-and-verify k-mismatch search on torch tensors.
+
+Port of soap3dp_tpu/fm/search.py: pigeonhole seeds, LUT-jumpstarted
+backward search, lane compaction, SA decode, scatter-min hash dedupe
+and packed XOR/popcount verification, with the same two/three-round
+budget escalation. Results are element-for-element those of the
+reference (same compaction order, same hash, same dedupe winners).
+
+``_search_batch`` reads nothing back to the host (no ``.item()``, no
+``nonzero``, no ``.cpu()``), so on a CUDA device its kernels are only
+enqueued and batch i+1's search overlaps batch i's host work;
+``PendingSearch.result()`` is the one synchronisation point. The
+reference's XLA-TPU scan workarounds (utils/scans.py) become plain
+``torch.cumsum`` / ``torch.cummax``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from soap3dp_tpu.utils import shapes, timers
+from soap3dp_tpu_torch.fm import fmindex
+from soap3dp_tpu_torch.fm.fmindex import MASK32, DeviceIndex, mul32
+
+SENTINEL = 0xFFFFFFFF
+ROW_SENTINEL = 0x7FFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    """Search parameters (see the reference SearchConfig for the
+    measurements behind each default)."""
+
+    k: int = 2
+    occ_cap: int = 16
+    occ_cap_round2: int = 256
+    occ_cap_round3: int = 4096
+    seed_slack: int = 2
+    escalate_budget: int = 8192
+
+    @property
+    def num_seeds(self) -> int:
+        return self.k + 1
+
+
+@dataclasses.dataclass
+class HitArrays:
+    """Compacted struct-of-arrays hit set: (oriented row, text position,
+    mismatch count), row b = read b forward, row B + b = its reverse
+    complement. Fields are torch tensors (device) or numpy (host)."""
+
+    row: object
+    tp: object
+    nmis: object
+    valid: object
+    flagged: object
+
+    def to_host(self):
+        """(row int32, tp uint32, nmis int32, valid bool, flagged bool)
+        as numpy arrays."""
+        def h(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) \
+                else np.asarray(x)
+        return (h(self.row).astype(np.int32), h(self.tp).astype(np.uint32),
+                h(self.nmis).astype(np.int32), h(self.valid).astype(bool),
+                h(self.flagged).astype(bool))
+
+
+def _seed_bounds(lens: torch.Tensor, num_seeds: int, seed_q: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pigeonhole segments of [0, len), truncated to seed_q: (R,S)."""
+    j = torch.arange(num_seeds, device=lens.device)[None, :]
+    lens = lens.to(torch.int64)[:, None]
+    start = j * lens // num_seeds
+    length = (j + 1) * lens // num_seeds - start
+    if seed_q > 0:
+        length = length.clamp(max=seed_q)
+    return start, length
+
+
+def pack_read_matrix(reads: np.ndarray) -> np.ndarray:
+    """Host-side 2-bit pack of (B, L) codes into (B, ceil(L/16)) uint32
+    (byte 0 = codes 0-3, little-endian words)."""
+    B, L = reads.shape
+    W = (L + 15) // 16
+    padded = np.zeros((B, W * 16), np.uint8)
+    padded[:, :L] = reads
+    by = (padded[:, 0::4] | (padded[:, 1::4] << 2)
+          | (padded[:, 2::4] << 4) | (padded[:, 3::4] << 6))
+    return np.ascontiguousarray(by).view("<u4")
+
+
+def _unpack_read_matrix(words: torch.Tensor, L: int) -> torch.Tensor:
+    """Device-side inverse of pack_read_matrix ((B, W) int32 words)."""
+    B, W = words.shape
+    shifts = 2 * torch.arange(16, device=words.device)
+    codes = (fmindex._u32(words)[:, :, None] >> shifts[None, None, :]) & 3
+    return codes.reshape(B, W * 16)[:, :L].to(torch.uint8)
+
+
+def _nonzero_prefix(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """First ``size`` indices where mask is True, ascending; -1 padded
+    (nonzero without the host sync of torch.nonzero)."""
+    n = mask.shape[0]
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    tgt = torch.where(mask & (rank < size), rank, torch.full_like(rank, size))
+    out = torch.full((size + 1,), -1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, tgt, torch.arange(n, device=mask.device))
+    return out[:size]
+
+
+def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
+                  cfg: SearchConfig, cap: int, max_seed_steps: int,
+                  seed_q: int = 0, K: int = 0, L: int = 0, K2: int = 0,
+                  uniform_len: int = 0, seed_lo: int = 0, seed_hi: int = 0
+                  ) -> tuple[HitArrays, torch.Tensor]:
+    """One seed search dispatch. ``reads`` is a (B, L) uint8 code matrix
+    or (B, W) int32 packed words (then L is given). Returns device
+    HitArrays and the (total candidates, unique placements) pair."""
+    dev = reads.device
+    if reads.dtype == torch.int32:
+        reads = _unpack_read_matrix(reads, L)
+    B, L = reads.shape
+    S = cfg.num_seeds
+    n = idx.n
+    lens = lens.to(torch.int64)
+
+    if uniform_len:
+        rc = fmindex.revcomp_reads_uniform(reads, min(uniform_len, L))
+    else:
+        rc = fmindex.revcomp_reads(reads, lens)
+    oriented = torch.cat([reads, rc], dim=0)
+    olens = torch.cat([lens, lens])
+    R = 2 * B
+    if K <= 0:
+        K = R * S * cap
+
+    sstart, slen = _seed_bounds(olens, S, seed_q)
+    if seed_hi <= 0:
+        seed_hi = S
+    if (seed_lo, seed_hi) != (0, S):
+        sstart = sstart[:, seed_lo:seed_hi]
+        slen = slen[:, seed_lo:seed_hi]
+        S = seed_hi - seed_lo
+    seq_rows = torch.arange(R, device=dev).repeat_interleave(S)
+    if seed_q == idx.lut_k and max_seed_steps == 0:
+        # LUT-only seeds: one table lookup per lane
+        km = fmindex.rolling_kmer_codes(oriented, idx.lut_k)
+        m = torch.gather(km, 1, sstart.clamp(0, L - 1)).reshape(-1)
+        l = fmindex._u32(idx.lut_lo[m])
+        r = fmindex._u32(idx.lut_hi[m])
+    elif 0 < seed_q <= idx.lut_k + 16 and idx.lut_k <= 16:
+        roll16 = fmindex.rolling_kmer_codes(oriented, 16)
+        l, r = fmindex.backward_search_packed(
+            idx, roll16, seq_rows, sstart.reshape(-1), slen.reshape(-1),
+            max_steps=max_seed_steps)
+    else:
+        l, r = fmindex.backward_search(
+            idx, oriented[seq_rows], sstart.reshape(-1), slen.reshape(-1),
+            max_steps=max_seed_steps)
+    width = r - l
+    overflow = width > cap
+    flagged = overflow.reshape(R, S).any(dim=1)
+    flagged = flagged[:B] | flagged[B:]
+
+    # lane-granularity compaction: exclusive cumsum of per-lane counts,
+    # scatter-max of lane ids at each lane's offset, cummax fill
+    RS = l.shape[0]
+    cnt = torch.where(overflow, torch.zeros_like(width), width.clamp(max=cap))
+    incl = torch.cumsum(cnt, 0)
+    off = incl - cnt
+    total = incl[-1]
+    scat = torch.where(cnt > 0, off, torch.full_like(off, K)).clamp(max=K)
+    tbl = torch.zeros(K + 1, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, scat, torch.arange(1, RS + 1, device=dev), "amax")
+    lane_p1 = torch.cummax(tbl[:K], 0).values
+    idxK = torch.arange(K, device=dev)
+    cvalid = (idxK < total) & (lane_p1 > 0)
+    lane = (lane_p1 - 1).clamp(min=0)
+    cslot = torch.where(cvalid, idxK - off[lane], torch.zeros_like(idxK))
+    rows_sa = l[lane] + cslot
+
+    sa_pos = fmindex.sa_decode(idx, rows_sa, cvalid)
+
+    st = sstart.reshape(-1)[lane]
+    tp = sa_pos - st
+    orow = seq_rows[lane]
+    ln = olens[orow]
+    pos_ok = cvalid & (sa_pos >= st) & (tp + ln <= n)
+
+    # scatter-min hash dedupe of (row, tp) before verification
+    if K2 <= 0:
+        K2 = K
+    idxs = idxK
+    krow = torch.where(pos_ok, orow, torch.full_like(orow, SENTINEL))
+    ktp = torch.where(pos_ok, tp & MASK32, torch.full_like(tp, SENTINEL))
+    hb = max((K - 1).bit_length() + 1, 10)
+    h = mul32(krow, 0x9E3779B1) ^ mul32(ktp, 0x85EBCA77)
+    hslot = mul32(h, 0xC2B2AE3D) >> (32 - hb)
+    table = torch.full((1 << hb,), K, dtype=torch.int64, device=dev)
+    table.scatter_reduce_(0, hslot, torch.where(pos_ok, idxs,
+                                                torch.full_like(idxs, K)),
+                          "amin")
+    widx = table[hslot].clamp(max=K - 1)
+    dup = pos_ok & (widx != idxs) & (krow[widx] == krow) & (ktp[widx] == ktp)
+    first = pos_ok & ~dup
+    uniq = first.sum()
+    idx2 = _nonzero_prefix(first, K2)
+    uvalid = idx2 >= 0
+    idx2s = torch.where(uvalid, idx2, torch.zeros_like(idx2))
+    urow = torch.where(uvalid, orow[idx2s], torch.full_like(idx2s, ROW_SENTINEL))
+    utp = ktp[idx2s]
+
+    # verify unique placements in the packed domain
+    read_words = fmindex.pack_reads(oriented)
+    urow_c = urow.clamp(0, R - 1)
+    nmis = fmindex.count_mismatches_packed(
+        idx, torch.where(uvalid, utp, torch.zeros_like(utp)),
+        read_words[urow_c], olens[urow_c])
+    hit_ok = uvalid & (nmis <= cfg.k)
+    hits = HitArrays(row=torch.where(hit_ok, urow,
+                                     torch.full_like(urow, ROW_SENTINEL)),
+                     tp=utp, nmis=nmis, valid=hit_ok, flagged=flagged)
+    return hits, torch.stack([total, uniq])
+
+
+def _fetch(hits: HitArrays, totals: torch.Tensor) -> torch.Tensor:
+    """Everything the host needs from one dispatch as ONE int64 vector:
+    [total, uniq | flagged (B) | row | tp | nmis | valid (K2 each)]."""
+    return torch.cat([totals, hits.flagged.to(torch.int64), hits.row,
+                      hits.tp, hits.nmis, hits.valid.to(torch.int64)])
+
+
+def _parse(vec: np.ndarray, B: int) -> tuple[int, int, HitArrays]:
+    t, u = int(vec[0]), int(vec[1])
+    K2 = (len(vec) - 2 - B) // 4
+    o = 2 + B
+    cols = [vec[o + i * K2:o + (i + 1) * K2] for i in range(4)]
+    return t, u, HitArrays(
+        row=cols[0].astype(np.int32), tp=cols[1].astype(np.uint32),
+        nmis=cols[2].astype(np.int32), valid=cols[3].astype(bool),
+        flagged=vec[2:2 + B].astype(bool))
+
+
+class _HostCopy:
+    """Asynchronous device->host copy of a dispatch result: on CUDA the
+    copy is enqueued into pinned memory behind the compute and an event
+    marks its completion; ``numpy()`` waits for it."""
+
+    def __init__(self, vec: torch.Tensor):
+        if vec.is_cuda:
+            self._host = torch.empty(vec.shape, dtype=vec.dtype,
+                                     pin_memory=True)
+            self._host.copy_(vec, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = vec, None
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+def config_for(idx: DeviceIndex, k: int) -> SearchConfig:
+    """Search config adapted to the environment (storm-gated escalation;
+    SOAP3DP_ESCALATE=1 forces it, SOAP3DP_ESCALATE=0 disables it)."""
+    env = os.environ.get("SOAP3DP_ESCALATE")
+    if env == "0":
+        return SearchConfig(k=k, occ_cap_round2=0, occ_cap_round3=0)
+    if env:
+        return SearchConfig(k=k, escalate_budget=1 << 30)
+    return SearchConfig(k=k)
+
+
+def default_seed_q(idx: DeviceIndex, cfg: SearchConfig) -> int:
+    """Genome-size-scaled seed prefix length (LUT-only when 4^lut_k >= n,
+    full packed window on repeat-heavy text)."""
+    log4n = int(np.ceil(np.log2(max(idx.n, 4)) / 2))
+    if idx.repeat_heavy:
+        return idx.lut_k + 16
+    if idx.lut_k >= log4n:
+        return idx.lut_k
+    return max(log4n + cfg.seed_slack, idx.lut_k)
+
+
+def _steps_for(idx: DeviceIndex, seed_q: int, min_seg: int) -> int:
+    """FM-step bound for seeds truncated to seed_q."""
+    if min_seg >= idx.lut_k:
+        return max(seed_q - idx.lut_k, 0)
+    return max(seed_q - idx.lut_k, min(idx.lut_k - 1, seed_q))
+
+
+# global candidate-work ceiling per dispatch (see the reference's _K_CEIL)
+_K_CEIL = int(os.environ.get("SOAP3DP_K_CEIL", 1 << 24))
+
+
+def _run_compacted(idx, reads, lens, cfg, cap, steps, seed_q, B, S,
+                   uniform_len=0) -> HitArrays:
+    """Dispatch _search_batch, growing the compaction budget on overflow;
+    returns device arrays sliced to a bucketed prefix."""
+    cap = max(16, min(cap, _K_CEIL // max(2 * B * S, 1)))
+    K = shapes.bucket(2 * B * S * 2, min_size=1024)
+    K_max = 2 * B * S * cap
+    while True:
+        Kc = min(K, K_max)
+        hits, totals = _search_batch(idx, reads, lens, cfg, cap, steps,
+                                     seed_q, Kc, uniform_len=uniform_len)
+        th = totals.cpu().numpy()
+        t, u = int(th[0]), int(th[1])
+        if t <= Kc or K >= K_max:
+            break
+        K = min(shapes.bucket(t), K_max)
+    tb = min(shapes.bucket(u, min_size=1024), hits.row.shape[0])
+    if tb < hits.row.shape[0]:
+        hits = HitArrays(row=hits.row[:tb], tp=hits.tp[:tb],
+                         nmis=hits.nmis[:tb], valid=hits.valid[:tb],
+                         flagged=hits.flagged)
+    return hits
+
+
+class PendingSearch:
+    """Async seed search: round 1 is enqueued at construction; `result()`
+    syncs, grows the compaction budget if needed, and runs the
+    escalation rounds (the double buffering of alignment.cu:554-561)."""
+
+    def __init__(self, idx: DeviceIndex, reads, lens,
+                 cfg: SearchConfig = SearchConfig(),
+                 seed_range: tuple[int, int] | None = None):
+        self.idx = idx
+        self.cfg = cfg
+        self.seed_lo, self.seed_hi = seed_range or (0, cfg.num_seeds)
+        self.reads_h = np.asarray(reads)
+        self.lens_h = np.asarray(lens).astype(np.int32)
+        self.B, self.L = self.reads_h.shape
+        if 2 * self.B >= (1 << 24):
+            raise ValueError(f"batch of {self.B} reads exceeds the 2^23-read "
+                             "limit of 24-bit row ids; lower batch_size")
+        S = cfg.num_seeds
+        if self.B == 0:
+            return
+        dev = idx.device
+        self.lens = fmindex.to_device(self.lens_h, dev)
+        with timers.stage("dispatch.pack"):
+            packed_h = pack_read_matrix(self.reads_h)
+        with timers.stage("dispatch.h2d"):
+            self.packed = fmindex.to_device(packed_h.view(np.int32), dev)
+        max_len = int(self.lens_h.max())
+        min_len = int(self.lens_h.min())
+        self.min_seg = min_len // S
+        self.longest_seg = -(-max_len // S)
+        self.seed_q = min(default_seed_q(idx, cfg), self.longest_seg)
+        self.steps = _steps_for(idx, self.seed_q,
+                                min(self.min_seg, self.seed_q))
+        S_eff = self.seed_hi - self.seed_lo
+        self.K = shapes.bucket(self.B * S_eff * 5 // 4, min_size=1024)
+        self.K2 = shapes.bucket(self.B * 2, min_size=1024)
+        self.cap1 = max(1, min(cfg.occ_cap,
+                               _K_CEIL // max(2 * self.B * S_eff, 1)))
+        self.K_max = self.K2_max = 2 * self.B * S_eff * self.cap1
+        self.uniform = int(self.lens_h[0]) \
+            if (self.lens_h == self.lens_h[0]).all() else 0
+        with timers.stage("dispatch.launch"):
+            self._out = self._dispatch(self.K, self.K2)
+
+    def _dispatch(self, K: int, K2: int) -> _HostCopy:
+        hits, totals = _search_batch(
+            self.idx, self.packed, self.lens, self.cfg, self.cap1,
+            self.steps, self.seed_q, min(K, self.K_max), L=self.L,
+            K2=min(K2, self.K2_max), uniform_len=self.uniform,
+            seed_lo=self.seed_lo, seed_hi=self.seed_hi)
+        return _HostCopy(_fetch(hits, totals))
+
+    def result(self) -> HitArrays:
+        cfg = self.cfg
+        B, S = self.B, self.cfg.num_seeds
+        if B == 0:
+            z = np.zeros(0, np.int32)
+            return HitArrays(row=z, tp=z.astype(np.uint32), nmis=z,
+                             valid=z.astype(bool), flagged=np.zeros(0, bool))
+        K, K2 = self.K, self.K2
+        t, u, hits = _parse(self._out.numpy(), B)
+        while ((t > min(K, self.K_max) or u > min(K2, self.K2_max))
+               and (K < self.K_max or K2 < self.K2_max)):
+            if t > min(K, self.K_max):
+                K = min(shapes.bucket(t), self.K_max)
+            if u > min(K2, self.K2_max):
+                K2 = min(shapes.bucket(u), self.K2_max)
+            t, u, hits = _parse(self._dispatch(K, K2).numpy(), B)
+        tb = min(shapes.bucket(u, min_size=1024), hits.row.shape[0])
+        if tb < hits.row.shape[0]:
+            hits = HitArrays(row=hits.row[:tb], tp=hits.tp[:tb],
+                             nmis=hits.nmis[:tb], valid=hits.valid[:tb],
+                             flagged=hits.flagged)
+        # escalating re-runs of still-flagged reads with full pigeonhole
+        # segments (round 2, then a bounded round 3)
+        steps2 = _steps_for(self.idx, self.longest_seg,
+                            min(self.min_seg, self.longest_seg))
+        prev_cap_eff = self.cap1 if (
+            (self.seed_lo, self.seed_hi) == (0, cfg.num_seeds)
+            and self.seed_q >= self.longest_seg) else 0
+        dev = self.idx.device
+        for cap in (cfg.occ_cap_round2, cfg.occ_cap_round3):
+            if cap <= 0:
+                break
+            flagged = np.asarray(hits.flagged)
+            if not flagged.any():
+                break
+            sel = np.flatnonzero(flagged)
+            if len(sel) > cfg.escalate_budget:
+                break  # storm: keep truncated round-1 sets
+            nb = min(shapes.bucket_quarter(len(sel), min_size=64), B)
+            cap_eff = max(16, min(cap, _K_CEIL // max(2 * nb * S, 1)))
+            if cap_eff <= prev_cap_eff:
+                break
+            prev_cap_eff = cap_eff
+            sel_pad = np.concatenate([sel, np.zeros(nb - len(sel), np.int64)]) \
+                if len(sel) < nb else sel[:nb]
+            r2 = fmindex.to_device(self.reads_h[sel_pad], dev)
+            lh = self.lens_h[sel_pad]
+            l2 = fmindex.to_device(lh, dev)
+            un2 = int(lh[0]) if (lh == lh[0]).all() else 0
+            hits2 = _run_compacted(self.idx, r2, l2, cfg, cap, steps2, 0,
+                                   nb, S, uniform_len=un2)
+            hits = _merge_round2(hits, hits2, sel, B, nb)
+        return hits
+
+
+def search_reads(idx: DeviceIndex, reads, lens,
+                 cfg: SearchConfig = SearchConfig()) -> HitArrays:
+    """Two-round seed search over a read batch (host HitArrays)."""
+    return PendingSearch(idx, reads, lens, cfg).result()
+
+
+def _merge_round2(h1: HitArrays, h2: HitArrays, sel: np.ndarray, B: int,
+                  nb: int) -> HitArrays:
+    """Replace flagged reads' round-1 entries with their round-2 results."""
+    row1, tp1, nm1, va1, _ = h1.to_host()
+    row2, tp2, nm2, va2, fl2 = h2.to_host()
+    n_sel = len(sel)
+    read1 = np.where(row1 >= B, row1 - B, row1)
+    keep1 = va1.copy()
+    keep1[va1] = ~np.isin(read1[va1], sel)
+    read2 = np.where(row2 >= nb, row2 - nb, row2)
+    keep2 = va2 & (read2 < n_sel)
+    strand2 = (row2 >= nb).astype(np.int32)
+    g_row = np.where(keep2, sel[np.minimum(read2, n_sel - 1)]
+                     + strand2 * B, 0).astype(np.int32)
+    row = np.concatenate([row1[keep1], g_row[keep2]])
+    tp = np.concatenate([tp1[keep1], tp2[keep2]])
+    nm = np.concatenate([nm1[keep1], nm2[keep2]])
+    flagged = np.zeros(B, bool)
+    flagged[sel] = fl2[:n_sel]
+    return HitArrays(row=row, tp=tp, nmis=nm,
+                     valid=np.ones(len(row), bool), flagged=flagged)

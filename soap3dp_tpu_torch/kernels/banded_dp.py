@@ -1,0 +1,522 @@
+"""Batched semi-global affine-gap DP: forward, traceback, CIGAR runs.
+
+Port of soap3dp_tpu/kernels/banded_dp.py (``dp_align`` and what it
+returns). Two implementations of one function:
+
+* CUDA tensors: the hand-written Hopper kernel ``csrc/banded_dp.cu``
+  (it replaces the TPU kernel ``_dp_align_pallas_kernel``,
+  soap3dp_tpu/kernels/banded_dp.py:606). It is bound by the
+  per-diagonal dependency chain and by the direction bytes' traffic;
+  one warp per problem keeps the anti-diagonal in registers and the
+  direction bytes in a per-warp global scratch (see the source note).
+  Built with nvcc at first use into ``_build/`` and loaded with ctypes.
+* CPU tensors: the plain-torch version — the anti-diagonal forward of
+  the reference's ``_dp_forward_scan``, its reverse traceback sweep and
+  the host run-length encoding ``_rle_runs``.
+
+``dp_align`` takes the kernel for a CUDA tensor (or raises) and the
+plain version for a CPU tensor, and nothing else: there is no fallback
+from one to the other.
+
+Recurrences (cells on anti-diagonal d = i + j depend on d-1 and d-2):
+
+    H[i,j] = max(H[i-1,j-1] + subst, D[i,j], I[i,j])
+    D[i,j] = max(H[i,j-1] + open, D[i,j-1] + ext)          # window gap
+    I[i,j] = max(H[i-1,j] + open, I[i-1,j] + ext, fresh)   # read gap
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import numpy as np
+import torch
+
+NEG = -32000          # DP_SCORE_NEG_INFINITY (DV-DPfunctions.cu:52)
+NEG_BIG = -(1 << 20)  # masking value, far below any reachable score
+
+# direction encodings
+DH_DIAG, DH_D, DH_SM, DH_I = 0, 1, 2, 3
+DD_OPEN, DD_EXT = 0, 1
+DI_FRESH, DI_OPEN, DI_EXT = 0, 1, 2
+
+# traceback op codes
+OP_NONE, OP_MATCH, OP_MISMATCH, OP_INS, OP_DEL, OP_CLIP = 0, 1, 2, 3, 4, 5
+
+MAX_RUNS = 128  # first-launch run budget; see _max_runs_bound()
+
+
+@dataclasses.dataclass(frozen=True)
+class DPScores:
+    """Scoring scheme (soap3-dp.ini [DP]: 1 / -2 / -3 / -1 defaults)."""
+
+    match: int = 1
+    mismatch: int = -2
+    gap_open: int = -3   # cost of a length-1 gap
+    gap_ext: int = -1
+
+    @property
+    def gap_init(self) -> int:
+        return self.gap_open - self.gap_ext
+
+
+def _max_runs_bound(max_read_len: int) -> int:
+    """Upper bound on CIGAR runs for an alignment passing the 0.3*L
+    cutoff (every non-match run costs >= 3 score), rounded up to 128."""
+    n = 2 * (7 * max_read_len // 30) + 4
+    return -(-n // 128) * 128
+
+
+# ------------------------------------------------------------------
+# Plain torch version
+# ------------------------------------------------------------------
+
+def _clamp(x: torch.Tensor) -> torch.Tensor:
+    return x.clamp(min=NEG)
+
+
+def _shift(v: torch.Tensor) -> torch.Tensor:
+    """v[..., i] -> v[..., i-1]; lane 0 filled with NEG_BIG."""
+    return torch.cat([torch.full_like(v[:, :1], NEG_BIG), v[:, :-1]], dim=1)
+
+
+def _dp_forward_scan(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
+                     anchor_r, sc: DPScores = DPScores()):
+    """Anti-diagonal forward DP. Returns (best_score, hit_i, hit_j,
+    count, dirs) with dirs (Lr+Lw, P, Lr+1) uint8, diag-major: the
+    direction byte of each cell (bits 0-1 H, 2 D, 3-4 I, 5 match)."""
+    P, Lr = reads.shape
+    Lw = wins.shape[1]
+    dev = reads.device
+    i32 = torch.int32
+    m, mm, go, ge, gi = (sc.match, sc.mismatch, sc.gap_open, sc.gap_ext,
+                         sc.gap_init)
+    i_vec = torch.arange(Lr + 1, dtype=i32, device=dev)[None, :]
+    reads_pad = torch.cat([torch.zeros((P, 1), dtype=i32, device=dev),
+                           reads.to(i32)], dim=1)
+    wins_i = wins.to(i32)
+    rlens = rlens.to(i32)[:, None]
+    wlens = wlens.to(i32)[:, None]
+    clip_l = clip_l.to(i32)[:, None]
+    clip_r = clip_r.to(i32)[:, None]
+    anchor_l = anchor_l.to(i32)[:, None]
+    anchor_r = anchor_r.to(i32)[:, None]
+
+    col0_raw = torch.where(
+        i_vec == 0, 0,
+        torch.where(i_vec <= clip_l, go,
+                    gi + ge * (i_vec - torch.minimum(clip_l, i_vec))))
+    col0_H = _clamp(col0_raw)
+    col0_D = _clamp(col0_raw + gi)
+
+    full = torch.full((P, Lr + 1), NEG_BIG, dtype=i32, device=dev)
+    H1 = full.clone()
+    H1[:, 0] = 0
+    H2 = full.clone()
+    D1 = full.clone()
+    D1[:, 0] = max(gi, NEG)
+    I1 = full.clone()
+    chars = torch.full((P, Lr + 1), -1, dtype=i32, device=dev)
+    bS = torch.full((P,), NEG, dtype=i32, device=dev)
+    bJ = torch.zeros(P, dtype=i32, device=dev)
+    bI = torch.zeros(P, dtype=i32, device=dev)
+    bC = torch.zeros(P, dtype=i32, device=dev)
+    ND = Lr + Lw
+    dirs = torch.empty((ND, P, Lr + 1), dtype=torch.uint8, device=dev)
+    fresh_ok = (i_vec - 1) <= clip_l
+    is_lane0 = i_vec == 0
+    row_ok = (i_vec >= 1) & (i_vec <= rlens) & (i_vec >= rlens - clip_r)
+
+    for d in range(1, ND + 1):
+        j_vec = d - i_vec
+        newc = wins_i[:, min(d - 1, Lw - 1)]
+        chars = torch.cat([newc[:, None], chars[:, :-1]], dim=1)
+        init_j = torch.where(j_vec < anchor_l, 0, NEG)
+        init_jm1 = torch.where(j_vec - 1 < anchor_l, 0, NEG)
+        match = chars == reads_pad
+        dist = torch.where(match, m, mm)
+
+        d_open = go + H1
+        d_ext = ge + D1
+        D_new = _clamp(torch.maximum(d_open, d_ext))
+        dD = (d_ext > d_open).to(i32)
+
+        H1s, I1s, H2s = _shift(H1), _shift(I1), _shift(H2)
+        i_fresh = torch.where(fresh_ok, init_j + go, NEG_BIG)
+        i_open = go + H1s
+        i_ext = ge + I1s
+        I_new = _clamp(torch.maximum(i_fresh, torch.maximum(i_open, i_ext)))
+        dI = torch.where(I_new == i_fresh, DI_FRESH,
+                         torch.where(I_new == i_open, DI_OPEN, DI_EXT))
+
+        diag_true = dist + H2s
+        diag_fresh = torch.where(fresh_ok, init_jm1 + dist, NEG_BIG)
+        H_new = _clamp(torch.maximum(torch.maximum(diag_true, diag_fresh),
+                                     torch.maximum(D_new, I_new)))
+        dH = torch.where(
+            H_new == diag_true, DH_DIAG,
+            torch.where((H_new == d_open) | (H_new == d_ext), DH_D,
+                        torch.where(H_new == diag_fresh, DH_SM, DH_I)))
+
+        on_col0 = i_vec == d
+        H_new = torch.where(on_col0, col0_H, H_new)
+        D_new = torch.where(on_col0, col0_D, D_new)
+        I_new = torch.where(on_col0, NEG_BIG, I_new)
+        H_new = torch.where(is_lane0, _clamp(init_j), H_new)
+        D_new = torch.where(is_lane0, NEG_BIG, D_new)
+        I_new = torch.where(is_lane0, _clamp(init_j + gi), I_new)
+
+        dirs[d - 1] = (dH | (dD << 2) | (dI << 3)
+                       | (match.to(i32) << 5)).to(torch.uint8)
+
+        elig = row_ok & (j_vec >= 1) & (j_vec <= wlens) & (j_vec >= anchor_r)
+        escore = torch.where(elig, H_new, NEG_BIG)
+        s_star = escore.max(dim=1).values
+        tie = escore == s_star[:, None]
+        i_star = torch.where(tie, i_vec, -1).max(dim=1).values
+        j_star = d - i_star
+        c_star = tie.sum(dim=1, dtype=i32)
+        better = (s_star > bS) | (
+            (s_star == bS) & ((j_star < bJ) | ((j_star == bJ) & (i_star < bI))))
+        equal = s_star == bS
+        bC = torch.where(better, c_star, torch.where(equal, bC + c_star, bC))
+        bS = torch.where(better, s_star, bS)
+        bJ = torch.where(better, j_star, bJ)
+        bI = torch.where(better, i_star, bI)
+        H2, H1, D1, I1 = H1, H_new, D_new, I_new
+    return bS, bI, bJ, bC, dirs
+
+
+def _traceback_scan(dirs, hit_i, hit_j, active):
+    """Reverse sweep over diagonals d = ND..1: a problem whose walk sits
+    on diagonal d takes its move there. Returns the per-diagonal op
+    stream (ND, P) (OP_NONE when idle) and the final walk state."""
+    ND, P, Lr1 = dirs.shape
+    dev = dirs.device
+    i = torch.where(active, hit_i, 0).to(torch.int64)
+    j = torch.where(active, hit_j, 0).to(torch.int64)
+    state = torch.zeros(P, dtype=torch.int64, device=dev)
+    done = ~active
+    startj = torch.zeros(P, dtype=torch.int64, device=dev)
+    clip = torch.zeros(P, dtype=torch.int64, device=dev)
+    opseq = torch.zeros((ND, P), dtype=torch.int8, device=dev)
+    rows = torch.arange(P, device=dev)
+    for d in range(ND, 0, -1):
+        act = ~done & (i > 0) & (j > 0) & (i + j == d)
+        if not bool(act.any()):
+            continue
+        byte = dirs[d - 1, rows, i.clamp(0, Lr1 - 1)].to(torch.int64)
+        dH = byte & 3
+        dD = (byte >> 2) & 1
+        dI = (byte >> 3) & 3
+        mop = torch.where(((byte >> 5) & 1) == 1, OP_MATCH, OP_MISMATCH)
+        do_diag = act & (state == 0) & (dH == DH_DIAG)
+        do_sm = act & (state == 0) & (dH == DH_SM)
+        do_d = act & ((state == 1) | ((state == 0) & (dH == DH_D)))
+        do_i = act & ((state == 2) | ((state == 0) & (dH == DH_I)))
+        i_fresh = do_i & (dI == DI_FRESH)
+        op = torch.where(do_diag | do_sm, mop,
+                         torch.where(do_d, OP_DEL, OP_INS))
+        opseq[d - 1] = torch.where(act, op, OP_NONE).to(torch.int8)
+        ni = torch.where(do_diag | (do_i & ~i_fresh), i - 1, i)
+        nj = torch.where(do_diag | do_sm | do_d, j - 1, j)
+        nstate = torch.where(
+            do_d, torch.where(dD == DD_OPEN, 0, 1),
+            torch.where(do_i & ~i_fresh, torch.where(dI == DI_OPEN, 0, 2), 0))
+        state = torch.where(act, nstate, state)
+        exit_now = do_sm | i_fresh
+        clip = torch.where(exit_now, i - 1, clip)
+        startj = torch.where(do_sm, j - 1, torch.where(i_fresh, j, startj))
+        done = done | exit_now
+        i = torch.where(act, ni, i)
+        j = torch.where(act, nj, j)
+    return opseq, (i, j, done, startj, clip)
+
+
+def dp_traceback(dirs, rlens, hit_i, hit_j, clip_l, active):
+    """Traceback sweep + host run-length encoding. Returns numpy
+    (ops, counts, nruns, start_j): ops/counts (P, MR) right-to-left runs
+    (first run is the right clip); start_j the 0-based window offset
+    where the alignment starts."""
+    ND, P, Lr1 = dirs.shape
+    act_t = torch.as_tensor(np.asarray(active), device=dirs.device)
+    opseq, (i, j, done, startj, clip) = _traceback_scan(
+        dirs, hit_i.to(dirs.device), hit_j.to(dirs.device), act_t)
+    i, j, done = i.cpu().numpy(), j.cpu().numpy(), done.cpu().numpy()
+    startj, clip = startj.cpu().numpy(), clip.cpu().numpy()
+    active = np.asarray(active)
+    rlens_h = rlens.cpu().numpy().astype(np.int64)
+    hit_i_h = hit_i.cpu().numpy().astype(np.int64)
+    at_j0 = active & ~done & (j == 0) & (i > 0)
+    scl = np.minimum(clip_l.cpu().numpy(), i)
+    ins_tail = np.where(at_j0, i - scl, 0)
+    clip = np.where(at_j0, scl, clip)
+    startj = np.where(at_j0, 0, startj)
+    at_i0 = active & ~done & (i == 0)
+    startj = np.where(at_i0, j, startj)
+    pass_idx = np.flatnonzero(active)
+    if len(pass_idx) == 0:
+        return (np.zeros((P, 1), np.int32), np.zeros((P, 1), np.int32),
+                np.zeros(P, np.int32), startj)
+    S = opseq.cpu().numpy().T[pass_idx, ::-1]   # (npass, ND) emission order
+    rclip = (rlens_h - hit_i_h)[pass_idx]
+    ops_s, cnts_s, nrun_s = _rle_runs(S, rclip, ins_tail[pass_idx],
+                                      clip[pass_idx])
+    MR = ops_s.shape[1]
+    ops = np.zeros((P, MR), np.int32)
+    cnts = np.zeros((P, MR), np.int32)
+    nrun = np.zeros(P, np.int32)
+    ops[pass_idx] = ops_s
+    cnts[pass_idx] = cnts_s
+    nrun[pass_idx] = nrun_s
+    return ops, cnts, nrun, startj
+
+
+def _rle_runs(S: np.ndarray, rclip: np.ndarray, ins_tail: np.ndarray,
+              lclip: np.ndarray):
+    """Run-length encode per-problem op streams into dense (P, MR) arrays.
+
+    S is (P, ND) move ops (OP_NONE = idle step); rclip/ins_tail/lclip
+    are per-problem counts for the bracketing runs."""
+    P, ND = S.shape
+    rows_m, cols_m = np.nonzero(S != OP_NONE)
+    vals_m = S[rows_m, cols_m].astype(np.int32)
+    cnt_m = np.ones(len(rows_m), np.int64)
+
+    def seg(counts, op, segid):
+        r = np.flatnonzero(counts > 0)
+        return (r, np.full(len(r), segid, np.int8),
+                np.zeros(len(r), np.int64),
+                np.full(len(r), op, np.int32), counts[r].astype(np.int64))
+
+    r0, s0, p0, v0, c0 = seg(np.asarray(rclip), OP_CLIP, 0)
+    r2, s2, p2, v2, c2 = seg(np.asarray(ins_tail), OP_INS, 2)
+    r3, s3, p3, v3, c3 = seg(np.asarray(lclip), OP_CLIP, 3)
+    rows = np.concatenate([r0, rows_m, r2, r3])
+    segs = np.concatenate([s0, np.ones(len(rows_m), np.int8), s2, s3])
+    poss = np.concatenate([p0, cols_m, p2, p3])
+    vals = np.concatenate([v0, vals_m, v2, v3])
+    cnts = np.concatenate([c0, cnt_m, c2, c3])
+    order = np.lexsort((poss, segs, rows))
+    rows, vals, cnts = rows[order], vals[order], cnts[order]
+    if len(rows) == 0:
+        return (np.zeros((P, 1), np.int32), np.zeros((P, 1), np.int32),
+                np.zeros(P, np.int32))
+    change = np.concatenate(
+        [[True], (vals[1:] != vals[:-1]) | (rows[1:] != rows[:-1])])
+    runid = np.cumsum(change) - 1
+    ops_r = vals[change]
+    rows_r = rows[change]
+    cnts_r = np.bincount(runid, weights=cnts).astype(np.int32)
+    nrun = np.bincount(rows_r, minlength=P).astype(np.int32)
+    MR = max(int(nrun.max()), 1)
+    first = np.concatenate([[0], np.cumsum(nrun)[:-1]])
+    col = np.arange(len(ops_r)) - first[rows_r]
+    ops = np.zeros((P, MR), np.int32)
+    cnts_d = np.zeros((P, MR), np.int32)
+    ops[rows_r, col] = ops_r
+    cnts_d[rows_r, col] = cnts_r
+    return ops, cnts_d, nrun
+
+
+def dp_align_plain(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
+                   anchor_r, cutoff, sc: DPScores = DPScores()):
+    """The plain-torch dp_align: forward scan, traceback sweep, host RLE.
+    Same return tuple as dp_align (overflow is never set)."""
+    bS, bI, bJ, bC, dirs = _dp_forward_scan(
+        reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r, sc)
+    score = bS.cpu().numpy()
+    active = score >= cutoff.cpu().numpy()
+    ops, cnts, nrun, startj = dp_traceback(dirs, rlens, bI, bJ, clip_l, active)
+    return (score, bI.cpu().numpy(), bJ.cpu().numpy(), bC.cpu().numpy(),
+            ops, cnts, nrun, startj.astype(np.int64),
+            np.zeros(reads.shape[0], bool))
+
+
+# ------------------------------------------------------------------
+# The CUDA kernel: build, bind, launch
+# ------------------------------------------------------------------
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "banded_dp.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "_build")
+_SCRATCH_BUDGET = 1 << 29  # bytes of direction scratch per launch
+_MAX_WARPS = 132 * 64      # 16 blocks of 4 warps on each of 132 SMs
+
+
+class CudaKernel:
+    """A kernel of csrc/ built with nvcc at first use into _build/ and
+    bound with ctypes. ``launches`` counts launches (only the wrapper
+    that launches the kernel adds to it)."""
+
+    def __init__(self, src: str, symbol: str, argtypes: list):
+        self.src = src
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self.build_log = ""
+        self.build_seconds = 0.0
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def function(self):
+        with self._lock:
+            if self._fn is None:
+                self._fn = self._build()
+            return self._fn
+
+    def _build(self):
+        import time
+
+        with open(self.src, "rb") as fh:
+            digest = hashlib.sha256(fh.read()).hexdigest()[:12]
+        name = os.path.splitext(os.path.basename(self.src))[0]
+        so = os.path.join(_BUILD_DIR, f"lib{name}_{digest}.so")
+        if not os.path.exists(so):
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.tmp{os.getpid()}"
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", "-o", tmp, self.src]
+            t0 = time.time()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            self.build_seconds = time.time() - t0
+            self.build_log = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {self.src}:\n"
+                                   f"{self.build_log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        fn = getattr(lib, self.symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = self.argtypes
+        return lib, fn
+
+    def count(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# soap3dp_dp_align(reads, wins, params, P, Lr, Lw, MR, match, mismatch,
+#   gap_open, gap_ext, stats, ops, cnts, scratch, cells_per_lane, blocks,
+#   stream): pointers and the stream as c_void_p, so none is cut to 32 bits
+DP_KERNEL = CudaKernel(_CSRC, "soap3dp_dp_align",
+                       [_P, _P, _P] + [_I] * 8 + [_P] * 4 + [_I, _I, _P])
+
+
+def _cells_per_lane(Lr: int) -> int:
+    c = max(4, -(-(Lr + 1) // 32))
+    return 1 << (c - 1).bit_length()
+
+
+def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
+    """One launch of csrc/banded_dp.cu over P problems on the current
+    stream. Returns device (stats (P, 8), ops (P, MR), cnts (P, MR))."""
+    lib, fn = DP_KERNEL.function()
+    P, Lr = reads.shape
+    Lw = wins.shape[1]
+    dev = reads.device
+    C = _cells_per_lane(Lr)
+    if C > 64:
+        raise ValueError(f"read length {Lr} exceeds the DP kernel's "
+                         "2047-cell anti-diagonal")
+    ND = Lr + Lw
+    per_warp = ND * 32 * C
+    wpb = int(lib.soap3dp_warps_per_block())
+    warps = max(1, min(P, _MAX_WARPS, _SCRATCH_BUDGET // per_warp))
+    blocks = -(-warps // wpb)
+    scratch = torch.empty(blocks * wpb * per_warp, dtype=torch.uint8,
+                          device=dev)
+    stats = torch.empty((P, 8), dtype=torch.int32, device=dev)
+    ops = torch.zeros((P, MR), dtype=torch.int32, device=dev)
+    cnts = torch.zeros((P, MR), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(reads.data_ptr(), wins.data_ptr(), params.data_ptr(), P, Lr,
+             Lw, MR, sc.match, sc.mismatch, sc.gap_open, sc.gap_ext,
+             stats.data_ptr(), ops.data_ptr(), cnts.data_ptr(),
+             scratch.data_ptr(), C, blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"banded DP kernel launch failed: CUDA error {err}")
+    DP_KERNEL.count()
+    return stats, ops, cnts
+
+
+def dp_align_cuda(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
+                  anchor_r, cutoff, sc: DPScores = DPScores()):
+    """dp_align through the Hopper kernel (all tensors on one CUDA
+    device). Lanes that pass the cutoff but overflow the first run
+    budget are re-launched with a budget of ND + 4, a hard bound on the
+    runs of any alignment, so no lane is left overflowed."""
+    P, Lr = reads.shape
+    Lw = wins.shape[1]
+    if P == 0:
+        z = np.zeros(0, np.int32)
+        return (z, z, z, z, np.zeros((0, 1), np.int32),
+                np.zeros((0, 1), np.int32), z, z.astype(np.int64),
+                np.zeros(0, bool))
+    for t in (reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
+              cutoff):
+        if not t.is_cuda or t.device != reads.device:
+            raise ValueError("dp_align_cuda needs every tensor on one CUDA "
+                             "device")
+        if t.shape[0] != P or t.dim() != (2 if t is reads or t is wins else 1):
+            raise ValueError("dp_align_cuda: reads (P, Lr), wins (P, Lw) and "
+                             f"(P,) parameters expected, got {tuple(t.shape)}")
+    reads = reads.to(torch.uint8).contiguous()
+    wins = wins.to(torch.uint8).contiguous()
+    params = torch.stack(
+        [rlens, wlens, clip_l, clip_r, anchor_l, anchor_r, cutoff,
+         torch.zeros_like(rlens)], dim=1).to(torch.int32).contiguous()
+    mr = max(MAX_RUNS, _max_runs_bound(Lr))
+    stats, ops_d, cnts_d = _launch_dp(reads, wins, params, mr, sc)
+    st = stats.cpu().numpy()
+    cut = cutoff.cpu().numpy()
+    redo = (st[:, 6] != 0) & (st[:, 0] >= cut)
+    if redo.any():
+        sel = torch.from_numpy(np.flatnonzero(redo)).to(reads.device)
+        mr2 = Lr + Lw + 4
+        st2, ops2, cnts2 = _launch_dp(reads[sel], wins[sel], params[sel],
+                                      mr2, sc)
+        ops_d = torch.nn.functional.pad(ops_d, (0, mr2 - mr))
+        cnts_d = torch.nn.functional.pad(cnts_d, (0, mr2 - mr))
+        ops_d[sel] = ops2
+        cnts_d[sel] = cnts2
+        st[redo] = st2.cpu().numpy()
+        mr = mr2
+    score, nrun = st[:, 0], st[:, 5]
+    ops = np.zeros((P, mr), np.int32)
+    cnts = np.zeros((P, mr), np.int32)
+    pass_idx = np.flatnonzero((score >= cut) & (nrun > 0))
+    if len(pass_idx):
+        g = torch.from_numpy(pass_idx).to(reads.device)
+        ops[pass_idx] = ops_d[g].cpu().numpy()
+        cnts[pass_idx] = cnts_d[g].cpu().numpy()
+    return (score, st[:, 1], st[:, 2], st[:, 3], ops, cnts, nrun,
+            st[:, 4].astype(np.int64), st[:, 6].astype(bool))
+
+
+def dp_align(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
+             cutoff, sc: DPScores = DPScores()):
+    """Forward + traceback in one call; host-ready numpy results
+    ``(score, hit_i, hit_j, n_best, ops, cnts, nrun, startj, overflow)``.
+
+    ops/cnts are right-to-left CIGAR runs for every lane with
+    score >= cutoff (others have nrun == 0); only the first nrun columns
+    of a row are meaningful. On CUDA tensors the Hopper kernel runs (or
+    raises); on CPU tensors the plain-torch version runs."""
+    if reads.is_cuda:
+        return dp_align_cuda(reads, rlens, wins, wlens, clip_l, clip_r,
+                             anchor_l, anchor_r, cutoff, sc)
+    if reads.device.type != "cpu":
+        raise ValueError(f"dp_align: no DP implementation for {reads.device}")
+    return dp_align_plain(reads, rlens, wins, wlens, clip_l, clip_r,
+                          anchor_l, anchor_r, cutoff, sc)

@@ -1,0 +1,94 @@
+"""`soap3dp-torch pair --device cpu` against `soap3dp pair` on a tiny
+FASTQ pair: the same SAM records (header @PG aside, sorted because
+deferred rescue records interleave on a worker thread)."""
+
+import numpy as np
+import pytest
+import torch
+
+from soap3dp_tpu.utils import dna
+
+# small CPU cases: more intra-op threads only contend with other workers
+torch.set_num_threads(1)
+
+
+
+@pytest.fixture(scope="module")
+def pe_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    rng = np.random.default_rng(404)
+    codes = rng.integers(0, 4, 40_000).astype(np.uint8)
+    seq = dna.decode(codes).decode()
+    fa = d / "g.fa"
+    with open(fa, "w") as f:
+        f.write(">chrA\n")
+        for i in range(0, len(seq), 60):
+            f.write(seq[i:i + 60] + "\n")
+    from soap3dp_tpu.cli.builder import main as builder_main
+    assert builder_main([str(fa)]) == 0
+    B, L, INS = 40, 80, 250
+    pos = rng.integers(0, len(codes) - INS - 1, B)
+    with open(d / "r1.fq", "w") as f1, open(d / "r2.fq", "w") as f2:
+        for b in range(B):
+            left = codes[pos[b]:pos[b] + L].copy()
+            right = dna.revcomp_codes(codes[pos[b] + INS - L:pos[b] + INS])
+            if b % 4 == 1:      # indel in one end: DP rescue
+                right = np.concatenate([right[:30], right[33:],
+                                        rng.integers(0, 4, 3)]).astype(np.uint8)
+            if b % 4 == 2:      # mismatches
+                left[[5, 40, 70]] = (left[[5, 40, 70]] + 1) % 4
+            if b % 8 == 3:      # garbage end
+                left = rng.integers(0, 4, L).astype(np.uint8)
+            f1.write(f"@p{b}\n{dna.decode(left).decode()}\n+\n{'I' * L}\n")
+            f2.write(f"@p{b}\n{dna.decode(right).decode()}\n+\n{'5' * L}\n")
+    return d, B
+
+
+def _records(path):
+    with open(path) as fh:
+        return sorted(l for l in fh if not l.startswith("@PG"))
+
+
+def test_port_cli_matches_reference_cli(pe_files):
+    from soap3dp_tpu.cli.main import main as ref_main
+    from soap3dp_tpu_torch.cli.main import main as port_main
+
+    d, B = pe_files
+    common = [str(d / "g.fa.index"), str(d / "r1.fq"), str(d / "r2.fq"),
+              "-v", "100", "-u", "400"]
+    assert ref_main(["pair"] + common + ["-o", str(d / "ref")]) == 0
+    assert port_main(["pair"] + common + ["-o", str(d / "port"),
+                                          "--device", "cpu"]) == 0
+    want = _records(d / "ref.sam")
+    got = _records(d / "port.sam")
+    assert len([l for l in got if not l.startswith("@")]) == 2 * B
+    assert got == want
+    assert (d / "port.done").exists()
+
+
+def test_default_device_needs_cuda(pe_files):
+    """--device defaults to cuda; without a card the CLI raises instead
+    of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from soap3dp_tpu_torch.cli.main import main as port_main
+    from soap3dp_tpu_torch.cli.runner import resolve_device
+
+    d, _ = pe_files
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main(["pair", str(d / "g.fa.index"), str(d / "r1.fq"),
+                   str(d / "r2.fq"), "-o", str(d / "never")])
+    assert not (d / "never.sam").exists()
+
+
+def test_cli_rejects_unported_modes(pe_files, capsys):
+    from soap3dp_tpu_torch.cli.main import main as port_main
+
+    d, _ = pe_files
+    assert port_main(["pair", str(d / "g.fa.index"), str(d / "r1.fq"),
+                      str(d / "r2.fq"), "--devices", "2",
+                      "--device", "cpu"]) == 2
+    assert port_main(["single", str(d / "g.fa.index"), str(d / "r1.fq")]) == 2
+    assert "not ported" in capsys.readouterr().err

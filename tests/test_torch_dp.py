@@ -1,0 +1,188 @@
+"""Banded DP of the PyTorch port: its plain-torch dp_align against the
+JAX package's dp_align (the scan path on the CPU), against the fused
+Pallas kernel in interpret mode, and against tests/dp_oracle.py.
+Tolerance: exact (scores, cells, counts and runs are integers).
+
+The CUDA kernel itself runs only on the card; test_kernel_matches_plain
+is marked ``cuda`` and skips here (chip_smoke.py runs the same check on
+the card at the main path's shapes).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from soap3dp_tpu.kernels import banded_dp as jb
+from soap3dp_tpu_torch.kernels import banded_dp as tb
+from tests import dp_oracle
+from tests.test_dp import make_problems, runs_from_oracle
+
+# small CPU cases: more intra-op threads only contend with other workers
+torch.set_num_threads(1)
+
+
+SC = tb.DPScores()
+SCORES = (SC.match, SC.mismatch, SC.gap_open, SC.gap_ext)
+OPCH = {tb.OP_MATCH: "M", tb.OP_MISMATCH: "m", tb.OP_INS: "I",
+        tb.OP_DEL: "D", tb.OP_CLIP: "S"}
+
+
+def _torch(prob, device="cpu"):
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in prob]
+
+
+def _runs(ops, cnts, nrun, p):
+    return [(int(ops[p, r]), int(cnts[p, r])) for r in range(int(nrun[p]))
+            if int(cnts[p, r]) > 0]
+
+
+def assert_dp_equal(a, b, check_width=False):
+    """Two dp_align results equal: per-lane stats exactly, runs over each
+    lane's nrun prefix (ops widths may differ between implementations)."""
+    for k in (0, 1, 2, 3, 6, 7, 8):
+        np.testing.assert_array_equal(np.asarray(a[k]).astype(np.int64),
+                                      np.asarray(b[k]).astype(np.int64),
+                                      err_msg=f"field {k}")
+    if check_width:
+        assert a[4].shape == b[4].shape
+    for p in range(len(a[0])):
+        assert _runs(a[4], a[5], a[6], p) == _runs(b[4], b[5], b[6], p), p
+
+
+def overflow_problems(P, Lr, Lw, seed=3):
+    """Every other base mismatched, no free clips, a cutoff far below any
+    score: ~Lr runs per alignment (past the kernel's first run budget)."""
+    rng = np.random.default_rng(seed)
+    wins = rng.integers(0, 4, size=(P, Lw)).astype(np.uint8)
+    reads = wins[:, 20:20 + Lr].copy()
+    reads[:, 1::2] = (reads[:, 1::2] + 1 + (np.arange(Lr)[1::2] % 3)) % 4
+    z = np.zeros(P, np.int32)
+    return (reads, np.full(P, Lr, np.int32), wins, np.full(P, Lw, np.int32),
+            z, z.copy(), np.full(P, Lw + 1, np.int32), z.copy(),
+            np.full(P, -100000, np.int32))
+
+
+@pytest.mark.parametrize("with_anchor", [False, True])
+def test_plain_matches_reference_scan_path(with_anchor):
+    rng = np.random.default_rng(9)
+    P, Lr, Lw = 64, 40, 70
+    prob = make_problems(rng, P, Lr, Lw, with_anchor) + (
+        np.full(P, 10, np.int32),)
+    want = jb.dp_align(*[jnp.asarray(x) for x in prob[:8]], prob[8], sc=jb.DPScores())
+    got = tb.dp_align(*_torch(prob), sc=SC)
+    assert_dp_equal(want, got, check_width=True)
+    assert (np.asarray(got[6]) > 0).sum() > P // 2
+
+
+@pytest.mark.parametrize("with_anchor", [False, True])
+def test_plain_matches_fused_pallas_interpret(with_anchor):
+    """Held against the TPU kernel itself, run in interpret mode."""
+    rng = np.random.default_rng(19)
+    P, Lr, Lw = 64, 40, 70
+    prob = make_problems(rng, P, Lr, Lw, with_anchor)
+    cutoff = np.full(P, 10, np.int32)
+    mr = max(jb.MAX_RUNS, jb._max_runs_bound(Lr))
+    stats, runs = jb._dp_align_pallas_call(
+        *[jnp.asarray(x) for x in prob], jnp.asarray(cutoff), jb.DPScores(),
+        pt=jb.PALLAS_P_TILE, mr=mr, interpret=True)
+    stats, runs = np.asarray(stats), np.asarray(runs)
+    got = tb.dp_align(*_torch(prob + (cutoff,)), sc=SC)
+    for k, col in ((0, 0), (1, 1), (2, 2), (3, 3), (7, 4), (6, 5)):
+        np.testing.assert_array_equal(np.asarray(got[k]), stats[:, col])
+    assert not stats[:, 6].any()
+    for p in range(P):
+        want = [(int(r) >> 12, int(r) & 0xFFF) for r in runs[p, :stats[p, 5]]
+                if int(r) & 0xFFF]
+        assert _runs(got[4], got[5], got[6], p) == want, p
+
+
+@pytest.mark.parametrize("with_anchor", [False, True])
+def test_plain_matches_oracle(rng, with_anchor):
+    P, Lr, Lw = 32, 24, 48
+    prob = make_problems(rng, P, Lr, Lw, with_anchor)
+    reads, rlens, wins, wlens, cl, cr, al, ar = prob
+    got = tb.dp_align(*_torch(prob + (np.ones(P, np.int32),)), sc=SC)
+    score, hi, hj, cnt, ops, cnts, nrun, startj, _ = got
+    checked = 0
+    for p in range(P):
+        H, Dt, best, c = dp_oracle.oracle_forward(
+            reads[p, :rlens[p]], wins[p], cl[p], cr[p], al[p], ar[p], SCORES)
+        assert (score[p], hj[p], hi[p], cnt[p]) == (best[0], best[1],
+                                                    best[2], c), p
+        if score[p] < 1:
+            continue
+        pat, sj = dp_oracle.oracle_traceback(
+            reads[p, :rlens[p]], wins[p], H, Dt, best, cl[p], al[p], SCORES)
+        want = runs_from_oracle(pat)
+        assert [(OPCH[o], n) for o, n in _runs(ops, cnts, nrun, p)] == want, p
+        assert startj[p] == sj, p
+        checked += 1
+    assert checked > P // 2
+
+
+@pytest.mark.parametrize("shape", [(32, 300, 420), (16, 100, 768)])
+def test_long_read_and_main_window(shape):
+    """A 300 bp read case and the main path's 100 bp x 768 window."""
+    P, Lr, Lw = shape
+    rng = np.random.default_rng(Lr)
+    wins = rng.integers(0, 4, (P, Lw)).astype(np.uint8)
+    reads = np.zeros((P, Lr), np.uint8)
+    rlens = rng.integers(Lr * 3 // 4, Lr + 1, P).astype(np.int32)
+    for p in range(P):
+        reads[p, :rlens[p]] = wins[p, 20:20 + rlens[p]]
+    reads[0, 60] = (reads[0, 60] + 1) % 4
+    reads[1, 30:Lr - 20] = np.roll(reads[1, 30:Lr - 20], 2)
+    reads[2] = rng.integers(0, 4, Lr)
+    prob = (reads, rlens, wins, np.full(P, Lw, np.int32),
+            rng.integers(0, 20, P).astype(np.int32),
+            rng.integers(0, 20, P).astype(np.int32),
+            np.full(P, Lw + 1, np.int32), np.zeros(P, np.int32),
+            (rlens * 0.3).astype(np.int32))
+    want = jb.dp_align(*[jnp.asarray(x) for x in prob[:8]], prob[8])
+    got = tb.dp_align(*_torch(prob), sc=SC)
+    assert_dp_equal(want, got, check_width=True)
+
+
+def test_many_runs_overflow_shape():
+    """Alignments with ~Lr runs (the shape that overflows the kernel's
+    first run budget on the card) agree in full with the reference."""
+    prob = overflow_problems(16, 260, 360)
+    want = jb.dp_align(*[jnp.asarray(x) for x in prob[:8]], prob[8])
+    got = tb.dp_align(*_torch(prob), sc=SC)
+    assert_dp_equal(want, got, check_width=True)
+    budget = max(tb.MAX_RUNS, tb._max_runs_bound(260))
+    assert (np.asarray(got[6]) > budget).sum() >= 8
+
+
+def test_wrapper_routes_by_device():
+    prob = overflow_problems(2, 20, 40)
+    out = tb.dp_align(*_torch(prob), sc=SC)
+    assert len(out) == 9 and not out[8].any()
+    meta = [torch.empty(x.shape, dtype=torch.from_numpy(x).dtype,
+                        device="meta") for x in prob]
+    with pytest.raises(ValueError):
+        tb.dp_align(*meta, sc=SC)
+
+
+def test_cells_per_lane_bounds():
+    assert tb._cells_per_lane(100) == 4
+    assert tb._cells_per_lane(127) == 4
+    assert tb._cells_per_lane(128) == 8
+    assert tb._cells_per_lane(1024) == 64
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain():
+    """The Hopper kernel against its plain version (needs a CUDA card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check")
+    rng = np.random.default_rng(7)
+    prob = make_problems(rng, 256, 100, 256, True) + (
+        np.full(256, 10, np.int32),)
+    args = _torch(prob, "cuda")
+    before = tb.DP_KERNEL.launches
+    got = tb.dp_align(*args, sc=SC)
+    assert tb.DP_KERNEL.launches == before + 1
+    assert_dp_equal(tb.dp_align_plain(*args, sc=SC), got)

@@ -1,0 +1,100 @@
+"""The port imports no JAX: neither directly nor through a shared module.
+
+An AST scan of every module of soap3dp_tpu_torch (and chip_smoke.py)
+admits only the soap3dp_tpu modules that import no JAX; a subprocess
+runs the port's CLI end to end on the CPU and then finds no ``jax`` in
+``sys.modules``.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "soap3dp_tpu_torch")
+
+# modules of the JAX package that import no JAX (and are shared)
+ALLOWED = ("soap3dp_tpu.index", "soap3dp_tpu.io", "soap3dp_tpu.pipeline.options",
+           "soap3dp_tpu.pipeline.overlap", "soap3dp_tpu.utils.dna",
+           "soap3dp_tpu.utils.shapes", "soap3dp_tpu.utils.rhash",
+           "soap3dp_tpu.utils.timers", "soap3dp_tpu.cli.ini",
+           "soap3dp_tpu.cli.main")
+ALLOWED_CLI_MAIN_NAMES = {"_add_common", "_build_options"}
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imports(path):
+    """(module, imported name or None) for every import in the file."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, None
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            for a in node.names:
+                yield node.module, a.name
+
+
+def _allowed(mod, name):
+    if mod == "soap3dp_tpu.cli.main":
+        return name in ALLOWED_CLI_MAIN_NAMES
+    full = f"{mod}.{name}" if name else mod
+    # `from soap3dp_tpu.utils import dna` names a submodule
+    return any(full == a or full.startswith(a + ".") or mod == a
+               or mod.startswith(a + ".") for a in ALLOWED)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_module_imports_no_jax(path):
+    for mod, name in _imports(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib"), (path, mod)
+        if root == "soap3dp_tpu":
+            assert _allowed(mod, name), (path, mod, name)
+        if root == "tests" or mod == "__graft_entry__":
+            raise AssertionError((path, mod))
+
+
+def test_cli_run_leaves_jax_unimported(tmp_path):
+    from soap3dp_tpu.cli.builder import main as builder_main
+    from soap3dp_tpu.utils import dna
+
+    rng = np.random.default_rng(8)
+    codes = rng.integers(0, 4, 20_000).astype(np.uint8)
+    (tmp_path / "g.fa").write_text(">c\n" + dna.decode(codes).decode() + "\n")
+    assert builder_main([str(tmp_path / "g.fa")]) == 0
+    with open(tmp_path / "r1.fq", "w") as f1, \
+            open(tmp_path / "r2.fq", "w") as f2:
+        for b, p in enumerate(rng.integers(0, 19_000, 8)):
+            r1 = dna.decode(codes[p:p + 60]).decode()
+            r2 = dna.decode(dna.revcomp_codes(codes[p + 140:p + 200])).decode()
+            f1.write(f"@q{b}\n{r1}\n+\n{'I' * 60}\n")
+            f2.write(f"@q{b}\n{r2}\n+\n{'I' * 60}\n")
+    code = (
+        "import sys\n"
+        "from soap3dp_tpu_torch.cli.main import main\n"
+        f"rc = main(['pair', {str(tmp_path / 'g.fa.index')!r}, "
+        f"{str(tmp_path / 'r1.fq')!r}, {str(tmp_path / 'r2.fq')!r}, "
+        f"'-o', {str(tmp_path / 'out')!r}, '--device', 'cpu'])\n"
+        "assert rc == 0, rc\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]\n"
+        "assert not bad, bad\n"
+        "print('NOJAX')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "NOJAX" in res.stdout
+    recs = [l for l in open(tmp_path / "out.sam") if not l.startswith("@")]
+    assert len(recs) == 16

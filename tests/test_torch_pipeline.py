@@ -1,0 +1,123 @@
+"""Paired-end pipeline of the PyTorch port against the JAX package.
+
+* the five paired-end golden SAM cases render byte-equal through the
+  port (tests/golden is the reference's frozen output);
+* the port's workload recipes equal the reference's;
+* a double-buffered multi-batch run (async dispatch of batch i+1,
+  Phase2Queue, RescueQueue flushed on an AsyncFlusher worker) gives the
+  same SAM records as the JAX package, at the default narrow half-rescue
+  window and with it off (half_narrow_pad=0). Records are compared as
+  sorted lists: the flush worker interleaves records nondeterministically
+  in both packages.
+"""
+
+import dataclasses
+import io
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from soap3dp_tpu.io.aio import AsyncWriter
+from soap3dp_tpu.io.sam import SamWriter
+from soap3dp_tpu.pipeline.overlap import AsyncFlusher
+from soap3dp_tpu_torch import workloads
+
+# small CPU cases: more intra-op threads only contend with other workers
+torch.set_num_threads(1)
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+
+@pytest.mark.parametrize("name,case", workloads.GOLDEN_PAIR_CASES,
+                         ids=[c[0] for c in workloads.GOLDEN_PAIR_CASES])
+def test_golden_sam_through_port(name, case):
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.pipeline.pair import align_pair_batch
+
+    index, b1, b2 = workloads.golden_pair_workload(case.get("plant4", False))
+    buf = io.BytesIO()
+    align_pair_batch(index, device_index(index, "cpu"), b1, b2,
+                     workloads.golden_options(case), SamWriter(buf, index))
+    got = [l for l in buf.getvalue().decode().splitlines()
+           if not l.startswith("@PG")]
+    with open(os.path.join(GOLDEN_DIR, f"{name}.sam")) as fh:
+        want = fh.read().splitlines()
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.split("\t") == w.split("\t"), f"{name} line {i}"
+
+
+@pytest.mark.parametrize("plant4", [False, True])
+def test_workload_recipes_match_reference(plant4):
+    import __graft_entry__ as ge
+    from tests.test_golden_sam import _workload
+
+    ia, a1, a2 = _workload(plant4)
+    ib, c1, c2 = workloads.golden_pair_workload(plant4)
+    for x, y in ((a1, c1), (a2, c2)):
+        np.testing.assert_array_equal(x.codes, y.codes)
+        np.testing.assert_array_equal(x.quals, y.quals)
+        assert list(x.names) == list(y.names)
+    np.testing.assert_array_equal(ia.sa_samples, ib.sa_samples)
+    ra = ge.make_tiny_pair_workload(seed=4)
+    rb = workloads.make_tiny_pair_workload(seed=4)
+    np.testing.assert_array_equal(ra[1].codes, rb[1].codes)
+    np.testing.assert_array_equal(ra[2].codes, rb[2].codes)
+    assert ra[3] == rb[3]
+
+
+def _double_buffered(pair_mod, didx, index, b1, b2, opts, batch):
+    """The runner's batch loop over ``batch``-pair slices."""
+    buf = io.BytesIO()
+    total = pair_mod.PairSummary()
+    with AsyncWriter(SamWriter(buf, index)) as w:
+        rq = pair_mod.RescueQueue(index, didx, opts, flush_pairs=24)
+        p2q = pair_mod.Phase2Queue(index, didx, opts)
+        flusher = AsyncFlusher(rq, w, eager_min=8)
+        n = len(b1)
+        parts = [(b1.take(slice(s, s + batch)), b2.take(slice(s, s + batch)))
+                 for s in range(0, n, batch)]
+        pending = pair_mod.dispatch_pair_search(didx, *parts[0], opts)
+        for i, (x1, x2) in enumerate(parts):
+            nxt = parts[i + 1] if i + 1 < len(parts) else None
+            nxt_pending = pair_mod.dispatch_pair_search(didx, *nxt, opts) \
+                if nxt else None
+            total.add(pair_mod.align_pair_batch(
+                index, didx, x1, x2, opts, w, pending_search=pending,
+                rescue_queue=rq, phase2_queue=p2q))
+            flusher.maybe_submit()
+            pending = nxt_pending
+        flusher.submit()
+        total.add(p2q.process(w, rq))
+        flusher.submit()
+        flusher.join(total.add)
+    recs = sorted(l for l in buf.getvalue().decode().splitlines()
+                  if not l.startswith("@"))
+    return recs, total
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    return workloads.make_tiny_pair_workload(n_pairs=96, seed=21)
+
+
+@pytest.mark.parametrize("half_narrow_pad", [32, 0])
+def test_double_buffered_run_matches_reference(tiny, half_narrow_pad):
+    from soap3dp_tpu.fm.fmindex import device_index as jdev
+    from soap3dp_tpu.pipeline import pair as jpair
+    from soap3dp_tpu_torch.fm.fmindex import device_index as tdev
+    from soap3dp_tpu_torch.pipeline import pair as tpair
+
+    index, b1, b2, opts = tiny
+    opts = dataclasses.replace(opts, half_narrow_pad=half_narrow_pad)
+    want, ws = _double_buffered(jpair, jdev(index), index, b1, b2, opts, 32)
+    got, gs = _double_buffered(tpair, tdev(index, "cpu"), index, b1, b2,
+                               opts, 32)
+    assert len(got) == 2 * len(b1)
+    assert got == want
+    assert dataclasses.asdict(gs) == dataclasses.asdict(ws)
+    # every phase fired: BWT pairs, DP pairs, salvaged ends, unmapped
+    assert gs.paired_bwt and gs.paired_dp and gs.single_rescued \
+        and gs.unaligned

@@ -1,0 +1,192 @@
+"""Seed search of the PyTorch port against the JAX package and against
+the brute-force oracle of tests/test_search.py.
+
+Parity: the same numpy reads through soap3dp_tpu.fm.search and
+soap3dp_tpu_torch.fm.search; the valid (row, tp, nmis) hit lists and
+the flagged masks must be equal — exact, as every output is an integer
+(the port reproduces the reference's compaction order, so the lists are
+equal element for element, not only as sets).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from soap3dp_tpu.fm import fmindex as jf
+from soap3dp_tpu.fm import search as js
+from soap3dp_tpu_torch.fm import fmindex as tf
+from soap3dp_tpu_torch.fm import search as ts
+from tests.test_search import _genome_from_codes, brute_hits, make_reads
+
+# small CPU cases: more intra-op threads only contend with other workers
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def indexes(small_index):
+    return jf.device_index(small_index), tf.device_index(small_index, "cpu")
+
+
+def _valid(h):
+    row, tp, nm, va, fl = h.to_host()
+    return row[va], tp[va], nm[va], fl
+
+
+def _assert_same(hj, ht):
+    a, b = _valid(hj), _valid(ht)
+    for x, y, name in zip(a, b, ("row", "tp", "nmis", "flagged")):
+        np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+def _hits_dict(h, b, B):
+    row, tp, nm, va, _ = h.to_host()
+    out = {}
+    for strand, r in ((0, b), (1, B + b)):
+        m = va & (row == r)
+        for t, n in zip(tp[m], nm[m]):
+            out[(strand, int(t))] = int(n)
+    return out
+
+
+@pytest.mark.parametrize("k,seed_range", [
+    (1, None), (2, None), (2, (0, 2)), (2, (2, 3)), (3, (0, 2)), (4, None)])
+def test_pending_search_matches_reference(indexes, small_genome, rng, k,
+                                          seed_range):
+    jd, td = indexes
+    B, L = 48, 60
+    reads = make_reads(rng, small_genome.codes, B, L, k)
+    lens = np.full(B, L, np.int32)
+    lens[::5] = 51                              # a non-uniform batch
+    hj = js.PendingSearch(jd, reads, lens, js.SearchConfig(k=k),
+                          seed_range=seed_range).result()
+    ht = ts.PendingSearch(td, reads, lens, ts.SearchConfig(k=k),
+                          seed_range=seed_range).result()
+    _assert_same(hj, ht)
+
+
+def test_search_batch_device_arrays_match(indexes, small_genome, rng):
+    """One _search_batch dispatch, before the host: every output array."""
+    import jax.numpy as jnp
+    import torch
+
+    jd, td = indexes
+    B, L = 32, 48
+    reads = make_reads(rng, small_genome.codes, B, L, 2)
+    lens = np.full(B, L, np.int32)
+    cfg_j, cfg_t = js.SearchConfig(k=2), ts.SearchConfig(k=2)
+    seed_q = js.default_seed_q(jd, cfg_j)
+    assert seed_q == ts.default_seed_q(td, cfg_t)
+    steps = js._steps_for(jd, seed_q, L // 3)
+    hj, totj = js._search_batch(jd, jnp.asarray(reads), jnp.asarray(lens),
+                                cfg_j, 16, steps, seed_q, K=2048, K2=1024)
+    ht, tott = ts._search_batch(td, torch.from_numpy(reads),
+                                torch.from_numpy(lens), cfg_t, 16, steps,
+                                seed_q, K=2048, K2=1024)
+    np.testing.assert_array_equal(np.asarray(totj), tott.numpy())
+    for name in ("row", "tp", "nmis", "valid", "flagged"):
+        a = np.asarray(getattr(hj, name)).astype(np.int64)
+        b = getattr(ht, name).numpy().astype(np.int64)
+        if name == "row":
+            a = np.where(np.asarray(hj.valid), a, -1)
+            b = np.where(ht.valid.numpy(), b, -1)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_compaction_budget_regrowth(rng):
+    """Reads inside a 12-copy repeat yield ~12 candidates per seed, past
+    the first dispatch's budget: the re-dispatch loop must grow K/K2."""
+    from soap3dp_tpu.index.builder import build_index
+
+    unit = rng.integers(0, 4, size=40).astype(np.uint8)
+    codes = np.concatenate([np.tile(unit, 12),
+                            rng.integers(0, 4, size=3000).astype(np.uint8)])
+    idx = build_index(_genome_from_codes(codes), sa_rate=4, lut_k=4)
+    jd, td = jf.device_index(idx), tf.device_index(idx, "cpu")
+    starts = rng.integers(0, 40 * 10, 48)
+    reads = np.stack([codes[s:s + 45] for s in starts]).astype(np.uint8)
+    lens = np.full(len(reads), 45, np.int32)
+    pt = ts.PendingSearch(td, reads, lens, ts.SearchConfig(k=2))
+    t = int(pt._out.numpy()[0])
+    assert t > min(pt.K, pt.K_max)      # the first budget overflowed
+    _assert_same(js.PendingSearch(jd, reads, lens, js.SearchConfig(k=2)).result(),
+                 pt.result())
+
+
+def test_forced_round2_round3_escalation(rng):
+    """A repeat-heavy genome and a small round-1 cap flag reads; rounds 2
+    and 3 must re-search them identically in both packages."""
+    from soap3dp_tpu.index.builder import build_index
+
+    unit = rng.integers(0, 4, size=25).astype(np.uint8)
+    codes = np.concatenate([np.tile(unit, 60),
+                            rng.integers(0, 4, size=4000).astype(np.uint8)])
+    idx = build_index(_genome_from_codes(codes), sa_rate=4, lut_k=4)
+    jd, td = jf.device_index(idx), tf.device_index(idx, "cpu")
+    reads = np.stack([codes[s:s + 50] for s in (3, 40, 200, 1600, 2500,
+                                                 3000)]).astype(np.uint8)
+    lens = np.full(len(reads), 50, np.int32)
+    kw = dict(k=1, occ_cap=2, occ_cap_round2=8, occ_cap_round3=128)
+    hj = js.PendingSearch(jd, reads, lens, js.SearchConfig(**kw)).result()
+    ht = ts.PendingSearch(td, reads, lens, ts.SearchConfig(**kw)).result()
+    _assert_same(hj, ht)
+    assert not ht.to_host()[4][:3].any()   # the repeat reads resolved
+    for b in range(3):
+        assert _hits_dict(ht, b, len(reads)) == brute_hits(codes, reads[b], 1)
+    # the storm gate: over escalate_budget, round-1 sets are kept flagged
+    kw["escalate_budget"] = 0
+    hj = js.PendingSearch(jd, reads, lens, js.SearchConfig(**kw)).result()
+    ht = ts.PendingSearch(td, reads, lens, ts.SearchConfig(**kw)).result()
+    _assert_same(hj, ht)
+    assert ht.to_host()[4][:3].all()
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4])
+def test_all_valid_matches_bruteforce(indexes, small_genome, rng, k):
+    """The oracle cases of tests/test_search.py, through the port."""
+    _, td = indexes
+    B, L = 24, 36
+    reads = make_reads(rng, small_genome.codes, B, L, k)
+    hits = ts.search_reads(td, reads, np.full(B, L), ts.SearchConfig(k=k))
+    flagged = hits.to_host()[4]
+    for b in range(B):
+        if flagged[b]:
+            continue
+        assert _hits_dict(hits, b, B) == brute_hits(small_genome.codes,
+                                                    reads[b], k), b
+
+
+def test_variable_length_and_full_sa(small_genome, rng):
+    from soap3dp_tpu.index.builder import build_index
+
+    codes = small_genome.codes
+    td = tf.device_index(build_index(small_genome, sa_rate=1), "cpu")
+    L = 48
+    lens = np.array([48, 37, 25, 41])
+    reads = np.zeros((4, L), dtype=np.uint8)
+    for i, (p, ln) in enumerate(zip(rng.integers(0, len(codes) - L, 4), lens)):
+        reads[i, :ln] = codes[p:p + ln]
+    hits = ts.search_reads(td, reads, lens, ts.SearchConfig(k=1))
+    for b in range(4):
+        assert _hits_dict(hits, b, 4) == brute_hits(codes, reads[b, :lens[b]],
+                                                    1), b
+
+
+def test_lut_only_seed_path(rng):
+    """A genome small enough that 4^lut_k >= n: LUT-only seeds."""
+    from soap3dp_tpu.index.builder import build_index
+
+    codes = rng.integers(0, 4, 3000).astype(np.uint8)
+    idx = build_index(_genome_from_codes(codes), sa_rate=2, lut_k=6)
+    jd, td = jf.device_index(idx), tf.device_index(idx, "cpu")
+    assert ts.default_seed_q(td, ts.SearchConfig(k=2)) == idx.lut_k
+    reads = make_reads(rng, codes, 32, 40, 2)
+    lens = np.full(32, 40, np.int32)
+    _assert_same(js.search_reads(jd, reads, lens, js.SearchConfig(k=2)),
+                 ts.search_reads(td, reads, lens, ts.SearchConfig(k=2)))
+
+
+def test_empty_batch(indexes):
+    _, td = indexes
+    h = ts.PendingSearch(td, np.zeros((0, 30), np.uint8),
+                         np.zeros(0, np.int32)).result()
+    assert h.to_host()[0].size == 0
