@@ -5,17 +5,30 @@
 Phases, each printing one line, any failure exits non-zero:
 
 1. device and build: the card's name and power limit, and the build of
-   every kernel of the main path from csrc/;
-2. each kernel against its plain-torch version on the card, at the main
-   path's shapes (plus a long-read and a run-budget-overflow case),
-   outputs exactly equal, both times printed;
-3. golden SAM: the five paired-end golden cases of tests/golden rendered
-   through the port on cuda, every record equal (@PG excepted);
+   every kernel from csrc/ (one nvcc per source, started together);
+2. each kernel against its plain-torch version on the card, outputs
+   exactly equal, both times printed: K1 (the fused DP) at the main
+   path's shapes (plus a long-read and a run-budget-overflow case); K2
+   (forward only) and TB (its traceback) at the mate-pair rescue window,
+   an edge shape and a case that re-launches TB, where dp_align's wide
+   route is also held against K1 at the same shape;
+3. golden SAM: the five paired-end and two single-end golden cases of
+   tests/golden rendered through the port on cuda, every record equal
+   (@PG excepted);
 4. end to end at a real size: a 250 Mbp genome, 100,000 read pairs,
    the port's `pair` CLI with default options (-u 500 -v 300); checks
-   records, planted-locus recall, rescue counts and kernel launches,
-   then runs it once more under torch.profiler (device busy share,
-   top device events in chiprun_out/e2e_profile.txt).
+   records, planted-locus recall, rescue counts and kernel launches (K1,
+   and no K2: its windows are narrow), then runs it once more under
+   torch.profiler (device busy share, top device events in the output
+   directory's e2e_profile.txt);
+5. mate-pair: a -/+ library of 2-6 kbp inserts aligned with
+   -v 2000 -u 6000 and SOAP3DP_HALF_NARROW_PAD=0 (the half rescue over
+   the whole insert window, where dp_align takes K2 + TB). First 200
+   pairs on a 200 kbp genome, on cuda and on cpu, SAM records equal;
+   then 100,000 pairs on phase 4's 250 Mbp index, checking records,
+   recall and the launches of K1, K2 and TB;
+6. single-end: the port's `single` CLI over phase 4's end-1 reads on the
+   same index, checking records, recall and K1 launches (salvage).
 
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch and the
@@ -98,19 +111,21 @@ def make_problems(rng, P, Lr, Lw, with_anchor=False):
     return reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r
 
 
-def main_path_problems(rng, P, Lr, Lw):
-    """Rescue-shaped problems: 100 bp reads placed in a window with
-    mismatches and 3 bp indels, the rescue clips (49) and cutoff 0.3 L."""
+def main_path_problems(rng, P, Lr, Lw, read_len=None):
+    """Rescue-shaped problems: reads of ``read_len`` (default Lr) bases
+    in an Lr-wide matrix, placed in a window with mismatches and 3 bp
+    indels, the rescue clips (49) and cutoff 0.3 L."""
+    L = read_len or Lr
     wins = rng.integers(0, 4, size=(P, Lw)).astype(np.uint8)
     reads = np.zeros((P, Lr), np.uint8)
-    rlens = np.full(P, Lr, np.int32)
+    rlens = np.full(P, L, np.int32)
     for p in range(P):
-        off = rng.integers(0, Lw - Lr - 8)
-        piece = _mutate(rng, wins[p, off:off + Lr + 4], rng.integers(0, 6),
+        off = rng.integers(0, Lw - L - 8)
+        piece = _mutate(rng, wins[p, off:off + L + 4], rng.integers(0, 6),
                         rng.integers(0, 2) * 3, rng.integers(0, 2) * 3)
         if p % 7 == 0:
-            piece = rng.integers(0, 4, Lr).astype(np.uint8)  # no placement
-        piece = piece[:Lr]
+            piece = rng.integers(0, 4, L).astype(np.uint8)  # no placement
+        piece = piece[:L]
         reads[p, :len(piece)] = piece
         rlens[p] = len(piece)
     clip = np.full(P, 49, np.int32)
@@ -129,6 +144,19 @@ def overflow_problems(rng, P, Lr, Lw):
     return (reads, np.full(P, Lr, np.int32), wins, np.full(P, Lw, np.int32),
             z, z.copy(), np.full(P, Lw + 1, np.int32), z.copy(),
             np.full(P, -100000, np.int32))
+
+
+def relaunch_problems(rng, P, Lr, Lw):
+    """All-A reads against A-x-A-x windows under gap open = extend = -1
+    (DPScores(1, -2, -1, -1)): the best path alternates a match and a
+    1-base deletion, ~2 Lr runs, past the traceback's first run budget;
+    the cutoff is far below any score."""
+    wins = rng.integers(1, 4, (P, Lw)).astype(np.uint8)
+    wins[:, ::2] = 0
+    z = np.zeros(P, np.int32)
+    return (np.zeros((P, Lr), np.uint8), np.full(P, Lr, np.int32), wins,
+            np.full(P, Lw, np.int32), z, z.copy(), np.full(P, Lw + 1, np.int32),
+            z.copy(), np.full(P, -100000, np.int32))
 
 
 def _dp_equal(a, b) -> tuple[bool, int]:
@@ -150,24 +178,43 @@ def _dp_equal(a, b) -> tuple[bool, int]:
     return err == 0, err
 
 
-def _kernel_only_ms(bd, args, reps: int = 10) -> float:
-    """Mean time of one banded_dp launch (no host copies), CUDA events."""
+def _events_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` after one warm-up call, CUDA events."""
     import torch
 
-    reads, rlens, wins, wlens, cl, cr, al, ar, cut = args
-    params = torch.stack([rlens, wlens, cl, cr, al, ar, cut,
-                          torch.zeros_like(rlens)], 1).to(torch.int32)
-    mr = max(bd.MAX_RUNS, bd._max_runs_bound(reads.shape[1]))
-    sc = bd.DPScores()
-    bd._launch_dp(reads, wins, params.contiguous(), mr, sc)  # warm
+    fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        bd._launch_dp(reads, wins, params.contiguous(), mr, sc)
+        fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _host_ms(fn, reps: int = 1) -> tuple[object, float]:
+    """(last result, median wall ms) of ``fn()`` ending in a synchronize."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def _kernel_only_ms(bd, args, reps: int = 10, sc=None) -> float:
+    """Mean time of one banded_dp launch (no host copies), CUDA events."""
+    reads, rlens, wins, wlens, cl, cr, al, ar, cut = args
+    params = bd._params(rlens, wlens, cl, cr, al, ar, cut)
+    mr = max(bd.MAX_RUNS, bd._max_runs_bound(reads.shape[1]))
+    sc = sc or bd.DPScores()
+    return _events_ms(lambda: bd._launch_dp(reads, wins, params, mr, sc),
+                      reps)
 
 
 def phase_kernels(dev) -> list[dict]:
@@ -191,24 +238,10 @@ def phase_kernels(dev) -> list[dict]:
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in prob]
         n0 = bd.DP_KERNEL.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = bd.dp_align(*args)
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
+        got, first_ms = _host_ms(lambda: bd.dp_align(*args))
         n_launch = bd.DP_KERNEL.launches - n0
-        reps = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            bd.dp_align(*args)
-            torch.cuda.synchronize()
-            reps.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = bd.dp_align_plain(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        _, ms = _host_ms(lambda: bd.dp_align(*args), 3)
+        want, plain_ms = _host_ms(lambda: bd.dp_align_plain(*args))
         ok, err = _dp_equal(got, want)
         npass = int((np.asarray(want[6]) > 0).sum())
         P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
@@ -216,7 +249,7 @@ def phase_kernels(dev) -> list[dict]:
         phase("kernel banded_dp",
               f"{name}: P={P} Lr={Lr} Lw={Lw} equal={ok} max_abs_err={err} "
               f"passing_lanes={npass} launches={n_launch} "
-              f"first_ms={first_ms:.3f} ms={float(np.median(reps)):.3f} "
+              f"first_ms={first_ms:.3f} ms={ms:.3f} "
               f"kernel_only_ms={kms:.3f} "
               f"GCUPS={P * Lr * Lw / (kms * 1e6):.1f} "
               f"plain_ms={plain_ms:.3f}")
@@ -226,7 +259,7 @@ def phase_kernels(dev) -> list[dict]:
             fail("overflow case did not re-launch the DP kernel")
         max_err = max(max_err, err)
         rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
-                     "ms": float(np.median(reps)), "kernel_only_ms": kms,
+                     "ms": ms, "kernel_only_ms": kms,
                      "plain_ms": plain_ms})
     main = [r for r in rows if r["case"] == "Lr100_Lw768"][0]
     return [{"name": "banded_dp", "route": "cuda",
@@ -237,23 +270,130 @@ def phase_kernels(dev) -> list[dict]:
              "cases": rows}]
 
 
+def phase_wide_kernels(dev) -> list[dict]:
+    """K2 and TB against their plain versions, and dp_align's wide route
+    against the plain dp_align and K1 at the same shape."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    rng = np.random.default_rng(20261017)
+    P2, Lr2, Lw2 = 256, 127, 8192
+    edge = make_problems(rng, P2, Lr2, Lw2)
+    cases = [
+        ("mate_window", main_path_problems(rng, 2048, 120, 4224, read_len=100),
+         bd.DPScores()),
+        ("edge", edge + ((edge[1] * 0.3).astype(np.int32),), bd.DPScores()),
+        ("tb_relaunch", relaunch_problems(rng, 64, 127, 4096),
+         bd.DPScores(1, -2, -1, -1)),
+    ]
+    rows = []
+    max_err = 0
+    for name, prob, sc in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in prob]
+        P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
+        # K2 against the plain forward: stats and every dirs byte
+        fwd = bd.dp_forward(*args[:8], sc=sc)
+        plain, plain_fwd_ms = _host_ms(
+            lambda: bd._dp_forward_scan(*args[:8], sc=sc))
+        err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                  for a, b in zip(fwd[:4], plain[:4]))
+        ndiff = int((fwd[4] != plain[4]).sum())
+        del plain
+        # TB against the plain sweep + host RLE, on the same dirs
+        act = (fwd[0] >= args[8]).cpu().numpy()
+        tb_args = (args[1], fwd[1], fwd[2], args[4], act)
+        tb = bd.dp_traceback(fwd[4], args[0], args[1], args[2], *tb_args[1:4],
+                             act)
+        tbp, plain_tb_ms = _host_ms(
+            lambda: bd._dp_traceback_plain(fwd[4], *tb_args))
+        tb_err = max(int(np.abs(np.asarray(x, np.int64)
+                                - np.asarray(y, np.int64)).max(initial=0))
+                     if np.shape(x) == np.shape(y) else 1
+                     for x, y in zip(tb, tbp))
+        # kernel-only times on the whole problem set, CUDA events
+        params = bd._params(args[1], args[3], *args[4:8])
+        fwd_ms = _events_ms(lambda: bd._launch_forward(
+            args[0], args[2], params, fwd[4], sc), 3)
+        tbq = torch.stack([args[1], fwd[1], fwd[2], args[4]], 1).to(
+            torch.int32).contiguous()
+        actd = torch.from_numpy(act.astype(np.uint8)).to(dev)
+        mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
+        tb_ms = _events_ms(lambda: bd._launch_traceback(
+            fwd[4], tbq, actd, None, P, mr), 10)
+        del fwd
+        # dp_align's wide route against the plain dp_align and K1
+        n_f, n_t = bd.FORWARD_KERNEL.launches, bd.TRACEBACK_KERNEL.launches
+        got = bd.dp_align(*args, sc=sc)
+        n_f = bd.FORWARD_KERNEL.launches - n_f
+        n_t = bd.TRACEBACK_KERNEL.launches - n_t
+        _, call_ms = _host_ms(lambda: bd.dp_align(*args, sc=sc), 3)
+        want, plain_ms = _host_ms(lambda: bd.dp_align_plain(*args, sc=sc))
+        k1, k1_ms = _host_ms(lambda: bd.dp_align_cuda(*args, sc=sc), 3)
+        k1_kernel_ms = _kernel_only_ms(bd, args, 3, sc)
+        ok_plain, e1 = _dp_equal(got, want)
+        ok_k1, e2 = _dp_equal(got, k1)
+        npass = int((np.asarray(want[6]) > 0).sum())
+        phase("kernel dp_forward+dp_traceback",
+              f"{name}: P={P} Lr={Lr} Lw={Lw} fwd stats max_abs_err={err} "
+              f"dirs bytes differing={ndiff} tb max_abs_err={tb_err} "
+              f"dp_align==plain {ok_plain} dp_align==K1 {ok_k1} "
+              f"passing_lanes={npass} launches fwd={n_f} tb={n_t} "
+              f"call_ms={call_ms:.3f} kernel_ms fwd={fwd_ms:.3f} "
+              f"tb={tb_ms:.3f} GCUPS={P * Lr * Lw / (fwd_ms * 1e6):.1f} "
+              f"plain_ms={plain_ms:.3f} (fwd {plain_fwd_ms:.3f}, "
+              f"tb {plain_tb_ms:.3f}) K1 call_ms={k1_ms:.3f} "
+              f"K1 kernel_ms={k1_kernel_ms:.3f}")
+        if err or ndiff or tb_err or not ok_plain or not ok_k1:
+            fail(f"K2 / TB disagree with their plain versions ({name})")
+        if name == "tb_relaunch" and n_t <= n_f:
+            fail("the low-cutoff case did not re-launch the traceback kernel")
+        if name != "tb_relaunch" and n_t != n_f:
+            fail(f"the traceback kernel re-launched in {name}")
+        max_err = max(max_err, err, tb_err, e1, e2)
+        rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
+                     "call_ms": call_ms, "fwd_ms": fwd_ms, "tb_ms": tb_ms,
+                     "plain_ms": plain_ms, "plain_fwd_ms": plain_fwd_ms,
+                     "plain_tb_ms": plain_tb_ms, "k1_call_ms": k1_ms,
+                     "k1_kernel_ms": k1_kernel_ms})
+    main = rows[0]
+    common = {"route": "cuda", "source": "soap3dp_tpu_torch/csrc/dp_forward.cu",
+              "launches": 0, "max_abs_err": max_err}
+    return [dict(common, name="dp_forward",
+                 replaces="soap3dp_tpu/kernels/banded_dp.py:238",
+                 ms=main["fwd_ms"], plain_ms=main["plain_fwd_ms"], cases=rows),
+            dict(common, name="dp_traceback",
+                 replaces="soap3dp_tpu/kernels/banded_dp.py:409",
+                 ms=main["tb_ms"], plain_ms=main["plain_tb_ms"])]
+
+
 def phase_golden(dev) -> None:
-    """The five paired-end golden SAM cases through the port on ``dev``."""
+    """The seven golden SAM cases (five paired-end, two single-end)
+    through the port on ``dev``."""
     import io
 
     from soap3dp_tpu.io.sam import SamWriter
     from soap3dp_tpu_torch import workloads
     from soap3dp_tpu_torch.fm.fmindex import device_index
     from soap3dp_tpu_torch.pipeline.pair import align_pair_batch
+    from soap3dp_tpu_torch.pipeline.single import align_single_batch
 
-    for name, case in workloads.GOLDEN_PAIR_CASES:
+    cases = [(n, c, True) for n, c in workloads.GOLDEN_PAIR_CASES] + \
+        [(n, c, False) for n, c in workloads.GOLDEN_SINGLE_CASES]
+    for name, case, paired in cases:
         t0 = time.perf_counter()
-        index, b1, b2 = workloads.golden_pair_workload(
-            case.get("plant4", False))
         buf = io.BytesIO()
-        w = SamWriter(buf, index)
-        align_pair_batch(index, device_index(index, dev), b1, b2,
-                         workloads.golden_options(case), w)
+        opts = workloads.golden_options(case)
+        if paired:
+            index, b1, b2 = workloads.golden_pair_workload(
+                case.get("plant4", False))
+            align_pair_batch(index, device_index(index, dev), b1, b2, opts,
+                             SamWriter(buf, index))
+        else:
+            index, b1 = workloads.golden_single_workload()
+            align_single_batch(index, device_index(index, dev), b1, opts,
+                               SamWriter(buf, index))
         got = [l for l in buf.getvalue().decode().splitlines()
                if not l.startswith("@PG")]
         path = os.path.join(ROOT, "tests", "golden", f"{name}.sam")
@@ -354,18 +494,27 @@ def _profiled_pass(cli_main, argv, wall_plain: float, out_dir: str) -> dict:
     return res
 
 
-def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
-              out_dir: str, profile: bool = True) -> dict:
-    """The port's `pair` CLI on ``dev`` over a seeded genome of
-    ``genome_bp`` and ``n_pairs`` read pairs; checks records,
-    planted-locus recall, rescue counts and DP kernel launches."""
-    import contextlib
-    import re
+# the mate-pair library of phases 5 and 6: -/+ (StrandArrangement of the
+# ini), inserts ~N(4000, 400) in [2100, 5900], aligned with -v 2000
+# -u 6000 over the whole insert window (SOAP3DP_HALF_NARROW_PAD=0)
+MATE_PAIR_LIBRARY = dict(orientation="-/+", insert=4000, insert_sd=400,
+                         insert_range=(2100, 5900))
+MATE_PAIR_ARGS = ["-v", "2000", "-u", "6000"]
+MATE_PAIR_ENV = {"SOAP3DP_HALF_NARROW_PAD": "0"}
 
+
+def _mate_pair_ini(work: str) -> str:
+    path = os.path.join(work, "mate_pair.ini")
+    with open(path, "w") as fh:
+        fh.write("[PairEnd]\nStrandArrangement=-/+\n")
+    return path
+
+
+def _genome_index(genome_bp: int, work: str, sa_rate: int = 2):
+    """(rng after the genome, genome, index path, how, build s, lut_k):
+    the seeded genome and its index, built once and cached in ``work``."""
     from soap3dp_tpu.index.builder import build_index, load_index, save_index
     from soap3dp_tpu_torch import workloads
-    from soap3dp_tpu_torch.cli.main import main as cli_main
-    from soap3dp_tpu_torch.kernels import banded_dp as bd
 
     os.makedirs(work, exist_ok=True)
     rng = np.random.default_rng(20261016)
@@ -376,89 +525,262 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
         lut_k = load_index(idx_path).lut_k
         how = "cached"
     else:
-        index = build_index(genome, sa_rate=2,
+        index = build_index(genome, sa_rate=sa_rate,
                             lut_k=13 if genome_bp >= 1_000_000 else None)
         lut_k = index.lut_k
         save_index(index, idx_path)
         del index
         how = "built"
-    build_s = time.perf_counter() - t0
-    r1, r2 = os.path.join(work, "r1.fq"), os.path.join(work, "r2.fq")
-    p1, p2, rand = workloads.make_pe_fastq(rng, genome.codes, n_pairs, r1, r2)
-    del genome
-    phase("e2e setup", f"{genome_bp} bp genome, index {how} in {build_s:.1f}s "
-                       f"(sa_rate=2, lut_k={lut_k}), "
-                       f"{n_pairs} pairs of 100 bp written")
+    return rng, genome, idx_path, how, time.perf_counter() - t0, lut_k
 
-    out = os.path.join(work, "out")
-    argv = ["pair", idx_path, r1, r2, "-u", "500", "-v", "300", "-o", out,
-            "--device", str(dev)]
+
+def _launches() -> dict:
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    return {"K1": bd.DP_KERNEL.launches, "K2": bd.FORWARD_KERNEL.launches,
+            "TB": bd.TRACEBACK_KERNEL.launches}
+
+
+def _run_cli(argv, dev, env=None) -> tuple[float, str, dict]:
+    """Run the port's CLI with every launch count set to 0 just before;
+    returns (wall s, stderr, launch counts just after)."""
+    import contextlib
+
+    from soap3dp_tpu_torch.cli.main import main as cli_main
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
     tee = _Tee(sys.stderr)
-    bd.DP_KERNEL.launches = 0  # count only the main path's launches
+    for k in (bd.DP_KERNEL, bd.FORWARD_KERNEL, bd.TRACEBACK_KERNEL):
+        k.launches = 0
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(tee):
-        rc = cli_main(argv)
-    if dev.type == "cuda":
-        import torch
-        torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stderr(tee):
+            rc = cli_main(argv)
+        if dev.type == "cuda":
+            import torch
+            torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     wall = time.perf_counter() - t0
-    launches = bd.DP_KERNEL.launches
-    log = tee.text()
-    with open(os.path.join(out_dir, "e2e_stderr.log"), "w") as fh:
-        fh.write(log)
     if rc != 0:
-        fail(f"the pair CLI exited {rc}")
+        fail(f"the {argv[0]} CLI exited {rc}")
+    return wall, tee.text(), _launches()
 
-    # every read has a record; recall of the primary records
-    seen = np.zeros((2, n_pairs), bool)
-    hit = np.zeros((2, n_pairs), bool)
-    with open(out + ".sam") as fh:
+
+def _sam_recall(path: str, planted: list, rand: np.ndarray) -> float:
+    """Fails unless every read has a record; returns the planted-locus
+    recall (primary record within 20 bp) of the non-random reads.
+    ``planted`` holds each end's 1-based positions (one end: single)."""
+    n = len(planted[0])
+    seen = np.zeros((len(planted), n), bool)
+    hit = np.zeros((len(planted), n), bool)
+    with open(path) as fh:
         for line in fh:
             if line.startswith("@"):
                 continue
             f = line.split("\t", 4)
             flag = int(f[1])
-            end = 0 if flag & 0x40 else 1
+            end = 0 if flag & 0x40 or len(planted) == 1 else 1
             r = int(f[0][1:])
             seen[end, r] = True
             if flag & 0x904:  # unmapped, secondary or supplementary
                 continue
-            planted = (p1 if end == 0 else p2)[r]
-            hit[end, r] |= abs(int(f[3]) - int(planted)) <= 20
+            hit[end, r] |= abs(int(f[3]) - int(planted[end][r])) <= 20
     if not seen.all():
         fail(f"{int((~seen).sum())} reads have no SAM record")
-    recall = float(hit[~rand].mean())
-    m = re.search(r"done: PairSummary\(([^)]*)\)", log)
+    return float(hit[~np.reshape(rand, hit.shape)].mean())
+
+
+def _summary(log: str, cls: str) -> dict:
+    import re
+
+    m = re.search(rf"done: {cls}\(([^)]*)\)", log)
     if m is None:
         fail("no run summary on stderr")
-    summ = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", m.group(1))}
+    return {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", m.group(1))}
+
+
+def _rates(reads: int, wall: float, log: str) -> dict:
+    import re
+
     up = re.search(r"uploaded to \S+ in ([0-9.]+)s", log)
     load = re.search(r"index loaded in ([0-9.]+)s", log)
-    batches = [float(x) for x in re.findall(r"BWT-paired \(([0-9.]+)s\)", log)]
-    reads = 2 * n_pairs
     setup_s = float(load.group(1)) + float(up.group(1))
-    res = {"reads": reads, "wall_s": wall, "reads_per_s": reads / wall,
-           "reads_per_s_after_load": reads / max(wall - setup_s, 1e-9),
-           "index_build_s": build_s, "index_load_s": float(load.group(1)),
-           "index_upload_s": float(up.group(1)), "batch_s": batches,
-           "recall": recall, "dp_launches": launches, "summary": summ,
-           "card": card}
-    phase("e2e", f"{reads} reads in {wall:.2f}s = {reads / wall:.0f} reads/s "
-                 f"({res['reads_per_s_after_load']:.0f} after index load "
-                 f"{res['index_load_s']:.2f}s + upload "
-                 f"{res['index_upload_s']:.2f}s); batches {batches} s; "
-                 f"recall {recall:.4f}; dp launches {launches}; {summ}; "
-                 f"card: {card}")
+    return {"reads": reads, "wall_s": wall, "reads_per_s": reads / wall,
+            "reads_per_s_after_load": reads / max(wall - setup_s, 1e-9),
+            "index_load_s": float(load.group(1)),
+            "index_upload_s": float(up.group(1))}
+
+
+def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
+              out_dir: str, profile: bool = True, mate_pair: bool = False
+              ) -> tuple[dict, dict]:
+    """The port's `pair` CLI on ``dev`` over a seeded genome of
+    ``genome_bp`` and ``n_pairs`` read pairs: default options
+    (-u 500 -v 300) on a +/- library, or with ``mate_pair`` the mate-pair
+    library over the whole insert window. Checks records, planted-locus
+    recall, rescue counts and kernel launches. Returns (result, end-1
+    reads: FASTQ path, planted positions, random mask)."""
+    import re
+
+    from soap3dp_tpu_torch import workloads
+
+    rng, genome, idx_path, how, build_s, lut_k = _genome_index(genome_bp,
+                                                                work)
+    tag = "mp_" if mate_pair else ""
+    r1 = os.path.join(work, f"{tag}r1.fq")
+    r2 = os.path.join(work, f"{tag}r2.fq")
+    p1, p2, rand = workloads.make_pe_fastq(
+        rng, genome.codes, n_pairs, r1, r2,
+        **(MATE_PAIR_LIBRARY if mate_pair else {}))
+    del genome
+    name = "mate-pair e2e" if mate_pair else "e2e"
+    phase(f"{name} setup", f"{genome_bp} bp genome, index {how} in "
+                           f"{build_s:.1f}s (sa_rate=2, lut_k={lut_k}), "
+                           f"{n_pairs} pairs of 100 bp written")
+
+    out = os.path.join(work, f"{tag}out")
+    opts = (MATE_PAIR_ARGS + ["--ini", _mate_pair_ini(work)] if mate_pair
+            else ["-u", "500", "-v", "300"])
+    argv = ["pair", idx_path, r1, r2] + opts + ["-o", out, "--device",
+                                               str(dev)]
+    env = MATE_PAIR_ENV if mate_pair else None
+    wall, log, launches = _run_cli(argv, dev, env)
+    with open(os.path.join(out_dir, f"{tag}e2e_stderr.log"), "w") as fh:
+        fh.write(log)
+    recall = _sam_recall(out + ".sam", [p1, p2], rand)
+    summ = _summary(log, "PairSummary")
+    batches = [float(x) for x in re.findall(r"BWT-paired \(([0-9.]+)s\)", log)]
+    res = dict(_rates(2 * n_pairs, wall, log), index_build_s=build_s,
+               batch_s=batches, recall=recall, launches=launches,
+               summary=summ, card=card)
+    phase(name, f"{2 * n_pairs} reads in {wall:.2f}s = "
+                f"{2 * n_pairs / wall:.0f} reads/s "
+                f"({res['reads_per_s_after_load']:.0f} after index load "
+                f"{res['index_load_s']:.2f}s + upload "
+                f"{res['index_upload_s']:.2f}s); batches {batches} s; "
+                f"recall {recall:.4f}; launches {launches}; {summ}; "
+                f"card: {card}")
     if recall < 0.95:
         fail(f"planted-locus recall {recall:.4f} < 0.95")
-    if summ.get("paired_dp", 0) <= 0 or summ.get("single_rescued", 0) <= 0:
-        fail("the rescue phases produced no DP-paired or salvaged reads")
-    if launches <= 0 and dev.type == "cuda":
-        fail("the main path never launched the banded DP kernel")
+    if summ.get("paired_dp", 0) <= 0:
+        fail("the rescue phases produced no DP-paired reads")
+    if not mate_pair and summ.get("single_rescued", 0) <= 0:
+        fail("the salvage phase produced no singly aligned reads")
+    if dev.type == "cuda":
+        if launches["K1"] <= 0:
+            fail("the run never launched the fused DP kernel (K1)")
+        if mate_pair and min(launches["K2"], launches["TB"]) <= 0:
+            fail("the full-window mate rescue never launched K2 and TB")
+        if not mate_pair and launches["K2"] + launches["TB"]:
+            fail("the default run launched K2 / TB: its windows are narrow")
     if profile:
+        from soap3dp_tpu_torch.cli.main import main as cli_main
         res["profile"] = _profiled_pass(
             cli_main, argv[:-3] + [out + "_prof"] + argv[-2:], wall, out_dir)
+    return res, {"r1": r1, "planted": p1, "random": rand[0],
+                 "index": idx_path}
+
+
+def phase_mate_pair_devices(dev, work: str, n_pairs: int = 200) -> dict:
+    """The mate-pair library at a small size (200 kbp, ``n_pairs`` pairs
+    of inserts in [2500, 5500]) through `pair` on ``dev`` and on the CPU:
+    the SAM records must be equal (the CPU side is held to the JAX
+    package by the CPU tests)."""
+    import torch
+
+    from soap3dp_tpu_torch import workloads
+
+    rng, genome, idx_path, _, _, _ = _genome_index(200_000, work)
+    r1, r2 = os.path.join(work, "r1.fq"), os.path.join(work, "r2.fq")
+    workloads.make_pe_fastq(rng, genome.codes, n_pairs, r1, r2,
+                            **dict(MATE_PAIR_LIBRARY, insert_sd=750,
+                                   insert_range=(2500, 5500)))
+    ini = _mate_pair_ini(work)
+    recs, info = {}, {}
+    for d in (str(dev), "cpu"):
+        out = os.path.join(work, f"out_{d}")
+        wall, _, launches = _run_cli(
+            ["pair", idx_path, r1, r2] + MATE_PAIR_ARGS
+            + ["--ini", ini, "-o", out, "--device", d],
+            torch.device(d), MATE_PAIR_ENV)
+        with open(out + ".sam") as fh:
+            recs[d] = sorted(l for l in fh if not l.startswith("@PG"))
+        info[d] = {"wall_s": wall, "launches": launches}
+    same = recs[str(dev)] == recs["cpu"]
+    n = len([l for l in recs["cpu"] if not l.startswith("@")])
+    phase("mate-pair card vs cpu",
+          f"{n} records; {str(dev)} == cpu: {same}; "
+          f"{str(dev)} {info[str(dev)]['wall_s']:.2f}s launches "
+          f"{info[str(dev)]['launches']}, cpu {info['cpu']['wall_s']:.2f}s")
+    if not same or n != 2 * n_pairs:
+        fail("the mate-pair SAM on the card differs from the CPU's")
+    if dev.type == "cuda" and info[str(dev)]["launches"]["K2"] <= 0:
+        fail("the small mate-pair run never launched K2")
+    return info
+
+
+def phase_single_e2e(dev, reads: dict, card: str, work: str,
+                     out_dir: str) -> dict:
+    """The port's `single` CLI over phase 4's end-1 reads on the same
+    index: a record per read, planted-locus recall, K1 launches."""
+    import re
+
+    out = os.path.join(work, "se_out")
+    wall, log, launches = _run_cli(
+        ["single", reads["index"], reads["r1"], "-o", out, "--device",
+         str(dev)], dev)
+    with open(os.path.join(out_dir, "se_e2e_stderr.log"), "w") as fh:
+        fh.write(log)
+    n = len(reads["planted"])
+    recall = _sam_recall(out + ".sam", [reads["planted"]], reads["random"])
+    summ = _summary(log, "BatchSummary")
+    batches = [float(x) for x in re.findall(r"BWT-aligned \(([0-9.]+)s\)",
+                                            log)]
+    res = dict(_rates(n, wall, log), batch_s=batches, recall=recall,
+               launches=launches, summary=summ, card=card)
+    phase("single-end e2e", f"{n} reads in {wall:.2f}s = {n / wall:.0f} "
+                            f"reads/s ({res['reads_per_s_after_load']:.0f} "
+                            f"after index load + upload); batches {batches} "
+                            f"s; recall {recall:.4f}; launches {launches}; "
+                            f"{summ}; card: {card}")
+    if recall < 0.95:
+        fail(f"single-end planted-locus recall {recall:.4f} < 0.95")
+    if summ.get("num_records", 0) != n:
+        fail("the single-end run did not write one record per read")
+    if dev.type == "cuda" and launches["K1"] <= 0:
+        fail("the single-end salvage never launched K1")
     return res
+
+
+def _build_all() -> None:
+    """Build every kernel library, one nvcc per source, started together;
+    print each build's registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    libs = [bd.BANDED_DP_LIB, bd.DP_FORWARD_LIB]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        list(ex.map(lambda lib: lib.load(), libs))
+    for lib in libs:
+        name = os.path.basename(lib.src)
+        phase("build", f"{name} built and loaded (nvcc "
+                       f"{lib.build_seconds:.2f}s; all builds "
+                       f"{time.perf_counter() - t0:.2f}s)")
+        with open(os.path.join(OUT_DIR, f"nvcc_{name}.log"), "w") as fh:
+            fh.write(lib.build_log)
+        for line in lib.build_log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                phase(f"ptxas {name}", line.strip())
 
 
 def main(argv=None) -> int:
@@ -470,7 +792,7 @@ def main(argv=None) -> int:
         fail("torch.cuda.is_available() is false: this smoke test needs "
              "one CUDA card")
     try:
-        from soap3dp_tpu_torch.kernels import banded_dp as bd
+        import soap3dp_tpu_torch.kernels.banded_dp  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable here ({e}); run from the root "
              "of a checkout")
@@ -481,27 +803,26 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     phase("device", f"{kind} | torch {torch.__version__} cuda "
                     f"{torch.version.cuda} | nvidia-smi: {card}")
+    _build_all()
 
-    t0 = time.perf_counter()
-    bd.DP_KERNEL.function()
-    phase("build", f"banded_dp.cu built and loaded in "
-                   f"{time.perf_counter() - t0:.2f}s "
-                   f"(nvcc {bd.DP_KERNEL.build_seconds:.2f}s)")
-    with open(os.path.join(OUT_DIR, "nvcc_banded_dp.log"), "w") as fh:
-        fh.write(bd.DP_KERNEL.build_log)
-    for line in bd.DP_KERNEL.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            phase("ptxas", line.strip())
-
-    kernels = phase_kernels(dev)
+    kernels = phase_kernels(dev) + phase_wide_kernels(dev)
     phase_golden(dev)
-    e2e = phase_e2e(dev, 250_000_000, 100_000, card,
-                    os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e"),
-                    OUT_DIR)
-    kernels[0]["launches"] = e2e["dp_launches"]
+    work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e")
+    e2e, reads = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR)
+    small = phase_mate_pair_devices(
+        dev, os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "mp_small"))
+    mate, _ = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR,
+                        profile=False, mate_pair=True)
+    single = phase_single_e2e(dev, reads, card, work, OUT_DIR)
+    # launches on each kernel's main path: K1 on the default pair run,
+    # K2 and TB on the mate-pair run
+    kernels[0]["launches"] = e2e["launches"]["K1"]
+    kernels[1]["launches"] = mate["launches"]["K2"]
+    kernels[2]["launches"] = mate["launches"]["TB"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
-        json.dump({"card": card, "kernels": kernels, "e2e": e2e}, fh,
-                  indent=1)
+        json.dump({"card": card, "kernels": kernels, "e2e": e2e,
+                   "mate_pair_small": small, "mate_pair": mate,
+                   "single": single}, fh, indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k != "cases"} for r in kernels]}),
         flush=True)

@@ -1,11 +1,14 @@
 """soap3dp-torch: the aligner CLI of the PyTorch / CUDA port.
 
+  soap3dp-torch single <index> <reads> [options] [--device cuda]
   soap3dp-torch pair <index> <reads1> <reads2> [options] [--device cuda]
+  soap3dp-torch single-multi <index> <list-file> [options] [--device cuda]
+  soap3dp-torch pair-multi <index> <list-file> [options] [--device cuda]
 
-The same flags as ``soap3dp pair`` (soap3dp_tpu/cli/main.py, whose
-option parsing this reuses), plus ``--device``: ``cuda`` (the default;
-an error when no CUDA device exists) or ``cpu``. Single-end, list-file
-and multi-device modes are not ported yet.
+The same commands and flags as ``soap3dp`` (soap3dp_tpu/cli/main.py,
+whose option parsing this reuses), plus ``--device``: ``cuda`` (the
+default; an error when no CUDA device exists) or ``cpu``. Multi-device
+and multi-host runs (--devices, --hosts above 1) are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,20 +17,28 @@ import argparse
 import sys
 import time
 
+COMMANDS = ("single", "pair", "single-multi", "pair-multi")
+
 
 def main(argv=None) -> int:
     from soap3dp_tpu.cli.main import _add_common
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "pair":
+    if not argv or argv[0] not in COMMANDS:
         print(__doc__, file=sys.stderr)
         return 0 if argv and argv[0] in ("--help", "-help") else 2
-    sub = argparse.ArgumentParser(prog="soap3dp-torch pair", add_help=False)
+    cmd = argv[0]
+    sub = argparse.ArgumentParser(prog=f"soap3dp-torch {cmd}", add_help=False)
     sub.add_argument("index")
-    sub.add_argument("reads1")
-    sub.add_argument("reads2", nargs="?", default=None)
-    sub.add_argument("-u", type=int, default=500, dest="max_insert")
-    sub.add_argument("-v", type=int, default=1, dest="min_insert")
+    if cmd == "single":
+        sub.add_argument("reads")
+    elif cmd == "pair":
+        sub.add_argument("reads1")
+        sub.add_argument("reads2", nargs="?", default=None)
+        sub.add_argument("-u", type=int, default=500, dest="max_insert")
+        sub.add_argument("-v", type=int, default=1, dest="min_insert")
+    else:
+        sub.add_argument("listfile")
     sub.add_argument("--device", default="cuda", dest="torch_device",
                      help="torch device: cuda (default) or cpu")
     _add_common(sub)
@@ -37,11 +48,16 @@ def main(argv=None) -> int:
               "ported to PyTorch yet", file=sys.stderr)
         return 2
 
-    from soap3dp_tpu_torch.cli.runner import run_pair
+    from soap3dp_tpu_torch.cli.runner import run_multi, run_pair, run_single
 
     t0 = time.time()
     try:
-        rc = run_pair(args)
+        if cmd == "single":
+            rc = run_single(args)
+        elif cmd == "pair":
+            rc = run_pair(args)
+        else:
+            rc = run_multi(cmd, args)
     except (FileNotFoundError, IsADirectoryError, PermissionError) as e:
         print(f"[soap3dp] error: {e.strerror or e}: "
               f"{e.filename or ''}".rstrip(": "), file=sys.stderr)

@@ -1,8 +1,9 @@
 """CLI execution for the port: load the index onto one device, stream
-paired-end batches through the double-buffered pipeline, write output.
+batches through the double-buffered pipelines, write output.
 
-Port of soap3dp_tpu/cli/runner.py (``run_pair`` and its helpers; the
-single-end, multi-file and multi-host paths are not ported yet).
+Port of soap3dp_tpu/cli/runner.py (``run_single``, ``run_pair``,
+``run_multi`` and their helpers; the multi-device and multi-host paths
+are not ported yet).
 """
 
 from __future__ import annotations
@@ -108,12 +109,73 @@ def _writer(opts, index, path):
     return AsyncWriter(w)
 
 
+def run_single(args) -> int:
+    from soap3dp_tpu.cli.main import _build_options
+    from soap3dp_tpu.io.aio import prefetch
+    from soap3dp_tpu.io.fastq import read_single
+    from soap3dp_tpu.utils import timers
+    from soap3dp_tpu_torch.pipeline.overlap import AsyncFlusher
+    from soap3dp_tpu_torch.pipeline.single import (BatchSummary,
+                                                   SalvageQueue,
+                                                   SinglePhase2Queue,
+                                                   align_single_batch,
+                                                   dispatch_single_search)
+
+    device = resolve_device(args.torch_device)
+    opts = _build_options(args, args.reads)
+    index, didx = _load(args.index, device)
+    total = BatchSummary()
+    with _writer(opts, index, opts.output_prefix) as w:
+        # double-buffered batch loop (as run_pair): batch i+1's search is
+        # enqueued before batch i's host work; salvage failures queue
+        # across batches and flush on a worker thread
+        sq = SalvageQueue(index, didx, opts)
+        spq = SinglePhase2Queue(index, didx, opts)
+        flusher = AsyncFlusher(sq, w)
+        it = prefetch(read_single(args.reads, opts.batch_size,
+                                  opts.max_read_len))
+        cur = next(it, None)
+        if cur is not None:
+            _fix_quals(opts, cur)
+        pending = dispatch_single_search(didx, cur, opts) \
+            if cur is not None else None
+        while cur is not None:
+            w.poll()
+            nxt = next(it, None)
+            if nxt is not None:
+                _fix_quals(opts, nxt)
+            with timers.stage("runner.dispatch"):
+                nxt_pending = dispatch_single_search(didx, nxt, opts) \
+                    if nxt is not None else None
+            t0 = time.time()
+            s = _align_backoff(
+                lambda b, p: align_single_batch(index, didx, b, opts, w,
+                                                salvage_queue=sq,
+                                                pending_search=p,
+                                                phase2_queue=spq),
+                BatchSummary, (cur,), pending=pending)
+            total.add(s)
+            flusher.maybe_submit()
+            print(f"[soap3dp] batch: {s.num_reads} reads, "
+                  f"{s.aligned_bwt} BWT-aligned ({time.time() - t0:.2f}s)",
+                  file=sys.stderr)
+            cur, pending = nxt, nxt_pending
+        # end-of-run drain: salvage backlog first (on the worker), then
+        # the last batch's deferred escalations, then what those re-queued
+        flusher.submit()
+        total.add(spq.process(w, sq))
+        flusher.submit()
+        flusher.join(total.add)
+    _summary(opts, total)
+    return 0
+
+
 def run_pair(args) -> int:
     from soap3dp_tpu.cli.main import _build_options
     from soap3dp_tpu.io.aio import prefetch
     from soap3dp_tpu.io.fastq import read_pairs
-    from soap3dp_tpu.pipeline.overlap import AsyncFlusher
     from soap3dp_tpu.utils import timers
+    from soap3dp_tpu_torch.pipeline.overlap import AsyncFlusher
     from soap3dp_tpu_torch.pipeline.pair import (PairSummary, Phase2Queue,
                                                  RescueQueue,
                                                  align_pair_batch,
@@ -174,6 +236,33 @@ def run_pair(args) -> int:
         flusher.join(total.add)
     _summary(opts, total)
     return 0
+
+
+def run_multi(cmd: str, args) -> int:
+    """Multi-file list mode: one line per read set (README section 2.2)."""
+    import copy
+
+    rc = 0
+    with open(args.listfile) as fh:
+        lines = [l.rstrip("\n").split("\t") for l in fh if l.strip()]
+    for cols in lines:
+        sub = copy.copy(args)
+        if cmd == "pair-multi":
+            sub.reads1, sub.reads2 = cols[0], cols[1]
+            sub.min_insert, sub.max_insert = int(cols[2]), int(cols[3])
+            sub.output_prefix = cols[4]
+            if len(cols) > 5:
+                sub.read_group = cols[5]
+            if len(cols) > 6:
+                sub.sample_name = cols[6]
+            if len(cols) > 7:
+                sub.rg_option = cols[7]
+            rc |= run_pair(sub)
+        else:
+            sub.reads = cols[0]
+            sub.output_prefix = cols[1] if len(cols) > 1 else cols[0]
+            rc |= run_single(sub)
+    return rc
 
 
 def _summary(opts, total) -> None:

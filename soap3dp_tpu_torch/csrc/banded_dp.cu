@@ -11,14 +11,8 @@
 // diagonal per step) and the direction bytes' traffic (one byte per
 // cell, Lr+1 cells per diagonal, written once and read back by the
 // traceback). Design:
-//   * one warp per problem; lane l holds C consecutive cells
-//     i = l*C .. l*C+C-1 of the anti-diagonal in registers, so the only
-//     cross-lane traffic per diagonal is one __shfl_up_sync per state
-//     vector (the i-1 neighbour of the lane's first cell);
-//   * the per-diagonal best (max score, then largest i, then the count
-//     of ties) is a warp reduction, folded across diagonals in order,
-//     as the reference does (an equal score on a smaller j resets the
-//     count);
+//   * the forward is dp_wavefront.cuh: one warp per problem, the
+//     anti-diagonal in registers, the best-cell fold as warp reductions;
 //   * direction bytes go to a global scratch region per warp
 //     (ND x 32C bytes), written as 32-bit words by all lanes; the
 //     scratch is sized by the warps in flight, which loop over the
@@ -30,26 +24,11 @@
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dp_wavefront.cuh"
 
 namespace {
 
-constexpr int NEG = -32000;          // DP_SCORE_NEG_INFINITY
-constexpr int NEG_BIG = -(1 << 20);  // masking value
-constexpr int DH_DIAG = 0, DH_D = 1, DH_SM = 2, DH_I = 3;
-constexpr int DD_OPEN = 0;
-constexpr int DI_FRESH = 0, DI_OPEN = 1, DI_EXT = 2;
-constexpr int OP_MATCH = 1, OP_MISMATCH = 2, OP_INS = 3, OP_DEL = 4,
-              OP_CLIP = 5;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS_PER_BLOCK = 4;
-
-struct Scores {
-  int m, mm, go, ge, gi;
-};
-
-__device__ __forceinline__ int clampneg(int x) { return max(x, NEG); }
+using namespace soap3dp;
 
 template <int C>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
@@ -59,7 +38,6 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
                 int MR, Scores sc, int32_t* __restrict__ stats,
                 int32_t* __restrict__ ops, int32_t* __restrict__ cnts,
                 uint8_t* __restrict__ scratch) {
-  static_assert(C % 4 == 0, "cells per lane must pack into 32-bit words");
   const int lane = threadIdx.x & 31;
   const long long warp =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -69,132 +47,16 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
   uint8_t* scr = scratch + warp * (long long)ND * ROW;
 
   for (long long p = warp; p < P; p += nwarps) {
-    const int32_t* prm = params + p * 8;
-    const int rlen = prm[0], wlen = prm[1], clip_l = prm[2];
-    const int clip_r = prm[3], anchor_l = prm[4], anchor_r = prm[5];
-    const int cutoff = prm[6];
-    const uint8_t* rd = reads + p * (long long)Lr;
-    const uint8_t* wn = wins + p * (long long)Lw;
-
-    // diagonal d-1 (H1, D1, I1), diagonal d-2 (H2), chars on d-1
-    int rdc[C], H1[C], H2[C], D1[C], I1[C], ch[C];
+    const Problem pb = load_problem(params + p * 8);
+    const Best b = wavefront<C>(
+        reads + p * (long long)Lr, wins + p * (long long)Lw, Lr, Lw, pb, sc,
+        lane, [&](int d, const uint32_t* word) {
+          uint32_t* row =
+              reinterpret_cast<uint32_t*>(scr + (long long)(d - 1) * ROW) +
+              lane * (C / 4);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int i = lane * C + c;
-      rdc[c] = (i >= 1 && i <= Lr) ? (int)rd[i - 1] : 0;
-      H1[c] = (i == 0) ? 0 : NEG_BIG;
-      H2[c] = NEG_BIG;
-      D1[c] = (i == 0) ? clampneg(sc.gi) : NEG_BIG;
-      I1[c] = NEG_BIG;
-      ch[c] = -1;
-    }
-    int bS = NEG, bJ = 0, bI = 0, bC = 0;
-    const int rmin = rlen - clip_r;
-
-    for (int d = 1; d <= ND; ++d) {
-      // i-1 neighbours of this lane's first cell (old values)
-      int pH1 = __shfl_up_sync(FULL, H1[C - 1], 1);
-      int pH2 = __shfl_up_sync(FULL, H2[C - 1], 1);
-      int pI1 = __shfl_up_sync(FULL, I1[C - 1], 1);
-      int pch = __shfl_up_sync(FULL, ch[C - 1], 1);
-      if (lane == 0) {
-        pH1 = NEG_BIG;
-        pH2 = NEG_BIG;
-        pI1 = NEG_BIG;
-        pch = (int)wn[min(d - 1, Lw - 1)];  // window char entering at i=0
-      }
-      uint32_t word[C / 4];
-#pragma unroll
-      for (int q = 0; q < C / 4; ++q) word[q] = 0u;
-      int lmax = NEG_BIG - 1, limax = -1, lcnt = 0;
-      // descending c: cell c-1 still holds diagonal d-1 values
-#pragma unroll
-      for (int c = C - 1; c >= 0; --c) {
-        const int i = lane * C + c;
-        const int j = d - i;
-        const int h1s = c > 0 ? H1[c - 1] : pH1;
-        const int h2s = c > 0 ? H2[c - 1] : pH2;
-        const int i1s = c > 0 ? I1[c - 1] : pI1;
-        const int chr = c > 0 ? ch[c - 1] : pch;
-        ch[c] = chr;
-        const int init_j = (j < anchor_l) ? 0 : NEG;
-        const int init_jm1 = (j - 1 < anchor_l) ? 0 : NEG;
-        const bool fresh_ok = (i - 1) <= clip_l;
-        const bool eq = chr == rdc[c];
-        const int dist = eq ? sc.m : sc.mm;
-        // D: gap in the read, from (i, j-1)
-        const int d_open = sc.go + H1[c];
-        const int d_ext = sc.ge + D1[c];
-        int Dn = clampneg(max(d_open, d_ext));
-        const int dD = d_ext > d_open ? 1 : 0;
-        // I: gap in the window, from (i-1, j)
-        const int i_fresh = fresh_ok ? init_j + sc.go : NEG_BIG;
-        const int i_open = sc.go + h1s;
-        const int i_ext = sc.ge + i1s;
-        int In = clampneg(max(i_fresh, max(i_open, i_ext)));
-        const int dI =
-            In == i_fresh ? DI_FRESH : (In == i_open ? DI_OPEN : DI_EXT);
-        // H
-        const int diag_true = dist + h2s;
-        const int diag_fresh = fresh_ok ? init_jm1 + dist : NEG_BIG;
-        int Hn = clampneg(max(max(diag_true, diag_fresh), max(Dn, In)));
-        const int dH =
-            Hn == diag_true
-                ? DH_DIAG
-                : ((Hn == d_open || Hn == d_ext)
-                       ? DH_D
-                       : (Hn == diag_fresh ? DH_SM : DH_I));
-        if (i == d) {  // column j = 0: clipped-prefix inits
-          const int raw =
-              i <= clip_l ? sc.go : sc.gi + sc.ge * (i - min(clip_l, i));
-          Hn = clampneg(raw);
-          Dn = clampneg(raw + sc.gi);
-          In = NEG_BIG;
-        }
-        if (i == 0) {  // row i = 0: free start inside the anchor
-          Hn = clampneg(init_j);
-          Dn = NEG_BIG;
-          In = clampneg(init_j + sc.gi);
-        }
-        const uint32_t byte = (uint32_t)(dH | (dD << 2) | (dI << 3) |
-                                         ((eq ? 1 : 0) << 5));
-        word[c >> 2] |= byte << (8 * (c & 3));
-        const bool elig = i >= 1 && i <= rlen && j >= 1 && j <= wlen &&
-                          i >= rmin && j >= anchor_r;
-        const int es = elig ? Hn : NEG_BIG;
-        if (es > lmax) {  // first seen at descending c = largest i
-          lmax = es;
-          limax = i;
-          lcnt = 1;
-        } else if (es == lmax) {
-          ++lcnt;
-        }
-        H2[c] = H1[c];
-        H1[c] = Hn;
-        D1[c] = Dn;
-        I1[c] = In;
-      }
-      uint32_t* row =
-          reinterpret_cast<uint32_t*>(scr + (long long)(d - 1) * ROW) +
-          lane * (C / 4);
-#pragma unroll
-      for (int q = 0; q < C / 4; ++q) row[q] = word[q];
-
-      // diagonal best: max score, then largest i, then the tie count
-      const int s = __reduce_max_sync(FULL, lmax);
-      const int istar = __reduce_max_sync(FULL, lmax == s ? limax : -1);
-      const int cstar = __reduce_add_sync(FULL, lmax == s ? lcnt : 0);
-      const int jstar = d - istar;
-      const bool better =
-          s > bS || (s == bS && (jstar < bJ || (jstar == bJ && istar < bI)));
-      const bool equal = s == bS;
-      bC = better ? cstar : (equal ? bC + cstar : bC);
-      if (better) {
-        bS = s;
-        bJ = jstar;
-        bI = istar;
-      }
-    }
+          for (int q = 0; q < C / 4; ++q) row[q] = word[q];
+        });
     __threadfence_block();
     __syncwarp();
 
@@ -211,10 +73,11 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
         }
         ++ridx;
       };
-      if (bS >= cutoff) {
-        const int rclip = max(rlen - bI, 0);
+      if (b.bS >= pb.cutoff) {
+        const int rclip = max(pb.rlen - b.bI, 0);
         if (rclip > 0) put(OP_CLIP, rclip);
-        int i = bI, j = bJ, state = 0, done = 0, cur_op = -1, cur_cnt = 0;
+        int i = b.bI, j = b.bJ, state = 0, done = 0, cur_op = -1,
+            cur_cnt = 0;
         while (!done && i > 0 && j > 0) {
           const int byte = scr[(long long)(i + j - 1) * ROW + i];
           const int dH = byte & 3, dD = (byte >> 2) & 1, dI = (byte >> 3) & 3;
@@ -247,7 +110,7 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
           state = nstate;
         }
         if (!done && j == 0 && i > 0) {  // walked off the window start
-          const int scl = min(clip_l, i);
+          const int scl = min(pb.clip_l, i);
           ins_tail = i - scl;
           clipv = scl;
           startj = 0;
@@ -263,10 +126,10 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
         if (clipv > 0) put(OP_CLIP, clipv);
       }
       int32_t* st = stats + p * 8;
-      st[0] = bS;
-      st[1] = bI;
-      st[2] = bJ;
-      st[3] = bC;
+      st[0] = b.bS;
+      st[1] = b.bI;
+      st[2] = b.bJ;
+      st[3] = b.bC;
       st[4] = startj;
       st[5] = min(ridx, MR);
       st[6] = of;

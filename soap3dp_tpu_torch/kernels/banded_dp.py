@@ -1,20 +1,22 @@
 """Batched semi-global affine-gap DP: forward, traceback, CIGAR runs.
 
-Port of soap3dp_tpu/kernels/banded_dp.py (``dp_align`` and what it
-returns). Two implementations of one function:
+Port of soap3dp_tpu/kernels/banded_dp.py (``dp_align``, ``dp_forward``,
+``dp_traceback``). Two implementations of each function:
 
-* CUDA tensors: the hand-written Hopper kernel ``csrc/banded_dp.cu``
-  (it replaces the TPU kernel ``_dp_align_pallas_kernel``,
-  soap3dp_tpu/kernels/banded_dp.py:606). It is bound by the
-  per-diagonal dependency chain and by the direction bytes' traffic;
-  one warp per problem keeps the anti-diagonal in registers and the
-  direction bytes in a per-warp global scratch (see the source note).
-  Built with nvcc at first use into ``_build/`` and loaded with ctypes.
+* CUDA tensors: hand-written Hopper kernels, built with nvcc at first
+  use into ``_build/`` and loaded with ctypes (see each source note).
+  K1, ``csrc/banded_dp.cu``, replaces the TPU kernel
+  ``_dp_align_pallas_kernel`` (soap3dp_tpu/kernels/banded_dp.py:606):
+  forward, traceback and CIGAR runs in one launch. K2 and TB,
+  ``csrc/dp_forward.cu``, replace ``_dp_forward_pallas_kernel`` (:238)
+  and the traceback sweep + host RLE that consume its directions
+  (:409-600); ``dp_align`` takes them where the reference does (windows
+  of FUSED_MAX_WINDOW and more, reads of at most 127), K1 elsewhere.
 * CPU tensors: the plain-torch version — the anti-diagonal forward of
   the reference's ``_dp_forward_scan``, its reverse traceback sweep and
   the host run-length encoding ``_rle_runs``.
 
-``dp_align`` takes the kernel for a CUDA tensor (or raises) and the
+Each function takes a kernel for a CUDA tensor (or raises) and the
 plain version for a CPU tensor, and nothing else: there is no fallback
 from one to the other.
 
@@ -239,11 +241,9 @@ def _traceback_scan(dirs, hit_i, hit_j, active):
     return opseq, (i, j, done, startj, clip)
 
 
-def dp_traceback(dirs, rlens, hit_i, hit_j, clip_l, active):
-    """Traceback sweep + host run-length encoding. Returns numpy
-    (ops, counts, nruns, start_j): ops/counts (P, MR) right-to-left runs
-    (first run is the right clip); start_j the 0-based window offset
-    where the alignment starts."""
+def _dp_traceback_plain(dirs, rlens, hit_i, hit_j, clip_l, active):
+    """Traceback sweep + host run-length encoding (the plain version of
+    dp_traceback)."""
     ND, P, Lr1 = dirs.shape
     act_t = torch.as_tensor(np.asarray(active), device=dirs.device)
     opseq, (i, j, done, startj, clip) = _traceback_scan(
@@ -333,52 +333,57 @@ def dp_align_plain(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
         reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r, sc)
     score = bS.cpu().numpy()
     active = score >= cutoff.cpu().numpy()
-    ops, cnts, nrun, startj = dp_traceback(dirs, rlens, bI, bJ, clip_l, active)
+    ops, cnts, nrun, startj = _dp_traceback_plain(dirs, rlens, bI, bJ,
+                                                  clip_l, active)
     return (score, bI.cpu().numpy(), bJ.cpu().numpy(), bC.cpu().numpy(),
             ops, cnts, nrun, startj.astype(np.int64),
             np.zeros(reads.shape[0], bool))
 
 
 # ------------------------------------------------------------------
-# The CUDA kernel: build, bind, launch
+# The CUDA kernels: build, bind, launch
 # ------------------------------------------------------------------
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "banded_dp.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "_build")
-_SCRATCH_BUDGET = 1 << 29  # bytes of direction scratch per launch
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC_DIR = os.path.join(_PKG, "csrc")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+_SCRATCH_BUDGET = 1 << 29  # bytes of K1 direction scratch per launch
+_DIRS_BUDGET = 1 << 30     # bytes of K2 directions per chunk of problems
 _MAX_WARPS = 132 * 64      # 16 blocks of 4 warps on each of 132 SMs
+# K1 serves windows below this width; the reference's fused kernel packs
+# run counts into 12 bits (soap3dp_tpu/kernels/banded_dp.py:983) and
+# hands wider windows to dp_forward + dp_traceback
+FUSED_MAX_WINDOW = 4096
 
 
-class CudaKernel:
-    """A kernel of csrc/ built with nvcc at first use into _build/ and
-    bound with ctypes. ``launches`` counts launches (only the wrapper
-    that launches the kernel adds to it)."""
+class CudaLibrary:
+    """A source of csrc/ built with nvcc at first use into _build/ (named
+    by a digest of csrc/'s sources) and loaded with ctypes."""
 
-    def __init__(self, src: str, symbol: str, argtypes: list):
-        self.src = src
-        self.symbol = symbol
-        self.argtypes = argtypes
-        self.launches = 0
+    def __init__(self, name: str):
+        self.src = os.path.join(_CSRC_DIR, name)
         self.build_log = ""
         self.build_seconds = 0.0
-        self._fn = None
+        self._lib = None
         self._lock = threading.Lock()
 
-    def function(self):
+    def load(self):
         with self._lock:
-            if self._fn is None:
-                self._fn = self._build()
-            return self._fn
+            if self._lib is None:
+                self._lib = self._build()
+            return self._lib
 
     def _build(self):
+        import glob
         import time
 
-        with open(self.src, "rb") as fh:
-            digest = hashlib.sha256(fh.read()).hexdigest()[:12]
+        h = hashlib.sha256()
+        for path in [self.src] + sorted(glob.glob(os.path.join(_CSRC_DIR,
+                                                               "*.cuh"))):
+            with open(path, "rb") as fh:
+                h.update(fh.read())
         name = os.path.splitext(os.path.basename(self.src))[0]
-        so = os.path.join(_BUILD_DIR, f"lib{name}_{digest}.so")
+        so = os.path.join(_BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
         if not os.path.exists(so):
             nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
             os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -394,11 +399,30 @@ class CudaKernel:
                 raise RuntimeError(f"nvcc failed for {self.src}:\n"
                                    f"{self.build_log}")
             os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        fn = getattr(lib, self.symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = self.argtypes
-        return lib, fn
+        return ctypes.CDLL(so)
+
+
+class CudaKernel:
+    """One kernel (C symbol) of a CudaLibrary. ``launches`` counts its
+    launches (only the wrapper that launches the kernel adds to it)."""
+
+    def __init__(self, library: CudaLibrary, symbol: str, argtypes: list):
+        self.library = library
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def function(self):
+        lib = self.library.load()
+        with self._lock:
+            if self._fn is None:
+                fn = getattr(lib, self.symbol)
+                fn.restype = ctypes.c_int
+                fn.argtypes = self.argtypes
+                self._fn = fn
+            return lib, self._fn
 
     def count(self) -> None:
         with self._lock:
@@ -406,16 +430,51 @@ class CudaKernel:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+BANDED_DP_LIB = CudaLibrary("banded_dp.cu")
+DP_FORWARD_LIB = CudaLibrary("dp_forward.cu")
+# pointers and the stream as c_void_p, so none is cut to 32 bits
 # soap3dp_dp_align(reads, wins, params, P, Lr, Lw, MR, match, mismatch,
 #   gap_open, gap_ext, stats, ops, cnts, scratch, cells_per_lane, blocks,
-#   stream): pointers and the stream as c_void_p, so none is cut to 32 bits
-DP_KERNEL = CudaKernel(_CSRC, "soap3dp_dp_align",
+#   stream)
+DP_KERNEL = CudaKernel(BANDED_DP_LIB, "soap3dp_dp_align",
                        [_P, _P, _P] + [_I] * 8 + [_P] * 4 + [_I, _I, _P])
+# soap3dp_dp_forward(reads, wins, params, P, Lr, Lw, match, mismatch,
+#   gap_open, gap_ext, stats, dirs, cells_per_lane, blocks, stream)
+FORWARD_KERNEL = CudaKernel(DP_FORWARD_LIB, "soap3dp_dp_forward",
+                            [_P, _P, _P] + [_I] * 7 + [_P, _P, _I, _I, _P])
+# soap3dp_dp_traceback(dirs, P, Lr1, ND, tbp, active, lanes, n, MR, ops,
+#   cnts, meta, stream)
+TRACEBACK_KERNEL = CudaKernel(DP_FORWARD_LIB, "soap3dp_dp_traceback",
+                              [_P, _I, _I, _I, _P, _P, _P, _I, _I,
+                               _P, _P, _P, _P])
 
 
 def _cells_per_lane(Lr: int) -> int:
     c = max(4, -(-(Lr + 1) // 32))
+    if c > 64:
+        raise ValueError(f"read length {Lr} exceeds the DP kernels' "
+                         "2047-cell anti-diagonal")
     return 1 << (c - 1).bit_length()
+
+
+def _check_problems(name, reads, wins, *vectors):
+    """Every tensor on one CUDA device; reads (P, Lr), wins (P, Lw) and
+    (P,) parameter vectors."""
+    P = reads.shape[0]
+    for t in (reads, wins) + vectors:
+        if not t.is_cuda or t.device != reads.device:
+            raise ValueError(f"{name} needs every tensor on one CUDA device")
+        if t.shape[0] != P or t.dim() != (2 if t is reads or t is wins else 1):
+            raise ValueError(f"{name}: reads (P, Lr), wins (P, Lw) and (P,) "
+                             f"parameters expected, got {tuple(t.shape)}")
+
+
+def _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r, cutoff=None):
+    """The kernels' (P, 8) int32 problem rows."""
+    z = torch.zeros_like(rlens)
+    return torch.stack(
+        [rlens, wlens, clip_l, clip_r, anchor_l, anchor_r,
+         z if cutoff is None else cutoff, z], dim=1).to(torch.int32).contiguous()
 
 
 def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
@@ -426,9 +485,6 @@ def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
     Lw = wins.shape[1]
     dev = reads.device
     C = _cells_per_lane(Lr)
-    if C > 64:
-        raise ValueError(f"read length {Lr} exceeds the DP kernel's "
-                         "2047-cell anti-diagonal")
     ND = Lr + Lw
     per_warp = ND * 32 * C
     wpb = int(lib.soap3dp_warps_per_block())
@@ -450,32 +506,154 @@ def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
     return stats, ops, cnts
 
 
+def _launch_forward(reads, wins, params, dirs, sc: DPScores):
+    """One launch of K2 (csrc/dp_forward.cu) over the P problems of
+    ``dirs`` (ND, P, Lr+1) uint8, which it fills. Returns device stats
+    (P, 4) int32: best score, hit_i, hit_j, tie count."""
+    _, fn = FORWARD_KERNEL.function()
+    P, Lr = reads.shape
+    Lw = wins.shape[1]
+    dev = reads.device
+    if dirs.shape != (Lr + Lw, P, Lr + 1) or dirs.dtype != torch.uint8 \
+            or not dirs.is_contiguous():
+        raise ValueError(f"dirs must be contiguous uint8 {(Lr + Lw, P, Lr + 1)}")
+    warps = max(1, min(P, _MAX_WARPS))
+    blocks = -(-warps // 4)
+    stats = torch.empty((P, 4), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(reads.data_ptr(), wins.data_ptr(), params.data_ptr(), P, Lr, Lw,
+             sc.match, sc.mismatch, sc.gap_open, sc.gap_ext,
+             stats.data_ptr(), dirs.data_ptr(), _cells_per_lane(Lr), blocks,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"DP forward kernel launch failed: CUDA error {err}")
+    FORWARD_KERNEL.count()
+    return stats
+
+
+def _launch_traceback(dirs, tbp, active, lanes, n: int, MR: int):
+    """One launch of the traceback kernel over ``n`` problems (``lanes``,
+    or all of them when None). Returns device (ops (n, MR), cnts (n, MR),
+    meta (n, 4): nrun, startj, overflow, 0)."""
+    _, fn = TRACEBACK_KERNEL.function()
+    ND, P, Lr1 = dirs.shape
+    dev = dirs.device
+    ops = torch.zeros((n, MR), dtype=torch.int32, device=dev)
+    cnts = torch.zeros((n, MR), dtype=torch.int32, device=dev)
+    meta = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(dirs.data_ptr(), P, Lr1, ND, tbp.data_ptr(), active.data_ptr(),
+             None if lanes is None else lanes.data_ptr(), n, MR,
+             ops.data_ptr(), cnts.data_ptr(), meta.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"DP traceback kernel launch failed: CUDA error "
+                           f"{err}")
+    TRACEBACK_KERNEL.count()
+    return ops, cnts, meta
+
+
+def _traceback_cuda(dirs, rlens, hit_i, hit_j, clip_l, active):
+    """dp_traceback through the traceback kernel. Lanes that overflow the
+    first run budget are re-launched with a budget of ND + 4, a hard
+    bound on the runs of any alignment. Returns numpy (ops, cnts, nrun,
+    startj) with ops/cnts as wide as the largest budget launched."""
+    ND, P, Lr1 = dirs.shape
+    dev = dirs.device
+    tbp = torch.stack([rlens, hit_i, hit_j, clip_l], dim=1).to(
+        device=dev, dtype=torch.int32).contiguous()
+    act = torch.as_tensor(active, device=dev).to(torch.uint8).contiguous()
+    mr = max(MAX_RUNS, _max_runs_bound(Lr1 - 1))
+    ops_d, cnts_d, meta = _launch_traceback(dirs, tbp, act, None, P, mr)
+    m = meta.cpu().numpy()
+    nrun, startj = m[:, 0].copy(), m[:, 1].astype(np.int64)
+    redo = np.flatnonzero(m[:, 2] != 0)
+    if redo.size:
+        mr2 = ND + 4
+        lanes = torch.from_numpy(redo.astype(np.int32)).to(dev)
+        o2, c2, m2 = _launch_traceback(dirs, tbp, act, lanes, len(redo), mr2)
+        ops_d = torch.nn.functional.pad(ops_d, (0, mr2 - mr))
+        cnts_d = torch.nn.functional.pad(cnts_d, (0, mr2 - mr))
+        ops_d[lanes.long()] = o2
+        cnts_d[lanes.long()] = c2
+        nrun[redo] = m2[:, 0].cpu().numpy()
+        mr = mr2
+    ops = np.zeros((P, mr), np.int32)
+    cnts = np.zeros((P, mr), np.int32)
+    pass_idx = np.flatnonzero(nrun > 0)
+    if len(pass_idx):
+        g = torch.from_numpy(pass_idx).to(dev)
+        ops[pass_idx] = ops_d[g].cpu().numpy()
+        cnts[pass_idx] = cnts_d[g].cpu().numpy()
+    return ops, cnts, nrun, startj
+
+
+def dp_forward(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
+               sc: DPScores = DPScores()):
+    """Forward DP only. Returns (best_score, hit_i, hit_j, count, dirs)
+    as tensors on the inputs' device: hit_i/hit_j are the 1-based end of
+    the best cell, count the number of eligible cells with the best score
+    (the reference's maxScoreCount), dirs (Lr+Lw, P, Lr+1) uint8,
+    diagonal-major: the direction byte of each cell (bits 0-1 H, 2 D,
+    3-4 I, 5 match). On CUDA tensors K2 runs (or raises); on CPU tensors
+    the plain-torch scan."""
+    if reads.is_cuda:
+        _check_problems("dp_forward", reads, wins, rlens, wlens, clip_l,
+                        clip_r, anchor_l, anchor_r)
+        P, Lr = reads.shape
+        dirs = torch.empty((Lr + wins.shape[1], P, Lr + 1), dtype=torch.uint8,
+                           device=reads.device)
+        st = _launch_forward(
+            reads.to(torch.uint8).contiguous(), wins.to(torch.uint8).contiguous(),
+            _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r), dirs, sc)
+        return st[:, 0], st[:, 1], st[:, 2], st[:, 3], dirs
+    if reads.device.type != "cpu":
+        raise ValueError(f"dp_forward: no DP implementation for {reads.device}")
+    return _dp_forward_scan(reads, rlens, wins, wlens, clip_l, clip_r,
+                            anchor_l, anchor_r, sc)
+
+
+def dp_traceback(dirs, reads, rlens, wins, hit_i, hit_j, clip_l, active):
+    """Traceback of dp_forward's directions for the ``active`` lanes.
+    Returns numpy (ops, counts, nruns, start_j): ops/counts (P, MR)
+    right-to-left runs (the first is the right clip), MR the most runs of
+    any lane (at least 1); start_j the 0-based window offset where each
+    alignment starts. ``reads`` and ``wins`` are accepted and unused (the
+    match bit is in dirs). On CUDA tensors the traceback kernel runs (or
+    raises); on CPU tensors the plain sweep and host run-length
+    encoding."""
+    del reads, wins
+    if dirs.is_cuda:
+        ops, cnts, nrun, startj = _traceback_cuda(dirs, rlens, hit_i, hit_j,
+                                                  clip_l, active)
+        w = max(int(nrun.max(initial=0)), 1)
+        return ops[:, :w], cnts[:, :w], nrun, startj
+    if dirs.device.type != "cpu":
+        raise ValueError(f"dp_traceback: no implementation for {dirs.device}")
+    return _dp_traceback_plain(dirs, rlens, hit_i, hit_j, clip_l, active)
+
+
+def _empty_align():
+    z = np.zeros(0, np.int32)
+    return (z, z, z, z, np.zeros((0, 1), np.int32),
+            np.zeros((0, 1), np.int32), z, z.astype(np.int64),
+            np.zeros(0, bool))
+
+
 def dp_align_cuda(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
                   anchor_r, cutoff, sc: DPScores = DPScores()):
-    """dp_align through the Hopper kernel (all tensors on one CUDA
-    device). Lanes that pass the cutoff but overflow the first run
-    budget are re-launched with a budget of ND + 4, a hard bound on the
-    runs of any alignment, so no lane is left overflowed."""
+    """dp_align through K1 (all tensors on one CUDA device). Lanes that
+    pass the cutoff but overflow the first run budget are re-launched
+    with a budget of ND + 4, a hard bound on the runs of any alignment,
+    so no lane is left overflowed."""
     P, Lr = reads.shape
     Lw = wins.shape[1]
     if P == 0:
-        z = np.zeros(0, np.int32)
-        return (z, z, z, z, np.zeros((0, 1), np.int32),
-                np.zeros((0, 1), np.int32), z, z.astype(np.int64),
-                np.zeros(0, bool))
-    for t in (reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
-              cutoff):
-        if not t.is_cuda or t.device != reads.device:
-            raise ValueError("dp_align_cuda needs every tensor on one CUDA "
-                             "device")
-        if t.shape[0] != P or t.dim() != (2 if t is reads or t is wins else 1):
-            raise ValueError("dp_align_cuda: reads (P, Lr), wins (P, Lw) and "
-                             f"(P,) parameters expected, got {tuple(t.shape)}")
+        return _empty_align()
+    _check_problems("dp_align_cuda", reads, wins, rlens, wlens, clip_l,
+                    clip_r, anchor_l, anchor_r, cutoff)
     reads = reads.to(torch.uint8).contiguous()
     wins = wins.to(torch.uint8).contiguous()
-    params = torch.stack(
-        [rlens, wlens, clip_l, clip_r, anchor_l, anchor_r, cutoff,
-         torch.zeros_like(rlens)], dim=1).to(torch.int32).contiguous()
+    params = _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r, cutoff)
     mr = max(MAX_RUNS, _max_runs_bound(Lr))
     stats, ops_d, cnts_d = _launch_dp(reads, wins, params, mr, sc)
     st = stats.cpu().numpy()
@@ -504,6 +682,57 @@ def dp_align_cuda(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
             st[:, 4].astype(np.int64), st[:, 6].astype(bool))
 
 
+def dp_align_wide(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
+                  anchor_r, cutoff, sc: DPScores = DPScores()):
+    """dp_align through K2 and the traceback kernel (all tensors on one
+    CUDA device): the reference's route for windows of FUSED_MAX_WINDOW
+    and more. The problem axis goes in chunks whose directions fit
+    _DIRS_BUDGET; one buffer serves every chunk, each traced before the
+    next forward."""
+    P, Lr = reads.shape
+    Lw = wins.shape[1]
+    if P == 0:
+        return _empty_align()
+    _check_problems("dp_align_wide", reads, wins, rlens, wlens, clip_l,
+                    clip_r, anchor_l, anchor_r, cutoff)
+    dev = reads.device
+    reads = reads.to(torch.uint8).contiguous()
+    wins = wins.to(torch.uint8).contiguous()
+    params = _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r)
+    ND, Lr1 = Lr + Lw, Lr + 1
+    chunk = max(1, min(P, _DIRS_BUDGET // (ND * Lr1)))
+    buf = torch.empty(ND * chunk * Lr1, dtype=torch.uint8, device=dev)
+    st = np.zeros((P, 4), np.int32)
+    nrun = np.zeros(P, np.int32)
+    startj = np.zeros(P, np.int64)
+    parts = []
+    for p0 in range(0, P, chunk):
+        p1 = min(P, p0 + chunk)
+        dirs = buf[: ND * (p1 - p0) * Lr1].view(ND, p1 - p0, Lr1)
+        stats = _launch_forward(reads[p0:p1], wins[p0:p1], params[p0:p1],
+                                dirs, sc)
+        o, c, nrun[p0:p1], startj[p0:p1] = _traceback_cuda(
+            dirs, rlens[p0:p1], stats[:, 1], stats[:, 2], clip_l[p0:p1],
+            stats[:, 0] >= cutoff[p0:p1])
+        st[p0:p1] = stats.cpu().numpy()
+        parts.append((p0, p1, o, c))
+    mr = max(o.shape[1] for _, _, o, _ in parts)
+    ops = np.zeros((P, mr), np.int32)
+    cnts = np.zeros((P, mr), np.int32)
+    for p0, p1, o, c in parts:
+        ops[p0:p1, : o.shape[1]] = o
+        cnts[p0:p1, : c.shape[1]] = c
+    return (st[:, 0], st[:, 1], st[:, 2], st[:, 3], ops, cnts, nrun, startj,
+            np.zeros(P, bool))
+
+
+def takes_wide_route(Lr: int, Lw: int) -> bool:
+    """Whether dp_align takes K2 + traceback (else K1) on CUDA: where the
+    reference leaves its fused kernel for dp_forward's Pallas kernel
+    (a window of FUSED_MAX_WINDOW or more, and Lr + 1 <= 128)."""
+    return Lw >= FUSED_MAX_WINDOW and Lr + 1 <= 128
+
+
 def dp_align(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
              cutoff, sc: DPScores = DPScores()):
     """Forward + traceback in one call; host-ready numpy results
@@ -511,11 +740,15 @@ def dp_align(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
 
     ops/cnts are right-to-left CIGAR runs for every lane with
     score >= cutoff (others have nrun == 0); only the first nrun columns
-    of a row are meaningful. On CUDA tensors the Hopper kernel runs (or
-    raises); on CPU tensors the plain-torch version runs."""
+    of a row are meaningful. On CUDA tensors a Hopper kernel runs (or
+    raises): K2 + the traceback kernel where takes_wide_route, K1
+    elsewhere. On CPU tensors the plain-torch version runs."""
     if reads.is_cuda:
-        return dp_align_cuda(reads, rlens, wins, wlens, clip_l, clip_r,
-                             anchor_l, anchor_r, cutoff, sc)
+        route = dp_align_wide if takes_wide_route(reads.shape[1],
+                                                  wins.shape[1]) \
+            else dp_align_cuda
+        return route(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
+                     anchor_r, cutoff, sc)
     if reads.device.type != "cpu":
         raise ValueError(f"dp_align: no DP implementation for {reads.device}")
     return dp_align_plain(reads, rlens, wins, wlens, clip_l, clip_r,

@@ -4,10 +4,13 @@
   (__graft_entry__.make_tiny_pair_workload) that drives every pipeline
   phase: clean pairs (A), one-end indels (B/C half rescue), both-end
   indels (D deep DP), one garbage end (E salvage), random pairs.
-* ``golden_pair_workload``: the data of the golden SAM cases
-  (tests/test_golden_sam.py ``_workload``), with ``GOLDEN_PAIR_CASES``.
+* ``golden_pair_workload`` / ``golden_single_workload``: the data of the
+  golden SAM cases (tests/test_golden_sam.py ``_workload``), with
+  ``GOLDEN_PAIR_CASES`` and ``GOLDEN_SINGLE_CASES``.
 * ``make_pe_fastq``: a genome and FASTQ pair at a realistic size for
-  end-to-end runs, with the same class mix and the planted loci.
+  end-to-end runs, with the same class mix and the planted loci; the
+  library's orientation and insert distribution are parameters (a
+  paired-end +/- library, or a -/+ mate-pair library of 2-6 kbp).
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ GOLDEN_PAIR_CASES = [
     ("pair_h3", dict(output_mode=3)),
     ("pair_h4", dict(output_mode=4)),
     ("pair_h2_k4", dict(output_mode=2, mismatches=4, plant4=True)),
+]
+GOLDEN_SINGLE_CASES = [
+    ("single_h2_md", dict(output_mode=2, output_md=True)),
+    ("single_h1", dict(output_mode=1)),
 ]
 
 
@@ -97,6 +104,13 @@ def golden_pair_workload(plant4: bool = False):
     return index, b1, b2
 
 
+def golden_single_workload():
+    """(index, batch) of the single-end golden SAM cases: end 1 of the
+    paired golden workload."""
+    index, b1, _ = golden_pair_workload()
+    return index, b1
+
+
 def golden_options(case: dict):
     from soap3dp_tpu.pipeline.options import AlignOptions
 
@@ -109,25 +123,40 @@ def golden_options(case: dict):
 
 def make_pe_fastq(rng: np.random.Generator, codes: np.ndarray, n_pairs: int,
                   path1: str, path2: str, read_len: int = 100,
-                  insert: int = 400, sub_rate: float = 0.005):
+                  insert: int = 400, sub_rate: float = 0.005,
+                  orientation: str = "+/-", insert_sd: float = 0.0,
+                  insert_range: tuple[int, int] | None = None):
     """Write a FASTQ pair sampled from ``codes``; returns (planted
     1-based leftmost position of end 1 and end 2, (2, n_pairs) mask of
     the random ends).
+
+    End 1 is the leftmost leg. ``orientation`` is the ini's
+    StrandArrangement: the strands of the leftmost and rightmost legs
+    ("+/-" paired-end, "-/+" mate-pair). Inserts are ``insert``, or with
+    ``insert_sd`` normal around it, rounded and clipped to
+    ``insert_range``.
 
     Class mix (per pair): 10% a 3 bp indel in end 2, 3% in both ends,
     2% random (1% both ends, 1% end 1 only), the rest clean; every base
     of a non-random read is substituted with probability ``sub_rate``."""
     n = len(codes)
-    pos = rng.integers(0, n - insert - 1, n_pairs)
+    ins = np.full(n_pairs, insert, np.int64)
+    if insert_sd:
+        ins = np.rint(rng.normal(insert, insert_sd, n_pairs)).astype(np.int64)
+        ins = np.clip(ins, *(insert_range or (read_len, n // 2)))
+    pos = rng.integers(0, n - int(ins.max()) - 1, n_pairs)
     cls = rng.random(n_pairs)
     one_indel = cls < 0.10
     two_indel = (cls >= 0.10) & (cls < 0.13)
     rand2 = (cls >= 0.13) & (cls < 0.14)
     rand1 = (cls >= 0.13) & (cls < 0.15)
     idx1 = pos[:, None] + np.arange(read_len)[None, :]
-    idx2 = (pos + insert - read_len)[:, None] + np.arange(read_len)[None, :]
-    left = codes[idx1]
-    right = (3 - codes[idx2])[:, ::-1]
+    idx2 = (pos + ins - read_len)[:, None] + np.arange(read_len)[None, :]
+    left, right = codes[idx1], codes[idx2]
+    if orientation[0] == "-":
+        left = (3 - left)[:, ::-1]
+    if orientation[2] == "-":
+        right = (3 - right)[:, ::-1]
 
     def indel(m, sel):
         # 3 bp deletion after base 20, 3 random bases appended at the end
@@ -146,4 +175,4 @@ def make_pe_fastq(rng: np.random.Generator, codes: np.ndarray, n_pairs: int,
         with open(path, "wb") as fh:
             for i in range(n_pairs):
                 fh.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual))
-    return pos + 1, pos + insert - read_len + 1, np.stack([rand1, rand2])
+    return pos + 1, pos + ins - read_len + 1, np.stack([rand1, rand2])

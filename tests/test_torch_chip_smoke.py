@@ -1,8 +1,9 @@
-"""chip_smoke.py on the CPU: its golden and end-to-end phases run here
+"""chip_smoke.py on the CPU: its golden and end-to-end phases (default
+pair, mate-pair card-vs-CPU, mate-pair full window, single-end) run here
 at a small size through the port's plain-torch paths, its DP problem
 generators are the recipes they claim to be, and without a card (or
 outside a checkout) it exits non-zero and prints no result line.
-The kernel phase needs a card and runs only there."""
+The kernel phases need a card and run only there."""
 
 import os
 import shutil
@@ -25,13 +26,35 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_golden_and_e2e_phases_on_cpu(tmp_path):
     cpu = torch.device("cpu")
     chip_smoke.phase_golden(cpu)
-    res = chip_smoke.phase_e2e(cpu, 300_000, 400, "cpu", str(tmp_path / "w"),
-                               str(tmp_path), profile=False)
+    res, reads = chip_smoke.phase_e2e(cpu, 300_000, 400, "cpu",
+                                      str(tmp_path / "w"), str(tmp_path),
+                                      profile=False)
     assert res["reads"] == 800 and res["recall"] >= 0.95
     s = res["summary"]
     assert s["num_records"] == 800
     assert s["paired_bwt"] and s["paired_dp"] and s["single_rescued"]
     assert (tmp_path / "e2e_stderr.log").exists()
+    se = chip_smoke.phase_single_e2e(cpu, reads, "cpu", str(tmp_path / "w"),
+                                     str(tmp_path))
+    assert se["reads"] == 400 and se["recall"] >= 0.95
+    assert se["summary"]["aligned_dp"] > 0     # the salvage phase ran
+    assert (tmp_path / "se_e2e_stderr.log").exists()
+
+
+def test_mate_pair_phases_on_cpu(tmp_path):
+    """The full-window mate rescue (-v 2000 -u 6000, -/+ library,
+    SOAP3DP_HALF_NARROW_PAD=0) at a small size: the card-vs-CPU phase
+    and the end-to-end phase, on the index the default phase caches."""
+    cpu = torch.device("cpu")
+    info = chip_smoke.phase_mate_pair_devices(cpu, str(tmp_path / "s"), 40)
+    assert set(info) == {"cpu"}
+    res, _ = chip_smoke.phase_e2e(cpu, 300_000, 120, "cpu",
+                                  str(tmp_path / "w"), str(tmp_path),
+                                  profile=False, mate_pair=True)
+    assert res["reads"] == 240 and res["recall"] >= 0.95
+    assert res["summary"]["paired_dp"] > 0
+    assert (tmp_path / "mp_e2e_stderr.log").exists()
+    assert "SOAP3DP_HALF_NARROW_PAD" not in os.environ
 
 
 def test_dp_problem_generators():
@@ -44,7 +67,17 @@ def test_dp_problem_generators():
     prob = chip_smoke.main_path_problems(np.random.default_rng(2), 64, 100,
                                          256)
     assert prob[0].shape == (64, 100) and prob[2].shape == (64, 256)
+    mate = chip_smoke.main_path_problems(np.random.default_rng(2), 8, 120,
+                                         4224, read_len=100)
+    assert mate[0].shape == (8, 120) and (mate[1] == 100).all()
+    assert not mate[0][:, 100:].any()
     from soap3dp_tpu_torch.kernels import banded_dp as bd
+    relaunch = chip_smoke.relaunch_problems(np.random.default_rng(3), 2, 127,
+                                            300)
+    out = bd.dp_align(*[torch.from_numpy(x) for x in relaunch],
+                      sc=bd.DPScores(1, -2, -1, -1))
+    # past the traceback kernel's first run budget
+    assert (out[6] > max(bd.MAX_RUNS, bd._max_runs_bound(127))).all()
     args = [torch.from_numpy(np.ascontiguousarray(x)) for x in prob]
     out = bd.dp_align(*args)
     npass = int((out[6] > 0).sum())

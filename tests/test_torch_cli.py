@@ -1,6 +1,10 @@
-"""`soap3dp-torch pair --device cpu` against `soap3dp pair` on a tiny
-FASTQ pair: the same SAM records (header @PG aside, sorted because
-deferred rescue records interleave on a worker thread)."""
+"""`soap3dp-torch --device cpu` against `soap3dp`, command by command
+(pair, single, pair-multi, single-multi) on tiny FASTQ files: the same
+SAM records (header @PG aside, sorted because deferred rescue records
+interleave on a worker thread). The mate-pair case (a -/+ library of
+2.5-5.5 kbp inserts, -v 2000 -u 6000, SOAP3DP_HALF_NARROW_PAD=0) drives
+the half rescue over the whole insert window, the path on which the
+reference runs dp_forward at windows of 4096 and more."""
 
 import numpy as np
 import pytest
@@ -90,5 +94,96 @@ def test_cli_rejects_unported_modes(pe_files, capsys):
     assert port_main(["pair", str(d / "g.fa.index"), str(d / "r1.fq"),
                       str(d / "r2.fq"), "--devices", "2",
                       "--device", "cpu"]) == 2
-    assert port_main(["single", str(d / "g.fa.index"), str(d / "r1.fq")]) == 2
+    assert port_main(["single", str(d / "g.fa.index"), str(d / "r1.fq"),
+                      "--hosts", "2", "--device", "cpu"]) == 2
     assert "not ported" in capsys.readouterr().err
+
+
+def test_single_matches_reference_cli(pe_files):
+    from soap3dp_tpu.cli.main import main as ref_main
+    from soap3dp_tpu_torch.cli.main import main as port_main
+
+    d, B = pe_files
+    common = [str(d / "g.fa.index"), str(d / "r1.fq")]
+    assert ref_main(["single"] + common + ["-o", str(d / "sref")]) == 0
+    assert port_main(["single"] + common + ["-o", str(d / "sport"),
+                                            "--device", "cpu"]) == 0
+    got = _records(d / "sport.sam")
+    assert len([l for l in got if not l.startswith("@")]) == B
+    assert got == _records(d / "sref.sam")
+    assert (d / "sport.done").exists()
+
+
+@pytest.mark.parametrize("cmd", ["pair-multi", "single-multi"])
+def test_multi_matches_reference_cli(pe_files, cmd):
+    """A two-line list file: each line is one run with its own output."""
+    from soap3dp_tpu.cli.main import main as ref_main
+    from soap3dp_tpu_torch.cli.main import main as port_main
+
+    d, _ = pe_files
+    for who, main, extra in (("ref", ref_main, []),
+                             ("port", port_main, ["--device", "cpu"])):
+        lst = d / f"{cmd}_{who}.lst"
+        with open(lst, "w") as fh:
+            for k, (lo, hi) in enumerate(((100, 400), (200, 300))):
+                out = d / f"{cmd}_{who}_{k}"
+                fh.write(f"{d / 'r1.fq'}\t{d / 'r2.fq'}\t{lo}\t{hi}\t{out}\n"
+                         if cmd == "pair-multi" else
+                         f"{d / ('r1.fq', 'r2.fq')[k]}\t{out}\n")
+        assert main([cmd, str(d / "g.fa.index"), str(lst)] + extra) == 0
+    for k in range(2):
+        want = _records(d / f"{cmd}_ref_{k}.sam")
+        assert _records(d / f"{cmd}_port_{k}.sam") == want
+        assert len(want) > 2
+
+
+@pytest.fixture(scope="module")
+def mate_pair_files(tmp_path_factory):
+    """A 200 kbp genome and 48 read pairs of 100 bp from a -/+ mate-pair
+    library (inserts ~N(4000, 500) in [2500, 5500])."""
+    from soap3dp_tpu_torch import workloads
+
+    d = tmp_path_factory.mktemp("torch_cli_mp")
+    rng = np.random.default_rng(2026)
+    codes = rng.integers(0, 4, 200_000).astype(np.uint8)
+    with open(d / "g.fa", "w") as f:
+        f.write(">chrM\n" + dna.decode(codes).decode() + "\n")
+    from soap3dp_tpu.cli.builder import main as builder_main
+    assert builder_main([str(d / "g.fa")]) == 0
+    workloads.make_pe_fastq(rng, codes, 48, str(d / "r1.fq"),
+                            str(d / "r2.fq"), orientation="-/+",
+                            insert=4000, insert_sd=500,
+                            insert_range=(2500, 5500))
+    (d / "mp.ini").write_text("[PairEnd]\nStrandArrangement=-/+\n")
+    return d
+
+
+def test_mate_pair_full_window_matches_reference(mate_pair_files,
+                                                 monkeypatch):
+    """The full-window half rescue of a mate-pair library: the JAX
+    package reaches dp_forward with windows of 4096 and more, and the
+    port's SAM is byte-equal to it."""
+    from soap3dp_tpu.cli.main import main as ref_main
+    from soap3dp_tpu.kernels import banded_dp as jb
+    from soap3dp_tpu_torch.cli.main import main as port_main
+
+    d = mate_pair_files
+    monkeypatch.setenv("SOAP3DP_HALF_NARROW_PAD", "0")
+    widths = []
+    real = jb.dp_forward
+
+    def spy(reads, rlens, wins, *a, **k):
+        widths.append(int(wins.shape[1]))
+        return real(reads, rlens, wins, *a, **k)
+
+    monkeypatch.setattr(jb, "dp_forward", spy)
+    common = [str(d / "g.fa.index"), str(d / "r1.fq"), str(d / "r2.fq"),
+              "-v", "2000", "-u", "6000", "--ini", str(d / "mp.ini")]
+    assert ref_main(["pair"] + common + ["-o", str(d / "ref")]) == 0
+    assert max(widths) >= 4096, widths
+    assert port_main(["pair"] + common + ["-o", str(d / "port"),
+                                          "--device", "cpu"]) == 0
+    want = _records(d / "ref.sam")
+    got = _records(d / "port.sam")
+    assert len([l for l in got if not l.startswith("@")]) == 96
+    assert got == want

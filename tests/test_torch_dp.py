@@ -164,6 +164,72 @@ def test_wrapper_routes_by_device():
                         device="meta") for x in prob]
     with pytest.raises(ValueError):
         tb.dp_align(*meta, sc=SC)
+    with pytest.raises(ValueError):
+        tb.dp_forward(*meta[:8], sc=SC)
+    dirs = torch.empty((60, 2, 21), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        tb.dp_traceback(dirs, *meta[:3], meta[1], meta[1], meta[4],
+                        np.ones(2, bool))
+
+
+def _wide_problems(seed, P=64, Lr=100, Lw=256):
+    """Rescue-shaped problems at Lr <= 127 (the shapes K2 serves)."""
+    rng = np.random.default_rng(seed)
+    prob = make_problems(rng, P, Lr, Lw, with_anchor=seed % 2 == 1)
+    cl, cr = prob[4] * 8, prob[5] * 8   # wider free clips: SM/fresh exits
+    return prob[:4] + (cl, cr) + prob[6:]
+
+
+@pytest.mark.parametrize("seed", [31, 32])
+def test_forward_matches_reference(seed):
+    """dp_forward against the JAX scan and the TPU kernel K2 itself, run
+    in interpret mode: stats equal, dirs equal over the Lr+1 real lanes
+    (the Pallas kernel pads them to 128)."""
+    prob = _wide_problems(seed)
+    Lr = prob[0].shape[1]
+    jargs = [jnp.asarray(x) for x in prob]
+    got = tb.dp_forward(*_torch(prob), sc=SC)
+    scan = jb.dp_forward(*jargs, sc=jb.DPScores())
+    pallas = jb._dp_forward_pallas_call(*jargs, sc=jb.DPScores(),
+                                        interpret=True)
+    for want in (scan, pallas):
+        for k in range(4):
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+        np.testing.assert_array_equal(got[4].numpy(),
+                                      np.asarray(want[4])[:, :, :Lr + 1])
+    assert got[4].shape == (Lr + prob[2].shape[1], len(prob[0]), Lr + 1)
+
+
+@pytest.mark.parametrize("seed", [41, 42])
+def test_traceback_matches_reference(seed):
+    """dp_traceback against the JAX dp_traceback on the same dirs."""
+    prob = _wide_problems(seed, P=48, Lr=60, Lw=200)
+    jargs = [jnp.asarray(x) for x in prob]
+    bS, bI, bJ, _, dirs = jb.dp_forward(*jargs, sc=jb.DPScores())
+    active = np.asarray(bS) >= 10
+    active[::7] = False
+    want = jb.dp_traceback(dirs, jargs[0], jargs[1], jargs[2], bI, bJ,
+                           jargs[4], jnp.asarray(active))
+    t = _torch(prob)
+    got = tb.dp_traceback(torch.from_numpy(np.array(dirs)), t[0], t[1],
+                          t[2], torch.from_numpy(np.array(bI)),
+                          torch.from_numpy(np.array(bJ)), t[4], active)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    assert (np.asarray(got[2]) > 0).sum() > len(active) // 2
+
+
+def test_wide_route_matches_reference_gates():
+    """dp_align takes K2 + traceback exactly where the reference's
+    dp_align leaves its fused kernel for dp_forward and dp_forward takes
+    its Pallas kernel (the TPU's problem-tiling conditions aside)."""
+    for Lr in (36, 64, 100, 120, 127, 128, 150, 300):
+        for Lw in (256, 768, 4095, 4096, 4224, 8192):
+            tile = jb._fused_tile(Lr + Lw, -(-(Lr + 1) // 128) * 128)
+            ref_fused = tile is not None and Lw < 4096
+            ref_k2 = not ref_fused and Lr + 1 <= 128
+            assert tb.takes_wide_route(Lr, Lw) == ref_k2, (Lr, Lw)
+    assert tb.FUSED_MAX_WINDOW == 4096
 
 
 def test_cells_per_lane_bounds():
@@ -186,3 +252,31 @@ def test_kernel_matches_plain():
     got = tb.dp_align(*args, sc=SC)
     assert tb.DP_KERNEL.launches == before + 1
     assert_dp_equal(tb.dp_align_plain(*args, sc=SC), got)
+
+
+@pytest.mark.cuda
+def test_wide_kernels_match_plain():
+    """K2 and the traceback kernel against their plain versions, and the
+    wide route of dp_align against the plain dp_align and K1 (needs a
+    CUDA card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check")
+    prob = _wide_problems(33, P=128, Lr=100, Lw=4224)
+    args = _torch(prob, "cuda")
+    got = tb.dp_forward(*args, sc=SC)
+    want = tb._dp_forward_scan(*args, sc=SC)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    active = (got[0] >= 10).cpu().numpy()
+    t = tb.dp_traceback(got[4], args[0], args[1], args[2], got[1], got[2],
+                        args[4], active)
+    p = tb.dp_traceback(want[4].cpu(), *[a.cpu() for a in args[:3]],
+                        want[1].cpu(), want[2].cpu(), args[4].cpu(), active)
+    for g, w in zip(t, p):
+        np.testing.assert_array_equal(g, w)
+    cut = torch.full((128,), 10, dtype=torch.int32, device="cuda")
+    n0 = tb.FORWARD_KERNEL.launches
+    wide = tb.dp_align(*args, cut, sc=SC)
+    assert tb.FORWARD_KERNEL.launches == n0 + 1
+    assert_dp_equal(tb.dp_align_plain(*args, cut, sc=SC), wide)
+    assert_dp_equal(tb.dp_align_cuda(*args, cut, sc=SC), wide)

@@ -2,8 +2,8 @@
 
 An AST scan of every module of soap3dp_tpu_torch (and chip_smoke.py)
 admits only the soap3dp_tpu modules that import no JAX; a subprocess
-runs the port's CLI end to end on the CPU and then finds no ``jax`` in
-``sys.modules``.
+runs the port's CLI (pair, single) and API end to end on the CPU and
+then finds no ``jax`` in ``sys.modules``.
 """
 
 import ast
@@ -19,7 +19,7 @@ PORT = os.path.join(ROOT, "soap3dp_tpu_torch")
 
 # modules of the JAX package that import no JAX (and are shared)
 ALLOWED = ("soap3dp_tpu.index", "soap3dp_tpu.io", "soap3dp_tpu.pipeline.options",
-           "soap3dp_tpu.pipeline.overlap", "soap3dp_tpu.utils.dna",
+           "soap3dp_tpu.utils.dna",
            "soap3dp_tpu.utils.shapes", "soap3dp_tpu.utils.rhash",
            "soap3dp_tpu.utils.timers", "soap3dp_tpu.cli.ini",
            "soap3dp_tpu.cli.main")
@@ -88,6 +88,13 @@ def test_cli_run_leaves_jax_unimported(tmp_path):
         f"{str(tmp_path / 'r1.fq')!r}, {str(tmp_path / 'r2.fq')!r}, "
         f"'-o', {str(tmp_path / 'out')!r}, '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"
+        f"rc = main(['single', {str(tmp_path / 'g.fa.index')!r}, "
+        f"{str(tmp_path / 'r1.fq')!r}, '-o', {str(tmp_path / 'se')!r}, "
+        "'--device', 'cpu'])\n"
+        "assert rc == 0, rc\n"
+        "from soap3dp_tpu_torch import api\n"
+        f"idx = api.load({str(tmp_path / 'g.fa.index')!r}, device='cpu')\n"
+        "assert len(api.align_single_r(idx, ['ACGTACGTACGTACGTACGTAC'])) == 1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]\n"
         "assert not bad, bad\n"
         "print('NOJAX')\n")

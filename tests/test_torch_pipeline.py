@@ -8,7 +8,10 @@
   same SAM records as the JAX package, at the default narrow half-rescue
   window and with it off (half_narrow_pad=0). Records are compared as
   sorted lists: the flush worker interleaves records nondeterministically
-  in both packages.
+  in both packages;
+* the two single-end golden SAM cases, and a double-buffered single-end
+  run (SinglePhase2Queue, SalvageQueue on each package's AsyncFlusher),
+  likewise.
 """
 
 import dataclasses
@@ -40,6 +43,25 @@ def test_golden_sam_through_port(name, case):
     buf = io.BytesIO()
     align_pair_batch(index, device_index(index, "cpu"), b1, b2,
                      workloads.golden_options(case), SamWriter(buf, index))
+    got = [l for l in buf.getvalue().decode().splitlines()
+           if not l.startswith("@PG")]
+    with open(os.path.join(GOLDEN_DIR, f"{name}.sam")) as fh:
+        want = fh.read().splitlines()
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.split("\t") == w.split("\t"), f"{name} line {i}"
+
+
+@pytest.mark.parametrize("name,case", workloads.GOLDEN_SINGLE_CASES,
+                         ids=[c[0] for c in workloads.GOLDEN_SINGLE_CASES])
+def test_golden_single_sam_through_port(name, case):
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.pipeline.single import align_single_batch
+
+    index, b1 = workloads.golden_single_workload()
+    buf = io.BytesIO()
+    align_single_batch(index, device_index(index, "cpu"), b1,
+                       workloads.golden_options(case), SamWriter(buf, index))
     got = [l for l in buf.getvalue().decode().splitlines()
            if not l.startswith("@PG")]
     with open(os.path.join(GOLDEN_DIR, f"{name}.sam")) as fh:
@@ -121,3 +143,59 @@ def test_double_buffered_run_matches_reference(tiny, half_narrow_pad):
     # every phase fired: BWT pairs, DP pairs, salvaged ends, unmapped
     assert gs.paired_bwt and gs.paired_dp and gs.single_rescued \
         and gs.unaligned
+
+
+def _double_buffered_single(single_mod, flusher_cls, didx, index, batch,
+                            opts, size):
+    """The runner's single-end batch loop over ``size``-read slices."""
+    buf = io.BytesIO()
+    total = single_mod.BatchSummary()
+    with AsyncWriter(SamWriter(buf, index)) as w:
+        sq = single_mod.SalvageQueue(index, didx, opts, flush_reads=24)
+        spq = single_mod.SinglePhase2Queue(index, didx, opts)
+        flusher = flusher_cls(sq, w, eager_min=8)
+        parts = [batch.take(slice(s, s + size))
+                 for s in range(0, len(batch), size)]
+        pending = single_mod.dispatch_single_search(didx, parts[0], opts)
+        for i, b in enumerate(parts):
+            nxt = parts[i + 1] if i + 1 < len(parts) else None
+            nxt_pending = single_mod.dispatch_single_search(didx, nxt, opts) \
+                if nxt is not None else None
+            total.add(single_mod.align_single_batch(
+                index, didx, b, opts, w, salvage_queue=sq,
+                pending_search=pending, phase2_queue=spq))
+            flusher.maybe_submit()
+            pending = nxt_pending
+        flusher.submit()
+        total.add(spq.process(w, sq))
+        flusher.submit()
+        flusher.join(total.add)
+    recs = sorted(l for l in buf.getvalue().decode().splitlines()
+                  if not l.startswith("@"))
+    return recs, total
+
+
+def test_double_buffered_single_run_matches_reference(tiny):
+    """Both ends of the tiny workload as one single-end stream, through
+    the double-buffered loop with SalvageQueue, SinglePhase2Queue and
+    AsyncFlusher, in both packages."""
+    from soap3dp_tpu.fm.fmindex import device_index as jdev
+    from soap3dp_tpu.pipeline import single as jsingle
+    from soap3dp_tpu_torch.fm.fmindex import device_index as tdev
+    from soap3dp_tpu_torch.pipeline import pair as tpair
+    from soap3dp_tpu_torch.pipeline import single as tsingle
+    from soap3dp_tpu_torch.pipeline.overlap import AsyncFlusher as TFlusher
+
+    index, b1, b2, opts = tiny
+    reads = tpair._concat_batches([b1, b2])
+    reads.names = np.asarray([b"%s/%d" % (n, e) for e in (1, 2)
+                              for n in b1.names])
+    want, ws = _double_buffered_single(jsingle, AsyncFlusher, jdev(index),
+                                       index, reads, opts, 40)
+    got, gs = _double_buffered_single(tsingle, TFlusher, tdev(index, "cpu"),
+                                      index, reads, opts, 40)
+    assert len(got) == len(reads)
+    assert got == want
+    assert dataclasses.asdict(gs) == dataclasses.asdict(ws)
+    # every phase fired: BWT hits, DP salvage, unmapped reads
+    assert gs.aligned_bwt and gs.aligned_dp and gs.unaligned
