@@ -28,7 +28,16 @@ Phases, each printing one line, any failure exits non-zero:
    then 100,000 pairs on phase 4's 250 Mbp index, checking records,
    recall and the launches of K1, K2 and TB;
 6. single-end: the port's `single` CLI over phase 4's end-1 reads on the
-   same index, checking records, recall and K1 launches (salvage).
+   same index, checking records, recall and K1 launches (salvage);
+7. several devices and processes, on phase 4's inputs: (a) the runner's
+   pair loop on an in-process mesh of max(2, cards) index replicas (two
+   on one card), records and summary equal to phase 4's, K1 launched,
+   and dp_align(mesh=) at the mate-pair window equal to one device's,
+   K2 and TB launched; (b) two `pair --hosts 2` processes (process i on
+   card i % cards), merged records and global summary equal to phase
+   4's; (c) with two cards or more, `--devices 0` and a search and both
+   DP routes on the last card while card 0 is current; on one card it
+   prints "not run: 1 card".
 
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch and the
@@ -534,43 +543,63 @@ def _genome_index(genome_bp: int, work: str, sa_rate: int = 2):
     return rng, genome, idx_path, how, time.perf_counter() - t0, lut_k
 
 
+def _kernels() -> dict:
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    return {"K1": bd.DP_KERNEL, "K2": bd.FORWARD_KERNEL,
+            "TB": bd.TRACEBACK_KERNEL}
+
+
 def _launches() -> dict:
-    from soap3dp_tpu_torch.kernels import banded_dp as bd
-
-    return {"K1": bd.DP_KERNEL.launches, "K2": bd.FORWARD_KERNEL.launches,
-            "TB": bd.TRACEBACK_KERNEL.launches}
+    return {name: k.launches for name, k in _kernels().items()}
 
 
-def _run_cli(argv, dev, env=None) -> tuple[float, str, dict]:
-    """Run the port's CLI with every launch count set to 0 just before;
-    returns (wall s, stderr, launch counts just after)."""
+def _launches_per_device() -> dict:
+    """{card: {kernel: launches}} since the counts were last set to 0."""
+    out = {}
+    for name, k in _kernels().items():
+        for d, c in sorted(k.per_device.items()):
+            out.setdefault(f"cuda:{d}", dict.fromkeys(_kernels(), 0))[name] = c
+    return out
+
+
+def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
+    """Run ``fn()`` under ``env`` with every launch count set to 0 just
+    before; returns (its result, wall s, stderr, launch counts just
+    after)."""
     import contextlib
-
-    from soap3dp_tpu_torch.cli.main import main as cli_main
-    from soap3dp_tpu_torch.kernels import banded_dp as bd
 
     saved = {k: os.environ.get(k) for k in env or {}}
     os.environ.update(env or {})
     tee = _Tee(sys.stderr)
-    for k in (bd.DP_KERNEL, bd.FORWARD_KERNEL, bd.TRACEBACK_KERNEL):
-        k.launches = 0
+    for k in _kernels().values():
+        k.reset()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(tee):
-            rc = cli_main(argv)
+            out = fn()
         if dev.type == "cuda":
             import torch
-            torch.cuda.synchronize()
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    wall = time.perf_counter() - t0
+    return out, time.perf_counter() - t0, tee.text(), _launches()
+
+
+def _run_cli(argv, dev, env=None) -> tuple[float, str, dict]:
+    """Run the port's CLI with every launch count set to 0 just before;
+    returns (wall s, stderr, launch counts just after)."""
+    from soap3dp_tpu_torch.cli.main import main as cli_main
+
+    rc, wall, log, launches = _counted(lambda: cli_main(argv), dev, env)
     if rc != 0:
         fail(f"the {argv[0]} CLI exited {rc}")
-    return wall, tee.text(), _launches()
+    return wall, log, launches
 
 
 def _sam_recall(path: str, planted: list, rand: np.ndarray) -> float:
@@ -625,8 +654,9 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     ``genome_bp`` and ``n_pairs`` read pairs: default options
     (-u 500 -v 300) on a +/- library, or with ``mate_pair`` the mate-pair
     library over the whole insert window. Checks records, planted-locus
-    recall, rescue counts and kernel launches. Returns (result, end-1
-    reads: FASTQ path, planted positions, random mask)."""
+    recall, rescue counts and kernel launches. Returns (result, the run's
+    inputs and outputs: FASTQ paths, end-1 planted positions and random
+    mask, index, options, SAM path, summary)."""
     import re
 
     from soap3dp_tpu_torch import workloads
@@ -684,8 +714,9 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
         from soap3dp_tpu_torch.cli.main import main as cli_main
         res["profile"] = _profiled_pass(
             cli_main, argv[:-3] + [out + "_prof"] + argv[-2:], wall, out_dir)
-    return res, {"r1": r1, "planted": p1, "random": rand[0],
-                 "index": idx_path}
+    return res, {"r1": r1, "r2": r2, "planted": p1, "random": rand[0],
+                 "index": idx_path, "opts": opts, "sam": out + ".sam",
+                 "summary": summ}
 
 
 def phase_mate_pair_devices(dev, work: str, n_pairs: int = 200) -> dict:
@@ -759,6 +790,249 @@ def phase_single_e2e(dev, reads: dict, card: str, work: str,
     return res
 
 
+def _records(path: str) -> list[str]:
+    """The alignment records of a SAM file, sorted (deferred rescue
+    records interleave on a worker thread)."""
+    with open(path) as fh:
+        return sorted(l for l in fh if not l.startswith("@"))
+
+
+def _mesh_devices(dev) -> list:
+    """max(2, cards) mesh positions on cards 0, 1, ... (two replicas on
+    one card); on the CPU two replicas."""
+    import torch
+
+    if dev.type != "cuda":
+        return [dev, dev]
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(max(2, count))]
+
+
+def phase_mesh(dev, reads: dict, work: str, out_dir: str,
+               dp_case=(2048, 120, 4224, 100)) -> dict:
+    """7a: phase 4's pairs through the runner's pair loop on an
+    in-process mesh of _mesh_devices: every record and the summary equal
+    phase 4's, K1 launched. Then dp_align(mesh=) on ``dp_case`` (P, Lr,
+    Lw, read length; the mate-pair window) equal to the unsharded call,
+    K2 and TB launched."""
+    import torch
+
+    from soap3dp_tpu_torch.cli.main import parse_args
+    from soap3dp_tpu_torch.cli.runner import run_pair
+    from soap3dp_tpu_torch.distributed import mesh as dmesh
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    devices = _mesh_devices(dev)
+    out = os.path.join(work, "mesh_out")
+    _, args = parse_args(["pair", reads["index"], reads["r1"], reads["r2"]]
+                         + reads["opts"] + ["-o", out, "--device", str(dev)])
+    rc, wall, log, launches = _counted(
+        lambda: run_pair(args, devices=devices), dev)
+    per_dev = _launches_per_device()
+    with open(os.path.join(out_dir, "mesh_e2e_stderr.log"), "w") as fh:
+        fh.write(log)
+    n = 2 * len(reads["planted"])
+    same = _records(out + ".sam") == _records(reads["sam"])
+    summ = _summary(log, "PairSummary")
+    res = dict(_rates(n, wall, log), devices=[str(d) for d in devices],
+               launches=launches, launches_per_device=per_dev,
+               records_equal=same, summary_equal=summ == reads["summary"])
+    phase("multi-device mesh",
+          f"{len(devices)} replicas on {sorted(set(map(str, devices)))}: "
+          f"{n} reads in {wall:.2f}s = {n / wall:.0f} reads/s "
+          f"({res['reads_per_s_after_load']:.0f} after index load + upload "
+          f"{res['index_upload_s']:.2f}s); records equal to phase 4: {same}; "
+          f"summary equal: {res['summary_equal']}; launches {launches}, "
+          f"per card {per_dev}")
+    if rc != 0 or not same or not res["summary_equal"]:
+        fail("the mesh run's records or summary differ from phase 4's")
+    if dev.type == "cuda" and launches["K1"] <= 0:
+        fail("the mesh run never launched K1")
+
+    P, Lr, Lw, rl = dp_case
+    prob = main_path_problems(np.random.default_rng(20261018), P, Lr, Lw,
+                              read_len=rl)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in prob]
+    mesh = dmesh.make_mesh(devices)
+    want, one_s, _, _ = _counted(lambda: bd.dp_align(*args), dev)
+    got, mesh_s, _, dp_launches = _counted(
+        lambda: bd.dp_align(*args, mesh=mesh), dev)
+    dp_per_dev = _launches_per_device()
+    ok, err = _dp_equal(got, want)
+    ok = ok and all(np.shape(a) == np.shape(b) for a, b in zip(got, want))
+    res["dp_align"] = {"P": P, "Lr": Lr, "Lw": Lw, "equal": ok,
+                       "max_abs_err": err, "launches": dp_launches,
+                       "launches_per_device": dp_per_dev,
+                       "mesh_ms": mesh_s * 1e3, "one_device_ms": one_s * 1e3}
+    phase("multi-device dp_align",
+          f"mesh of {len(devices)}: P={P} Lr={Lr} Lw={Lw} equal to one "
+          f"device: {ok} max_abs_err={err} launches {dp_launches} "
+          f"per card {dp_per_dev} "
+          f"mesh_ms={mesh_s * 1e3:.3f} one_device_ms={one_s * 1e3:.3f}")
+    if not ok:
+        fail("dp_align(mesh=) differs from the unsharded call")
+    if dev.type == "cuda" and min(dp_launches["K2"], dp_launches["TB"]) <= 0:
+        fail("dp_align(mesh=) at the mate-pair window never launched K2 + TB")
+    return res
+
+
+# the port's CLI main, then this process's kernel launches as JSON
+_HOST_MAIN = (
+    "import json, sys\n"
+    "from soap3dp_tpu_torch.cli.main import main\n"
+    "from soap3dp_tpu_torch.kernels import banded_dp as bd\n"
+    "rc = main(sys.argv[1:])\n"
+    "print('[chip_smoke] launches', json.dumps({'K1': bd.DP_KERNEL.launches,"
+    " 'K2': bd.FORWARD_KERNEL.launches, 'TB': bd.TRACEBACK_KERNEL.launches})"
+    ", flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def phase_hosts(dev, reads: dict, work: str, out_dir: str,
+                timeout: float = 600.0) -> dict:
+    """7b: two processes of `soap3dp-torch pair --hosts 2` on phase 4's
+    inputs, process i on card i % cards: the merged records and the
+    global summary equal phase 4's. Each process is waited for with a
+    deadline and killed past it, and reports its kernel launches."""
+    import re
+    import socket
+
+    import torch
+
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(work, "hosts_out")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    devs = [f"cuda:{i % count}" if dev.type == "cuda" else str(dev)
+            for i in range(2)]
+    procs, logs, ends = [], [], [None, None]
+    t0 = time.perf_counter()
+    try:
+        for i, d in enumerate(devs):
+            logs.append(open(os.path.join(out_dir, f"hosts_{i}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _HOST_MAIN, "pair",
+                 reads["index"], reads["r1"], reads["r2"]] + reads["opts"]
+                + ["-o", out, "--device", d, "--hosts", "2", "--host-id",
+                   str(i), "--coordinator", f"127.0.0.1:{port}"],
+                stdout=logs[i], stderr=subprocess.STDOUT, env=env, cwd=work))
+        while None in ends and time.perf_counter() - t0 < timeout:
+            for i, p in enumerate(procs):
+                if ends[i] is None and p.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        text = []
+        for log in logs:
+            log.seek(0)
+            text.append(log.read())
+            log.close()
+    if None in ends or any(p.returncode for p in procs):
+        fail(f"a --hosts 2 process failed or passed {timeout:.0f}s: "
+             f"{[p.returncode for p in procs]}\n{text[0][-2000:]}"
+             f"\n{text[1][-2000:]}")
+    n = 2 * len(reads["planted"])
+    merged = sorted(_records(f"{out}.0.sam") + _records(f"{out}.1.sam"))
+    same = merged == _records(reads["sam"])
+    m = re.search(r"global \(all 2 hosts\): PairSummary\(([^)]*)\)", text[0])
+    glob = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", m.group(1))} \
+        if m else None
+    cli_walls = [float(re.search(r"total wall time: ([0-9.]+)s", t).group(1))
+                 for t in text]
+    pairs = [_summary(t, "PairSummary")["num_pairs"] for t in text]
+    res = {"devices": devs, "process_wall_s": ends, "cli_wall_s": cli_walls,
+           "reads": n, "combined_reads_per_s": n / max(ends),
+           "per_process_pairs": pairs,
+           "per_process_reads_per_s": [2 * p / w
+                                       for p, w in zip(pairs, cli_walls)],
+           "index_upload_s": [float(re.search(
+               r"uploaded to \S+ in ([0-9.]+)s", t).group(1)) for t in text],
+           "launches": [json.loads(re.search(r"\[chip_smoke\] launches (.*)",
+                                             t).group(1)) for t in text],
+           "records_equal": same, "summary_equal": glob == reads["summary"]}
+    phase("multi-host",
+          f"2 processes on {devs}: walls {ends[0]:.2f}s / "
+          f"{ends[1]:.2f}s from launch (CLI {cli_walls[0]:.2f}s / "
+          f"{cli_walls[1]:.2f}s), pairs {pairs}, reads/s in the CLI "
+          f"{[round(r) for r in res['per_process_reads_per_s']]}, index "
+          f"uploads {res['index_upload_s']} s, launches {res['launches']}; "
+          f"combined {res['combined_reads_per_s']:.0f} reads/s from launch; "
+          f"merged records equal to phase 4: {same}; global summary equal: "
+          f"{res['summary_equal']}")
+    if not same or not res["summary_equal"]:
+        fail("the two-process run's records or global summary differ from "
+             "phase 4's")
+    if dev.type == "cuda" and min(l["K1"] for l in res["launches"]) <= 0:
+        fail("a --hosts 2 process never launched K1")
+    return res
+
+
+def check_last_card() -> bool:
+    """A seed search and both DP routes on the last card while card 0 is
+    current give the results of card 0 (needs two cards)."""
+    import torch
+
+    from soap3dp_tpu.index.builder import build_index
+    from soap3dp_tpu_torch import workloads
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.fm.search import search_reads
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    rng = np.random.default_rng(11)
+    genome = workloads.random_genome(rng, 50_000)
+    index = build_index(genome, sa_rate=4)
+    pos = rng.integers(0, 50_000 - 100, 256)
+    reads = np.stack([genome.codes[p:p + 100] for p in pos]).astype(np.uint8)
+    lens = np.full(256, 100, np.int32)
+    cases = [main_path_problems(rng, 64, 100, 256),
+             main_path_problems(rng, 64, 120, 4224, read_len=100)]
+    last = torch.cuda.device_count() - 1
+    torch.cuda.set_device(0)
+    out = {}
+    for d in (0, last):
+        dev = torch.device("cuda", d)
+        row, tp, nm, va, fl = search_reads(device_index(index, dev), reads,
+                                           lens).to_host()
+        out[d] = [(row[va], tp[va], nm[va], fl)] + [
+            bd.dp_align(*[torch.from_numpy(x).to(dev) for x in prob])
+            for prob in cases]
+        if torch.cuda.current_device() != 0:
+            return False
+    return all(np.array_equal(x, y)
+               for a, b in zip(out[0], out[last]) for x, y in zip(a, b))
+
+
+def phase_all_cards(dev, reads: dict, work: str) -> dict:
+    """7c, with two cards or more: the CLI with --devices 0 (every card)
+    on phase 4's inputs, records equal; and check_last_card."""
+    import torch
+
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if count < 2:
+        phase("multi-device all cards", f"not run: {count} card")
+        return {"not_run": f"{count} card"}
+    out = os.path.join(work, "all_out")
+    wall, _, launches = _run_cli(
+        ["pair", reads["index"], reads["r1"], reads["r2"]] + reads["opts"]
+        + ["-o", out, "--device", str(dev), "--devices", "0"], dev)
+    same = _records(out + ".sam") == _records(reads["sam"])
+    last_ok = check_last_card()
+    phase("multi-device all cards",
+          f"--devices 0 on {count} cards: {wall:.2f}s, records equal to "
+          f"phase 4: {same}, launches {launches}; last card while card 0 "
+          f"is current equals card 0: {last_ok}")
+    if not same or not last_ok:
+        fail("the all-card run or the last-card check differs")
+    return {"cards": count, "wall_s": wall, "launches": launches,
+            "records_equal": same, "last_card_equal": last_ok}
+
+
 def _build_all() -> None:
     """Build every kernel library, one nvcc per source, started together;
     print each build's registers and spills."""
@@ -814,6 +1088,9 @@ def main(argv=None) -> int:
     mate, _ = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR,
                         profile=False, mate_pair=True)
     single = phase_single_e2e(dev, reads, card, work, OUT_DIR)
+    multi = {"card": card, "mesh": phase_mesh(dev, reads, work, OUT_DIR),
+             "hosts": phase_hosts(dev, reads, work, OUT_DIR),
+             "all_cards": phase_all_cards(dev, reads, work)}
     # launches on each kernel's main path: K1 on the default pair run,
     # K2 and TB on the mate-pair run
     kernels[0]["launches"] = e2e["launches"]["K1"]
@@ -822,7 +1099,7 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "kernels": kernels, "e2e": e2e,
                    "mate_pair_small": small, "mate_pair": mate,
-                   "single": single}, fh, indent=1)
+                   "single": single, "multi_device": multi}, fh, indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k != "cases"} for r in kernels]}),
         flush=True)

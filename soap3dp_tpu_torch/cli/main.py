@@ -7,8 +7,13 @@
 
 The same commands and flags as ``soap3dp`` (soap3dp_tpu/cli/main.py,
 whose option parsing this reuses), plus ``--device``: ``cuda`` (the
-default; an error when no CUDA device exists) or ``cpu``. Multi-device
-and multi-host runs (--devices, --hosts above 1) are not ported yet.
+default; an error when no CUDA device exists), ``cuda:K`` or ``cpu``.
+``--devices N`` replicates the index over N devices and shards every
+batch over them (on CUDA min(N, cards) cards from --device's on, 0 =
+all; on the CPU N replicas). ``--hosts N --host-id I --coordinator
+host:port`` runs process I of N, which aligns every Nth batch into
+``<prefix>.I`` outputs; a --hosts above 1 without a host id or a
+coordinator (flags or SOAP3DP_HOST_ID / SOAP3DP_COORDINATOR) exits 2.
 """
 
 from __future__ import annotations
@@ -20,13 +25,11 @@ import time
 COMMANDS = ("single", "pair", "single-multi", "pair-multi")
 
 
-def main(argv=None) -> int:
+def parse_args(argv: list[str]):
+    """(command, parsed arguments) of a command line whose first word is
+    one of COMMANDS."""
     from soap3dp_tpu.cli.main import _add_common
 
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] not in COMMANDS:
-        print(__doc__, file=sys.stderr)
-        return 0 if argv and argv[0] in ("--help", "-help") else 2
     cmd = argv[0]
     sub = argparse.ArgumentParser(prog=f"soap3dp-torch {cmd}", add_help=False)
     sub.add_argument("index")
@@ -40,15 +43,25 @@ def main(argv=None) -> int:
     else:
         sub.add_argument("listfile")
     sub.add_argument("--device", default="cuda", dest="torch_device",
-                     help="torch device: cuda (default) or cpu")
+                     help="torch device: cuda (default), cuda:K or cpu")
     _add_common(sub)
-    args = sub.parse_args(argv[1:])
-    if args.devices != 1 or (args.hosts or 1) > 1:
-        print("[soap3dp] error: multi-device and multi-host runs are not "
-              "ported to PyTorch yet", file=sys.stderr)
-        return 2
+    return cmd, sub.parse_args(argv[1:])
 
-    from soap3dp_tpu_torch.cli.runner import run_multi, run_pair, run_single
+
+def main(argv=None) -> int:
+    from soap3dp_tpu_torch.cli.runner import (close_hosts, host_config,
+                                              run_multi, run_pair, run_single)
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] not in COMMANDS:
+        print(__doc__, file=sys.stderr)
+        return 0 if argv and argv[0] in ("--help", "-help") else 2
+    cmd, args = parse_args(argv)
+    try:
+        host_config(args)
+    except ValueError as e:
+        print(f"[soap3dp] error: {e}", file=sys.stderr)
+        return 2
 
     t0 = time.time()
     try:
@@ -65,6 +78,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"[soap3dp] error: {e}", file=sys.stderr)
         return 1
+    finally:
+        close_hosts()
     print(f"[soap3dp] total wall time: {time.time() - t0:.2f}s",
           file=sys.stderr)
     return rc

@@ -1,9 +1,14 @@
-"""CLI execution for the port: load the index onto one device, stream
-batches through the double-buffered pipelines, write output.
+"""CLI execution for the port: load the index onto one device or a
+device mesh, stream batches through the double-buffered pipelines,
+write output.
 
 Port of soap3dp_tpu/cli/runner.py (``run_single``, ``run_pair``,
-``run_multi`` and their helpers; the multi-device and multi-host paths
-are not ported yet).
+``run_multi`` and their helpers). ``--devices N`` replicates the index
+over a mesh of N devices (distributed/mesh.py) and every pipeline stage
+shards its work over it. ``--hosts N`` runs N processes, each taking
+every Nth input batch and writing ``<prefix>.<host-id>`` outputs; their
+summaries are summed with a torch.distributed all-reduce over gloo (the
+only collective is a handful of host integers).
 """
 
 from __future__ import annotations
@@ -25,6 +30,91 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def resolve_devices(name: str, count: int = 1) -> list[torch.device]:
+    """The devices of a run: ``--device`` alone, or with ``--devices N``
+    a mesh of N. On CUDA: min(N, cards) cards from --device's on, 0
+    meaning all; on the CPU: N replicas (the tests' analog of several
+    devices)."""
+    dev = resolve_device(name)
+    if count < 0:
+        raise ValueError(f"--devices {count}: expected 0 (all) or more")
+    if count == 1 or (dev.type == "cpu" and count == 0):
+        return [dev]
+    if dev.type == "cpu":
+        return [dev] * count
+    total = torch.cuda.device_count()
+    n = total if count == 0 else min(count, total)
+    first = dev.index or 0
+    return [torch.device("cuda", (first + i) % total) for i in range(n)]
+
+
+def host_config(args) -> tuple[int, int, str | None]:
+    """(hosts, host id, coordinator) from the flags, else from
+    SOAP3DP_NUM_HOSTS / SOAP3DP_HOST_ID / SOAP3DP_COORDINATOR. A run of
+    more than one host needs a host id in [0, hosts) and a coordinator:
+    raises ValueError, never carries on as a single process."""
+    import os
+
+    hosts = args.hosts
+    if hosts is None:
+        hosts = int(os.environ.get("SOAP3DP_NUM_HOSTS", "1"))
+    if hosts <= 1:
+        return 1, 0, None
+    host_id = args.host_id
+    if host_id is None and os.environ.get("SOAP3DP_HOST_ID"):
+        host_id = int(os.environ["SOAP3DP_HOST_ID"])
+    coord = args.coordinator or os.environ.get("SOAP3DP_COORDINATOR")
+    if host_id is None or not coord:
+        raise ValueError(f"--hosts {hosts} needs --host-id and --coordinator "
+                         "host:port (or SOAP3DP_HOST_ID and "
+                         "SOAP3DP_COORDINATOR)")
+    if not 0 <= host_id < hosts:
+        raise ValueError(f"--host-id {host_id} is not in [0, {hosts})")
+    return hosts, host_id, coord
+
+
+def _init_hosts(args) -> tuple[int, int]:
+    """Multi-host mode: join the process group of ``host_config(args)``
+    (once per process: run_multi calls the runners once per line). One
+    process per host or card, each aligning its stride of the input
+    batches into its own output shard, merged like the reference's
+    per-process .gout.N files (README section 3)."""
+    import torch.distributed as dist
+
+    hosts, host_id, coord = host_config(args)
+    if hosts > 1 and not dist.is_initialized():
+        dist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                                world_size=hosts, rank=host_id)
+        print(f"[soap3dp] multi-host: process {host_id}/{hosts}, "
+              f"{max(torch.cuda.device_count(), 1)} local device(s)",
+              file=sys.stderr)
+    return hosts, host_id
+
+
+def close_hosts() -> None:
+    """Leave the multi-host process group, if this process joined one."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _merge_summary(total, hosts: int) -> None:
+    """Sum the per-host summary counters across processes and print the
+    global totals."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    fields = [f.name for f in dataclasses.fields(total)]
+    counts = torch.tensor([getattr(total, f) for f in fields],
+                          dtype=torch.int64)
+    dist.all_reduce(counts)
+    merged = type(total)(**{f: int(v) for f, v in
+                            zip(fields, counts.tolist())})
+    print(f"[soap3dp] global (all {hosts} hosts): {merged}", file=sys.stderr)
+
+
 def _hbm_budget(device: torch.device) -> int | None:
     """Device-memory byte budget for the index (80% of the card), or
     None off CUDA (reactive ladder only)."""
@@ -33,22 +123,35 @@ def _hbm_budget(device: torch.device) -> int | None:
     return int(torch.cuda.get_device_properties(device).total_memory * 0.8)
 
 
-def _load(index_arg: str, device: torch.device):
+def _load(index_arg: str, devices: list[torch.device]):
+    """(host index, device index): on one device with the OOM ladder; on
+    several, replicated over their mesh (the ladder's budget then per
+    device)."""
     from soap3dp_tpu.index.builder import load_index
+    from soap3dp_tpu_torch.distributed import mesh as dmesh
     from soap3dp_tpu_torch.fm.fmindex import device_index_ladder
 
     path = index_arg if index_arg.endswith(".t3i") else index_arg + ".t3i"
     t0 = time.time()
     index = load_index(path)
     t1 = time.time()
-    didx, index = device_index_ladder(index, device,
-                                      hbm_budget=_hbm_budget(device))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    upload = None
+    if len(devices) > 1:
+        mesh = dmesh.make_mesh(devices)
+        upload = lambda ix: dmesh.replicate_index(ix, mesh)  # noqa: E731
+    budgets = [_hbm_budget(d) for d in devices]
+    didx, index = device_index_ladder(
+        index, devices[0], upload=upload,
+        hbm_budget=None if None in budgets else min(budgets))
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     t2 = time.time()
-    print(f"[soap3dp] index loaded in {t1 - t0:.2f}s, uploaded to {device} "
-          f"in {t2 - t1:.2f}s ({index.n} bp, {len(index.names)} sequences)",
-          file=sys.stderr)
+    if len(devices) > 1:
+        print(f"[soap3dp] device mesh: {len(devices)} chips", file=sys.stderr)
+    print(f"[soap3dp] index loaded in {t1 - t0:.2f}s, uploaded to "
+          f"{','.join(map(str, devices))} in {t2 - t1:.2f}s ({index.n} bp, "
+          f"{len(index.names)} sequences)", file=sys.stderr)
     return index, didx
 
 
@@ -67,10 +170,11 @@ def _fix_quals(opts, *batches):
             b.quals = q
 
 
-def _align_backoff(align_one, summary_cls, batches, min_reads=1024,
+def _align_backoff(align_one, summary_cls, batches, devices, min_reads=1024,
                    pending=None):
-    """Align one batch; on device OOM, halve and retry (recursively),
-    down to ``min_reads`` (the reference's tryAlloc degradation)."""
+    """Align one batch on ``devices``; on device OOM, halve and retry
+    (recursively), down to ``min_reads`` (the reference's tryAlloc
+    degradation)."""
     from soap3dp_tpu_torch.fm.fmindex import is_oom_error
 
     n = len(batches[0].names)
@@ -79,15 +183,17 @@ def _align_backoff(align_one, summary_cls, batches, min_reads=1024,
     except Exception as e:  # noqa: BLE001 — only OOM is handled
         if not is_oom_error(e) or n <= min_reads:
             raise
-    if torch.cuda.is_available():
-        torch.cuda.empty_cache()
+    for d in set(devices):
+        if d.type == "cuda":
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
     mid = n // 2
     print(f"[soap3dp] device OOM on a {n}-read batch; retrying as "
           f"2 x {mid}", file=sys.stderr)
     s = summary_cls()
     for sl in (slice(0, mid), slice(mid, None)):
         s.add(_align_backoff(align_one, summary_cls,
-                             tuple(b.take(sl) for b in batches),
+                             tuple(b.take(sl) for b in batches), devices,
                              min_reads=min_reads))
     return s
 
@@ -110,7 +216,11 @@ def _writer(opts, index, path):
 
 
 def run_single(args) -> int:
+    """The ``single`` command."""
+    hosts, host_id = _init_hosts(args)
+
     from soap3dp_tpu.cli.main import _build_options
+    from soap3dp_tpu.cli.runner import _stride
     from soap3dp_tpu.io.aio import prefetch
     from soap3dp_tpu.io.fastq import read_single
     from soap3dp_tpu.utils import timers
@@ -121,9 +231,11 @@ def run_single(args) -> int:
                                                    align_single_batch,
                                                    dispatch_single_search)
 
-    device = resolve_device(args.torch_device)
+    devices = resolve_devices(args.torch_device, args.devices)
     opts = _build_options(args, args.reads)
-    index, didx = _load(args.index, device)
+    if hosts > 1:
+        opts.output_prefix += f".{host_id}"
+    index, didx = _load(args.index, devices)
     total = BatchSummary()
     with _writer(opts, index, opts.output_prefix) as w:
         # double-buffered batch loop (as run_pair): batch i+1's search is
@@ -132,8 +244,8 @@ def run_single(args) -> int:
         sq = SalvageQueue(index, didx, opts)
         spq = SinglePhase2Queue(index, didx, opts)
         flusher = AsyncFlusher(sq, w)
-        it = prefetch(read_single(args.reads, opts.batch_size,
-                                  opts.max_read_len))
+        it = prefetch(_stride(read_single(args.reads, opts.batch_size,
+                                          opts.max_read_len), hosts, host_id))
         cur = next(it, None)
         if cur is not None:
             _fix_quals(opts, cur)
@@ -153,7 +265,7 @@ def run_single(args) -> int:
                                                 salvage_queue=sq,
                                                 pending_search=p,
                                                 phase2_queue=spq),
-                BatchSummary, (cur,), pending=pending)
+                BatchSummary, (cur,), devices, pending=pending)
             total.add(s)
             flusher.maybe_submit()
             print(f"[soap3dp] batch: {s.num_reads} reads, "
@@ -167,11 +279,17 @@ def run_single(args) -> int:
         flusher.submit()
         flusher.join(total.add)
     _summary(opts, total)
+    if hosts > 1:
+        _merge_summary(total, hosts)
     return 0
 
 
-def run_pair(args) -> int:
+def run_pair(args, devices: list[torch.device] | None = None) -> int:
+    """The ``pair`` command; ``devices`` overrides --device/--devices."""
+    hosts, host_id = _init_hosts(args)
+
     from soap3dp_tpu.cli.main import _build_options
+    from soap3dp_tpu.cli.runner import _stride
     from soap3dp_tpu.io.aio import prefetch
     from soap3dp_tpu.io.fastq import read_pairs
     from soap3dp_tpu.utils import timers
@@ -181,9 +299,11 @@ def run_pair(args) -> int:
                                                  align_pair_batch,
                                                  dispatch_pair_search)
 
-    device = resolve_device(args.torch_device)
+    devices = devices or resolve_devices(args.torch_device, args.devices)
     opts = _build_options(args, args.reads1)
-    index, didx = _load(args.index, device)
+    if hosts > 1:
+        opts.output_prefix += f".{host_id}"
+    index, didx = _load(args.index, devices)
     total = PairSummary()
     with _writer(opts, index, opts.output_prefix) as w:
         # double-buffered batch loop: batch i+1's search is enqueued on
@@ -191,8 +311,9 @@ def run_pair(args) -> int:
         # across batches and flush on a worker thread
         rq = RescueQueue(index, didx, opts)
         p2q = Phase2Queue(index, didx, opts)
-        it = prefetch(read_pairs(args.reads1, args.reads2, opts.batch_size,
-                                 opts.max_read_len))
+        it = prefetch(_stride(read_pairs(args.reads1, args.reads2,
+                                         opts.batch_size, opts.max_read_len),
+                              hosts, host_id))
 
         def _report_flush(qn, fs):
             if qn:
@@ -221,7 +342,7 @@ def run_pair(args) -> int:
                                                    w, pending_search=p,
                                                    rescue_queue=rq,
                                                    phase2_queue=p2q),
-                PairSummary, (b1, b2), pending=pending)
+                PairSummary, (b1, b2), devices, pending=pending)
             total.add(s)
             flusher.maybe_submit()
             cur, pending = nxt, nxt_pending
@@ -235,6 +356,8 @@ def run_pair(args) -> int:
         flusher.submit()
         flusher.join(total.add)
     _summary(opts, total)
+    if hosts > 1:
+        _merge_summary(total, hosts)
     return 0
 
 

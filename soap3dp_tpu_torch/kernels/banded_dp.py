@@ -404,15 +404,21 @@ class CudaLibrary:
 
 class CudaKernel:
     """One kernel (C symbol) of a CudaLibrary. ``launches`` counts its
-    launches (only the wrapper that launches the kernel adds to it)."""
+    launches and ``per_device`` them by card index (only the wrapper
+    that launches the kernel adds to them)."""
 
     def __init__(self, library: CudaLibrary, symbol: str, argtypes: list):
         self.library = library
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
+        self.reset()
         self._fn = None
         self._lock = threading.Lock()
+
+    def reset(self) -> None:
+        """Set the launch counts to 0."""
+        self.launches = 0
+        self.per_device: dict[int, int] = {}
 
     def function(self):
         lib = self.library.load()
@@ -424,9 +430,11 @@ class CudaKernel:
                 self._fn = fn
             return lib, self._fn
 
-    def count(self) -> None:
+    def count(self, device: torch.device) -> None:
         with self._lock:
             self.launches += 1
+            self.per_device[device.index] = \
+                self.per_device.get(device.index, 0) + 1
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -479,7 +487,9 @@ def _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r, cutoff=None):
 
 def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
     """One launch of csrc/banded_dp.cu over P problems on the current
-    stream. Returns device (stats (P, 8), ops (P, MR), cnts (P, MR))."""
+    stream of their device, with that device made current (a launch
+    must run in the context of the memory it touches). Returns device
+    (stats (P, 8), ops (P, MR), cnts (P, MR))."""
     lib, fn = DP_KERNEL.function()
     P, Lr = reads.shape
     Lw = wins.shape[1]
@@ -495,14 +505,15 @@ def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
     stats = torch.empty((P, 8), dtype=torch.int32, device=dev)
     ops = torch.zeros((P, MR), dtype=torch.int32, device=dev)
     cnts = torch.zeros((P, MR), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(reads.data_ptr(), wins.data_ptr(), params.data_ptr(), P, Lr,
-             Lw, MR, sc.match, sc.mismatch, sc.gap_open, sc.gap_ext,
-             stats.data_ptr(), ops.data_ptr(), cnts.data_ptr(),
-             scratch.data_ptr(), C, blocks, stream)
+    with torch.cuda.device(dev):
+        err = fn(reads.data_ptr(), wins.data_ptr(), params.data_ptr(), P, Lr,
+                 Lw, MR, sc.match, sc.mismatch, sc.gap_open, sc.gap_ext,
+                 stats.data_ptr(), ops.data_ptr(), cnts.data_ptr(),
+                 scratch.data_ptr(), C, blocks,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"banded DP kernel launch failed: CUDA error {err}")
-    DP_KERNEL.count()
+    DP_KERNEL.count(dev)
     return stats, ops, cnts
 
 
@@ -520,14 +531,14 @@ def _launch_forward(reads, wins, params, dirs, sc: DPScores):
     warps = max(1, min(P, _MAX_WARPS))
     blocks = -(-warps // 4)
     stats = torch.empty((P, 4), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(reads.data_ptr(), wins.data_ptr(), params.data_ptr(), P, Lr, Lw,
-             sc.match, sc.mismatch, sc.gap_open, sc.gap_ext,
-             stats.data_ptr(), dirs.data_ptr(), _cells_per_lane(Lr), blocks,
-             stream)
+    with torch.cuda.device(dev):
+        err = fn(reads.data_ptr(), wins.data_ptr(), params.data_ptr(), P, Lr,
+                 Lw, sc.match, sc.mismatch, sc.gap_open, sc.gap_ext,
+                 stats.data_ptr(), dirs.data_ptr(), _cells_per_lane(Lr),
+                 blocks, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"DP forward kernel launch failed: CUDA error {err}")
-    FORWARD_KERNEL.count()
+    FORWARD_KERNEL.count(dev)
     return stats
 
 
@@ -541,14 +552,15 @@ def _launch_traceback(dirs, tbp, active, lanes, n: int, MR: int):
     ops = torch.zeros((n, MR), dtype=torch.int32, device=dev)
     cnts = torch.zeros((n, MR), dtype=torch.int32, device=dev)
     meta = torch.empty((n, 4), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(dirs.data_ptr(), P, Lr1, ND, tbp.data_ptr(), active.data_ptr(),
-             None if lanes is None else lanes.data_ptr(), n, MR,
-             ops.data_ptr(), cnts.data_ptr(), meta.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        err = fn(dirs.data_ptr(), P, Lr1, ND, tbp.data_ptr(),
+                 active.data_ptr(), None if lanes is None else lanes.data_ptr(),
+                 n, MR, ops.data_ptr(), cnts.data_ptr(), meta.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"DP traceback kernel launch failed: CUDA error "
                            f"{err}")
-    TRACEBACK_KERNEL.count()
+    TRACEBACK_KERNEL.count(dev)
     return ops, cnts, meta
 
 
@@ -733,8 +745,36 @@ def takes_wide_route(Lr: int, Lw: int) -> bool:
     return Lw >= FUSED_MAX_WINDOW and Lr + 1 <= 128
 
 
+def _concat_align(parts):
+    """dp_align results of consecutive problem slices as one: arrays
+    concatenated, ops/cnts right-padded to the widest slice's."""
+    mr = max(p[4].shape[1] for p in parts)
+
+    def cat(k):
+        if k in (4, 5):
+            return np.concatenate([np.pad(p[k], ((0, 0), (0, mr - p[k].shape[1])))
+                                   for p in parts])
+        return np.concatenate([p[k] for p in parts])
+
+    return tuple(cat(k) for k in range(9))
+
+
+def dp_align_shards(shards, sc: DPScores = DPScores()):
+    """dp_align over problems split into consecutive slices, each given
+    as its nine dp_align inputs on one device. Each slice is aligned on
+    its device in a host thread of its own (the wrappers wait on host
+    copies per call, so one thread would run the devices one after the
+    other; the ctypes launches release the interpreter lock), and the
+    outputs are concatenated in problem order."""
+    from soap3dp_tpu_torch.distributed.mesh import map_shards
+
+    parts = map_shards([s[0].device for s in shards],
+                       lambda j: dp_align(*shards[j], sc=sc))
+    return parts[0] if len(parts) == 1 else _concat_align(parts)
+
+
 def dp_align(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
-             cutoff, sc: DPScores = DPScores()):
+             cutoff, sc: DPScores = DPScores(), mesh=None):
     """Forward + traceback in one call; host-ready numpy results
     ``(score, hit_i, hit_j, n_best, ops, cnts, nrun, startj, overflow)``.
 
@@ -742,7 +782,17 @@ def dp_align(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
     score >= cutoff (others have nrun == 0); only the first nrun columns
     of a row are meaningful. On CUDA tensors a Hopper kernel runs (or
     raises): K2 + the traceback kernel where takes_wide_route, K1
-    elsewhere. On CPU tensors the plain-torch version runs."""
+    elsewhere. On CPU tensors the plain-torch version runs. With
+    ``mesh`` (a distributed.mesh.DeviceMesh) the problem axis is split
+    into near-equal consecutive slices, slice j aligned on the mesh's
+    device j through the same choice (dp_align_shards)."""
+    if mesh is not None and mesh.size > 1:
+        args = [a.tensor_split(mesh.size) for a in
+                (reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
+                 anchor_r, cutoff)]
+        return dp_align_shards(
+            [[a[j].to(dev) for a in args]
+             for j, dev in enumerate(mesh.devices)], sc)
     if reads.is_cuda:
         route = dp_align_wide if takes_wide_route(reads.shape[1],
                                                   wins.shape[1]) \

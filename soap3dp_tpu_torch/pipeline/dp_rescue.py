@@ -4,7 +4,8 @@ Port of soap3dp_tpu/pipeline/dp_rescue.py. The seed matrices and the
 result containers are the reference's numpy code; the device halves
 (``_seed_cand_batch``, ``_prescan_impl``, ``_pack_problems``) are torch
 on the index's device, and ``run_banded_dp`` calls the port's
-``dp_align`` (the Hopper kernel on CUDA, its plain version on CPU).
+``dp_align`` (the Hopper kernels on CUDA, their plain versions on CPU),
+one slice of problems per device on a mesh.
 """
 
 from __future__ import annotations
@@ -16,10 +17,11 @@ import torch
 
 from soap3dp_tpu.index.builder import Index
 from soap3dp_tpu.utils import shapes, timers
+from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.fm.fmindex import DeviceIndex, to_device
 from soap3dp_tpu_torch.fm.search import _nonzero_prefix
-from soap3dp_tpu_torch.kernels.banded_dp import DPScores, dp_align
+from soap3dp_tpu_torch.kernels.banded_dp import DPScores, dp_align_shards
 
 MERGE_GAP = 50  # candidates within 50bp collapse (DP2_DIVIDE_GAP)
 _PRESCAN_CHUNK = 1 << 14  # candidates per prescan pass (bounds memory)
@@ -133,39 +135,57 @@ def seed_candidates(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
                     seed_pos: np.ndarray, seed_len: np.ndarray,
                     occ_cap: int = 64, merge_gap: int = MERGE_GAP
                     ) -> Candidates:
-    """Exact-search the staged seeds on both strands, decode, merge."""
-    B, L = reads.shape
-    if B == 0:
+    """Exact-search the staged seeds on both strands, decode, merge. On a
+    mesh the reads are padded to a mesh multiple (copies of read 0,
+    whose candidates are dropped) and each replica seeds its shard; the
+    merge sorts, so the candidates do not depend on the split."""
+    B_real, L = reads.shape
+    if B_real == 0:
         return Candidates(np.zeros(0, np.int32), np.zeros(0, np.int8),
                           np.zeros(0, np.int64))
-    dev = idx.device
+    replicas = dmesh.replicas_of(idx)
+    devices = [r.device for r in replicas]
+    n = len(replicas)
+    B = dmesh.pad_to_mesh(dmesh.mesh_of(idx), B_real)
     S = seed_pos.shape[1]
-    R = 2 * B
     seed_len = np.asarray(seed_len, np.int32)
     msl = int(seed_len.max()) if seed_len.size else 0
     max_steps = max(msl - idx.lut_k, min(idx.lut_k, msl))
-    K = shapes.bucket(R * S * 2, min_size=1024)
-    K_max = R * S * occ_cap
+    # budgets of the whole batch, split evenly over the shards
+    K0 = -(-shapes.bucket(2 * B * S * 2, min_size=1024) // n)
+    K_max = 2 * B * S * occ_cap // n
+    Bs = B // n
     with timers.stage("dp.seed_cand"):
-        args = (to_device(np.asarray(reads), dev),
-                to_device(np.asarray(lens, np.int32), dev),
-                to_device(np.asarray(seed_pos, np.int32), dev),
-                to_device(seed_len, dev))
-        while True:
-            row, pos, valid, total = _seed_cand_batch(
-                idx, *args, occ_cap, max_steps, min(K, K_max))
-            t = int(total)
-            if t <= K or K >= K_max:
-                break
-            K = min(shapes.bucket(t), K_max)
-        tb = min(shapes.bucket(t, min_size=1024), min(K, K_max))
-        ph = torch.stack([row[:tb], pos[:tb], valid[:tb].to(torch.int64)]
-                         ).cpu().numpy()
-    vald = ph[2].astype(bool)
-    rowf = ph[0].astype(np.int32)[vald]
-    posf = ph[1][vald].astype(np.int64)
-    strand = (rowf >= B).astype(np.int8)
-    read = (rowf - strand.astype(np.int32) * B).astype(np.int32)
+        shards = [dmesh.split_rows(devices, shapes.pad_rows(np.asarray(a), B))
+                  for a in (reads, np.asarray(lens, np.int32),
+                            np.asarray(seed_pos, np.int32), seed_len)]
+
+        def shard(j):
+            K = K0
+            while True:
+                row, pos, valid, total = _seed_cand_batch(
+                    replicas[j], *(a[j] for a in shards), occ_cap, max_steps,
+                    min(K, K_max))
+                t = int(total)
+                if t <= K or K >= K_max:
+                    break
+                K = min(shapes.bucket(t), K_max)
+            tb = min(shapes.bucket(t, min_size=1024), min(K, K_max))
+            return torch.stack([row[:tb], pos[:tb],
+                                valid[:tb].to(torch.int64)]).cpu().numpy()
+
+        parts = dmesh.map_shards(devices, shard)
+    read, strand, posf = [], [], []
+    for j, ph in enumerate(parts):
+        vald = ph[2].astype(bool)
+        rowf = ph[0].astype(np.int32)[vald]
+        st = (rowf >= Bs).astype(np.int8)
+        read.append((rowf - st.astype(np.int32) * Bs + j * Bs).astype(np.int32))
+        strand.append(st)
+        posf.append(ph[1][vald].astype(np.int64))
+    read, strand, posf = (np.concatenate(x) for x in (read, strand, posf))
+    keep = read < B_real  # drop mesh-padding rows
+    read, strand, posf = read[keep], strand[keep], posf[keep]
     # merge: sort by (read, strand, pos); drop candidates within merge_gap
     order = np.lexsort((posf, strand, read))
     read, strand, posf = read[order], strand[order], posf[order]
@@ -310,15 +330,20 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
                   index_host: Index | None = None) -> DPResult:
     """One batched DP over candidate windows; returns survivors only.
     Problem count and window width are bucketed (pad lanes get an
-    unreachable cutoff, so they never survive)."""
+    unreachable cutoff, so they never survive). On a mesh the problem
+    axis is padded to a mesh multiple and split evenly: each replica
+    packs its slice's problems and aligns them on its device
+    (dp_align_shards)."""
     M_real = cand.read.shape[0]
     if M_real == 0:
         return empty_dpresult()
-    dev = idx.device
+    replicas = dmesh.replicas_of(idx)
+    n = len(replicas)
     Bp = shapes.bucket(reads.shape[0], min_size=64)
     reads = shapes.pad_rows(np.asarray(reads), Bp)
     lens = shapes.pad_rows(np.asarray(lens), Bp)
-    M_pad = shapes.bucket(M_real, min_size=128)
+    M_pad = dmesh.pad_to_mesh(dmesh.mesh_of(idx),
+                              shapes.bucket(M_real, min_size=128))
     max_win = shapes.bucket_multiple(max_win, 128)
 
     def pad(a):
@@ -331,26 +356,34 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     anchor_l, anchor_r = pad(anchor_l), pad(anchor_r)
     cutoff = np.concatenate([np.asarray(cutoff, np.int64),
                              np.full(M_pad - M_real, 1 << 20, np.int64)])
-
-    def d32(a):
-        return to_device(np.asarray(a, np.int32), dev)
-
+    lens_h = np.asarray(lens)
+    un = int(lens_h[0]) if len(lens_h) and (lens_h == lens_h[0]).all() else 0
+    rlen = lens[cand.read].astype(np.int32)
+    cutoff32 = np.minimum(cutoff, 1 << 20).astype(np.int32)
+    Ms = M_pad // n
+    shards = []
     with timers.stage("dp.pack"):
-        lens_h = np.asarray(lens)
-        un = int(lens_h[0]) if len(lens_h) and (lens_h == lens_h[0]).all() \
-            else 0
-        oriented, wins = _pack_problems(
-            idx, to_device(reads, dev), to_device(lens_h.astype(np.int64), dev),
-            to_device(cand.read.astype(np.int64), dev),
-            to_device(cand.strand == 1, dev),
-            to_device(np.asarray(win_start, np.int64), dev), un, max_win)
-        rlen = lens[cand.read].astype(np.int32)
+        # replica j packs slice j's problems on its device (enqueued only)
+        for j, rep in enumerate(replicas):
+            dev = rep.device
+            sl = slice(j * Ms, (j + 1) * Ms)
 
+            def d32(a):
+                return to_device(np.asarray(a[sl], np.int32), dev)
+
+            oriented, wins = _pack_problems(
+                rep, to_device(reads, dev),
+                to_device(lens_h.astype(np.int64), dev),
+                to_device(cand.read[sl].astype(np.int64), dev),
+                to_device(cand.strand[sl] == 1, dev),
+                to_device(np.asarray(win_start[sl], np.int64), dev), un,
+                max_win)
+            shards.append((oriented, d32(rlen), wins, d32(win_len),
+                           d32(clip_l), d32(clip_r), d32(anchor_l),
+                           d32(anchor_r), d32(cutoff32)))
     with timers.stage("dp.align"):
-        cutoff32 = np.minimum(cutoff, 1 << 20).astype(np.int32)
-        score, hI, hJ, nbc, ops, cnts, nrun, startj, overflow = dp_align(
-            oriented, d32(rlen), wins, d32(win_len), d32(clip_l),
-            d32(clip_r), d32(anchor_l), d32(anchor_r), d32(cutoff32), sc=sc)
+        score, hI, hJ, nbc, ops, cnts, nrun, startj, overflow = \
+            dp_align_shards(shards, sc)
     passed = score >= cutoff
     if overflow.any():
         passed &= ~overflow

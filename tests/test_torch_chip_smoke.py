@@ -1,5 +1,6 @@
 """chip_smoke.py on the CPU: its golden and end-to-end phases (default
-pair, mate-pair card-vs-CPU, mate-pair full window, single-end) run here
+pair, mate-pair card-vs-CPU, mate-pair full window, single-end, and the
+multi-device and multi-host phase) run here
 at a small size through the port's plain-torch paths, its DP problem
 generators are the recipes they claim to be, and without a card (or
 outside a checkout) it exits non-zero and prints no result line.
@@ -39,6 +40,26 @@ def test_golden_and_e2e_phases_on_cpu(tmp_path):
     assert se["reads"] == 400 and se["recall"] >= 0.95
     assert se["summary"]["aligned_dp"] > 0     # the salvage phase ran
     assert (tmp_path / "se_e2e_stderr.log").exists()
+
+
+def test_multi_device_phases_on_cpu(tmp_path):
+    """Phase 7 at a small size: a default pair run (phase 4), then the
+    same inputs on a two-replica mesh (and dp_align(mesh=)), through two
+    --hosts 2 processes, and the all-card phase, not run on the CPU."""
+    cpu = torch.device("cpu")
+    w = str(tmp_path / "w")
+    _, reads = chip_smoke.phase_e2e(cpu, 200_000, 200, "cpu", w,
+                                    str(tmp_path), profile=False)
+    mesh = chip_smoke.phase_mesh(cpu, reads, w, str(tmp_path),
+                                 dp_case=(9, 40, 200, 30))
+    assert mesh["records_equal"] and mesh["summary_equal"]
+    assert mesh["devices"] == ["cpu", "cpu"] and mesh["dp_align"]["equal"]
+    hosts = chip_smoke.phase_hosts(cpu, reads, w, str(tmp_path), timeout=300)
+    assert hosts["records_equal"] and hosts["summary_equal"]
+    assert sum(hosts["per_process_pairs"]) == 200
+    assert hosts["launches"] == [{"K1": 0, "K2": 0, "TB": 0}] * 2  # no card
+    assert len(hosts["index_upload_s"]) == 2
+    assert chip_smoke.phase_all_cards(cpu, reads, w) == {"not_run": "1 card"}
 
 
 def test_mate_pair_phases_on_cpu(tmp_path):

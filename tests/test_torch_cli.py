@@ -87,16 +87,45 @@ def test_default_device_needs_cuda(pe_files):
     assert not (d / "never.sam").exists()
 
 
-def test_cli_rejects_unported_modes(pe_files, capsys):
+@pytest.mark.parametrize("cmd,n", [("pair", 2), ("single", 3)])
+def test_devices_match_one_device(pe_files, cmd, n):
+    """--devices N on the CPU (N replicas of the index, every batch
+    sharded over them) writes the SAM of --devices 1."""
     from soap3dp_tpu_torch.cli.main import main as port_main
 
     d, _ = pe_files
-    assert port_main(["pair", str(d / "g.fa.index"), str(d / "r1.fq"),
-                      str(d / "r2.fq"), "--devices", "2",
-                      "--device", "cpu"]) == 2
-    assert port_main(["single", str(d / "g.fa.index"), str(d / "r1.fq"),
-                      "--hosts", "2", "--device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    inputs = [str(d / "r1.fq")]
+    if cmd == "pair":
+        inputs += [str(d / "r2.fq"), "-v", "100", "-u", "400"]
+    for k in (1, n):
+        assert port_main([cmd, str(d / "g.fa.index")] + inputs + [
+            "-o", str(d / f"dev_{cmd}_{k}"), "--device", "cpu",
+            "--devices", str(k)]) == 0
+    got = _records(d / f"dev_{cmd}_{n}.sam")
+    assert len(got) > 2
+    assert got == _records(d / f"dev_{cmd}_1.sam")
+
+
+def test_hosts_need_host_id_and_coordinator(pe_files, capsys, monkeypatch):
+    """--hosts above 1 without a host id or a coordinator (flags or
+    environment) exits 2 and writes nothing: never a one-process run."""
+    from soap3dp_tpu_torch.cli.main import main as port_main
+
+    for var in ("SOAP3DP_NUM_HOSTS", "SOAP3DP_HOST_ID", "SOAP3DP_COORDINATOR"):
+        monkeypatch.delenv(var, raising=False)
+    d, _ = pe_files
+    base = ["pair", str(d / "g.fa.index"), str(d / "r1.fq"), str(d / "r2.fq"),
+            "-o", str(d / "never_mh"), "--device", "cpu"]
+    assert port_main(base + ["--hosts", "2", "--host-id", "0"]) == 2
+    assert "needs --host-id and --coordinator" in capsys.readouterr().err
+    assert port_main(base + ["--hosts", "2", "--coordinator",
+                             "127.0.0.1:1"]) == 2
+    assert port_main(base + ["--hosts", "2", "--host-id", "2",
+                             "--coordinator", "127.0.0.1:1"]) == 2
+    assert "not in [0, 2)" in capsys.readouterr().err
+    monkeypatch.setenv("SOAP3DP_NUM_HOSTS", "2")
+    assert port_main(base) == 2
+    assert not list(d.glob("never_mh*"))
 
 
 def test_single_matches_reference_cli(pe_files):

@@ -2,8 +2,9 @@
 
 An AST scan of every module of soap3dp_tpu_torch (and chip_smoke.py)
 admits only the soap3dp_tpu modules that import no JAX; a subprocess
-runs the port's CLI (pair, single) and API end to end on the CPU and
-then finds no ``jax`` in ``sys.modules``.
+runs the port's CLI (pair on one device and on a two-replica mesh, so
+through soap3dp_tpu_torch.distributed; single) and API end to end on
+the CPU and then finds no ``jax`` in ``sys.modules``.
 """
 
 import ast
@@ -24,6 +25,8 @@ ALLOWED = ("soap3dp_tpu.index", "soap3dp_tpu.io", "soap3dp_tpu.pipeline.options"
            "soap3dp_tpu.utils.timers", "soap3dp_tpu.cli.ini",
            "soap3dp_tpu.cli.main")
 ALLOWED_CLI_MAIN_NAMES = {"_add_common", "_build_options"}
+# soap3dp_tpu/cli/runner.py imports only sys and time at module level
+ALLOWED_CLI_RUNNER_NAMES = {"_stride"}
 
 
 def _sources():
@@ -48,6 +51,8 @@ def _imports(path):
 def _allowed(mod, name):
     if mod == "soap3dp_tpu.cli.main":
         return name in ALLOWED_CLI_MAIN_NAMES
+    if mod == "soap3dp_tpu.cli.runner":
+        return name in ALLOWED_CLI_RUNNER_NAMES
     full = f"{mod}.{name}" if name else mod
     # `from soap3dp_tpu.utils import dna` names a submodule
     return any(full == a or full.startswith(a + ".") or mod == a
@@ -88,6 +93,12 @@ def test_cli_run_leaves_jax_unimported(tmp_path):
         f"{str(tmp_path / 'r1.fq')!r}, {str(tmp_path / 'r2.fq')!r}, "
         f"'-o', {str(tmp_path / 'out')!r}, '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"
+        f"rc = main(['pair', {str(tmp_path / 'g.fa.index')!r}, "
+        f"{str(tmp_path / 'r1.fq')!r}, {str(tmp_path / 'r2.fq')!r}, "
+        f"'-o', {str(tmp_path / 'mesh')!r}, '--device', 'cpu', "
+        "'--devices', '2'])\n"
+        "assert rc == 0, rc\n"
+        "assert 'soap3dp_tpu_torch.distributed.mesh' in sys.modules\n"
         f"rc = main(['single', {str(tmp_path / 'g.fa.index')!r}, "
         f"{str(tmp_path / 'r1.fq')!r}, '-o', {str(tmp_path / 'se')!r}, "
         "'--device', 'cpu'])\n"

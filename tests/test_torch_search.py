@@ -106,7 +106,7 @@ def test_compaction_budget_regrowth(rng):
     reads = np.stack([codes[s:s + 45] for s in starts]).astype(np.uint8)
     lens = np.full(len(reads), 45, np.int32)
     pt = ts.PendingSearch(td, reads, lens, ts.SearchConfig(k=2))
-    t = int(pt._out.numpy()[0])
+    t = int(pt._out[0].numpy()[0])
     assert t > min(pt.K, pt.K_max)      # the first budget overflowed
     _assert_same(js.PendingSearch(jd, reads, lens, js.SearchConfig(k=2)).result(),
                  pt.result())
