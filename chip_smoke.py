@@ -7,18 +7,23 @@ Phases, each printing one line, any failure exits non-zero:
 1. device and build: the card's name and power limit, and the build of
    every kernel from csrc/ (one nvcc per source, started together);
 2. each kernel against its plain-torch version on the card, outputs
-   exactly equal, both times printed: K1 (the fused DP) at the main
-   path's shapes (plus a long-read and a run-budget-overflow case); K2
-   (forward only) and TB (its traceback) at the mate-pair rescue window,
-   an edge shape and a case that re-launches TB, where dp_align's wide
-   route is also held against K1 at the same shape;
+   exactly equal, both times printed with each kernel's bound and
+   share: K1 (the fused DP) at the main path's shapes, then at the edges
+   of the forward (reads of 31, 32, 33, 127, 128 and 2047 bases, ties
+   on the best score across diagonals, anchors, a run-budget overflow
+   that re-launches K1); K2 (forward only) at K1's main shape (the
+   difference is K1's traceback and scratch share) and, with TB (its
+   traceback), at the mate-pair rescue window, an edge shape and a case
+   that re-launches TB, where dp_align's wide route is also held
+   against K1 at the same shape;
 3. golden SAM: the five paired-end and two single-end golden cases of
    tests/golden rendered through the port on cuda, every record equal
    (@PG excepted);
 4. end to end at a real size: a 250 Mbp genome, 100,000 read pairs,
    the port's `pair` CLI with default options (-u 500 -v 300); checks
    records, planted-locus recall, rescue counts and kernel launches (K1,
-   and no K2: its windows are narrow), then runs it once more under
+   and no K2: its windows are narrow) with a histogram of the launch
+   shapes (P, Lr, Lw) (phases 5 and 6 likewise), then runs it once more under
    torch.profiler (device busy share, top device events in the output
    directory's e2e_profile.txt);
 5. mate-pair: a -/+ library of 2-6 kbp inserts aligned with
@@ -39,9 +44,11 @@ Phases, each printing one line, any failure exits non-zero:
    DP routes on the last card while card 0 is current; on one card it
    prints "not run: 1 card".
 
-Then one JSON line with the kernels, and the last line
-{"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch and the
-JAX-free shared modules of soap3dp_tpu; imports no JAX.
+Then one JSON line with the kernels (each with its time, its bound on
+this card and the share of the bound it reaches), and the last line
+{"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
+index builder, readers and writers); imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -168,6 +175,109 @@ def relaunch_problems(rng, P, Lr, Lw):
             z.copy(), np.full(P, -100000, np.int32))
 
 
+def tie_problems(rng, P, Lr, Lw):
+    """Each read planted twice, exactly, at two window offsets (and a
+    third, mismatched copy on some): equal best scores on several
+    diagonals, so the fold's tie-breaks (smaller j, then smaller i) and
+    its tie count decide the result."""
+    wins = rng.integers(0, 4, size=(P, Lw)).astype(np.uint8)
+    reads = rng.integers(0, 4, size=(P, Lr)).astype(np.uint8)
+    for p in range(P):
+        a, b = sorted(rng.choice(np.arange(0, Lw - Lr, Lr + 3), 2,
+                                 replace=False))
+        wins[p, a:a + Lr] = reads[p]
+        wins[p, b:b + Lr] = reads[p]
+        if p % 3 == 0:
+            wins[p, b + Lr // 2] = (wins[p, b + Lr // 2] + 1) % 4
+    z = np.zeros(P, np.int32)
+    return (reads, np.full(P, Lr, np.int32), wins, np.full(P, Lw, np.int32),
+            z, z.copy(), np.full(P, Lw + 1, np.int32), z.copy(),
+            np.full(P, Lr // 2, np.int32))
+
+
+def edge_cases(rng) -> list[tuple[str, tuple]]:
+    """The edges of K1's forward, as dp_align inputs: reads of 31, 32,
+    33, 127, 128 and 2047 bases (one lane's worth, word and lane
+    boundaries of the cells per lane), ties on the best score across
+    diagonals, anchors, and a run-budget overflow (K1 re-launches)."""
+    out = []
+    for Lr in (31, 32, 33, 127, 128):
+        out.append((f"Lr{Lr}", make_problems(rng, 256, Lr, Lr + 300)
+                    + (np.full(256, Lr // 4, np.int32),)))
+    out.append(("Lr2047", make_problems(rng, 8, 2047, 2100)
+                + (np.full(8, 300, np.int32),)))
+    out.append(("ties", tie_problems(rng, 256, 60, 400)))
+    out.append(("anchors_Lr33", make_problems(rng, 256, 33, 200,
+                                              with_anchor=True)
+                + (np.full(256, 5, np.int32),)))
+    out.append(("overflow_Lr260", overflow_problems(rng, 256, 260, 360)))
+    return out
+
+
+# add, max and select operations per cell of the recurrence as
+# `_dp_forward_scan` writes it: D (2 adds, max, clamp), I (2 adds, the
+# fresh-start select, 2 max, clamp), H (substitution select, diagonal
+# add, 3 max, clamp, the fresh-diagonal select): 16
+OPS_PER_CELL = 16
+HBM_BYTES_PER_S = 3.35e12
+
+
+def sm_max_clock_mhz() -> float:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def int32_peak_ops() -> float:
+    """The card's int32 rate: 132 SMs x 64 int32 lanes x the SM clock
+    that nvidia-smi reports as its maximum (operations per second)."""
+    return 132 * 64 * sm_max_clock_mhz() * 1e6
+
+
+def bound_ms(ops: float, nbytes: float, peak_ops: float
+             ) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations
+    over the int32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def dp_cells(prob) -> int:
+    """Sum of rlen x wlen over the problems: the cells the DP needs."""
+    return int((np.asarray(prob[1], np.int64)
+                * np.asarray(prob[3], np.int64)).sum())
+
+
+def k1_bound(prob, mr: int, peak_ops: float) -> tuple[float, str]:
+    """K1: the recurrence's operations; inputs (reads, windows, the
+    (P, 8) parameters) read once and outputs (stats (P, 8), runs and
+    counts (P, MR)) written once. Its direction scratch is internal."""
+    P, Lr = prob[0].shape
+    nbytes = P * (Lr + prob[2].shape[1] + 32 + 32 + 8 * mr)
+    return bound_ms(dp_cells(prob) * OPS_PER_CELL, nbytes, peak_ops)
+
+
+def k2_bound(prob, peak_ops: float) -> tuple[float, str]:
+    """K2: the same operations; inputs read once, stats (P, 4) and the
+    whole direction tensor (Lr+Lw, P, Lr+1), its output, written once."""
+    P, Lr = prob[0].shape
+    Lw = prob[2].shape[1]
+    nbytes = P * (Lr + Lw + 32 + 16) + (Lr + Lw) * P * (Lr + 1)
+    return bound_ms(dp_cells(prob) * OPS_PER_CELL, nbytes, peak_ops)
+
+
+def tb_bound(moves: int, P: int, mr: int, peak_ops: float
+             ) -> tuple[float, str]:
+    """TB: the direction byte of each cell on this run's paths (the
+    walks' moves), its (P, 4) parameters and active mask read once, runs
+    and counts (P, MR) and (P, 4) meta written once; a few operations
+    per move."""
+    nbytes = moves + P * (16 + 1 + 8 * mr + 16)
+    return bound_ms(moves * OPS_PER_CELL, nbytes, peak_ops)
+
+
 def _dp_equal(a, b) -> tuple[bool, int]:
     """Exact equality of two dp_align results (runs compared over each
     lane's nrun prefix); returns (equal, max |difference|)."""
@@ -226,7 +336,7 @@ def _kernel_only_ms(bd, args, reps: int = 10, sc=None) -> float:
                       reps)
 
 
-def phase_kernels(dev) -> list[dict]:
+def phase_kernels(dev, peak_ops: float) -> list[dict]:
     import torch
 
     from soap3dp_tpu_torch.kernels import banded_dp as bd
@@ -239,7 +349,12 @@ def phase_kernels(dev) -> list[dict]:
          + (np.full(512, 10, np.int32),)),
         ("Lr1024_Lw1100", make_problems(rng, 64, 1024, 1100)
          + (np.full(64, 150, np.int32),)),
-        ("overflow_Lr260", overflow_problems(rng, 256, 260, 360)),
+    ] + edge_cases(rng) + [
+        # the shapes phase 4 gives K1 (its launch-shape histogram): reads
+        # of 100 bases in 120-wide rows, 256-wide windows
+        ("path_P8192", main_path_problems(rng, 8192, 120, 256, read_len=100)),
+        ("path_P16384", main_path_problems(rng, 16384, 120, 256,
+                                           read_len=100)),
     ]
     rows = []
     max_err = 0
@@ -255,12 +370,15 @@ def phase_kernels(dev) -> list[dict]:
         npass = int((np.asarray(want[6]) > 0).sum())
         P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
         kms = _kernel_only_ms(bd, args)
+        mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
+        bms, by = k1_bound(prob, mr, peak_ops)
         phase("kernel banded_dp",
               f"{name}: P={P} Lr={Lr} Lw={Lw} equal={ok} max_abs_err={err} "
               f"passing_lanes={npass} launches={n_launch} "
               f"first_ms={first_ms:.3f} ms={ms:.3f} "
               f"kernel_only_ms={kms:.3f} "
-              f"GCUPS={P * Lr * Lw / (kms * 1e6):.1f} "
+              f"GCUPS={dp_cells(prob) / (kms * 1e6):.1f} "
+              f"bound_ms={bms:.4f} ({by}) share={bms / kms:.1%} "
               f"plain_ms={plain_ms:.3f}")
         if not ok:
             fail(f"banded_dp kernel disagrees with its plain version ({name})")
@@ -268,18 +386,35 @@ def phase_kernels(dev) -> list[dict]:
             fail("overflow case did not re-launch the DP kernel")
         max_err = max(max_err, err)
         rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
-                     "ms": ms, "kernel_only_ms": kms,
-                     "plain_ms": plain_ms})
-    main = [r for r in rows if r["case"] == "Lr100_Lw768"][0]
+                     "ms": ms, "kernel_only_ms": kms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by})
+        if name == "Lr100_Lw768":
+            # K2 on the same problems: what K1 adds is its traceback and
+            # its direction scratch
+            params = bd._params(args[1], args[3], *args[4:8])
+            dirs = torch.empty((Lr + Lw, P, Lr + 1), dtype=torch.uint8,
+                               device=dev)
+            k2_ms = _events_ms(lambda: bd._launch_forward(
+                args[0], args[2], params, dirs, bd.DPScores()), 10)
+            del dirs
+            phase("kernel banded_dp",
+                  f"K2 at K1's main shape (P={P} Lr={Lr} Lw={Lw}): "
+                  f"kernel_only_ms={k2_ms:.3f} against K1's {kms:.3f}: "
+                  f"K1 - K2 = {kms - k2_ms:.3f} ms (K1's traceback and "
+                  f"scratch, less K2's writes of its direction tensor)")
+            rows[-1]["k2_same_problems_ms"] = k2_ms
+    # the main path's most frequent K1 launch (phase 4's histogram)
+    main = [r for r in rows if r["case"] == "path_P8192"][0]
     return [{"name": "banded_dp", "route": "cuda",
              "source": "soap3dp_tpu_torch/csrc/banded_dp.cu",
              "replaces": "soap3dp_tpu/kernels/banded_dp.py:606",
              "launches": 0, "max_abs_err": max_err,
-             "ms": main["ms"], "plain_ms": main["plain_ms"],
-             "cases": rows}]
+             "ms": main["kernel_only_ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "library_ms": None, "call_ms": main["ms"], "cases": rows}]
 
 
-def phase_wide_kernels(dev) -> list[dict]:
+def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
     """K2 and TB against their plain versions, and dp_align's wide route
     against the plain dp_align and K1 at the same shape."""
     import torch
@@ -344,13 +479,19 @@ def phase_wide_kernels(dev) -> list[dict]:
         ok_plain, e1 = _dp_equal(got, want)
         ok_k1, e2 = _dp_equal(got, k1)
         npass = int((np.asarray(want[6]) > 0).sum())
+        f_bms, f_by = k2_bound(prob, peak_ops)
+        ops_t, cnt_t = np.asarray(tb[0]), np.asarray(tb[1])
+        moves = int(cnt_t[(ops_t >= 1) & (ops_t <= 4)].sum())
+        t_bms, t_by = tb_bound(moves, P, mr, peak_ops)
         phase("kernel dp_forward+dp_traceback",
               f"{name}: P={P} Lr={Lr} Lw={Lw} fwd stats max_abs_err={err} "
               f"dirs bytes differing={ndiff} tb max_abs_err={tb_err} "
               f"dp_align==plain {ok_plain} dp_align==K1 {ok_k1} "
               f"passing_lanes={npass} launches fwd={n_f} tb={n_t} "
               f"call_ms={call_ms:.3f} kernel_ms fwd={fwd_ms:.3f} "
-              f"tb={tb_ms:.3f} GCUPS={P * Lr * Lw / (fwd_ms * 1e6):.1f} "
+              f"tb={tb_ms:.3f} GCUPS={dp_cells(prob) / (fwd_ms * 1e6):.1f} "
+              f"bound_ms fwd={f_bms:.4f} ({f_by}, share {f_bms / fwd_ms:.1%}) "
+              f"tb={t_bms:.4f} ({t_by}, share {t_bms / tb_ms:.1%}) "
               f"plain_ms={plain_ms:.3f} (fwd {plain_fwd_ms:.3f}, "
               f"tb {plain_tb_ms:.3f}) K1 call_ms={k1_ms:.3f} "
               f"K1 kernel_ms={k1_kernel_ms:.3f}")
@@ -365,16 +506,21 @@ def phase_wide_kernels(dev) -> list[dict]:
                      "call_ms": call_ms, "fwd_ms": fwd_ms, "tb_ms": tb_ms,
                      "plain_ms": plain_ms, "plain_fwd_ms": plain_fwd_ms,
                      "plain_tb_ms": plain_tb_ms, "k1_call_ms": k1_ms,
-                     "k1_kernel_ms": k1_kernel_ms})
+                     "k1_kernel_ms": k1_kernel_ms, "fwd_bound_ms": f_bms,
+                     "fwd_bound_by": f_by, "tb_bound_ms": t_bms,
+                     "tb_bound_by": t_by, "tb_moves": moves})
     main = rows[0]
     common = {"route": "cuda", "source": "soap3dp_tpu_torch/csrc/dp_forward.cu",
-              "launches": 0, "max_abs_err": max_err}
+              "launches": 0, "max_abs_err": max_err, "library_ms": None}
     return [dict(common, name="dp_forward",
                  replaces="soap3dp_tpu/kernels/banded_dp.py:238",
-                 ms=main["fwd_ms"], plain_ms=main["plain_fwd_ms"], cases=rows),
+                 ms=main["fwd_ms"], plain_ms=main["plain_fwd_ms"],
+                 bound_ms=main["fwd_bound_ms"], bound_by=main["fwd_bound_by"],
+                 cases=rows),
             dict(common, name="dp_traceback",
                  replaces="soap3dp_tpu/kernels/banded_dp.py:409",
-                 ms=main["tb_ms"], plain_ms=main["plain_tb_ms"])]
+                 ms=main["tb_ms"], plain_ms=main["plain_tb_ms"],
+                 bound_ms=main["tb_bound_ms"], bound_by=main["tb_bound_by"])]
 
 
 def phase_golden(dev) -> None:
@@ -382,7 +528,7 @@ def phase_golden(dev) -> None:
     through the port on ``dev``."""
     import io
 
-    from soap3dp_tpu.io.sam import SamWriter
+    from soap3dp_tpu_torch.io.sam import SamWriter
     from soap3dp_tpu_torch import workloads
     from soap3dp_tpu_torch.fm.fmindex import device_index
     from soap3dp_tpu_torch.pipeline.pair import align_pair_batch
@@ -522,7 +668,7 @@ def _mate_pair_ini(work: str) -> str:
 def _genome_index(genome_bp: int, work: str, sa_rate: int = 2):
     """(rng after the genome, genome, index path, how, build s, lut_k):
     the seeded genome and its index, built once and cached in ``work``."""
-    from soap3dp_tpu.index.builder import build_index, load_index, save_index
+    from soap3dp_tpu_torch.index.builder import build_index, load_index, save_index
     from soap3dp_tpu_torch import workloads
 
     os.makedirs(work, exist_ok=True)
@@ -552,6 +698,14 @@ def _kernels() -> dict:
 
 def _launches() -> dict:
     return {name: k.launches for name, k in _kernels().items()}
+
+
+def _launch_shapes() -> dict:
+    """{kernel: {"P x Lr x Lw": launches}} since the counts were last
+    set to 0 (the shapes the path itself gave each kernel)."""
+    return {name: {f"{p}x{lr}x{lw}": n for (p, lr, lw), n in
+                   sorted(k.shapes.items())}
+            for name, k in _kernels().items() if k.shapes}
 
 
 def _launches_per_device() -> dict:
@@ -682,6 +836,7 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
                                                str(dev)]
     env = MATE_PAIR_ENV if mate_pair else None
     wall, log, launches = _run_cli(argv, dev, env)
+    shapes = _launch_shapes()
     with open(os.path.join(out_dir, f"{tag}e2e_stderr.log"), "w") as fh:
         fh.write(log)
     recall = _sam_recall(out + ".sam", [p1, p2], rand)
@@ -689,7 +844,8 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     batches = [float(x) for x in re.findall(r"BWT-paired \(([0-9.]+)s\)", log)]
     res = dict(_rates(2 * n_pairs, wall, log), index_build_s=build_s,
                batch_s=batches, recall=recall, launches=launches,
-               summary=summ, card=card)
+               launch_shapes=shapes, summary=summ, card=card)
+    phase(f"{name} launch shapes", json.dumps(shapes))
     phase(name, f"{2 * n_pairs} reads in {wall:.2f}s = "
                 f"{2 * n_pairs / wall:.0f} reads/s "
                 f"({res['reads_per_s_after_load']:.0f} after index load "
@@ -767,6 +923,8 @@ def phase_single_e2e(dev, reads: dict, card: str, work: str,
     wall, log, launches = _run_cli(
         ["single", reads["index"], reads["r1"], "-o", out, "--device",
          str(dev)], dev)
+    shapes = _launch_shapes()
+    phase("single-end e2e launch shapes", json.dumps(shapes))
     with open(os.path.join(out_dir, "se_e2e_stderr.log"), "w") as fh:
         fh.write(log)
     n = len(reads["planted"])
@@ -775,7 +933,8 @@ def phase_single_e2e(dev, reads: dict, card: str, work: str,
     batches = [float(x) for x in re.findall(r"BWT-aligned \(([0-9.]+)s\)",
                                             log)]
     res = dict(_rates(n, wall, log), batch_s=batches, recall=recall,
-               launches=launches, summary=summ, card=card)
+               launches=launches, launch_shapes=shapes, summary=summ,
+               card=card)
     phase("single-end e2e", f"{n} reads in {wall:.2f}s = {n / wall:.0f} "
                             f"reads/s ({res['reads_per_s_after_load']:.0f} "
                             f"after index load + upload); batches {batches} "
@@ -978,7 +1137,7 @@ def check_last_card() -> bool:
     current give the results of card 0 (needs two cards)."""
     import torch
 
-    from soap3dp_tpu.index.builder import build_index
+    from soap3dp_tpu_torch.index.builder import build_index
     from soap3dp_tpu_torch import workloads
     from soap3dp_tpu_torch.fm.fmindex import device_index
     from soap3dp_tpu_torch.fm.search import search_reads
@@ -1079,7 +1238,11 @@ def main(argv=None) -> int:
                     f"{torch.version.cuda} | nvidia-smi: {card}")
     _build_all()
 
-    kernels = phase_kernels(dev) + phase_wide_kernels(dev)
+    peak_ops = int32_peak_ops()
+    phase("device", f"int32 peak {peak_ops / 1e12:.2f} TOP/s (132 SMs x 64 "
+                    f"lanes x {sm_max_clock_mhz():.0f} MHz), memory "
+                    f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    kernels = phase_kernels(dev, peak_ops) + phase_wide_kernels(dev, peak_ops)
     phase_golden(dev)
     work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e")
     e2e, reads = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR)

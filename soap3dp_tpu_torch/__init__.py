@@ -7,11 +7,12 @@ tensors with an explicit ``device``; the fused banded DP
 (``kernels/banded_dp.py``) is a hand-written CUDA kernel for Hopper
 (``csrc/banded_dp.cu``) with its plain-torch version beside it.
 
-Host code that imports no JAX is shared with the reference package
-rather than copied: ``index/*``, ``io/*``, ``pipeline/options.py``,
-``pipeline/overlap.py``, ``utils/{dna,shapes,rhash,timers}.py`` and
-``cli/ini.py``. Nothing in this package imports ``jax``
-(tests/test_torch_imports.py enforces it).
+The host code (index builder, readers and writers, options, ini,
+utilities, and the native helpers' C++ sources in ``csrc/host/``) is
+this package's own copy of the reference's: nothing here imports
+``soap3dp_tpu`` or ``jax`` (tests/test_torch_imports.py enforces it).
+The on-disk index format is the reference's, so an index built by
+either package loads in both.
 """
 
 __all__: list[str] = []

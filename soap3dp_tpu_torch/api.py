@@ -20,11 +20,11 @@ import dataclasses
 
 import numpy as np
 
-from soap3dp_tpu.index.builder import Index, load_index
-from soap3dp_tpu.io.fastq import ReadBatch
-from soap3dp_tpu.io.sam import SamRecord
-from soap3dp_tpu.pipeline.options import AlignOptions
-from soap3dp_tpu.utils import dna
+from soap3dp_tpu_torch.index.builder import Index, load_index
+from soap3dp_tpu_torch.io.fastq import ReadBatch
+from soap3dp_tpu_torch.io.sam import SamRecord
+from soap3dp_tpu_torch.pipeline.options import AlignOptions
+from soap3dp_tpu_torch.utils import dna
 from soap3dp_tpu_torch.fm.fmindex import DeviceIndex, device_index
 
 

@@ -99,6 +99,13 @@ def close_hosts() -> None:
         dist.destroy_process_group()
 
 
+def _stride(it, hosts: int, host_id: int):
+    """Each host takes every hosts-th input batch (its input shard)."""
+    for i, item in enumerate(it):
+        if i % hosts == host_id:
+            yield item
+
+
 def _merge_summary(total, hosts: int) -> None:
     """Sum the per-host summary counters across processes and print the
     global totals."""
@@ -127,7 +134,7 @@ def _load(index_arg: str, devices: list[torch.device]):
     """(host index, device index): on one device with the OOM ladder; on
     several, replicated over their mesh (the ladder's budget then per
     device)."""
-    from soap3dp_tpu.index.builder import load_index
+    from soap3dp_tpu_torch.index.builder import load_index
     from soap3dp_tpu_torch.distributed import mesh as dmesh
     from soap3dp_tpu_torch.fm.fmindex import device_index_ladder
 
@@ -199,10 +206,10 @@ def _align_backoff(align_one, summary_cls, batches, devices, min_reads=1024,
 
 
 def _writer(opts, index, path):
-    from soap3dp_tpu.io.aio import AsyncWriter
-    from soap3dp_tpu.io.sam import SamWriter
-    from soap3dp_tpu.io.succinct import BamWriter, SuccinctWriter
-    from soap3dp_tpu.pipeline import options as opt
+    from soap3dp_tpu_torch.io.aio import AsyncWriter
+    from soap3dp_tpu_torch.io.sam import SamWriter
+    from soap3dp_tpu_torch.io.succinct import BamWriter, SuccinctWriter
+    from soap3dp_tpu_torch.pipeline import options as opt
 
     if opts.output_format == opt.FORMAT_SUCCINCT:
         w = SuccinctWriter(path + ".gout", index)
@@ -219,11 +226,10 @@ def run_single(args) -> int:
     """The ``single`` command."""
     hosts, host_id = _init_hosts(args)
 
-    from soap3dp_tpu.cli.main import _build_options
-    from soap3dp_tpu.cli.runner import _stride
-    from soap3dp_tpu.io.aio import prefetch
-    from soap3dp_tpu.io.fastq import read_single
-    from soap3dp_tpu.utils import timers
+    from soap3dp_tpu_torch.cli.main import _build_options
+    from soap3dp_tpu_torch.io.aio import prefetch
+    from soap3dp_tpu_torch.io.fastq import read_single
+    from soap3dp_tpu_torch.utils import timers
     from soap3dp_tpu_torch.pipeline.overlap import AsyncFlusher
     from soap3dp_tpu_torch.pipeline.single import (BatchSummary,
                                                    SalvageQueue,
@@ -288,11 +294,10 @@ def run_pair(args, devices: list[torch.device] | None = None) -> int:
     """The ``pair`` command; ``devices`` overrides --device/--devices."""
     hosts, host_id = _init_hosts(args)
 
-    from soap3dp_tpu.cli.main import _build_options
-    from soap3dp_tpu.cli.runner import _stride
-    from soap3dp_tpu.io.aio import prefetch
-    from soap3dp_tpu.io.fastq import read_pairs
-    from soap3dp_tpu.utils import timers
+    from soap3dp_tpu_torch.cli.main import _build_options
+    from soap3dp_tpu_torch.io.aio import prefetch
+    from soap3dp_tpu_torch.io.fastq import read_pairs
+    from soap3dp_tpu_torch.utils import timers
     from soap3dp_tpu_torch.pipeline.overlap import AsyncFlusher
     from soap3dp_tpu_torch.pipeline.pair import (PairSummary, Phase2Queue,
                                                  RescueQueue,
@@ -389,7 +394,7 @@ def run_multi(cmd: str, args) -> int:
 
 
 def _summary(opts, total) -> None:
-    from soap3dp_tpu.utils import timers
+    from soap3dp_tpu_torch.utils import timers
 
     timers.report()
     print(f"[soap3dp] done: {total}", file=sys.stderr)

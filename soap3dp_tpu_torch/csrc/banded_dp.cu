@@ -6,21 +6,36 @@
 // `dp_align` returns, integer for integer: best score, best cell
 // (hit_i, hit_j), tie count, window start, and the right-to-left runs.
 //
-// What bounds it on this card: the per-diagonal dependency chain (every
-// anti-diagonal needs the two before it, so a problem advances one
-// diagonal per step) and the direction bytes' traffic (one byte per
-// cell, Lr+1 cells per diagonal, written once and read back by the
-// traceback). Design:
+// What bounds it on this card: integer operations. The recurrence
+// costs about 16 add/max/select operations per cell, against one
+// direction byte per cell written to a scratch that only the traceback
+// reads (internal traffic) and a few bytes of inputs and outputs per
+// problem, so the work is compute-bound by the int32 rate; each
+// problem is also a chain of Lr+Lw dependent diagonals. Design:
 //   * the forward is dp_wavefront.cuh: one warp per problem, the
-//     anti-diagonal in registers, the best-cell fold as warp reductions;
+//     anti-diagonal in registers, two cells per register on the 16x2
+//     DPX / SIMD instructions where the scores allow it, the best-cell
+//     fold as warp reductions only on the diagonals that can change it;
+//     a problem without an anchor inside its window takes the forward
+//     without the anchor terms (exact on every cell with j <= wlen, the
+//     only ones the traceback and the fold read);
+//   * at most 64 registers a thread for C = 4 (reads up to 127), so 32
+//     warps fit an SM and the wrapper sizes the grid from the resident
+//     warps (soap3dp_dp_align_resident_warps): at P = 4096 every
+//     problem starts in the first wave;
 //   * direction bytes go to a global scratch region per warp
 //     (ND x 32C bytes), written as 32-bit words by all lanes; the
 //     scratch is sized by the warps in flight, which loop over the
 //     problems grid-stride, not by the problem count;
-//   * lane 0 then walks the traceback from (hit_i, hit_j) directly: it
-//     visits the same cells as the reference's reverse diagonal sweep,
-//     since every move lowers i + j, and emits the same runs (right
-//     clip, ops, insert tail merged into a trailing insert, left clip).
+//   * the traceback walks from (hit_i, hit_j) and visits the same cells
+//     as the reference's reverse diagonal sweep (every move lowers
+//     i + j). Each move lowers i + j by 1 or 2 and i by at most 1, so
+//     the next 32 diagonals' cells lie in the 32 bytes at and below the
+//     current i: the warp fetches that window in one step (lane k, row
+//     d-1-k, nine coalesced words) into shared memory, and lane 0 walks
+//     it from there, one scratch round trip per 32 diagonals instead of
+//     one per move. It emits the same runs as the reference (right clip,
+//     ops, insert tail merged into a trailing insert, left clip).
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
@@ -30,14 +45,17 @@ namespace {
 
 using namespace soap3dp;
 
+constexpr int TB_WORDS = 9;  // 36 bytes: 32 cells and the word alignment
+
 template <int C>
-__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK, C <= 4 ? 8 : 1)
 dp_align_kernel(const uint8_t* __restrict__ reads,
                 const uint8_t* __restrict__ wins,
                 const int32_t* __restrict__ params, int P, int Lr, int Lw,
                 int MR, Scores sc, int32_t* __restrict__ stats,
                 int32_t* __restrict__ ops, int32_t* __restrict__ cnts,
                 uint8_t* __restrict__ scratch) {
+  __shared__ uint32_t tile[WARPS_PER_BLOCK][32][TB_WORDS];
   const int lane = threadIdx.x & 31;
   const long long warp =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -45,70 +63,108 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
   const int ND = Lr + Lw;
   const int ROW = 32 * C;  // scratch bytes per diagonal
   uint8_t* scr = scratch + warp * (long long)ND * ROW;
+  const uint32_t* scr_w = reinterpret_cast<const uint32_t*>(scr);
+  uint32_t(&my_tile)[32][TB_WORDS] = tile[threadIdx.x >> 5];
+  const uint8_t* tb = reinterpret_cast<const uint8_t*>(&my_tile[0][0]);
 
   for (long long p = warp; p < P; p += nwarps) {
     const Problem pb = load_problem(params + p * 8);
-    const Best b = wavefront<C>(
-        reads + p * (long long)Lr, wins + p * (long long)Lw, Lr, Lw, pb, sc,
-        lane, [&](int d, const uint32_t* word) {
-          uint32_t* row =
-              reinterpret_cast<uint32_t*>(scr + (long long)(d - 1) * ROW) +
-              lane * (C / 4);
+    auto sink = [&](int d, const uint32_t* word) {
+      uint32_t* row =
+          reinterpret_cast<uint32_t*>(scr + (long long)(d - 1) * ROW) +
+          lane * (C / 4);
 #pragma unroll
-          for (int q = 0; q < C / 4; ++q) row[q] = word[q];
-        });
+      for (int q = 0; q < C / 4; ++q) row[q] = word[q];
+    };
+    const uint8_t* rd = reads + p * (long long)Lr;
+    const uint8_t* wn = wins + p * (long long)Lw;
+    // the traceback and the fold read only cells with j <= wlen: without
+    // an anchor inside the window the anchor-free packed forward is exact
+    Best b;
+    if constexpr (C <= 8) {
+      if (!fits16(Lr, sc))
+        b = wavefront<C>(rd, wn, Lr, Lw, pb, sc, lane, sink);
+      else if (pb.anchor_l > pb.wlen)
+        b = wavefront16<C, false>(rd, wn, Lr, Lw, pb, sc, lane, sink);
+      else
+        b = wavefront16<C, true>(rd, wn, Lr, Lw, pb, sc, lane, sink);
+    } else {
+      b = wavefront<C>(rd, wn, Lr, Lw, pb, sc, lane, sink);
+    }
     __threadfence_block();
     __syncwarp();
 
-    if (lane == 0) {
-      int32_t* o_ops = ops + p * (long long)MR;
-      int32_t* o_cnt = cnts + p * (long long)MR;
-      int ridx = 0, of = 0, startj = 0, clipv = 0, ins_tail = 0;
-      auto put = [&](int op, int cnt) {
-        if (ridx < MR) {
-          o_ops[ridx] = op;
-          o_cnt[ridx] = cnt;
-        } else {
-          of = 1;
+    int32_t* o_ops = ops + p * (long long)MR;
+    int32_t* o_cnt = cnts + p * (long long)MR;
+    int ridx = 0, of = 0, startj = 0, clipv = 0, ins_tail = 0;
+    auto put = [&](int op, int cnt) {
+      if (ridx < MR) {
+        o_ops[ridx] = op;
+        o_cnt[ridx] = cnt;
+      } else {
+        of = 1;
+      }
+      ++ridx;
+    };
+    if (b.bS >= pb.cutoff) {  // the same on every lane
+      const int rclip = max(pb.rlen - b.bI, 0);
+      if (lane == 0 && rclip > 0) put(OP_CLIP, rclip);
+      int i = b.bI, j = b.bJ, state = 0, done = 0, cur_op = -1,
+          cur_cnt = 0;
+      while (!done && i > 0 && j > 0) {  // uniform: lane 0's walk state
+        // rows dtop-1 .. dtop-32, bytes a0 .. a0+35 of each
+        const int dtop = i + j;
+        const int a0 = max(0, i - 31) & ~3;
+        const int row = dtop - 1 - lane;
+        if (row >= 0) {
+#pragma unroll
+          for (int w = 0; w < TB_WORDS; ++w)
+            if (a0 + 4 * w < ROW)
+              my_tile[lane][w] = scr_w[((long long)row * ROW + a0) / 4 + w];
         }
-        ++ridx;
-      };
-      if (b.bS >= pb.cutoff) {
-        const int rclip = max(pb.rlen - b.bI, 0);
-        if (rclip > 0) put(OP_CLIP, rclip);
-        int i = b.bI, j = b.bJ, state = 0, done = 0, cur_op = -1,
-            cur_cnt = 0;
-        while (!done && i > 0 && j > 0) {
-          const int byte = scr[(long long)(i + j - 1) * ROW + i];
-          const int dH = byte & 3, dD = (byte >> 2) & 1, dI = (byte >> 3) & 3;
-          const int mop = ((byte >> 5) & 1) ? OP_MATCH : OP_MISMATCH;
-          const bool do_diag = state == 0 && dH == DH_DIAG;
-          const bool do_sm = state == 0 && dH == DH_SM;
-          const bool do_d = state == 1 || (state == 0 && dH == DH_D);
-          const bool do_i = state == 2 || (state == 0 && dH == DH_I);
-          const bool i_fresh = do_i && dI == DI_FRESH;
-          const int op = (do_diag || do_sm) ? mop : (do_d ? OP_DEL : OP_INS);
-          const int ni = (do_diag || (do_i && !i_fresh)) ? i - 1 : i;
-          const int nj = (do_diag || do_sm || do_d) ? j - 1 : j;
-          const int nstate =
-              do_d ? (dD == DD_OPEN ? 0 : 1)
-                   : ((do_i && !i_fresh) ? (dI == DI_OPEN ? 0 : 2) : 0);
-          if (do_sm || i_fresh) {
-            clipv = i - 1;
-            startj = do_sm ? j - 1 : j;
-            done = 1;
+        __syncwarp();
+        if (lane == 0) {
+          while (!done && i > 0 && j > 0 && i + j > dtop - 32) {
+            const int byte =
+                tb[((dtop - i - j) * TB_WORDS) * 4 + (i - a0)];
+            const int dH = byte & 3, dD = (byte >> 2) & 1,
+                      dI = (byte >> 3) & 3;
+            const int mop = ((byte >> 5) & 1) ? OP_MATCH : OP_MISMATCH;
+            const bool do_diag = state == 0 && dH == DH_DIAG;
+            const bool do_sm = state == 0 && dH == DH_SM;
+            const bool do_d = state == 1 || (state == 0 && dH == DH_D);
+            const bool do_i = state == 2 || (state == 0 && dH == DH_I);
+            const bool i_fresh = do_i && dI == DI_FRESH;
+            const int op =
+                (do_diag || do_sm) ? mop : (do_d ? OP_DEL : OP_INS);
+            const int ni = (do_diag || (do_i && !i_fresh)) ? i - 1 : i;
+            const int nj = (do_diag || do_sm || do_d) ? j - 1 : j;
+            const int nstate =
+                do_d ? (dD == DD_OPEN ? 0 : 1)
+                     : ((do_i && !i_fresh) ? (dI == DI_OPEN ? 0 : 2) : 0);
+            if (do_sm || i_fresh) {
+              clipv = i - 1;
+              startj = do_sm ? j - 1 : j;
+              done = 1;
+            }
+            if (op == cur_op) {
+              ++cur_cnt;
+            } else {
+              if (cur_cnt > 0) put(cur_op, cur_cnt);
+              cur_op = op;
+              cur_cnt = 1;
+            }
+            i = ni;
+            j = nj;
+            state = nstate;
           }
-          if (op == cur_op) {
-            ++cur_cnt;
-          } else {
-            if (cur_cnt > 0) put(cur_op, cur_cnt);
-            cur_op = op;
-            cur_cnt = 1;
-          }
-          i = ni;
-          j = nj;
-          state = nstate;
         }
+        __syncwarp();  // lane 0 is done with the tile before its refill
+        i = __shfl_sync(FULL, i, 0);
+        j = __shfl_sync(FULL, j, 0);
+        done = __shfl_sync(FULL, done, 0);
+      }
+      if (lane == 0) {
         if (!done && j == 0 && i > 0) {  // walked off the window start
           const int scl = min(pb.clip_l, i);
           ins_tail = i - scl;
@@ -125,6 +181,8 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
         if (ins_tail > 0) put(OP_INS, ins_tail);
         if (clipv > 0) put(OP_CLIP, clipv);
       }
+    }
+    if (lane == 0) {
       int32_t* st = stats + p * 8;
       st[0] = b.bS;
       st[1] = b.bI;
@@ -135,8 +193,18 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
       st[6] = of;
       st[7] = 0;
     }
-    __syncwarp();  // lane 0 is done reading before the scratch is reused
+    __syncwarp();  // every lane is done reading before the scratch is reused
   }
+}
+
+template <int C>
+int resident_warps() {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dp_align_kernel<C>, 32 * WARPS_PER_BLOCK, 0);
+  return per_sm * sms * WARPS_PER_BLOCK;
 }
 
 }  // namespace
@@ -186,3 +254,16 @@ extern "C" int soap3dp_dp_align(const void* reads, const void* wins,
 }
 
 extern "C" int soap3dp_warps_per_block() { return WARPS_PER_BLOCK; }
+
+// warps of dp_align_kernel<cells_per_lane> resident on the current card
+// at once (the grid that runs every problem in one wave), 0 if unknown
+extern "C" int soap3dp_dp_align_resident_warps(int cells_per_lane) {
+  switch (cells_per_lane) {
+    case 4: return resident_warps<4>();
+    case 8: return resident_warps<8>();
+    case 16: return resident_warps<16>();
+    case 32: return resident_warps<32>();
+    case 64: return resident_warps<64>();
+    default: return 0;
+  }
+}

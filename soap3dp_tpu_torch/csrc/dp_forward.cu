@@ -7,17 +7,21 @@
 // soap3dp_tpu/kernels/banded_dp.py:238 `_dp_forward_pallas_kernel`: the
 // same cells, tie-breaks and direction bytes as `_dp_forward_scan`, and
 // the best cell (score, hit_i, hit_j, tie count) of each problem.
-//   Bound by the per-diagonal dependency chain (a problem advances one
-//   anti-diagonal per step) and by writing ND x P x (Lr+1) direction
-//   bytes to device memory (1 GB for 2,000 problems of a 100 bp read in
-//   a 4224 bp window). Design: the forward is dp_wavefront.cuh (one warp
-//   per problem, the anti-diagonal in registers, no scratch); each
-//   diagonal's Lr+1 bytes go straight to dirs[d-1, p, :], which is
-//   contiguous per (d, p), so a warp's stores of one diagonal land in
-//   one or two 128-byte lines, written once and never read back by this
-//   kernel. dirs is (Lr+Lw, P, Lr+1) uint8, diagonal-major, like the
-//   reference's; every cell of it is written, cells outside the table
-//   (j < 0) with the same bytes as the plain version's.
+//   Bound by integer operations (about 16 per cell: 1.04 G cells at the
+//   mate-pair window, P = 2048 x 120 x 4224, are ~1 ms at the int32
+//   rate) ahead of writing ND x P x (Lr+1) direction bytes to device
+//   memory (1.08 GB there, ~0.32 ms at 3.35 TB/s). Design: the forward
+//   is dp_wavefront.cuh (one warp per problem, the anti-diagonal in
+//   registers, DPX max chains, the fold's reductions only where it can
+//   change, no scratch), with the anchor kept in the recurrences since
+//   every cell is an output; each diagonal's Lr+1 bytes go straight to
+//   dirs[d-1, p, :], which is contiguous per (d, p), through a row
+//   pointer that advances one diagonal per call, so a warp's stores of
+//   one diagonal land in one or two 128-byte lines, written once and
+//   never read back by this kernel. dirs is (Lr+Lw, P, Lr+1) uint8,
+//   diagonal-major, like the reference's; every cell of it is written,
+//   cells outside the table (j < 0) with the same bytes as the plain
+//   version's.
 //
 // soap3dp_dp_traceback replaces the XLA program `_traceback_scan`
 // (soap3dp_tpu/kernels/banded_dp.py:409-475) and the host run-length
@@ -61,17 +65,25 @@ dp_forward_kernel(const uint8_t* __restrict__ reads,
 
   for (long long p = warp; p < P; p += nwarps) {
     const Problem pb = load_problem(params + p * 8);
-    uint8_t* dp = dirs + p * Lr1;
-    const Best b = wavefront<C>(
-        reads + p * (long long)Lr, wins + p * (long long)Lw, Lr, Lw, pb, sc,
-        lane, [&](int d, const uint32_t* word) {
-          uint8_t* row = dp + (long long)(d - 1) * diag_stride;
+    // this lane's cells of diagonal d-1, advanced one diagonal per call
+    uint8_t* row = dirs + p * Lr1 + lane * C;
+    const int ncell = min(C, max(0, Lr + 1 - lane * C));
+    auto sink = [&](int, const uint32_t* word) {
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const int i = lane * C + c;
-            if (i <= Lr) row[i] = (uint8_t)(word[c >> 2] >> (8 * (c & 3)));
-          }
-        });
+      for (int c = 0; c < C; ++c)
+        if (c < ncell) row[c] = (uint8_t)(word[c >> 2] >> (8 * (c & 3)));
+      row += diag_stride;
+    };
+    const uint8_t* rd = reads + p * (long long)Lr;
+    const uint8_t* wn = wins + p * (long long)Lw;
+    Best b;
+    if constexpr (C <= 8) {
+      b = fits16(Lr, sc)
+              ? wavefront16<C, true>(rd, wn, Lr, Lw, pb, sc, lane, sink)
+              : wavefront<C>(rd, wn, Lr, Lw, pb, sc, lane, sink);
+    } else {
+      b = wavefront<C>(rd, wn, Lr, Lw, pb, sc, lane, sink);
+    }
     if (lane == 0) {
       int32_t* st = stats + p * 4;
       st[0] = b.bS;

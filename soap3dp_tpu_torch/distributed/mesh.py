@@ -32,7 +32,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from soap3dp_tpu.index.builder import Index
+from soap3dp_tpu_torch.index.builder import Index
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.fm.fmindex import DeviceIndex
 

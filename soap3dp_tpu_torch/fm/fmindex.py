@@ -25,7 +25,7 @@ import warnings
 import numpy as np
 import torch
 
-from soap3dp_tpu.index.builder import Index
+from soap3dp_tpu_torch.index.builder import Index
 
 MASK32 = 0xFFFFFFFF
 _LANES = 0x5555_5555  # one bit per 2-bit base slot
@@ -186,7 +186,7 @@ def device_index_ladder(index: Index, device, hbm_budget: int | None = None,
     (default: device_index on ``device``; a mesh passes its replication,
     and ``hbm_budget`` is then the budget of each of its devices).
     Returns (device index, host index)."""
-    from soap3dp_tpu.index.builder import resample_sa
+    from soap3dp_tpu_torch.index.builder import resample_sa
 
     upload = upload or (lambda ix: device_index(ix, device))
     while True:

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from soap3dp_tpu.index.builder import Index, _popcount_u32
+from soap3dp_tpu_torch.index.builder import Index, _popcount_u32
 
 _LANES = np.uint32(0x5555_5555)
 
@@ -209,7 +209,7 @@ def complete_search(
     the reference's host SRA model provides via exhaustive
     mismatch-case enumeration (2bwt-flex/SRA2BWTMdl.c).
     """
-    from soap3dp_tpu.utils import dna
+    from soap3dp_tpu_torch.utils import dna
 
     seq_f = np.asarray(read[:length], np.uint8)
     n = index.n
@@ -337,7 +337,7 @@ def _realign_batched(index: Index, codes: np.ndarray, lens: np.ndarray,
     verification — runs vectorized across ALL (read, strand, segment)
     lanes at once. Returns (read_idx into sel, strand, tp, nmis,
     overflow-per-selected-read)."""
-    from soap3dp_tpu.utils import dna
+    from soap3dp_tpu_torch.utils import dna
 
     R = len(sel)
     n = index.n

@@ -22,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from soap3dp_tpu.utils import shapes, timers
+from soap3dp_tpu_torch.utils import shapes, timers
 from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.fm.fmindex import MASK32, DeviceIndex, mul32

@@ -404,8 +404,9 @@ class CudaLibrary:
 
 class CudaKernel:
     """One kernel (C symbol) of a CudaLibrary. ``launches`` counts its
-    launches and ``per_device`` them by card index (only the wrapper
-    that launches the kernel adds to them)."""
+    launches, ``per_device`` them by card index and ``shapes`` them by
+    launch shape (P, Lr, Lw) (only the wrapper that launches the kernel
+    adds to them)."""
 
     def __init__(self, library: CudaLibrary, symbol: str, argtypes: list):
         self.library = library
@@ -419,6 +420,7 @@ class CudaKernel:
         """Set the launch counts to 0."""
         self.launches = 0
         self.per_device: dict[int, int] = {}
+        self.shapes: dict[tuple[int, int, int], int] = {}
 
     def function(self):
         lib = self.library.load()
@@ -430,11 +432,13 @@ class CudaKernel:
                 self._fn = fn
             return lib, self._fn
 
-    def count(self, device: torch.device) -> None:
+    def count(self, device: torch.device, shape: tuple[int, int, int]
+              ) -> None:
         with self._lock:
             self.launches += 1
             self.per_device[device.index] = \
                 self.per_device.get(device.index, 0) + 1
+            self.shapes[shape] = self.shapes.get(shape, 0) + 1
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -485,11 +489,28 @@ def _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r, cutoff=None):
          z if cutoff is None else cutoff, z], dim=1).to(torch.int32).contiguous()
 
 
+_RESIDENT: dict[tuple[int, int], int] = {}
+
+
+def _resident_warps(lib, dev: torch.device, C: int) -> int:
+    """K1's warps resident on ``dev`` at once for C cells per lane (the
+    occupancy API through the library; cached per card and C)."""
+    key = (dev.index, C)
+    if key not in _RESIDENT:
+        fn = lib.soap3dp_dp_align_resident_warps
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+        with torch.cuda.device(dev):
+            _RESIDENT[key] = int(fn(C))
+    return _RESIDENT[key] or _MAX_WARPS
+
+
 def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
     """One launch of csrc/banded_dp.cu over P problems on the current
     stream of their device, with that device made current (a launch
-    must run in the context of the memory it touches). Returns device
-    (stats (P, 8), ops (P, MR), cnts (P, MR))."""
+    must run in the context of the memory it touches). The grid is at
+    most the warps resident at once, so no problem waits for a second
+    wave while the card can hold it. Returns device (stats (P, 8), ops
+    (P, MR), cnts (P, MR))."""
     lib, fn = DP_KERNEL.function()
     P, Lr = reads.shape
     Lw = wins.shape[1]
@@ -498,7 +519,8 @@ def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
     ND = Lr + Lw
     per_warp = ND * 32 * C
     wpb = int(lib.soap3dp_warps_per_block())
-    warps = max(1, min(P, _MAX_WARPS, _SCRATCH_BUDGET // per_warp))
+    warps = max(1, min(P, _resident_warps(lib, dev, C),
+                       _SCRATCH_BUDGET // per_warp))
     blocks = -(-warps // wpb)
     scratch = torch.empty(blocks * wpb * per_warp, dtype=torch.uint8,
                           device=dev)
@@ -513,7 +535,7 @@ def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"banded DP kernel launch failed: CUDA error {err}")
-    DP_KERNEL.count(dev)
+    DP_KERNEL.count(dev, (P, Lr, Lw))
     return stats, ops, cnts
 
 
@@ -538,7 +560,7 @@ def _launch_forward(reads, wins, params, dirs, sc: DPScores):
                  blocks, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"DP forward kernel launch failed: CUDA error {err}")
-    FORWARD_KERNEL.count(dev)
+    FORWARD_KERNEL.count(dev, (P, Lr, Lw))
     return stats
 
 
@@ -560,7 +582,7 @@ def _launch_traceback(dirs, tbp, active, lanes, n: int, MR: int):
     if err != 0:
         raise RuntimeError(f"DP traceback kernel launch failed: CUDA error "
                            f"{err}")
-    TRACEBACK_KERNEL.count(dev)
+    TRACEBACK_KERNEL.count(dev, (n, Lr1 - 1, ND - Lr1 + 1))
     return ops, cnts, meta
 
 

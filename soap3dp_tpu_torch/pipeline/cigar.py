@@ -15,7 +15,7 @@ import numpy as np
 
 from soap3dp_tpu_torch.kernels.banded_dp import (
     OP_CLIP, OP_DEL, OP_INS, OP_MATCH, OP_MISMATCH)
-from soap3dp_tpu.utils import dna
+from soap3dp_tpu_torch.utils import dna
 
 _SAM_OP = {OP_MATCH: "M", OP_MISMATCH: "M", OP_INS: "I", OP_DEL: "D",
            OP_CLIP: "S"}

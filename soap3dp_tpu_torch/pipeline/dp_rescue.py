@@ -15,8 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from soap3dp_tpu.index.builder import Index
-from soap3dp_tpu.utils import shapes, timers
+from soap3dp_tpu_torch.index.builder import Index
+from soap3dp_tpu_torch.utils import shapes, timers
 from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.fm.fmindex import DeviceIndex, to_device
@@ -390,7 +390,7 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     if index_host is not None:
         # drop alignments whose reference span crosses a chromosome
         # boundary or an excluded ambiguity region
-        from soap3dp_tpu.io.sam import crosses_boundary
+        from soap3dp_tpu_torch.io.sam import crosses_boundary
         end_j = hJ.astype(np.int64)
         span = np.maximum(end_j - startj, 1)
         passed &= ~crosses_boundary(

@@ -20,10 +20,10 @@ import dataclasses
 import numpy as np
 
 from soap3dp_tpu_torch.fm.search import HitArrays
-from soap3dp_tpu.index.builder import Index
-from soap3dp_tpu.io.sam import crosses_boundary
-from soap3dp_tpu.pipeline import options as opt
-from soap3dp_tpu.utils import rhash
+from soap3dp_tpu_torch.index.builder import Index
+from soap3dp_tpu_torch.io.sam import crosses_boundary
+from soap3dp_tpu_torch.pipeline import options as opt
+from soap3dp_tpu_torch.utils import rhash
 
 
 @dataclasses.dataclass

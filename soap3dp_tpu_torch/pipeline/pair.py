@@ -30,17 +30,17 @@ import numpy as np
 from soap3dp_tpu_torch.fm.fmindex import DeviceIndex
 from soap3dp_tpu_torch.fm.search import (SearchConfig, config_for,
                                    search_reads)
-from soap3dp_tpu.index.builder import Index
-from soap3dp_tpu.io import sam
-from soap3dp_tpu.io.fastq import ReadBatch
-from soap3dp_tpu.io.sam import SamRecord, SamWriter
+from soap3dp_tpu_torch.index.builder import Index
+from soap3dp_tpu_torch.io import sam
+from soap3dp_tpu_torch.io.fastq import ReadBatch
+from soap3dp_tpu_torch.io.sam import SamRecord, SamWriter
 from soap3dp_tpu_torch.kernels.banded_dp import DPScores
 from soap3dp_tpu_torch.pipeline import cigar as cig
 from soap3dp_tpu_torch.pipeline import dp_rescue, hits, mapq
-from soap3dp_tpu.pipeline import options as opt
-from soap3dp_tpu.pipeline.options import AlignOptions
-from soap3dp_tpu.utils import rhash, shapes
-from soap3dp_tpu.utils import timers
+from soap3dp_tpu_torch.pipeline import options as opt
+from soap3dp_tpu_torch.pipeline.options import AlignOptions
+from soap3dp_tpu_torch.utils import rhash, shapes
+from soap3dp_tpu_torch.utils import timers
 from soap3dp_tpu_torch.pipeline.single import _genome_codes, _qual_bytes, _seq_bytes
 
 # bound on candidate mates enumerated per anchor hit inside the insert
@@ -877,7 +877,7 @@ def int_list(x) -> list:
 def _slow_pair_tags(index, b1, b2, b, t1, t2, combos, prim, first, paired,
                     n_sel, tags1, tags2, rl1, rl2, opts):
     """Per-record extras: MD/NM and XA alternate lists."""
-    from soap3dp_tpu.utils import dna
+    from soap3dp_tpu_torch.utils import dna
 
     g0 = int(combos.start[b])
     if opts.output_md:
@@ -905,7 +905,7 @@ def _gapless_end(index, batch, table, row, b, mq, st, opts) -> EndInfo:
     if opts.output_md:
         codes = batch.codes[b, :rlen]
         if table.strand[row]:
-            from soap3dp_tpu.utils import dna
+            from soap3dp_tpu_torch.utils import dna
             codes = dna.revcomp_codes(codes)
         md, nm = sam.mismatch_md(index, int(table.pos[row]), codes)
         tags = [f"NM:i:{nm}"] + tags + [f"MD:Z:{md}"]

@@ -18,16 +18,16 @@ import numpy as np
 
 from soap3dp_tpu_torch.fm.fmindex import DeviceIndex
 from soap3dp_tpu_torch.fm.search import config_for, search_reads
-from soap3dp_tpu.index.builder import Index
-from soap3dp_tpu.io import sam
-from soap3dp_tpu.io.fastq import ReadBatch
-from soap3dp_tpu.io.sam import SamRecord, SamWriter
+from soap3dp_tpu_torch.index.builder import Index
+from soap3dp_tpu_torch.io import sam
+from soap3dp_tpu_torch.io.fastq import ReadBatch
+from soap3dp_tpu_torch.io.sam import SamRecord, SamWriter
 from soap3dp_tpu_torch.kernels.banded_dp import DPScores
 from soap3dp_tpu_torch.pipeline import cigar as cig
 from soap3dp_tpu_torch.pipeline import dp_rescue, hits, mapq
-from soap3dp_tpu.pipeline import options as opt
-from soap3dp_tpu.pipeline.options import AlignOptions
-from soap3dp_tpu.utils import dna, rhash, timers
+from soap3dp_tpu_torch.pipeline import options as opt
+from soap3dp_tpu_torch.pipeline.options import AlignOptions
+from soap3dp_tpu_torch.utils import dna, rhash, timers
 
 
 @dataclasses.dataclass
@@ -125,7 +125,7 @@ class SinglePhase2Queue:
 def _dispatch_phase2_single(didx, batch, todo, table, lens, k
                             ) -> _SinglePhase2Item:
     from soap3dp_tpu_torch.fm.search import PendingSearch
-    from soap3dp_tpu.utils import shapes
+    from soap3dp_tpu_torch.utils import shapes
 
     cfg = config_for(didx, k)
     nb = shapes.bucket(len(todo), min_size=512)
@@ -148,7 +148,7 @@ def _phase2_fetch_merge(index, it: _SinglePhase2Item,
         raw = it.pend2.result()
     if np.asarray(raw.flagged).any():
         from soap3dp_tpu_torch.fm import host_search
-        from soap3dp_tpu.pipeline.options import AlignOptions
+        from soap3dp_tpu_torch.pipeline.options import AlignOptions
         o = opts if opts is not None else AlignOptions()
         raw = host_search.realign_flagged(
             index, raw, it.sb.codes, it.lens, it.k,

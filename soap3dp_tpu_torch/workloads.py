@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from soap3dp_tpu.index.packing import PackedGenome
-from soap3dp_tpu.utils import dna
+from soap3dp_tpu_torch.index.packing import PackedGenome
+from soap3dp_tpu_torch.utils import dna
 
 GOLDEN_PAIR_CASES = [
     ("pair_h1_md", dict(output_mode=1, output_md=True)),
@@ -46,9 +46,9 @@ def make_tiny_pair_workload(genome_bp: int = 120_000, n_pairs: int = 48,
                             read_len: int = 64, insert: int = 200,
                             seed: int = 0):
     """(index, batch1, batch2, options): every pipeline phase fires."""
-    from soap3dp_tpu.index.builder import build_index
-    from soap3dp_tpu.io.fastq import ReadBatch
-    from soap3dp_tpu.pipeline.options import AlignOptions
+    from soap3dp_tpu_torch.index.builder import build_index
+    from soap3dp_tpu_torch.io.fastq import ReadBatch
+    from soap3dp_tpu_torch.pipeline.options import AlignOptions
 
     rng = np.random.default_rng(seed)
     genome = random_genome(rng, genome_bp)
@@ -112,7 +112,7 @@ def golden_single_workload():
 
 
 def golden_options(case: dict):
-    from soap3dp_tpu.pipeline.options import AlignOptions
+    from soap3dp_tpu_torch.pipeline.options import AlignOptions
 
     return AlignOptions(min_insert=100, max_insert=400,
                         output_mode=case["output_mode"],

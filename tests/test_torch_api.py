@@ -20,10 +20,11 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def loaded(small_index, small_device_index):
     from soap3dp_tpu_torch.fm.fmindex import device_index
+    from tests.test_torch_host_copies import port_index
 
+    index = port_index(small_index)
     return (japi.LoadedIndex(index=small_index, didx=small_device_index),
-            tapi.LoadedIndex(index=small_index,
-                             didx=device_index(small_index, "cpu")))
+            tapi.LoadedIndex(index=index, didx=device_index(index, "cpu")))
 
 
 def _same(a, b):

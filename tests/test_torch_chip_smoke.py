@@ -123,3 +123,47 @@ def test_refuses_without_card_or_checkout(tmp_path):
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
     res = _run(str(tmp_path))
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_bounds_edge_cases_and_launch_shapes(monkeypatch):
+    """Phase 2's bounds are the larger of operations over the int32 peak
+    and bytes over the memory rate; its edge cases are the shapes they
+    name; each kernel counts its launches by shape, which phases 4-6
+    print as a histogram."""
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    peak = 132 * 64 * 1980e6
+    main = chip_smoke.main_path_problems(np.random.default_rng(4), 64, 100,
+                                         768)
+    cells = int((main[1].astype(np.int64) * 768).sum())
+    ms, by = chip_smoke.k1_bound(main, 128, peak)
+    assert by == "operations"
+    assert ms == pytest.approx(cells * chip_smoke.OPS_PER_CELL / peak * 1e3)
+    # K2 writes (Lr+Lw) x P x (Lr+1) bytes: bytes bound a short-read case
+    prob = chip_smoke.make_problems(np.random.default_rng(5), 8, 4, 4096)
+    prob[1][:] = 1
+    ms2, by2 = chip_smoke.k2_bound(prob, peak)
+    assert by2 == "bytes" and ms2 == pytest.approx(
+        (8 * (4 + 4096 + 48) + 4100 * 8 * 5) / chip_smoke.HBM_BYTES_PER_S
+        * 1e3)
+    assert chip_smoke.tb_bound(1000, 10, 128, peak)[1] == "bytes"
+
+    cases = dict(chip_smoke.edge_cases(np.random.default_rng(6)))
+    assert list(cases) == ["Lr31", "Lr32", "Lr33", "Lr127", "Lr128",
+                           "Lr2047", "ties", "anchors_Lr33",
+                           "overflow_Lr260"]
+    for name, prob in cases.items():
+        assert len(prob) == 9
+        if name.startswith("Lr"):
+            assert prob[0].shape[1] == int(name[2:])
+    assert (cases["anchors_Lr33"][6] <= 200).all()
+
+    k = bd.CudaKernel(bd.BANDED_DP_LIB, "soap3dp_dp_align", [])
+    monkeypatch.setattr(chip_smoke, "_kernels", lambda: {"K1": k})
+    for shape in ((4096, 100, 768), (12, 100, 256), (4096, 100, 768)):
+        k.count(torch.device("cuda", 0), shape)
+    assert k.launches == 3 and k.per_device == {0: 3}
+    assert chip_smoke._launch_shapes() == {
+        "K1": {"12x100x256": 1, "4096x100x768": 2}}
+    k.reset()
+    assert chip_smoke._launch_shapes() == {}

@@ -22,6 +22,7 @@ from soap3dp_tpu_torch.fm import fmindex as tf
 from soap3dp_tpu_torch.fm import search as ts
 from soap3dp_tpu_torch.kernels import banded_dp as tb
 from tests.test_dp import make_problems
+from tests.test_torch_host_copies import port_index
 
 # small CPU cases: more intra-op threads only contend with other workers
 torch.set_num_threads(1)
@@ -71,11 +72,11 @@ def test_sharded_search_matches_single_device(mesh8, small_index,
     reads, lens = _reads(small_genome.codes, B, L, seed=B)
     cfg_t, cfg_j = ts.SearchConfig(k=1, occ_cap=8), js.SearchConfig(k=1,
                                                                     occ_cap=8)
-    single = ts.search_reads(tf.device_index(small_index, "cpu"), reads,
-                             lens, cfg_t)
+    tidx = port_index(small_index)
+    single = ts.search_reads(tf.device_index(tidx, "cpu"), reads, lens, cfg_t)
     want = _per_read(single, B)
 
-    didx = tmesh.replicate_index(small_index, CPU4)
+    didx = tmesh.replicate_index(tidx, CPU4)
     assert tmesh.mesh_of(didx) is CPU4 and len(tmesh.replicas_of(didx)) == 4
     sreads, slens, B0 = tmesh.shard_batch(CPU4, reads, lens)
     Bp = sum(r.shape[0] for r in sreads)
@@ -113,7 +114,8 @@ def test_escalation_rounds_on_the_mesh():
     unit = rng.integers(0, 4, size=25).astype(np.uint8)
     codes = np.concatenate([np.tile(unit, 60),
                             rng.integers(0, 4, size=4000).astype(np.uint8)])
-    idx = build_index(_genome_from_codes(codes), sa_rate=4, lut_k=4)
+    idx = port_index(build_index(_genome_from_codes(codes), sa_rate=4,
+                                 lut_k=4))
     reads = np.stack([codes[s:s + 50] for s in (3, 40, 200, 1600, 2500)]
                      ).astype(np.uint8)
     lens = np.full(len(reads), 50, np.int32)
@@ -140,14 +142,17 @@ def test_pair_pipeline_mesh_matches_single_device(mesh8):
     from soap3dp_tpu.pipeline.pair import align_pair_batch as jax_align
     from soap3dp_tpu_torch.pipeline.pair import align_pair_batch
 
-    index, b1, b2, opts = workloads.make_tiny_pair_workload(n_pairs=36,
-                                                            seed=5)
+    # each package runs on its own objects (the recipes are equal,
+    # tests/test_torch_pipeline.py)
+    tw = workloads.make_tiny_pair_workload(n_pairs=36, seed=5)
+    jw = g.make_tiny_pair_workload(n_pairs=36, seed=5)
     runs = []
-    for align, didx in (
-            (align_pair_batch, tf.device_index(index, "cpu")),
-            (align_pair_batch, tmesh.replicate_index(index, CPU4,
-                                                     shard_sa=True)),
-            (jax_align, jmesh.replicate_index(index, mesh8, shard_sa=True))):
+    for align, didx, (index, b1, b2, opts) in (
+            (align_pair_batch, tf.device_index(tw[0], "cpu"), tw),
+            (align_pair_batch, tmesh.replicate_index(tw[0], CPU4,
+                                                     shard_sa=True), tw),
+            (jax_align, jmesh.replicate_index(jw[0], mesh8, shard_sa=True),
+             jw)):
         w = g._CollectWriter()
         s = align(index, didx, b1, b2, opts, w)
         runs.append(((s.paired_bwt, s.paired_dp, s.single_rescued,
@@ -164,7 +169,7 @@ def test_sharded_sa_matches_replicated(small_genome, sa_rate):
     (both SA decode paths: the LF walk, and one gather at sa_rate 1)."""
     from soap3dp_tpu.index.builder import build_index
 
-    index = build_index(small_genome, sa_rate=sa_rate)
+    index = port_index(build_index(small_genome, sa_rate=sa_rate))
     B, L = 32, 40
     reads, lens = _reads(small_genome.codes, B, L, seed=sa_rate)
     cfg = ts.SearchConfig(k=1, occ_cap=8)

@@ -280,3 +280,74 @@ def test_wide_kernels_match_plain():
     assert tb.FORWARD_KERNEL.launches == n0 + 1
     assert_dp_equal(tb.dp_align_plain(*args, cut, sc=SC), wide)
     assert_dp_equal(tb.dp_align_cuda(*args, cut, sc=SC), wide)
+
+
+# the edges of the redesigned forward (csrc/dp_wavefront.cuh): cells per
+# lane C = 4 up to Lr = 127 and 8 from 128 (word and lane boundaries at
+# 31 / 32 / 33 and 127 / 128), equal best scores on several diagonals
+EDGE_CPU = [("Lr31", 31), ("Lr32", 32), ("Lr33", 33), ("Lr127", 127),
+            ("Lr128", 128), ("ties", 60)]
+
+
+@pytest.mark.parametrize("name,Lr", EDGE_CPU, ids=[n for n, _ in EDGE_CPU])
+def test_edge_shapes_plain_matches_reference(name, Lr):
+    """The plain version at the forward's edge shapes against the JAX
+    package's dp_align; the ties case holds equal best scores on two
+    diagonals, so the tie-breaks and the tie count decide it."""
+    import chip_smoke
+
+    rng = np.random.default_rng(Lr)
+    if name == "ties":
+        prob = chip_smoke.tie_problems(rng, 12, Lr, 260)
+    else:
+        prob = make_problems(rng, 12, Lr, Lr + 40, with_anchor=Lr % 2 == 1) \
+            + (np.full(12, Lr // 4, np.int32),)
+    want = jb.dp_align(*[jnp.asarray(x) for x in prob[:8]], prob[8],
+                       sc=jb.DPScores())
+    got = tb.dp_align(*_torch(prob), sc=SC)
+    assert_dp_equal(want, got, check_width=True)
+    if name == "ties":
+        # both exact copies score Lr; the unmutated pairs tie
+        assert (np.asarray(got[0]) == Lr).all()
+        assert (np.asarray(got[3])[1::3] >= 2).all()
+
+
+EDGE_CARD = ["Lr31", "Lr32", "Lr33", "Lr127", "Lr128", "Lr2047", "ties",
+             "anchors_Lr33", "overflow_Lr260"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_CARD)
+def test_kernel_edges_match_plain(name):
+    """K1 against its plain version at chip_smoke.py's edge cases (needs
+    a CUDA card; phase 2 runs the same cases): exactly equal, and the
+    overflow case re-launches K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check")
+    import chip_smoke
+
+    cases = dict(chip_smoke.edge_cases(np.random.default_rng(11)))
+    args = _torch(cases[name], "cuda")
+    before = tb.DP_KERNEL.launches
+    got = tb.dp_align(*args, sc=SC)
+    assert tb.DP_KERNEL.launches == before + (2 if name.startswith("overflow")
+                                              else 1)
+    assert_dp_equal(tb.dp_align_plain(*args, sc=SC), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lr,with_anchor", [(31, True), (33, False),
+                                            (127, True)])
+def test_forward_edges_match_plain(Lr, with_anchor):
+    """K2 at the forward's edge read lengths and a window of 4,096 and
+    more: stats and every direction byte equal the plain scan (needs a
+    CUDA card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check")
+    prob = make_problems(np.random.default_rng(Lr), 32, Lr, 4200,
+                         with_anchor)
+    args = _torch(prob, "cuda")
+    got = tb.dp_forward(*args, sc=SC)
+    want = tb._dp_forward_scan(*args, sc=SC)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

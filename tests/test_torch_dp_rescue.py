@@ -21,11 +21,17 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def work():
-    index, b1, b2, opts = make_tiny_pair_workload(seed=5, n_pairs=60)
+    """((JAX index, port index), JAX device index, port device index,
+    reads, lengths): each package's own tiny PE workload (the recipes
+    are equal, tests/test_torch_pipeline.py)."""
+    import __graft_entry__ as ge
+
+    jindex, b1, b2, _ = ge.make_tiny_pair_workload(seed=5, n_pairs=60)
+    tindex = make_tiny_pair_workload(seed=5, n_pairs=60)[0]
     reads = np.concatenate([b1.codes, b2.codes])
     lens = np.concatenate([b1.lens, b2.lens]).astype(np.int32)
-    return (index, jf.device_index(index), tf.device_index(index, "cpu"),
-            reads, lens)
+    return ((jindex, tindex), jf.device_index(jindex),
+            tf.device_index(tindex, "cpu"), reads, lens)
 
 
 @pytest.mark.parametrize("kind", ["single", "deep", "deep_round2"])
@@ -57,7 +63,7 @@ def _windows(work, seed):
     margin = rng.integers(10, 90, cand.read.size)
     ws = np.maximum(cand.pos - margin, 0)
     wl = np.minimum(lens[cand.read] + 2 * margin + rng.integers(0, 40, ws.size),
-                    int(index.n) - ws).astype(np.int32)
+                    int(index[0].n) - ws).astype(np.int32)
     return cand, ws, wl
 
 
@@ -84,14 +90,14 @@ def test_run_banded_dp_equal(work, with_host):
     al = np.full(M, int(wl.max()) + 1, np.int32)
     ar = np.zeros(M, np.int32)
     cutoff = (lens[cand.read] * 0.3).astype(int)
-    host = index if with_host else None
+    jhost, thost = index if with_host else (None, None)
     a = jr.run_banded_dp(jd, reads, lens, cand, ws, wl, int(wl.max()),
                          clip_l, clip_r, al, ar, cutoff, JScores(),
-                         index_host=host)
+                         index_host=jhost)
     b = tr.run_banded_dp(td, reads, lens,
                          tr.Candidates(cand.read, cand.strand, cand.pos),
                          ws, wl, int(wl.max()), clip_l, clip_r, al, ar,
-                         cutoff, TScores(), index_host=host)
+                         cutoff, TScores(), index_host=thost)
     assert a.read.size > M // 4
     for f in ("read", "strand", "pos", "score", "nrun", "win_start",
               "n_best_cells", "problem"):

@@ -21,12 +21,14 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module", params=["sa8", "sa1"])
 def pair_index(request, small_genome, small_index):
-    """(host index, JAX device index, torch device index)."""
+    """(host index, JAX device index, torch device index of the port's
+    Index, loaded from the JAX package's index files)."""
     from soap3dp_tpu.index.builder import build_index
+    from tests.test_torch_host_copies import port_index
 
     idx = small_index if request.param == "sa8" else \
         build_index(small_genome, sa_rate=1)
-    return idx, jf.device_index(idx), tf.device_index(idx, "cpu")
+    return idx, jf.device_index(idx), tf.device_index(port_index(idx), "cpu")
 
 
 def _t(a):

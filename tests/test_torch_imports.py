@@ -1,10 +1,12 @@
-"""The port imports no JAX: neither directly nor through a shared module.
+"""The port imports neither JAX nor the JAX package.
 
 An AST scan of every module of soap3dp_tpu_torch (and chip_smoke.py)
-admits only the soap3dp_tpu modules that import no JAX; a subprocess
-runs the port's CLI (pair on one device and on a two-replica mesh, so
-through soap3dp_tpu_torch.distributed; single) and API end to end on
-the CPU and then finds no ``jax`` in ``sys.modules``.
+finds no import of ``jax``, ``jaxlib`` or any ``soap3dp_tpu`` module;
+a subprocess builds an index with ``soap3dp-torch build``, runs the
+port's CLI (pair on one device and on a two-replica mesh, so through
+soap3dp_tpu_torch.distributed; single) and API end to end on the CPU,
+and then finds neither ``jax`` nor any ``soap3dp_tpu`` module (other
+than ``soap3dp_tpu_torch*``) in ``sys.modules``.
 """
 
 import ast
@@ -17,16 +19,6 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "soap3dp_tpu_torch")
-
-# modules of the JAX package that import no JAX (and are shared)
-ALLOWED = ("soap3dp_tpu.index", "soap3dp_tpu.io", "soap3dp_tpu.pipeline.options",
-           "soap3dp_tpu.utils.dna",
-           "soap3dp_tpu.utils.shapes", "soap3dp_tpu.utils.rhash",
-           "soap3dp_tpu.utils.timers", "soap3dp_tpu.cli.ini",
-           "soap3dp_tpu.cli.main")
-ALLOWED_CLI_MAIN_NAMES = {"_add_common", "_build_options"}
-# soap3dp_tpu/cli/runner.py imports only sys and time at module level
-ALLOWED_CLI_RUNNER_NAMES = {"_stride"}
 
 
 def _sources():
@@ -48,37 +40,22 @@ def _imports(path):
                 yield node.module, a.name
 
 
-def _allowed(mod, name):
-    if mod == "soap3dp_tpu.cli.main":
-        return name in ALLOWED_CLI_MAIN_NAMES
-    if mod == "soap3dp_tpu.cli.runner":
-        return name in ALLOWED_CLI_RUNNER_NAMES
-    full = f"{mod}.{name}" if name else mod
-    # `from soap3dp_tpu.utils import dna` names a submodule
-    return any(full == a or full.startswith(a + ".") or mod == a
-               or mod.startswith(a + ".") for a in ALLOWED)
-
-
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_module_imports_no_jax(path):
     for mod, name in _imports(path):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib"), (path, mod)
-        if root == "soap3dp_tpu":
-            assert _allowed(mod, name), (path, mod, name)
+        assert root not in ("jax", "jaxlib", "soap3dp_tpu"), (path, mod, name)
         if root == "tests" or mod == "__graft_entry__":
             raise AssertionError((path, mod))
 
 
 def test_cli_run_leaves_jax_unimported(tmp_path):
-    from soap3dp_tpu.cli.builder import main as builder_main
-    from soap3dp_tpu.utils import dna
+    from soap3dp_tpu_torch.utils import dna
 
     rng = np.random.default_rng(8)
     codes = rng.integers(0, 4, 20_000).astype(np.uint8)
     (tmp_path / "g.fa").write_text(">c\n" + dna.decode(codes).decode() + "\n")
-    assert builder_main([str(tmp_path / "g.fa")]) == 0
     with open(tmp_path / "r1.fq", "w") as f1, \
             open(tmp_path / "r2.fq", "w") as f2:
         for b, p in enumerate(rng.integers(0, 19_000, 8)):
@@ -89,6 +66,8 @@ def test_cli_run_leaves_jax_unimported(tmp_path):
     code = (
         "import sys\n"
         "from soap3dp_tpu_torch.cli.main import main\n"
+        f"rc = main(['build', {str(tmp_path / 'g.fa')!r}])\n"
+        "assert rc == 0, rc\n"
         f"rc = main(['pair', {str(tmp_path / 'g.fa.index')!r}, "
         f"{str(tmp_path / 'r1.fq')!r}, {str(tmp_path / 'r2.fq')!r}, "
         f"'-o', {str(tmp_path / 'out')!r}, '--device', 'cpu'])\n"
@@ -106,7 +85,8 @@ def test_cli_run_leaves_jax_unimported(tmp_path):
         "from soap3dp_tpu_torch import api\n"
         f"idx = api.load({str(tmp_path / 'g.fa.index')!r}, device='cpu')\n"
         "assert len(api.align_single_r(idx, ['ACGTACGTACGTACGTACGTAC'])) == 1\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'soap3dp_tpu')]\n"
         "assert not bad, bad\n"
         "print('NOJAX')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -26,6 +26,9 @@ from soap3dp_tpu.io.aio import AsyncWriter
 from soap3dp_tpu.io.sam import SamWriter
 from soap3dp_tpu.pipeline.overlap import AsyncFlusher
 from soap3dp_tpu_torch import workloads
+from soap3dp_tpu_torch.io.aio import AsyncWriter as TAsyncWriter
+from soap3dp_tpu_torch.io.sam import SamWriter as TSamWriter
+from soap3dp_tpu_torch.pipeline.overlap import AsyncFlusher as TFlusher
 
 # small CPU cases: more intra-op threads only contend with other workers
 torch.set_num_threads(1)
@@ -42,7 +45,7 @@ def test_golden_sam_through_port(name, case):
     index, b1, b2 = workloads.golden_pair_workload(case.get("plant4", False))
     buf = io.BytesIO()
     align_pair_batch(index, device_index(index, "cpu"), b1, b2,
-                     workloads.golden_options(case), SamWriter(buf, index))
+                     workloads.golden_options(case), TSamWriter(buf, index))
     got = [l for l in buf.getvalue().decode().splitlines()
            if not l.startswith("@PG")]
     with open(os.path.join(GOLDEN_DIR, f"{name}.sam")) as fh:
@@ -61,7 +64,7 @@ def test_golden_single_sam_through_port(name, case):
     index, b1 = workloads.golden_single_workload()
     buf = io.BytesIO()
     align_single_batch(index, device_index(index, "cpu"), b1,
-                       workloads.golden_options(case), SamWriter(buf, index))
+                       workloads.golden_options(case), TSamWriter(buf, index))
     got = [l for l in buf.getvalue().decode().splitlines()
            if not l.startswith("@PG")]
     with open(os.path.join(GOLDEN_DIR, f"{name}.sam")) as fh:
@@ -87,17 +90,23 @@ def test_workload_recipes_match_reference(plant4):
     rb = workloads.make_tiny_pair_workload(seed=4)
     np.testing.assert_array_equal(ra[1].codes, rb[1].codes)
     np.testing.assert_array_equal(ra[2].codes, rb[2].codes)
-    assert ra[3] == rb[3]
+    assert dataclasses.asdict(ra[3]) == dataclasses.asdict(rb[3])
 
 
-def _double_buffered(pair_mod, didx, index, b1, b2, opts, batch):
+# each package's (AsyncWriter, SamWriter, AsyncFlusher)
+JAX_IO = (AsyncWriter, SamWriter, AsyncFlusher)
+PORT_IO = (TAsyncWriter, TSamWriter, TFlusher)
+
+
+def _double_buffered(pair_mod, io_cls, didx, index, b1, b2, opts, batch):
     """The runner's batch loop over ``batch``-pair slices."""
+    async_writer, sam_writer, flusher_cls = io_cls
     buf = io.BytesIO()
     total = pair_mod.PairSummary()
-    with AsyncWriter(SamWriter(buf, index)) as w:
+    with async_writer(sam_writer(buf, index)) as w:
         rq = pair_mod.RescueQueue(index, didx, opts, flush_pairs=24)
         p2q = pair_mod.Phase2Queue(index, didx, opts)
-        flusher = AsyncFlusher(rq, w, eager_min=8)
+        flusher = flusher_cls(rq, w, eager_min=8)
         n = len(b1)
         parts = [(b1.take(slice(s, s + batch)), b2.take(slice(s, s + batch)))
                  for s in range(0, n, batch)]
@@ -122,7 +131,12 @@ def _double_buffered(pair_mod, didx, index, b1, b2, opts, batch):
 
 @pytest.fixture(scope="module")
 def tiny():
-    return workloads.make_tiny_pair_workload(n_pairs=96, seed=21)
+    """Each package's own tiny PE workload, (index, b1, b2, options):
+    the recipes are equal (test_workload_recipes_match_reference)."""
+    import __graft_entry__ as ge
+
+    return (ge.make_tiny_pair_workload(n_pairs=96, seed=21),
+            workloads.make_tiny_pair_workload(n_pairs=96, seed=21))
 
 
 @pytest.mark.parametrize("half_narrow_pad", [32, 0])
@@ -132,11 +146,12 @@ def test_double_buffered_run_matches_reference(tiny, half_narrow_pad):
     from soap3dp_tpu_torch.fm.fmindex import device_index as tdev
     from soap3dp_tpu_torch.pipeline import pair as tpair
 
-    index, b1, b2, opts = tiny
+    (ji, j1, j2, jo), (index, b1, b2, opts) = tiny
+    jo = dataclasses.replace(jo, half_narrow_pad=half_narrow_pad)
     opts = dataclasses.replace(opts, half_narrow_pad=half_narrow_pad)
-    want, ws = _double_buffered(jpair, jdev(index), index, b1, b2, opts, 32)
-    got, gs = _double_buffered(tpair, tdev(index, "cpu"), index, b1, b2,
-                               opts, 32)
+    want, ws = _double_buffered(jpair, JAX_IO, jdev(ji), ji, j1, j2, jo, 32)
+    got, gs = _double_buffered(tpair, PORT_IO, tdev(index, "cpu"), index, b1,
+                               b2, opts, 32)
     assert len(got) == 2 * len(b1)
     assert got == want
     assert dataclasses.asdict(gs) == dataclasses.asdict(ws)
@@ -145,12 +160,13 @@ def test_double_buffered_run_matches_reference(tiny, half_narrow_pad):
         and gs.unaligned
 
 
-def _double_buffered_single(single_mod, flusher_cls, didx, index, batch,
-                            opts, size):
+def _double_buffered_single(single_mod, io_cls, didx, index, batch, opts,
+                            size):
     """The runner's single-end batch loop over ``size``-read slices."""
+    async_writer, sam_writer, flusher_cls = io_cls
     buf = io.BytesIO()
     total = single_mod.BatchSummary()
-    with AsyncWriter(SamWriter(buf, index)) as w:
+    with async_writer(sam_writer(buf, index)) as w:
         sq = single_mod.SalvageQueue(index, didx, opts, flush_reads=24)
         spq = single_mod.SinglePhase2Queue(index, didx, opts)
         flusher = flusher_cls(sq, w, eager_min=8)
@@ -180,19 +196,23 @@ def test_double_buffered_single_run_matches_reference(tiny):
     the double-buffered loop with SalvageQueue, SinglePhase2Queue and
     AsyncFlusher, in both packages."""
     from soap3dp_tpu.fm.fmindex import device_index as jdev
+    from soap3dp_tpu.pipeline import pair as jpair
     from soap3dp_tpu.pipeline import single as jsingle
     from soap3dp_tpu_torch.fm.fmindex import device_index as tdev
     from soap3dp_tpu_torch.pipeline import pair as tpair
     from soap3dp_tpu_torch.pipeline import single as tsingle
-    from soap3dp_tpu_torch.pipeline.overlap import AsyncFlusher as TFlusher
 
-    index, b1, b2, opts = tiny
-    reads = tpair._concat_batches([b1, b2])
-    reads.names = np.asarray([b"%s/%d" % (n, e) for e in (1, 2)
-                              for n in b1.names])
-    want, ws = _double_buffered_single(jsingle, AsyncFlusher, jdev(index),
-                                       index, reads, opts, 40)
-    got, gs = _double_buffered_single(tsingle, TFlusher, tdev(index, "cpu"),
+    def one_stream(pair_mod, b1, b2):
+        reads = pair_mod._concat_batches([b1, b2])
+        reads.names = np.asarray([b"%s/%d" % (n, e) for e in (1, 2)
+                                  for n in b1.names])
+        return reads
+
+    (ji, j1, j2, jo), (index, b1, b2, opts) = tiny
+    reads = one_stream(tpair, b1, b2)
+    want, ws = _double_buffered_single(jsingle, JAX_IO, jdev(ji), ji,
+                                       one_stream(jpair, j1, j2), jo, 40)
+    got, gs = _double_buffered_single(tsingle, PORT_IO, tdev(index, "cpu"),
                                       index, reads, opts, 40)
     assert len(got) == len(reads)
     assert got == want

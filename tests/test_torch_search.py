@@ -17,6 +17,7 @@ from soap3dp_tpu.fm import search as js
 from soap3dp_tpu_torch.fm import fmindex as tf
 from soap3dp_tpu_torch.fm import search as ts
 from tests.test_search import _genome_from_codes, brute_hits, make_reads
+from tests.test_torch_host_copies import port_index
 
 # small CPU cases: more intra-op threads only contend with other workers
 torch.set_num_threads(1)
@@ -24,7 +25,8 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def indexes(small_index):
-    return jf.device_index(small_index), tf.device_index(small_index, "cpu")
+    return (jf.device_index(small_index),
+            tf.device_index(port_index(small_index), "cpu"))
 
 
 def _valid(h):
@@ -101,7 +103,7 @@ def test_compaction_budget_regrowth(rng):
     codes = np.concatenate([np.tile(unit, 12),
                             rng.integers(0, 4, size=3000).astype(np.uint8)])
     idx = build_index(_genome_from_codes(codes), sa_rate=4, lut_k=4)
-    jd, td = jf.device_index(idx), tf.device_index(idx, "cpu")
+    jd, td = jf.device_index(idx), tf.device_index(port_index(idx), "cpu")
     starts = rng.integers(0, 40 * 10, 48)
     reads = np.stack([codes[s:s + 45] for s in starts]).astype(np.uint8)
     lens = np.full(len(reads), 45, np.int32)
@@ -121,7 +123,7 @@ def test_forced_round2_round3_escalation(rng):
     codes = np.concatenate([np.tile(unit, 60),
                             rng.integers(0, 4, size=4000).astype(np.uint8)])
     idx = build_index(_genome_from_codes(codes), sa_rate=4, lut_k=4)
-    jd, td = jf.device_index(idx), tf.device_index(idx, "cpu")
+    jd, td = jf.device_index(idx), tf.device_index(port_index(idx), "cpu")
     reads = np.stack([codes[s:s + 50] for s in (3, 40, 200, 1600, 2500,
                                                  3000)]).astype(np.uint8)
     lens = np.full(len(reads), 50, np.int32)
@@ -159,7 +161,8 @@ def test_variable_length_and_full_sa(small_genome, rng):
     from soap3dp_tpu.index.builder import build_index
 
     codes = small_genome.codes
-    td = tf.device_index(build_index(small_genome, sa_rate=1), "cpu")
+    td = tf.device_index(port_index(build_index(small_genome, sa_rate=1)),
+                        "cpu")
     L = 48
     lens = np.array([48, 37, 25, 41])
     reads = np.zeros((4, L), dtype=np.uint8)
@@ -177,7 +180,7 @@ def test_lut_only_seed_path(rng):
 
     codes = rng.integers(0, 4, 3000).astype(np.uint8)
     idx = build_index(_genome_from_codes(codes), sa_rate=2, lut_k=6)
-    jd, td = jf.device_index(idx), tf.device_index(idx, "cpu")
+    jd, td = jf.device_index(idx), tf.device_index(port_index(idx), "cpu")
     assert ts.default_seed_q(td, ts.SearchConfig(k=2)) == idx.lut_k
     reads = make_reads(rng, codes, 32, 40, 2)
     lens = np.full(32, 40, np.int32)
