@@ -15,7 +15,12 @@ Phases, each printing one line, any failure exits non-zero:
    difference is K1's traceback and scratch share) and, with TB (its
    traceback), at the mate-pair rescue window, an edge shape and a case
    that re-launches TB, where dp_align's wide route is also held
-   against K1 at the same shape;
+   against K1 at the same shape; then K1 and K2 (every dirs byte) at
+   the edges of the forward's two forms: reads of 255 bases at scores
+   of magnitude 15 (the 16-bit form's limits: every base mismatched,
+   the top score, long gaps), the same with one score at 16, and scores
+   past 15 at the main path's shape, with anchors and at a K2 window
+   (the 32-bit form);
 3. golden SAM: the five paired-end and two single-end golden cases of
    tests/golden rendered through the port on cuda, every record equal
    (@PG excepted);
@@ -45,7 +50,9 @@ Phases, each printing one line, any failure exits non-zero:
    prints "not run: 1 card".
 
 Then one JSON line with the kernels (each with its time, its bound on
-this card and the share of the bound it reaches), and the last line
+this card, the share of the bound it reaches and the operations peak
+the bound used: int16x2, twice the int32 peak, where the 16-bit forward
+runs), and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
 index builder, readers and writers); imports neither JAX nor the JAX
 package.
@@ -214,12 +221,80 @@ def edge_cases(rng) -> list[tuple[str, tuple]]:
     return out
 
 
+def extreme_problems(rng, P, Lr, Lw):
+    """Reads of Lr bases at the extremes of the forward's values: a
+    quarter with every base mismatched against an all-A window, a
+    quarter planted exactly (the top score, Lr x match), a quarter
+    planted across a deletion of 100-400 bases and a quarter with an
+    insertion of 100 bases or more; no free clips and a cutoff far
+    below any score, so every lane is traced back."""
+    wins = rng.integers(0, 4, size=(P, Lw)).astype(np.uint8)
+    reads = np.zeros((P, Lr), np.uint8)
+    for p in range(P):
+        off = int(rng.integers(0, Lw - Lr - 420))
+        kind = p % 4
+        if kind == 0:
+            wins[p] = 0
+            reads[p] = rng.integers(1, 4, Lr)
+        elif kind == 1:
+            reads[p] = wins[p, off:off + Lr]
+        elif kind == 2:
+            cut = int(rng.integers(20, Lr - 20))
+            gap = int(rng.integers(100, 400))
+            reads[p, :cut] = wins[p, off:off + cut]
+            reads[p, cut:] = wins[p, off + cut + gap:off + gap + Lr]
+        else:
+            cut = int(rng.integers(20, Lr - 130))
+            ins = int(rng.integers(100, Lr - cut - 10))
+            reads[p, :cut] = wins[p, off:off + cut]
+            reads[p, cut:cut + ins] = rng.integers(0, 4, ins)
+            reads[p, cut + ins:] = wins[p, off + cut:off + Lr - ins]
+    z = np.zeros(P, np.int32)
+    return (reads, np.full(P, Lr, np.int32), wins, np.full(P, Lw, np.int32),
+            z, z.copy(), np.full(P, Lw + 1, np.int32), z.copy(),
+            np.full(P, -100000, np.int32))
+
+
+# scores (match, mismatch, gap open, gap extend) past the 16-bit
+# forward's bound of magnitude 15, at sizes the main path uses
+BIG_SCORES = (16, -20, -30, -9)
+
+
+def range_cases(rng) -> list[tuple[str, tuple, tuple[int, int, int, int]]]:
+    """The edges of the two forward forms, as dp_align inputs with their
+    scores (match, mismatch, gap open, gap extend), for K1 and K2 both:
+    reads of 255 bases (the top of the 16-bit form and of 8 cells a
+    lane) at scores of magnitude 15, with every base mismatched, the
+    top score and long gaps (gap extend -15 drives the D chains along
+    the 2400-base windows to the -32000 floor; -1 makes the DP take the
+    long gaps); the same with one
+    score at 16, which takes the 32-bit form at 8 cells a lane; and
+    scores past the bound at the main path's shape, with anchors, and at
+    a K2 window."""
+    out = []
+    for name, sc in (("r16_Lr255_ext15", (15, -15, -15, -15)),
+                     ("r16_Lr255_ext1", (15, -15, -15, -1)),
+                     ("r32_Lr255_match16", (16, -15, -15, -15)),
+                     ("r32_Lr255_ext16", (15, -15, -15, -16))):
+        out.append((name, extreme_problems(rng, 64, 255, 2400), sc))
+    out.append(("r32_main", main_path_problems(rng, 256, 100, 768),
+                BIG_SCORES))
+    out.append(("r32_anchors", make_problems(rng, 128, 60, 200, True)
+                + (np.full(128, 10, np.int32),), BIG_SCORES))
+    out.append(("r32_window4224", make_problems(rng, 32, 100, 4224, True)
+                + (np.full(32, 30, np.int32),), BIG_SCORES))
+    return out
+
+
 # add, max and select operations per cell of the recurrence as
-# `_dp_forward_scan` writes it: D (2 adds, max, clamp), I (2 adds, the
-# fresh-start select, 2 max, clamp), H (substitution select, diagonal
-# add, 3 max, clamp, the fresh-diagonal select): 16
-OPS_PER_CELL = 16
+# `_dp_forward_scan` writes it: D (2 adds, max, clamp: 4), I (2 adds, the
+# fresh-start select, 2 max, clamp: 6), H (substitution select, diagonal
+# add, 3 max, clamp, the fresh-diagonal select: 7): 17
+OPS_PER_CELL = 17
 HBM_BYTES_PER_S = 3.35e12
+# dp_wavefront.cuh `fits16`: reads of at most this many bases and scores
+# of magnitude at most SCORE16_MAX take the two-cells-per-register form
+READ16_MAX, SCORE16_MAX = 255, 15
 
 
 def sm_max_clock_mhz() -> float:
@@ -236,10 +311,22 @@ def int32_peak_ops() -> float:
     return 132 * 64 * sm_max_clock_mhz() * 1e6
 
 
+def forward_peak(Lr: int, sc, int32_peak: float) -> tuple[float, str]:
+    """The operations peak of the forward that K1 and K2 run at read
+    width Lr under scores ``sc`` (DPScores): the 16x2 form (VIADD.16x2,
+    VIMNMX.S16x2, VIMNMX3.S16x2 issue at the int32 rate and do two
+    cells' operations each) at twice the int32 peak, the 32-bit form at
+    the int32 peak."""
+    vals = (sc.match, sc.mismatch, sc.gap_open, sc.gap_ext, sc.gap_init)
+    if Lr <= READ16_MAX and all(abs(v) <= SCORE16_MAX for v in vals):
+        return 2 * int32_peak, "int16x2"
+    return int32_peak, "int32"
+
+
 def bound_ms(ops: float, nbytes: float, peak_ops: float
              ) -> tuple[float, str]:
     """The least time the card could take: the larger of the operations
-    over the int32 peak and the bytes over the memory rate."""
+    over the operations peak and the bytes over the memory rate."""
     t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -371,15 +458,16 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
         P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
         kms = _kernel_only_ms(bd, args)
         mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
-        bms, by = k1_bound(prob, mr, peak_ops)
+        peak, pname = forward_peak(Lr, bd.DPScores(), peak_ops)
+        bms, by = k1_bound(prob, mr, peak)
         phase("kernel banded_dp",
               f"{name}: P={P} Lr={Lr} Lw={Lw} equal={ok} max_abs_err={err} "
               f"passing_lanes={npass} launches={n_launch} "
               f"first_ms={first_ms:.3f} ms={ms:.3f} "
               f"kernel_only_ms={kms:.3f} "
               f"GCUPS={dp_cells(prob) / (kms * 1e6):.1f} "
-              f"bound_ms={bms:.4f} ({by}) share={bms / kms:.1%} "
-              f"plain_ms={plain_ms:.3f}")
+              f"bound_ms={bms:.4f} ({by}, {pname} peak) "
+              f"share={bms / kms:.1%} plain_ms={plain_ms:.3f}")
         if not ok:
             fail(f"banded_dp kernel disagrees with its plain version ({name})")
         if name.startswith("overflow") and n_launch != 2:
@@ -387,7 +475,7 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
         max_err = max(max_err, err)
         rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
                      "ms": ms, "kernel_only_ms": kms, "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by})
+                     "bound_ms": bms, "bound_by": by, "peak": pname})
         if name == "Lr100_Lw768":
             # K2 on the same problems: what K1 adds is its traceback and
             # its direction scratch
@@ -411,7 +499,46 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
              "launches": 0, "max_abs_err": max_err,
              "ms": main["kernel_only_ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-             "library_ms": None, "call_ms": main["ms"], "cases": rows}]
+             "peak": main["peak"], "library_ms": None, "call_ms": main["ms"],
+             "cases": rows}]
+
+
+def phase_range_cases(dev) -> tuple[int, int]:
+    """K1 and K2 at the edges of the two forward forms (range_cases),
+    each exactly equal to its plain version: K1's dp_align result, K2's
+    stats and every byte of its direction tensor. Returns K1's and K2's
+    max |difference| (0)."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    k1_err = k2_err = 0
+    for name, prob, scores in range_cases(np.random.default_rng(20261018)):
+        sc = bd.DPScores(*scores)
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in prob]
+        P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
+        n0 = bd.DP_KERNEL.launches
+        ok, e1 = _dp_equal(bd.dp_align_cuda(*args, sc=sc),
+                           bd.dp_align_plain(*args, sc=sc))
+        n_k1 = bd.DP_KERNEL.launches - n0
+        fwd = bd.dp_forward(*args[:8], sc=sc)
+        plain = bd._dp_forward_scan(*args[:8], sc=sc)
+        e2 = max(int((a.long() - b.long()).abs().max())
+                 for a, b in zip(fwd[:4], plain[:4]))
+        ndiff = int((fwd[4] != plain[4]).sum())
+        del fwd, plain
+        form = forward_peak(Lr, sc, 1.0)[1]
+        phase("kernel range",
+              f"{name}: P={P} Lr={Lr} Lw={Lw} scores={scores} form={form} "
+              f"K1 equal={ok} max_abs_err={e1} launches={n_k1}; K2 stats "
+              f"max_abs_err={e2} dirs bytes differing={ndiff}")
+        if not ok or e2 or ndiff:
+            fail(f"K1 or K2 disagrees with its plain version ({name})")
+        if form != ("int16x2" if name.startswith("r16") else "int32"):
+            fail(f"{name} does not take the forward form it names")
+        k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+    return k1_err, k2_err
 
 
 def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
@@ -479,7 +606,8 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         ok_plain, e1 = _dp_equal(got, want)
         ok_k1, e2 = _dp_equal(got, k1)
         npass = int((np.asarray(want[6]) > 0).sum())
-        f_bms, f_by = k2_bound(prob, peak_ops)
+        f_peak, f_pname = forward_peak(Lr, sc, peak_ops)
+        f_bms, f_by = k2_bound(prob, f_peak)
         ops_t, cnt_t = np.asarray(tb[0]), np.asarray(tb[1])
         moves = int(cnt_t[(ops_t >= 1) & (ops_t <= 4)].sum())
         t_bms, t_by = tb_bound(moves, P, mr, peak_ops)
@@ -490,8 +618,10 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
               f"passing_lanes={npass} launches fwd={n_f} tb={n_t} "
               f"call_ms={call_ms:.3f} kernel_ms fwd={fwd_ms:.3f} "
               f"tb={tb_ms:.3f} GCUPS={dp_cells(prob) / (fwd_ms * 1e6):.1f} "
-              f"bound_ms fwd={f_bms:.4f} ({f_by}, share {f_bms / fwd_ms:.1%}) "
-              f"tb={t_bms:.4f} ({t_by}, share {t_bms / tb_ms:.1%}) "
+              f"bound_ms fwd={f_bms:.4f} ({f_by}, {f_pname} peak, share "
+              f"{f_bms / fwd_ms:.1%}) "
+              f"tb={t_bms:.4f} ({t_by}, int32 peak, share "
+              f"{t_bms / tb_ms:.1%}) "
               f"plain_ms={plain_ms:.3f} (fwd {plain_fwd_ms:.3f}, "
               f"tb {plain_tb_ms:.3f}) K1 call_ms={k1_ms:.3f} "
               f"K1 kernel_ms={k1_kernel_ms:.3f}")
@@ -507,8 +637,9 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
                      "plain_ms": plain_ms, "plain_fwd_ms": plain_fwd_ms,
                      "plain_tb_ms": plain_tb_ms, "k1_call_ms": k1_ms,
                      "k1_kernel_ms": k1_kernel_ms, "fwd_bound_ms": f_bms,
-                     "fwd_bound_by": f_by, "tb_bound_ms": t_bms,
-                     "tb_bound_by": t_by, "tb_moves": moves})
+                     "fwd_bound_by": f_by, "fwd_peak": f_pname,
+                     "tb_bound_ms": t_bms, "tb_bound_by": t_by,
+                     "tb_moves": moves})
     main = rows[0]
     common = {"route": "cuda", "source": "soap3dp_tpu_torch/csrc/dp_forward.cu",
               "launches": 0, "max_abs_err": max_err, "library_ms": None}
@@ -516,11 +647,12 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
                  replaces="soap3dp_tpu/kernels/banded_dp.py:238",
                  ms=main["fwd_ms"], plain_ms=main["plain_fwd_ms"],
                  bound_ms=main["fwd_bound_ms"], bound_by=main["fwd_bound_by"],
-                 cases=rows),
+                 peak=main["fwd_peak"], cases=rows),
             dict(common, name="dp_traceback",
                  replaces="soap3dp_tpu/kernels/banded_dp.py:409",
                  ms=main["tb_ms"], plain_ms=main["plain_tb_ms"],
-                 bound_ms=main["tb_bound_ms"], bound_by=main["tb_bound_by"])]
+                 bound_ms=main["tb_bound_ms"], bound_by=main["tb_bound_by"],
+                 peak="int32")]
 
 
 def phase_golden(dev) -> None:
@@ -1240,9 +1372,13 @@ def main(argv=None) -> int:
 
     peak_ops = int32_peak_ops()
     phase("device", f"int32 peak {peak_ops / 1e12:.2f} TOP/s (132 SMs x 64 "
-                    f"lanes x {sm_max_clock_mhz():.0f} MHz), memory "
-                    f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+                    f"lanes x {sm_max_clock_mhz():.0f} MHz), int16x2 peak "
+                    f"{2 * peak_ops / 1e12:.2f} TOP/s (the 16-bit forward), "
+                    f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     kernels = phase_kernels(dev, peak_ops) + phase_wide_kernels(dev, peak_ops)
+    k1_err, k2_err = phase_range_cases(dev)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k1_err)
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], k2_err)
     phase_golden(dev)
     work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e")
     e2e, reads = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR)

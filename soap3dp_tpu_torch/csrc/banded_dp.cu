@@ -7,11 +7,13 @@
 // (hit_i, hit_j), tie count, window start, and the right-to-left runs.
 //
 // What bounds it on this card: integer operations. The recurrence
-// costs about 16 add/max/select operations per cell, against one
-// direction byte per cell written to a scratch that only the traceback
-// reads (internal traffic) and a few bytes of inputs and outputs per
-// problem, so the work is compute-bound by the int32 rate; each
-// problem is also a chain of Lr+Lw dependent diagonals. Design:
+// costs 17 add/max/select operations per cell, against one direction
+// byte per cell written to a scratch that only the traceback reads
+// (internal traffic) and a few bytes of inputs and outputs per problem,
+// so the work is compute-bound: at twice the int32 rate in the 16-bit
+// form (each 16x2 instruction does two cells' operations), at the int32
+// rate in the 32-bit form; each problem is also a chain of Lr+Lw
+// dependent diagonals. Design:
 //   * the forward is dp_wavefront.cuh: one warp per problem, the
 //     anti-diagonal in registers, two cells per register on the 16x2
 //     DPX / SIMD instructions where the scores allow it, the best-cell

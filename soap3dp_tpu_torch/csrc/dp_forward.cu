@@ -7,10 +7,11 @@
 // soap3dp_tpu/kernels/banded_dp.py:238 `_dp_forward_pallas_kernel`: the
 // same cells, tie-breaks and direction bytes as `_dp_forward_scan`, and
 // the best cell (score, hit_i, hit_j, tie count) of each problem.
-//   Bound by integer operations (about 16 per cell: 1.04 G cells at the
-//   mate-pair window, P = 2048 x 120 x 4224, are ~1 ms at the int32
-//   rate) ahead of writing ND x P x (Lr+1) direction bytes to device
-//   memory (1.08 GB there, ~0.32 ms at 3.35 TB/s). Design: the forward
+//   Bound by integer operations (17 per cell: the 0.87 G cells of
+//   100-base reads at the mate-pair window, P = 2048 x 120 x 4224, are
+//   ~0.44 ms at twice the int32 rate, the 16-bit form's) ahead of
+//   writing ND x P x (Lr+1) direction bytes to device memory (1.08 GB
+//   there, ~0.32 ms at 3.35 TB/s). Design: the forward
 //   is dp_wavefront.cuh (one warp per problem, the anti-diagonal in
 //   registers, DPX max chains, the fold's reductions only where it can
 //   change, no scratch), with the anchor kept in the recurrences since

@@ -7,6 +7,8 @@
 // On an H100 the forward issues integer instructions at the int32 rate
 // (16 lanes per SM partition per clock), so its time is its instruction
 // count: the 16x2 form and the fold's per-phase bounds cut it by ~2x.
+// A 16x2 instruction does two cells' operations, so the 16-bit form's
+// operations bound is at twice the int32 rate.
 //
 // Same recurrences, tie-breaks and direction encoding as the reference's
 // `_dp_forward_scan` (soap3dp_tpu/kernels/banded_dp.py:106-219), every

@@ -126,19 +126,45 @@ def test_refuses_without_card_or_checkout(tmp_path):
 
 
 def test_bounds_edge_cases_and_launch_shapes(monkeypatch):
-    """Phase 2's bounds are the larger of operations over the int32 peak
-    and bytes over the memory rate; its edge cases are the shapes they
-    name; each kernel counts its launches by shape, which phases 4-6
-    print as a histogram."""
+    """Phase 2's bounds are the larger of operations over the operations
+    peak (twice the int32 peak where the 16-bit forward runs) and bytes
+    over the memory rate; its edge and range cases are the shapes and
+    forward forms they name; each kernel counts its launches by shape,
+    which phases 4-6 print as a histogram."""
     from soap3dp_tpu_torch.kernels import banded_dp as bd
 
     peak = 132 * 64 * 1980e6
+    assert chip_smoke.OPS_PER_CELL == 4 + 6 + 7
+    assert chip_smoke.forward_peak(120, bd.DPScores(), peak) == (
+        2 * peak, "int16x2")
+    assert chip_smoke.forward_peak(255, bd.DPScores(15, -15, -15, -15),
+                                   peak)[1] == "int16x2"
+    for Lr, sc in ((256, bd.DPScores()), (100, bd.DPScores(16, -2, -3, -1)),
+                   (100, bd.DPScores(1, -2, -3, -16)),
+                   # gap init = open - extend = -16
+                   (100, bd.DPScores(1, -2, -15, 1))):
+        assert chip_smoke.forward_peak(Lr, sc, peak) == (peak, "int32")
     main = chip_smoke.main_path_problems(np.random.default_rng(4), 64, 100,
                                          768)
     cells = int((main[1].astype(np.int64) * 768).sum())
-    ms, by = chip_smoke.k1_bound(main, 128, peak)
+    ms, by = chip_smoke.k1_bound(main, 128, 2 * peak)
     assert by == "operations"
-    assert ms == pytest.approx(cells * chip_smoke.OPS_PER_CELL / peak * 1e3)
+    assert ms == pytest.approx(cells * 17 / (2 * peak) * 1e3)
+
+    cases = chip_smoke.range_cases(np.random.default_rng(7))
+    for name, prob, scores in cases:
+        assert len(prob) == 9
+        form = chip_smoke.forward_peak(prob[0].shape[1],
+                                       bd.DPScores(*scores), peak)[1]
+        assert form == ("int16x2" if name.startswith("r16") else "int32")
+    ext = dict((n, p) for n, p, _ in cases)["r16_Lr255_ext15"]
+    reads, wins = ext[0], ext[2]
+    assert reads.shape[1] == 255 and (ext[1] == 255).all()
+    # a quarter all mismatched against an all-A window, a quarter planted
+    assert (wins[0::4] == 0).all() and (reads[0::4] != 0).all()
+    assert all(any((wins[p, o:o + 255] == reads[p]).all()
+                   for o in range(wins.shape[1] - 254))
+               for p in range(1, len(reads), 4))
     # K2 writes (Lr+Lw) x P x (Lr+1) bytes: bytes bound a short-read case
     prob = chip_smoke.make_problems(np.random.default_rng(5), 8, 4, 4096)
     prob[1][:] = 1

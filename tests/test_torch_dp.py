@@ -351,3 +351,55 @@ def test_forward_edges_match_plain(Lr, with_anchor):
     want = tb._dp_forward_scan(*args, sc=SC)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# the limits of the forward's two forms (chip_smoke.range_cases): reads of
+# 255 bases at scores of magnitude 15 (the 16-bit form), one score at 16
+# and scores past 15 (the 32-bit form)
+RANGE_CARD = ["r16_Lr255_ext15", "r16_Lr255_ext1", "r32_Lr255_match16",
+              "r32_Lr255_ext16", "r32_main", "r32_anchors", "r32_window4224"]
+RANGE_SCORES = [(15, -15, -15, -15), (15, -15, -15, -1),
+                (16, -15, -15, -15), (15, -15, -15, -16)]
+
+
+@pytest.mark.parametrize("scores", RANGE_SCORES,
+                         ids=["ext15", "ext1", "match16", "ext16"])
+def test_extreme_scores_plain_matches_reference(scores):
+    """The plain version against the JAX package's dp_align on reads of
+    255 bases at the 16-bit form's score limits and just past them:
+    every base mismatched, the top score, long deletions and
+    insertions."""
+    import chip_smoke
+
+    prob = chip_smoke.extreme_problems(np.random.default_rng(abs(sum(scores))),
+                                       8, 255, 700)
+    want = jb.dp_align(*[jnp.asarray(x) for x in prob[:8]], prob[8],
+                       sc=jb.DPScores(*scores))
+    got = tb.dp_align(*_torch(prob), sc=tb.DPScores(*scores))
+    assert_dp_equal(want, got, check_width=True)
+    # the planted reads reach the top score, 255 x match
+    assert (np.asarray(got[0])[1::4] == 255 * scores[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RANGE_CARD)
+def test_kernel_range_matches_plain(name):
+    """K1 (dp_align result) and K2 (stats and every direction byte)
+    against their plain versions at the edges of the 16-bit and 32-bit
+    forward forms (needs a CUDA card; chip_smoke.py phase 2 runs the
+    same cases)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check")
+    import chip_smoke
+
+    cases = {n: (p, s) for n, p, s in
+             chip_smoke.range_cases(np.random.default_rng(12))}
+    prob, scores = cases[name]
+    sc = tb.DPScores(*scores)
+    args = _torch(prob, "cuda")
+    assert_dp_equal(tb.dp_align_plain(*args, sc=sc),
+                    tb.dp_align_cuda(*args, sc=sc))
+    got = tb.dp_forward(*args[:8], sc=sc)
+    want = tb._dp_forward_scan(*args[:8], sc=sc)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
