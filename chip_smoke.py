@@ -5,7 +5,9 @@
 Phases, each printing one line, any failure exits non-zero:
 
 1. device and build: the card's name and power limit, and the build of
-   every kernel from csrc/ (one nvcc per source, started together);
+   every kernel from csrc/ (one nvcc per source, started together:
+   banded_dp.cu, dp_forward.cu, fm_search.cu) with its registers and
+   spills;
 2. each kernel against its plain-torch version on the card, outputs
    exactly equal, both times printed with each kernel's bound and
    share: K1 (the fused DP) at the main path's shapes, then at the edges
@@ -20,15 +22,26 @@ Phases, each printing one line, any failure exits non-zero:
    of magnitude 15 (the 16-bit form's limits: every base mismatched,
    the top score, long gaps), the same with one score at 16, and scores
    past 15 at the main path's shape, with anchors and at a K2 window
-   (the 32-bit form);
+   (the 32-bit form). Then the seed search's kernels, FS1 (backward
+   search), FS2 (SA decode) and FS3 (packed verify), every output
+   element equal to the plain version's, with each kernel's device time,
+   its bound and share (bytes, and bytes at 32-byte sectors) and the
+   plain version's time: the calls of the main path on phase 4's index
+   (a 65,536-pair batch's search, the index built and cached here, and
+   a deep-DP seeding), each FS1 branch at its edges, FS2 at sa_rate 1,
+   2 and 8 and with the SA split over a two-replica mesh, FS3 at its
+   edges, all three on a synthetic 3.2 Gbp index (rows, bounds and
+   positions past 2^31), and a repeat genome's search (rounds 2 and 3)
+   on the card and the CPU with equal hits;
 3. golden SAM: the five paired-end and two single-end golden cases of
    tests/golden rendered through the port on cuda, every record equal
    (@PG excepted);
 4. end to end at a real size: a 250 Mbp genome, 100,000 read pairs,
    the port's `pair` CLI with default options (-u 500 -v 300); checks
-   records, planted-locus recall, rescue counts and kernel launches (K1,
-   and no K2: its windows are narrow) with a histogram of the launch
-   shapes (P, Lr, Lw) (phases 5 and 6 likewise), then runs it once more under
+   records, planted-locus recall, rescue counts and kernel launches (K1
+   and FS1-FS3, and no K2: its windows are narrow; no plain search
+   primitive on the card) with a histogram of the launch shapes (phases
+   5, 6 and 7a likewise), then runs it once more under
    torch.profiler (device busy share, top device events in the output
    directory's e2e_profile.txt);
 5. mate-pair: a -/+ library of 2-6 kbp inserts aligned with
@@ -49,10 +62,10 @@ Phases, each printing one line, any failure exits non-zero:
    DP routes on the last card while card 0 is current; on one card it
    prints "not run: 1 card".
 
-Then one JSON line with the kernels (each with its time, its bound on
-this card, the share of the bound it reaches and the operations peak
-the bound used: int16x2, twice the int32 peak, where the 16-bit forward
-runs), and the last line
+Then one JSON line with the kernels (K1, K2, TB, FS1, FS2, FS3, each
+with its time, its bound on this card, the share of the bound it
+reaches and the operations peak the bound used: int16x2, twice the
+int32 peak, where the 16-bit forward runs), and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
 index builder, readers and writers); imports neither JAX nor the JAX
 package.
@@ -655,6 +668,825 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
                  peak="int32")]
 
 
+# ------------------------------------------------------------------
+# Phase 2, the seed search's kernels: FS1 backward search, FS2 SA
+# decode, FS3 packed verify (kernels/fm_search.py, csrc/fm_search.cu)
+# ------------------------------------------------------------------
+
+# The fmindex entry points of the three kernels. Each takes a CUDA
+# tensor to its kernel; the same name with "_plain" is its plain
+# version, which a case runs on the same inputs.
+FS_FUNCTIONS = {"seed_intervals": "FS1", "backward_search": "FS1",
+                "backward_search_packed": "FS1", "sa_decode": "FS2",
+                "count_mismatches_rows": "FS3",
+                "count_mismatches_packed": "FS3"}
+# integer operations, as the plain versions write them: one FM step
+# (both bounds: the sentinel skip, word and occ indices, the match
+# mask of 5, the lane mask, popcount, two adds: 18 each), a lane's
+# jumpstart (the k-mer or extension word, ~4 per base of 16), an SA
+# probe (mark word index, bit test, partial mask, popcount) and LF step
+# (the sentinel skip, indices, base extraction, the occ count), a
+# verified word (funnel shift 4, xor, fold 3, mask 3, popcount, add)
+OPS_FM_STEP, OPS_FM_LANE = 36, 64
+OPS_SA_PROBE, OPS_SA_LF = 10, 22
+OPS_VERIFY_WORD = 14
+SECTOR = 32  # bytes the card moves for one scattered load
+
+
+def sample_reads(rng, codes: np.ndarray, B: int, L: int, lens=None,
+                 sub: float = 0.005, random_share: float = 0.0):
+    """(reads (B, L) uint8, lens (B,) int32): reads cut from ``codes`` at
+    random places, half reverse complemented, ``sub`` of their bases
+    substituted, the first ``random_share`` of them random; zero past
+    each read's length."""
+    lens = np.full(B, L, np.int32) if lens is None else np.asarray(lens,
+                                                                   np.int32)
+    pos = rng.integers(0, len(codes) - L, B)
+    reads = codes[pos[:, None] + np.arange(L)[None, :]].astype(np.uint8)
+    rc = rng.random(B) < 0.5
+    reads[rc] = 3 - reads[rc][:, ::-1]
+    m = rng.random(reads.shape) < sub
+    reads[m] = (reads[m] + rng.integers(1, 4, int(m.sum()))) % 4
+    nrand = int(B * random_share)
+    reads[:nrand] = rng.integers(0, 4, (nrand, L))
+    reads[np.arange(L)[None, :] >= lens[:, None]] = 0
+    return reads, lens
+
+
+def fs_search_cases(rng, didx, codes: np.ndarray, dev, B: int = 256,
+                    L: int = 100) -> list[tuple[str, str, tuple]]:
+    """FS1 at the edges each branch of _search_batch must reproduce:
+    reads of variable length (some shorter than lut_k, one of 1 base)
+    with their reverse-complement rows, as code bytes and as packed
+    words, and a uniform-length batch; segments shorter than lut_k in
+    every mode (the LUT-only branch reads the A-padded k-mer at the
+    start, the packed branch clamps the k-mer tail and the extension
+    offset, the general branch clamps every base and takes no LUT),
+    starts past the read and past L; and the public backward_search /
+    backward_search_packed entries."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+    from soap3dp_tpu_torch.fm.search import pack_read_matrix
+
+    k = didx.lut_k
+    lens = rng.integers(max(k - 3, 1), L + 1, B)
+    lens[:4] = [L, k, k - 1, 1]
+    reads, lens = sample_reads(rng, codes, B, L, lens)
+    reads[-8:] = rng.integers(0, 4, (8, L))  # seeds absent from the genome
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    lens_t = t(lens)
+    sources = {"codes": t(reads),
+               "packed": t(pack_read_matrix(reads).view(np.int32))}
+    S = 3
+    N = 2 * B * S
+    cases = []
+    for mode, top, steps in (("lut", k + 16, 0), ("packed", k + 18, 16),
+                             ("general", 48, 48)):
+        start = rng.integers(0, L + 2, N)
+        length = rng.integers(0, top + 1, N)
+        length[::5] = rng.integers(0, k, len(length[::5]))
+        for src, reads_t in sources.items():
+            ori = fmindex.OrientedReads.of(reads_t, lens_t, L)
+            cases.append((f"{mode}_{src}", "seed_intervals",
+                          (didx, ori, S, t(start), t(length), steps, mode)))
+    # a uniform-length batch of 90 bases in 100-wide rows: the reverse
+    # complements of revcomp_reads_uniform
+    uni, _ = sample_reads(rng, codes, B, L, np.full(B, 90))
+    ori_u = fmindex.OrientedReads.of(
+        t(pack_read_matrix(uni).view(np.int32)), t(np.full(B, 90, np.int32)),
+        L, uniform_len=90)
+    start = rng.integers(0, 60, N)
+    length = rng.integers(0, k + 17, N)
+    cases.append(("packed_uniform", "seed_intervals",
+                  (didx, ori_u, S, t(start), t(length), 16, "packed")))
+    # the public entries, on the materialized rows of the last source
+    ori = fmindex.OrientedReads.of(sources["codes"], lens_t, L)
+    oriented = ori.matrix
+    rows = torch.arange(2 * B, device=dev).repeat_interleave(S)
+    start = t(rng.integers(0, L + 2, N))
+    length = t(rng.integers(0, 40, N))
+    cases.append(("api_backward_search", "backward_search",
+                  (didx, oriented[rows].contiguous(), start, length, 40)))
+    cases.append(("api_backward_search_packed", "backward_search_packed",
+                  (didx, fmindex.rolling_kmer_codes(oriented, 16), rows,
+                   start, length.clamp(max=k + 16), 16)))
+    return cases
+
+
+def decode_rows(rng, n: int, primary: int, N: int) -> np.ndarray:
+    """N SA rows in [0, n]: the first row, the rows around the sentinel
+    (primary), around 16- and 32-row word boundaries, the last row, and
+    random rows."""
+    edge = [0, 1, 15, 16, 17, 31, 32, 33, primary - 1, primary, primary + 1,
+            n - 1, n]
+    words = rng.integers(1, max(n // 32, 2), 64) * 32
+    edge += list((words[:, None] + np.array([-1, 0, 1, 16])[None, :]).ravel())
+    rows = np.concatenate([np.asarray(edge, np.int64),
+                           rng.integers(0, n + 1, max(N - len(edge), 0))])
+    return np.clip(rows, 0, n)[:N]
+
+
+def fs_decode_case(rng, name: str, didx, dev, N: int = 65536
+                   ) -> tuple[str, str, tuple]:
+    """FS2 on ``didx`` over decode_rows, a fifth of them invalid."""
+    import torch
+
+    rows = decode_rows(rng, didx.n, didx.primary, N)
+    valid = rng.random(N) < 0.8
+    return (name, "sa_decode", (didx, torch.from_numpy(rows).to(dev),
+                                torch.from_numpy(valid).to(dev)))
+
+
+def fs_verify_cases(rng, didx, codes: np.ndarray, dev, B: int = 256,
+                    L: int = 100, M: int = 8192
+                    ) -> list[tuple[str, str, tuple]]:
+    """FS3 at its edges: placements at packed-word boundaries (tp a
+    multiple of 16: no funnel shift), in the genome's last words and
+    past its end (the pac index clamped), and random, of forward and
+    reverse-complement rows of variable length (code bytes and packed
+    words), and the public count_mismatches_packed on (M, W) words."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+    from soap3dp_tpu_torch.fm.search import pack_read_matrix
+
+    n = didx.n
+    lens = rng.integers(1, L + 1, B)
+    lens[:2] = [L, 16]
+    reads, lens = sample_reads(rng, codes, B, L, lens)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rows = rng.integers(0, 2 * B, M)
+    olens = np.concatenate([lens, lens])
+    tp = rng.integers(0, n, M)
+    tp[: M // 4] = rng.integers(0, n // 16, M // 4) * 16
+    tp[M // 4: M // 4 + 64] = n - olens[rows[M // 4: M // 4 + 64]]
+    tp[M // 4 + 64: M // 4 + 128] = n - rng.integers(1, 40, 64)
+    tp[:8] = [0, 16, 15, 17, n - 16, n - 1, (n // 16) * 16, n - 100]
+    cases = []
+    packed = pack_read_matrix(reads).view(np.int32)
+    for src, reads_t in (("codes", t(reads)), ("packed", t(packed))):
+        ori = fmindex.OrientedReads.of(reads_t, t(lens), L)
+        cases.append((f"verify_{src}", "count_mismatches_rows",
+                      (didx, t(tp), ori, t(rows), t(olens[rows]))))
+    words = fmindex.pack_reads(ori.matrix)[t(rows)]
+    cases.append(("api_count_mismatches_packed", "count_mismatches_packed",
+                  (didx, t(tp), words, t(olens[rows]))))
+    return cases
+
+
+def synthetic_table_sizes(n: int, sa_rate: int, lut_k: int) -> dict:
+    """Elements of each table of an n-base index: 16 bases a BWT and a
+    genome word (row n + 1 skips the sentinel to BWT position n), four
+    occ counts a BWT word, 32 rows a mark word and its rank, one sample
+    every sa_rate rows, 4^lut_k LUT entries."""
+    nw = n // 16 + 1
+    return {"occ": 4 * nw, "bwt": nw, "mark_words": n // 32 + 1,
+            "mark_rank": n // 32 + 1, "sa_samples": n // sa_rate + 1,
+            "pac": n // 16 + 1, "lut_lo": 4 ** lut_k, "lut_hi": 4 ** lut_k}
+
+
+def synthetic_index(dev, n: int, sa_rate: int = 8, lut_k: int = 13,
+                    seed: int = 31):
+    """A DeviceIndex of an n-base text with every table at its true size
+    for ``sa_rate`` and ``lut_k`` (random content, made on ``dev``),
+    its values in range: counts C[c] = 1 + c n/4 and occ entries below
+    n/4 - 16, so every FM bound and LF row stays in [0, n]; LUT
+    intervals of up to 64 rows; samples anywhere in [0, 2^32). At
+    n = 3.2e9 (a human genome) rows, bounds and positions pass 2^31."""
+    import torch
+
+    from soap3dp_tpu_torch.fm.fmindex import DeviceIndex
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = n // 4
+    size = synthetic_table_sizes(n, sa_rate, lut_k)
+    nw, nmw, n_sa = size["bwt"], size["mark_words"], size["sa_samples"]
+
+    def bits(size):
+        return torch.randint(-(1 << 31), 1 << 31, (size,), generator=g,
+                             dtype=torch.int32, device=dev)
+
+    def below(hi, size):
+        """Values in [0, hi) as int32 bit patterns of the uint32 tables."""
+        if hi <= 1 << 31:
+            return torch.randint(0, hi, (size,), generator=g,
+                                 dtype=torch.int32, device=dev)
+        x = torch.randint(0, hi, (size,), generator=g, dtype=torch.int64,
+                          device=dev)
+        return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+    lut_lo = below(n - 64, 4 ** lut_k)
+    lut_hi = (lut_lo.long() & 0xFFFFFFFF) + torch.randint(
+        0, 65, (4 ** lut_k,), generator=g, device=dev)
+    lut_hi = ((lut_hi + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+    return DeviceIndex(
+        occ=below(q - 16, 4 * nw), bwt=bits(nw), mark_rank=below(n_sa, nmw),
+        mark_words=bits(nmw), sa_samples=bits(n_sa),
+        counts=torch.tensor([1, 1 + q, 1 + 2 * q, 1 + 3 * q, n + 1],
+                            dtype=torch.int64, device=dev),
+        pac=bits(size["pac"]), lut_lo=lut_lo, lut_hi=lut_hi,
+        primary=n // 3, n=n, sa_rate=sa_rate, lut_k=lut_k)
+
+
+def synthetic_cases(rng, didx, dev, B: int = 4096, L: int = 100
+                    ) -> list[tuple[str, str, tuple]]:
+    """All three kernels on a synthetic_index: random packed reads and
+    their reverse complements, segments in each FS1 mode (LUT intervals
+    anywhere in [0, n]), SA rows and placements over the whole text, a
+    quarter of them past 2^31 or in the text's last words."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+
+    n, k = didx.n, didx.lut_k
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    words = rng.integers(-(1 << 31), 1 << 31, (B, (L + 15) // 16),
+                         dtype=np.int64).astype(np.int32)
+    lens = rng.integers(1, L + 1, B).astype(np.int32)
+    ori = fmindex.OrientedReads.of(t(words), t(lens), L)
+    S = 4
+    N = 2 * B * S
+    cases = []
+    for mode, top, steps in (("lut", k + 16, 0), ("packed", k + 16, 16),
+                             ("general", 40, 40)):
+        start = t(rng.integers(0, L, N))
+        length = t(rng.integers(0, top + 1, N))
+        cases.append((f"synthetic_{mode}", "seed_intervals",
+                      (didx, ori, S, start, length, steps, mode)))
+    cases.append(fs_decode_case(rng, "synthetic_decode", didx, dev))
+    M = 65536
+    tp = rng.integers(0, n, M)
+    tp[: M // 4] = rng.integers(min(1 << 31, n // 2), n, M // 4)
+    tp[M // 4: M // 4 + 64] = n - rng.integers(1, 200, 64)
+    rows = rng.integers(0, 2 * B, M)
+    olens = np.concatenate([lens, lens])
+    cases.append(("synthetic_verify", "count_mismatches_rows",
+                  (didx, t(tp), ori, t(rows), t(olens[rows]))))
+    return cases
+
+
+def repeat_genome(rng, genome_bp: int, unit: int, copies: int,
+                  sub: float = 0.002):
+    """(genome, repeat starts): a random genome with ``copies`` copies of
+    one random ``unit``-base sequence pasted at random non-overlapping
+    places, each copy with ``sub`` of its bases substituted."""
+    import dataclasses
+
+    from soap3dp_tpu_torch import workloads
+    from soap3dp_tpu_torch.utils import dna
+
+    genome = workloads.random_genome(rng, genome_bp, name="chrR")
+    codes = genome.codes
+    rep = rng.integers(0, 4, unit).astype(np.uint8)
+    starts = np.sort(rng.choice(genome_bp // unit - 1, copies,
+                                replace=False)) * unit
+    for s in starts:
+        c = rep.copy()
+        m = rng.random(unit) < sub
+        c[m] = (c[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        codes[s:s + unit] = c
+    return dataclasses.replace(genome, codes=codes,
+                               pac=dna.pack_codes(codes)), starts
+
+
+class _Recorder:
+    """Within ``with``: every call of an fmindex entry point of the three
+    kernels (FS_FUNCTIONS) is recorded, (name, args), and goes through;
+    and every call of a plain search primitive whose index lies on a
+    card is counted in ``plain_on_card`` (a CUDA tensor never takes a
+    plain version)."""
+
+    def __init__(self, record: bool = True):
+        self.record = record
+        self.calls: list[tuple[str, tuple]] = []
+        self.plain_on_card = 0
+        self._saved = {}
+
+    def __enter__(self):
+        from soap3dp_tpu_torch.fm import fmindex
+
+        for name in FS_FUNCTIONS:
+            for fn_name in ((name, name + "_plain") if self.record
+                            else (name + "_plain",)):
+                fn = getattr(fmindex, fn_name)
+                self._saved[fn_name] = fn
+                setattr(fmindex, fn_name, self._wrap(fn_name, fn))
+        return self
+
+    def _wrap(self, fn_name, fn):
+        def call(*args, **kw):
+            if fn_name.endswith("_plain"):
+                if args[0].device.type == "cuda":
+                    self.plain_on_card += 1
+            else:
+                self.calls.append((fn_name, args))
+            return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        from soap3dp_tpu_torch.fm import fmindex
+
+        for fn_name, fn in self._saved.items():
+            setattr(fmindex, fn_name, fn)
+        return False
+
+
+def _gathered(gathers: dict) -> tuple[int, int]:
+    """(bytes, sectors) of the distinct 4-byte table elements in
+    ``gathers`` (table name -> the element indices of every lane and
+    step): an element that several lanes or steps read counts once, and
+    so does each 32-byte sector holding one (every table starts on a
+    sector: the allocator aligns each tensor)."""
+    import torch
+
+    nbytes = sectors = 0
+    for parts in gathers.values():
+        u = torch.unique(torch.cat([p.reshape(-1) for p in parts]))
+        nbytes += 4 * u.numel()
+        sectors += SECTOR * torch.unique(u // (SECTOR // 4)).numel()
+    return nbytes, sectors
+
+
+def _fs1_lanes(fn: str, args: tuple) -> tuple:
+    """An FS1 call as (code rows (R, L) int64, each lane's row, start,
+    length, max_steps, mode) and the bytes of its inputs and outputs,
+    each read or written once (the C array's 40 included)."""
+    import torch
+
+    if fn == "seed_intervals":
+        ori, S, start, length, steps, mode = args[1:]
+        codes = ori.matrix
+        rows = torch.arange(codes.shape[0],
+                            device=codes.device).repeat_interleave(S)
+        src = (ori.reads.numel() * ori.reads.element_size()
+               + ori.rc_len.numel() * 8)
+    elif fn == "backward_search":
+        codes, start, length, steps = args[1:]
+        rows = torch.arange(codes.shape[0], device=codes.device)
+        mode, src = "general", codes.numel() * codes.element_size()
+    else:
+        roll16, rows, start, length, steps = args[1:]
+        codes = (roll16 >> 30) & 3
+        mode, src = "packed", roll16.numel() * 8 + rows.numel() * 8
+    lanes = (codes.long(), rows.long(), start.long(), length.long(), steps,
+             mode)
+    return lanes, start.shape[0] * 32 + src + 40
+
+
+def fs1_replay(idx, codes, rows, start, length, max_steps: int, mode: str):
+    """FS1 lane by lane over its code rows, as the kernel walks them:
+    (l, r), the FM steps the lanes take (a lane stops at an empty
+    interval or at the end of its segment) and the LUT, occ and BWT
+    elements they gather, each branch with its edges (fs_search_cases)."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+
+    last = codes.shape[1] - 1
+    k = idx.lut_k
+
+    def word16(p):
+        """The 16 bases from p of each lane's row, MSB first, A past L."""
+        w = torch.zeros_like(p)
+        for j in range(16):
+            q = p + j
+            w |= torch.where(q <= last, codes[rows, q.clamp(max=last)],
+                             0) << (2 * (15 - j))
+        return w
+
+    if mode == "general":
+        m = torch.zeros_like(start)
+        for j in range(k):
+            m = (m << 2) | codes[rows, (start + length - k + j).clamp(0, last)]
+    else:
+        p = start if mode == "lut" else start + length - k
+        m = word16(p.clamp(0, last)) >> (2 * (16 - k))
+    can = length >= k if mode != "lut" else torch.ones_like(length, dtype=bool)
+    zero = torch.zeros_like(start)
+    l = torch.where(can, fmindex._u32(idx.lut_lo[m]), zero)
+    r = torch.where(can, fmindex._u32(idx.lut_hi[m]), zero + idx.n + 1)
+    gathers = {"lut_lo": [m[can]], "lut_hi": [m[can]], "occ": [zero[:0]],
+               "bwt": [zero[:0]]}
+    steps = 0
+    if mode == "lut":
+        return l, r, steps, gathers
+    rem = torch.where(can, length - k, length)
+    wext = word16(start.clamp(0, last))
+    for s in range(max_steps):
+        act = (s < rem) & (l < r)
+        if mode == "packed":
+            c = (wext >> (2 * (15 - (rem - 1 - s).clamp(0, 15)))) & 3
+        else:
+            c = codes[rows, (start + rem - 1 - s).clamp(0, last)]
+        for bound in (l, r):
+            w = ((bound - (bound > idx.primary).long()) >> 4)[act]
+            gathers["bwt"].append(w)
+            gathers["occ"].append(4 * w + c[act])
+        steps += int(act.sum())
+        l2, r2 = fmindex.backward_extend(idx, l, r, c)
+        l, r = torch.where(act, l2, l), torch.where(act, r2, r)
+    return l, r, steps, gathers
+
+
+def fs2_replay(idx, rows, valid):
+    """FS2 row by row, as the kernel walks it: each valid row's text
+    position, the mark probes and LF steps the valid rows take (a row
+    stops at its first marked row), and the mark, rank, occ, BWT and
+    sample elements they gather (the samples of a split table are the
+    owner routing's, not the kernel's)."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+
+    u32 = fmindex._u32
+    rows = rows.long()[valid]
+    zero = torch.zeros_like(rows)
+    gathers = {key: [zero[:0]] for key in ("mark_words", "mark_rank", "occ",
+                                           "bwt", "sa_samples")}
+    probes = lf = 0
+    rank, t_hit = rows, zero
+    if idx.sa_rate > 1:
+        done = torch.zeros_like(rows, dtype=bool)
+        mw_hit = below_hit = zero
+        for t in range(idx.sa_rate):
+            live = ~done
+            mw, bsel = rows >> 5, rows & 31
+            gathers["mark_words"].append(mw[live])
+            probes += int(live.sum())
+            word = u32(idx.mark_words[mw])
+            newly = live & (((word >> bsel) & 1) == 1)
+            below = fmindex.popcount32(word & torch.where(
+                bsel == 0, zero, fmindex.MASK32 >> (32 - bsel)))
+            mw_hit = torch.where(newly, mw, mw_hit)
+            below_hit = torch.where(newly, below, below_hit)
+            t_hit = torch.where(newly, zero + t, t_hit)
+            done = done | newly
+            if t == idx.sa_rate - 1:
+                break
+            live = ~done
+            kp = rows - (rows > idx.primary).long()
+            w, q = kp >> 4, kp & 15
+            word_b = u32(idx.bwt[w])
+            c = (word_b >> (2 * q)) & 3
+            gathers["bwt"].append(w[live])
+            gathers["occ"].append((4 * w + c)[live])
+            lf += int(live.sum())
+            step = (idx.counts[c] + u32(idx.occ[4 * w + c])
+                    + fmindex._count_in_word(word_b, c, q))
+            rows = torch.where(live, step, rows)
+        gathers["mark_rank"].append(mw_hit)
+        rank = u32(idx.mark_rank[mw_hit]) + below_hit
+    if not idx.sa_parts:
+        gathers["sa_samples"].append(
+            rank.clamp(max=idx.sa_samples.shape[0] - 1))
+    out = torch.zeros(valid.shape[0], dtype=torch.int64, device=rows.device)
+    out[valid] = (fmindex._sa_value(idx, rank) + t_hit) & fmindex.MASK32
+    return out, probes, lf, gathers
+
+
+def fs_work(fn: str, args: tuple, want) -> dict:
+    """The operations, bytes and 32-byte sectors the call needs on this
+    run's data: each input element read once and each output written
+    once (as bytes), and each distinct table element the lanes gather
+    once (bytes: 4 an element; sectors: 32 a distinct sector). FS1 and
+    FS2 count from their replay (fs1_replay, fs2_replay), which must give
+    the plain version's output ``want``; FS3 the genome words up to each
+    read's length."""
+    import torch
+
+    idx = args[0]
+    label = FS_FUNCTIONS[fn]
+    if label == "FS1":
+        lanes, io = _fs1_lanes(fn, args)
+        l, r, steps, gathers = fs1_replay(idx, *lanes)
+        if not (torch.equal(l, want[0].long())
+                and torch.equal(r, want[1].long())):
+            fail(f"FS1's replay disagrees with {fn}_plain")
+        N = l.shape[0]
+        ops = N * OPS_FM_LANE + steps * OPS_FM_STEP
+        counts = {"lanes": N, "steps": steps}
+    elif label == "FS2":
+        rows, valid = args[1], args[2]
+        out, probes, lf, gathers = fs2_replay(idx, rows, valid)
+        if not torch.equal(out, want.long()):
+            fail(f"FS2's replay disagrees with {fn}_plain")
+        N = rows.shape[0]
+        io = N * (17 + (8 if idx.sa_parts else 0)) + 40
+        ops = probes * OPS_SA_PROBE + lf * OPS_SA_LF
+        counts = {"rows": N, "lf_steps": lf}
+    else:
+        tp, M = args[1].long(), args[1].shape[0]
+        if fn == "count_mismatches_rows":
+            ori, lens = args[2], args[4]
+            W = (ori.L + 15) // 16
+            io = (M * 32 + ori.reads.numel() * ori.reads.element_size()
+                  + ori.rc_len.numel() * 8)
+        else:
+            lens, W = args[3], args[2].shape[1]
+            io = M * 24 + args[2].numel() * 8
+        nwords = (lens.long().clamp(0, 16 * W) + 15) // 16
+        j = torch.arange(W + 1, device=tp.device)
+        span = (j[None, :] <= nwords[:, None]) & (nwords[:, None] > 0)
+        pac = ((tp >> 4)[:, None] + j).clamp(0, idx.pac.shape[0] - 1)
+        gathers = {"pac": [pac[span]]}
+        words = int(nwords.sum())
+        ops = words * OPS_VERIFY_WORD
+        counts = {"placements": M, "words": words}
+    nbytes, sectors = _gathered(gathers)
+    return {"ops": ops, "bytes": io + nbytes, "sectors": io + sectors,
+            **counts}
+
+
+def _fs_diff(got, want) -> tuple[int, int]:
+    """(max |difference|, elements differing) of two outputs (a tensor
+    or a tuple of tensors), shapes and dtypes included."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = ndiff = 0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return 1 << 62, max(a.numel(), b.numel())
+        if a.numel():
+            d = (a.long() - b.long()).abs()
+            err = max(err, int(d.max()))
+            ndiff += int((d != 0).sum())
+    return err, ndiff
+
+
+# the kernels' symbols, as torch.profiler names their device events
+FS_SYMBOLS = {"FS1": "fm_search_kernel", "FS2": "sa_decode_kernel",
+              "FS3": "verify_kernel"}
+
+
+def _kernel_device_ms(fn, reps: int, symbol: str) -> float:
+    """Mean device duration of the kernel named ``symbol`` over ``reps``
+    calls of ``fn`` (torch.profiler's device events; a call of tens of
+    microseconds is shorter than its wrapper's host work, so CUDA events
+    around a loop of calls would time the host). NaN if the profiler
+    records no such event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [b - a for a, b, n in _device_spans(prof) if symbol in n]
+    return float(np.mean(durs)) / 1e3 if durs else float("nan")
+
+
+def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
+                reps: int = 20) -> dict:
+    """One FS case on the card: the kernel's output against the plain
+    version's, every element; the kernel's device time (torch.profiler)
+    and its call's (CUDA events around a loop of wrapper calls, host
+    work included), the plain version's, the bound (operations over the
+    int32 peak or bytes over the memory rate, the larger) and the same
+    bound with every scattered gather a 32-byte sector."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+
+    kern, plain = getattr(fmindex, fn), getattr(fmindex, fn + "_plain")
+    label = FS_FUNCTIONS[fn]
+    counter = _kernels()[label]
+    n0, shapes0 = counter.launches, dict(counter.shapes)
+    got = kern(*args)
+    torch.cuda.synchronize()
+    launched = counter.launches - n0
+    shape = [s for s, c in counter.shapes.items() if c > shapes0.get(s, 0)]
+    want = plain(*args)
+    err, ndiff = _fs_diff(got, want)
+    call_ms = _events_ms(lambda: kern(*args), reps)
+    ms = _kernel_device_ms(lambda: kern(*args), reps, FS_SYMBOLS[label])
+    plain_ms = _events_ms(lambda: plain(*args), max(1, reps // 10))
+    work = fs_work(fn, args, want)
+    timer = "torch.profiler"
+    if not ms > 0:
+        ms, timer = call_ms, "CUDA events: the profiler recorded no event"
+    counts = {k: v for k, v in work.items()
+              if k not in ("ops", "bytes", "sectors")}
+    bms, by = bound_ms(work["ops"], work["bytes"], peak_ops)
+    sms = max(work["ops"] / peak_ops * 1e3,
+              work["sectors"] / HBM_BYTES_PER_S * 1e3)
+    shape_s = "x".join(map(str, shape[0])) if shape else "none"
+    phase(f"kernel fm_search {label}",
+          f"{name}: {fn} shape={shape_s} equal={err == 0 and ndiff == 0} "
+          f"max_abs_err={err} differing={ndiff} launches={launched} "
+          f"ms={ms:.4f} ({timer}) call_ms={call_ms:.4f} "
+          f"bound_ms={bms:.4f} ({by}, int32 peak) "
+          f"share={bms / ms:.1%} sector_bound_ms={sms:.4f} "
+          f"sector_share={sms / ms:.1%} plain_ms={plain_ms:.3f} "
+          f"work={counts}")
+    if err or ndiff:
+        fail(f"{label} disagrees with its plain version ({name})")
+    if launched != 1:
+        fail(f"{label} launched {launched} times for one call ({name})")
+    return {"case": name, "kernel": label, "fn": fn, "shape": shape_s,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by,
+            "sector_bound_ms": sms, "max_abs_err": err, **work}
+
+
+def phase_repeat_search(dev, genome_bp: int = 3_000_000, unit: int = 2000,
+                        copies: int = 600, n_reads: int = 4096):
+    """A repeat-structured genome (repeat_genome: a ``unit``-base
+    sequence pasted ``copies`` times, 0.2% substituted; lut_k 11, built
+    at sa_rate 1, searched at 8) whose PendingSearch under
+    SOAP3DP_ESCALATE=1 runs rounds 2 and 3 on ``dev`` and on the CPU:
+    hits equal. Run twice, with SOAP3DP_REPEAT_HEAVY 0 (round 1
+    LUT-only) and 1 (round 1 packed); rounds 2 and 3 take the general
+    branch. Returns the rate-1 index on ``dev`` (FS2's sa_rate 1 case)
+    and the result."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import search as fsearch
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import build_index, resample_sa
+
+    rng = np.random.default_rng(20261019)
+    t0 = time.perf_counter()
+    genome, starts = repeat_genome(rng, genome_bp, unit, copies)
+    index1 = build_index(genome, sa_rate=1, lut_k=11)
+    index8 = resample_sa(index1, 8)
+    build_s = time.perf_counter() - t0
+    reads, lens = sample_reads(rng, genome.codes, n_reads, 100,
+                               random_share=0.05)
+    # half of the reads from the repeat copies
+    half = n_reads // 2
+    pos = starts[rng.integers(0, len(starts), half)] + rng.integers(
+        0, unit - 100, half)
+    reads[n_reads - half:] = genome.codes[pos[:, None] + np.arange(100)]
+    out = {"genome_bp": genome_bp, "unit": unit, "copies": copies,
+           "reads": n_reads, "build_s": build_s}
+    saved = {k: os.environ.get(k) for k in ("SOAP3DP_ESCALATE",
+                                            "SOAP3DP_REPEAT_HEAVY")}
+    orig = fsearch._run_compacted
+    try:
+        os.environ["SOAP3DP_ESCALATE"] = "1"
+        for heavy in ("0", "1"):
+            os.environ["SOAP3DP_REPEAT_HEAVY"] = heavy
+            res = {}
+            for d in (dev, torch.device("cpu")):
+                caps = []
+
+                def run(*a, **kw):
+                    caps.append(a[4])
+                    return orig(*a, **kw)
+
+                fsearch._run_compacted = run
+                didx = device_index(index8, d)
+                cfg = fsearch.config_for(didx, 2)
+                t1 = time.perf_counter()
+                h = fsearch.PendingSearch(didx, reads, lens, cfg).result()
+                row, tp, nm, va, fl = h.to_host()
+                res[d.type] = ((row[va], tp[va], nm[va], fl), caps,
+                               time.perf_counter() - t1)
+                fsearch._run_compacted = orig
+            (a, caps_a, s_a), (b, caps_b, s_b) = res[dev.type], res["cpu"]
+            same = all(np.array_equal(x, y) for x, y in zip(a, b))
+            rounds = len(set(caps_a))
+            phase("kernel fm_search repeat genome",
+                  f"{genome_bp} bp, {copies} copies of a {unit} bp repeat, "
+                  f"lut_k 11, sa_rate 8, repeat_heavy={heavy}: {n_reads} "
+                  f"reads, {len(a[0])} hits, round-2/3 caps {caps_a} "
+                  f"({dev.type}) / {caps_b} (cpu), {int(a[3].sum())} reads "
+                  f"still flagged; {dev.type} == cpu: {same} "
+                  f"({s_a:.2f}s / {s_b:.2f}s; build {build_s:.1f}s)")
+            if not same or caps_a != caps_b:
+                fail("the repeat genome's search differs between "
+                     f"{dev.type} and cpu (repeat_heavy={heavy})")
+            if rounds < 2:
+                fail("the repeat genome's search did not run rounds 2 and 3")
+            out[f"repeat_heavy_{heavy}"] = {"hits": len(a[0]),
+                                           "caps": caps_a, "equal": same}
+    finally:
+        fsearch._run_compacted = orig
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return device_index(index1, dev), out
+
+
+def path_calls(didx, codes: np.ndarray, B: int = 65536, seed_reads=8192
+               ) -> list[tuple[str, tuple]]:
+    """The kernels' calls, with their arguments, of the main path on
+    ``didx``: a phase-4 batch (B pairs: 2B reads of 100 bases in the
+    120-wide rows phase 4's reader gives, both ends searched together
+    over segments {0, 1} as dispatch_pair_search does, rounds and
+    escalation included) and a deep-DP seeding of ``seed_reads`` of them
+    (deep_dp_seed_matrix)."""
+    from soap3dp_tpu_torch.fm import search as fsearch
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    rng = np.random.default_rng(20261020)
+    reads, lens = sample_reads(rng, codes, 2 * B, 120, np.full(2 * B, 100),
+                               random_share=0.01)
+    with _Recorder() as rec:
+        cfg = fsearch.config_for(didx, 2)
+        fsearch.PendingSearch(didx, reads, lens, cfg,
+                              seed_range=(0, 2)).result()
+        sp, sl = dp_rescue.deep_dp_seed_matrix(lens[:seed_reads], 100)
+        dp_rescue.seed_candidates(didx, reads[:seed_reads],
+                                  lens[:seed_reads], sp, sl)
+    return rec.calls
+
+
+def phase_fm_kernels(dev, peak_ops: float, work: str,
+                     genome_bp: int = 250_000_000, path_pairs: int = 65536,
+                     synthetic_n: int = 3_200_000_000
+                     ) -> tuple[list[dict], list[dict], dict]:
+    """FS1, FS2 and FS3 against their plain versions, every element of
+    every output: the main path's calls on phase 4's index (built here
+    and cached for phase 4); the edges of each FS1 branch; FS2 at
+    sa_rate 1 (the repeat genome), 2 (phase 4's index) and 8 (it
+    re-sampled with resample_sa), and with the SA split over a
+    two-replica mesh; FS3's edges; all three on a synthetic index of
+    ``synthetic_n`` bases; the repeat genome's search on the card and
+    the CPU. Returns (the kernels' rows of the JSON line, every case's
+    row, the repeat genome's result)."""
+    import torch
+
+    from soap3dp_tpu_torch.distributed import mesh as dmesh
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import load_index, resample_sa
+
+    _, genome, idx_path, how, build_s, lut_k = _genome_index(genome_bp, work)
+    index = load_index(idx_path)
+    didx = device_index(index, dev)
+    phase("fm setup", f"{genome_bp} bp index {how} in {build_s:.1f}s "
+                      f"(sa_rate {index.sa_rate}, lut_k {lut_k})")
+    rng = np.random.default_rng(20261021)
+    calls = path_calls(didx, genome.codes, path_pairs)
+    cases = [(f"path{i}", fn, args) for i, (fn, args) in enumerate(calls)]
+    # the LUT-only branch at round 1's shape: what round 1 runs on a
+    # genome that 4^lut_k covers (seeds truncated to lut_k, no FM step)
+    a = calls[0][1]
+    cases.append(("path_lut", "seed_intervals",
+                  (a[0], a[1], a[2], a[3], a[4].clamp(max=lut_k), 0, "lut")))
+    cases += fs_search_cases(rng, didx, genome.codes, dev)
+    cases += fs_verify_cases(rng, didx, genome.codes, dev)
+    index8 = resample_sa(index, 8)
+    didx8 = device_index(index8, dev)
+    cases.append(fs_decode_case(rng, f"decode_sa{index.sa_rate}", didx, dev))
+    cases.append(fs_decode_case(rng, "decode_sa8", didx8, dev))
+    mesh = dmesh.replicate_index(index8, dmesh.make_mesh([dev, dev]),
+                                 shard_sa=True)
+    cases.append(fs_decode_case(rng, "decode_sa8_split", mesh.replicas[0],
+                                dev))
+    didx1, repeat = phase_repeat_search(dev)
+    cases.append(fs_decode_case(rng, "decode_sa1", didx1, dev))
+    rows = [run_fs_case(name, fn, args, peak_ops) for name, fn, args in cases]
+    del cases, calls, didx, didx8, mesh, didx1
+    syn = synthetic_index(dev, synthetic_n)
+    rows += [run_fs_case(name, fn, args, peak_ops, reps=5)
+             for name, fn, args in synthetic_cases(rng, syn, dev)]
+    del syn
+    torch.cuda.empty_cache()
+    return fs_kernel_rows(rows), rows, repeat
+
+
+def fs_kernel_rows(rows: list[dict]) -> list[dict]:
+    """The JSON line's rows of FS1, FS2 and FS3: each kernel's largest
+    main-path call (the round-1 search of a phase-4 batch), with the
+    largest difference over every case."""
+    replaces = {"FS1": "soap3dp_tpu/fm/fmindex.py:391",
+                "FS2": "soap3dp_tpu/fm/fmindex.py:509",
+                "FS3": "soap3dp_tpu/fm/fmindex.py:653"}
+    names = {"FS1": "fm_backward_search", "FS2": "fm_sa_decode",
+             "FS3": "fm_packed_verify"}
+    out = []
+    for label in ("FS1", "FS2", "FS3"):
+        mine = [r for r in rows if r["kernel"] == label]
+        path = [r for r in mine if r["case"].startswith("path")]
+        main = max(path or mine, key=lambda r: r.get(
+            "lanes", r.get("rows", r.get("placements", 0))))
+        out.append({"name": names[label], "route": "cuda",
+                    "source": "soap3dp_tpu_torch/csrc/fm_search.cu",
+                    "replaces": replaces[label], "launches": 0,
+                    "max_abs_err": max(r["max_abs_err"] for r in mine),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"], "peak": "int32",
+                    "sector_bound_ms": main["sector_bound_ms"],
+                    "library_ms": None, "shape": main["shape"]})
+    return out
+
+
 def phase_golden(dev) -> None:
     """The seven golden SAM cases (five paired-end, two single-end)
     through the port on ``dev``."""
@@ -823,9 +1655,11 @@ def _genome_index(genome_bp: int, work: str, sa_rate: int = 2):
 
 def _kernels() -> dict:
     from soap3dp_tpu_torch.kernels import banded_dp as bd
+    from soap3dp_tpu_torch.kernels import fm_search as fs
 
     return {"K1": bd.DP_KERNEL, "K2": bd.FORWARD_KERNEL,
-            "TB": bd.TRACEBACK_KERNEL}
+            "TB": bd.TRACEBACK_KERNEL, "FS1": fs.SEARCH_KERNEL,
+            "FS2": fs.DECODE_KERNEL, "FS3": fs.VERIFY_KERNEL}
 
 
 def _launches() -> dict:
@@ -833,9 +1667,11 @@ def _launches() -> dict:
 
 
 def _launch_shapes() -> dict:
-    """{kernel: {"P x Lr x Lw": launches}} since the counts were last
-    set to 0 (the shapes the path itself gave each kernel)."""
-    return {name: {f"{p}x{lr}x{lw}": n for (p, lr, lw), n in
+    """{kernel: {"shape": launches}} since the counts were last set to 0
+    (the shapes the path itself gave each kernel: P x Lr x Lw for the
+    DP kernels; lanes x L x max_steps for FS1, rows x sa_rate for FS2,
+    placements x words for FS3)."""
+    return {name: {"x".join(map(str, shape)): n for shape, n in
                    sorted(k.shapes.items())}
             for name, k in _kernels().items() if k.shapes}
 
@@ -852,7 +1688,8 @@ def _launches_per_device() -> dict:
 def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
     """Run ``fn()`` under ``env`` with every launch count set to 0 just
     before; returns (its result, wall s, stderr, launch counts just
-    after)."""
+    after). Fails if a plain search primitive ran on a card's index in
+    the run (a CUDA tensor must take the kernel)."""
     import contextlib
 
     saved = {k: os.environ.get(k) for k in env or {}}
@@ -862,7 +1699,7 @@ def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
         k.reset()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stderr(tee):
+        with contextlib.redirect_stderr(tee), _Recorder(record=False) as rec:
             out = fn()
         if dev.type == "cuda":
             import torch
@@ -874,7 +1711,17 @@ def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    if rec.plain_on_card:
+        fail(f"{rec.plain_on_card} plain search primitive calls ran on a "
+             "card's index")
     return out, time.perf_counter() - t0, tee.text(), _launches()
+
+
+def _fs_launched(where: str, launches: dict) -> None:
+    """Fails unless FS1, FS2 and FS3 each launched in the run."""
+    missing = [k for k in ("FS1", "FS2", "FS3") if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"{where} never launched {missing}")
 
 
 def _run_cli(argv, dev, env=None) -> tuple[float, str, dict]:
@@ -992,6 +1839,7 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     if not mate_pair and summ.get("single_rescued", 0) <= 0:
         fail("the salvage phase produced no singly aligned reads")
     if dev.type == "cuda":
+        _fs_launched(name, launches)
         if launches["K1"] <= 0:
             fail("the run never launched the fused DP kernel (K1)")
         if mate_pair and min(launches["K2"], launches["TB"]) <= 0:
@@ -1078,6 +1926,8 @@ def phase_single_e2e(dev, reads: dict, card: str, work: str,
         fail("the single-end run did not write one record per read")
     if dev.type == "cuda" and launches["K1"] <= 0:
         fail("the single-end salvage never launched K1")
+    if dev.type == "cuda":
+        _fs_launched("the single-end run", launches)
     return res
 
 
@@ -1139,6 +1989,9 @@ def phase_mesh(dev, reads: dict, work: str, out_dir: str,
         fail("the mesh run's records or summary differ from phase 4's")
     if dev.type == "cuda" and launches["K1"] <= 0:
         fail("the mesh run never launched K1")
+    if dev.type == "cuda":
+        for card in sorted({str(d) for d in devices}):
+            _fs_launched(f"the mesh run on {card}", per_dev.get(card, {}))
 
     P, Lr, Lw, rl = dp_case
     prob = main_path_problems(np.random.default_rng(20261018), P, Lr, Lw,
@@ -1172,10 +2025,12 @@ _HOST_MAIN = (
     "import json, sys\n"
     "from soap3dp_tpu_torch.cli.main import main\n"
     "from soap3dp_tpu_torch.kernels import banded_dp as bd\n"
+    "from soap3dp_tpu_torch.kernels import fm_search as fs\n"
     "rc = main(sys.argv[1:])\n"
     "print('[chip_smoke] launches', json.dumps({'K1': bd.DP_KERNEL.launches,"
-    " 'K2': bd.FORWARD_KERNEL.launches, 'TB': bd.TRACEBACK_KERNEL.launches})"
-    ", flush=True)\n"
+    " 'K2': bd.FORWARD_KERNEL.launches, 'TB': bd.TRACEBACK_KERNEL.launches,"
+    " 'FS1': fs.SEARCH_KERNEL.launches, 'FS2': fs.DECODE_KERNEL.launches,"
+    " 'FS3': fs.VERIFY_KERNEL.launches}), flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -1261,6 +2116,9 @@ def phase_hosts(dev, reads: dict, work: str, out_dir: str,
              "phase 4's")
     if dev.type == "cuda" and min(l["K1"] for l in res["launches"]) <= 0:
         fail("a --hosts 2 process never launched K1")
+    if dev.type == "cuda":
+        for i, l in enumerate(res["launches"]):
+            _fs_launched(f"--hosts 2 process {i}", l)
     return res
 
 
@@ -1330,8 +2188,9 @@ def _build_all() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from soap3dp_tpu_torch.kernels import banded_dp as bd
+    from soap3dp_tpu_torch.kernels import fm_search as fs
 
-    libs = [bd.BANDED_DP_LIB, bd.DP_FORWARD_LIB]
+    libs = [bd.BANDED_DP_LIB, bd.DP_FORWARD_LIB, fs.FM_SEARCH_LIB]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(lambda lib: lib.load(), libs))
@@ -1379,8 +2238,10 @@ def main(argv=None) -> int:
     k1_err, k2_err = phase_range_cases(dev)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k1_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], k2_err)
-    phase_golden(dev)
     work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e")
+    fs_rows, fs_cases, repeat = phase_fm_kernels(dev, peak_ops, work)
+    kernels += fs_rows
+    phase_golden(dev)
     e2e, reads = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR)
     small = phase_mate_pair_devices(
         dev, os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "mp_small"))
@@ -1395,8 +2256,14 @@ def main(argv=None) -> int:
     kernels[0]["launches"] = e2e["launches"]["K1"]
     kernels[1]["launches"] = mate["launches"]["K2"]
     kernels[2]["launches"] = mate["launches"]["TB"]
+    for row, label in zip(kernels[3:], ("FS1", "FS2", "FS3")):
+        row["launches"] = e2e["launches"][label]
+        row["sector_share"] = row["sector_bound_ms"] / row["ms"]
+    for row in kernels:
+        row["share"] = row["bound_ms"] / row["ms"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
-        json.dump({"card": card, "kernels": kernels, "e2e": e2e,
+        json.dump({"card": card, "kernels": kernels, "fm_cases": fs_cases,
+                   "repeat_search": repeat, "e2e": e2e,
                    "mate_pair_small": small, "mate_pair": mate,
                    "single": single, "multi_device": multi}, fh, indent=1)
     print(json.dumps({"kernels": [

@@ -59,10 +59,15 @@ class MeshIndex(DeviceIndex):
 
 
 def make_mesh(devices=None, axis: str = "reads") -> DeviceMesh:
-    """A mesh of ``devices`` (default: every CUDA card, else the CPU)."""
+    """A mesh of ``devices`` (default: every CUDA card). A mesh of CPU
+    devices is asked for by name (``["cpu"] * n``): with no devices
+    given and no card, this raises rather than run on the CPU."""
     if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh(): no CUDA card; name the devices "
+                               "(e.g. ['cpu'] * 2) for a CPU mesh")
         devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())] or ["cpu"]
+                   for i in range(torch.cuda.device_count())]
     return DeviceMesh(tuple(torch.device(d) for d in devices), axis)
 
 

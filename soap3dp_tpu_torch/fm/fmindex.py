@@ -13,11 +13,21 @@ intervals are int64 tensors.
 
 ``n`` and ``primary`` are host ints on the DeviceIndex, so no search
 step ever reads a device scalar back.
+
+The seed search's gather stages (``seed_intervals``, ``sa_decode``,
+``count_mismatches_rows``) take a CUDA tensor to the hand-written
+kernels of kernels/fm_search.py (or raise) and a CPU tensor to their
+plain-torch versions, the ``*_plain`` functions here, which the CPU
+tests hold to the JAX package. The reference's names for the same
+stages (``backward_search``, ``backward_search_packed``,
+``count_mismatches_packed``) take a CUDA tensor to the same kernels by
+holding their rows as OrientedReads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import sys
 import warnings
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from soap3dp_tpu_torch.index.builder import Index
+from soap3dp_tpu_torch.kernels import fm_search
 
 MASK32 = 0xFFFFFFFF
 _LANES = 0x5555_5555  # one bit per 2-bit base slot
@@ -249,12 +260,36 @@ def backward_extend(idx: DeviceIndex, l: torch.Tensor, r: torch.Tensor,
 # Backward search over read segments
 # ------------------------------------------------------------------
 
+def _require_cpu(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cpu":
+        raise ValueError(f"{name}: no implementation for {t.device}")
+
+
+def _i64(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int64).contiguous()
+
+
 def backward_search(idx: DeviceIndex, seqs: torch.Tensor, start: torch.Tensor,
                     length: torch.Tensor, max_steps: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """SA interval [l, r) of each read segment, searched right-to-left:
-    one LUT lookup for the last lut_k characters of a segment at least
-    that long, then ``max_steps`` masked steps for every lane."""
+    """SA interval [l, r) of each read segment (one (N, L) row of
+    ``seqs`` a lane), searched right-to-left: one LUT lookup for the last
+    lut_k characters of a segment at least that long, then up to
+    ``max_steps`` steps. FS1 on CUDA tensors: lane i reads row i, the
+    rows held as forward reads."""
+    if seqs.is_cuda:
+        ori = OrientedReads.of(seqs.to(torch.uint8), _no_rc(seqs))
+        return seed_intervals(idx, ori, 1, start, length, max_steps,
+                              "general")
+    _require_cpu("backward_search", seqs)
+    return backward_search_plain(idx, seqs, start, length, max_steps)
+
+
+def backward_search_plain(idx: DeviceIndex, seqs: torch.Tensor,
+                          start: torch.Tensor, length: torch.Tensor,
+                          max_steps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of backward_search: ``max_steps`` masked steps
+    for every lane."""
     B, L = seqs.shape
     n1 = idx.n + 1
     k = idx.lut_k
@@ -298,7 +333,24 @@ def backward_search_packed(idx: DeviceIndex, roll16: torch.Tensor,
                            length: torch.Tensor, max_steps: int
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Seed search whose per-lane characters come from two gathers of a
-    rolling 16-char code array (length <= lut_k + 16)."""
+    rolling 16-char code array (length <= lut_k + 16). FS1 on CUDA
+    tensors, over each lane's row of codes (the top base of each rolling
+    code)."""
+    if roll16.is_cuda:
+        codes = ((roll16[_i64(seq_rows)] >> 30) & 3).to(torch.uint8)
+        ori = OrientedReads.of(codes, _no_rc(codes))
+        return seed_intervals(idx, ori, 1, start, length, max_steps,
+                              "packed")
+    _require_cpu("backward_search_packed", roll16)
+    return backward_search_packed_plain(idx, roll16, seq_rows, start, length,
+                                        max_steps)
+
+
+def backward_search_packed_plain(idx: DeviceIndex, roll16: torch.Tensor,
+                                 seq_rows: torch.Tensor, start: torch.Tensor,
+                                 length: torch.Tensor, max_steps: int
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of backward_search_packed."""
     k = idx.lut_k
     n1 = idx.n + 1
     R, L = roll16.shape
@@ -332,7 +384,24 @@ def backward_search_packed(idx: DeviceIndex, roll16: torch.Tensor,
 def sa_decode(idx: DeviceIndex, rows: torch.Tensor,
               valid: torch.Tensor) -> torch.Tensor:
     """Text position of each SA row via the bounded LF walk (BWTSaValue,
-    2bwt-lib/BWT.c:1694); one gather per row when sa_rate == 1."""
+    2bwt-lib/BWT.c:1694); one gather per row when sa_rate == 1. FS2 on
+    CUDA tensors; with the SA table split over a mesh (``sa_parts``) FS2
+    gives each row's sample rank and step count and _sa_value's owner
+    routing gathers the samples."""
+    if rows.is_cuda:
+        rows, valid = _i64(rows), valid.to(torch.bool).contiguous()
+        if not idx.sa_parts:
+            return fm_search.sa_decode(idx, rows, valid)
+        rank, step = fm_search.sa_ranks(idx, rows, valid)
+        return torch.where(valid, (_sa_value(idx, rank) + step) & MASK32,
+                           torch.zeros_like(rank))
+    _require_cpu("sa_decode", rows)
+    return sa_decode_plain(idx, rows, valid)
+
+
+def sa_decode_plain(idx: DeviceIndex, rows: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """The plain version of sa_decode."""
     rows = torch.where(valid, rows, torch.zeros_like(rows))
     zero = torch.zeros_like(rows)
     if idx.sa_rate == 1:
@@ -435,7 +504,23 @@ def pack_reads(codes: torch.Tensor, max_len: int | None = None) -> torch.Tensor:
 def count_mismatches_packed(idx: DeviceIndex, tp: torch.Tensor,
                             read_words: torch.Tensor,
                             read_len: torch.Tensor) -> torch.Tensor:
-    """Hamming distance in the packed 2-bit domain: XOR + popcount."""
+    """Hamming distance in the packed 2-bit domain: XOR + popcount. FS3
+    on CUDA tensors: placement i verifies row i, the words held as
+    forward reads of 16 W bases."""
+    if tp.is_cuda:
+        M, W = read_words.shape
+        words = ((_i64(read_words) + (1 << 31)) & MASK32) - (1 << 31)
+        ori = OrientedReads.of(words.to(torch.int32), _no_rc(words), 16 * W)
+        return count_mismatches_rows(
+            idx, tp, ori, torch.arange(M, device=tp.device), read_len)
+    _require_cpu("count_mismatches_packed", tp)
+    return count_mismatches_packed_plain(idx, tp, read_words, read_len)
+
+
+def count_mismatches_packed_plain(idx: DeviceIndex, tp: torch.Tensor,
+                                  read_words: torch.Tensor,
+                                  read_len: torch.Tensor) -> torch.Tensor:
+    """The plain version of count_mismatches_packed."""
     M, W = read_words.shape
     g = aligned_genome_words(idx, tp, W)
     x = g ^ read_words
@@ -444,6 +529,128 @@ def count_mismatches_packed(idx: DeviceIndex, tp: torch.Tensor,
     m = (read_len.to(torch.int64)[:, None] - j16).clamp(0, 16)
     lane_mask = _LANES >> (2 * (16 - m))
     return popcount32(bits & lane_mask).sum(dim=1)
+
+
+# ------------------------------------------------------------------
+# Oriented read rows: the search over a batch and its reverse complements
+# ------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class OrientedReads:
+    """The 2B oriented rows of a read batch, held as the forward reads:
+    row b < B is read b, row B + b its reverse complement of rc_len[b]
+    bases (3 - read[n-1-i] for i < n, zero past n). ``reads`` is (B, L)
+    uint8 codes or (B, W) int32 packed words of L bases (the layout of
+    search.pack_read_matrix). The kernels read the rows where they lie;
+    the plain versions read ``matrix``, the (2B, L) code matrix, made
+    once."""
+
+    reads: torch.Tensor
+    L: int
+    rc_len: torch.Tensor  # (B,) int64
+
+    @classmethod
+    def of(cls, reads: torch.Tensor, lens: torch.Tensor, L: int = 0,
+           uniform_len: int = 0) -> "OrientedReads":
+        """The batch's oriented rows (L is given for packed words); with
+        ``uniform_len`` (every read that long) each reverse complement
+        has min(uniform_len, L) bases, as revcomp_reads_uniform makes
+        it, else lens[b]."""
+        if reads.dtype != torch.int32:
+            L = reads.shape[1]
+        if uniform_len:
+            rc_len = torch.full((reads.shape[0],), min(uniform_len, L),
+                                dtype=torch.int64, device=reads.device)
+        else:
+            rc_len = _i64(lens)
+        return cls(reads.contiguous(), L, rc_len)
+
+    @property
+    def B(self) -> int:
+        return self.reads.shape[0]
+
+    def source(self) -> fm_search.ReadRows:
+        return fm_search.oriented_rows(self.reads, self.L, self.rc_len)
+
+    @functools.cached_property
+    def matrix(self) -> torch.Tensor:
+        """The (2B, L) uint8 code matrix of the rows."""
+        reads = self.reads
+        if reads.dtype == torch.int32:
+            reads = _unpack_read_matrix(reads, self.L)
+        return torch.cat([reads, revcomp_reads(reads, self.rc_len)], dim=0)
+
+
+def _no_rc(reads: torch.Tensor) -> torch.Tensor:
+    """rc_len of a batch whose lanes read its forward rows only."""
+    return torch.zeros(reads.shape[0], dtype=torch.int64, device=reads.device)
+
+
+def _unpack_read_matrix(words: torch.Tensor, L: int) -> torch.Tensor:
+    """Device-side inverse of search.pack_read_matrix ((B, W) int32
+    words)."""
+    B, W = words.shape
+    shifts = 2 * torch.arange(16, device=words.device)
+    codes = (_u32(words)[:, :, None] >> shifts[None, None, :]) & 3
+    return codes.reshape(B, W * 16)[:, :L].to(torch.uint8)
+
+
+def seed_intervals(idx: DeviceIndex, ori: OrientedReads, S: int,
+                   start: torch.Tensor, length: torch.Tensor, max_steps: int,
+                   mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """SA interval [l, r) of each seed lane: lane i searches the segment
+    [start[i], start[i] + length[i]) of oriented row i // S, as one of
+    the three branches of the reference's _search_batch (``mode``):
+    "lut", one LUT lookup of the k-mer at the segment start; "packed",
+    backward_search_packed over the rows' rolling 16-base codes;
+    "general", backward_search over the rows. FS1 on CUDA tensors."""
+    if mode not in fm_search.MODES:
+        raise ValueError(f"seed_intervals: unknown mode {mode!r}")
+    if ori.reads.is_cuda:
+        return fm_search.search(idx, ori.source(), S, _i64(start),
+                                _i64(length), max_steps, mode)
+    _require_cpu("seed_intervals", ori.reads)
+    return seed_intervals_plain(idx, ori, S, start, length, max_steps, mode)
+
+
+def seed_intervals_plain(idx: DeviceIndex, ori: OrientedReads, S: int,
+                         start: torch.Tensor, length: torch.Tensor,
+                         max_steps: int, mode: str
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of seed_intervals, over the materialized rows."""
+    oriented = ori.matrix
+    R, L = oriented.shape
+    rows = torch.arange(R, device=oriented.device).repeat_interleave(S)
+    if mode == "lut":
+        km = rolling_kmer_codes(oriented, idx.lut_k)
+        m = km[rows, start.to(torch.int64).clamp(0, L - 1)]
+        return _u32(idx.lut_lo[m]), _u32(idx.lut_hi[m])
+    if mode == "packed":
+        return backward_search_packed_plain(
+            idx, rolling_kmer_codes(oriented, 16), rows, start, length,
+            max_steps)
+    return backward_search_plain(idx, oriented[rows], start, length,
+                                 max_steps)
+
+
+def count_mismatches_rows(idx: DeviceIndex, tp: torch.Tensor,
+                          ori: OrientedReads, rows: torch.Tensor,
+                          read_len: torch.Tensor) -> torch.Tensor:
+    """count_mismatches_packed of oriented row rows[i] (its packed words,
+    pack_reads of the (2B, L) matrix) at tp[i]. FS3 on CUDA tensors."""
+    if tp.is_cuda:
+        return fm_search.verify(idx, ori.source(), _i64(rows), _i64(tp),
+                                _i64(read_len), (ori.L + 15) // 16)
+    _require_cpu("count_mismatches_rows", tp)
+    return count_mismatches_rows_plain(idx, tp, ori, rows, read_len)
+
+
+def count_mismatches_rows_plain(idx: DeviceIndex, tp: torch.Tensor,
+                                ori: OrientedReads, rows: torch.Tensor,
+                                read_len: torch.Tensor) -> torch.Tensor:
+    """The plain version of count_mismatches_rows."""
+    read_words = pack_reads(ori.matrix)
+    return count_mismatches_packed_plain(idx, tp, read_words[rows], read_len)
 
 
 def revcomp_reads(reads: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

@@ -7,11 +7,13 @@ budget escalation. Results are element-for-element those of the
 reference (same compaction order, same hash, same dedupe winners).
 
 ``_search_batch`` reads nothing back to the host (no ``.item()``, no
-``nonzero``, no ``.cpu()``), so on a CUDA device its kernels are only
-enqueued and batch i+1's search overlaps batch i's host work;
-``PendingSearch.result()`` is the one synchronisation point. The
-reference's XLA-TPU scan workarounds (utils/scans.py) become plain
-``torch.cumsum`` / ``torch.cummax``.
+``nonzero``, no ``.cpu()``), so on a CUDA device its kernels (the
+backward search, SA decode and verify of kernels/fm_search.py, which
+read the packed or code reads in place, and torch's own for the
+compaction and dedupe) are only enqueued and batch i+1's search
+overlaps batch i's host work; ``PendingSearch.result()`` is the one
+synchronisation point. The reference's XLA-TPU scan workarounds
+(utils/scans.py) become plain ``torch.cumsum`` / ``torch.cummax``.
 """
 
 from __future__ import annotations
@@ -95,14 +97,6 @@ def pack_read_matrix(reads: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(by).view("<u4")
 
 
-def _unpack_read_matrix(words: torch.Tensor, L: int) -> torch.Tensor:
-    """Device-side inverse of pack_read_matrix ((B, W) int32 words)."""
-    B, W = words.shape
-    shifts = 2 * torch.arange(16, device=words.device)
-    codes = (fmindex._u32(words)[:, :, None] >> shifts[None, None, :]) & 3
-    return codes.reshape(B, W * 16)[:, :L].to(torch.uint8)
-
-
 def _nonzero_prefix(mask: torch.Tensor, size: int) -> torch.Tensor:
     """First ``size`` indices where mask is True, ascending; -1 padded
     (nonzero without the host sync of torch.nonzero)."""
@@ -123,18 +117,11 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     or (B, W) int32 packed words (then L is given). Returns device
     HitArrays and the (total candidates, unique placements) pair."""
     dev = reads.device
-    if reads.dtype == torch.int32:
-        reads = _unpack_read_matrix(reads, L)
-    B, L = reads.shape
+    ori = fmindex.OrientedReads.of(reads, lens, L, uniform_len)
+    B, L = ori.B, ori.L
     S = cfg.num_seeds
     n = idx.n
     lens = lens.to(torch.int64)
-
-    if uniform_len:
-        rc = fmindex.revcomp_reads_uniform(reads, min(uniform_len, L))
-    else:
-        rc = fmindex.revcomp_reads(reads, lens)
-    oriented = torch.cat([reads, rc], dim=0)
     olens = torch.cat([lens, lens])
     R = 2 * B
     if K <= 0:
@@ -149,20 +136,13 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
         S = seed_hi - seed_lo
     seq_rows = torch.arange(R, device=dev).repeat_interleave(S)
     if seed_q == idx.lut_k and max_seed_steps == 0:
-        # LUT-only seeds: one table lookup per lane
-        km = fmindex.rolling_kmer_codes(oriented, idx.lut_k)
-        m = torch.gather(km, 1, sstart.clamp(0, L - 1)).reshape(-1)
-        l = fmindex._u32(idx.lut_lo[m])
-        r = fmindex._u32(idx.lut_hi[m])
+        mode = "lut"      # LUT-only seeds: one table lookup per lane
     elif 0 < seed_q <= idx.lut_k + 16 and idx.lut_k <= 16:
-        roll16 = fmindex.rolling_kmer_codes(oriented, 16)
-        l, r = fmindex.backward_search_packed(
-            idx, roll16, seq_rows, sstart.reshape(-1), slen.reshape(-1),
-            max_steps=max_seed_steps)
+        mode = "packed"   # the extension window fits one 16-base word
     else:
-        l, r = fmindex.backward_search(
-            idx, oriented[seq_rows], sstart.reshape(-1), slen.reshape(-1),
-            max_steps=max_seed_steps)
+        mode = "general"
+    l, r = fmindex.seed_intervals(idx, ori, S, sstart.reshape(-1),
+                                  slen.reshape(-1), max_seed_steps, mode)
     width = r - l
     overflow = width > cap
     flagged = overflow.reshape(R, S).any(dim=1)
@@ -217,11 +197,10 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     utp = ktp[idx2s]
 
     # verify unique placements in the packed domain
-    read_words = fmindex.pack_reads(oriented)
     urow_c = urow.clamp(0, R - 1)
-    nmis = fmindex.count_mismatches_packed(
-        idx, torch.where(uvalid, utp, torch.zeros_like(utp)),
-        read_words[urow_c], olens[urow_c])
+    nmis = fmindex.count_mismatches_rows(
+        idx, torch.where(uvalid, utp, torch.zeros_like(utp)), ori, urow_c,
+        olens[urow_c])
     hit_ok = uvalid & (nmis <= cfg.k)
     hits = HitArrays(row=torch.where(hit_ok, urow,
                                      torch.full_like(urow, ROW_SENTINEL)),

@@ -31,14 +31,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import numpy as np
 import torch
+
+from soap3dp_tpu_torch.kernels.cudalib import CudaKernel, CudaLibrary
 
 NEG = -32000          # DP_SCORE_NEG_INFINITY (DV-DPfunctions.cu:52)
 NEG_BIG = -(1 << 20)  # masking value, far below any reachable score
@@ -344,9 +341,6 @@ def dp_align_plain(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
 # The CUDA kernels: build, bind, launch
 # ------------------------------------------------------------------
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC_DIR = os.path.join(_PKG, "csrc")
-_BUILD_DIR = os.path.join(_PKG, "_build")
 _SCRATCH_BUDGET = 1 << 29  # bytes of K1 direction scratch per launch
 _DIRS_BUDGET = 1 << 30     # bytes of K2 directions per chunk of problems
 _MAX_WARPS = 132 * 64      # 16 blocks of 4 warps on each of 132 SMs
@@ -354,91 +348,6 @@ _MAX_WARPS = 132 * 64      # 16 blocks of 4 warps on each of 132 SMs
 # run counts into 12 bits (soap3dp_tpu/kernels/banded_dp.py:983) and
 # hands wider windows to dp_forward + dp_traceback
 FUSED_MAX_WINDOW = 4096
-
-
-class CudaLibrary:
-    """A source of csrc/ built with nvcc at first use into _build/ (named
-    by a digest of csrc/'s sources) and loaded with ctypes."""
-
-    def __init__(self, name: str):
-        self.src = os.path.join(_CSRC_DIR, name)
-        self.build_log = ""
-        self.build_seconds = 0.0
-        self._lib = None
-        self._lock = threading.Lock()
-
-    def load(self):
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._build()
-            return self._lib
-
-    def _build(self):
-        import glob
-        import time
-
-        h = hashlib.sha256()
-        for path in [self.src] + sorted(glob.glob(os.path.join(_CSRC_DIR,
-                                                               "*.cuh"))):
-            with open(path, "rb") as fh:
-                h.update(fh.read())
-        name = os.path.splitext(os.path.basename(self.src))[0]
-        so = os.path.join(_BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
-        if not os.path.exists(so):
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.tmp{os.getpid()}"
-            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, self.src]
-            t0 = time.time()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_seconds = time.time() - t0
-            self.build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {self.src}:\n"
-                                   f"{self.build_log}")
-            os.replace(tmp, so)
-        return ctypes.CDLL(so)
-
-
-class CudaKernel:
-    """One kernel (C symbol) of a CudaLibrary. ``launches`` counts its
-    launches, ``per_device`` them by card index and ``shapes`` them by
-    launch shape (P, Lr, Lw) (only the wrapper that launches the kernel
-    adds to them)."""
-
-    def __init__(self, library: CudaLibrary, symbol: str, argtypes: list):
-        self.library = library
-        self.symbol = symbol
-        self.argtypes = argtypes
-        self.reset()
-        self._fn = None
-        self._lock = threading.Lock()
-
-    def reset(self) -> None:
-        """Set the launch counts to 0."""
-        self.launches = 0
-        self.per_device: dict[int, int] = {}
-        self.shapes: dict[tuple[int, int, int], int] = {}
-
-    def function(self):
-        lib = self.library.load()
-        with self._lock:
-            if self._fn is None:
-                fn = getattr(lib, self.symbol)
-                fn.restype = ctypes.c_int
-                fn.argtypes = self.argtypes
-                self._fn = fn
-            return lib, self._fn
-
-    def count(self, device: torch.device, shape: tuple[int, int, int]
-              ) -> None:
-        with self._lock:
-            self.launches += 1
-            self.per_device[device.index] = \
-                self.per_device.get(device.index, 0) + 1
-            self.shapes[shape] = self.shapes.get(shape, 0) + 1
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

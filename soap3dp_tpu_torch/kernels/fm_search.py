@@ -1,0 +1,227 @@
+"""The seed search's gather stages as hand-written Hopper kernels.
+
+Three kernels of ``csrc/fm_search.cu`` (see its source note), built with
+nvcc at first use into ``_build/`` and loaded with ctypes:
+
+* FS1 ``search``: LUT jumpstart and FM backward search per seed lane, in
+  one of the three modes of the reference's ``_search_batch`` ("lut",
+  "packed", "general"); replaces ``backward_search`` and
+  ``backward_search_packed`` (soap3dp_tpu/fm/fmindex.py:391, :456) and
+  the LUT-only branch (soap3dp_tpu/fm/search.py:207-214);
+* FS2 ``sa_decode`` / ``sa_ranks``: the bounded LF walk, then the rank
+  and sample gathers (fmindex.py:509);
+* FS3 ``verify``: packed XOR/popcount against the genome
+  (``count_mismatches_packed``, fmindex.py:653).
+
+These are the launch wrappers: every tensor must lie on one CUDA device
+(anything else raises; there is no fallback). ``fm/fmindex.py`` routes a
+CUDA tensor here and a CPU tensor to the plain-torch version. A wrapper
+launches on the device's current stream, allocates its outputs with
+``torch.empty``, reads nothing back to the host and counts its launch
+on its ``CudaKernel`` (by card and by launch shape).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from soap3dp_tpu_torch.kernels.cudalib import CudaKernel, CudaLibrary
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+FM_SEARCH_LIB = CudaLibrary("fm_search.cu")
+# soap3dp_fm_search(reads, kind, B, L, W, rc_len, S, start, length, N,
+#   mode, max_steps, k, occ, bwt, counts, lut_lo, lut_hi, primary, n1,
+#   l_out, r_out, stream)
+SEARCH_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_fm_search",
+    [_P, _I, _LL, _I, _I, _P, _I, _P, _P, _LL, _I, _I, _I]
+    + [_P] * 5 + [_LL, _LL, _P, _P, _P])
+# soap3dp_sa_decode(rows, valid, N, sa_rate, mark_words, mark_rank, occ,
+#   bwt, counts, primary, sa, n_sa, out, rank_out, step_out, stream)
+DECODE_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_sa_decode",
+    [_P, _P, _LL, _I] + [_P] * 5 + [_LL, _P, _LL] + [_P] * 4)
+# soap3dp_verify(reads, kind, B, L, Ws, rc_len, rows, tp, read_len, M, W,
+#   pac, n_pac, out, stream)
+VERIFY_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_verify",
+    [_P, _I, _LL, _I, _I, _P, _P, _P, _P, _LL, _I, _P, _LL, _P, _P])
+
+# where a kernel reads the bases of its rows (csrc/fm_search.cu SRC_*)
+SRC_CODES, SRC_PACKED = range(2)
+MODES = {"lut": 0, "packed": 1, "general": 2}
+
+
+class ReadRows(NamedTuple):
+    """The rows a kernel reads bases from: ``data`` on the card, of
+    ``kind``; rows 0..B-1 as stored, rows B..2B-1 their reverse
+    complements of ``rc_len`` bases; L bases a row, W words a stored
+    row of packed words."""
+
+    data: torch.Tensor
+    kind: int
+    B: int
+    L: int
+    W: int
+    rc_len: torch.Tensor
+
+
+def oriented_rows(reads: torch.Tensor, L: int,
+                  rc_len: torch.Tensor) -> ReadRows:
+    """Forward reads ((B, L) uint8 codes or (B, W) int32 packed words of
+    L bases) and their reverse complements (fmindex.OrientedReads)."""
+    kind = SRC_PACKED if reads.dtype == torch.int32 else SRC_CODES
+    B = reads.shape[0]
+    W = reads.shape[1] if kind == SRC_PACKED else 0
+    if kind == SRC_CODES and (reads.dtype != torch.uint8
+                              or reads.shape[1] != L):
+        raise ValueError(f"reads must be (B, {L}) uint8 codes or int32 words, "
+                         f"got {reads.dtype} {tuple(reads.shape)}")
+    if kind == SRC_PACKED and W < (L + 15) // 16:
+        raise ValueError(f"{W} packed words cannot hold {L} bases")
+    if rc_len.dtype != torch.int64 or rc_len.shape != (B,):
+        raise ValueError(f"rc_len must be int64 ({B},)")
+    return ReadRows(reads, kind, B, L, W, rc_len)
+
+
+def _check(name: str, dev: torch.device, **tensors) -> None:
+    """Every tensor on ``dev`` (a CUDA device) and contiguous."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    for key, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _vector(name: str, key: str, t: torch.Tensor, n: int, dtype) -> None:
+    if t.dtype != dtype or t.shape != (n,):
+        raise ValueError(f"{name}: {key} must be {dtype} ({n},), got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def _tables(name: str, idx, dev: torch.device) -> None:
+    _check(name, dev, occ=idx.occ, bwt=idx.bwt, counts=idx.counts,
+           lut_lo=idx.lut_lo, lut_hi=idx.lut_hi, mark_words=idx.mark_words,
+           mark_rank=idx.mark_rank, sa_samples=idx.sa_samples, pac=idx.pac)
+    for key in ("occ", "bwt", "lut_lo", "lut_hi", "mark_words", "mark_rank",
+                "sa_samples", "pac"):
+        if getattr(idx, key).dtype != torch.int32:
+            raise ValueError(f"{name}: the index's {key} must be int32")
+    if idx.counts.dtype != torch.int64 or idx.counts.shape != (5,):
+        raise ValueError(f"{name}: the index's counts must be int64 (5,)")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def search(idx, src: ReadRows, S: int, start: torch.Tensor,
+           length: torch.Tensor, max_steps: int,
+           mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """FS1: the SA interval [l, r) (int64) of each lane's segment
+    [start, start + length) of row i // S, searched right to left from a
+    LUT jumpstart in ``mode``."""
+    N = start.shape[0]
+    dev = start.device
+    _check("fm search", dev, reads=src.data, rc_len=src.rc_len, start=start,
+           length=length)
+    _tables("fm search", idx, dev)
+    _vector("fm search", "start", start, N, torch.int64)
+    _vector("fm search", "length", length, N, torch.int64)
+    if mode not in MODES:
+        raise ValueError(f"fm search: unknown mode {mode!r}")
+    if not 1 <= idx.lut_k <= 16 or S < 1 or src.L < 1 or max_steps < 0:
+        raise ValueError(f"fm search: lut_k {idx.lut_k}, S {S}, L {src.L}, "
+                         f"max_steps {max_steps} out of range")
+    l_out = torch.empty(N, dtype=torch.int64, device=dev)
+    r_out = torch.empty(N, dtype=torch.int64, device=dev)
+    if N == 0:
+        return l_out, r_out
+    _, fn = SEARCH_KERNEL.function()
+    with torch.cuda.device(dev):
+        err = fn(src.data.data_ptr(), src.kind, src.B, src.L, src.W,
+                 src.rc_len.data_ptr(), S, start.data_ptr(),
+                 length.data_ptr(), N, MODES[mode], max_steps, idx.lut_k,
+                 idx.occ.data_ptr(), idx.bwt.data_ptr(), idx.counts.data_ptr(), idx.lut_lo.data_ptr(),
+                 idx.lut_hi.data_ptr(), idx.primary, idx.n + 1,
+                 l_out.data_ptr(), r_out.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fm search kernel launch failed: CUDA error {err}")
+    SEARCH_KERNEL.count(dev, (N, src.L, max_steps))
+    return l_out, r_out
+
+
+def _decode(idx, rows: torch.Tensor, valid: torch.Tensor, ranks: bool):
+    N = rows.shape[0]
+    dev = rows.device
+    _check("sa decode", dev, rows=rows, valid=valid)
+    _tables("sa decode", idx, dev)
+    _vector("sa decode", "rows", rows, N, torch.int64)
+    _vector("sa decode", "valid", valid, N, torch.bool)
+    if idx.sa_rate < 1:
+        raise ValueError(f"sa decode: sa_rate {idx.sa_rate}")
+    outs = [torch.empty(N, dtype=torch.int64, device=dev)
+            for _ in range(2 if ranks else 1)]
+    if N == 0:
+        return outs
+    _, fn = DECODE_KERNEL.function()
+    out, rank, step = (None, *outs) if ranks else (outs[0], None, None)
+    with torch.cuda.device(dev):
+        err = fn(rows.data_ptr(), valid.data_ptr(), N, idx.sa_rate,
+                 idx.mark_words.data_ptr(), idx.mark_rank.data_ptr(),
+                 idx.occ.data_ptr(), idx.bwt.data_ptr(), idx.counts.data_ptr(),
+                 idx.primary, idx.sa_samples.data_ptr(),
+                 idx.sa_samples.shape[0],
+                 None if out is None else out.data_ptr(),
+                 None if rank is None else rank.data_ptr(),
+                 None if step is None else step.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"SA decode kernel launch failed: CUDA error {err}")
+    DECODE_KERNEL.count(dev, (N, idx.sa_rate))
+    return outs
+
+
+def sa_decode(idx, rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """FS2: the text position (int64, in [0, 2^32)) of each valid SA row
+    (0 elsewhere), the samples gathered from the index's own table."""
+    return _decode(idx, rows, valid, ranks=False)[0]
+
+
+def sa_ranks(idx, rows: torch.Tensor, valid: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """FS2 without the sample gather: (the sample rank, the LF steps to
+    it) of each row, for an SA table split over a mesh, whose owner
+    routing gathers the samples (fmindex.sa_decode)."""
+    return tuple(_decode(idx, rows, valid, ranks=True))
+
+
+def verify(idx, src: ReadRows, rows: torch.Tensor, tp: torch.Tensor,
+           read_len: torch.Tensor, W: int) -> torch.Tensor:
+    """FS3: the mismatches (int64) between the first read_len bases of
+    row ``rows[i]`` and the genome at tp[i], over W packed words."""
+    M = tp.shape[0]
+    dev = tp.device
+    _check("verify", dev, reads=src.data, rc_len=src.rc_len, rows=rows, tp=tp,
+           read_len=read_len)
+    _tables("verify", idx, dev)
+    _vector("verify", "tp", tp, M, torch.int64)
+    _vector("verify", "read_len", read_len, M, torch.int64)
+    _vector("verify", "rows", rows, M, torch.int64)
+    out = torch.empty(M, dtype=torch.int64, device=dev)
+    if M == 0:
+        return out
+    _, fn = VERIFY_KERNEL.function()
+    with torch.cuda.device(dev):
+        err = fn(src.data.data_ptr(), src.kind, src.B, src.L, src.W,
+                 src.rc_len.data_ptr(), rows.data_ptr(), tp.data_ptr(),
+                 read_len.data_ptr(), M, W, idx.pac.data_ptr(),
+                 idx.pac.shape[0], out.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"verify kernel launch failed: CUDA error {err}")
+    VERIFY_KERNEL.count(dev, (M, W))
+    return out

@@ -3,9 +3,10 @@
 Port of soap3dp_tpu/pipeline/dp_rescue.py. The seed matrices and the
 result containers are the reference's numpy code; the device halves
 (``_seed_cand_batch``, ``_prescan_impl``, ``_pack_problems``) are torch
-on the index's device, and ``run_banded_dp`` calls the port's
-``dp_align`` (the Hopper kernels on CUDA, their plain versions on CPU),
-one slice of problems per device on a mesh.
+on the index's device (the seeds' backward search and SA decode through
+fmindex, the FS1 and FS2 kernels on the card), and ``run_banded_dp``
+calls the port's ``dp_align`` (the Hopper kernels on CUDA, their plain
+versions on CPU), one slice of problems per device on a mesh.
 """
 
 from __future__ import annotations
@@ -105,7 +106,7 @@ def _seed_cand_batch(idx: DeviceIndex, reads: torch.Tensor,
     S = seed_pos.shape[1]
     dev = reads.device
     lens = lens.to(torch.int64)
-    oriented = torch.cat([reads, fmindex.revcomp_reads(reads, lens)], dim=0)
+    ori = fmindex.OrientedReads.of(reads, lens)
     R = 2 * B
     sp = torch.cat([seed_pos, seed_pos], dim=0).to(torch.int64)
     sl2 = torch.cat([seed_len, seed_len]).to(torch.int64)
@@ -113,8 +114,8 @@ def _seed_cand_batch(idx: DeviceIndex, reads: torch.Tensor,
     sp = torch.minimum(sp, (ln2 - sl2).clamp(min=0)[:, None])
     slen_arr = torch.minimum(sl2, ln2)[:, None].expand(sp.shape)
     rows = torch.arange(R, device=dev).repeat_interleave(S)
-    l, r = fmindex.backward_search(idx, oriented[rows], sp.reshape(-1),
-                                   slen_arr.reshape(-1), max_steps=max_steps)
+    l, r = fmindex.seed_intervals(idx, ori, S, sp.reshape(-1),
+                                  slen_arr.reshape(-1), max_steps, "general")
     width = r - l
     slot = torch.arange(occ_cap, device=dev)[None, :]
     ok = slot < width.clamp(max=occ_cap)[:, None]

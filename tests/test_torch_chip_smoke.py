@@ -2,9 +2,11 @@
 pair, mate-pair card-vs-CPU, mate-pair full window, single-end, and the
 multi-device and multi-host phase) run here
 at a small size through the port's plain-torch paths, its DP problem
-generators are the recipes they claim to be, and without a card (or
-outside a checkout) it exits non-zero and prints no result line.
-The kernel phases need a card and run only there."""
+generators and the seed-search kernels' cases (edges, the main path's
+calls, the synthetic index, the repeat genome's search) are what they
+claim to be, and without a card (or outside a checkout) it exits
+non-zero and prints no result line. The kernel phases need a card and
+run only there."""
 
 import os
 import shutil
@@ -57,7 +59,8 @@ def test_multi_device_phases_on_cpu(tmp_path):
     hosts = chip_smoke.phase_hosts(cpu, reads, w, str(tmp_path), timeout=300)
     assert hosts["records_equal"] and hosts["summary_equal"]
     assert sum(hosts["per_process_pairs"]) == 200
-    assert hosts["launches"] == [{"K1": 0, "K2": 0, "TB": 0}] * 2  # no card
+    assert hosts["launches"] == [dict.fromkeys(
+        ("K1", "K2", "TB", "FS1", "FS2", "FS3"), 0)] * 2  # no card
     assert len(hosts["index_upload_s"]) == 2
     assert chip_smoke.phase_all_cards(cpu, reads, w) == {"not_run": "1 card"}
 
@@ -193,3 +196,168 @@ def test_bounds_edge_cases_and_launch_shapes(monkeypatch):
         "K1": {"12x100x256": 1, "4096x100x768": 2}}
     k.reset()
     assert chip_smoke._launch_shapes() == {}
+
+
+@pytest.fixture(scope="module")
+def fs_index():
+    """(genome codes, the port's CPU device index of a 60 kbp genome at
+    sa_rate 4, lut_k 8)."""
+    from soap3dp_tpu_torch import workloads
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import build_index
+
+    genome = workloads.random_genome(np.random.default_rng(8), 60_000)
+    return genome.codes, device_index(build_index(genome, sa_rate=4,
+                                                  lut_k=8), "cpu")
+
+
+def test_fs_cases_are_the_edges_they_name(fs_index):
+    """Phase 2's FS1 / FS2 / FS3 cases: each names an entry point with
+    its plain version and holds the edges it claims (short segments in
+    each mode, reverse-complement rows of variable length, code and
+    packed sources, SA rows at the sentinel, word boundaries and the
+    last row, placements at word boundaries and the genome's end); on
+    the CPU the entry point is its plain version, and the work counts
+    of the bounds are what the inputs need."""
+    from soap3dp_tpu_torch.fm import fmindex
+
+    codes, didx = fs_index
+    rng = np.random.default_rng(3)
+    cases = (chip_smoke.fs_search_cases(rng, didx, codes, "cpu", B=32)
+             + chip_smoke.fs_verify_cases(rng, didx, codes, "cpu", B=32,
+                                          M=512)
+             + [chip_smoke.fs_decode_case(rng, "decode", didx, "cpu", 2048)])
+    names = [c[0] for c in cases]
+    assert names == ["lut_codes", "lut_packed", "packed_codes",
+                     "packed_packed", "general_codes", "general_packed",
+                     "packed_uniform", "api_backward_search",
+                     "api_backward_search_packed", "verify_codes",
+                     "verify_packed", "api_count_mismatches_packed",
+                     "decode"]
+    k = didx.lut_k
+    for name, fn, args in cases:
+        label = chip_smoke.FS_FUNCTIONS[fn]
+        got = getattr(fmindex, fn)(*args)
+        want = getattr(fmindex, fn + "_plain")(*args)
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
+        w = chip_smoke.fs_work(fn, args, want)  # its replay gives want
+        if fn == "seed_intervals":
+            ori, length = args[1], args[4]
+            assert (length < k).any() and (length >= k).any()
+            assert ori.B * 2 * args[2] == length.shape[0]
+            if name != "packed_uniform":
+                assert (args[3] >= ori.L).any()      # starts past L
+                assert (ori.rc_len < k).any() and (ori.rc_len == 1).any()
+        if label == "FS1":
+            assert w["lanes"] == args[-4 if fn != "backward_search" else 2
+                                      ].shape[0]
+            assert (w["steps"] > 0) == (name[:3] != "lut")
+            assert w["sectors"] > w["bytes"] > 0
+        if label == "FS3":
+            tp, n = args[1], didx.n
+            assert ((tp % 16) == 0).any() and (tp == n - 1).any()
+            assert w["placements"] == 512 and w["words"] > 0
+    rows = cases[-1][2][1]
+    for r in (0, 16, 31, 32, didx.primary, didx.n):
+        assert (rows == r).any()
+    assert chip_smoke._fs_diff(torch.ones(3), torch.ones(2))[0] > 0
+
+
+def test_fs_bounds_count_each_table_element_once(fs_index):
+    """The FS bounds count each distinct table element the lanes gather
+    once, and each 32-byte sector holding one once: FS1's l and r in one
+    BWT word, lanes of one read on the same rows and SA rows of one
+    interval read the same occ, BWT and mark elements."""
+    from soap3dp_tpu_torch.fm import fmindex
+
+    g = {"a": [torch.tensor([0, 1, 1, 9]), torch.tensor([9, 16])],
+         "b": [torch.zeros(0, dtype=torch.int64)]}
+    assert chip_smoke._gathered(g) == (4 * 4, 3 * 32)
+    codes, didx = fs_index
+    cases = chip_smoke.fs_search_cases(np.random.default_rng(5), didx, codes,
+                                       "cpu", B=32)
+    _, fn, args = next(c for c in cases if c[0] == "general_codes")
+    lanes, _ = chip_smoke._fs1_lanes(fn, args)
+    l, r, steps, gathers = chip_smoke.fs1_replay(didx, *lanes)
+    assert all(torch.equal(a, b) for a, b in
+               zip((l, r), fmindex.seed_intervals_plain(*args)))
+    assert len(torch.cat(gathers["bwt"])) == 2 * steps > 0
+    nbytes, _ = chip_smoke._gathered({"bwt": gathers["bwt"]})
+    assert nbytes < 4 * 2 * steps
+    rows = torch.arange(didx.n // 2, didx.n // 2 + 64)
+    valid = torch.ones(64, dtype=torch.bool)
+    out, probes, lf, g2 = chip_smoke.fs2_replay(didx, rows, valid)
+    assert torch.equal(out, fmindex.sa_decode_plain(didx, rows, valid))
+    assert probes == 64 + lf and lf > 0
+    assert chip_smoke._gathered({"m": g2["mark_words"]})[0] < 4 * probes
+
+
+def test_synthetic_index_and_its_cases():
+    """The synthetic index has every table at its true size (about 8 GB
+    at 3.2 Gbp, sa_rate 8, lut_k 13) with values in range; its cases
+    run through the plain versions at a small n."""
+    from soap3dp_tpu_torch.fm import fmindex
+
+    sizes = chip_smoke.synthetic_table_sizes(3_200_000_000, 8, 13)
+    assert 7.5e9 < 4 * sum(sizes.values()) < 8.5e9
+    n = (1 << 20) + 5
+    idx = chip_smoke.synthetic_index(torch.device("cpu"), n, lut_k=6)
+    sizes = chip_smoke.synthetic_table_sizes(n, 8, 6)
+    for name, size in sizes.items():
+        assert getattr(idx, name).shape == (size,), name
+    u32 = fmindex._u32
+    assert int(u32(idx.lut_hi).max()) <= n and int(u32(idx.occ).max()) < n // 4
+    assert (u32(idx.lut_hi) >= u32(idx.lut_lo)).all()
+    cases = chip_smoke.synthetic_cases(np.random.default_rng(4), idx, "cpu",
+                                       B=64)
+    assert [c[0] for c in cases] == [
+        "synthetic_lut", "synthetic_packed", "synthetic_general",
+        "synthetic_decode", "synthetic_verify"]
+    for name, fn, args in cases:
+        out = getattr(fmindex, fn)(*args)
+        for t in out if isinstance(out, tuple) else (out,):
+            assert int(t.min()) >= 0 and int(t.max()) <= max(n + 1, 1 << 32)
+    assert (cases[-1][2][1] >= n - 200).any()
+
+
+def test_repeat_genome_search_runs_rounds_2_and_3():
+    """The repeat genome's PendingSearch (SOAP3DP_ESCALATE=1) runs
+    rounds 2 and 3, in both round-1 branches; here the card's side is
+    the CPU too."""
+    cpu = torch.device("cpu")
+    didx1, out = chip_smoke.phase_repeat_search(cpu, genome_bp=400_000,
+                                                unit=500, copies=400,
+                                                n_reads=256)
+    assert didx1.sa_rate == 1
+    for heavy in ("0", "1"):
+        r = out[f"repeat_heavy_{heavy}"]
+        assert r["equal"] and len(set(r["caps"])) >= 2 and r["hits"] > 0
+    assert "SOAP3DP_ESCALATE" not in os.environ
+
+
+def test_path_calls_and_kernel_rows(fs_index):
+    """The main path's kernel calls (a pair batch's round-1 search and a
+    deep-DP seeding) are recorded with their arguments and pass through;
+    a plain primitive on a CPU index is not counted as one on a card;
+    the JSON rows of FS1-FS3 carry every key of the kernels line."""
+    codes, didx = fs_index
+    calls = chip_smoke.path_calls(didx, codes, B=128, seed_reads=64)
+    fns = [fn for fn, _ in calls]
+    assert {"seed_intervals", "sa_decode", "count_mismatches_rows"} <= set(fns)
+    assert fns[0] == "seed_intervals" and calls[0][1][6] == "lut"
+    assert calls[0][1][1].L == 120      # phase 4's 120-wide rows
+    with chip_smoke._Recorder(record=False) as rec:
+        chip_smoke.path_calls(didx, codes, B=16, seed_reads=8)
+    assert rec.plain_on_card == 0
+    rows = [{"case": f"path{i}", "kernel": k, "ms": 1.0, "plain_ms": 2.0,
+             "bound_ms": 0.1, "bound_by": "bytes", "sector_bound_ms": 0.5,
+             "max_abs_err": 0, "shape": "8x100x3", key: 8}
+            for i, (k, key) in enumerate((("FS1", "lanes"), ("FS2", "rows"),
+                                          ("FS3", "placements")))]
+    out = chip_smoke.fs_kernel_rows(rows)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [r["replaces"] for r in out] == [
+        "soap3dp_tpu/fm/fmindex.py:391", "soap3dp_tpu/fm/fmindex.py:509",
+        "soap3dp_tpu/fm/fmindex.py:653"]
+    assert all(keys <= set(r) and r["route"] == "cuda" for r in out)

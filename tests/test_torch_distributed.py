@@ -37,6 +37,20 @@ def mesh8():
     return jmesh.make_mesh(jax.devices()[:8])
 
 
+def test_make_mesh_without_devices_needs_a_card(monkeypatch):
+    """With no devices named and no card, make_mesh raises instead of
+    making a CPU mesh."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tmesh.make_mesh()
+
+
+def test_make_mesh_of_named_cpu_devices():
+    mesh = tmesh.make_mesh(["cpu"] * 2)
+    assert mesh.devices == (torch.device("cpu"),) * 2
+    assert (mesh.size, mesh.axis) == (2, "reads")
+
+
 def _reads(codes, B, L, seed):
     pos = np.random.default_rng(seed).integers(0, len(codes) - L, B)
     return (np.stack([codes[p:p + L] for p in pos]).astype(np.uint8),
