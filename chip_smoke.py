@@ -23,16 +23,23 @@ Phases, each printing one line, any failure exits non-zero:
    the top score, long gaps), the same with one score at 16, and scores
    past 15 at the main path's shape, with anchors and at a K2 window
    (the 32-bit form). Then the seed search's kernels, FS1 (backward
-   search), FS2 (SA decode) and FS3 (packed verify), every output
+   search), FS2 (SA decode: of ready rows, and with the search's lane
+   expansion, expand_decode) and FS3 (packed verify), every output
    element equal to the plain version's, with each kernel's device time,
-   its bound and share (bytes, and bytes at 32-byte sectors) and the
-   plain version's time: the calls of the main path on phase 4's index
-   (a 65,536-pair batch's search, the index built and cached here, and
-   a deep-DP seeding), each FS1 branch at its edges, FS2 at sa_rate 1,
-   2 and 8 and with the SA split over a two-replica mesh, FS3 at its
-   edges, all three on a synthetic 3.2 Gbp index (rows, bounds and
-   positions past 2^31), and a repeat genome's search (rounds 2 and 3)
-   on the card and the CPU with equal hits;
+   its bound and share (bytes and 32-byte sectors of the reference's
+   separate occ and BWT tables, and the sectors of the occ blocks the
+   kernels read), its time when it read the separate tables (quoted
+   from PERF.md) and the plain version's: the
+   calls of the main path on phase 4's index (a 65,536-pair batch's
+   search, the index built and cached here, and a deep-DP seeding), each
+   FS1 branch at its edges, FS2 at sa_rate 1, 2 and 8 and with the SA
+   split over a two-replica mesh, the expansion's edges at the search's
+   K (a total of 0, past K and equal to K, one lane holding every slot),
+   the occ blocks' edges (every SA row of small indexes whose last
+   block holds 4, 2 or 3 words), FS3 at its edges, all three on a
+   synthetic 3.2 Gbp index (rows, bounds and positions past 2^31), and
+   a repeat genome's search (rounds 2 and 3) on the card and the CPU
+   with equal hits;
 3. golden SAM: the five paired-end and two single-end golden cases of
    tests/golden rendered through the port on cuda, every record equal
    (@PG excepted);
@@ -43,7 +50,9 @@ Phases, each printing one line, any failure exits non-zero:
    primitive on the card) with a histogram of the launch shapes (phases
    5, 6 and 7a likewise), then runs it once more under
    torch.profiler (device busy share, top device events in the output
-   directory's e2e_profile.txt);
+   directory's e2e_profile.txt), and searches its first batch alone
+   under torch.profiler (the search's device items, search_profile.txt;
+   no cummax scan);
 5. mate-pair: a -/+ library of 2-6 kbp inserts aligned with
    -v 2000 -u 6000 and SOAP3DP_HALF_NARROW_PAD=0 (the half rescue over
    the whole insert window, where dp_align takes K2 + TB). First 200
@@ -65,7 +74,8 @@ Phases, each printing one line, any failure exits non-zero:
 Then one JSON line with the kernels (K1, K2, TB, FS1, FS2, FS3, each
 with its time, its bound on this card, the share of the bound it
 reaches and the operations peak the bound used: int16x2, twice the
-int32 peak, where the 16-bit forward runs), and the last line
+int32 peak, where the 16-bit forward runs; FS2's launches are its two
+entries'), and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
 index builder, readers and writers); imports neither JAX nor the JAX
 package.
@@ -676,9 +686,11 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
 # The fmindex entry points of the three kernels. Each takes a CUDA
 # tensor to its kernel; the same name with "_plain" is its plain
 # version, which a case runs on the same inputs.
+# FS2 has two entries: sa_decode of ready rows ("FS2") and the search's
+# expand_decode, which expands the lanes into slots first ("FS2x").
 FS_FUNCTIONS = {"seed_intervals": "FS1", "backward_search": "FS1",
                 "backward_search_packed": "FS1", "sa_decode": "FS2",
-                "count_mismatches_rows": "FS3",
+                "expand_decode": "FS2x", "count_mismatches_rows": "FS3",
                 "count_mismatches_packed": "FS3"}
 # integer operations, as the plain versions write them: one FM step
 # (both bounds: the sentinel skip, word and occ indices, the match
@@ -691,6 +703,11 @@ OPS_FM_STEP, OPS_FM_LANE = 36, 64
 OPS_SA_PROBE, OPS_SA_LF = 10, 22
 OPS_VERIFY_WORD = 14
 SECTOR = 32  # bytes the card moves for one scattered load
+# the kernels' times at round 1 when they read the separate occ and BWT
+# tables, quoted from PERF.md section 6 in the summary lines only (FS2
+# then decoded ready rows after a plain-torch compaction of about
+# 0.66 ms a launch, which FS2x now does)
+SEPARATE_TABLES_MS = {"FS1": 0.127, "FS2": 0.035, "FS3": 0.055}
 
 
 def sample_reads(rng, codes: np.ndarray, B: int, L: int, lens=None,
@@ -801,6 +818,83 @@ def fs_decode_case(rng, name: str, didx, dev, N: int = 65536
                                 torch.from_numpy(valid).to(dev)))
 
 
+EXPANSION_EDGES = ("zeros", "total_0", "total_gt_K", "total_eq_K",
+                   "one_lane")
+
+
+def expansion_cases(rng, didx, dev, RS: int, S: int, K: int,
+                    name: str = "expand", edges=EXPANSION_EDGES
+                    ) -> list[tuple[str, str, tuple]]:
+    """FS2's expand_decode at the edges of the lane expansion, RS lanes
+    (RS / S rows of S segments) into K slots: a third of the lanes
+    empty (as empty and overflowing lanes are) and a total of 3K/4
+    ("zeros"), a total of 0, of 5K/4 (past K) and of K, and one lane
+    holding all K slots; intervals anywhere in the SA, segment starts
+    and read lengths of reads in 120-wide rows."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    n = didx.n
+    olens = t(rng.integers(20, 121, RS // S))
+    sstart = t(rng.integers(0, 80, RS))
+    totals = {"zeros": 3 * K // 4, "total_0": 0, "total_gt_K": 5 * K // 4,
+              "total_eq_K": K, "one_lane": K}
+    cases = []
+    for edge in edges:
+        if edge == "one_lane":
+            cnt = np.zeros(RS, np.int64)
+            cnt[rng.integers(0, RS)] = K
+        else:
+            live = rng.choice(RS, 2 * RS // 3, replace=False)
+            cnt = np.bincount(live[rng.integers(0, len(live), totals[edge])],
+                              minlength=RS).astype(np.int64)
+        l = rng.integers(0, n + 1 - np.minimum(cnt, n))
+        cases.append((f"{name}_{edge}", "expand_decode",
+                      (didx, t(l), t(np.cumsum(cnt)), sstart, olens, S, K)))
+    return cases
+
+
+def block_edge_cases(rng, dev, m: int = 1000, B: int = 256, L: int = 100
+                     ) -> list[tuple[str, str, tuple]]:
+    """The occ blocks' edges on three small indexes (sa_rate 4, lut_k 8)
+    whose last block holds 4, 2 or 3 BWT words (nw % 4 of 0, 2, 3; phase
+    4's index has 1): FS2 over every SA row (every block edge and the
+    sentinel's block), expand_decode with one slot a row, and FS1's
+    general branch over reads cut from the genome."""
+    import torch
+
+    from soap3dp_tpu_torch import workloads
+    from soap3dp_tpu_torch.fm import fmindex
+    from soap3dp_tpu_torch.index.builder import build_index
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    S = 3
+    cases = []
+    for r in (0, 2, 3):
+        n = 16 * (4 * m + r - 1) + 5
+        genome = workloads.random_genome(rng, n, name="chrB")
+        didx = fmindex.device_index(build_index(genome, sa_rate=4, lut_k=8),
+                                    dev)
+        rows = torch.arange(n + 1, device=dev)
+        ones = torch.ones_like(rows)
+        cases.append((f"blocks_nw{r}_decode", "sa_decode",
+                      (didx, rows, ones.bool())))
+        cases.append((f"blocks_nw{r}_expand", "expand_decode",
+                      (didx, rows, torch.cumsum(ones, 0),
+                       torch.zeros_like(rows), ones, 1, n + 1)))
+        reads, lens = sample_reads(rng, genome.codes, B, L)
+        ori = fmindex.OrientedReads.of(t(reads), t(lens), L)
+        start = t(rng.integers(0, L, 2 * B * S))
+        length = t(rng.integers(0, 41, 2 * B * S))
+        cases.append((f"blocks_nw{r}_search", "seed_intervals",
+                      (didx, ori, S, start, length, 40, "general")))
+    return cases
+
+
 def fs_verify_cases(rng, didx, codes: np.ndarray, dev, B: int = 256,
                     L: int = 100, M: int = 8192
                     ) -> list[tuple[str, str, tuple]]:
@@ -843,11 +937,11 @@ def fs_verify_cases(rng, didx, codes: np.ndarray, dev, B: int = 256,
 
 def synthetic_table_sizes(n: int, sa_rate: int, lut_k: int) -> dict:
     """Elements of each table of an n-base index: 16 bases a BWT and a
-    genome word (row n + 1 skips the sentinel to BWT position n), four
-    occ counts a BWT word, 32 rows a mark word and its rank, one sample
-    every sa_rate rows, 4^lut_k LUT entries."""
+    genome word (row n + 1 skips the sentinel to BWT position n), 8 an
+    occ block of 4 BWT words, 32 rows a mark word and its rank, one
+    sample every sa_rate rows, 4^lut_k LUT entries."""
     nw = n // 16 + 1
-    return {"occ": 4 * nw, "bwt": nw, "mark_words": n // 32 + 1,
+    return {"occ_blocks": 8 * -(-nw // 4), "mark_words": n // 32 + 1,
             "mark_rank": n // 32 + 1, "sa_samples": n // sa_rate + 1,
             "pac": n // 16 + 1, "lut_lo": 4 ** lut_k, "lut_hi": 4 ** lut_k}
 
@@ -856,10 +950,11 @@ def synthetic_index(dev, n: int, sa_rate: int = 8, lut_k: int = 13,
                     seed: int = 31):
     """A DeviceIndex of an n-base text with every table at its true size
     for ``sa_rate`` and ``lut_k`` (random content, made on ``dev``),
-    its values in range: counts C[c] = 1 + c n/4 and occ entries below
-    n/4 - 16, so every FM bound and LF row stays in [0, n]; LUT
-    intervals of up to 64 rows; samples anywhere in [0, 2^32). At
-    n = 3.2e9 (a human genome) rows, bounds and positions pass 2^31."""
+    its values in range: counts C[c] = 1 + c n/4 and occ-block counts
+    below n/4 - 64, so every FM bound and LF row (an occ block's count
+    plus up to 63 matches) stays in [0, n]; LUT intervals of up to 64
+    rows; samples anywhere in [0, 2^32). At n = 3.2e9 (a human genome)
+    rows, bounds and positions pass 2^31."""
     import torch
 
     from soap3dp_tpu_torch.fm.fmindex import DeviceIndex
@@ -867,7 +962,8 @@ def synthetic_index(dev, n: int, sa_rate: int = 8, lut_k: int = 13,
     g = torch.Generator(device=dev).manual_seed(seed)
     q = n // 4
     size = synthetic_table_sizes(n, sa_rate, lut_k)
-    nw, nmw, n_sa = size["bwt"], size["mark_words"], size["sa_samples"]
+    nb, nmw, n_sa = size["occ_blocks"] // 8, size["mark_words"], \
+        size["sa_samples"]
 
     def bits(size):
         return torch.randint(-(1 << 31), 1 << 31, (size,), generator=g,
@@ -886,8 +982,10 @@ def synthetic_index(dev, n: int, sa_rate: int = 8, lut_k: int = 13,
     lut_hi = (lut_lo.long() & 0xFFFFFFFF) + torch.randint(
         0, 65, (4 ** lut_k,), generator=g, device=dev)
     lut_hi = ((lut_hi + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+    occ_blocks = torch.cat([below(q - 64, 4 * nb).view(nb, 4),
+                            bits(4 * nb).view(nb, 4)], dim=1)
     return DeviceIndex(
-        occ=below(q - 16, 4 * nw), bwt=bits(nw), mark_rank=below(n_sa, nmw),
+        occ_blocks=occ_blocks, mark_rank=below(n_sa, nmw),
         mark_words=bits(nmw), sa_samples=bits(n_sa),
         counts=torch.tensor([1, 1 + q, 1 + 2 * q, 1 + 3 * q, n + 1],
                             dtype=torch.int64, device=dev),
@@ -1046,8 +1144,11 @@ def _fs1_lanes(fn: str, args: tuple) -> tuple:
 def fs1_replay(idx, codes, rows, start, length, max_steps: int, mode: str):
     """FS1 lane by lane over its code rows, as the kernel walks them:
     (l, r), the FM steps the lanes take (a lane stops at an empty
-    interval or at the end of its segment) and the LUT, occ and BWT
-    elements they gather, each branch with its edges (fs_search_cases)."""
+    interval or at the end of its segment) and the LUT elements they
+    gather, the occ and BWT elements a step of l and r reads in the
+    separate tables ("occ", "bwt") and the occ blocks the kernel reads
+    ("occ_blocks", element 8j for block j), each branch with its edges
+    (fs_search_cases)."""
     import torch
 
     from soap3dp_tpu_torch.fm import fmindex
@@ -1076,7 +1177,7 @@ def fs1_replay(idx, codes, rows, start, length, max_steps: int, mode: str):
     l = torch.where(can, fmindex._u32(idx.lut_lo[m]), zero)
     r = torch.where(can, fmindex._u32(idx.lut_hi[m]), zero + idx.n + 1)
     gathers = {"lut_lo": [m[can]], "lut_hi": [m[can]], "occ": [zero[:0]],
-               "bwt": [zero[:0]]}
+               "bwt": [zero[:0]], "occ_blocks": [zero[:0]]}
     steps = 0
     if mode == "lut":
         return l, r, steps, gathers
@@ -1089,9 +1190,10 @@ def fs1_replay(idx, codes, rows, start, length, max_steps: int, mode: str):
         else:
             c = codes[rows, (start + rem - 1 - s).clamp(0, last)]
         for bound in (l, r):
-            w = ((bound - (bound > idx.primary).long()) >> 4)[act]
-            gathers["bwt"].append(w)
-            gathers["occ"].append(4 * w + c[act])
+            kp = (bound - (bound > idx.primary).long())[act]
+            gathers["bwt"].append(kp >> 4)
+            gathers["occ"].append(4 * (kp >> 4) + c[act])
+            gathers["occ_blocks"].append(8 * (kp >> 6))
         steps += int(act.sum())
         l2, r2 = fmindex.backward_extend(idx, l, r, c)
         l, r = torch.where(act, l2, l), torch.where(act, r2, r)
@@ -1101,9 +1203,11 @@ def fs1_replay(idx, codes, rows, start, length, max_steps: int, mode: str):
 def fs2_replay(idx, rows, valid):
     """FS2 row by row, as the kernel walks it: each valid row's text
     position, the mark probes and LF steps the valid rows take (a row
-    stops at its first marked row), and the mark, rank, occ, BWT and
-    sample elements they gather (the samples of a split table are the
-    owner routing's, not the kernel's)."""
+    stops at its first marked row), and the mark, rank and sample
+    elements they gather (the samples of a split table are the owner
+    routing's, not the kernel's), with the occ and BWT elements of each
+    LF step in the separate tables and the occ block the kernel reads
+    (as fs1_replay)."""
     import torch
 
     from soap3dp_tpu_torch.fm import fmindex
@@ -1112,7 +1216,7 @@ def fs2_replay(idx, rows, valid):
     rows = rows.long()[valid]
     zero = torch.zeros_like(rows)
     gathers = {key: [zero[:0]] for key in ("mark_words", "mark_rank", "occ",
-                                           "bwt", "sa_samples")}
+                                           "bwt", "occ_blocks", "sa_samples")}
     probes = lf = 0
     rank, t_hit = rows, zero
     if idx.sa_rate > 1:
@@ -1136,14 +1240,13 @@ def fs2_replay(idx, rows, valid):
             live = ~done
             kp = rows - (rows > idx.primary).long()
             w, q = kp >> 4, kp & 15
-            word_b = u32(idx.bwt[w])
+            word_b = u32(idx.occ_blocks[kp >> 6, 4 + (w & 3)])
             c = (word_b >> (2 * q)) & 3
             gathers["bwt"].append(w[live])
             gathers["occ"].append((4 * w + c)[live])
+            gathers["occ_blocks"].append(8 * (kp >> 6)[live])
             lf += int(live.sum())
-            step = (idx.counts[c] + u32(idx.occ[4 * w + c])
-                    + fmindex._count_in_word(word_b, c, q))
-            rows = torch.where(live, step, rows)
+            rows = torch.where(live, fmindex.lf_step(idx, rows), rows)
         gathers["mark_rank"].append(mw_hit)
         rank = u32(idx.mark_rank[mw_hit]) + below_hit
     if not idx.sa_parts:
@@ -1154,12 +1257,51 @@ def fs2_replay(idx, rows, valid):
     return out, probes, lf, gathers
 
 
+def fs2x_replay(idx, l, incl, sstart, olens, S: int, K: int):
+    """FS2's expand_decode slot by slot, as the kernel walks it: each
+    slot below the total count finds its lane (the first whose inclusive
+    count exceeds it) and walks its row (fs2_replay); returns the dedupe
+    keys (krow, ktp, pos_ok), the probes and LF steps, the gathers, the
+    slots walked, the distinct lanes and rows they read and the binary
+    search's levels."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+
+    RS = l.shape[0]
+    k = torch.arange(min(K, int(incl[-1])), device=l.device)
+    lane = torch.searchsorted(incl, k, right=True)
+    off = torch.where(lane > 0, incl[(lane - 1).clamp(min=0)], 0)
+    valid = torch.ones_like(k, dtype=torch.bool)
+    pos, probes, lf, gathers = fs2_replay(idx, l[lane] + k - off, valid)
+    out = fmindex._placements(idx, valid, pos, lane, sstart, olens, S)
+    keys = [torch.full((K,), fmindex.SENTINEL, dtype=torch.int64,
+                       device=l.device) for _ in range(2)]
+    keys.append(torch.zeros(K, dtype=torch.bool, device=l.device))
+    for full, part in zip(keys, out):
+        full[:k.shape[0]] = part
+    lanes = torch.unique(lane)
+    return (tuple(keys), probes, lf, gathers, k.shape[0], lanes.numel(),
+            torch.unique(lanes // S).numel(), max(RS - 1, 1).bit_length())
+
+
+def _split_tables(gathers: dict) -> tuple[dict, dict]:
+    """(the gathers from the reference's tables, occ and BWT separate;
+    the gathers from the occ blocks in their place)."""
+    ref = {k: v for k, v in gathers.items() if k != "occ_blocks"}
+    blocks = {k: v for k, v in gathers.items() if k not in ("occ", "bwt")}
+    return ref, blocks
+
+
 def fs_work(fn: str, args: tuple, want) -> dict:
     """The operations, bytes and 32-byte sectors the call needs on this
     run's data: each input element read once and each output written
     once (as bytes), and each distinct table element the lanes gather
-    once (bytes: 4 an element; sectors: 32 a distinct sector). FS1 and
-    FS2 count from their replay (fs1_replay, fs2_replay), which must give
+    once (bytes: 4 an element; sectors: 32 a distinct sector) in the
+    reference's tables (occ and BWT separate), and
+    the distinct 32-byte sectors the kernel's walk touches with the occ
+    blocks in their place ("block_sectors"). FS1 and FS2 count from
+    their replay (fs1_replay, fs2_replay, fs2x_replay), which must give
     the plain version's output ``want``; FS3 the genome words up to each
     read's length."""
     import torch
@@ -1184,6 +1326,23 @@ def fs_work(fn: str, args: tuple, want) -> dict:
         io = N * (17 + (8 if idx.sa_parts else 0)) + 40
         ops = probes * OPS_SA_PROBE + lf * OPS_SA_LF
         counts = {"rows": N, "lf_steps": lf}
+    elif label == "FS2x":
+        l, incl, sstart, olens, S, K = args[1:]
+        out, probes, lf, gathers, walked, lanes, rows, levels = fs2x_replay(
+            idx, l.long(), incl.long(), sstart.long(), olens.long(), S, K)
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            fail(f"FS2's expansion replay disagrees with {fn}_plain")
+        RS = l.shape[0]
+        # the cumsum once (its last element alone when no slot is
+        # walked); l and sstart once a walked lane, olens once a walked
+        # row (the split entry reads l alone); the three keys (or lane,
+        # rank and step) once a slot
+        io = ((RS * 8 if walked else 8) + 40
+              + (lanes * 8 if idx.sa_parts else lanes * 16 + rows * 8)
+              + K * (24 if idx.sa_parts else 17))
+        ops = (probes * OPS_SA_PROBE + lf * OPS_SA_LF
+               + walked * (4 * levels + OPS_SA_PROBE))
+        counts = {"slots": K, "lanes": RS, "walked": walked, "lf_steps": lf}
     else:
         tp, M = args[1].long(), args[1].shape[0]
         if fn == "count_mismatches_rows":
@@ -1202,9 +1361,11 @@ def fs_work(fn: str, args: tuple, want) -> dict:
         words = int(nwords.sum())
         ops = words * OPS_VERIFY_WORD
         counts = {"placements": M, "words": words}
-    nbytes, sectors = _gathered(gathers)
+    ref, blocks = _split_tables(gathers)
+    nbytes, sectors = _gathered(ref)
+    _, block_sectors = _gathered(blocks)
     return {"ops": ops, "bytes": io + nbytes, "sectors": io + sectors,
-            **counts}
+            "block_sectors": io + block_sectors, **counts}
 
 
 def _fs_diff(got, want) -> tuple[int, int]:
@@ -1225,7 +1386,7 @@ def _fs_diff(got, want) -> tuple[int, int]:
 
 # the kernels' symbols, as torch.profiler names their device events
 FS_SYMBOLS = {"FS1": "fm_search_kernel", "FS2": "sa_decode_kernel",
-              "FS3": "verify_kernel"}
+              "FS2x": "expand_decode_kernel", "FS3": "verify_kernel"}
 
 
 def _kernel_device_ms(fn, reps: int, symbol: str) -> float:
@@ -1253,8 +1414,9 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     version's, every element; the kernel's device time (torch.profiler)
     and its call's (CUDA events around a loop of wrapper calls, host
     work included), the plain version's, the bound (operations over the
-    int32 peak or bytes over the memory rate, the larger) and the same
-    bound with every scattered gather a 32-byte sector."""
+    int32 peak or bytes over the memory rate, the larger), the same
+    bound with every scattered gather a 32-byte sector, and with the
+    sectors the kernel's walk touches in the occ blocks."""
     import torch
 
     from soap3dp_tpu_torch.fm import fmindex
@@ -1277,10 +1439,12 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     if not ms > 0:
         ms, timer = call_ms, "CUDA events: the profiler recorded no event"
     counts = {k: v for k, v in work.items()
-              if k not in ("ops", "bytes", "sectors")}
+              if k not in ("ops", "bytes", "sectors", "block_sectors")}
     bms, by = bound_ms(work["ops"], work["bytes"], peak_ops)
     sms = max(work["ops"] / peak_ops * 1e3,
               work["sectors"] / HBM_BYTES_PER_S * 1e3)
+    bsms = max(work["ops"] / peak_ops * 1e3,
+               work["block_sectors"] / HBM_BYTES_PER_S * 1e3)
     shape_s = "x".join(map(str, shape[0])) if shape else "none"
     phase(f"kernel fm_search {label}",
           f"{name}: {fn} shape={shape_s} equal={err == 0 and ndiff == 0} "
@@ -1288,7 +1452,8 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
           f"ms={ms:.4f} ({timer}) call_ms={call_ms:.4f} "
           f"bound_ms={bms:.4f} ({by}, int32 peak) "
           f"share={bms / ms:.1%} sector_bound_ms={sms:.4f} "
-          f"sector_share={sms / ms:.1%} plain_ms={plain_ms:.3f} "
+          f"sector_share={sms / ms:.1%} block_sector_bound_ms={bsms:.4f} "
+          f"block_sector_share={bsms / ms:.1%} plain_ms={plain_ms:.3f} "
           f"work={counts}")
     if err or ndiff:
         fail(f"{label} disagrees with its plain version ({name})")
@@ -1296,8 +1461,8 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
         fail(f"{label} launched {launched} times for one call ({name})")
     return {"case": name, "kernel": label, "fn": fn, "shape": shape_s,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by,
-            "sector_bound_ms": sms, "max_abs_err": err, **work}
+            "bound_ms": bms, "bound_by": by, "sector_bound_ms": sms,
+            "block_sector_bound_ms": bsms, "max_abs_err": err, **work}
 
 
 def phase_repeat_search(dev, genome_bp: int = 3_000_000, unit: int = 2000,
@@ -1415,10 +1580,11 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
     and cached for phase 4); the edges of each FS1 branch; FS2 at
     sa_rate 1 (the repeat genome), 2 (phase 4's index) and 8 (it
     re-sampled with resample_sa), and with the SA split over a
-    two-replica mesh; FS3's edges; all three on a synthetic index of
-    ``synthetic_n`` bases; the repeat genome's search on the card and
-    the CPU. Returns (the kernels' rows of the JSON line, every case's
-    row, the repeat genome's result)."""
+    two-replica mesh, of ready rows and with the lane expansion at its
+    edges; the occ blocks' edges; FS3's edges; all three on a synthetic
+    index of ``synthetic_n`` bases; the repeat genome's search on the
+    card and the CPU. Returns (the kernels' rows of the JSON line, every
+    case's row, the repeat genome's result)."""
     import torch
 
     from soap3dp_tpu_torch.distributed import mesh as dmesh
@@ -1448,10 +1614,22 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
                                  shard_sa=True)
     cases.append(fs_decode_case(rng, "decode_sa8_split", mesh.replicas[0],
                                 dev))
+    # the expansion's edges at the round-1 search's lanes and K, on
+    # phase 4's index, at sa_rate 8 and with the SA split over the mesh
+    a = next(args for fn, args in calls if fn == "expand_decode")
+    RS, S, K = a[1].shape[0], a[5], a[6]
+    cases += expansion_cases(rng, didx, dev, RS, S, K)
+    cases += expansion_cases(rng, didx8, dev, RS, S, K, "expand_sa8",
+                             ("zeros",))
+    cases += expansion_cases(rng, mesh.replicas[0], dev, RS, S, K,
+                             "expand_sa8_split")
     didx1, repeat = phase_repeat_search(dev)
     cases.append(fs_decode_case(rng, "decode_sa1", didx1, dev))
+    cases += expansion_cases(rng, didx1, dev, RS, S, K, "expand_sa1",
+                             ("zeros",))
+    cases += block_edge_cases(rng, dev)
     rows = [run_fs_case(name, fn, args, peak_ops) for name, fn, args in cases]
-    del cases, calls, didx, didx8, mesh, didx1
+    del cases, calls, didx, didx8, mesh, didx1, a
     syn = synthetic_index(dev, synthetic_n)
     rows += [run_fs_case(name, fn, args, peak_ops, reps=5)
              for name, fn, args in synthetic_cases(rng, syn, dev)]
@@ -1460,30 +1638,53 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
     return fs_kernel_rows(rows), rows, repeat
 
 
+FS_ROWS = {  # label: (name in the JSON line, the TPU-side code it replaces)
+    "FS1": ("fm_backward_search", "soap3dp_tpu/fm/fmindex.py:391"),
+    "FS2": ("fm_sa_decode", "soap3dp_tpu/fm/fmindex.py:509"),
+    "FS2x": ("fm_expand_decode", "soap3dp_tpu/fm/search.py:247"),
+    "FS3": ("fm_packed_verify", "soap3dp_tpu/fm/fmindex.py:653")}
+
+
 def fs_kernel_rows(rows: list[dict]) -> list[dict]:
-    """The JSON line's rows of FS1, FS2 and FS3: each kernel's largest
-    main-path call (the round-1 search of a phase-4 batch), with the
-    largest difference over every case."""
-    replaces = {"FS1": "soap3dp_tpu/fm/fmindex.py:391",
-                "FS2": "soap3dp_tpu/fm/fmindex.py:509",
-                "FS3": "soap3dp_tpu/fm/fmindex.py:653"}
-    names = {"FS1": "fm_backward_search", "FS2": "fm_sa_decode",
-             "FS3": "fm_packed_verify"}
+    """The JSON line's rows of FS1, FS2 (sa_decode of ready rows), FS2x
+    (FS2's expand_decode) and FS3: each kernel's largest main-path call
+    (FS1, FS2x and FS3: the round-1 search of a phase-4 batch; FS2: the
+    deep-DP seeding), with the largest difference over every case of
+    that kernel and the bound with the sectors of the occ blocks; each
+    printed on one line beside its time when it read the separate occ
+    and BWT tables, quoted from PERF.md (SEPARATE_TABLES_MS)."""
     out = []
-    for label in ("FS1", "FS2", "FS3"):
+    for label, (name, replaces) in FS_ROWS.items():
         mine = [r for r in rows if r["kernel"] == label]
         path = [r for r in mine if r["case"].startswith("path")]
-        main = max(path or mine, key=lambda r: r.get(
-            "lanes", r.get("rows", r.get("placements", 0))))
-        out.append({"name": names[label], "route": "cuda",
-                    "source": "soap3dp_tpu_torch/csrc/fm_search.cu",
-                    "replaces": replaces[label], "launches": 0,
-                    "max_abs_err": max(r["max_abs_err"] for r in mine),
-                    "ms": main["ms"], "plain_ms": main["plain_ms"],
-                    "bound_ms": main["bound_ms"],
-                    "bound_by": main["bound_by"], "peak": "int32",
-                    "sector_bound_ms": main["sector_bound_ms"],
-                    "library_ms": None, "shape": main["shape"]})
+        main = max(path or mine, key=lambda r: r.get("slots", r.get(
+            "lanes", r.get("rows", r.get("placements", 0)))))
+        row = {"name": name, "route": "cuda",
+               "source": "soap3dp_tpu_torch/csrc/fm_search.cu",
+               "replaces": replaces, "launches": 0,
+               "max_abs_err": max(r["max_abs_err"] for r in mine),
+               "ms": main["ms"], "plain_ms": main["plain_ms"],
+               "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+               "peak": "int32", "sector_bound_ms": main["sector_bound_ms"],
+               "block_sector_bound_ms": main.get("block_sector_bound_ms"),
+               "library_ms": None, "shape": main["shape"],
+               "case": main["case"]}
+        out.append(row)
+        block = row["block_sector_bound_ms"]
+        before = SEPARATE_TABLES_MS
+        was = (f"separate tables: {before[label]:.3f} ms, PERF.md"
+               if label in before else
+               f"separate tables: FS2 {before['FS2']:.3f} ms after the "
+               "plain-torch compaction, PERF.md")
+        phase(f"kernel fm_search {label} summary",
+              f"{main['case']} ({main.get('fn')}, {main['shape']}): "
+              f"{row['ms']:.4f} ms ({was}); "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+              f"{row['bound_ms'] / row['ms']:.1%}; sectors "
+              f"{row['sector_bound_ms']:.4f} ms "
+              f"{row['sector_bound_ms'] / row['ms']:.1%}; occ-block sectors "
+              + (f"{block:.4f} ms {block / row['ms']:.1%}" if block else "-")
+              + f"; plain {row['plain_ms']:.3f} ms")
     return out
 
 
@@ -1613,6 +1814,64 @@ def _profiled_pass(cli_main, argv, wall_plain: float, out_dir: str) -> dict:
     return res
 
 
+def search_device_items(dev, reads: dict, out_dir: str,
+                        pairs: int = 65536) -> dict:
+    """Phase 4's first batch of ``pairs`` pairs searched alone on its
+    index, as dispatch_pair_search searches it (both ends, segments
+    {0, 1}, rounds included), under torch.profiler: the search's device
+    items by name (ms, launches), written to search_profile.txt. Fails
+    if a scan with indices (torch.cummax's kernel) runs in the search;
+    reports the scatter-reduce kernels by their reduction."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from soap3dp_tpu_torch.fm import search as fsearch
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import load_index
+    from soap3dp_tpu_torch.io.fastq import read_pairs
+    from soap3dp_tpu_torch.utils import shapes
+
+    didx = device_index(load_index(reads["index"]), dev)
+    b1, b2 = next(read_pairs(reads["r1"], reads["r2"], batch_size=pairs))
+    L = max(b1.codes.shape[1], b2.codes.shape[1])
+    codes = np.concatenate([shapes.pad_cols(b1.codes, L),
+                            shapes.pad_cols(b2.codes, L)])
+    lens = np.concatenate([b1.lens, b2.lens]).astype(np.int32)
+    cfg = fsearch.config_for(didx, 2)
+
+    def run():
+        fsearch.PendingSearch(didx, codes, lens, cfg,
+                              seed_range=(0, 2)).result()
+        torch.cuda.synchronize(dev)
+
+    run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    items: dict[str, list] = {}
+    for a, b, name in _device_spans(prof):
+        items.setdefault(name, [0.0, 0])
+        items[name][0] += (b - a) / 1e3
+        items[name][1] += 1
+    top = sorted(items.items(), key=lambda kv: -kv[1][0])
+    with open(os.path.join(out_dir, "search_profile.txt"), "w") as fh:
+        for name, (ms, k) in top:
+            fh.write(f"{ms:10.4f} ms x{k:<5d} {name[:200]}\n")
+    total = sum(ms for ms, _ in items.values())
+    scans = {n: v for n, v in items.items() if "with_indices" in n}
+    reduce = {tag: sum(v[1] for n, v in items.items() if tag in n)
+              for tag in ("ReduceMaximum", "ReduceMinimum")}
+    short = [f"{name[:60]} {ms:.3f} ms x{k}" for name, (ms, k) in top[:8]]
+    phase("e2e search profile",
+          f"{2 * len(b1)} reads of phase 4's first batch: {len(items)} "
+          f"device items, {total:.3f} ms; scans with indices (cummax) "
+          f"{sum(v[1] for v in scans.values())}, scatter-reduce kernels "
+          f"{reduce}; top: {short}; all in search_profile.txt")
+    if scans:
+        fail(f"the search ran a scan with indices: {list(scans)}")
+    return {"device_ms": total, "items": dict(top),
+            "scans_with_indices": len(scans), "scatter_reduce": reduce}
+
+
 # the mate-pair library of phases 5 and 6: -/+ (StrandArrangement of the
 # ini), inserts ~N(4000, 400) in [2100, 5900], aligned with -v 2000
 # -u 6000 over the whole insert window (SOAP3DP_HALF_NARROW_PAD=0)
@@ -1659,7 +1918,8 @@ def _kernels() -> dict:
 
     return {"K1": bd.DP_KERNEL, "K2": bd.FORWARD_KERNEL,
             "TB": bd.TRACEBACK_KERNEL, "FS1": fs.SEARCH_KERNEL,
-            "FS2": fs.DECODE_KERNEL, "FS3": fs.VERIFY_KERNEL}
+            "FS2": fs.DECODE_KERNEL, "FS2x": fs.EXPAND_KERNEL,
+            "FS3": fs.VERIFY_KERNEL}
 
 
 def _launches() -> dict:
@@ -1670,7 +1930,7 @@ def _launch_shapes() -> dict:
     """{kernel: {"shape": launches}} since the counts were last set to 0
     (the shapes the path itself gave each kernel: P x Lr x Lw for the
     DP kernels; lanes x L x max_steps for FS1, rows x sa_rate for FS2,
-    placements x words for FS3)."""
+    slots x lanes x sa_rate for FS2x, placements x words for FS3)."""
     return {name: {"x".join(map(str, shape)): n for shape, n in
                    sorted(k.shapes.items())}
             for name, k in _kernels().items() if k.shapes}
@@ -1718,8 +1978,10 @@ def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
 
 
 def _fs_launched(where: str, launches: dict) -> None:
-    """Fails unless FS1, FS2 and FS3 each launched in the run."""
-    missing = [k for k in ("FS1", "FS2", "FS3") if launches.get(k, 0) <= 0]
+    """Fails unless FS1, both FS2 entries (the search's expand_decode,
+    the DP seeding's sa_decode) and FS3 each launched in the run."""
+    missing = [k for k in ("FS1", "FS2", "FS2x", "FS3")
+               if launches.get(k, 0) <= 0]
     if missing:
         fail(f"{where} never launched {missing}")
 
@@ -1846,13 +2108,16 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
             fail("the full-window mate rescue never launched K2 and TB")
         if not mate_pair and launches["K2"] + launches["TB"]:
             fail("the default run launched K2 / TB: its windows are narrow")
+    inputs = {"r1": r1, "r2": r2, "planted": p1, "random": rand[0],
+              "index": idx_path, "opts": opts, "sam": out + ".sam",
+              "summary": summ}
     if profile:
         from soap3dp_tpu_torch.cli.main import main as cli_main
         res["profile"] = _profiled_pass(
             cli_main, argv[:-3] + [out + "_prof"] + argv[-2:], wall, out_dir)
-    return res, {"r1": r1, "r2": r2, "planted": p1, "random": rand[0],
-                 "index": idx_path, "opts": opts, "sam": out + ".sam",
-                 "summary": summ}
+        if dev.type == "cuda":
+            res["search_profile"] = search_device_items(dev, inputs, out_dir)
+    return res, inputs
 
 
 def phase_mate_pair_devices(dev, work: str, n_pairs: int = 200) -> dict:
@@ -2030,6 +2295,7 @@ _HOST_MAIN = (
     "print('[chip_smoke] launches', json.dumps({'K1': bd.DP_KERNEL.launches,"
     " 'K2': bd.FORWARD_KERNEL.launches, 'TB': bd.TRACEBACK_KERNEL.launches,"
     " 'FS1': fs.SEARCH_KERNEL.launches, 'FS2': fs.DECODE_KERNEL.launches,"
+    " 'FS2x': fs.EXPAND_KERNEL.launches,"
     " 'FS3': fs.VERIFY_KERNEL.launches}), flush=True)\n"
     "sys.exit(rc)\n")
 
@@ -2256,9 +2522,10 @@ def main(argv=None) -> int:
     kernels[0]["launches"] = e2e["launches"]["K1"]
     kernels[1]["launches"] = mate["launches"]["K2"]
     kernels[2]["launches"] = mate["launches"]["TB"]
-    for row, label in zip(kernels[3:], ("FS1", "FS2", "FS3")):
+    for row, label in zip(kernels[3:], FS_ROWS):
         row["launches"] = e2e["launches"][label]
         row["sector_share"] = row["sector_bound_ms"] / row["ms"]
+        row["block_sector_share"] = row["block_sector_bound_ms"] / row["ms"]
     for row in kernels:
         row["share"] = row["bound_ms"] / row["ms"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

@@ -1,5 +1,5 @@
 // The gather stages of the seed search for Hopper (sm_90a), one thread
-// per lane: FM backward search (FS1), SA decode (FS2) and packed
+// per lane or slot: FM backward search (FS1), SA decode (FS2) and packed
 // verification (FS3). Each reproduces its plain-torch version in
 // soap3dp_tpu_torch/fm/fmindex.py element for element.
 //
@@ -12,28 +12,43 @@
 // segment's length; the packed branch clamps the k-mer tail and the
 // extension offset; the general branch clamps every base position and
 // takes no LUT below lut_k bases).
-// FS2, soap3dp_sa_decode, replaces `sa_decode` (fmindex.py:509): the
-// bounded LF walk over the mark bitvector, then the rank and sample
-// gathers (or, for an SA table split over a mesh, the rank and step
-// count, which the caller routes to the slice that owns the row).
+// FS2 replaces `sa_decode` (fmindex.py:509): the bounded LF walk over
+// the mark bitvector, then the rank and sample gathers (or, for an SA
+// table split over a mesh, the rank and step count, which the caller
+// routes to the slice that owns the row). Two entries share the walk:
+// soap3dp_sa_decode decodes ready rows; soap3dp_expand_decode also does
+// the lane expansion of the reference's `_search_batch`
+// (soap3dp_tpu/fm/search.py:247-273): output slot k belongs to the
+// first lane whose inclusive count exceeds k (a binary search in the
+// counts' cumsum, whose upper levels the slots of a block share in L1),
+// decodes row l[lane] + (k - the lane's offset), and writes the hash
+// dedupe's keys (oriented row, text position, or the sentinel where the
+// placement leaves the text) directly.
 // FS3, soap3dp_verify, replaces `count_mismatches_packed`
 // (fmindex.py:653): W+1 packed genome words, the funnel shift to the
 // 2-bit grid, XOR with the read words, the length mask, popcount.
 //
-// What bounds them on this card: random 4-byte gathers into index
-// tables of 1.4 GB (250 Mbp) to 8 GB (3.1 Gbp), each a 32-byte sector
-// from device memory, and in FS1 and FS2 a chain of dependent gathers
-// per lane (each step's rows come from the last step's counts). The
-// arithmetic (a match mask, `__popc` of the 16-base BWT word) is a few
-// dozen integer operations per step. Design: one thread per lane with
-// the l and r chains of FS1 interleaved, read-only loads, no shared
-// memory and no synchronisation, so a launch of ~0.5 M lanes keeps
-// thousands of gathers in flight; a lane stops as soon as its interval
-// is empty or its segment is consumed (the plain version's masked steps
-// leave l and r unchanged there). The reads are read where they lie:
-// packed 2-bit words or code bytes, the reverse-complement rows made on
-// the fly, so nothing of the (2B, L) oriented matrix, the rolling
-// 16-base codes or the packed oriented words is materialized.
+// What bounds them on this card: random gathers into index tables of
+// about 1 GB (250 Mbp) to 5 GB (3.1 Gbp), each a 32-byte sector from
+// device memory, and in FS1 and FS2 a chain of dependent gathers per
+// lane (each step's rows come from the last step's counts). The
+// arithmetic (a match mask, popcounts of 16-base BWT words) is a few
+// dozen integer operations per step. So the index holds its occ counts
+// and BWT on the card as occ blocks (fmindex.occ_block_table): one
+// 32-byte block per 64 BWT positions, the four counts before it and its
+// four BWT words, so one FM bound or LF step is one sector where
+// separate occ and BWT tables cost two, and FS1 fetches r's block only
+// when it is not l's (after the LUT jumpstart an interval of a few rows
+// mostly lies in one block). One
+// thread per lane with the l and r chains interleaved, read-only loads,
+// no shared memory and no synchronisation, so a launch of ~0.5 M lanes
+// keeps thousands of gathers in flight; a lane stops as soon as its
+// interval is empty or its segment is consumed (the plain version's
+// masked steps leave l and r unchanged there). The reads are read where
+// they lie: packed 2-bit words (a 16-base window inside a row is two
+// loads and a funnel shift) or code bytes, the reverse-complement rows
+// made on the fly, so nothing of the (2B, L) oriented matrix, the
+// rolling 16-base codes or the packed oriented words is materialized.
 // Positions, SA rows and intervals are 64-bit throughout: on a 3.1 Gbp
 // index they pass 2^31. Shifts by a variable amount are guarded where
 // the plain version's 64-bit shift reaches 32.
@@ -47,6 +62,8 @@
 namespace {
 
 constexpr uint32_t LANES = 0x55555555u;  // one bit per 2-bit base slot
+constexpr int64_t MASK32 = 0xFFFFFFFFll;
+constexpr int64_t SENTINEL = 0xFFFFFFFFll;  // fm/search.py SENTINEL
 constexpr int THREADS = 256;
 
 // where the bases of the oriented rows come from: rows 0..B-1 the
@@ -69,10 +86,25 @@ struct Reads {
 };
 
 struct Tables {
-  const int32_t* occ;     // (4 * nw,) occ[4w + c]
-  const int32_t* bwt;     // (nw,) packed BWT words
+  const uint4* blocks;    // (nb, 8) occ blocks, two uint4 each
   const int64_t* counts;  // (5,) the C array
   int64_t primary;        // the sentinel's row
+};
+
+// what FS2's walk reads besides the occ blocks
+struct Marks {
+  const int32_t* words;   // (nmw,) the SA-sample bitvector
+  const int32_t* rank;    // (nmw,) exclusive rank of each word
+  const int32_t* sa;      // the samples
+  int64_t n_sa;
+  int sa_rate;
+};
+
+// one occ block: the counts of bases 0-3 before BWT position 64j, then
+// the BWT words 4j..4j+3
+struct Block {
+  uint4 occ;
+  uint4 bwt;
 };
 
 __device__ __forceinline__ uint32_t u32_at(const int32_t* p, int64_t i) {
@@ -109,9 +141,39 @@ __device__ uint32_t base_at(const Reads& s, int64_t row, int64_t i) {
   return (3u - fwd_base(s, b, clamp64(n - 1 - i, 0, s.L - 1))) & 0xFFu;
 }
 
+// forward bases q..q+15 of packed read b (q + 16 <= L), LSB-first: the
+// funnel of the one or two words that hold them
+__device__ __forceinline__ uint32_t packed_window(const Reads& s, int64_t b,
+                                                  int64_t q) {
+  const int32_t* words = static_cast<const int32_t*>(s.data) + b * s.W;
+  const uint32_t sh = 2 * static_cast<uint32_t>(q & 15);
+  const uint32_t lo = u32_at(words, q >> 4);
+  if (sh == 0) return lo;
+  return (lo >> sh) | (u32_at(words, (q >> 4) + 1) << (32 - sh));
+}
+
+// the 2-bit bases of a word in reverse order
+__device__ __forceinline__ uint32_t reverse_bases(uint32_t w) {
+  const uint32_t x = __brev(w);
+  return ((x >> 1) & LANES) | ((x & LANES) << 1);
+}
+
 // the 16 bases p..p+15 (0 <= p < L) of a row, MSB-first, 'A' past L:
-// fmindex.rolling_kmer_codes(oriented, 16)[row, p]
+// fmindex.rolling_kmer_codes(oriented, 16)[row, p]. From packed words
+// two loads where the 16 bases lie inside the row (a reverse-complement
+// row's bases p..p+15 are the complements of forward bases
+// n-16-p..n-1-p, whose LSB-first window is already in MSB-first order),
+// else base by base.
 __device__ uint32_t word16(const Reads& s, int64_t row, int64_t p) {
+  if (s.kind == SRC_PACKED) {
+    if (row < s.B) {
+      if (p + 16 <= s.L) return reverse_bases(packed_window(s, row, p));
+    } else {
+      const int64_t n = ld64(s.rc_len + row - s.B);
+      if (n <= s.L && p + 16 <= n)
+        return ~packed_window(s, row - s.B, n - 16 - p);
+    }
+  }
   const int n = static_cast<int>(s.L - p < 16 ? s.L - p : 16);
   uint32_t w = 0;
   for (int j = 0; j < n; ++j) w |= base_at(s, row, p + j) << (2 * (15 - j));
@@ -134,23 +196,62 @@ __device__ uint32_t read_word(const Reads& s, int64_t row, int j) {
   return w;
 }
 
-// occurrences of base c in the first q (0..15) bases of a BWT word
-// (q == 0: none; the plain version's 64-bit shift by 32 gives 0)
-__device__ __forceinline__ uint32_t count_in_word(uint32_t word, uint32_t c,
-                                                  uint32_t q) {
-  const uint32_t x = word ^ (c * LANES);
-  const uint32_t match = ~(x | (x >> 1)) & LANES;
-  return q == 0 ? 0u : __popc(match & (LANES >> (32 - 2 * q)));
+// the lane mask of the first q (0..15) bases of a word (q == 0: none;
+// the plain version's 64-bit shift by 32 gives 0)
+__device__ __forceinline__ uint32_t first_bases(uint32_t q) {
+  return q == 0 ? 0u : LANES >> (32 - 2 * q);
 }
 
-// C[c] + Occ(c, k), the sentinel row skipped: one bound of a backward
-// extension (fmindex.backward_extend)
-__device__ __forceinline__ int64_t extend(const Tables& t, uint32_t c,
-                                          int64_t k, int64_t cc) {
-  const int64_t kp = k - (k > t.primary ? 1 : 0);
-  const int64_t w = kp >> 4;
-  return cc + u32_at(t.occ, 4 * w + c) +
-         count_in_word(u32_at(t.bwt, w), c, static_cast<uint32_t>(kp & 15));
+// one bit per base of `word` equal to c
+__device__ __forceinline__ uint32_t match_bits(uint32_t word, uint32_t c) {
+  const uint32_t x = word ^ (c * LANES);
+  return ~(x | (x >> 1)) & LANES;
+}
+
+__device__ __forceinline__ uint32_t pick(const uint4& v, uint32_t i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// the sentinel row skipped: the BWT position of row k
+__device__ __forceinline__ int64_t bwt_pos(const Tables& t, int64_t k) {
+  return k - (k > t.primary ? 1 : 0);
+}
+
+__device__ __forceinline__ Block load_block(const Tables& t, int64_t kp) {
+  const uint4* p = t.blocks + 2 * (kp >> 6);
+  return Block{__ldg(p), __ldg(p + 1)};
+}
+
+// c's matches in BWT word i of a block, below the within-block offset
+// (full words before word fw, the first q bases of word fw, none after)
+__device__ __forceinline__ int64_t word_occ(uint32_t word, uint32_t c,
+                                            uint32_t i, uint32_t fw,
+                                            uint32_t part) {
+  const uint32_t mask = i < fw ? LANES : (i == fw ? part : 0u);
+  return __popc(match_bits(word, c) & mask);
+}
+
+// Occ(c, kp) for BWT position kp in block b: the block's count of c plus
+// c's matches in its words below kp (fmindex.occ)
+__device__ __forceinline__ int64_t block_occ(const Block& b, uint32_t c,
+                                             int64_t kp) {
+  const uint32_t within = static_cast<uint32_t>(kp & 63);
+  const uint32_t fw = within >> 4;
+  const uint32_t part = first_bases(within & 15);
+  return static_cast<int64_t>(pick(b.occ, c)) +
+         word_occ(b.bwt.x, c, 0, fw, part) +
+         word_occ(b.bwt.y, c, 1, fw, part) +
+         word_occ(b.bwt.z, c, 2, fw, part) +
+         word_occ(b.bwt.w, c, 3, fw, part);
+}
+
+// one LF step of SA row `row` (fmindex.lf_step)
+__device__ __forceinline__ int64_t lf_step(const Tables& t, int64_t row) {
+  const int64_t kp = bwt_pos(t, row);
+  const Block b = load_block(t, kp);
+  const uint32_t word = pick(b.bwt, static_cast<uint32_t>((kp >> 4) & 3));
+  const uint32_t c = (word >> (2 * (kp & 15))) & 3u;
+  return ld64(t.counts + c) + block_occ(b, c, kp);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -182,8 +283,12 @@ fm_search_kernel(Reads s, int S,
     wext = word16(s, row, clamp64(st, 0, last));
   } else if (can_lut) {
     const int64_t tail = st + len - k;
-    for (int j = 0; j < k; ++j)
-      m |= base_at(s, row, clamp64(tail + j, 0, last)) << (2 * (k - 1 - j));
+    if (tail >= 0 && tail + k <= s.L) {
+      m = word16(s, row, tail) >> (2 * (16 - k));
+    } else {
+      for (int j = 0; j < k; ++j)
+        m |= base_at(s, row, clamp64(tail + j, 0, last)) << (2 * (k - 1 - j));
+    }
   }
   int64_t l = can_lut ? static_cast<int64_t>(u32_at(lut_lo, m)) : 0;
   int64_t r = can_lut ? static_cast<int64_t>(u32_at(lut_hi, m)) : n1;
@@ -196,62 +301,121 @@ fm_search_kernel(Reads s, int S,
     else
       c = base_at(s, row, clamp64(st + rem - 1 - step, 0, last));
     const int64_t cc = ld64(t.counts + c);
-    const int64_t l2 = extend(t, c, l, cc);
-    r = extend(t, c, r, cc);
-    l = l2;
+    const int64_t kl = bwt_pos(t, l), kr = bwt_pos(t, r);
+    const Block bl = load_block(t, kl);
+    const Block br = (kr >> 6) == (kl >> 6) ? bl : load_block(t, kr);
+    l = cc + block_occ(bl, c, kl);
+    r = cc + block_occ(br, c, kr);
   }
   l_out[i] = l;
   r_out[i] = r;
 }
 
+struct Ranked {
+  int64_t rank;  // the sample's rank (the row itself at sa_rate 1)
+  int64_t step;  // LF steps to the first marked row
+};
+
+// the bounded LF walk of SA row `row` to its first marked row; a row
+// that is not `ok` (or never found marked) keeps (word 0, 0 below, step
+// 0), as the plain version's records start
+__device__ Ranked walk(const Marks& mk, const Tables& t, int64_t row,
+                       bool ok) {
+  if (mk.sa_rate == 1) return Ranked{ok ? row : 0, 0};
+  int64_t mw_hit = 0, t_hit = 0;
+  uint32_t below_hit = 0;
+  for (int step = 0; ok; ++step) {
+    const int64_t mw = row >> 5;
+    const uint32_t word = u32_at(mk.words, mw);
+    const uint32_t bsel = static_cast<uint32_t>(row & 31);
+    if ((word >> bsel) & 1u) {
+      mw_hit = mw;
+      below_hit = bsel == 0 ? 0u : __popc(word & (0xFFFFFFFFu >> (32 - bsel)));
+      t_hit = step;
+      break;
+    }
+    if (step == mk.sa_rate - 1) break;  // the final probe takes no LF step
+    row = lf_step(t, row);
+  }
+  return Ranked{static_cast<int64_t>(u32_at(mk.rank, mw_hit)) + below_hit,
+                t_hit};
+}
+
+// the text position of a walked row: its sample plus the steps, mod 2^32
+__device__ __forceinline__ int64_t position(const Marks& mk,
+                                            const Ranked& rk) {
+  const int64_t value = u32_at(mk.sa, rk.rank < mk.n_sa - 1 ? rk.rank
+                                                            : mk.n_sa - 1);
+  return (value + rk.step) & MASK32;
+}
+
 __global__ void __launch_bounds__(THREADS)
 sa_decode_kernel(const int64_t* __restrict__ rows,
-                 const uint8_t* __restrict__ valid, int64_t N, int sa_rate,
-                 const int32_t* __restrict__ mark_words,
-                 const int32_t* __restrict__ mark_rank, Tables t,
-                 const int32_t* __restrict__ sa, int64_t n_sa,
-                 int64_t* __restrict__ out, int64_t* __restrict__ rank_out,
+                 const uint8_t* __restrict__ valid, int64_t N, Marks mk,
+                 Tables t, int64_t* __restrict__ out,
+                 int64_t* __restrict__ rank_out,
                  int64_t* __restrict__ step_out) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
   if (i >= N) return;
   const bool ok = __ldg(valid + i) != 0;
-  int64_t row = ok ? ld64(rows + i) : 0;
-  int64_t rank = row, t_hit = 0;
-  if (sa_rate > 1) {
-    // a row never found marked keeps (word 0, 0 below, step 0), as the
-    // plain version's records start
-    int64_t mw_hit = 0;
-    uint32_t below_hit = 0;
-    for (int step = 0; ok; ++step) {
-      const int64_t mw = row >> 5;
-      const uint32_t word = u32_at(mark_words, mw);
-      const uint32_t bsel = static_cast<uint32_t>(row & 31);
-      if ((word >> bsel) & 1u) {
-        mw_hit = mw;
-        below_hit =
-            bsel == 0 ? 0u : __popc(word & (0xFFFFFFFFu >> (32 - bsel)));
-        t_hit = step;
-        break;
-      }
-      if (step == sa_rate - 1) break;  // the final probe takes no LF step
-      const int64_t kp = row - (row > t.primary ? 1 : 0);
-      const int64_t w = kp >> 4;
-      const uint32_t word_b = u32_at(t.bwt, w);
-      const uint32_t q = static_cast<uint32_t>(kp & 15);
-      const uint32_t c = (word_b >> (2 * q)) & 3u;
-      row = ld64(t.counts + c) + u32_at(t.occ, 4 * w + c) +
-            count_in_word(word_b, c, q);
-    }
-    rank = static_cast<int64_t>(u32_at(mark_rank, mw_hit)) + below_hit;
-  }
+  const Ranked rk = walk(mk, t, ok ? ld64(rows + i) : 0, ok);
   if (rank_out) {
-    rank_out[i] = rank;
-    step_out[i] = t_hit;
+    rank_out[i] = rk.rank;
+    step_out[i] = rk.step;
     return;
   }
-  const int64_t value = u32_at(sa, rank < n_sa - 1 ? rank : n_sa - 1);
-  out[i] = ok ? ((value + t_hit) & 0xFFFFFFFFll) : 0;
+  out[i] = ok ? position(mk, rk) : 0;
+}
+
+__global__ void __launch_bounds__(THREADS)
+expand_decode_kernel(const int64_t* __restrict__ lo,
+                     const int64_t* __restrict__ incl, int64_t RS,
+                     const int64_t* __restrict__ sstart,
+                     const int64_t* __restrict__ olens, int S, int64_t n,
+                     int64_t K, Marks mk, Tables t,
+                     int64_t* __restrict__ krow, int64_t* __restrict__ ktp,
+                     uint8_t* __restrict__ pos_ok,
+                     int64_t* __restrict__ lane_out,
+                     int64_t* __restrict__ rank_out,
+                     int64_t* __restrict__ step_out) {
+  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (k >= K) return;
+  const bool valid = k < ld64(incl + RS - 1);
+  int64_t lane = 0, row = 0;
+  if (valid) {
+    // the first lane whose inclusive count exceeds k: it holds slot k
+    int64_t a = 0, b = RS - 1;
+    while (a < b) {
+      const int64_t m = (a + b) >> 1;
+      if (ld64(incl + m) > k)
+        b = m;
+      else
+        a = m + 1;
+    }
+    lane = a;
+    row = ld64(lo + lane) + k - (lane ? ld64(incl + lane - 1) : 0);
+  }
+  const Ranked rk = walk(mk, t, row, valid);
+  if (rank_out) {
+    lane_out[k] = lane;
+    rank_out[k] = rk.rank;
+    step_out[k] = rk.step;
+    return;
+  }
+  bool ok = false;
+  int64_t orow = 0, tp = 0;
+  if (valid) {
+    const int64_t pos = position(mk, rk);
+    const int64_t st = ld64(sstart + lane);
+    orow = lane / S;
+    tp = pos - st;
+    ok = pos >= st && tp + ld64(olens + orow) <= n;
+  }
+  krow[k] = ok ? orow : SENTINEL;
+  ktp[k] = ok ? (tp & MASK32) : SENTINEL;
+  pos_ok[k] = ok ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -295,12 +459,12 @@ int soap3dp_fm_search(const void* reads, int kind, long long B, int L, int W,
                       const int64_t* rc_len, int S,
                       const int64_t* start, const int64_t* length,
                       long long N, int mode, int max_steps, int k,
-                      const int32_t* occ, const int32_t* bwt,
-                      const int64_t* counts, const int32_t* lut_lo,
-                      const int32_t* lut_hi, long long primary, long long n1,
+                      const int32_t* blocks, const int64_t* counts,
+                      const int32_t* lut_lo, const int32_t* lut_hi,
+                      long long primary, long long n1,
                       int64_t* l_out, int64_t* r_out, void* stream) {
   const Reads s{reads, rc_len, B, kind, L, W};
-  const Tables t{occ, bwt, counts, primary};
+  const Tables t{reinterpret_cast<const uint4*>(blocks), counts, primary};
   fm_search_kernel<<<blocks_for(N), THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       s, S, start, length, N, mode, max_steps, k, t, lut_lo,
@@ -310,16 +474,34 @@ int soap3dp_fm_search(const void* reads, int kind, long long B, int L, int W,
 
 int soap3dp_sa_decode(const int64_t* rows, const uint8_t* valid, long long N,
                       int sa_rate, const int32_t* mark_words,
-                      const int32_t* mark_rank, const int32_t* occ,
-                      const int32_t* bwt, const int64_t* counts,
-                      long long primary, const int32_t* sa, long long n_sa,
-                      int64_t* out, int64_t* rank_out, int64_t* step_out,
-                      void* stream) {
-  const Tables t{occ, bwt, counts, primary};
+                      const int32_t* mark_rank, const int32_t* blocks,
+                      const int64_t* counts, long long primary,
+                      const int32_t* sa, long long n_sa, int64_t* out,
+                      int64_t* rank_out, int64_t* step_out, void* stream) {
+  const Marks mk{mark_words, mark_rank, sa, n_sa, sa_rate};
+  const Tables t{reinterpret_cast<const uint4*>(blocks), counts, primary};
   sa_decode_kernel<<<blocks_for(N), THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      rows, valid, N, sa_rate, mark_words, mark_rank, t, sa, n_sa, out,
-      rank_out, step_out);
+      rows, valid, N, mk, t, out, rank_out, step_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int soap3dp_expand_decode(const int64_t* lo, const int64_t* incl,
+                          long long RS, const int64_t* sstart,
+                          const int64_t* olens, int S, long long n,
+                          long long K, int sa_rate, const int32_t* mark_words,
+                          const int32_t* mark_rank, const int32_t* blocks,
+                          const int64_t* counts, long long primary,
+                          const int32_t* sa, long long n_sa, int64_t* krow,
+                          int64_t* ktp, uint8_t* pos_ok, int64_t* lane_out,
+                          int64_t* rank_out, int64_t* step_out,
+                          void* stream) {
+  const Marks mk{mark_words, mark_rank, sa, n_sa, sa_rate};
+  const Tables t{reinterpret_cast<const uint4*>(blocks), counts, primary};
+  expand_decode_kernel<<<blocks_for(K), THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      lo, incl, RS, sstart, olens, S, n, K, mk, t, krow, ktp, pos_ok,
+      lane_out, rank_out, step_out);
   return static_cast<int>(cudaGetLastError());
 }
 

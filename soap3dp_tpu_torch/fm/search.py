@@ -1,19 +1,22 @@
 """Seed-and-verify k-mismatch search on torch tensors.
 
 Port of soap3dp_tpu/fm/search.py: pigeonhole seeds, LUT-jumpstarted
-backward search, lane compaction, SA decode, scatter-min hash dedupe
+backward search, lane expansion, SA decode, scatter-min hash dedupe
 and packed XOR/popcount verification, with the same two/three-round
 budget escalation. Results are element-for-element those of the
-reference (same compaction order, same hash, same dedupe winners).
+reference (same slot order, same hash, same dedupe winners).
 
 ``_search_batch`` reads nothing back to the host (no ``.item()``, no
-``nonzero``, no ``.cpu()``), so on a CUDA device its kernels (the
-backward search, SA decode and verify of kernels/fm_search.py, which
-read the packed or code reads in place, and torch's own for the
-compaction and dedupe) are only enqueued and batch i+1's search
-overlaps batch i's host work; ``PendingSearch.result()`` is the one
-synchronisation point. The reference's XLA-TPU scan workarounds
-(utils/scans.py) become plain ``torch.cumsum`` / ``torch.cummax``.
+``nonzero``, no ``.cpu()``), so on a CUDA device its work is only
+enqueued and batch i+1's search overlaps batch i's host work;
+``PendingSearch.result()`` is the one synchronisation point. On the
+card the kernels of kernels/fm_search.py do the gathers: the backward
+search and the verify read the packed reads in place, and one SA-decode
+kernel takes each of the K candidate slots from the lanes' count
+cumsum to its dedupe keys (fmindex.expand_decode), so the reference's
+compaction (a scatter-max and a cummax over the slots) runs only in the
+plain version on the CPU. Torch's own kernels do the counts' cumsum and
+the hash dedupe.
 """
 
 from __future__ import annotations
@@ -27,9 +30,8 @@ import torch
 from soap3dp_tpu_torch.utils import shapes, timers
 from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
-from soap3dp_tpu_torch.fm.fmindex import MASK32, DeviceIndex, mul32
+from soap3dp_tpu_torch.fm.fmindex import MASK32, SENTINEL, DeviceIndex, mul32
 
-SENTINEL = 0xFFFFFFFF
 ROW_SENTINEL = 0x7FFFFFFF
 
 
@@ -120,7 +122,6 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     ori = fmindex.OrientedReads.of(reads, lens, L, uniform_len)
     B, L = ori.B, ori.L
     S = cfg.num_seeds
-    n = idx.n
     lens = lens.to(torch.int64)
     olens = torch.cat([lens, lens])
     R = 2 * B
@@ -134,7 +135,6 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
         sstart = sstart[:, seed_lo:seed_hi]
         slen = slen[:, seed_lo:seed_hi]
         S = seed_hi - seed_lo
-    seq_rows = torch.arange(R, device=dev).repeat_interleave(S)
     if seed_q == idx.lut_k and max_seed_steps == 0:
         mode = "lut"      # LUT-only seeds: one table lookup per lane
     elif 0 < seed_q <= idx.lut_k + 16 and idx.lut_k <= 16:
@@ -148,37 +148,18 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     flagged = overflow.reshape(R, S).any(dim=1)
     flagged = flagged[:B] | flagged[B:]
 
-    # lane-granularity compaction: exclusive cumsum of per-lane counts,
-    # scatter-max of lane ids at each lane's offset, cummax fill
-    RS = l.shape[0]
+    # each lane's candidates (its width clamped to cap, none on
+    # overflow) expanded into K slots in lane order and decoded
     cnt = torch.where(overflow, torch.zeros_like(width), width.clamp(max=cap))
     incl = torch.cumsum(cnt, 0)
-    off = incl - cnt
     total = incl[-1]
-    scat = torch.where(cnt > 0, off, torch.full_like(off, K)).clamp(max=K)
-    tbl = torch.zeros(K + 1, dtype=torch.int64, device=dev).scatter_reduce_(
-        0, scat, torch.arange(1, RS + 1, device=dev), "amax")
-    lane_p1 = torch.cummax(tbl[:K], 0).values
-    idxK = torch.arange(K, device=dev)
-    cvalid = (idxK < total) & (lane_p1 > 0)
-    lane = (lane_p1 - 1).clamp(min=0)
-    cslot = torch.where(cvalid, idxK - off[lane], torch.zeros_like(idxK))
-    rows_sa = l[lane] + cslot
-
-    sa_pos = fmindex.sa_decode(idx, rows_sa, cvalid)
-
-    st = sstart.reshape(-1)[lane]
-    tp = sa_pos - st
-    orow = seq_rows[lane]
-    ln = olens[orow]
-    pos_ok = cvalid & (sa_pos >= st) & (tp + ln <= n)
+    krow, ktp, pos_ok = fmindex.expand_decode(
+        idx, l, incl, sstart.reshape(-1), olens, S, K)
 
     # scatter-min hash dedupe of (row, tp) before verification
     if K2 <= 0:
         K2 = K
-    idxs = idxK
-    krow = torch.where(pos_ok, orow, torch.full_like(orow, SENTINEL))
-    ktp = torch.where(pos_ok, tp & MASK32, torch.full_like(tp, SENTINEL))
+    idxs = torch.arange(K, device=dev)
     hb = max((K - 1).bit_length() + 1, 10)
     h = mul32(krow, 0x9E3779B1) ^ mul32(ktp, 0x85EBCA77)
     hslot = mul32(h, 0xC2B2AE3D) >> (32 - hb)
@@ -193,7 +174,7 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     idx2 = _nonzero_prefix(first, K2)
     uvalid = idx2 >= 0
     idx2s = torch.where(uvalid, idx2, torch.zeros_like(idx2))
-    urow = torch.where(uvalid, orow[idx2s], torch.full_like(idx2s, ROW_SENTINEL))
+    urow = torch.where(uvalid, krow[idx2s], torch.full_like(idx2s, ROW_SENTINEL))
     utp = ktp[idx2s]
 
     # verify unique placements in the packed domain

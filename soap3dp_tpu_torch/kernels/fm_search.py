@@ -9,7 +9,11 @@ nvcc at first use into ``_build/`` and loaded with ctypes:
   ``backward_search_packed`` (soap3dp_tpu/fm/fmindex.py:391, :456) and
   the LUT-only branch (soap3dp_tpu/fm/search.py:207-214);
 * FS2 ``sa_decode`` / ``sa_ranks``: the bounded LF walk, then the rank
-  and sample gathers (fmindex.py:509);
+  and sample gathers (fmindex.py:509), of ready rows; and
+  ``expand_decode`` / ``expand_ranks``: the same walk with the lane
+  expansion of the reference's ``_search_batch``
+  (soap3dp_tpu/fm/search.py:247-273) before it and the dedupe keys
+  after it;
 * FS3 ``verify``: packed XOR/popcount against the genome
   (``count_mismatches_packed``, fmindex.py:653).
 
@@ -33,17 +37,24 @@ from soap3dp_tpu_torch.kernels.cudalib import CudaKernel, CudaLibrary
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 FM_SEARCH_LIB = CudaLibrary("fm_search.cu")
 # soap3dp_fm_search(reads, kind, B, L, W, rc_len, S, start, length, N,
-#   mode, max_steps, k, occ, bwt, counts, lut_lo, lut_hi, primary, n1,
+#   mode, max_steps, k, blocks, counts, lut_lo, lut_hi, primary, n1,
 #   l_out, r_out, stream)
 SEARCH_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_fm_search",
     [_P, _I, _LL, _I, _I, _P, _I, _P, _P, _LL, _I, _I, _I]
-    + [_P] * 5 + [_LL, _LL, _P, _P, _P])
-# soap3dp_sa_decode(rows, valid, N, sa_rate, mark_words, mark_rank, occ,
-#   bwt, counts, primary, sa, n_sa, out, rank_out, step_out, stream)
+    + [_P] * 4 + [_LL, _LL, _P, _P, _P])
+# soap3dp_sa_decode(rows, valid, N, sa_rate, mark_words, mark_rank,
+#   blocks, counts, primary, sa, n_sa, out, rank_out, step_out, stream)
 DECODE_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_sa_decode",
-    [_P, _P, _LL, _I] + [_P] * 5 + [_LL, _P, _LL] + [_P] * 4)
+    [_P, _P, _LL, _I] + [_P] * 4 + [_LL, _P, _LL] + [_P] * 4)
+# soap3dp_expand_decode(l, incl, RS, sstart, olens, S, n, K, sa_rate,
+#   mark_words, mark_rank, blocks, counts, primary, sa, n_sa, krow, ktp,
+#   pos_ok, lane_out, rank_out, step_out, stream)
+EXPAND_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_expand_decode",
+    [_P, _P, _LL, _P, _P, _I, _LL, _LL, _I] + [_P] * 4 + [_LL, _P, _LL]
+    + [_P] * 7)
 # soap3dp_verify(reads, kind, B, L, Ws, rc_len, rows, tp, read_len, M, W,
 #   pac, n_pac, out, stream)
 VERIFY_KERNEL = CudaKernel(
@@ -105,13 +116,17 @@ def _vector(name: str, key: str, t: torch.Tensor, n: int, dtype) -> None:
 
 
 def _tables(name: str, idx, dev: torch.device) -> None:
-    _check(name, dev, occ=idx.occ, bwt=idx.bwt, counts=idx.counts,
+    _check(name, dev, occ_blocks=idx.occ_blocks, counts=idx.counts,
            lut_lo=idx.lut_lo, lut_hi=idx.lut_hi, mark_words=idx.mark_words,
            mark_rank=idx.mark_rank, sa_samples=idx.sa_samples, pac=idx.pac)
-    for key in ("occ", "bwt", "lut_lo", "lut_hi", "mark_words", "mark_rank",
+    for key in ("occ_blocks", "lut_lo", "lut_hi", "mark_words", "mark_rank",
                 "sa_samples", "pac"):
         if getattr(idx, key).dtype != torch.int32:
             raise ValueError(f"{name}: the index's {key} must be int32")
+    if idx.occ_blocks.dim() != 2 or idx.occ_blocks.shape[1] != 8 \
+            or idx.occ_blocks.data_ptr() % 32:
+        raise ValueError(f"{name}: the index's occ_blocks must be (nb, 8) "
+                         "on a 32-byte boundary")
     if idx.counts.dtype != torch.int64 or idx.counts.shape != (5,):
         raise ValueError(f"{name}: the index's counts must be int64 (5,)")
 
@@ -147,8 +162,9 @@ def search(idx, src: ReadRows, S: int, start: torch.Tensor,
         err = fn(src.data.data_ptr(), src.kind, src.B, src.L, src.W,
                  src.rc_len.data_ptr(), S, start.data_ptr(),
                  length.data_ptr(), N, MODES[mode], max_steps, idx.lut_k,
-                 idx.occ.data_ptr(), idx.bwt.data_ptr(), idx.counts.data_ptr(), idx.lut_lo.data_ptr(),
-                 idx.lut_hi.data_ptr(), idx.primary, idx.n + 1,
+                 idx.occ_blocks.data_ptr(), idx.counts.data_ptr(),
+                 idx.lut_lo.data_ptr(), idx.lut_hi.data_ptr(), idx.primary,
+                 idx.n + 1,
                  l_out.data_ptr(), r_out.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"fm search kernel launch failed: CUDA error {err}")
@@ -174,7 +190,7 @@ def _decode(idx, rows: torch.Tensor, valid: torch.Tensor, ranks: bool):
     with torch.cuda.device(dev):
         err = fn(rows.data_ptr(), valid.data_ptr(), N, idx.sa_rate,
                  idx.mark_words.data_ptr(), idx.mark_rank.data_ptr(),
-                 idx.occ.data_ptr(), idx.bwt.data_ptr(), idx.counts.data_ptr(),
+                 idx.occ_blocks.data_ptr(), idx.counts.data_ptr(),
                  idx.primary, idx.sa_samples.data_ptr(),
                  idx.sa_samples.shape[0],
                  None if out is None else out.data_ptr(),
@@ -198,6 +214,67 @@ def sa_ranks(idx, rows: torch.Tensor, valid: torch.Tensor
     it) of each row, for an SA table split over a mesh, whose owner
     routing gathers the samples (fmindex.sa_decode)."""
     return tuple(_decode(idx, rows, valid, ranks=True))
+
+
+def _expand(idx, l: torch.Tensor, incl: torch.Tensor, sstart: torch.Tensor,
+            olens: torch.Tensor, S: int, K: int, ranks: bool):
+    RS = l.shape[0]
+    dev = l.device
+    _check("expand decode", dev, l=l, incl=incl, sstart=sstart, olens=olens)
+    _tables("expand decode", idx, dev)
+    _vector("expand decode", "l", l, RS, torch.int64)
+    _vector("expand decode", "incl", incl, RS, torch.int64)
+    _vector("expand decode", "sstart", sstart, RS, torch.int64)
+    if olens.dtype != torch.int64 or olens.dim() != 1:
+        raise ValueError("expand decode: olens must be int64 (R,)")
+    if RS < 1 or S < 1 or RS != olens.shape[0] * S or K < 0 \
+            or idx.sa_rate < 1:
+        raise ValueError(f"expand decode: {RS} lanes, S {S}, "
+                         f"{olens.shape[0]} rows, K {K}, sa_rate "
+                         f"{idx.sa_rate} out of range")
+    outs = [torch.empty(K, dtype=torch.int64, device=dev) for _ in range(3)]
+    if not ranks:
+        outs[2] = torch.empty(K, dtype=torch.bool, device=dev)
+    if K == 0:
+        return outs
+    _, fn = EXPAND_KERNEL.function()
+    keys = [None] * 3 + [o.data_ptr() for o in outs] if ranks \
+        else [o.data_ptr() for o in outs] + [None] * 3
+    with torch.cuda.device(dev):
+        err = fn(l.data_ptr(), incl.data_ptr(), RS, sstart.data_ptr(),
+                 olens.data_ptr(), S, idx.n, K, idx.sa_rate,
+                 idx.mark_words.data_ptr(), idx.mark_rank.data_ptr(),
+                 idx.occ_blocks.data_ptr(), idx.counts.data_ptr(),
+                 idx.primary, idx.sa_samples.data_ptr(),
+                 idx.sa_samples.shape[0], *keys, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"expand decode kernel launch failed: CUDA error "
+                           f"{err}")
+    EXPAND_KERNEL.count(dev, (K, RS, idx.sa_rate))
+    return outs
+
+
+def expand_decode(idx, l: torch.Tensor, incl: torch.Tensor,
+                  sstart: torch.Tensor, olens: torch.Tensor, S: int, K: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FS2 with the lane expansion: output slot k (< K) of lane j (the
+    first lane whose inclusive count ``incl`` exceeds k) decodes SA row
+    l[j] + k - incl[j - 1]; returns the dedupe's keys (krow, ktp int64,
+    pos_ok bool): the slot's oriented row j // S and text position
+    minus the segment start ``sstart[j]`` where that placement of a read
+    of ``olens[j // S]`` bases lies in the text, else the 0xFFFFFFFF
+    sentinel and False (fmindex.expand_decode)."""
+    return tuple(_expand(idx, l, incl, sstart, olens, S, K, ranks=False))
+
+
+def expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor,
+                 sstart: torch.Tensor, olens: torch.Tensor, S: int, K: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """expand_decode without the sample gather, for an SA table split
+    over a mesh: each slot's (lane, sample rank, LF steps), 0 lane and
+    the walk of row 0 past the total count; the owner routing gathers
+    the samples and checks the placements (fmindex.expand_decode)."""
+    return tuple(_expand(idx, l, incl, sstart, olens, S, K, ranks=True))
 
 
 def verify(idx, src: ReadRows, rows: torch.Tensor, tp: torch.Tensor,

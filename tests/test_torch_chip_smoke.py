@@ -60,7 +60,7 @@ def test_multi_device_phases_on_cpu(tmp_path):
     assert hosts["records_equal"] and hosts["summary_equal"]
     assert sum(hosts["per_process_pairs"]) == 200
     assert hosts["launches"] == [dict.fromkeys(
-        ("K1", "K2", "TB", "FS1", "FS2", "FS3"), 0)] * 2  # no card
+        ("K1", "K2", "TB", "FS1", "FS2", "FS2x", "FS3"), 0)] * 2  # no card
     assert len(hosts["index_upload_s"]) == 2
     assert chip_smoke.phase_all_cards(cpu, reads, w) == {"not_run": "1 card"}
 
@@ -293,20 +293,22 @@ def test_fs_bounds_count_each_table_element_once(fs_index):
 
 
 def test_synthetic_index_and_its_cases():
-    """The synthetic index has every table at its true size (about 8 GB
+    """The synthetic index has every table at its true size (about 5.3 GB
     at 3.2 Gbp, sa_rate 8, lut_k 13) with values in range; its cases
     run through the plain versions at a small n."""
     from soap3dp_tpu_torch.fm import fmindex
 
     sizes = chip_smoke.synthetic_table_sizes(3_200_000_000, 8, 13)
-    assert 7.5e9 < 4 * sum(sizes.values()) < 8.5e9
+    assert 5.0e9 < 4 * sum(sizes.values()) < 5.6e9
     n = (1 << 20) + 5
     idx = chip_smoke.synthetic_index(torch.device("cpu"), n, lut_k=6)
     sizes = chip_smoke.synthetic_table_sizes(n, 8, 6)
     for name, size in sizes.items():
-        assert getattr(idx, name).shape == (size,), name
+        assert getattr(idx, name).numel() == size, name
+    assert idx.occ_blocks.shape == (sizes["occ_blocks"] // 8, 8)
     u32 = fmindex._u32
-    assert int(u32(idx.lut_hi).max()) <= n and int(u32(idx.occ).max()) < n // 4
+    assert int(u32(idx.lut_hi).max()) <= n
+    assert int(u32(idx.occ_blocks[:, :4]).max()) < n // 4
     assert (u32(idx.lut_hi) >= u32(idx.lut_lo)).all()
     cases = chip_smoke.synthetic_cases(np.random.default_rng(4), idx, "cpu",
                                        B=64)
@@ -339,7 +341,8 @@ def test_path_calls_and_kernel_rows(fs_index):
     """The main path's kernel calls (a pair batch's round-1 search and a
     deep-DP seeding) are recorded with their arguments and pass through;
     a plain primitive on a CPU index is not counted as one on a card;
-    the JSON rows of FS1-FS3 carry every key of the kernels line."""
+    the JSON rows of FS1, FS2, FS2x and FS3 carry every key of the
+    kernels line."""
     codes, didx = fs_index
     calls = chip_smoke.path_calls(didx, codes, B=128, seed_reads=64)
     fns = [fn for fn, _ in calls]
@@ -353,11 +356,52 @@ def test_path_calls_and_kernel_rows(fs_index):
              "bound_ms": 0.1, "bound_by": "bytes", "sector_bound_ms": 0.5,
              "max_abs_err": 0, "shape": "8x100x3", key: 8}
             for i, (k, key) in enumerate((("FS1", "lanes"), ("FS2", "rows"),
+                                          ("FS2x", "slots"),
                                           ("FS3", "placements")))]
     out = chip_smoke.fs_kernel_rows(rows)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [r["replaces"] for r in out] == [
         "soap3dp_tpu/fm/fmindex.py:391", "soap3dp_tpu/fm/fmindex.py:509",
-        "soap3dp_tpu/fm/fmindex.py:653"]
+        "soap3dp_tpu/fm/search.py:247", "soap3dp_tpu/fm/fmindex.py:653"]
     assert all(keys <= set(r) and r["route"] == "cuda" for r in out)
+
+
+def test_expansion_and_block_edge_cases(fs_index):
+    """Phase 2's cases of FS2's expand_decode (the expansion's edges at a
+    K: a total of 0, past K, equal to K, one lane holding every slot)
+    and of the occ blocks' edges (small indexes whose last block holds
+    4, 2 or 3 BWT words): each is the edge it names, the entry point is
+    its plain version on the CPU, and the replay behind the bounds gives
+    the plain output, with the occ-block sectors counted beside the
+    separate tables' sectors."""
+    from soap3dp_tpu_torch.fm import fmindex
+
+    codes, didx = fs_index
+    rng = np.random.default_rng(12)
+    RS, S, K = 600, 2, 512
+    cases = chip_smoke.expansion_cases(rng, didx, "cpu", RS, S, K)
+    cases += chip_smoke.block_edge_cases(rng, "cpu", m=20, B=16)
+    names = [c[0] for c in cases]
+    assert names == [f"expand_{e}" for e in chip_smoke.EXPANSION_EDGES] + [
+        f"blocks_nw{r}_{k}" for r in (0, 2, 3)
+        for k in ("decode", "expand", "search")]
+    totals = {}
+    for name, fn, args in cases:
+        got = getattr(fmindex, fn)(*args)
+        want = getattr(fmindex, fn + "_plain")(*args)
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
+        w = chip_smoke.fs_work(fn, args, want)
+        assert w["block_sectors"] > 0 and w["sectors"] > 0
+        if fn == "expand_decode":
+            totals[name] = int(args[2][-1])
+            assert w["slots"] == args[6] and w["walked"] == min(
+                args[6], totals[name])
+        if name.startswith("blocks"):
+            assert (args[0].n // 16 + 1) % 4 == int(name[9])  # BWT words
+    assert totals["expand_total_0"] == 0
+    assert totals["expand_total_gt_K"] > K == totals["expand_total_eq_K"]
+    assert totals["expand_zeros"] < K
+    one = cases[4][2][2]
+    assert int((one.diff() > 0).sum()) + int(one[0] > 0) == 1
+    assert int(cases[5][2][1].shape[0]) == cases[5][2][0].n + 1

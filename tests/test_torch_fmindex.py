@@ -44,11 +44,20 @@ def _eq(j, t):
 
 def test_device_index_tables_equal(pair_index):
     idx, jd, td = pair_index
-    for name in ("occ", "bwt", "mark_rank", "mark_words", "sa_samples",
-                 "pac", "lut_lo", "lut_hi"):
+    for name in ("mark_rank", "mark_words", "sa_samples", "pac", "lut_lo",
+                 "lut_hi"):
         want = np.asarray(getattr(idx, name)).astype(np.int64)
         got = tf._u32(getattr(td, name)).numpy()
         np.testing.assert_array_equal(got, want, err_msg=name)
+    # occ and bwt live on the device as the occ blocks: block j holds the
+    # counts before BWT word 4j, then words 4j..4j+3 (zero past the last)
+    nw = len(idx.bwt)
+    blocks = tf._u32(td.occ_blocks).numpy()
+    np.testing.assert_array_equal(
+        blocks[:, :4], np.asarray(idx.occ).reshape(nw, 4)[::4])
+    words = blocks[:, 4:].reshape(-1)
+    np.testing.assert_array_equal(words[:nw], np.asarray(idx.bwt))
+    assert not words[nw:].any()
     assert (td.n, td.primary, td.sa_rate, td.lut_k) == (
         idx.n, idx.primary, idx.sa_rate, idx.lut_k)
     assert td.repeat_heavy == jd.repeat_heavy
@@ -171,11 +180,17 @@ def test_revcomp(rng):
 
 def test_device_index_ladder_degrades_like_reference(small_index):
     """A budget below the index size makes both ladders re-sample the SA
-    to the same coarser rate."""
+    to the same coarser rate. The port's footprint is the reference's
+    with the occ and BWT tables replaced by the occ blocks, 32 bytes per
+    64 BWT positions."""
     budget = jf.index_hbm_bytes(small_index) - 1
-    assert tf.index_hbm_bytes(small_index) == budget + 1
+    tables = np.asarray(small_index.occ).nbytes + np.asarray(
+        small_index.bwt).nbytes
+    blocks = 32 * -(-len(small_index.bwt) // 4)
+    tbudget = budget - tables + blocks
+    assert tf.index_hbm_bytes(small_index) == tbudget + 1
     jd, jidx = jf.device_index_ladder(small_index, hbm_budget=budget)
-    td, tidx = tf.device_index_ladder(small_index, "cpu", hbm_budget=budget)
+    td, tidx = tf.device_index_ladder(small_index, "cpu", hbm_budget=tbudget)
     assert tidx.sa_rate == jidx.sa_rate > small_index.sa_rate
     rows = np.arange(0, small_index.n + 1, 7, dtype=np.uint32)
     valid = np.ones(len(rows), bool)
