@@ -10,14 +10,19 @@ Phases, each printing one line, any failure exits non-zero:
    spills;
 2. each kernel against its plain-torch version on the card, outputs
    exactly equal, both times printed with each kernel's bound and
-   share: K1 (the fused DP) at the main path's shapes, then at the edges
+   share (a kernel's time is its device time, torch.profiler's device
+   events, with the CUDA-event time of a call in a loop of calls
+   beside it): K1 (the fused DP) at the main path's shapes, then at the edges
    of the forward (reads of 31, 32, 33, 127, 128 and 2047 bases, ties
    on the best score across diagonals, anchors, a run-budget overflow
    that re-launches K1); K2 (forward only) at K1's main shape (the
    difference is K1's traceback and scratch share) and, with TB (its
    traceback), at the mate-pair rescue window, an edge shape and a case
    that re-launches TB, where dp_align's wide route is also held
-   against K1 at the same shape; then K1 and K2 (every dirs byte) at
+   against K1 at the same shape and TB's window rule is replayed on K2's
+   directions (every cell a walk visits inside the bytes its warp
+   fetched; the windows and 32-byte sectors counted for TB's bound);
+   then K1 and K2 (every dirs byte) at
    the edges of the forward's two forms: reads of 255 bases at scores
    of magnitude 15 (the 16-bit form's limits: every base mismatched,
    the top score, long gaps), the same with one score at 16, and scores
@@ -71,11 +76,10 @@ Phases, each printing one line, any failure exits non-zero:
    DP routes on the last card while card 0 is current; on one card it
    prints "not run: 1 card".
 
-Then one JSON line with the kernels (K1, K2, TB, FS1, FS2, FS3, each
-with its time, its bound on this card, the share of the bound it
-reaches and the operations peak the bound used: int16x2, twice the
-int32 peak, where the 16-bit forward runs; FS2's launches are its two
-entries'), and the last line
+Then one JSON line with the kernels (K1, K2, TB, FS1, FS2, FS2x, FS3,
+each with its device time, its bound on this card, the share of the
+bound it reaches and the operations peak the bound used: int16x2,
+twice the int32 peak, where the 16-bit forward runs), and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
 index builder, readers and writers); imports neither JAX nor the JAX
 package.
@@ -378,13 +382,16 @@ def k2_bound(prob, peak_ops: float) -> tuple[float, str]:
     return bound_ms(dp_cells(prob) * OPS_PER_CELL, nbytes, peak_ops)
 
 
-def tb_bound(moves: int, P: int, mr: int, peak_ops: float
-             ) -> tuple[float, str]:
+def tb_bound(moves: int, P: int, mr: int, peak_ops: float,
+             path_bytes: int | None = None) -> tuple[float, str]:
     """TB: the direction byte of each cell on this run's paths (the
     walks' moves), its (P, 4) parameters and active mask read once, runs
     and counts (P, MR) and (P, 4) meta written once; a few operations
-    per move."""
-    nbytes = moves + P * (16 + 1 + 8 * mr + 16)
+    per move. With ``path_bytes`` (the sectors its windows fetch) in
+    place of the moves, the time of this design's own fetch volume,
+    which is not a bound on the function."""
+    nbytes = (moves if path_bytes is None else path_bytes) \
+        + P * (16 + 1 + 8 * mr + 16)
     return bound_ms(moves * OPS_PER_CELL, nbytes, peak_ops)
 
 
@@ -436,23 +443,36 @@ def _host_ms(fn, reps: int = 1) -> tuple[object, float]:
     return out, float(np.median(times))
 
 
-def _kernel_only_ms(bd, args, reps: int = 10, sc=None) -> float:
-    """Mean time of one banded_dp launch (no host copies), CUDA events."""
+def _timed(fn, reps: int, symbol: str) -> tuple[float, float]:
+    """(device ms, call ms) of ``fn()``, one launch of the kernel named
+    ``symbol``: its mean device duration (torch.profiler's device events,
+    _kernel_device_ms; fails where the profiler recorded no such event)
+    and the mean time of a call in a loop of calls (CUDA events, the
+    wrapper's host work included)."""
+    call_ms = _events_ms(fn, reps)
+    ms = _kernel_device_ms(fn, reps, symbol)
+    if not ms > 0:
+        fail(f"torch.profiler recorded no {symbol} event in three profiles")
+    return ms, call_ms
+
+
+def _k1_ms(bd, args, reps: int = 10, sc=None) -> tuple[float, float]:
+    """(device ms, call ms) of one K1 launch (no host copies), _timed."""
     reads, rlens, wins, wlens, cl, cr, al, ar, cut = args
     params = bd._params(rlens, wlens, cl, cr, al, ar, cut)
     mr = max(bd.MAX_RUNS, bd._max_runs_bound(reads.shape[1]))
     sc = sc or bd.DPScores()
-    return _events_ms(lambda: bd._launch_dp(reads, wins, params, mr, sc),
-                      reps)
+    return _timed(lambda: bd._launch_dp(reads, wins, params, mr, sc), reps,
+                  "dp_align_kernel")
 
 
-def phase_kernels(dev, peak_ops: float) -> list[dict]:
-    import torch
+K1_SEED, WIDE_SEED = 20261016, 20261017  # phase 2's K1 and wide cases
 
-    from soap3dp_tpu_torch.kernels import banded_dp as bd
 
-    rng = np.random.default_rng(20261016)
-    cases = [
+def k1_cases(rng) -> list[tuple[str, tuple]]:
+    """K1's cases, as dp_align inputs: the main shapes, anchors, long
+    reads, edge_cases and the shapes phase 4 gives K1."""
+    return [
         ("Lr100_Lw256", main_path_problems(rng, 4096, 100, 256)),
         ("Lr100_Lw768", main_path_problems(rng, 4096, 100, 768)),
         ("anchors", make_problems(rng, 512, 100, 256, with_anchor=True)
@@ -466,9 +486,16 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
         ("path_P16384", main_path_problems(rng, 16384, 120, 256,
                                            read_len=100)),
     ]
+
+
+def phase_kernels(dev, peak_ops: float) -> list[dict]:
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
     rows = []
     max_err = 0
-    for name, prob in cases:
+    for name, prob in k1_cases(np.random.default_rng(K1_SEED)):
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in prob]
         n0 = bd.DP_KERNEL.launches
@@ -479,15 +506,15 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
         ok, err = _dp_equal(got, want)
         npass = int((np.asarray(want[6]) > 0).sum())
         P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
-        kms = _kernel_only_ms(bd, args)
+        kms, kcall = _k1_ms(bd, args)
         mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
         peak, pname = forward_peak(Lr, bd.DPScores(), peak_ops)
         bms, by = k1_bound(prob, mr, peak)
         phase("kernel banded_dp",
               f"{name}: P={P} Lr={Lr} Lw={Lw} equal={ok} max_abs_err={err} "
               f"passing_lanes={npass} launches={n_launch} "
-              f"first_ms={first_ms:.3f} ms={ms:.3f} "
-              f"kernel_only_ms={kms:.3f} "
+              f"first_ms={first_ms:.3f} dp_align_ms={ms:.3f} "
+              f"kernel_ms={kms:.4f} (torch.profiler) call_ms={kcall:.4f} "
               f"GCUPS={dp_cells(prob) / (kms * 1e6):.1f} "
               f"bound_ms={bms:.4f} ({by}, {pname} peak) "
               f"share={bms / kms:.1%} plain_ms={plain_ms:.3f}")
@@ -497,21 +524,23 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
             fail("overflow case did not re-launch the DP kernel")
         max_err = max(max_err, err)
         rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
-                     "ms": ms, "kernel_only_ms": kms, "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by, "peak": pname})
+                     "dp_align_ms": ms, "kernel_ms": kms, "call_ms": kcall,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "peak": pname})
         if name == "Lr100_Lw768":
             # K2 on the same problems: what K1 adds is its traceback and
             # its direction scratch
             params = bd._params(args[1], args[3], *args[4:8])
             dirs = torch.empty((Lr + Lw, P, Lr + 1), dtype=torch.uint8,
                                device=dev)
-            k2_ms = _events_ms(lambda: bd._launch_forward(
-                args[0], args[2], params, dirs, bd.DPScores()), 10)
+            k2_ms, _ = _timed(lambda: bd._launch_forward(
+                args[0], args[2], params, dirs, bd.DPScores()), 10,
+                "dp_forward_kernel")
             del dirs
             phase("kernel banded_dp",
                   f"K2 at K1's main shape (P={P} Lr={Lr} Lw={Lw}): "
-                  f"kernel_only_ms={k2_ms:.3f} against K1's {kms:.3f}: "
-                  f"K1 - K2 = {kms - k2_ms:.3f} ms (K1's traceback and "
+                  f"kernel_ms={k2_ms:.4f} against K1's {kms:.4f}: "
+                  f"K1 - K2 = {kms - k2_ms:.4f} ms (K1's traceback and "
                   f"scratch, less K2's writes of its direction tensor)")
             rows[-1]["k2_same_problems_ms"] = k2_ms
     # the main path's most frequent K1 launch (phase 4's histogram)
@@ -520,10 +549,10 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
              "source": "soap3dp_tpu_torch/csrc/banded_dp.cu",
              "replaces": "soap3dp_tpu/kernels/banded_dp.py:606",
              "launches": 0, "max_abs_err": max_err,
-             "ms": main["kernel_only_ms"], "plain_ms": main["plain_ms"],
+             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-             "peak": main["peak"], "library_ms": None, "call_ms": main["ms"],
-             "cases": rows}]
+             "peak": main["peak"], "library_ms": None,
+             "call_ms": main["call_ms"], "cases": rows}]
 
 
 def phase_range_cases(dev) -> tuple[int, int]:
@@ -564,26 +593,132 @@ def phase_range_cases(dev) -> tuple[int, int]:
     return k1_err, k2_err
 
 
-def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
-    """K2 and TB against their plain versions, and dp_align's wide route
-    against the plain dp_align and K1 at the same shape."""
+def wide_cases(rng, small: bool = False) -> list[tuple[str, tuple, object]]:
+    """The wide route's cases, as dp_align inputs with their DPScores:
+    the mate-pair rescue window (2048 x 120 x 4224, reads of 100), an
+    edge shape (256 x 127 x 8192) and a case whose runs pass TB's first
+    budget (a re-launch); with ``small`` the same problems at a few
+    problems and windows of a few hundred bases, for the CPU."""
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    P1, Lw1, P2, Lw2, P3, Lw3 = ((16, 600, 16, 500, 4, 400) if small else
+                                 (2048, 4224, 256, 8192, 64, 4096))
+    edge = make_problems(rng, P2, 127, Lw2)
+    return [
+        ("mate_window", main_path_problems(rng, P1, 120, Lw1, read_len=100),
+         bd.DPScores()),
+        ("edge", edge + ((edge[1] * 0.3).astype(np.int32),), bd.DPScores()),
+        ("tb_relaunch", relaunch_problems(rng, P3, 127, Lw3),
+         bd.DPScores(1, -2, -1, -1)),
+    ]
+
+
+TB_WINDOW = 32  # diagonals of one TB window (csrc/dp_forward.cu)
+
+
+def tb_replay(dirs, hit_i, hit_j, active):
+    """TB's walk over ``dirs`` (ND, P, Lr+1) by the kernel's window rule,
+    all problems in step: a problem's window opens at diagonal dtop = i + j
+    of its walk, where the aligned 4-byte words holding bytes
+    max(0, i - k) .. i of row dtop - 1 - k are fetched for each k below
+    TB_WINDOW, and the walk takes its moves there until
+    i + j <= dtop - TB_WINDOW. Fails unless every cell the
+    walk visits lies in the bytes fetched for its row. Returns what
+    banded_dp._traceback_scan returns (each problem's op on each
+    diagonal, and (i, j, done, startj, clip) where the walks stopped),
+    the windows fetched and the distinct 32-byte sectors they touch (the
+    dirs tensor starting on a sector)."""
     import torch
 
     from soap3dp_tpu_torch.kernels import banded_dp as bd
 
-    rng = np.random.default_rng(20261017)
-    P2, Lr2, Lw2 = 256, 127, 8192
-    edge = make_problems(rng, P2, Lr2, Lw2)
-    cases = [
-        ("mate_window", main_path_problems(rng, 2048, 120, 4224, read_len=100),
-         bd.DPScores()),
-        ("edge", edge + ((edge[1] * 0.3).astype(np.int32),), bd.DPScores()),
-        ("tb_relaunch", relaunch_problems(rng, 64, 127, 4096),
-         bd.DPScores(1, -2, -1, -1)),
-    ]
+    ND, P, Lr1 = dirs.shape
+    dev = dirs.device
+    prob = torch.arange(P, device=dev)
+    lane = torch.arange(TB_WINDOW, device=dev)
+    i = torch.where(active, hit_i.long(), 0)
+    j = torch.where(active, hit_j.long(), 0)
+    zero = torch.zeros(P, dtype=torch.int64, device=dev)
+    state, startj, clip, top, itop = (zero.clone() for _ in range(5))
+    done = ~active
+    opseq = torch.zeros((ND, P), dtype=torch.int8, device=dev)
+    live = active & (i > 0) & (j > 0) & (i + j <= ND) & (i < Lr1)
+    windows, sectors = 0, [zero[:0]]
+    while bool(live.any()):
+        new = live & ((top == 0) | (i + j <= top - TB_WINDOW))
+        top = torch.where(new, i + j, top)
+        itop = torch.where(new, i, itop)
+        row = (i + j)[new, None] - 1 - lane
+        lo = (i[new, None] - lane).clamp(min=0)
+        base = (row * P + prob[new, None]) * Lr1
+        first = (base + lo) // 4 * 4
+        last = (base + i[new, None]) // 4 * 4 + 3
+        sectors += [(first // 32)[row >= 0], (last // 32)[row >= 0]]
+        windows += int(new.sum())
+        k = top - i - j
+        inside = (k >= 0) & (k < TB_WINDOW) & (i >= itop - k) & (i <= itop)
+        if not bool(inside[live].all()):
+            fail("TB's walk left the window its warp fetched")
+        byte = dirs[(i + j - 1).clamp(0, ND - 1), prob,
+                    i.clamp(0, Lr1 - 1)].long()
+        dH, dD, dI = byte & 3, (byte >> 2) & 1, (byte >> 3) & 3
+        mop = torch.where(((byte >> 5) & 1) == 1, bd.OP_MATCH, bd.OP_MISMATCH)
+        do_diag = live & (state == 0) & (dH == bd.DH_DIAG)
+        do_sm = live & (state == 0) & (dH == bd.DH_SM)
+        do_d = live & ((state == 1) | ((state == 0) & (dH == bd.DH_D)))
+        do_i = live & ((state == 2) | ((state == 0) & (dH == bd.DH_I)))
+        i_fresh = do_i & (dI == bd.DI_FRESH)
+        op = torch.where(do_diag | do_sm, mop,
+                         torch.where(do_d, bd.OP_DEL, bd.OP_INS))
+        opseq[(i + j - 1)[live], prob[live]] = op[live].to(torch.int8)
+        nstate = torch.where(
+            do_d, torch.where(dD == bd.DD_OPEN, 0, 1),
+            torch.where(do_i & ~i_fresh, torch.where(dI == bd.DI_OPEN, 0, 2),
+                        0))
+        state = torch.where(live, nstate, state)
+        exit_now = do_sm | i_fresh
+        clip = torch.where(exit_now, i - 1, clip)
+        startj = torch.where(do_sm, j - 1, torch.where(i_fresh, j, startj))
+        done = done | exit_now
+        ni = torch.where(do_diag | (do_i & ~i_fresh), i - 1, i)
+        nj = torch.where(do_diag | do_sm | do_d, j - 1, j)
+        i, j = torch.where(live, ni, i), torch.where(live, nj, j)
+        live = live & ~done & (i > 0) & (j > 0)
+    nsec = int(torch.unique(torch.cat(sectors)).numel())
+    return opseq, (i, j, done, startj, clip), windows, nsec
+
+
+def tb_replay_matches(dirs, rlens, hit_i, hit_j, clip_l, active,
+                      want) -> tuple[int, int]:
+    """tb_replay's runs (its op stream and exit state through
+    banded_dp._walk_runs) against ``want``, the plain traceback's
+    (banded_dp._dp_traceback_plain) on the same directions, every
+    output. Returns (the windows, the distinct sectors)."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    act = torch.as_tensor(np.asarray(active), device=dirs.device)
+    ops, state, windows, sectors = tb_replay(dirs, hit_i.to(dirs.device),
+                                             hit_j.to(dirs.device), act)
+    got = bd._walk_runs((ops, state), rlens, hit_i, clip_l, active)
+    if not all(np.shape(a) == np.shape(b) and np.array_equal(a, b)
+               for a, b in zip(got, want)):
+        fail("TB's window replay disagrees with the plain traceback")
+    return windows, sectors
+
+
+def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
+    """K2 and TB against their plain versions, and dp_align's wide route
+    against the plain dp_align and K1 at the same shape (wide_cases);
+    TB's window rule replayed on K2's directions (tb_replay)."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
     rows = []
     max_err = 0
-    for name, prob, sc in cases:
+    for name, prob, sc in wide_cases(np.random.default_rng(WIDE_SEED)):
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in prob]
         P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
@@ -596,7 +731,8 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         ndiff = int((fwd[4] != plain[4]).sum())
         del plain
         # TB against the plain sweep + host RLE, on the same dirs
-        act = (fwd[0] >= args[8]).cpu().numpy()
+        act_t = fwd[0] >= args[8]
+        act = act_t.cpu().numpy()
         tb_args = (args[1], fwd[1], fwd[2], args[4], act)
         tb = bd.dp_traceback(fwd[4], args[0], args[1], args[2], *tb_args[1:4],
                              act)
@@ -606,16 +742,19 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
                                 - np.asarray(y, np.int64)).max(initial=0))
                      if np.shape(x) == np.shape(y) else 1
                      for x, y in zip(tb, tbp))
-        # kernel-only times on the whole problem set, CUDA events
+        t0 = time.perf_counter()
+        windows, sectors = tb_replay_matches(fwd[4], *tb_args, tbp)
+        replay_s = time.perf_counter() - t0
+        # kernel times on the whole problem set
         params = bd._params(args[1], args[3], *args[4:8])
-        fwd_ms = _events_ms(lambda: bd._launch_forward(
-            args[0], args[2], params, fwd[4], sc), 3)
+        fwd_ms, fwd_call = _timed(lambda: bd._launch_forward(
+            args[0], args[2], params, fwd[4], sc), 3, "dp_forward_kernel")
         tbq = torch.stack([args[1], fwd[1], fwd[2], args[4]], 1).to(
             torch.int32).contiguous()
-        actd = torch.from_numpy(act.astype(np.uint8)).to(dev)
+        actd = act_t.to(torch.uint8).contiguous()
         mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
-        tb_ms = _events_ms(lambda: bd._launch_traceback(
-            fwd[4], tbq, actd, None, P, mr), 10)
+        tb_ms, tb_call = _timed(lambda: bd._launch_traceback(
+            fwd[4], tbq, actd, None, P, mr), 10, "dp_traceback_kernel")
         del fwd
         # dp_align's wide route against the plain dp_align and K1
         n_f, n_t = bd.FORWARD_KERNEL.launches, bd.TRACEBACK_KERNEL.launches
@@ -625,7 +764,7 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         _, call_ms = _host_ms(lambda: bd.dp_align(*args, sc=sc), 3)
         want, plain_ms = _host_ms(lambda: bd.dp_align_plain(*args, sc=sc))
         k1, k1_ms = _host_ms(lambda: bd.dp_align_cuda(*args, sc=sc), 3)
-        k1_kernel_ms = _kernel_only_ms(bd, args, 3, sc)
+        k1_kernel_ms, _ = _k1_ms(bd, args, 3, sc)
         ok_plain, e1 = _dp_equal(got, want)
         ok_k1, e2 = _dp_equal(got, k1)
         npass = int((np.asarray(want[6]) > 0).sum())
@@ -634,20 +773,26 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         ops_t, cnt_t = np.asarray(tb[0]), np.asarray(tb[1])
         moves = int(cnt_t[(ops_t >= 1) & (ops_t <= 4)].sum())
         t_bms, t_by = tb_bound(moves, P, mr, peak_ops)
+        t_fetch = tb_bound(moves, P, mr, peak_ops, SECTOR * sectors)[0]
         phase("kernel dp_forward+dp_traceback",
               f"{name}: P={P} Lr={Lr} Lw={Lw} fwd stats max_abs_err={err} "
               f"dirs bytes differing={ndiff} tb max_abs_err={tb_err} "
               f"dp_align==plain {ok_plain} dp_align==K1 {ok_k1} "
               f"passing_lanes={npass} launches fwd={n_f} tb={n_t} "
-              f"call_ms={call_ms:.3f} kernel_ms fwd={fwd_ms:.3f} "
-              f"tb={tb_ms:.3f} GCUPS={dp_cells(prob) / (fwd_ms * 1e6):.1f} "
+              f"dp_align_ms={call_ms:.3f} kernel_ms (torch.profiler) "
+              f"fwd={fwd_ms:.4f} tb={tb_ms:.4f} call_ms fwd={fwd_call:.4f} "
+              f"tb={tb_call:.4f} GCUPS={dp_cells(prob) / (fwd_ms * 1e6):.1f} "
               f"bound_ms fwd={f_bms:.4f} ({f_by}, {f_pname} peak, share "
               f"{f_bms / fwd_ms:.1%}) "
               f"tb={t_bms:.4f} ({t_by}, int32 peak, share "
-              f"{t_bms / tb_ms:.1%}) "
+              f"{t_bms / tb_ms:.1%}); tb windows={windows} "
+              f"sectors={sectors} fetch_ms={t_fetch:.4f} (those sectors "
+              f"over the memory rate, the design's fetch volume, not a "
+              f"bound: {t_fetch / tb_ms:.1%} of tb) "
+              f"replay_s={replay_s:.2f} moves={moves} "
               f"plain_ms={plain_ms:.3f} (fwd {plain_fwd_ms:.3f}, "
-              f"tb {plain_tb_ms:.3f}) K1 call_ms={k1_ms:.3f} "
-              f"K1 kernel_ms={k1_kernel_ms:.3f}")
+              f"tb {plain_tb_ms:.3f}) K1 dp_align_ms={k1_ms:.3f} "
+              f"K1 kernel_ms={k1_kernel_ms:.4f}")
         if err or ndiff or tb_err or not ok_plain or not ok_k1:
             fail(f"K2 / TB disagree with their plain versions ({name})")
         if name == "tb_relaunch" and n_t <= n_f:
@@ -656,26 +801,33 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
             fail(f"the traceback kernel re-launched in {name}")
         max_err = max(max_err, err, tb_err, e1, e2)
         rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
-                     "call_ms": call_ms, "fwd_ms": fwd_ms, "tb_ms": tb_ms,
-                     "plain_ms": plain_ms, "plain_fwd_ms": plain_fwd_ms,
-                     "plain_tb_ms": plain_tb_ms, "k1_call_ms": k1_ms,
+                     "dp_align_ms": call_ms, "fwd_ms": fwd_ms,
+                     "fwd_call_ms": fwd_call, "tb_ms": tb_ms,
+                     "tb_call_ms": tb_call, "plain_ms": plain_ms,
+                     "plain_fwd_ms": plain_fwd_ms,
+                     "plain_tb_ms": plain_tb_ms, "k1_dp_align_ms": k1_ms,
                      "k1_kernel_ms": k1_kernel_ms, "fwd_bound_ms": f_bms,
                      "fwd_bound_by": f_by, "fwd_peak": f_pname,
                      "tb_bound_ms": t_bms, "tb_bound_by": t_by,
-                     "tb_moves": moves})
+                     "tb_fetch_ms": t_fetch, "tb_moves": moves,
+                     "tb_windows": windows, "tb_sectors": sectors,
+                     "tb_replay_s": replay_s})
     main = rows[0]
     common = {"route": "cuda", "source": "soap3dp_tpu_torch/csrc/dp_forward.cu",
               "launches": 0, "max_abs_err": max_err, "library_ms": None}
     return [dict(common, name="dp_forward",
                  replaces="soap3dp_tpu/kernels/banded_dp.py:238",
-                 ms=main["fwd_ms"], plain_ms=main["plain_fwd_ms"],
+                 ms=main["fwd_ms"], call_ms=main["fwd_call_ms"],
+                 plain_ms=main["plain_fwd_ms"],
                  bound_ms=main["fwd_bound_ms"], bound_by=main["fwd_bound_by"],
                  peak=main["fwd_peak"], cases=rows),
             dict(common, name="dp_traceback",
                  replaces="soap3dp_tpu/kernels/banded_dp.py:409",
-                 ms=main["tb_ms"], plain_ms=main["plain_tb_ms"],
+                 ms=main["tb_ms"], call_ms=main["tb_call_ms"],
+                 plain_ms=main["plain_tb_ms"],
                  bound_ms=main["tb_bound_ms"], bound_by=main["tb_bound_by"],
-                 peak="int32")]
+                 peak="int32", fetch_ms=main["tb_fetch_ms"],
+                 windows=main["tb_windows"], sectors=main["tb_sectors"])]
 
 
 # ------------------------------------------------------------------
@@ -703,11 +855,12 @@ OPS_FM_STEP, OPS_FM_LANE = 36, 64
 OPS_SA_PROBE, OPS_SA_LF = 10, 22
 OPS_VERIFY_WORD = 14
 SECTOR = 32  # bytes the card moves for one scattered load
-# the kernels' times at round 1 when they read the separate occ and BWT
-# tables, quoted from PERF.md section 6 in the summary lines only (FS2
-# then decoded ready rows after a plain-torch compaction of about
-# 0.66 ms a launch, which FS2x now does)
-SEPARATE_TABLES_MS = {"FS1": 0.127, "FS2": 0.035, "FS3": 0.055}
+# the kernels' times at round 1 before their redesign, quoted from
+# PERF.md section 6 in the summary lines only: FS1 and FS2 when they read
+# the separate occ and BWT tables (FS2 then decoded ready rows after a
+# plain-torch compaction of about 0.66 ms a launch, which FS2x now
+# does), FS3 when it read a reverse complement base by base
+BEFORE_REDESIGN_MS = {"FS1": 0.127, "FS2": 0.035, "FS3": 0.055}
 
 
 def sample_reads(rng, codes: np.ndarray, B: int, L: int, lens=None,
@@ -895,14 +1048,22 @@ def block_edge_cases(rng, dev, m: int = 1000, B: int = 256, L: int = 100
     return cases
 
 
+# reverse-complement lengths at the edges of FS3's two-word window (one
+# base, either side of one and two words) and L
+RC_EDGES = (1, 15, 16, 17, 31, 32)
+
+
 def fs_verify_cases(rng, didx, codes: np.ndarray, dev, B: int = 256,
                     L: int = 100, M: int = 8192
                     ) -> list[tuple[str, str, tuple]]:
     """FS3 at its edges: placements at packed-word boundaries (tp a
-    multiple of 16: no funnel shift), in the genome's last words and
-    past its end (the pac index clamped), and random, of forward and
+    multiple of 16: no funnel shift), in the genome's last word and past
+    its end (the pac index clamped), and random, of forward and
     reverse-complement rows of variable length (code bytes and packed
-    words), and the public count_mismatches_packed on (M, W) words."""
+    words), reverse complements of RC_EDGES and L bases each placed at
+    least once, a uniform-length batch of reads shorter than L, packed
+    rows of 256 and 300 bases, and the public count_mismatches_packed on
+    (M, W) words."""
     import torch
 
     from soap3dp_tpu_torch.fm import fmindex
@@ -910,18 +1071,23 @@ def fs_verify_cases(rng, didx, codes: np.ndarray, dev, B: int = 256,
 
     n = didx.n
     lens = rng.integers(1, L + 1, B)
-    lens[:2] = [L, 16]
+    edges = (L,) + RC_EDGES
+    lens[:len(edges)] = edges
     reads, lens = sample_reads(rng, codes, B, L, lens)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     rows = rng.integers(0, 2 * B, M)
+    rows[8:8 + 2 * len(edges)] = np.concatenate(
+        [np.arange(len(edges)), B + np.arange(len(edges))])
     olens = np.concatenate([lens, lens])
     tp = rng.integers(0, n, M)
     tp[: M // 4] = rng.integers(0, n // 16, M // 4) * 16
     tp[M // 4: M // 4 + 64] = n - olens[rows[M // 4: M // 4 + 64]]
     tp[M // 4 + 64: M // 4 + 128] = n - rng.integers(1, 40, 64)
+    # the last word (its 16 positions) and those just before it
+    tp[M // 4 + 128: M // 4 + 192] = (n // 16) * 16 + rng.integers(-16, 16, 64)
     tp[:8] = [0, 16, 15, 17, n - 16, n - 1, (n // 16) * 16, n - 100]
     cases = []
     packed = pack_read_matrix(reads).view(np.int32)
@@ -930,6 +1096,24 @@ def fs_verify_cases(rng, didx, codes: np.ndarray, dev, B: int = 256,
         cases.append((f"verify_{src}", "count_mismatches_rows",
                       (didx, t(tp), ori, t(rows), t(olens[rows]))))
     words = fmindex.pack_reads(ori.matrix)[t(rows)]
+    # reads of 90 bases in 100-wide rows, their reverse complements of
+    # revcomp_reads_uniform
+    uni, ulens = sample_reads(rng, codes, B, L, np.full(B, L - 10))
+    ori_u = fmindex.OrientedReads.of(t(pack_read_matrix(uni).view(np.int32)),
+                                     t(ulens), L, uniform_len=L - 10)
+    cases.append(("verify_uniform", "count_mismatches_rows",
+                  (didx, t(tp), ori_u, t(rows), t(np.full(M, L - 10)))))
+    # the kernel's other widths, packed: 256-base rows (16 words, the
+    # unrolled form's widest) and 300 (the runtime-width form)
+    for Lx in (256, 300):
+        lx = rng.integers(1, Lx + 1, B)
+        lx[:len(edges)] = (Lx,) + RC_EDGES
+        rx, lx = sample_reads(rng, codes, B, Lx, lx)
+        ori_x = fmindex.OrientedReads.of(
+            t(pack_read_matrix(rx).view(np.int32)), t(lx), Lx)
+        cases.append((f"verify_L{Lx}", "count_mismatches_rows",
+                      (didx, t(tp), ori_x, t(rows),
+                       t(np.concatenate([lx, lx])[rows]))))
     cases.append(("api_count_mismatches_packed", "count_mismatches_packed",
                   (didx, t(tp), words, t(olens[rows]))))
     return cases
@@ -1394,18 +1578,21 @@ def _kernel_device_ms(fn, reps: int, symbol: str) -> float:
     calls of ``fn`` (torch.profiler's device events; a call of tens of
     microseconds is shorter than its wrapper's host work, so CUDA events
     around a loop of calls would time the host). NaN if the profiler
-    records no such event."""
+    records no such event in three profiles."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    durs = [b - a for a, b, n in _device_spans(prof) if symbol in n]
-    return float(np.mean(durs)) / 1e3 if durs else float("nan")
+    for _ in range(3):  # a profile now and then holds no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = [b - a for a, b, n in _device_spans(prof) if symbol in n]
+        if durs:
+            return float(np.mean(durs)) / 1e3
+    return float("nan")
 
 
 def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
@@ -1424,6 +1611,7 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     kern, plain = getattr(fmindex, fn), getattr(fmindex, fn + "_plain")
     label = FS_FUNCTIONS[fn]
     counter = _kernels()[label]
+    t0 = time.perf_counter()
     n0, shapes0 = counter.launches, dict(counter.shapes)
     got = kern(*args)
     torch.cuda.synchronize()
@@ -1434,10 +1622,10 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     call_ms = _events_ms(lambda: kern(*args), reps)
     ms = _kernel_device_ms(lambda: kern(*args), reps, FS_SYMBOLS[label])
     plain_ms = _events_ms(lambda: plain(*args), max(1, reps // 10))
-    work = fs_work(fn, args, want)
-    timer = "torch.profiler"
     if not ms > 0:
-        ms, timer = call_ms, "CUDA events: the profiler recorded no event"
+        fail(f"torch.profiler recorded no {FS_SYMBOLS[label]} event in "
+             f"three profiles ({name})")
+    work = fs_work(fn, args, want)
     counts = {k: v for k, v in work.items()
               if k not in ("ops", "bytes", "sectors", "block_sectors")}
     bms, by = bound_ms(work["ops"], work["bytes"], peak_ops)
@@ -1449,12 +1637,12 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     phase(f"kernel fm_search {label}",
           f"{name}: {fn} shape={shape_s} equal={err == 0 and ndiff == 0} "
           f"max_abs_err={err} differing={ndiff} launches={launched} "
-          f"ms={ms:.4f} ({timer}) call_ms={call_ms:.4f} "
+          f"ms={ms:.4f} (torch.profiler) call_ms={call_ms:.4f} "
           f"bound_ms={bms:.4f} ({by}, int32 peak) "
           f"share={bms / ms:.1%} sector_bound_ms={sms:.4f} "
           f"sector_share={sms / ms:.1%} block_sector_bound_ms={bsms:.4f} "
           f"block_sector_share={bsms / ms:.1%} plain_ms={plain_ms:.3f} "
-          f"work={counts}")
+          f"work={counts} wall_s={time.perf_counter() - t0:.2f}")
     if err or ndiff:
         fail(f"{label} disagrees with its plain version ({name})")
     if launched != 1:
@@ -1462,7 +1650,8 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     return {"case": name, "kernel": label, "fn": fn, "shape": shape_s,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "sector_bound_ms": sms,
-            "block_sector_bound_ms": bsms, "max_abs_err": err, **work}
+            "block_sector_bound_ms": bsms, "max_abs_err": err,
+            "wall_s": time.perf_counter() - t0, **work}
 
 
 def phase_repeat_search(dev, genome_bp: int = 3_000_000, unit: int = 2000,
@@ -1651,8 +1840,8 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
     (FS1, FS2x and FS3: the round-1 search of a phase-4 batch; FS2: the
     deep-DP seeding), with the largest difference over every case of
     that kernel and the bound with the sectors of the occ blocks; each
-    printed on one line beside its time when it read the separate occ
-    and BWT tables, quoted from PERF.md (SEPARATE_TABLES_MS)."""
+    printed on one line beside its time before its redesign, quoted
+    from PERF.md (BEFORE_REDESIGN_MS)."""
     out = []
     for label, (name, replaces) in FS_ROWS.items():
         mine = [r for r in rows if r["kernel"] == label]
@@ -1671,10 +1860,10 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
                "case": main["case"]}
         out.append(row)
         block = row["block_sector_bound_ms"]
-        before = SEPARATE_TABLES_MS
-        was = (f"separate tables: {before[label]:.3f} ms, PERF.md"
+        before = BEFORE_REDESIGN_MS
+        was = (f"before its redesign: {before[label]:.3f} ms, PERF.md"
                if label in before else
-               f"separate tables: FS2 {before['FS2']:.3f} ms after the "
+               f"before its redesign: FS2 {before['FS2']:.3f} ms after the "
                "plain-torch compaction, PERF.md")
         phase(f"kernel fm_search {label} summary",
               f"{main['case']} ({main.get('fn')}, {main['shape']}): "
@@ -1684,7 +1873,8 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
               f"{row['sector_bound_ms']:.4f} ms "
               f"{row['sector_bound_ms'] / row['ms']:.1%}; occ-block sectors "
               + (f"{block:.4f} ms {block / row['ms']:.1%}" if block else "-")
-              + f"; plain {row['plain_ms']:.3f} ms")
+              + f"; plain {row['plain_ms']:.3f} ms; {len(mine)} cases in "
+              f"{sum(r['wall_s'] for r in mine):.2f} s")
     return out
 
 
@@ -2488,40 +2678,59 @@ def main(argv=None) -> int:
              "of a checkout")
     os.makedirs(OUT_DIR, exist_ok=True)
     dev = torch.device("cuda", 0)
+    walls, start = {}, time.perf_counter()
+
+    def lap(name: str) -> None:  # wall seconds of each part of the run
+        walls[name] = time.perf_counter() - start - sum(walls.values())
+
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     phase("device", f"{kind} | torch {torch.__version__} cuda "
                     f"{torch.version.cuda} | nvidia-smi: {card}")
     _build_all()
+    lap("build")
 
     peak_ops = int32_peak_ops()
     phase("device", f"int32 peak {peak_ops / 1e12:.2f} TOP/s (132 SMs x 64 "
                     f"lanes x {sm_max_clock_mhz():.0f} MHz), int16x2 peak "
                     f"{2 * peak_ops / 1e12:.2f} TOP/s (the 16-bit forward), "
                     f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
-    kernels = phase_kernels(dev, peak_ops) + phase_wide_kernels(dev, peak_ops)
+    kernels = phase_kernels(dev, peak_ops)
+    lap("K1 cases")
+    kernels += phase_wide_kernels(dev, peak_ops)
+    lap("K2 and TB cases")
     k1_err, k2_err = phase_range_cases(dev)
+    lap("range cases")
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k1_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], k2_err)
     work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e")
     fs_rows, fs_cases, repeat = phase_fm_kernels(dev, peak_ops, work)
     kernels += fs_rows
+    lap("FS cases (index build and repeat genome included)")
     phase_golden(dev)
+    lap("golden")
     e2e, reads = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR)
+    lap("PE default")
     small = phase_mate_pair_devices(
         dev, os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "mp_small"))
     mate, _ = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR,
                         profile=False, mate_pair=True)
+    lap("mate-pair, small and full")
     single = phase_single_e2e(dev, reads, card, work, OUT_DIR)
+    lap("single-end")
     multi = {"card": card, "mesh": phase_mesh(dev, reads, work, OUT_DIR),
              "hosts": phase_hosts(dev, reads, work, OUT_DIR),
              "all_cards": phase_all_cards(dev, reads, work)}
+    lap("several devices")
+    phase("wall", ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f"; all {sum(walls.values()):.1f} s")
     # launches on each kernel's main path: K1 on the default pair run,
     # K2 and TB on the mate-pair run
     kernels[0]["launches"] = e2e["launches"]["K1"]
     kernels[1]["launches"] = mate["launches"]["K2"]
     kernels[2]["launches"] = mate["launches"]["TB"]
+    kernels[2]["fetch_share"] = kernels[2]["fetch_ms"] / kernels[2]["ms"]
     for row, label in zip(kernels[3:], FS_ROWS):
         row["launches"] = e2e["launches"][label]
         row["sector_share"] = row["sector_bound_ms"] / row["ms"]
@@ -2532,7 +2741,8 @@ def main(argv=None) -> int:
         json.dump({"card": card, "kernels": kernels, "fm_cases": fs_cases,
                    "repeat_search": repeat, "e2e": e2e,
                    "mate_pair_small": small, "mate_pair": mate,
-                   "single": single, "multi_device": multi}, fh, indent=1)
+                   "single": single, "multi_device": multi,
+                   "wall_s": walls}, fh, indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k != "cases"} for r in kernels]}),
         flush=True)

@@ -19,18 +19,23 @@ import statistics
 import subprocess
 import sys
 
-from chip_smoke import OUT_DIR
+from chip_smoke import OUT_DIR, card_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-RUN = """
+# the start of every run: that checkout's chip_smoke.py, its kernels built
+PREAMBLE = """
 import json, os, sys
 sys.path.insert(0, {tree!r})
+import numpy as np
 import torch
 import chip_smoke as cs
 os.makedirs(cs.OUT_DIR, exist_ok=True)
 cs._build_all()
 dev = torch.device("cuda", 0)
+"""
+
+RUN = """
 res, _ = cs.phase_e2e(dev, {bp}, {pairs}, cs.card_line(), {work!r},
                       cs.OUT_DIR, profile=False)
 keys = ("reads_per_s", "reads_per_s_after_load", "index_upload_s",
@@ -39,9 +44,12 @@ print("RESULT " + json.dumps({{k: res[k] for k in keys}}), flush=True)
 """
 
 
-def run_one(tree: str, work: str, bp: int, pairs: int) -> dict:
-    code = RUN.format(tree=os.path.abspath(tree), bp=bp, pairs=pairs,
-                      work=work)
+def run_in_tree(tree: str, body: str, **fields) -> dict:
+    """Run PREAMBLE and then ``body``, both formatted with ``fields`` and
+    ``tree``, in a fresh process in the checkout ``tree``. Returns the
+    object of the last line it prints that starts with RESULT; exits if
+    the run fails."""
+    code = (PREAMBLE + body).format(tree=os.path.abspath(tree), **fields)
     p = subprocess.run([sys.executable, "-c", code], cwd=tree,
                        capture_output=True, text=True)
     lines = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
@@ -60,16 +68,13 @@ def main(argv=None) -> int:
     ap.add_argument("--pairs", type=int, default=100_000)
     args = ap.parse_args(argv)
     work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "compare_e2e")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     runs = []
     for r in range(args.rounds):
         for side in ("parent", "change", "change", "parent"):
-            res = run_one(getattr(args, side), work, args.genome_bp,
-                          args.pairs)
+            res = run_in_tree(getattr(args, side), RUN, work=work,
+                              bp=args.genome_bp, pairs=args.pairs)
             runs.append({"round": r, "side": side, **res})
             print(json.dumps(runs[-1]), flush=True)
     summary = {"card": card}

@@ -98,7 +98,7 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
 
     int32_t* o_ops = ops + p * (long long)MR;
     int32_t* o_cnt = cnts + p * (long long)MR;
-    int ridx = 0, of = 0, startj = 0, clipv = 0, ins_tail = 0;
+    int ridx = 0, of = 0;
     auto put = [&](int op, int cnt) {
       if (ridx < MR) {
         o_ops[ridx] = op;
@@ -108,81 +108,33 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
       }
       ++ridx;
     };
+    TbWalk w{b.bI, b.bJ, 0, 0, 0, 0, -1, 0};
     if (b.bS >= pb.cutoff) {  // the same on every lane
       const int rclip = max(pb.rlen - b.bI, 0);
       if (lane == 0 && rclip > 0) put(OP_CLIP, rclip);
-      int i = b.bI, j = b.bJ, state = 0, done = 0, cur_op = -1,
-          cur_cnt = 0;
-      while (!done && i > 0 && j > 0) {  // uniform: lane 0's walk state
+      while (!w.done && w.i > 0 && w.j > 0) {  // uniform: lane 0's walk
         // rows dtop-1 .. dtop-32, bytes a0 .. a0+35 of each
-        const int dtop = i + j;
-        const int a0 = max(0, i - 31) & ~3;
+        const int dtop = w.i + w.j;
+        const int a0 = max(0, w.i - 31) & ~3;
         const int row = dtop - 1 - lane;
         if (row >= 0) {
 #pragma unroll
-          for (int w = 0; w < TB_WORDS; ++w)
-            if (a0 + 4 * w < ROW)
-              my_tile[lane][w] = scr_w[((long long)row * ROW + a0) / 4 + w];
+          for (int q = 0; q < TB_WORDS; ++q)
+            if (a0 + 4 * q < ROW)
+              my_tile[lane][q] = scr_w[((long long)row * ROW + a0) / 4 + q];
         }
         __syncwarp();
         if (lane == 0) {
-          while (!done && i > 0 && j > 0 && i + j > dtop - 32) {
-            const int byte =
-                tb[((dtop - i - j) * TB_WORDS) * 4 + (i - a0)];
-            const int dH = byte & 3, dD = (byte >> 2) & 1,
-                      dI = (byte >> 3) & 3;
-            const int mop = ((byte >> 5) & 1) ? OP_MATCH : OP_MISMATCH;
-            const bool do_diag = state == 0 && dH == DH_DIAG;
-            const bool do_sm = state == 0 && dH == DH_SM;
-            const bool do_d = state == 1 || (state == 0 && dH == DH_D);
-            const bool do_i = state == 2 || (state == 0 && dH == DH_I);
-            const bool i_fresh = do_i && dI == DI_FRESH;
-            const int op =
-                (do_diag || do_sm) ? mop : (do_d ? OP_DEL : OP_INS);
-            const int ni = (do_diag || (do_i && !i_fresh)) ? i - 1 : i;
-            const int nj = (do_diag || do_sm || do_d) ? j - 1 : j;
-            const int nstate =
-                do_d ? (dD == DD_OPEN ? 0 : 1)
-                     : ((do_i && !i_fresh) ? (dI == DI_OPEN ? 0 : 2) : 0);
-            if (do_sm || i_fresh) {
-              clipv = i - 1;
-              startj = do_sm ? j - 1 : j;
-              done = 1;
-            }
-            if (op == cur_op) {
-              ++cur_cnt;
-            } else {
-              if (cur_cnt > 0) put(cur_op, cur_cnt);
-              cur_op = op;
-              cur_cnt = 1;
-            }
-            i = ni;
-            j = nj;
-            state = nstate;
-          }
+          while (!w.done && w.i > 0 && w.j > 0 && w.i + w.j > dtop - 32)
+            tb_move(tb[((dtop - w.i - w.j) * TB_WORDS) * 4 + (w.i - a0)], w,
+                    put);
         }
         __syncwarp();  // lane 0 is done with the tile before its refill
-        i = __shfl_sync(FULL, i, 0);
-        j = __shfl_sync(FULL, j, 0);
-        done = __shfl_sync(FULL, done, 0);
+        w.i = __shfl_sync(FULL, w.i, 0);
+        w.j = __shfl_sync(FULL, w.j, 0);
+        w.done = __shfl_sync(FULL, w.done, 0);
       }
-      if (lane == 0) {
-        if (!done && j == 0 && i > 0) {  // walked off the window start
-          const int scl = min(pb.clip_l, i);
-          ins_tail = i - scl;
-          clipv = scl;
-          startj = 0;
-        } else if (!done && i == 0) {    // walked off the read start
-          startj = j;
-        }
-        if (cur_cnt > 0 && ins_tail > 0 && cur_op == OP_INS) {
-          cur_cnt += ins_tail;
-          ins_tail = 0;
-        }
-        if (cur_cnt > 0) put(cur_op, cur_cnt);
-        if (ins_tail > 0) put(OP_INS, ins_tail);
-        if (clipv > 0) put(OP_CLIP, clipv);
-      }
+      if (lane == 0) tb_close(w, pb.clip_l, put);
     }
     if (lane == 0) {
       int32_t* st = stats + p * 8;
@@ -190,7 +142,7 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
       st[1] = b.bI;
       st[2] = b.bJ;
       st[3] = b.bC;
-      st[4] = startj;
+      st[4] = w.startj;
       st[5] = min(ridx, MR);
       st[6] = of;
       st[7] = 0;

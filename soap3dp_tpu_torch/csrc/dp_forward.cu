@@ -27,20 +27,34 @@
 // soap3dp_dp_traceback replaces the XLA program `_traceback_scan`
 // (soap3dp_tpu/kernels/banded_dp.py:409-475) and the host run-length
 // encoding `_rle_runs` (:553) that follows it in `dp_traceback` (:490).
-//   Bound by scattered one-byte reads: each move reads one direction
-//   byte from a different diagonal, ND x P x (Lr+1) bytes apart from
-//   nothing else it needs. Design: one thread per problem walks from
-//   (hit_i, hit_j) directly instead of sweeping all ND diagonals, so it
-//   reads only the ~Lr cells of its path (the reference's sweep reads
-//   ND x P x (Lr+1) bytes whatever the path); the 32 walks of a warp
-//   overlap their load latencies. It applies the state machine of the
-//   reference's sweep (N / D-chain / I-chain, the fresh-I and soft-clip
-//   exits), the boundary exits (the j == 0 insert tail, the i == 0
-//   start), and emits the runs right to left with the same bracketing:
-//   right clip, ops, insert tail (merged into a trailing insert run),
-//   left clip. Counts come out unpacked.
+//   What bounds it: latency, not bytes. Each move reads one direction
+//   byte of another diagonal, P x (Lr+1) bytes from the last (247 KB at
+//   the mate-pair shape; the 1.08 GB of dirs is far larger than the 50
+//   MB L2), and the next move depends on it; the bytes the paths need
+//   (~100 a problem) are nothing to the memory rate. Design: one warp
+//   per problem walks from (hit_i, hit_j) directly instead of sweeping
+//   all ND diagonals (the reference's sweep reads every byte), from
+//   windows in shared memory, as K1 does: each move lowers i + j by 1 or
+//   2 and i by at most 1, so the cells of the next 32 diagonals lie at
+//   and below the current i; lane k fetches diagonal dtop - k, only the
+//   cells i - k .. i it can hold on the path (one to nine aligned words,
+//   all in flight: the rows of this layout start at any byte), funnel-
+//   shifted so the row's first cell is the tile row's byte 0, and lane 0
+//   walks them with the state machine K1 shares (dp_wavefront.cuh
+//   tb_move, tb_close), one shared load a move: one device round trip
+//   per 32 diagonals instead of one per move. The grid is the warps
+//   resident at once, so every problem of the mate-pair shape (2048)
+//   starts at once on every SM. What is left is lane 0's serial walk of
+//   ~100 moves: windows of 64 diagonals (half the round trips, twice the
+//   loads a lane) measured slower. It emits the runs right to left with
+//   the reference's bracketing (right clip, ops, insert tail merged into
+//   a trailing insert run, left clip), counts unpacked, and zeroes each
+//   row past its runs itself.
 //
 // Plain C interface for ctypes; each launcher returns cudaGetLastError().
+
+#include <algorithm>
+#include <atomic>
 
 #include "dp_wavefront.cuh"
 
@@ -48,7 +62,8 @@ namespace {
 
 using namespace soap3dp;
 
-constexpr int TB_THREADS = 128;
+constexpr int TB_WARPS = 4;   // warps a block of the traceback
+constexpr int TB_STRIDE = 9;  // words a tile row: 32 cells, odd for the banks
 
 template <int C>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
@@ -96,92 +111,118 @@ dp_forward_kernel(const uint8_t* __restrict__ reads,
 }
 
 // tbp: (P, 4) int32 rows (rlen, hit_i, hit_j, clip_l); active: (P,)
-// uint8. Thread t walks problem lanes[t] (t itself when lanes is null)
-// and writes row t of ops / cnts (MR wide, zero-filled by the caller)
-// and meta (nrun, startj, overflow, 0).
-__global__ void __launch_bounds__(TB_THREADS)
+// uint8. Warp t walks problem lanes[t] (t itself when lanes is null),
+// grid-stride, and writes row t of ops / cnts (MR wide, zero past its
+// runs) and meta (nrun, startj, overflow, 0).
+__global__ void __launch_bounds__(32 * TB_WARPS)
 dp_traceback_kernel(const uint8_t* __restrict__ dirs, int P, int Lr1, int ND,
                     const int32_t* __restrict__ tbp,
                     const uint8_t* __restrict__ active,
                     const int32_t* __restrict__ lanes, int n, int MR,
                     int32_t* __restrict__ ops, int32_t* __restrict__ cnts,
                     int32_t* __restrict__ meta) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const long long p = lanes != nullptr ? lanes[t] : t;
+  // the warp's window: tile row k holds diagonal dtop - 1 - k from its
+  // cell max(0, itop - k) on, in byte 0 of word 0 (dtop, itop: the walk's
+  // i + j and i where the window opened)
+  __shared__ uint32_t tile[TB_WARPS][32][TB_STRIDE];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
   const long long diag_stride = (long long)P * Lr1;
-  const uint8_t* dp = dirs + p * Lr1;
-  int32_t* o_ops = ops + t * MR;
-  int32_t* o_cnt = cnts + t * MR;
-  int ridx = 0, of = 0, startj = 0, clipv = 0, ins_tail = 0;
-  auto put = [&](int op, int cnt) {
-    if (ridx < MR) {
-      o_ops[ridx] = op;
-      o_cnt[ridx] = cnt;
-    } else {
-      of = 1;
-    }
-    ++ridx;
-  };
-  if (active[p]) {
-    const int rlen = tbp[p * 4 + 0], clip_l = tbp[p * 4 + 3];
-    int i = tbp[p * 4 + 1], j = tbp[p * 4 + 2];
-    const int rclip = rlen - i;
-    if (rclip > 0) put(OP_CLIP, rclip);
-    int state = 0, done = 0, cur_op = -1, cur_cnt = 0;
-    // a cell off the table (i + j > ND or i > Lr) is never on a path
-    while (!done && i > 0 && j > 0 && i + j <= ND && i < Lr1) {
-      const int byte = dp[(long long)(i + j - 1) * diag_stride + i];
-      const int dH = byte & 3, dD = (byte >> 2) & 1, dI = (byte >> 3) & 3;
-      const int mop = ((byte >> 5) & 1) ? OP_MATCH : OP_MISMATCH;
-      const bool do_diag = state == 0 && dH == DH_DIAG;
-      const bool do_sm = state == 0 && dH == DH_SM;
-      const bool do_d = state == 1 || (state == 0 && dH == DH_D);
-      const bool do_i = state == 2 || (state == 0 && dH == DH_I);
-      const bool i_fresh = do_i && dI == DI_FRESH;
-      const int op = (do_diag || do_sm) ? mop : (do_d ? OP_DEL : OP_INS);
-      const int ni = (do_diag || (do_i && !i_fresh)) ? i - 1 : i;
-      const int nj = (do_diag || do_sm || do_d) ? j - 1 : j;
-      const int nstate =
-          do_d ? (dD == DD_OPEN ? 0 : 1)
-               : ((do_i && !i_fresh) ? (dI == DI_OPEN ? 0 : 2) : 0);
-      if (do_sm || i_fresh) {
-        clipv = i - 1;
-        startj = do_sm ? j - 1 : j;
-        done = 1;
-      }
-      if (op == cur_op) {
-        ++cur_cnt;
+  const uint8_t* tb = reinterpret_cast<const uint8_t*>(&tile[wib][0][0]);
+
+  for (long long t = warp; t < n; t += nwarps) {
+    const long long p = lanes != nullptr ? lanes[t] : t;
+    int32_t* o_ops = ops + t * MR;
+    int32_t* o_cnt = cnts + t * MR;
+    int ridx = 0, of = 0;
+    auto put = [&](int op, int cnt) {  // lane 0 only
+      if (ridx < MR) {
+        o_ops[ridx] = op;
+        o_cnt[ridx] = cnt;
       } else {
-        if (cur_cnt > 0) put(cur_op, cur_cnt);
-        cur_op = op;
-        cur_cnt = 1;
+        of = 1;
       }
-      i = ni;
-      j = nj;
-      state = nstate;
+      ++ridx;
+    };
+    TbWalk w{tbp[p * 4 + 1], tbp[p * 4 + 2], 0, 0, 0, 0, -1, 0};
+    if (active[p]) {  // the same on every lane
+      const int rclip = tbp[p * 4 + 0] - w.i;
+      if (lane == 0 && rclip > 0) put(OP_CLIP, rclip);
+      // a cell off the table (i + j > ND or i > Lr) is never on a path;
+      // i + j and i only fall, so the window loop checks it
+      while (!w.done && w.i > 0 && w.j > 0 && w.i + w.j <= ND &&
+             w.i < Lr1) {
+        // after k diagonals the walk's i is in [itop - k, itop]: lane k
+        // fetches diagonal dtop - k, bytes lo .. itop of its row
+        const int dtop = w.i + w.j, itop = w.i;
+        const int row = dtop - 1 - lane;
+        if (row >= 0) {
+          const int lo = max(0, itop - lane);
+          const uintptr_t a = reinterpret_cast<uintptr_t>(
+              dirs + row * diag_stride + p * Lr1 + lo);
+          // the aligned words from the one holding cell lo to the one
+          // holding cell itop (the last begins inside the row), all loads
+          // in flight, then funnel-shifted to start at cell lo
+          const uint32_t* src =
+              reinterpret_cast<const uint32_t*>(a & ~(uintptr_t)3);
+          const int nw = (int)(((a + (itop - lo)) >> 2) - (a >> 2)) + 1;
+          const uint32_t sh = 8 * static_cast<uint32_t>(a & 3);
+          uint32_t x[TB_STRIDE];
+#pragma unroll
+          for (int q = 0; q < TB_STRIDE; ++q)
+            x[q] = q < nw ? __ldg(src + q) : 0u;
+#pragma unroll
+          for (int q = 0; q + 1 < TB_STRIDE; ++q)
+            if (4 * q <= itop - lo)
+              tile[wib][lane][q] = __funnelshift_r(x[q], x[q + 1], sh);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          while (!w.done && w.i > 0 && w.j > 0 && w.i + w.j > dtop - 32) {
+            const int k = dtop - w.i - w.j;
+            tb_move(tb[k * 4 * TB_STRIDE + w.i - max(0, itop - k)], w, put);
+          }
+        }
+        __syncwarp();  // lane 0 is done with the tile before its refill
+        w.i = __shfl_sync(FULL, w.i, 0);
+        w.j = __shfl_sync(FULL, w.j, 0);
+        w.done = __shfl_sync(FULL, w.done, 0);
+      }
+      if (lane == 0) tb_close(w, tbp[p * 4 + 3], put);
     }
-    if (!done && j == 0 && i > 0) {  // walked off the window start
-      const int scl = min(clip_l, i);
-      ins_tail = i - scl;
-      clipv = scl;
-      startj = 0;
-    } else if (!done && i == 0) {    // walked off the read start
-      startj = j;
+    const int nrun = min(__shfl_sync(FULL, ridx, 0), MR);
+    for (int c = nrun + lane; c < MR; c += 32) {
+      o_ops[c] = 0;
+      o_cnt[c] = 0;
     }
-    if (cur_cnt > 0 && ins_tail > 0 && cur_op == OP_INS) {
-      cur_cnt += ins_tail;
-      ins_tail = 0;
+    if (lane == 0) {
+      int32_t* m = meta + t * 4;
+      m[0] = nrun;
+      m[1] = w.startj;
+      m[2] = of;
+      m[3] = 0;
     }
-    if (cur_cnt > 0) put(cur_op, cur_cnt);
-    if (ins_tail > 0) put(OP_INS, ins_tail);
-    if (clipv > 0) put(OP_CLIP, clipv);
   }
-  int32_t* m = meta + t * 4;
-  m[0] = min(ridx, MR);
-  m[1] = startj;
-  m[2] = of;
-  m[3] = 0;
+}
+
+// blocks of the traceback's grid: the blocks resident on the current card
+// at once (the occupancy API, asked once per card), at most one warp a
+// problem
+int traceback_blocks(int n) {
+  static std::atomic<int> resident[64];  // per card; 0: not asked yet
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::atomic<int>& blocks = resident[dev % 64];
+  if (blocks.load() == 0) {
+    int per_sm = 0, sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dp_traceback_kernel, 32 * TB_WARPS, 0);
+    blocks.store(std::max(1, per_sm * sms));
+  }
+  return std::min(blocks.load(), (n + TB_WARPS - 1) / TB_WARPS);
 }
 
 }  // namespace
@@ -234,8 +275,8 @@ extern "C" int soap3dp_dp_traceback(const void* dirs, int P, int Lr1, int ND,
                                     void* ops, void* cnts, void* meta,
                                     void* stream) {
   if (n <= 0) return 0;
-  const dim3 grid((n + TB_THREADS - 1) / TB_THREADS), block(TB_THREADS);
-  dp_traceback_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  dp_traceback_kernel<<<traceback_blocks(n), 32 * TB_WARPS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(dirs), P, Lr1, ND,
       static_cast<const int32_t*>(tbp), static_cast<const uint8_t*>(active),
       static_cast<const int32_t*>(lanes), n, MR, static_cast<int32_t*>(ops),

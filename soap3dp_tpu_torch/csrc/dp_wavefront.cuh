@@ -38,6 +38,8 @@
 //   * each diagonal's direction bytes (bits 0-1 H, 2 D, 3-4 I, 5 match)
 //     are handed to the caller's sink as C/4 32-bit words per lane,
 //     cell i = l*C + c in byte c & 3 of word c >> 2.
+// Also the traceback's state machine, one move at a time (tb_move) and
+// the runs that close a walk (tb_close), which K1 and TB share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -522,6 +524,72 @@ __device__ __forceinline__ Best wavefront16(const uint8_t* __restrict__ rd,
   run(F{}, F{}, mid_end);
   run(F{}, T{}, ND);
   return Best{bS, bI, bJ, bC};
+}
+
+// The traceback's walk (K1's and TB's): the cell (i, j), the gap chain
+// it is in (state 0 none, 1 deletion, 2 insertion), whether it stopped
+// itself (a soft-clip or fresh-insert exit) with the left clip and start
+// it found, and the run being counted.
+struct TbWalk {
+  int i, j, state, done, clipv, startj, cur_op, cur_cnt;
+};
+
+// One move of the reference's traceback sweep (`_traceback_scan`,
+// soap3dp_tpu/kernels/banded_dp.py:409) from cell (w.i, w.j), whose
+// direction byte is `byte`; a finished run goes to put(op, count).
+template <typename Put>
+__device__ __forceinline__ void tb_move(int byte, TbWalk& w, Put& put) {
+  const int dH = byte & 3, dD = (byte >> 2) & 1, dI = (byte >> 3) & 3;
+  const int mop = ((byte >> 5) & 1) ? OP_MATCH : OP_MISMATCH;
+  const bool do_diag = w.state == 0 && dH == DH_DIAG;
+  const bool do_sm = w.state == 0 && dH == DH_SM;
+  const bool do_d = w.state == 1 || (w.state == 0 && dH == DH_D);
+  const bool do_i = w.state == 2 || (w.state == 0 && dH == DH_I);
+  const bool i_fresh = do_i && dI == DI_FRESH;
+  const int op = (do_diag || do_sm) ? mop : (do_d ? OP_DEL : OP_INS);
+  const int ni = (do_diag || (do_i && !i_fresh)) ? w.i - 1 : w.i;
+  const int nj = (do_diag || do_sm || do_d) ? w.j - 1 : w.j;
+  const int nstate = do_d ? (dD == DD_OPEN ? 0 : 1)
+                          : ((do_i && !i_fresh) ? (dI == DI_OPEN ? 0 : 2) : 0);
+  if (do_sm || i_fresh) {
+    w.clipv = w.i - 1;
+    w.startj = do_sm ? w.j - 1 : w.j;
+    w.done = 1;
+  }
+  if (op == w.cur_op) {
+    ++w.cur_cnt;
+  } else {
+    if (w.cur_cnt > 0) put(w.cur_op, w.cur_cnt);
+    w.cur_op = op;
+    w.cur_cnt = 1;
+  }
+  w.i = ni;
+  w.j = nj;
+  w.state = nstate;
+}
+
+// The end of a walk: the exits at the window start (j == 0: an insert
+// tail and the left clip, at most clip_l of it free) and at the read
+// start (i == 0), then the last runs: the current one (an insert tail
+// merged into a trailing insert run), the insert tail, the left clip.
+template <typename Put>
+__device__ __forceinline__ void tb_close(TbWalk& w, int clip_l, Put& put) {
+  int ins_tail = 0;
+  if (!w.done && w.j == 0 && w.i > 0) {  // walked off the window start
+    const int scl = min(clip_l, w.i);
+    ins_tail = w.i - scl;
+    w.clipv = scl;
+    w.startj = 0;
+  } else if (!w.done && w.i == 0) {      // walked off the read start
+    w.startj = w.j;
+  }
+  if (w.cur_cnt > 0 && ins_tail > 0 && w.cur_op == OP_INS) {
+    w.cur_cnt += ins_tail;
+    ins_tail = 0;
+  }
+  if (w.cur_cnt > 0) put(w.cur_op, w.cur_cnt);
+  if (ins_tail > 0) put(OP_INS, ins_tail);
+  if (w.clipv > 0) put(OP_CLIP, w.clipv);
 }
 
 }  // namespace soap3dp

@@ -26,7 +26,18 @@
 // placement leaves the text) directly.
 // FS3, soap3dp_verify, replaces `count_mismatches_packed`
 // (fmindex.py:653): W+1 packed genome words, the funnel shift to the
-// 2-bit grid, XOR with the read words, the length mask, popcount.
+// 2-bit grid, XOR with the read words, the length mask, popcount. What
+// bounds it: the latency of its gathers (the genome words at a random
+// place of the ~60 MB to ~0.8 GB pac, then the read's row), a few
+// hundred bytes a placement. Design: one thread a placement with every
+// load issued at once (the kernel is templated on the words, 8 or 16,
+// so the loops unroll and masks replace the early exit): the genome
+// window as two or three aligned 16-byte vectors, the read's packed row
+// as whole vectors, and a reverse-complement word made in registers from
+// two of the row's words (a funnel shift, the bases reversed and
+// complemented) where it was 16 loads of single bases; code bytes and
+// other widths keep the word-at-a-time form (verify_kernel_any).
+// Placements of one read share its row in L1, not in registers.
 //
 // What bounds them on this card: random gathers into index tables of
 // about 1 GB (250 Mbp) to 5 GB (3.1 Gbp), each a 32-byte sector from
@@ -200,6 +211,12 @@ __device__ uint32_t read_word(const Reads& s, int64_t row, int j) {
 // the plain version's 64-bit shift by 32 gives 0)
 __device__ __forceinline__ uint32_t first_bases(uint32_t q) {
   return q == 0 ? 0u : LANES >> (32 - 2 * q);
+}
+
+// the bits of the first nb bases of a word (all of them past 16, none
+// at nb <= 0)
+__device__ __forceinline__ uint32_t base_bits(int64_t nb) {
+  return nb <= 0 ? 0u : (nb >= 16 ? 0xFFFFFFFFu : (1u << (2 * nb)) - 1u);
 }
 
 // one bit per base of `word` equal to c
@@ -418,12 +435,40 @@ expand_decode_kernel(const int64_t* __restrict__ lo,
   pos_ok[k] = ok ? 1 : 0;
 }
 
+// count_mismatches_packed of placement i over W words: the genome word
+// j (0 <= j < W) funnel-shifted from gw[j], gw[j + 1] to the 2-bit
+// grid, against read word j, over the first read_len bases
+__device__ __forceinline__ int64_t mismatches(uint32_t glo, uint32_t ghi,
+                                              uint32_t sh, uint32_t rw,
+                                              int64_t len, int j) {
+  const int64_t m = clamp64(len - 16 * static_cast<int64_t>(j), 0, 16);
+  const uint32_t x = __funnelshift_r(glo, ghi, sh) ^ rw;
+  const uint32_t bits = (x | (x >> 1)) & LANES;
+  return __popc(bits & first_bases(static_cast<uint32_t>(m)));
+}
+
+// e[y] = e[y + s] (0 past the end), a barrel shift of registers by a
+// runtime s < N, one stage a bit of s
+template <int BIT, int N>
+__device__ __forceinline__ void shift_down(uint32_t (&e)[N], int s) {
+  if constexpr (BIT < N) {
+    const bool on = (s & BIT) != 0;
+#pragma unroll
+    for (int y = 0; y + BIT < N; ++y) e[y] = on ? e[y + BIT] : e[y];
+#pragma unroll
+    for (int y = N - BIT; y < N; ++y) e[y] = on ? 0u : e[y];
+    shift_down<2 * BIT, N>(e, s);
+  }
+}
+
+// FS3 for any W: the words one at a time (the read's base by base for
+// code bytes and for reverse complements longer than L)
 __global__ void __launch_bounds__(THREADS)
-verify_kernel(Reads s, const int64_t* __restrict__ rows,
-              const int64_t* __restrict__ tp,
-              const int64_t* __restrict__ read_len, int64_t M, int W,
-              const int32_t* __restrict__ pac, int64_t n_pac,
-              int64_t* __restrict__ out) {
+verify_kernel_any(Reads s, const int64_t* __restrict__ rows,
+                  const int64_t* __restrict__ tp,
+                  const int64_t* __restrict__ read_len, int64_t M, int W,
+                  const int32_t* __restrict__ pac, int64_t n_pac,
+                  int64_t* __restrict__ out) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
   if (i >= M) return;
@@ -434,16 +479,122 @@ verify_kernel(Reads s, const int64_t* __restrict__ rows,
   const uint32_t sh = 2 * static_cast<uint32_t>(p & 15);
   uint32_t lo = u32_at(pac, clamp64(w0, 0, n_pac - 1));
   int64_t total = 0;
-  for (int j = 0; j < W; ++j) {
-    const int64_t m = clamp64(len - 16 * static_cast<int64_t>(j), 0, 16);
-    if (m == 0) break;  // this word and every later one are masked out
+  for (int j = 0; j < W && len > 16 * static_cast<int64_t>(j); ++j) {
     const uint32_t hi = u32_at(pac, clamp64(w0 + j + 1, 0, n_pac - 1));
-    const uint32_t g = sh == 0 ? lo : (lo >> sh) | (hi << (32 - sh));
-    const uint32_t x = g ^ read_word(s, row, j);
-    const uint32_t bits = (x | (x >> 1)) & LANES;
-    total += __popc(bits & (LANES >> (32 - 2 * static_cast<uint32_t>(m))));
+    total += mismatches(lo, hi, sh, read_word(s, row, j), len, j);
     lo = hi;
   }
+  out[i] = total;
+}
+
+// FS3 for W <= NW and rows of L <= 16 NW bases, every load issued at
+// once. A packed row is one to NW words (two 16-byte loads at L = 120);
+// word j of its reverse complement of n <= L bases holds the complements
+// of forward bases n-16-16j .. n-1-16j in reverse order, the window of
+// words k = n/16 - 1 - j and k + 1 (k = -1: the bases below 0, zero)
+// funnel-shifted by 2 (n % 16), reversed and complemented, its bases
+// past n zero (not 3, the complement of the zero past the read). The
+// genome's W + 1 words come as aligned 16-byte vectors (at most
+// NW/4 + 2 of them) where they lie inside pac, else word by word with
+// the index clamped to the last word.
+template <int NW>
+__global__ void __launch_bounds__(THREADS)
+verify_kernel(Reads s, const int64_t* __restrict__ rows,
+              const int64_t* __restrict__ tp,
+              const int64_t* __restrict__ read_len, int64_t M, int W,
+              const int32_t* __restrict__ pac, int64_t n_pac,
+              int64_t* __restrict__ out) {
+  constexpr int NG = (NW + 7) / 4;  // vectors covering NW + 1 words
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (i >= M) return;
+  const int64_t row = ld64(rows + i);
+  const int64_t p = ld64(tp + i);
+  const int64_t len = ld64(read_len + i);
+
+  // the genome: words w0 .. w0 + NW (only those up to w0 + W are used)
+  const int64_t w0 = p >> 4;
+  uint32_t gw[NW + 1];
+  const int64_t a = w0 & ~3ll;
+  if (w0 >= 0 && a + 4 * NG <= n_pac &&
+      (reinterpret_cast<uintptr_t>(pac) & 15) == 0) {
+    uint32_t v[4 * NG];
+    const uint4* pv = reinterpret_cast<const uint4*>(pac + a);
+#pragma unroll
+    for (int q = 0; q < NG; ++q) {
+      const uint4 x = __ldg(pv + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+    const int o = static_cast<int>(w0 & 3);
+#pragma unroll
+    for (int x = 0; x <= NW; ++x)
+      gw[x] = o == 0 ? v[x]
+                     : (o == 1 ? v[x + 1] : (o == 2 ? v[x + 2] : v[x + 3]));
+  } else {
+#pragma unroll
+    for (int x = 0; x <= NW; ++x)
+      gw[x] = x <= W ? u32_at(pac, clamp64(w0 + x, 0, n_pac - 1)) : 0u;
+  }
+
+  // the read's words
+  uint32_t rw[NW];
+  const bool fwd = row < s.B;
+  const int64_t b = fwd ? row : row - s.B;
+  const int64_t n = fwd ? 0 : ld64(s.rc_len + b);
+  if (s.kind == SRC_PACKED && (fwd || n <= s.L)) {
+    uint32_t sw[NW];  // the stored row's words 0 .. NW-1, zero past W
+    const int32_t* src = static_cast<const int32_t*>(s.data) + b * s.W;
+    if ((s.W & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+#pragma unroll
+      for (int q = 0; q < NW / 4; ++q) {
+        const uint4 x = 4 * q < s.W
+                            ? __ldg(reinterpret_cast<const uint4*>(src) + q)
+                            : make_uint4(0, 0, 0, 0);
+        sw[4 * q] = x.x;
+        sw[4 * q + 1] = x.y;
+        sw[4 * q + 2] = x.z;
+        sw[4 * q + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < NW; ++q) sw[q] = q < s.W ? u32_at(src, q) : 0u;
+    }
+    if (fwd) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int64_t nb = s.L - 16 * j;  // bases of word j inside L
+        rw[j] = sw[j] & base_bits(nb);
+      }
+    } else {
+      // e[y] = ext[NW + 1 - y], ext[x] = word x - 1 (0 at x = 0, NW + 1);
+      // shifted left by NW - n/16: e[t] = ext[n/16 + 1 - t], so word j
+      // is the funnel of e[j + 1] (low) and e[j] (high)
+      uint32_t e[NW + 2];
+#pragma unroll
+      for (int y = 0; y <= NW + 1; ++y)
+        e[y] = (y == 0 || y == NW + 1) ? 0u : sw[NW - y];
+      shift_down<1>(e, NW - static_cast<int>(n >> 4));
+      const uint32_t shr = 2 * static_cast<uint32_t>(n & 15);
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int64_t m = n - 16 * j;  // bases of word j inside n
+        rw[j] = ~reverse_bases(__funnelshift_r(e[j + 1], e[j], shr)) &
+                base_bits(m);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NW; ++j) rw[j] = j < W ? read_word(s, row, j) : 0u;
+  }
+
+  const uint32_t sh = 2 * static_cast<uint32_t>(p & 15);
+  int64_t total = 0;
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+    if (j < W) total += mismatches(gw[j], gw[j + 1], sh, rw[j], len, j);
   out[i] = total;
 }
 
@@ -511,9 +662,17 @@ int soap3dp_verify(const void* reads, int kind, long long B, int L, int Ws,
                    int W, const int32_t* pac, long long n_pac, int64_t* out,
                    void* stream) {
   const Reads s{reads, rc_len, B, kind, L, Ws};
-  verify_kernel<<<blocks_for(M), THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      s, rows, tp, read_len, M, W, pac, n_pac, out);
+  const int need = W > (L + 15) / 16 ? W : (L + 15) / 16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (need <= 8)
+    verify_kernel<8><<<blocks_for(M), THREADS, 0, st>>>(
+        s, rows, tp, read_len, M, W, pac, n_pac, out);
+  else if (need <= 16)
+    verify_kernel<16><<<blocks_for(M), THREADS, 0, st>>>(
+        s, rows, tp, read_len, M, W, pac, n_pac, out);
+  else
+    verify_kernel_any<<<blocks_for(M), THREADS, 0, st>>>(
+        s, rows, tp, read_len, M, W, pac, n_pac, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -241,10 +241,18 @@ def _traceback_scan(dirs, hit_i, hit_j, active):
 def _dp_traceback_plain(dirs, rlens, hit_i, hit_j, clip_l, active):
     """Traceback sweep + host run-length encoding (the plain version of
     dp_traceback)."""
-    ND, P, Lr1 = dirs.shape
     act_t = torch.as_tensor(np.asarray(active), device=dirs.device)
-    opseq, (i, j, done, startj, clip) = _traceback_scan(
-        dirs, hit_i.to(dirs.device), hit_j.to(dirs.device), act_t)
+    walk = _traceback_scan(dirs, hit_i.to(dirs.device),
+                           hit_j.to(dirs.device), act_t)
+    return _walk_runs(walk, rlens, hit_i, clip_l, active)
+
+
+def _walk_runs(walk, rlens, hit_i, clip_l, active):
+    """dp_traceback's outputs from a walk (_traceback_scan's op stream
+    and exit state): the exits at the window and read starts, then the
+    runs, run-length encoded on the host."""
+    opseq, (i, j, done, startj, clip) = walk
+    P = opseq.shape[1]
     i, j, done = i.cpu().numpy(), j.cpu().numpy(), done.cpu().numpy()
     startj, clip = startj.cpu().numpy(), clip.cpu().numpy()
     active = np.asarray(active)
@@ -475,13 +483,14 @@ def _launch_forward(reads, wins, params, dirs, sc: DPScores):
 
 def _launch_traceback(dirs, tbp, active, lanes, n: int, MR: int):
     """One launch of the traceback kernel over ``n`` problems (``lanes``,
-    or all of them when None). Returns device (ops (n, MR), cnts (n, MR),
-    meta (n, 4): nrun, startj, overflow, 0)."""
+    or all of them when None), one warp a problem on at most the warps
+    resident at once. Returns device (ops (n, MR), cnts (n, MR), both
+    zero past each row's runs; meta (n, 4): nrun, startj, overflow, 0)."""
     _, fn = TRACEBACK_KERNEL.function()
     ND, P, Lr1 = dirs.shape
     dev = dirs.device
-    ops = torch.zeros((n, MR), dtype=torch.int32, device=dev)
-    cnts = torch.zeros((n, MR), dtype=torch.int32, device=dev)
+    ops = torch.empty((n, MR), dtype=torch.int32, device=dev)
+    cnts = torch.empty((n, MR), dtype=torch.int32, device=dev)
     meta = torch.empty((n, 4), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(dirs.data_ptr(), P, Lr1, ND, tbp.data_ptr(),

@@ -232,7 +232,8 @@ def test_fs_cases_are_the_edges_they_name(fs_index):
                      "packed_packed", "general_codes", "general_packed",
                      "packed_uniform", "api_backward_search",
                      "api_backward_search_packed", "verify_codes",
-                     "verify_packed", "api_count_mismatches_packed",
+                     "verify_packed", "verify_uniform", "verify_L256",
+                     "verify_L300", "api_count_mismatches_packed",
                      "decode"]
     k = didx.lut_k
     for name, fn, args in cases:
@@ -256,11 +257,53 @@ def test_fs_cases_are_the_edges_they_name(fs_index):
         if label == "FS3":
             tp, n = args[1], didx.n
             assert ((tp % 16) == 0).any() and (tp == n - 1).any()
+            assert (tp >> 4 == n // 16).sum() >= 16    # the last word
             assert w["placements"] == 512 and w["words"] > 0
+        if fn == "count_mismatches_rows":
+            ori, rows = args[2], args[3]
+            rc = ori.rc_len[(rows[rows >= ori.B] - ori.B)]
+            if name.startswith("verify_L"):   # the kernel's other widths
+                assert ori.L == int(name[len("verify_L"):])
+            if name == "verify_uniform":
+                assert (ori.rc_len == ori.L - 10).all()
+            else:   # each edge length's reverse complement is verified
+                for m in chip_smoke.RC_EDGES + (ori.L,):
+                    assert (rc == m).any(), (name, m)
     rows = cases[-1][2][1]
     for r in (0, 16, 31, 32, didx.primary, didx.n):
         assert (rows == r).any()
     assert chip_smoke._fs_diff(torch.ones(3), torch.ones(2))[0] > 0
+
+
+def test_tb_replay_walks_inside_its_windows():
+    """TB's window rule on small copies of phase 2's wide cases, through
+    the plain forward: every cell a walk visits lies in the bytes its
+    warp fetched, and the replay's op stream and exit state are the plain
+    sweep's (so are its runs); it counts the windows and the distinct
+    32-byte sectors they fetch."""
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    cases = chip_smoke.wide_cases(np.random.default_rng(9), small=True)
+    assert [c[0] for c in cases] == ["mate_window", "edge", "tb_relaunch"]
+    for name, prob, sc in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(x)) for x in prob]
+        bS, bI, bJ, _, dirs = bd._dp_forward_scan(*args[:8], sc=sc)
+        act = bS >= args[8]
+        assert act.any(), name
+        want = bd._dp_traceback_plain(dirs, args[1], bI, bJ, args[4],
+                                      act.numpy())
+        windows, sectors = chip_smoke.tb_replay_matches(
+            dirs, args[1], bI, bJ, args[4], act.numpy(), want)
+        ops, state, _, _ = chip_smoke.tb_replay(dirs, bI, bJ, act)
+        want_ops, want_state = bd._traceback_scan(dirs, bI, bJ, act)
+        assert torch.equal(ops, want_ops), name
+        assert all(torch.equal(a, b) for a, b in zip(state, want_state))
+        moves = int((ops != bd.OP_NONE).sum())
+        # a window holds at most TB_WINDOW moves, and a row of it at most
+        # TB_WINDOW cells: three sectors
+        win = chip_smoke.TB_WINDOW
+        assert moves / win <= windows <= moves
+        assert windows <= sectors <= 3 * win * windows, name
 
 
 def test_fs_bounds_count_each_table_element_once(fs_index):
@@ -354,7 +397,7 @@ def test_path_calls_and_kernel_rows(fs_index):
     assert rec.plain_on_card == 0
     rows = [{"case": f"path{i}", "kernel": k, "ms": 1.0, "plain_ms": 2.0,
              "bound_ms": 0.1, "bound_by": "bytes", "sector_bound_ms": 0.5,
-             "max_abs_err": 0, "shape": "8x100x3", key: 8}
+             "max_abs_err": 0, "shape": "8x100x3", "wall_s": 0.5, key: 8}
             for i, (k, key) in enumerate((("FS1", "lanes"), ("FS2", "rows"),
                                           ("FS2x", "slots"),
                                           ("FS3", "placements")))]

@@ -188,14 +188,28 @@ def test_sa_decode_split_over_mesh_matches_reference(base, rate):
         _eq(want, tf.sa_decode(rep, _t(rows.astype(np.int64)), _t(valid)))
 
 
-@pytest.mark.parametrize("source", ["codes", "packed"])
-def test_count_mismatches_rows_plain_matches_reference(pair, base, source):
+# FS3's cases: variable read lengths (the ids "codes" and "packed"), and
+# every reverse complement of n bases at the edges of the kernel's
+# two-word window (one base, either side of one and two words, L), a
+# uniform-length batch of reads shorter than L, and every placement in
+# the genome's last word or the one before it
+_VERIFY_CASES = ["variable", 1, 15, 16, 17, 31, 32, L, "uniform",
+                 "last_word"]
+
+
+@pytest.mark.parametrize("source,case", [
+    pytest.param(src, case, id=src if case == "variable" else f"{src}-{case}")
+    for case in _VERIFY_CASES for src in ("codes", "packed")])
+def test_count_mismatches_rows_plain_matches_reference(pair, base, source,
+                                                      case):
     """Placements of forward and reverse-complement rows at packed-word
     boundaries, in the genome's last words and past its end, and random,
     against count_mismatches_packed over the packed oriented rows."""
     jd, td = pair
     n = td.n
-    reads, lens = _reads(base[0], 9)
+    uniform = 52 if case == "uniform" else (case if isinstance(case, int)
+                                            else 0)
+    reads, lens = _reads(base[0], 9, uniform)
     rng = np.random.default_rng(10)
     M = 2000
     rows = rng.integers(0, 2 * B, M)
@@ -205,13 +219,22 @@ def test_count_mismatches_rows_plain_matches_reference(pair, base, source):
     tp[500:540] = n - olens[500:540]
     tp[540:580] = n - rng.integers(1, 30, 40)
     tp[:6] = [0, 16, 15, n - 16, n - 1, (n // 16) * 16]
-    words = jf.pack_reads(_jax_oriented(reads, lens))
+    if case == "last_word":
+        tp = (n // 16) * 16 + rng.integers(-16, 16, M)
+    rc_uniform = uniform if case == "uniform" else 0
+    words = jf.pack_reads(_jax_oriented(reads, lens, rc_uniform))
     want = jf.count_mismatches_packed(jd, jnp.asarray(tp.astype(np.uint32)),
                                       words[rows], jnp.asarray(olens))
-    got = tf.count_mismatches_rows_plain(td, _t(tp), _ori(reads, lens, source),
-                                         _t(rows), _t(olens))
+    ori = _ori(reads, lens, source, rc_uniform)
+    got = tf.count_mismatches_rows_plain(td, _t(tp), ori, _t(rows),
+                                         _t(olens))
     _eq(want, got)
-    assert (got.numpy() > 2).any()
+    assert (got.numpy() > (0 if 0 < uniform <= 16 else 2)).any()
+    assert (rows >= B).sum() > M // 3     # reverse complements verified
+    if uniform:
+        assert (ori.rc_len == uniform).all() and uniform <= L
+    if case == "last_word":
+        assert (tp >> 4 >= n // 16 - 1).all() and (tp >> 4 == n // 16).any()
 
 
 def test_cpu_tensors_take_the_plain_versions(pair, base):
