@@ -28,20 +28,28 @@ Phases, each printing one line, any failure exits non-zero:
    the top score, long gaps), the same with one score at 16, and scores
    past 15 at the main path's shape, with anchors and at a K2 window
    (the 32-bit form). Then the seed search's kernels, FS1 (backward
-   search), FS2 (SA decode: of ready rows, and with the search's lane
-   expansion, expand_decode) and FS3 (packed verify), every output
+   search), FS2 (SA decode: of ready rows; with the search's lane
+   expansion, expand_decode, "FS2x"; with the DP seeding's,
+   seed_expand_decode, "FS2s"), FS3 (packed verify) and FS4 (the hash
+   dedupe), every output
    element equal to the plain version's, with each kernel's device time,
    its bound and share (bytes and 32-byte sectors of the reference's
    separate occ and BWT tables, and the sectors of the occ blocks the
    kernels read), its time when it read the separate tables (quoted
    from PERF.md) and the plain version's: the
    calls of the main path on phase 4's index (a 65,536-pair batch's
-   search, the index built and cached here, and a deep-DP seeding), each
-   FS1 branch at its edges, FS2 at sa_rate 1, 2 and 8 and with the SA
-   split over a two-replica mesh, the expansion's edges at the search's
-   K (a total of 0, past K and equal to K, one lane holding every slot),
-   the occ blocks' edges (every SA row of small indexes whose last
-   block holds 4, 2 or 3 words), FS3 at its edges, all three on a
+   search, the index built and cached here, and phase 4's largest
+   deep-DP seeding, 107,648 lanes), each FS1 branch at its edges, FS2
+   at sa_rate 1, 2 and 8 and with the SA split over a two-replica mesh,
+   the expansion's edges at the search's K (a total of 0, past K and
+   equal to K, one lane holding every slot), the seeding expansion's
+   (interval widths of 0, 1, 63, 64, 65 and 200, seeds at read offset 0
+   and at the read's end, totals past K, equal to K and 0), the occ
+   blocks' edges (every SA row of small indexes whose last block holds
+   4, 2 or 3 words; seeds that decode below their start), FS3 at its
+   edges, FS4 at its edges (uniq above and equal to K2, no pos_ok, K at
+   the 1,024-slot table with collisions forced so that same-key losers
+   survive, whose count must be above 0, and K of 2^22), FS1-FS3 on a
    synthetic 3.2 Gbp index (rows, bounds and positions past 2^31), and
    a repeat genome's search (rounds 2 and 3) on the card and the CPU
    with equal hits;
@@ -51,13 +59,14 @@ Phases, each printing one line, any failure exits non-zero:
 4. end to end at a real size: a 250 Mbp genome, 100,000 read pairs,
    the port's `pair` CLI with default options (-u 500 -v 300); checks
    records, planted-locus recall, rescue counts and kernel launches (K1
-   and FS1-FS3, and no K2: its windows are narrow; no plain search
-   primitive on the card) with a histogram of the launch shapes (phases
-   5, 6 and 7a likewise), then runs it once more under
-   torch.profiler (device busy share, top device events in the output
-   directory's e2e_profile.txt), and searches its first batch alone
-   under torch.profiler (the search's device items, search_profile.txt;
-   no cummax scan);
+   and the path's FS kernels: FS1, FS2x, FS2s, FS3 and FS4, and no K2:
+   its windows are narrow; no plain search primitive on the card) with
+   a histogram of the launch shapes (phases 5, 6 and 7a likewise), then
+   runs it once more under torch.profiler (device busy share, top device
+   events in the output directory's e2e_profile.txt), and searches its
+   first batch alone under torch.profiler (the search's device items
+   beside PR 7's total, search_profile.txt; no cummax scan and no
+   scatter-min);
 5. mate-pair: a -/+ library of 2-6 kbp inserts aligned with
    -v 2000 -u 6000 and SOAP3DP_HALF_NARROW_PAD=0 (the half rescue over
    the whole insert window, where dp_align takes K2 + TB). First 200
@@ -68,7 +77,8 @@ Phases, each printing one line, any failure exits non-zero:
    same index, checking records, recall and K1 launches (salvage);
 7. several devices and processes, on phase 4's inputs: (a) the runner's
    pair loop on an in-process mesh of max(2, cards) index replicas (two
-   on one card), records and summary equal to phase 4's, K1 launched,
+   on one card), records and summary equal to phase 4's, K1 and the
+   path's FS kernels (FS4 and FS2s among them) launched on each card,
    and dp_align(mesh=) at the mate-pair window equal to one device's,
    K2 and TB launched; (b) two `pair --hosts 2` processes (process i on
    card i % cards), merged records and global summary equal to phase
@@ -77,7 +87,7 @@ Phases, each printing one line, any failure exits non-zero:
    prints "not run: 1 card".
 
 Then one JSON line with the kernels (K1, K2, TB, FS1, FS2, FS2x, FS3,
-each with its device time, its bound on this card, the share of the
+FS4, FS2s, each with its device time, its bound on this card, the share of the
 bound it reaches and the operations peak the bound used: int16x2,
 twice the int32 peak, where the 16-bit forward runs), and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
@@ -443,21 +453,32 @@ def _host_ms(fn, reps: int = 1) -> tuple[object, float]:
     return out, float(np.median(times))
 
 
-def _timed(fn, reps: int, symbol: str) -> tuple[float, float]:
-    """(device ms, call ms) of ``fn()``, one launch of the kernel named
-    ``symbol``: its mean device duration (torch.profiler's device events,
-    _kernel_device_ms; fails where the profiler recorded no such event)
-    and the mean time of a call in a loop of calls (CUDA events, the
-    wrapper's host work included)."""
+# profiles _kernel_device_ms takes before it gives up on the profiler
+PROFILE_TRIES = 5
+
+
+def _timed(fn, reps: int, symbol: str, per_call: int = 1
+           ) -> tuple[float, float, str]:
+    """(device ms, call ms, the device time's timer) of ``fn()``, the
+    launch of ``per_call`` kernels named ``symbol``: their mean device
+    duration (torch.profiler's device events, _kernel_device_ms) and the
+    mean time of a call in a loop of calls (CUDA events, the wrapper's
+    host work included). Where no profile holds such an event, the
+    device time is the call's, and its timer says so."""
     call_ms = _events_ms(fn, reps)
-    ms = _kernel_device_ms(fn, reps, symbol)
-    if not ms > 0:
-        fail(f"torch.profiler recorded no {symbol} event in three profiles")
-    return ms, call_ms
+    ms = _kernel_device_ms(fn, reps, symbol, per_call)
+    if ms > 0:
+        return ms, call_ms, "torch.profiler"
+    phase("timer", f"torch.profiler recorded no {symbol} event in "
+                   f"{PROFILE_TRIES} profiles: its time is the CUDA-event "
+                   "time of a call, the host's work included")
+    return call_ms, call_ms, "CUDA events"
 
 
-def _k1_ms(bd, args, reps: int = 10, sc=None) -> tuple[float, float]:
-    """(device ms, call ms) of one K1 launch (no host copies), _timed."""
+def _k1_ms(bd, args, reps: int = 10, sc=None
+           ) -> tuple[float, float, str]:
+    """(device ms, call ms, timer) of one K1 launch (no host copies),
+    _timed."""
     reads, rlens, wins, wlens, cl, cr, al, ar, cut = args
     params = bd._params(rlens, wlens, cl, cr, al, ar, cut)
     mr = max(bd.MAX_RUNS, bd._max_runs_bound(reads.shape[1]))
@@ -506,7 +527,7 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
         ok, err = _dp_equal(got, want)
         npass = int((np.asarray(want[6]) > 0).sum())
         P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
-        kms, kcall = _k1_ms(bd, args)
+        kms, kcall, ktimer = _k1_ms(bd, args)
         mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
         peak, pname = forward_peak(Lr, bd.DPScores(), peak_ops)
         bms, by = k1_bound(prob, mr, peak)
@@ -514,7 +535,7 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
               f"{name}: P={P} Lr={Lr} Lw={Lw} equal={ok} max_abs_err={err} "
               f"passing_lanes={npass} launches={n_launch} "
               f"first_ms={first_ms:.3f} dp_align_ms={ms:.3f} "
-              f"kernel_ms={kms:.4f} (torch.profiler) call_ms={kcall:.4f} "
+              f"kernel_ms={kms:.4f} ({ktimer}) call_ms={kcall:.4f} "
               f"GCUPS={dp_cells(prob) / (kms * 1e6):.1f} "
               f"bound_ms={bms:.4f} ({by}, {pname} peak) "
               f"share={bms / kms:.1%} plain_ms={plain_ms:.3f}")
@@ -525,6 +546,7 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
         max_err = max(max_err, err)
         rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
                      "dp_align_ms": ms, "kernel_ms": kms, "call_ms": kcall,
+                     "timer": ktimer,
                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                      "peak": pname})
         if name == "Lr100_Lw768":
@@ -533,7 +555,7 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
             params = bd._params(args[1], args[3], *args[4:8])
             dirs = torch.empty((Lr + Lw, P, Lr + 1), dtype=torch.uint8,
                                device=dev)
-            k2_ms, _ = _timed(lambda: bd._launch_forward(
+            k2_ms, _, _ = _timed(lambda: bd._launch_forward(
                 args[0], args[2], params, dirs, bd.DPScores()), 10,
                 "dp_forward_kernel")
             del dirs
@@ -549,7 +571,8 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
              "source": "soap3dp_tpu_torch/csrc/banded_dp.cu",
              "replaces": "soap3dp_tpu/kernels/banded_dp.py:606",
              "launches": 0, "max_abs_err": max_err,
-             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+             "ms": main["kernel_ms"], "timer": main["timer"],
+             "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
              "peak": main["peak"], "library_ms": None,
              "call_ms": main["call_ms"], "cases": rows}]
@@ -747,13 +770,13 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         replay_s = time.perf_counter() - t0
         # kernel times on the whole problem set
         params = bd._params(args[1], args[3], *args[4:8])
-        fwd_ms, fwd_call = _timed(lambda: bd._launch_forward(
+        fwd_ms, fwd_call, fwd_timer = _timed(lambda: bd._launch_forward(
             args[0], args[2], params, fwd[4], sc), 3, "dp_forward_kernel")
         tbq = torch.stack([args[1], fwd[1], fwd[2], args[4]], 1).to(
             torch.int32).contiguous()
         actd = act_t.to(torch.uint8).contiguous()
         mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
-        tb_ms, tb_call = _timed(lambda: bd._launch_traceback(
+        tb_ms, tb_call, tb_timer = _timed(lambda: bd._launch_traceback(
             fwd[4], tbq, actd, None, P, mr), 10, "dp_traceback_kernel")
         del fwd
         # dp_align's wide route against the plain dp_align and K1
@@ -764,7 +787,7 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         _, call_ms = _host_ms(lambda: bd.dp_align(*args, sc=sc), 3)
         want, plain_ms = _host_ms(lambda: bd.dp_align_plain(*args, sc=sc))
         k1, k1_ms = _host_ms(lambda: bd.dp_align_cuda(*args, sc=sc), 3)
-        k1_kernel_ms, _ = _k1_ms(bd, args, 3, sc)
+        k1_kernel_ms, _, _ = _k1_ms(bd, args, 3, sc)
         ok_plain, e1 = _dp_equal(got, want)
         ok_k1, e2 = _dp_equal(got, k1)
         npass = int((np.asarray(want[6]) > 0).sum())
@@ -779,8 +802,9 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
               f"dirs bytes differing={ndiff} tb max_abs_err={tb_err} "
               f"dp_align==plain {ok_plain} dp_align==K1 {ok_k1} "
               f"passing_lanes={npass} launches fwd={n_f} tb={n_t} "
-              f"dp_align_ms={call_ms:.3f} kernel_ms (torch.profiler) "
-              f"fwd={fwd_ms:.4f} tb={tb_ms:.4f} call_ms fwd={fwd_call:.4f} "
+              f"dp_align_ms={call_ms:.3f} kernel_ms (fwd {fwd_timer}, tb "
+              f"{tb_timer}) fwd={fwd_ms:.4f} tb={tb_ms:.4f} "
+              f"call_ms fwd={fwd_call:.4f} "
               f"tb={tb_call:.4f} GCUPS={dp_cells(prob) / (fwd_ms * 1e6):.1f} "
               f"bound_ms fwd={f_bms:.4f} ({f_by}, {f_pname} peak, share "
               f"{f_bms / fwd_ms:.1%}) "
@@ -803,6 +827,7 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
                      "dp_align_ms": call_ms, "fwd_ms": fwd_ms,
                      "fwd_call_ms": fwd_call, "tb_ms": tb_ms,
+                     "fwd_timer": fwd_timer, "tb_timer": tb_timer,
                      "tb_call_ms": tb_call, "plain_ms": plain_ms,
                      "plain_fwd_ms": plain_fwd_ms,
                      "plain_tb_ms": plain_tb_ms, "k1_dp_align_ms": k1_ms,
@@ -818,12 +843,14 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
     return [dict(common, name="dp_forward",
                  replaces="soap3dp_tpu/kernels/banded_dp.py:238",
                  ms=main["fwd_ms"], call_ms=main["fwd_call_ms"],
+                 timer=main["fwd_timer"],
                  plain_ms=main["plain_fwd_ms"],
                  bound_ms=main["fwd_bound_ms"], bound_by=main["fwd_bound_by"],
                  peak=main["fwd_peak"], cases=rows),
             dict(common, name="dp_traceback",
                  replaces="soap3dp_tpu/kernels/banded_dp.py:409",
                  ms=main["tb_ms"], call_ms=main["tb_call_ms"],
+                 timer=main["tb_timer"],
                  plain_ms=main["plain_tb_ms"],
                  bound_ms=main["tb_bound_ms"], bound_by=main["tb_bound_by"],
                  peak="int32", fetch_ms=main["tb_fetch_ms"],
@@ -832,18 +859,29 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
 
 # ------------------------------------------------------------------
 # Phase 2, the seed search's kernels: FS1 backward search, FS2 SA
-# decode, FS3 packed verify (kernels/fm_search.py, csrc/fm_search.cu)
+# decode (with the search's and the DP seeding's lane expansions), FS3
+# packed verify, FS4 hash dedupe (kernels/fm_search.py,
+# csrc/fm_search.cu)
 # ------------------------------------------------------------------
 
-# The fmindex entry points of the three kernels. Each takes a CUDA
-# tensor to its kernel; the same name with "_plain" is its plain
-# version, which a case runs on the same inputs.
-# FS2 has two entries: sa_decode of ready rows ("FS2") and the search's
-# expand_decode, which expands the lanes into slots first ("FS2x").
+# The fmindex entry points of the kernels. Each takes a CUDA tensor to
+# its kernel; its plain version (plain_of) runs a case's same inputs.
+# FS2 has three entries: sa_decode of ready rows ("FS2"), the search's
+# expand_decode, which expands the lanes into slots first ("FS2x"), and
+# the DP seeding's seed_expand_decode ("FS2s"); FS4 is the search's hash
+# dedupe.
 FS_FUNCTIONS = {"seed_intervals": "FS1", "backward_search": "FS1",
                 "backward_search_packed": "FS1", "sa_decode": "FS2",
-                "expand_decode": "FS2x", "count_mismatches_rows": "FS3",
-                "count_mismatches_packed": "FS3"}
+                "expand_decode": "FS2x", "seed_expand_decode": "FS2s",
+                "count_mismatches_rows": "FS3",
+                "count_mismatches_packed": "FS3", "dedupe": "FS4"}
+# an entry's plain version, where it is not the entry's name + "_plain"
+FS_PLAIN = {"seed_expand_decode": "seed_expand_plain"}
+
+
+def plain_of(fn: str) -> str:
+    """The name in fmindex of the plain version of entry ``fn``."""
+    return FS_PLAIN.get(fn, fn + "_plain")
 # integer operations, as the plain versions write them: one FM step
 # (both bounds: the sentinel skip, word and occ indices, the match
 # mask of 5, the lane mask, popcount, two adds: 18 each), a lane's
@@ -854,6 +892,9 @@ FS_FUNCTIONS = {"seed_intervals": "FS1", "backward_search": "FS1",
 OPS_FM_STEP, OPS_FM_LANE = 36, 64
 OPS_SA_PROBE, OPS_SA_LF = 10, 22
 OPS_VERIFY_WORD = 14
+# a dedupe slot: the hash twice (3 products, xor, shift), the atomic,
+# the winner's two compares, the ballot and its popcounts
+OPS_DEDUPE_SLOT = 16
 SECTOR = 32  # bytes the card moves for one scattered load
 # the kernels' times at round 1 before their redesign, quoted from
 # PERF.md section 6 in the summary lines only: FS1 and FS2 when they read
@@ -861,6 +902,10 @@ SECTOR = 32  # bytes the card moves for one scattered load
 # plain-torch compaction of about 0.66 ms a launch, which FS2x now
 # does), FS3 when it read a reverse complement base by base
 BEFORE_REDESIGN_MS = {"FS1": 0.127, "FS2": 0.035, "FS3": 0.055}
+# the search's scatter-min before FS4 (PR 7's run, PERF.md section 5)
+SCATTER_MIN_BEFORE_MS = 0.219
+# the search's device items of phase 4's first batch before FS4 (PR 7)
+SEARCH_DEVICE_BEFORE_MS = 0.681
 
 
 def sample_reads(rng, codes: np.ndarray, B: int, L: int, lens=None,
@@ -1009,6 +1054,116 @@ def expansion_cases(rng, didx, dev, RS: int, S: int, K: int,
     return cases
 
 
+# the DP seeding's interval widths at the edges of its 64 slots a lane
+SEED_WIDTHS = (0, 1, 63, 64, 65, 200)
+SEED_EDGES = ("widths", "total_gt_K", "total_eq_K", "total_0")
+
+
+def seed_expand_cases(rng, didx, dev, RS: int, S: int, name: str = "seed",
+                      edges=SEED_EDGES, occ_cap: int = 64, read_end: int = 74
+                      ) -> list[tuple[str, str, tuple]]:
+    """FS2's seed_expand_decode at the edges of the DP seeding's
+    expansion, RS lanes (RS / S rows of S seeds): interval widths of
+    SEED_WIDTHS (min(width, occ_cap) slots each) anywhere in the SA,
+    seeds at read offset 0, at the read's end (``read_end``: a 26-base
+    seed of a 100-base read) and between; K past the total ("widths"),
+    below it, equal to it, and a total of 0."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    n = didx.n
+    width = rng.choice(SEED_WIDTHS, RS)
+    sp = rng.choice([0, read_end, -1], RS)
+    sp = np.where(sp < 0, rng.integers(1, read_end, RS), sp)
+    l = rng.integers(0, n + 1 - width)
+    cases = []
+    for edge in edges:
+        cnt = np.minimum(width, occ_cap) * (edge != "total_0")
+        total = int(cnt.sum())
+        K = {"widths": total + total // 4 + 1, "total_gt_K": 3 * total // 4,
+             "total_eq_K": total, "total_0": 1024}[edge]
+        cases.append((f"{name}_{edge}", "seed_expand_decode",
+                      (didx, t(l), t(np.cumsum(cnt)), t(sp), S, K)))
+    return cases
+
+
+def _slot_of(krow: np.ndarray, ktp: np.ndarray, hb: int) -> np.ndarray:
+    """The dedupe's table slot of each key (fmindex.dedupe_plain)."""
+    m = np.uint64(0xFFFFFFFF)
+    h = (((krow.astype(np.uint64) * np.uint64(0x9E3779B1)) & m)
+         ^ ((ktp.astype(np.uint64) * np.uint64(0x85EBCA77)) & m))
+    return ((h * np.uint64(0xC2B2AE3D)) & m) >> np.uint64(32 - hb)
+
+
+def dedupe_keys(rng, K: int, distinct: int, ok_share: float = 0.9):
+    """K placement keys as FS2x writes them: (row, tp) drawn from
+    ``distinct`` keys (so most recur), pos_ok for ``ok_share`` of the
+    slots, the sentinel elsewhere."""
+    rows = rng.integers(0, 1 << 20, distinct)
+    tps = rng.integers(0, 1 << 32, distinct)
+    pick = rng.integers(0, distinct, K)
+    ok = rng.random(K) < ok_share
+    sentinel = 0xFFFFFFFF
+    return (np.where(ok, rows[pick], sentinel),
+            np.where(ok, tps[pick], sentinel), ok)
+
+
+def collision_keys(rng, K: int = 512, groups: int = 40):
+    """K keys (a 1,024-slot table) with forced collisions: ``groups``
+    pairs of distinct keys A, B that share a table slot (found by brute
+    force), placed A, B, B in slot order, so A wins the slot and both
+    B's survive; random keys between them."""
+    hb = max((K - 1).bit_length() + 1, 10)
+    pool_r = rng.integers(0, 1 << 20, 20000)
+    pool_t = rng.integers(0, 1 << 32, 20000)
+    slot = _slot_of(pool_r, pool_t, hb)
+    order = np.argsort(slot, kind="stable")
+    same = np.flatnonzero(np.diff(slot[order]) == 0)
+    pairs = order[np.stack([same, same + 1], axis=1)]
+    pairs = pairs[np.unique(slot[pairs[:, 0]], return_index=True)[1]]
+    pairs = pairs[rng.permutation(len(pairs))[:groups]]
+    krow, ktp, ok = dedupe_keys(rng, K, K // 2, 0.7)
+    at = np.sort(rng.choice(K, 3 * len(pairs), replace=False)).reshape(-1, 3)
+    for (a, b), (i, j, k) in zip(pairs, at):
+        krow[[i, j, k]] = pool_r[[a, b, b]]
+        ktp[[i, j, k]] = pool_t[[a, b, b]]
+        ok[[i, j, k]] = True
+    return krow, ktp, ok
+
+
+def dedupe_cases(rng, dev, path_args=None, K: int = 524288,
+                 big: int = 1 << 22) -> list[tuple[str, str, tuple]]:
+    """FS4 at its edges: the path's keys (``path_args``, else K keys of
+    dedupe_keys) with K2 half the firsts (uniq > K2: the regrowth of
+    PendingSearch) and equal to them; no pos_ok at all; K at the
+    table's 1,024-slot floor with forced collisions (collision_keys);
+    and a K of ``big``."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    if path_args is None:
+        krow, ktp, ok = dedupe_keys(rng, K, K // 3)
+        path_args = (t(krow), t(ktp), t(ok), K // 2)
+    krow, ktp, ok = path_args[:3]
+    uniq = int(fmindex.dedupe_plain(*path_args)[3])
+    none = torch.full_like(krow, 0xFFFFFFFF)
+    cases = [("dedupe_uniq_gt_K2", "dedupe", (krow, ktp, ok, uniq // 2)),
+             ("dedupe_uniq_eq_K2", "dedupe", (krow, ktp, ok, uniq)),
+             ("dedupe_no_pos_ok", "dedupe",
+              (none, none, torch.zeros_like(ok), path_args[3])),
+             ("dedupe_collide_1024", "dedupe",
+              tuple(map(t, collision_keys(rng))) + (256,))]
+    cases.append((f"dedupe_K_{big}", "dedupe",
+                  tuple(map(t, dedupe_keys(rng, big, big // 3))) + (big // 2,)))
+    return cases
+
+
 def block_edge_cases(rng, dev, m: int = 1000, B: int = 256, L: int = 100
                      ) -> list[tuple[str, str, tuple]]:
     """The occ blocks' edges on three small indexes (sa_rate 4, lut_k 8)
@@ -1045,6 +1200,10 @@ def block_edge_cases(rng, dev, m: int = 1000, B: int = 256, L: int = 100
         length = t(rng.integers(0, 41, 2 * B * S))
         cases.append((f"blocks_nw{r}_search", "seed_intervals",
                       (didx, ori, S, start, length, 40, "general")))
+        # on a 64 kbp text, seeds at the read's end often decode below
+        # their start
+        cases += seed_expand_cases(rng, didx, dev, 2 * B * S, S,
+                                   f"blocks_nw{r}_seed", ("widths",))
     return cases
 
 
@@ -1258,8 +1417,8 @@ class _Recorder:
         from soap3dp_tpu_torch.fm import fmindex
 
         for name in FS_FUNCTIONS:
-            for fn_name in ((name, name + "_plain") if self.record
-                            else (name + "_plain",)):
+            for fn_name in ((name, plain_of(name)) if self.record
+                            else (plain_of(name),)):
                 fn = getattr(fmindex, fn_name)
                 self._saved[fn_name] = fn
                 setattr(fmindex, fn_name, self._wrap(fn_name, fn))
@@ -1469,6 +1628,60 @@ def fs2x_replay(idx, l, incl, sstart, olens, S: int, K: int):
             torch.unique(lanes // S).numel(), max(RS - 1, 1).bit_length())
 
 
+def fs2s_replay(idx, l, incl, sp, S: int, K: int):
+    """FS2's seed_expand_decode slot by slot, as the kernel walks it (the
+    lanes found as fs2x_replay finds them); returns the candidates (row,
+    pos, valid), the probes and LF steps, the gathers, the slots walked,
+    the distinct lanes they read, the binary search's levels and the
+    walked slots whose position lies below their seed's start."""
+    import torch
+
+    RS = l.shape[0]
+    k = torch.arange(min(K, int(incl[-1])), device=l.device)
+    lane = torch.searchsorted(incl, k, right=True)
+    off = torch.where(lane > 0, incl[(lane - 1).clamp(min=0)], 0)
+    pos, probes, lf, gathers = fs2_replay(
+        idx, l[lane] + k - off, torch.ones_like(k, dtype=torch.bool))
+    st = sp[lane]
+    ok = pos >= st
+    out = [torch.zeros(K, dtype=torch.int64, device=l.device)
+           for _ in range(2)]
+    out.append(torch.zeros(K, dtype=torch.bool, device=l.device))
+    out[0][:k.shape[0]] = lane // S
+    out[1][:k.shape[0]] = torch.where(ok, pos - st, 0)
+    out[2][:k.shape[0]] = ok
+    return (tuple(out), probes, lf, gathers, k.shape[0],
+            torch.unique(lane).numel(), max(RS - 1, 1).bit_length(),
+            int((~ok).sum()))
+
+
+def dedupe_work(krow, ktp, pos_ok, K2: int, want) -> dict:
+    """FS4's counts: the table's size (hb), the firsts (uniq), the
+    pos_ok slots whose table slot another key won ("collided") and the
+    firsts of a key already among the earlier firsts ("surviving_dups":
+    same-key losers of a slot another key won, which the host's
+    hits_to_table removes)."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+
+    K = krow.shape[0]
+    hb = max((K - 1).bit_length() + 1, 10)
+    slot = fmindex.mul32(fmindex.mul32(krow, 0x9E3779B1)
+                         ^ fmindex.mul32(ktp, 0x85EBCA77),
+                         0xC2B2AE3D) >> (32 - hb)
+    idxs = torch.arange(K, device=krow.device)
+    win = torch.full((1 << hb,), K, dtype=torch.int64, device=krow.device)
+    win.scatter_reduce_(0, slot, torch.where(pos_ok, idxs, K), "amin")
+    w = win[slot].clamp(max=K - 1)
+    collided = int((pos_ok & ((krow[w] != krow) | (ktp[w] != ktp))).sum())
+    urow, utp, uvalid, uniq = want
+    firsts = (urow * (1 << 32) + utp)[uvalid]
+    return {"slots": K, "K2": K2, "hb": hb, "pos_ok": int(pos_ok.sum()),
+            "uniq": int(uniq), "collided": collided,
+            "surviving_dups": firsts.numel() - torch.unique(firsts).numel()}
+
+
 def _split_tables(gathers: dict) -> tuple[dict, dict]:
     """(the gathers from the reference's tables, occ and BWT separate;
     the gathers from the occ blocks in their place)."""
@@ -1485,9 +1698,11 @@ def fs_work(fn: str, args: tuple, want) -> dict:
     reference's tables (occ and BWT separate), and
     the distinct 32-byte sectors the kernel's walk touches with the occ
     blocks in their place ("block_sectors"). FS1 and FS2 count from
-    their replay (fs1_replay, fs2_replay, fs2x_replay), which must give
-    the plain version's output ``want``; FS3 the genome words up to each
-    read's length."""
+    their replay (fs1_replay, fs2_replay, fs2x_replay, fs2s_replay),
+    which must give the plain version's output ``want``; FS3 the genome
+    words up to each read's length; FS4 its keys (8 + 8 + 1 B each), its
+    table written and read once (4 B a slot each way) and its K2
+    outputs (17 B each) and count."""
     import torch
 
     idx = args[0]
@@ -1527,6 +1742,29 @@ def fs_work(fn: str, args: tuple, want) -> dict:
         ops = (probes * OPS_SA_PROBE + lf * OPS_SA_LF
                + walked * (4 * levels + OPS_SA_PROBE))
         counts = {"slots": K, "lanes": RS, "walked": walked, "lf_steps": lf}
+    elif label == "FS2s":
+        l, incl, sp, S, K = args[1:]
+        out, probes, lf, gathers, walked, lanes, levels, below = fs2s_replay(
+            idx, l.long(), incl.long(), sp.long(), S, K)
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            fail(f"FS2's seeding replay disagrees with {plain_of(fn)}")
+        RS = l.shape[0]
+        # the cumsum once (its last element alone when no slot is
+        # walked); l and sp once a walked lane (the split entry reads l
+        # alone); the three outputs (or lane, rank and step) once a slot
+        io = ((RS * 8 if walked else 8) + 40
+              + lanes * (8 if idx.sa_parts else 16)
+              + K * (24 if idx.sa_parts else 17))
+        ops = (probes * OPS_SA_PROBE + lf * OPS_SA_LF
+               + walked * (4 * levels + OPS_SA_PROBE))
+        counts = {"slots": K, "lanes": RS, "walked": walked, "lf_steps": lf,
+                  "below_start": below}
+    elif label == "FS4":
+        krow, ktp, pos_ok, K2 = args
+        counts = dedupe_work(krow, ktp, pos_ok, K2, want)
+        io = 17 * counts["slots"] + 8 * (1 << counts["hb"]) + 17 * K2 + 8
+        ops = counts["slots"] * OPS_DEDUPE_SLOT
+        gathers = {}
     else:
         tp, M = args[1].long(), args[1].shape[0]
         if fn == "count_mismatches_rows":
@@ -1568,38 +1806,48 @@ def _fs_diff(got, want) -> tuple[int, int]:
     return err, ndiff
 
 
-# the kernels' symbols, as torch.profiler names their device events
+# the kernels' symbols, as torch.profiler names their device events (a
+# part of the name every kernel of the call holds), and the kernels a
+# call launches: FS4 is five (dedupe_clear, _scatter, _first, _scan,
+# _write)
 FS_SYMBOLS = {"FS1": "fm_search_kernel", "FS2": "sa_decode_kernel",
-              "FS2x": "expand_decode_kernel", "FS3": "verify_kernel"}
+              "FS2x": "expand_decode_kernel", "FS2s": "seed_expand_kernel",
+              "FS3": "verify_kernel", "FS4": "dedupe_"}
+FS_KERNELS_PER_CALL = {"FS4": 5}
 
 
-def _kernel_device_ms(fn, reps: int, symbol: str) -> float:
-    """Mean device duration of the kernel named ``symbol`` over ``reps``
-    calls of ``fn`` (torch.profiler's device events; a call of tens of
-    microseconds is shorter than its wrapper's host work, so CUDA events
-    around a loop of calls would time the host). NaN if the profiler
-    records no such event in three profiles."""
+def _kernel_device_ms(fn, reps: int, symbol: str, per_call: int = 1
+                      ) -> float:
+    """Mean device duration of a call's ``per_call`` kernels named
+    ``symbol`` over ``reps`` calls of ``fn`` (torch.profiler's device
+    events; a call of tens of microseconds is shorter than its wrapper's
+    host work, so CUDA events around a loop of calls would time the
+    host). A profile now and then holds no device event, and a run of
+    them has held none three times in a row: up to PROFILE_TRIES
+    profiles, each of twice the last one's calls, a pause between. NaN
+    if none holds such an event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profile now and then holds no device event
+    for t in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps << t):
                 fn()
             torch.cuda.synchronize()
         durs = [b - a for a, b, n in _device_spans(prof) if symbol in n]
         if durs:
-            return float(np.mean(durs)) / 1e3
+            return float(np.mean(durs)) * per_call / 1e3
+        time.sleep(0.5)
     return float("nan")
 
 
 def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
                 reps: int = 20) -> dict:
     """One FS case on the card: the kernel's output against the plain
-    version's, every element; the kernel's device time (torch.profiler)
-    and its call's (CUDA events around a loop of wrapper calls, host
+    version's, every element; the kernel's device time (torch.profiler,
+    _timed) and its call's (CUDA events around a loop of wrapper calls, host
     work included), the plain version's, the bound (operations over the
     int32 peak or bytes over the memory rate, the larger), the same
     bound with every scattered gather a 32-byte sector, and with the
@@ -1608,7 +1856,7 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
 
     from soap3dp_tpu_torch.fm import fmindex
 
-    kern, plain = getattr(fmindex, fn), getattr(fmindex, fn + "_plain")
+    kern, plain = getattr(fmindex, fn), getattr(fmindex, plain_of(fn))
     label = FS_FUNCTIONS[fn]
     counter = _kernels()[label]
     t0 = time.perf_counter()
@@ -1619,12 +1867,10 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     shape = [s for s, c in counter.shapes.items() if c > shapes0.get(s, 0)]
     want = plain(*args)
     err, ndiff = _fs_diff(got, want)
-    call_ms = _events_ms(lambda: kern(*args), reps)
-    ms = _kernel_device_ms(lambda: kern(*args), reps, FS_SYMBOLS[label])
+    ms, call_ms, timer = _timed(lambda: kern(*args), reps,
+                                FS_SYMBOLS[label],
+                                FS_KERNELS_PER_CALL.get(label, 1))
     plain_ms = _events_ms(lambda: plain(*args), max(1, reps // 10))
-    if not ms > 0:
-        fail(f"torch.profiler recorded no {FS_SYMBOLS[label]} event in "
-             f"three profiles ({name})")
     work = fs_work(fn, args, want)
     counts = {k: v for k, v in work.items()
               if k not in ("ops", "bytes", "sectors", "block_sectors")}
@@ -1637,7 +1883,7 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     phase(f"kernel fm_search {label}",
           f"{name}: {fn} shape={shape_s} equal={err == 0 and ndiff == 0} "
           f"max_abs_err={err} differing={ndiff} launches={launched} "
-          f"ms={ms:.4f} (torch.profiler) call_ms={call_ms:.4f} "
+          f"ms={ms:.4f} ({timer}) call_ms={call_ms:.4f} "
           f"bound_ms={bms:.4f} ({by}, int32 peak) "
           f"share={bms / ms:.1%} sector_bound_ms={sms:.4f} "
           f"sector_share={sms / ms:.1%} block_sector_bound_ms={bsms:.4f} "
@@ -1648,7 +1894,7 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     if launched != 1:
         fail(f"{label} launched {launched} times for one call ({name})")
     return {"case": name, "kernel": label, "fn": fn, "shape": shape_s,
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "ms": ms, "call_ms": call_ms, "timer": timer, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "sector_bound_ms": sms,
             "block_sector_bound_ms": bsms, "max_abs_err": err,
             "wall_s": time.perf_counter() - t0, **work}
@@ -1736,14 +1982,16 @@ def phase_repeat_search(dev, genome_bp: int = 3_000_000, unit: int = 2000,
     return device_index(index1, dev), out
 
 
-def path_calls(didx, codes: np.ndarray, B: int = 65536, seed_reads=8192
+def path_calls(didx, codes: np.ndarray, B: int = 65536, seed_reads=13456
                ) -> list[tuple[str, tuple]]:
     """The kernels' calls, with their arguments, of the main path on
     ``didx``: a phase-4 batch (B pairs: 2B reads of 100 bases in the
     120-wide rows phase 4's reader gives, both ends searched together
     over segments {0, 1} as dispatch_pair_search does, rounds and
     escalation included) and a deep-DP seeding of ``seed_reads`` of them
-    (deep_dp_seed_matrix)."""
+    (deep_dp_seed_matrix at the rows' width, as _deep_dp_round seeds:
+    4 seeds a read, so 13,456 reads are phase 4's largest seeding call,
+    107,648 lanes)."""
     from soap3dp_tpu_torch.fm import search as fsearch
     from soap3dp_tpu_torch.pipeline import dp_rescue
 
@@ -1754,7 +2002,7 @@ def path_calls(didx, codes: np.ndarray, B: int = 65536, seed_reads=8192
         cfg = fsearch.config_for(didx, 2)
         fsearch.PendingSearch(didx, reads, lens, cfg,
                               seed_range=(0, 2)).result()
-        sp, sl = dp_rescue.deep_dp_seed_matrix(lens[:seed_reads], 100)
+        sp, sl = dp_rescue.deep_dp_seed_matrix(lens[:seed_reads], 120)
         dp_rescue.seed_candidates(didx, reads[:seed_reads],
                                   lens[:seed_reads], sp, sl)
     return rec.calls
@@ -1764,16 +2012,18 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
                      genome_bp: int = 250_000_000, path_pairs: int = 65536,
                      synthetic_n: int = 3_200_000_000
                      ) -> tuple[list[dict], list[dict], dict]:
-    """FS1, FS2 and FS3 against their plain versions, every element of
-    every output: the main path's calls on phase 4's index (built here
-    and cached for phase 4); the edges of each FS1 branch; FS2 at
-    sa_rate 1 (the repeat genome), 2 (phase 4's index) and 8 (it
-    re-sampled with resample_sa), and with the SA split over a
-    two-replica mesh, of ready rows and with the lane expansion at its
-    edges; the occ blocks' edges; FS3's edges; all three on a synthetic
-    index of ``synthetic_n`` bases; the repeat genome's search on the
-    card and the CPU. Returns (the kernels' rows of the JSON line, every
-    case's row, the repeat genome's result)."""
+    """FS1-FS4 against their plain versions, every element of every
+    output: the main path's calls on phase 4's index (built here and
+    cached for phase 4); the edges of each FS1 branch; FS2 at sa_rate 1
+    (the repeat genome), 2 (phase 4's index) and 8 (it re-sampled with
+    resample_sa), and with the SA split over a two-replica mesh, of
+    ready rows and with the search's and the DP seeding's lane
+    expansions at their edges; the occ blocks' edges; FS3's edges; FS4's
+    edges (uniq above and equal to K2, no pos_ok, forced collisions at
+    the 1,024-slot table, K of 2^22); FS1-FS3 on a synthetic index of
+    ``synthetic_n`` bases; the repeat genome's search on the card and
+    the CPU. Returns (the kernels' rows of the JSON line, every case's
+    row, the repeat genome's result)."""
     import torch
 
     from soap3dp_tpu_torch.distributed import mesh as dmesh
@@ -1812,12 +2062,28 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
                              ("zeros",))
     cases += expansion_cases(rng, mesh.replicas[0], dev, RS, S, K,
                              "expand_sa8_split")
+    # the DP seeding's expansion at the largest seeding call's lanes
+    a = next(args for fn, args in calls if fn == "seed_expand_decode")
+    RSs, Ss = a[1].shape[0], a[4]
+    cases += seed_expand_cases(rng, didx, dev, RSs, Ss)
+    cases += seed_expand_cases(rng, didx8, dev, RSs, Ss, "seed_sa8",
+                               ("widths",))
+    cases += seed_expand_cases(rng, mesh.replicas[0], dev, RSs, Ss,
+                               "seed_sa8_split")
+    cases += dedupe_cases(rng, dev, next(args for fn, args in calls
+                                         if fn == "dedupe"))
     didx1, repeat = phase_repeat_search(dev)
     cases.append(fs_decode_case(rng, "decode_sa1", didx1, dev))
     cases += expansion_cases(rng, didx1, dev, RS, S, K, "expand_sa1",
                              ("zeros",))
+    cases += seed_expand_cases(rng, didx1, dev, RSs, Ss, "seed_sa1",
+                               ("widths",))
     cases += block_edge_cases(rng, dev)
     rows = [run_fs_case(name, fn, args, peak_ops) for name, fn, args in cases]
+    collide = next(r for r in rows if r["case"] == "dedupe_collide_1024")
+    if collide["surviving_dups"] <= 0:
+        fail("the forced collisions left no same-key loser of a slot "
+             "another key won")
     del cases, calls, didx, didx8, mesh, didx1, a
     syn = synthetic_index(dev, synthetic_n)
     rows += [run_fs_case(name, fn, args, peak_ops, reps=5)
@@ -1831,17 +2097,22 @@ FS_ROWS = {  # label: (name in the JSON line, the TPU-side code it replaces)
     "FS1": ("fm_backward_search", "soap3dp_tpu/fm/fmindex.py:391"),
     "FS2": ("fm_sa_decode", "soap3dp_tpu/fm/fmindex.py:509"),
     "FS2x": ("fm_expand_decode", "soap3dp_tpu/fm/search.py:247"),
-    "FS3": ("fm_packed_verify", "soap3dp_tpu/fm/fmindex.py:653")}
+    "FS3": ("fm_packed_verify", "soap3dp_tpu/fm/fmindex.py:653"),
+    "FS4": ("fm_hash_dedupe", "soap3dp_tpu/fm/search.py:275"),
+    "FS2s": ("fm_seed_expand_decode",
+             "soap3dp_tpu/pipeline/dp_rescue.py:176")}
 
 
 def fs_kernel_rows(rows: list[dict]) -> list[dict]:
     """The JSON line's rows of FS1, FS2 (sa_decode of ready rows), FS2x
-    (FS2's expand_decode) and FS3: each kernel's largest main-path call
-    (FS1, FS2x and FS3: the round-1 search of a phase-4 batch; FS2: the
-    deep-DP seeding), with the largest difference over every case of
-    that kernel and the bound with the sectors of the occ blocks; each
-    printed on one line beside its time before its redesign, quoted
-    from PERF.md (BEFORE_REDESIGN_MS)."""
+    (FS2's expand_decode), FS3, FS4 (the dedupe) and FS2s (FS2's
+    seed_expand_decode): each kernel's largest main-path call (FS1,
+    FS2x, FS3 and FS4: the round-1 search of a phase-4 batch; FS2s: the
+    deep-DP seeding; FS2, on no path since FS2s took the seeding: its
+    largest case), with the largest difference over every case of that
+    kernel and the bound with the sectors of the occ blocks; each
+    printed on one line beside what ran before it, quoted from PERF.md
+    (BEFORE_REDESIGN_MS, SCATTER_MIN_BEFORE_MS)."""
     out = []
     for label, (name, replaces) in FS_ROWS.items():
         mine = [r for r in rows if r["kernel"] == label]
@@ -1852,7 +2123,8 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
                "source": "soap3dp_tpu_torch/csrc/fm_search.cu",
                "replaces": replaces, "launches": 0,
                "max_abs_err": max(r["max_abs_err"] for r in mine),
-               "ms": main["ms"], "plain_ms": main["plain_ms"],
+               "ms": main["ms"], "timer": main["timer"],
+               "plain_ms": main["plain_ms"],
                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                "peak": "int32", "sector_bound_ms": main["sector_bound_ms"],
                "block_sector_bound_ms": main.get("block_sector_bound_ms"),
@@ -1861,10 +2133,15 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
         out.append(row)
         block = row["block_sector_bound_ms"]
         before = BEFORE_REDESIGN_MS
-        was = (f"before its redesign: {before[label]:.3f} ms, PERF.md"
-               if label in before else
-               f"before its redesign: FS2 {before['FS2']:.3f} ms after the "
-               "plain-torch compaction, PERF.md")
+        was = {"FS2x": f"before its redesign: FS2 {before['FS2']:.3f} ms "
+                       "after the plain-torch compaction, PERF.md",
+               "FS4": "before it: plain torch, whose scatter-min alone "
+                      f"took {SCATTER_MIN_BEFORE_MS:.3f} ms of PR 7's search, "
+                      "PERF.md",
+               "FS2s": "before it: plain torch (a slot mask of 64 a lane, "
+                       "its nonzero, FS2)"}.get(
+            label, f"before its redesign: {before.get(label, 0):.3f} ms, "
+                   "PERF.md")
         phase(f"kernel fm_search {label} summary",
               f"{main['case']} ({main.get('fn')}, {main['shape']}): "
               f"{row['ms']:.4f} ms ({was}); "
@@ -2009,9 +2286,16 @@ def search_device_items(dev, reads: dict, out_dir: str,
     """Phase 4's first batch of ``pairs`` pairs searched alone on its
     index, as dispatch_pair_search searches it (both ends, segments
     {0, 1}, rounds included), under torch.profiler: the search's device
-    items by name (ms, launches), written to search_profile.txt. Fails
-    if a scan with indices (torch.cummax's kernel) runs in the search;
-    reports the scatter-reduce kernels by their reduction."""
+    items by name (ms, launches), written to search_profile.txt, and
+    their total beside the parent's (SEARCH_DEVICE_BEFORE_MS). A profile
+    has lost the device events of its first milliseconds, so the search
+    runs twice in it, each time followed by a marker kernel
+    (torch.cuda._sleep's spin_kernel), and the items are the events
+    between the last two markers (the whole profile's where the first
+    marker too was lost). Fails if a scan with indices (torch.cummax's
+    kernel) or a scatter-reduce with ReduceMinimum (the plain dedupe's
+    scatter-min) runs in either search; reports the scatter-reduce
+    kernels by their reduction."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2036,9 +2320,16 @@ def search_device_items(dev, reads: dict, out_dir: str,
 
     run()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+        for _ in range(2):
+            run()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize(dev)
+    spans = _device_spans(prof)
+    marks = [a for a, _, name in spans if "spin_kernel" in name]
+    window = (spans if len(marks) < 2 else
+              [s for s in spans if marks[-2] < s[0] < marks[-1]])
     items: dict[str, list] = {}
-    for a, b, name in _device_spans(prof):
+    for a, b, name in window:
         items.setdefault(name, [0.0, 0])
         items[name][0] += (b - a) / 1e3
         items[name][1] += 1
@@ -2047,18 +2338,27 @@ def search_device_items(dev, reads: dict, out_dir: str,
         for name, (ms, k) in top:
             fh.write(f"{ms:10.4f} ms x{k:<5d} {name[:200]}\n")
     total = sum(ms for ms, _ in items.values())
-    scans = {n: v for n, v in items.items() if "with_indices" in n}
-    reduce = {tag: sum(v[1] for n, v in items.items() if tag in n)
+    scans = {n for _, _, n in spans if "with_indices" in n}
+    reduce = {tag: sum(tag in n for _, _, n in spans)
               for tag in ("ReduceMaximum", "ReduceMinimum")}
+    marked = len(marks) >= 2
     short = [f"{name[:60]} {ms:.3f} ms x{k}" for name, (ms, k) in top[:8]]
     phase("e2e search profile",
           f"{2 * len(b1)} reads of phase 4's first batch: {len(items)} "
-          f"device items, {total:.3f} ms; scans with indices (cummax) "
-          f"{sum(v[1] for v in scans.values())}, scatter-reduce kernels "
-          f"{reduce}; top: {short}; all in search_profile.txt")
+          f"device items, {total:.3f} ms ("
+          + ("the second search, between its markers" if marked else
+             "both searches, the markers lost")
+          + f"; FS1 among them: "
+          f"{any(FS_SYMBOLS['FS1'] in n for n in items)}; PR 7, before FS4: "
+          f"{SEARCH_DEVICE_BEFORE_MS:.3f} ms, PERF.md); scans with indices "
+          f"(cummax) {len(scans)}, scatter-reduce kernels {reduce}; top: "
+          f"{short}; all in search_profile.txt")
     if scans:
         fail(f"the search ran a scan with indices: {list(scans)}")
-    return {"device_ms": total, "items": dict(top),
+    if reduce["ReduceMinimum"]:
+        fail("the search ran a scatter-reduce with ReduceMinimum (the "
+             "plain dedupe's scatter-min)")
+    return {"device_ms": total, "items": dict(top), "marked": marked,
             "scans_with_indices": len(scans), "scatter_reduce": reduce}
 
 
@@ -2109,7 +2409,8 @@ def _kernels() -> dict:
     return {"K1": bd.DP_KERNEL, "K2": bd.FORWARD_KERNEL,
             "TB": bd.TRACEBACK_KERNEL, "FS1": fs.SEARCH_KERNEL,
             "FS2": fs.DECODE_KERNEL, "FS2x": fs.EXPAND_KERNEL,
-            "FS3": fs.VERIFY_KERNEL}
+            "FS3": fs.VERIFY_KERNEL, "FS4": fs.DEDUPE_KERNEL,
+            "FS2s": fs.SEED_EXPAND_KERNEL}
 
 
 def _launches() -> dict:
@@ -2120,7 +2421,8 @@ def _launch_shapes() -> dict:
     """{kernel: {"shape": launches}} since the counts were last set to 0
     (the shapes the path itself gave each kernel: P x Lr x Lw for the
     DP kernels; lanes x L x max_steps for FS1, rows x sa_rate for FS2,
-    slots x lanes x sa_rate for FS2x, placements x words for FS3)."""
+    slots x lanes x sa_rate for FS2x and FS2s, placements x words for
+    FS3, K x K2 x hb for FS4)."""
     return {name: {"x".join(map(str, shape)): n for shape, n in
                    sorted(k.shapes.items())}
             for name, k in _kernels().items() if k.shapes}
@@ -2167,11 +2469,15 @@ def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
     return out, time.perf_counter() - t0, tee.text(), _launches()
 
 
+# the seed search's kernels of the main path: FS1, FS2's two expansions
+# (the search's, the DP seeding's), FS3 and FS4; FS2's sa_decode of
+# ready rows is on no path since FS2s took the DP seeding
+FS_PATH = ("FS1", "FS2x", "FS2s", "FS3", "FS4")
+
+
 def _fs_launched(where: str, launches: dict) -> None:
-    """Fails unless FS1, both FS2 entries (the search's expand_decode,
-    the DP seeding's sa_decode) and FS3 each launched in the run."""
-    missing = [k for k in ("FS1", "FS2", "FS2x", "FS3")
-               if launches.get(k, 0) <= 0]
+    """Fails unless each kernel of FS_PATH launched in the run."""
+    missing = [k for k in FS_PATH if launches.get(k, 0) <= 0]
     if missing:
         fail(f"{where} never launched {missing}")
 
@@ -2486,7 +2792,8 @@ _HOST_MAIN = (
     " 'K2': bd.FORWARD_KERNEL.launches, 'TB': bd.TRACEBACK_KERNEL.launches,"
     " 'FS1': fs.SEARCH_KERNEL.launches, 'FS2': fs.DECODE_KERNEL.launches,"
     " 'FS2x': fs.EXPAND_KERNEL.launches,"
-    " 'FS3': fs.VERIFY_KERNEL.launches}), flush=True)\n"
+    " 'FS3': fs.VERIFY_KERNEL.launches, 'FS4': fs.DEDUPE_KERNEL.launches,"
+    " 'FS2s': fs.SEED_EXPAND_KERNEL.launches}), flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -2733,6 +3040,7 @@ def main(argv=None) -> int:
     kernels[2]["fetch_share"] = kernels[2]["fetch_ms"] / kernels[2]["ms"]
     for row, label in zip(kernels[3:], FS_ROWS):
         row["launches"] = e2e["launches"][label]
+        row["main_path"] = label in FS_PATH
         row["sector_share"] = row["sector_bound_ms"] / row["ms"]
         row["block_sector_share"] = row["block_sector_bound_ms"] / row["ms"]
     for row in kernels:

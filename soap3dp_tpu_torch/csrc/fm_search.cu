@@ -1,7 +1,9 @@
 // The gather stages of the seed search for Hopper (sm_90a), one thread
-// per lane or slot: FM backward search (FS1), SA decode (FS2) and packed
-// verification (FS3). Each reproduces its plain-torch version in
-// soap3dp_tpu_torch/fm/fmindex.py element for element.
+// per lane or slot: FM backward search (FS1), SA decode (FS2, with the
+// lane expansions of the search and of the DP seeding), packed
+// verification (FS3) and the hash dedupe (FS4). Each reproduces its
+// plain-torch version in soap3dp_tpu_torch/fm/fmindex.py element for
+// element.
 //
 // FS1, soap3dp_fm_search, replaces the XLA programs of
 // soap3dp_tpu/fm/fmindex.py:391 `backward_search`, :456
@@ -15,15 +17,28 @@
 // FS2 replaces `sa_decode` (fmindex.py:509): the bounded LF walk over
 // the mark bitvector, then the rank and sample gathers (or, for an SA
 // table split over a mesh, the rank and step count, which the caller
-// routes to the slice that owns the row). Two entries share the walk:
-// soap3dp_sa_decode decodes ready rows; soap3dp_expand_decode also does
-// the lane expansion of the reference's `_search_batch`
+// routes to the slice that owns the row). Three entries share the walk:
+// soap3dp_sa_decode decodes ready rows; soap3dp_expand_decode (FS2x)
+// also does the lane expansion of the reference's `_search_batch`
 // (soap3dp_tpu/fm/search.py:247-273): output slot k belongs to the
 // first lane whose inclusive count exceeds k (a binary search in the
 // counts' cumsum, whose upper levels the slots of a block share in L1),
 // decodes row l[lane] + (k - the lane's offset), and writes the hash
 // dedupe's keys (oriented row, text position, or the sentinel where the
-// placement leaves the text) directly.
+// placement leaves the text) directly; soap3dp_seed_expand_decode
+// (FS2s) does the same expansion for the DP seeding
+// (soap3dp_tpu/pipeline/dp_rescue.py:176-188, whose (lanes, occ_cap)
+// slot mask and nonzero give the same slot order) and writes its
+// candidates (oriented row, read start, valid). The three forms are one
+// template (expand_slot).
+// FS4, soap3dp_dedupe, replaces the scatter-min hash dedupe of the
+// reference's `_search_batch` (soap3dp_tpu/fm/search.py:275-301) and
+// the nonzero of its first occurrences: five short passes (clear the
+// table, atomicMax of K - k into it, the first test with a ballot word
+// a warp and a count a block, one block's scan of the counts, the
+// ordered write), no sort and no library scan. What bounds it: the
+// table's random atomics and reads (4 MB at round 1's K, L2-resident)
+// and the gathers of the winners' keys; the keys and outputs stream.
 // FS3, soap3dp_verify, replaces `count_mismatches_packed`
 // (fmindex.py:653): W+1 packed genome words, the funnel shift to the
 // 2-bit grid, XOR with the read words, the length mask, popcount. What
@@ -385,54 +400,243 @@ sa_decode_kernel(const int64_t* __restrict__ rows,
   out[i] = ok ? position(mk, rk) : 0;
 }
 
-__global__ void __launch_bounds__(THREADS)
-expand_decode_kernel(const int64_t* __restrict__ lo,
-                     const int64_t* __restrict__ incl, int64_t RS,
-                     const int64_t* __restrict__ sstart,
-                     const int64_t* __restrict__ olens, int S, int64_t n,
-                     int64_t K, Marks mk, Tables t,
-                     int64_t* __restrict__ krow, int64_t* __restrict__ ktp,
-                     uint8_t* __restrict__ pos_ok,
-                     int64_t* __restrict__ lane_out,
-                     int64_t* __restrict__ rank_out,
-                     int64_t* __restrict__ step_out) {
-  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (k >= K) return;
-  const bool valid = k < ld64(incl + RS - 1);
+// the lanes of a lane expansion: lane j (row j / S) owns the slots
+// incl[j - 1] .. incl[j] - 1, slot k of them SA row lo[j] + k - incl[j - 1]
+struct Lanes {
+  const int64_t* lo;     // (RS,) each lane's SA interval start
+  const int64_t* incl;   // (RS,) the inclusive cumsum of the lanes' counts
+  const int64_t* start;  // (RS,) each lane's segment (seed) start in its row
+  const int64_t* olens;  // (RS / S,) each row's read length (the search's)
+  int64_t RS;
+  int64_t n;             // the text's length
+  int S;                 // lanes a row
+};
+
+// what an expansion writes for each slot, by its form
+struct Slots {
+  int64_t* a;     // krow | row | lane
+  int64_t* b;     // ktp | pos | rank
+  uint8_t* ok;    // pos_ok | valid | -
+  int64_t* step;  // - | - | LF steps
+};
+
+// the three forms: the search's dedupe keys (FS2x), the DP seeding's
+// candidates (FS2s), and, for an SA table split over a mesh, each slot's
+// lane, sample rank and steps, whose samples the owner routing gathers
+enum : int { OUT_KEYS = 0, OUT_SEED = 1, OUT_RANKS = 2 };
+
+// slot k of the expansion, decoded and written in form OUT
+template <int OUT>
+__device__ __forceinline__ void expand_slot(const Lanes& e, const Marks& mk,
+                                            const Tables& t, const Slots& o,
+                                            int64_t k) {
+  const bool live = k < ld64(e.incl + e.RS - 1);
   int64_t lane = 0, row = 0;
-  if (valid) {
+  if (live) {
     // the first lane whose inclusive count exceeds k: it holds slot k
-    int64_t a = 0, b = RS - 1;
+    int64_t a = 0, b = e.RS - 1;
     while (a < b) {
       const int64_t m = (a + b) >> 1;
-      if (ld64(incl + m) > k)
+      if (ld64(e.incl + m) > k)
         b = m;
       else
         a = m + 1;
     }
     lane = a;
-    row = ld64(lo + lane) + k - (lane ? ld64(incl + lane - 1) : 0);
+    row = ld64(e.lo + lane) + k - (lane ? ld64(e.incl + lane - 1) : 0);
   }
-  const Ranked rk = walk(mk, t, row, valid);
-  if (rank_out) {
-    lane_out[k] = lane;
-    rank_out[k] = rk.rank;
-    step_out[k] = rk.step;
+  const Ranked rk = walk(mk, t, row, live);
+  if (OUT == OUT_RANKS) {
+    o.a[k] = lane;
+    o.b[k] = rk.rank;
+    o.step[k] = rk.step;
     return;
   }
-  bool ok = false;
-  int64_t orow = 0, tp = 0;
-  if (valid) {
-    const int64_t pos = position(mk, rk);
-    const int64_t st = ld64(sstart + lane);
-    orow = lane / S;
-    tp = pos - st;
-    ok = pos >= st && tp + ld64(olens + orow) <= n;
+  const int64_t pos = live ? position(mk, rk) : 0;
+  const int64_t st = ld64(e.start + lane);
+  const int64_t orow = lane / e.S;
+  if (OUT == OUT_SEED) {
+    // dp_rescue._seed_cand_batch: the read's start, no test of its end;
+    // a slot past the total keeps row 0 (lane 0's)
+    const bool ok = live && pos >= st;
+    o.a[k] = orow;
+    o.b[k] = ok ? pos - st : 0;
+    o.ok[k] = ok ? 1 : 0;
+    return;
   }
-  krow[k] = ok ? orow : SENTINEL;
-  ktp[k] = ok ? (tp & MASK32) : SENTINEL;
-  pos_ok[k] = ok ? 1 : 0;
+  const int64_t tp = pos - st;
+  const bool ok = live && pos >= st && tp + ld64(e.olens + orow) <= e.n;
+  o.a[k] = ok ? orow : SENTINEL;
+  o.b[k] = ok ? (tp & MASK32) : SENTINEL;
+  o.ok[k] = ok ? 1 : 0;
+}
+
+// FS2x: the search's lane expansion (OUT_KEYS or OUT_RANKS)
+template <int OUT>
+__global__ void __launch_bounds__(THREADS)
+expand_decode_kernel(Lanes e, int64_t K, Marks mk, Tables t, Slots o) {
+  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (k < K) expand_slot<OUT>(e, mk, t, o, k);
+}
+
+// FS2s: the DP seeding's lane expansion (OUT_SEED or OUT_RANKS)
+template <int OUT>
+__global__ void __launch_bounds__(THREADS)
+seed_expand_kernel(Lanes e, int64_t K, Marks mk, Tables t, Slots o) {
+  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (k < K) expand_slot<OUT>(e, mk, t, o, k);
+}
+
+// FS4, the hash dedupe of the search's keys (krow, ktp, pos_ok). Slot k
+// with pos_ok hashes to table slot hslot (dedupe_slot); the table keeps
+// K - k of the least such k (atomicMax of K - k in a table of zeros, so
+// the winner does not depend on the order of the atomics); k is a first
+// unless the winner is another slot with the same key. The firsts are
+// one ballot word a warp and a count a block; one block scans the
+// counts; the last pass writes the first K2 firsts, in ascending k, by
+// their ranks.
+constexpr uint32_t HASH_ROW = 0x9E3779B1u;
+constexpr uint32_t HASH_TP = 0x85EBCA77u;
+constexpr uint32_t HASH_MIX = 0xC2B2AE3Du;
+constexpr int64_t ROW_SENTINEL = 0x7FFFFFFFll;  // fm/search.py ROW_SENTINEL
+constexpr int SCAN_THREADS = 1024;
+constexpr int WARPS = THREADS / 32;
+constexpr uint32_t FULL = 0xFFFFFFFFu;
+
+// the table slot of a key (32-bit products, as fmindex.mul32)
+__device__ __forceinline__ uint32_t dedupe_slot(int64_t row, int64_t tp,
+                                                int hb) {
+  const uint32_t h = (static_cast<uint32_t>(row) * HASH_ROW) ^
+                     (static_cast<uint32_t>(tp) * HASH_TP);
+  return (h * HASH_MIX) >> (32 - hb);
+}
+
+__global__ void __launch_bounds__(THREADS)
+dedupe_clear_kernel(uint4* __restrict__ table, int64_t n4) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (i < n4) table[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+__global__ void __launch_bounds__(THREADS)
+dedupe_scatter_kernel(const int64_t* __restrict__ krow,
+                      const int64_t* __restrict__ ktp,
+                      const uint8_t* __restrict__ pos_ok, int64_t K, int hb,
+                      int32_t* __restrict__ table) {
+  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (k >= K || !__ldg(pos_ok + k)) return;
+  atomicMax(table + dedupe_slot(ld64(krow + k), ld64(ktp + k), hb),
+            static_cast<int32_t>(K - k));
+}
+
+// whether each slot is a first: bits (one ballot word a warp of slots)
+// and the block's count of firsts
+__global__ void __launch_bounds__(THREADS)
+dedupe_first_kernel(const int64_t* __restrict__ krow,
+                    const int64_t* __restrict__ ktp,
+                    const uint8_t* __restrict__ pos_ok, int64_t K, int hb,
+                    const int32_t* __restrict__ table,
+                    uint32_t* __restrict__ bits,
+                    int32_t* __restrict__ counts) {
+  __shared__ int32_t warp_n[WARPS];
+  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  bool first = false;
+  if (k < K && __ldg(pos_ok + k)) {
+    const int64_t row = ld64(krow + k), tp = ld64(ktp + k);
+    const int64_t won = K - __ldg(table + dedupe_slot(row, tp, hb));
+    const int64_t w = won < K - 1 ? won : K - 1;
+    first = w == k || ld64(krow + w) != row || ld64(ktp + w) != tp;
+  }
+  const uint32_t ballot = __ballot_sync(FULL, first);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    if (k < K) bits[k >> 5] = ballot;  // lane 0 holds the warp's first slot
+    warp_n[warp] = __popc(ballot);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int32_t n = 0;
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) n += warp_n[i];
+    counts[blockIdx.x] = n;
+  }
+}
+
+// the inclusive scan of x over a warp
+__device__ __forceinline__ int32_t warp_scan(int32_t x, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int32_t y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
+// one block: the exclusive offsets of the nb block counts, 1024 at a
+// time with the running carry, and their total (uniq)
+__global__ void __launch_bounds__(SCAN_THREADS)
+dedupe_scan_kernel(const int32_t* __restrict__ counts, int64_t nb,
+                   int32_t* __restrict__ offsets, int64_t* __restrict__ uniq) {
+  __shared__ int32_t warp_sum[SCAN_THREADS / 32];
+  __shared__ int32_t carry;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (int64_t base = 0; base < nb; base += SCAN_THREADS) {
+    const int64_t i = base + threadIdx.x;
+    const int32_t v = i < nb ? counts[i] : 0;
+    const int32_t x = warp_scan(v, lane);
+    if (lane == 31) warp_sum[warp] = x;
+    __syncthreads();
+    if (warp == 0) warp_sum[lane] = warp_scan(warp_sum[lane], lane);
+    __syncthreads();
+    if (i < nb) offsets[i] = carry + (warp ? warp_sum[warp - 1] : 0) + x - v;
+    __syncthreads();
+    if (threadIdx.x == 0) carry += warp_sum[SCAN_THREADS / 32 - 1];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *uniq = carry;
+}
+
+// the firsts of rank < K2 to their output slots, and the slots past the
+// firsts filled as the plain version's gathers of slot 0 fill them
+__global__ void __launch_bounds__(THREADS)
+dedupe_write_kernel(const int64_t* __restrict__ krow,
+                    const int64_t* __restrict__ ktp, int64_t K, int64_t K2,
+                    const uint32_t* __restrict__ bits,
+                    const int32_t* __restrict__ offsets,
+                    const int64_t* __restrict__ uniq,
+                    int64_t* __restrict__ urow, int64_t* __restrict__ utp,
+                    uint8_t* __restrict__ uvalid) {
+  __shared__ int32_t warp_n[WARPS];
+  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t word = k - lane < K ? __ldg(bits + (k >> 5)) : 0u;
+  if (lane == 0) warp_n[warp] = __popc(word);
+  __syncthreads();
+  if ((word >> lane) & 1u) {
+    int64_t rank = __ldg(offsets + blockIdx.x) +
+                   __popc(word & ((1u << lane) - 1u));
+    for (int i = 0; i < warp; ++i) rank += warp_n[i];
+    if (rank < K2) {
+      urow[rank] = ld64(krow + k);
+      utp[rank] = ld64(ktp + k);
+      uvalid[rank] = 1;
+    }
+  }
+  const int64_t u = ld64(uniq);
+  const int64_t tp0 = ld64(ktp);
+  for (int64_t j = k; j < K2; j += gridDim.x * static_cast<int64_t>(THREADS))
+    if (j >= u) {
+      urow[j] = ROW_SENTINEL;
+      utp[j] = tp0;
+      uvalid[j] = 0;
+    }
 }
 
 // count_mismatches_packed of placement i over W words: the genome word
@@ -649,10 +853,65 @@ int soap3dp_expand_decode(const int64_t* lo, const int64_t* incl,
                           void* stream) {
   const Marks mk{mark_words, mark_rank, sa, n_sa, sa_rate};
   const Tables t{reinterpret_cast<const uint4*>(blocks), counts, primary};
-  expand_decode_kernel<<<blocks_for(K), THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      lo, incl, RS, sstart, olens, S, n, K, mk, t, krow, ktp, pos_ok,
-      lane_out, rank_out, step_out);
+  const Lanes e{lo, incl, sstart, olens, RS, n, S};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rank_out)
+    expand_decode_kernel<OUT_RANKS><<<blocks_for(K), THREADS, 0, st>>>(
+        e, K, mk, t, Slots{lane_out, rank_out, nullptr, step_out});
+  else
+    expand_decode_kernel<OUT_KEYS><<<blocks_for(K), THREADS, 0, st>>>(
+        e, K, mk, t, Slots{krow, ktp, pos_ok, nullptr});
+  return static_cast<int>(cudaGetLastError());
+}
+
+int soap3dp_seed_expand_decode(const int64_t* lo, const int64_t* incl,
+                               long long RS, const int64_t* sp, int S,
+                               long long K, int sa_rate,
+                               const int32_t* mark_words,
+                               const int32_t* mark_rank,
+                               const int32_t* blocks, const int64_t* counts,
+                               long long primary, const int32_t* sa,
+                               long long n_sa, int64_t* row, int64_t* pos,
+                               uint8_t* valid, int64_t* lane_out,
+                               int64_t* rank_out, int64_t* step_out,
+                               void* stream) {
+  const Marks mk{mark_words, mark_rank, sa, n_sa, sa_rate};
+  const Tables t{reinterpret_cast<const uint4*>(blocks), counts, primary};
+  const Lanes e{lo, incl, sp, nullptr, RS, 0, S};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rank_out)
+    seed_expand_kernel<OUT_RANKS><<<blocks_for(K), THREADS, 0, st>>>(
+        e, K, mk, t, Slots{lane_out, rank_out, nullptr, step_out});
+  else
+    seed_expand_kernel<OUT_SEED><<<blocks_for(K), THREADS, 0, st>>>(
+        e, K, mk, t, Slots{row, pos, valid, nullptr});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch: int32 table (2^hb), bits (ceil(K / 32)), counts and offsets
+// (ceil(K / THREADS) each), the table first (16-byte aligned)
+int soap3dp_dedupe(const int64_t* krow, const int64_t* ktp,
+                   const uint8_t* pos_ok, long long K, long long K2, int hb,
+                   int32_t* scratch, int64_t* urow, int64_t* utp,
+                   uint8_t* uvalid, int64_t* uniq, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t slots = 1ll << hb;
+  const int64_t nb = (K + THREADS - 1) / THREADS;
+  int32_t* table = scratch;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(scratch + slots);
+  int32_t* counts = scratch + slots + (K + 31) / 32;
+  int32_t* offsets = counts + nb;
+  const unsigned grid = static_cast<unsigned>(nb);
+  dedupe_clear_kernel<<<blocks_for(slots / 4), THREADS, 0, st>>>(
+      reinterpret_cast<uint4*>(table), slots / 4);
+  dedupe_scatter_kernel<<<grid, THREADS, 0, st>>>(krow, ktp, pos_ok, K, hb,
+                                                   table);
+  dedupe_first_kernel<<<grid, THREADS, 0, st>>>(krow, ktp, pos_ok, K, hb,
+                                                table, bits, counts);
+  dedupe_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(counts, nb, offsets, uniq);
+  dedupe_write_kernel<<<grid, THREADS, 0, st>>>(krow, ktp, K, K2, bits,
+                                                offsets, uniq, urow, utp,
+                                                uvalid);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,8 +14,9 @@ intervals are int64 tensors.
 ``n`` and ``primary`` are host ints on the DeviceIndex, so no search
 step ever reads a device scalar back.
 
-The seed search's gather stages (``seed_intervals``, ``sa_decode``,
-``expand_decode``, ``count_mismatches_rows``) take a CUDA tensor to the
+The seed search's device stages (``seed_intervals``, ``sa_decode``,
+``expand_decode``, ``count_mismatches_rows``, ``dedupe``) and the DP
+seeding's ``seed_expand_decode`` take a CUDA tensor to the
 hand-written kernels of kernels/fm_search.py (or raise) and a CPU
 tensor to their plain-torch versions, the ``*_plain`` functions here,
 which the CPU tests hold to the JAX package. The FM steps and LF steps
@@ -563,6 +564,131 @@ def expand_decode_plain(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
     sa_pos = sa_decode_plain(idx, l.to(torch.int64)[lane] + cslot, cvalid)
     return _placements(idx, cvalid, sa_pos, lane, sstart.to(torch.int64),
                        olens.to(torch.int64), S)
+
+
+def seed_expand_decode(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
+                       sp: torch.Tensor, S: int, K: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The DP seeding's lane expansion and SA decode: lane j (row j // S,
+    seed start ``sp[j]``) owns the slots incl[j - 1]..incl[j] - 1 of the
+    inclusive count cumsum ``incl``, slot k of them SA row
+    l[j] + k - incl[j - 1]; each of the K slots gets its candidate (row,
+    pos, valid): the oriented row (0 past the total count) and the read's
+    text position where the decoded position is not below the seed
+    start, else 0 and False. FS2s on CUDA tensors (with the SA table
+    split over a mesh, its ranks form and the owner routing)."""
+    if l.is_cuda:
+        args = (idx, _i64(l), _i64(incl), _i64(sp), S, K)
+        if not idx.sa_parts:
+            return fm_search.seed_expand_decode(*args)
+        lane, rank, step = fm_search.seed_expand_ranks(*args)
+        return _seed_from_ranks(idx, lane, rank, step, args[2], args[3], S)
+    _require_cpu("seed_expand_decode", l)
+    return seed_expand_plain(idx, l, incl, sp, S, K)
+
+
+def _seed_from_ranks(idx: DeviceIndex, lane: torch.Tensor,
+                     rank: torch.Tensor, step: torch.Tensor,
+                     incl: torch.Tensor, sp: torch.Tensor, S: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """seed_expand_decode's candidates from each slot's (lane, sample
+    rank, LF steps), the samples gathered by the owner routing of a
+    split SA table (_sa_value)."""
+    live = torch.arange(lane.shape[0], device=lane.device) < incl[-1]
+    zero = torch.zeros_like(rank)
+    sa_pos = torch.where(live, (_sa_value(idx, rank) + step) & MASK32, zero)
+    st = sp[lane]
+    valid = live & (sa_pos >= st)
+    return lane // S, torch.where(valid, sa_pos - st, zero), valid
+
+
+def seed_expand_plain(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
+                      sp: torch.Tensor, S: int, K: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of seed_expand_decode: the reference's slot mask
+    of (lanes, the widest count) and its nonzero, then sa_decode_plain
+    (the mask's row-major order is the expansion's slot order)."""
+    dev = l.device
+    incl = incl.to(torch.int64)
+    cnt = incl - torch.cat([incl.new_zeros(1), incl[:-1]])
+    occ_cap = max(int(cnt.max()), 1)
+    rows = torch.arange(l.shape[0] // S, device=dev).repeat_interleave(S)
+    slot = torch.arange(occ_cap, device=dev)[None, :]
+    ok = slot < cnt[:, None]
+    flat = _nonzero_prefix(ok.reshape(-1), K)
+    cvalid = flat >= 0
+    safe = torch.where(cvalid, flat, torch.zeros_like(flat))
+    lane = safe // occ_cap
+    cslot = safe % occ_cap
+    sa_pos = sa_decode_plain(idx, l.to(torch.int64)[lane] + cslot, cvalid)
+    st = sp.to(torch.int64)[lane]
+    cvalid = cvalid & (sa_pos >= st)
+    pos = torch.where(cvalid, sa_pos - st, torch.zeros_like(sa_pos))
+    return rows[lane], pos, cvalid
+
+
+def _nonzero_prefix(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """First ``size`` indices where mask is True, ascending; -1 padded
+    (nonzero without the host sync of torch.nonzero)."""
+    n = mask.shape[0]
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    tgt = torch.where(mask & (rank < size), rank, torch.full_like(rank, size))
+    out = torch.full((size + 1,), -1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, tgt, torch.arange(n, device=mask.device))
+    return out[:size]
+
+
+# ------------------------------------------------------------------
+# The hash dedupe of the search's placements
+# ------------------------------------------------------------------
+
+ROW_SENTINEL = 0x7FFFFFFF  # the row of an output slot that holds no hit
+
+
+def dedupe(krow: torch.Tensor, ktp: torch.Tensor, pos_ok: torch.Tensor,
+           K2: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The scatter-min hash dedupe of the K placement keys (krow, ktp;
+    SENTINEL where not pos_ok) before verification: each pos_ok slot
+    hashes its key to a table of 2^hb slots, whose least pos_ok slot
+    wins; a slot is a first unless its winner is another slot with the
+    same key (a same-key loser of a slot another key won survives, as
+    in the reference; the host's hits_to_table removes it). Returns
+    (urow, utp, uvalid): the first K2 firsts in ascending slot order
+    (ROW_SENTINEL, ktp[0] and False past them), and uniq, the count of
+    all firsts. FS4 on CUDA tensors."""
+    if krow.is_cuda:
+        return fm_search.dedupe(_i64(krow), _i64(ktp),
+                                pos_ok.to(torch.bool).contiguous(), K2)
+    _require_cpu("dedupe", krow)
+    return dedupe_plain(krow, ktp, pos_ok, K2)
+
+
+def dedupe_plain(krow: torch.Tensor, ktp: torch.Tensor, pos_ok: torch.Tensor,
+                 K2: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """The plain version of dedupe: a scatter-min into the table, two
+    gathers, the duplicate test and _nonzero_prefix of the firsts."""
+    dev = krow.device
+    K = krow.shape[0]
+    idxs = torch.arange(K, device=dev)
+    hb = max((K - 1).bit_length() + 1, 10)
+    h = mul32(krow, 0x9E3779B1) ^ mul32(ktp, 0x85EBCA77)
+    hslot = mul32(h, 0xC2B2AE3D) >> (32 - hb)
+    table = torch.full((1 << hb,), K, dtype=torch.int64, device=dev)
+    table.scatter_reduce_(0, hslot, torch.where(pos_ok, idxs,
+                                                torch.full_like(idxs, K)),
+                          "amin")
+    widx = table[hslot].clamp(max=K - 1)
+    dup = pos_ok & (widx != idxs) & (krow[widx] == krow) & (ktp[widx] == ktp)
+    first = pos_ok & ~dup
+    uniq = first.sum()
+    idx2 = _nonzero_prefix(first, K2)
+    uvalid = idx2 >= 0
+    idx2s = torch.where(uvalid, idx2, torch.zeros_like(idx2))
+    urow = torch.where(uvalid, krow[idx2s], torch.full_like(idx2s, ROW_SENTINEL))
+    utp = ktp[idx2s]
+    return urow, utp, uvalid, uniq
 
 
 # ------------------------------------------------------------------

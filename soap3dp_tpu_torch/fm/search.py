@@ -10,13 +10,14 @@ reference (same slot order, same hash, same dedupe winners).
 ``nonzero``, no ``.cpu()``), so on a CUDA device its work is only
 enqueued and batch i+1's search overlaps batch i's host work;
 ``PendingSearch.result()`` is the one synchronisation point. On the
-card the kernels of kernels/fm_search.py do the gathers: the backward
-search and the verify read the packed reads in place, and one SA-decode
+card the kernels of kernels/fm_search.py do the device work: the backward
+search and the verify read the packed reads in place, one SA-decode
 kernel takes each of the K candidate slots from the lanes' count
-cumsum to its dedupe keys (fmindex.expand_decode), so the reference's
-compaction (a scatter-max and a cummax over the slots) runs only in the
-plain version on the CPU. Torch's own kernels do the counts' cumsum and
-the hash dedupe.
+cumsum to its dedupe keys (fmindex.expand_decode), and the dedupe
+kernel (fmindex.dedupe) writes the first occurrences in slot order, so
+the reference's compaction (a scatter-max and a cummax over the slots),
+its scatter-min and its nonzero run only in the plain versions on the
+CPU. Torch's own kernels do the counts' cumsum.
 """
 
 from __future__ import annotations
@@ -30,9 +31,7 @@ import torch
 from soap3dp_tpu_torch.utils import shapes, timers
 from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
-from soap3dp_tpu_torch.fm.fmindex import MASK32, SENTINEL, DeviceIndex, mul32
-
-ROW_SENTINEL = 0x7FFFFFFF
+from soap3dp_tpu_torch.fm.fmindex import ROW_SENTINEL, DeviceIndex
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,17 +98,6 @@ def pack_read_matrix(reads: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(by).view("<u4")
 
 
-def _nonzero_prefix(mask: torch.Tensor, size: int) -> torch.Tensor:
-    """First ``size`` indices where mask is True, ascending; -1 padded
-    (nonzero without the host sync of torch.nonzero)."""
-    n = mask.shape[0]
-    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
-    tgt = torch.where(mask & (rank < size), rank, torch.full_like(rank, size))
-    out = torch.full((size + 1,), -1, dtype=torch.int64, device=mask.device)
-    out.scatter_(0, tgt, torch.arange(n, device=mask.device))
-    return out[:size]
-
-
 def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
                   cfg: SearchConfig, cap: int, max_seed_steps: int,
                   seed_q: int = 0, K: int = 0, L: int = 0, K2: int = 0,
@@ -118,7 +106,6 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     """One seed search dispatch. ``reads`` is a (B, L) uint8 code matrix
     or (B, W) int32 packed words (then L is given). Returns device
     HitArrays and the (total candidates, unique placements) pair."""
-    dev = reads.device
     ori = fmindex.OrientedReads.of(reads, lens, L, uniform_len)
     B, L = ori.B, ori.L
     S = cfg.num_seeds
@@ -159,23 +146,7 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     # scatter-min hash dedupe of (row, tp) before verification
     if K2 <= 0:
         K2 = K
-    idxs = torch.arange(K, device=dev)
-    hb = max((K - 1).bit_length() + 1, 10)
-    h = mul32(krow, 0x9E3779B1) ^ mul32(ktp, 0x85EBCA77)
-    hslot = mul32(h, 0xC2B2AE3D) >> (32 - hb)
-    table = torch.full((1 << hb,), K, dtype=torch.int64, device=dev)
-    table.scatter_reduce_(0, hslot, torch.where(pos_ok, idxs,
-                                                torch.full_like(idxs, K)),
-                          "amin")
-    widx = table[hslot].clamp(max=K - 1)
-    dup = pos_ok & (widx != idxs) & (krow[widx] == krow) & (ktp[widx] == ktp)
-    first = pos_ok & ~dup
-    uniq = first.sum()
-    idx2 = _nonzero_prefix(first, K2)
-    uvalid = idx2 >= 0
-    idx2s = torch.where(uvalid, idx2, torch.zeros_like(idx2))
-    urow = torch.where(uvalid, krow[idx2s], torch.full_like(idx2s, ROW_SENTINEL))
-    utp = ktp[idx2s]
+    urow, utp, uvalid, uniq = fmindex.dedupe(krow, ktp, pos_ok, K2)
 
     # verify unique placements in the packed domain
     urow_c = urow.clamp(0, R - 1)

@@ -1,6 +1,6 @@
-"""The seed search's gather stages as hand-written Hopper kernels.
+"""The seed search's device stages as hand-written Hopper kernels.
 
-Three kernels of ``csrc/fm_search.cu`` (see its source note), built with
+The kernels of ``csrc/fm_search.cu`` (see its source note), built with
 nvcc at first use into ``_build/`` and loaded with ctypes:
 
 * FS1 ``search``: LUT jumpstart and FM backward search per seed lane, in
@@ -13,9 +13,14 @@ nvcc at first use into ``_build/`` and loaded with ctypes:
   ``expand_decode`` / ``expand_ranks``: the same walk with the lane
   expansion of the reference's ``_search_batch``
   (soap3dp_tpu/fm/search.py:247-273) before it and the dedupe keys
-  after it;
+  after it (FS2x); and ``seed_expand_decode`` / ``seed_expand_ranks``:
+  the same expansion for the DP seeding, which replaces the reference's
+  slot mask and nonzero (soap3dp_tpu/pipeline/dp_rescue.py:176-188) and
+  writes its candidates (FS2s);
 * FS3 ``verify``: packed XOR/popcount against the genome
-  (``count_mismatches_packed``, fmindex.py:653).
+  (``count_mismatches_packed``, fmindex.py:653);
+* FS4 ``dedupe``: the search's scatter-min hash dedupe and the
+  compaction of its first occurrences (soap3dp_tpu/fm/search.py:275-301).
 
 These are the launch wrappers: every tensor must lie on one CUDA device
 (anything else raises; there is no fallback). ``fm/fmindex.py`` routes a
@@ -55,6 +60,17 @@ EXPAND_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_expand_decode",
     [_P, _P, _LL, _P, _P, _I, _LL, _LL, _I] + [_P] * 4 + [_LL, _P, _LL]
     + [_P] * 7)
+# soap3dp_seed_expand_decode(l, incl, RS, sp, S, K, sa_rate, mark_words,
+#   mark_rank, blocks, counts, primary, sa, n_sa, row, pos, valid,
+#   lane_out, rank_out, step_out, stream)
+SEED_EXPAND_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_seed_expand_decode",
+    [_P, _P, _LL, _P, _I, _LL, _I] + [_P] * 4 + [_LL, _P, _LL] + [_P] * 7)
+# soap3dp_dedupe(krow, ktp, pos_ok, K, K2, hb, scratch, urow, utp, uvalid,
+#   uniq, stream)
+DEDUPE_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_dedupe",
+    [_P, _P, _P, _LL, _LL, _I] + [_P] * 6)
 # soap3dp_verify(reads, kind, B, L, Ws, rc_len, rows, tp, read_len, M, W,
 #   pac, n_pac, out, stream)
 VERIFY_KERNEL = CudaKernel(
@@ -216,41 +232,45 @@ def sa_ranks(idx, rows: torch.Tensor, valid: torch.Tensor
     return tuple(_decode(idx, rows, valid, ranks=True))
 
 
-def _expand(idx, l: torch.Tensor, incl: torch.Tensor, sstart: torch.Tensor,
-            olens: torch.Tensor, S: int, K: int, ranks: bool):
+def _expand(kernel: CudaKernel, idx, l: torch.Tensor, incl: torch.Tensor,
+            start: torch.Tensor, olens, S: int, K: int, ranks: bool):
+    """A lane expansion of FS2: the search's (``olens`` given, the
+    dedupe keys) or the DP seeding's (``olens`` None, the candidates),
+    or either's ranks form."""
     RS = l.shape[0]
     dev = l.device
-    _check("expand decode", dev, l=l, incl=incl, sstart=sstart, olens=olens)
-    _tables("expand decode", idx, dev)
-    _vector("expand decode", "l", l, RS, torch.int64)
-    _vector("expand decode", "incl", incl, RS, torch.int64)
-    _vector("expand decode", "sstart", sstart, RS, torch.int64)
-    if olens.dtype != torch.int64 or olens.dim() != 1:
-        raise ValueError("expand decode: olens must be int64 (R,)")
-    if RS < 1 or S < 1 or RS != olens.shape[0] * S or K < 0 \
-            or idx.sa_rate < 1:
-        raise ValueError(f"expand decode: {RS} lanes, S {S}, "
-                         f"{olens.shape[0]} rows, K {K}, sa_rate "
-                         f"{idx.sa_rate} out of range")
+    name = kernel.symbol[len("soap3dp_"):].replace("_", " ")
+    _check(name, dev, l=l, incl=incl, start=start,
+           **({} if olens is None else {"olens": olens}))
+    _tables(name, idx, dev)
+    _vector(name, "l", l, RS, torch.int64)
+    _vector(name, "incl", incl, RS, torch.int64)
+    _vector(name, "start", start, RS, torch.int64)
+    rows = RS // S if olens is None else olens.shape[0]
+    if olens is not None and (olens.dtype != torch.int64 or olens.dim() != 1):
+        raise ValueError(f"{name}: olens must be int64 (R,)")
+    if RS < 1 or S < 1 or RS != rows * S or K < 0 or idx.sa_rate < 1:
+        raise ValueError(f"{name}: {RS} lanes, S {S}, {rows} rows, K {K}, "
+                         f"sa_rate {idx.sa_rate} out of range")
     outs = [torch.empty(K, dtype=torch.int64, device=dev) for _ in range(3)]
     if not ranks:
         outs[2] = torch.empty(K, dtype=torch.bool, device=dev)
     if K == 0:
         return outs
-    _, fn = EXPAND_KERNEL.function()
-    keys = [None] * 3 + [o.data_ptr() for o in outs] if ranks \
-        else [o.data_ptr() for o in outs] + [None] * 3
+    _, fn = kernel.function()
+    ptrs = [o.data_ptr() for o in outs]
+    keys = [None] * 3 + ptrs if ranks else ptrs + [None] * 3
+    lead = (S, K, idx.sa_rate) if olens is None \
+        else (olens.data_ptr(), S, idx.n, K, idx.sa_rate)
     with torch.cuda.device(dev):
-        err = fn(l.data_ptr(), incl.data_ptr(), RS, sstart.data_ptr(),
-                 olens.data_ptr(), S, idx.n, K, idx.sa_rate,
+        err = fn(l.data_ptr(), incl.data_ptr(), RS, start.data_ptr(), *lead,
                  idx.mark_words.data_ptr(), idx.mark_rank.data_ptr(),
                  idx.occ_blocks.data_ptr(), idx.counts.data_ptr(),
                  idx.primary, idx.sa_samples.data_ptr(),
                  idx.sa_samples.shape[0], *keys, _stream(dev))
     if err != 0:
-        raise RuntimeError(f"expand decode kernel launch failed: CUDA error "
-                           f"{err}")
-    EXPAND_KERNEL.count(dev, (K, RS, idx.sa_rate))
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    kernel.count(dev, (K, RS, idx.sa_rate))
     return outs
 
 
@@ -264,7 +284,8 @@ def expand_decode(idx, l: torch.Tensor, incl: torch.Tensor,
     minus the segment start ``sstart[j]`` where that placement of a read
     of ``olens[j // S]`` bases lies in the text, else the 0xFFFFFFFF
     sentinel and False (fmindex.expand_decode)."""
-    return tuple(_expand(idx, l, incl, sstart, olens, S, K, ranks=False))
+    return tuple(_expand(EXPAND_KERNEL, idx, l, incl, sstart, olens, S, K,
+                         ranks=False))
 
 
 def expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor,
@@ -274,7 +295,67 @@ def expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor,
     over a mesh: each slot's (lane, sample rank, LF steps), 0 lane and
     the walk of row 0 past the total count; the owner routing gathers
     the samples and checks the placements (fmindex.expand_decode)."""
-    return tuple(_expand(idx, l, incl, sstart, olens, S, K, ranks=True))
+    return tuple(_expand(EXPAND_KERNEL, idx, l, incl, sstart, olens, S, K,
+                         ranks=True))
+
+
+def seed_expand_decode(idx, l: torch.Tensor, incl: torch.Tensor,
+                       sp: torch.Tensor, S: int, K: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FS2s, the DP seeding's lane expansion: slot k (< K) of lane j
+    decodes SA row l[j] + k - incl[j - 1] as expand_decode does; returns
+    the candidates (row, pos int64, valid bool): the oriented row j // S
+    (0 past the total count), and the text position minus the seed
+    start ``sp[j]`` where it is not below it, else 0 and False
+    (fmindex.seed_expand_decode)."""
+    return tuple(_expand(SEED_EXPAND_KERNEL, idx, l, incl, sp, None, S, K,
+                         ranks=False))
+
+
+def seed_expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor,
+                      sp: torch.Tensor, S: int, K: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """seed_expand_decode without the sample gather, for an SA table
+    split over a mesh: each slot's (lane, sample rank, LF steps), as
+    expand_ranks (fmindex.seed_expand_decode)."""
+    return tuple(_expand(SEED_EXPAND_KERNEL, idx, l, incl, sp, None, S, K,
+                         ranks=True))
+
+
+def dedupe(krow: torch.Tensor, ktp: torch.Tensor, pos_ok: torch.Tensor,
+           K2: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """FS4, the hash dedupe of the K search keys (krow, ktp int64 values
+    in [0, 2^32), pos_ok bool): slot k with pos_ok is a first unless the
+    least pos_ok slot of its hash-table slot is another slot with the
+    same key. Returns (urow, utp int64, uvalid bool) of the first K2
+    firsts in ascending k (ROW_SENTINEL, ktp[0] and False past them) and
+    uniq, the count of all firsts (int64, 0-dim) (fmindex.dedupe)."""
+    K = krow.shape[0]
+    dev = krow.device
+    _check("dedupe", dev, krow=krow, ktp=ktp, pos_ok=pos_ok)
+    _vector("dedupe", "krow", krow, K, torch.int64)
+    _vector("dedupe", "ktp", ktp, K, torch.int64)
+    _vector("dedupe", "pos_ok", pos_ok, K, torch.bool)
+    if not 1 <= K < (1 << 31) - 1 or K2 < 0:
+        raise ValueError(f"dedupe: K {K}, K2 {K2} out of range")
+    hb = max((K - 1).bit_length() + 1, 10)  # as fmindex.dedupe_plain
+    nb = -(-K // 256)  # csrc/fm_search.cu THREADS
+    scratch = torch.empty((1 << hb) + -(-K // 32) + 2 * nb,
+                          dtype=torch.int32, device=dev)
+    urow = torch.empty(K2, dtype=torch.int64, device=dev)
+    utp = torch.empty(K2, dtype=torch.int64, device=dev)
+    uvalid = torch.empty(K2, dtype=torch.bool, device=dev)
+    uniq = torch.empty((), dtype=torch.int64, device=dev)
+    _, fn = DEDUPE_KERNEL.function()
+    with torch.cuda.device(dev):
+        err = fn(krow.data_ptr(), ktp.data_ptr(), pos_ok.data_ptr(), K, K2,
+                 hb, scratch.data_ptr(), urow.data_ptr(), utp.data_ptr(),
+                 uvalid.data_ptr(), uniq.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"dedupe kernel launch failed: CUDA error {err}")
+    DEDUPE_KERNEL.count(dev, (K, K2, hb))
+    return urow, utp, uvalid, uniq
 
 
 def verify(idx, src: ReadRows, rows: torch.Tensor, tp: torch.Tensor,

@@ -3,8 +3,8 @@
 Port of soap3dp_tpu/pipeline/dp_rescue.py. The seed matrices and the
 result containers are the reference's numpy code; the device halves
 (``_seed_cand_batch``, ``_prescan_impl``, ``_pack_problems``) are torch
-on the index's device (the seeds' backward search and SA decode through
-fmindex, the FS1 and FS2 kernels on the card), and ``run_banded_dp``
+on the index's device (the seeds' backward search, lane expansion and SA
+decode through fmindex, the FS1 and FS2s kernels on the card), and ``run_banded_dp``
 calls the port's ``dp_align`` (the Hopper kernels on CUDA, their plain
 versions on CPU), one slice of problems per device on a mesh.
 """
@@ -21,7 +21,6 @@ from soap3dp_tpu_torch.utils import shapes, timers
 from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.fm.fmindex import DeviceIndex, to_device
-from soap3dp_tpu_torch.fm.search import _nonzero_prefix
 from soap3dp_tpu_torch.kernels.banded_dp import DPScores, dp_align_shards
 
 MERGE_GAP = 50  # candidates within 50bp collapse (DP2_DIVIDE_GAP)
@@ -102,34 +101,23 @@ def _seed_cand_batch(idx: DeviceIndex, reads: torch.Tensor,
     """Device half of seed_candidates: search + compacted SA decode.
     Returns (row, pos, valid, total) tensors: row is the oriented row
     id, pos the candidate read-start text position."""
-    B, L = reads.shape
     S = seed_pos.shape[1]
-    dev = reads.device
     lens = lens.to(torch.int64)
     ori = fmindex.OrientedReads.of(reads, lens)
-    R = 2 * B
     sp = torch.cat([seed_pos, seed_pos], dim=0).to(torch.int64)
     sl2 = torch.cat([seed_len, seed_len]).to(torch.int64)
     ln2 = torch.cat([lens, lens])
     sp = torch.minimum(sp, (ln2 - sl2).clamp(min=0)[:, None])
     slen_arr = torch.minimum(sl2, ln2)[:, None].expand(sp.shape)
-    rows = torch.arange(R, device=dev).repeat_interleave(S)
     l, r = fmindex.seed_intervals(idx, ori, S, sp.reshape(-1),
                                   slen_arr.reshape(-1), max_steps, "general")
-    width = r - l
-    slot = torch.arange(occ_cap, device=dev)[None, :]
-    ok = slot < width.clamp(max=occ_cap)[:, None]
-    total = ok.sum()
-    flat = _nonzero_prefix(ok.reshape(-1), K)
-    cvalid = flat >= 0
-    safe = torch.where(cvalid, flat, torch.zeros_like(flat))
-    lane = safe // occ_cap
-    cslot = safe % occ_cap
-    sa_pos = fmindex.sa_decode(idx, l[lane] + cslot, cvalid)
-    st = sp.reshape(-1)[lane]
-    cvalid = cvalid & (sa_pos >= st)
-    pos = torch.where(cvalid, sa_pos - st, torch.zeros_like(sa_pos))
-    return rows[lane], pos, cvalid, total
+    # each lane's candidates (its width clamped to occ_cap) expanded into
+    # K slots in lane order and decoded (FS2s on the card)
+    cnt = (r - l).clamp(0, occ_cap)
+    incl = torch.cumsum(cnt, 0)
+    row, pos, valid = fmindex.seed_expand_decode(idx, l, incl, sp.reshape(-1),
+                                                 S, K)
+    return row, pos, valid, incl[-1]
 
 
 def seed_candidates(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,

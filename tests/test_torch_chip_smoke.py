@@ -60,7 +60,8 @@ def test_multi_device_phases_on_cpu(tmp_path):
     assert hosts["records_equal"] and hosts["summary_equal"]
     assert sum(hosts["per_process_pairs"]) == 200
     assert hosts["launches"] == [dict.fromkeys(
-        ("K1", "K2", "TB", "FS1", "FS2", "FS2x", "FS3"), 0)] * 2  # no card
+        ("K1", "K2", "TB", "FS1", "FS2", "FS2x", "FS3", "FS4", "FS2s"),
+        0)] * 2  # no card
     assert len(hosts["index_upload_s"]) == 2
     assert chip_smoke.phase_all_cards(cpu, reads, w) == {"not_run": "1 card"}
 
@@ -384,30 +385,44 @@ def test_path_calls_and_kernel_rows(fs_index):
     """The main path's kernel calls (a pair batch's round-1 search and a
     deep-DP seeding) are recorded with their arguments and pass through;
     a plain primitive on a CPU index is not counted as one on a card;
-    the JSON rows of FS1, FS2, FS2x and FS3 carry every key of the
-    kernels line."""
+    the JSON rows of FS1, FS2, FS2x, FS3, FS4 and FS2s carry every key
+    of the kernels line."""
     codes, didx = fs_index
     calls = chip_smoke.path_calls(didx, codes, B=128, seed_reads=64)
     fns = [fn for fn, _ in calls]
-    assert {"seed_intervals", "sa_decode", "count_mismatches_rows"} <= set(fns)
+    assert {"seed_intervals", "expand_decode", "dedupe",
+            "count_mismatches_rows", "seed_expand_decode"} == set(fns)
     assert fns[0] == "seed_intervals" and calls[0][1][6] == "lut"
     assert calls[0][1][1].L == 120      # phase 4's 120-wide rows
+    # the seeding as _deep_dp_round seeds 120-wide rows: 4 seeds a read
+    seed = calls[-1][1]
+    assert fns[-1] == "seed_expand_decode" and seed[4] == 4
+    assert seed[1].shape[0] == 2 * 64 * 4
     with chip_smoke._Recorder(record=False) as rec:
         chip_smoke.path_calls(didx, codes, B=16, seed_reads=8)
     assert rec.plain_on_card == 0
-    rows = [{"case": f"path{i}", "kernel": k, "ms": 1.0, "plain_ms": 2.0,
+    rows = [{"case": f"path{i}", "kernel": k, "ms": 1.0,
+             "timer": "torch.profiler", "plain_ms": 2.0,
              "bound_ms": 0.1, "bound_by": "bytes", "sector_bound_ms": 0.5,
              "max_abs_err": 0, "shape": "8x100x3", "wall_s": 0.5, key: 8}
             for i, (k, key) in enumerate((("FS1", "lanes"), ("FS2", "rows"),
                                           ("FS2x", "slots"),
-                                          ("FS3", "placements")))]
+                                          ("FS3", "placements"),
+                                          ("FS4", "slots"),
+                                          ("FS2s", "slots")))]
     out = chip_smoke.fs_kernel_rows(rows)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [r["replaces"] for r in out] == [
         "soap3dp_tpu/fm/fmindex.py:391", "soap3dp_tpu/fm/fmindex.py:509",
-        "soap3dp_tpu/fm/search.py:247", "soap3dp_tpu/fm/fmindex.py:653"]
+        "soap3dp_tpu/fm/search.py:247", "soap3dp_tpu/fm/fmindex.py:653",
+        "soap3dp_tpu/fm/search.py:275",
+        "soap3dp_tpu/pipeline/dp_rescue.py:176"]
+    assert [r["name"] for r in out][-2:] == ["fm_hash_dedupe",
+                                             "fm_seed_expand_decode"]
     assert all(keys <= set(r) and r["route"] == "cuda" for r in out)
+    # the path's FS kernels: every one but FS2's sa_decode of ready rows
+    assert set(chip_smoke.FS_PATH) == set(chip_smoke.FS_ROWS) - {"FS2"}
 
 
 def test_expansion_and_block_edge_cases(fs_index):
@@ -428,11 +443,11 @@ def test_expansion_and_block_edge_cases(fs_index):
     names = [c[0] for c in cases]
     assert names == [f"expand_{e}" for e in chip_smoke.EXPANSION_EDGES] + [
         f"blocks_nw{r}_{k}" for r in (0, 2, 3)
-        for k in ("decode", "expand", "search")]
+        for k in ("decode", "expand", "search", "seed_widths")]
     totals = {}
     for name, fn, args in cases:
         got = getattr(fmindex, fn)(*args)
-        want = getattr(fmindex, fn + "_plain")(*args)
+        want = getattr(fmindex, chip_smoke.plain_of(fn))(*args)
         assert chip_smoke._fs_diff(got, want) == (0, 0), name
         w = chip_smoke.fs_work(fn, args, want)
         assert w["block_sectors"] > 0 and w["sectors"] > 0
@@ -442,9 +457,57 @@ def test_expansion_and_block_edge_cases(fs_index):
                 args[6], totals[name])
         if name.startswith("blocks"):
             assert (args[0].n // 16 + 1) % 4 == int(name[9])  # BWT words
+        if fn == "seed_expand_decode":   # a 64 kbp text: below the start
+            assert w["below_start"] > 0 and w["walked"] > 0
     assert totals["expand_total_0"] == 0
     assert totals["expand_total_gt_K"] > K == totals["expand_total_eq_K"]
     assert totals["expand_zeros"] < K
     one = cases[4][2][2]
     assert int((one.diff() > 0).sum()) + int(one[0] > 0) == 1
     assert int(cases[5][2][1].shape[0]) == cases[5][2][0].n + 1
+
+
+def test_seed_expansion_and_dedupe_cases(fs_index):
+    """Phase 2's cases of FS2's seed_expand_decode (interval widths of 0,
+    1, 63, 64, 65 and 200, seeds at read offset 0 and at the read's end,
+    K past, below and equal to the total, a total of 0) and of FS4 (uniq
+    above and equal to K2, no pos_ok, forced collisions at the 1,024-slot
+    table, K of 2^22, here 2^14): each is the edge it names, the entry
+    point is its plain version on the CPU, the FS2s replay gives the
+    plain output, and the forced collisions leave same-key losers."""
+    from soap3dp_tpu_torch.fm import fmindex
+
+    codes, didx = fs_index
+    rng = np.random.default_rng(13)
+    RS, S = 600, 4
+    cases = chip_smoke.seed_expand_cases(rng, didx, "cpu", RS, S)
+    cases += chip_smoke.dedupe_cases(rng, "cpu", K=4096, big=1 << 14)
+    assert [c[0] for c in cases] == [
+        f"seed_{e}" for e in chip_smoke.SEED_EDGES] + [
+        "dedupe_uniq_gt_K2", "dedupe_uniq_eq_K2", "dedupe_no_pos_ok",
+        "dedupe_collide_1024", "dedupe_K_16384"]
+    work = {}
+    for name, fn, args in cases:
+        got = getattr(fmindex, fn)(*args)
+        want = getattr(fmindex, chip_smoke.plain_of(fn))(*args)
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
+        work[name] = w = chip_smoke.fs_work(fn, args, want)
+        assert w["bytes"] > 0
+        if fn == "seed_expand_decode":
+            l, incl, sp, K = args[1], args[2], args[3], args[5]
+            total = int(incl[-1])
+            assert w["slots"] == K and w["walked"] == min(K, total)
+            assert {"widths": K > total, "total_gt_K": total > K,
+                    "total_eq_K": total == K, "total_0": total == 0}[
+                name[len("seed_"):]]
+            if total:
+                cnt = incl.diff(prepend=incl.new_zeros(1))
+                assert set(cnt.tolist()) == {0, 1, 63, 64}
+                assert {0, 74} <= set(sp.tolist())
+    w = work["dedupe_uniq_gt_K2"]
+    assert w["uniq"] > w["K2"] and w["hb"] == 13
+    assert work["dedupe_uniq_eq_K2"]["uniq"] == work["dedupe_uniq_eq_K2"]["K2"]
+    assert work["dedupe_no_pos_ok"]["uniq"] == 0
+    w = work["dedupe_collide_1024"]
+    assert w["hb"] == 10 and w["collided"] > 0 and w["surviving_dups"] > 0
+    assert work["dedupe_K_16384"]["slots"] == 1 << 14

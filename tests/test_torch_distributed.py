@@ -203,6 +203,61 @@ def test_sharded_sa_matches_replicated(small_genome, sa_rate):
         np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("sa_rate", [8, 1])
+def test_sharded_sa_seeding_matches_one_device(small_genome, sa_rate):
+    """The DP seeding (seed_candidates) on a mesh whose SA table is split
+    over the replicas gives one device's candidates."""
+    from soap3dp_tpu.index.builder import build_index
+    from soap3dp_tpu_torch.pipeline import dp_rescue as tr
+
+    index = port_index(build_index(small_genome, sa_rate=sa_rate))
+    reads, lens = _reads(small_genome.codes, 40, 100, seed=7 + sa_rate)
+    sp, sl = tr.deep_dp_seed_matrix(lens, 100)
+    want = tr.seed_candidates(tf.device_index(index, "cpu"), reads, lens,
+                              sp, sl)
+    got = tr.seed_candidates(
+        tmesh.replicate_index(index, CPU4, shard_sa=True), reads, lens, sp,
+        sl)
+    assert want.read.size >= len(reads)
+    for f in ("read", "strand", "pos"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+
+
+def test_seed_ranks_route_matches_one_device(small_genome):
+    """The card's route for a split SA table: FS2s's ranks form (at
+    sa_rate 1 each slot's rank is its SA row, no LF step) and the owner
+    routing (fmindex._seed_from_ranks) on each replica of a two-replica
+    split give one device's seed_expand_plain."""
+    from soap3dp_tpu.index.builder import build_index
+
+    index = port_index(build_index(small_genome, sa_rate=1))
+    one = tf.device_index(index, "cpu")
+    reps = tmesh.replicate_index(index, tmesh.make_mesh(["cpu"] * 2),
+                                 shard_sa=True).replicas
+    rng = np.random.default_rng(9)
+    RS, S = 900, 3
+    cnt = torch.from_numpy(np.minimum(rng.choice([0, 1, 63, 64, 65, 200], RS),
+                                      64))
+    incl = torch.cumsum(cnt, 0)
+    l = torch.from_numpy(rng.integers(0, one.n - 200, RS))
+    sp = torch.from_numpy(rng.integers(0, 75, RS))
+    for K in (int(incl[-1]) + 50, int(incl[-1]) // 2):
+        want = tf.seed_expand_plain(one, l, incl, sp, S, K)
+        k = torch.arange(K)
+        live = k < incl[-1]
+        lane = torch.where(live, torch.searchsorted(incl, k, right=True), 0)
+        off = torch.where(lane > 0, incl[(lane - 1).clamp(min=0)], 0)
+        rank = torch.where(live, l[lane] + k - off, 0)
+        for rep in reps:
+            assert rep.sa_parts
+            got = tf._seed_from_ranks(rep, lane, rank, torch.zeros_like(rank),
+                                      incl, sp, S)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        assert want[2].any() and (live & ~want[2]).any()
+
+
 def _torch(prob, device="cpu"):
     return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
             for x in prob]
