@@ -52,16 +52,25 @@ Phases, each printing one line, any failure exits non-zero:
    survive, whose count must be above 0, and K of 2^22), FS1-FS3 on a
    synthetic 3.2 Gbp index (rows, bounds and positions past 2^31), and
    a repeat genome's search (rounds 2 and 3) on the card and the CPU
-   with equal hits;
+   with equal hits. Then GP (the half rescue's gapless prescan,
+   dp_rescue._prescan_impl) against _prescan_plain, every output
+   element: phase 4's and phase 5's largest calls and the plain
+   version's full chunk at phase 5's window on phase 4's index (each
+   beside the grouped conv1d that computes the same counts), the edges
+   of tests/test_torch_prescan.py on a 40 kbp genome with a run of A,
+   and windows past 2^31 on the synthetic index, with GP's device time,
+   its bound (int32 operations, popcounts or bytes) and share;
 3. golden SAM: the five paired-end and two single-end golden cases of
    tests/golden rendered through the port on cuda, every record equal
    (@PG excepted);
 4. end to end at a real size: a 250 Mbp genome, 100,000 read pairs,
    the port's `pair` CLI with default options (-u 500 -v 300); checks
    records, planted-locus recall, rescue counts and kernel launches (K1
-   and the path's FS kernels: FS1, FS2x, FS2s, FS3 and FS4, and no K2:
-   its windows are narrow; no plain search primitive on the card) with
-   a histogram of the launch shapes (phases 5, 6 and 7a likewise), then
+   and the path's FS kernels: FS1, FS2x, FS2s, FS3 and FS4, and GP, and
+   no K2: its windows are narrow; no plain search primitive and no plain
+   prescan on the card) with a histogram of the launch shapes (phases
+   5, 6 and 7a likewise), the run's stage timers (SOAP3DP_TIMERS=1:
+   BC.prescan beside BC.half_rescue; phase 5 likewise), then
    runs it once more under torch.profiler (device busy share, top device
    events in the output directory's e2e_profile.txt), and searches its
    first batch alone under torch.profiler (the search's device items
@@ -72,13 +81,14 @@ Phases, each printing one line, any failure exits non-zero:
    the whole insert window, where dp_align takes K2 + TB). First 200
    pairs on a 200 kbp genome, on cuda and on cpu, SAM records equal;
    then 100,000 pairs on phase 4's 250 Mbp index, checking records,
-   recall and the launches of K1, K2 and TB;
+   recall and the launches of K1, K2, TB and GP;
 6. single-end: the port's `single` CLI over phase 4's end-1 reads on the
    same index, checking records, recall and K1 launches (salvage);
 7. several devices and processes, on phase 4's inputs: (a) the runner's
    pair loop on an in-process mesh of max(2, cards) index replicas (two
    on one card), records and summary equal to phase 4's, K1 and the
    path's FS kernels (FS4 and FS2s among them) launched on each card,
+   GP on the card of the index replica the prescan is given,
    and dp_align(mesh=) at the mate-pair window equal to one device's,
    K2 and TB launched; (b) two `pair --hosts 2` processes (process i on
    card i % cards), merged records and global summary equal to phase
@@ -87,7 +97,7 @@ Phases, each printing one line, any failure exits non-zero:
    prints "not run: 1 card".
 
 Then one JSON line with the kernels (K1, K2, TB, FS1, FS2, FS2x, FS3,
-FS4, FS2s, each with its device time, its bound on this card, the share of the
+FS4, FS2s, GP, each with its device time, its bound on this card, the share of the
 bound it reaches and the operations peak the bound used: int16x2,
 twice the int32 peak, where the 16-bit forward runs), and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
@@ -1403,19 +1413,30 @@ def repeat_genome(rng, genome_bp: int, unit: int, copies: int,
 class _Recorder:
     """Within ``with``: every call of an fmindex entry point of the three
     kernels (FS_FUNCTIONS) is recorded, (name, args), and goes through;
-    and every call of a plain search primitive whose index lies on a
-    card is counted in ``plain_on_card`` (a CUDA tensor never takes a
-    plain version)."""
+    every call of a plain search primitive whose index lies on a card is
+    counted in ``plain_on_card``, and every call of the plain prescan
+    (dp_rescue._prescan_plain) with CUDA tensors in
+    ``prescan_plain_on_card`` (a CUDA tensor never takes a plain
+    version)."""
 
     def __init__(self, record: bool = True):
         self.record = record
         self.calls: list[tuple[str, tuple]] = []
         self.plain_on_card = 0
+        self.prescan_plain_on_card = 0
         self._saved = {}
 
     def __enter__(self):
         from soap3dp_tpu_torch.fm import fmindex
+        from soap3dp_tpu_torch.pipeline import dp_rescue
 
+        plain = self._prescan_plain = dp_rescue._prescan_plain
+
+        def prescan_plain(*args, **kw):
+            self.prescan_plain_on_card += args[1].device.type == "cuda"
+            return plain(*args, **kw)
+
+        dp_rescue._prescan_plain = prescan_plain
         for name in FS_FUNCTIONS:
             for fn_name in ((name, plain_of(name)) if self.record
                             else (plain_of(name),)):
@@ -1436,7 +1457,9 @@ class _Recorder:
 
     def __exit__(self, *exc):
         from soap3dp_tpu_torch.fm import fmindex
+        from soap3dp_tpu_torch.pipeline import dp_rescue
 
+        dp_rescue._prescan_plain = self._prescan_plain
         for fn_name, fn in self._saved.items():
             setattr(fmindex, fn_name, fn)
         return False
@@ -2084,13 +2107,21 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
     if collide["surviving_dups"] <= 0:
         fail("the forced collisions left no same-key loser of a slot "
              "another key won")
-    del cases, calls, didx, didx8, mesh, didx1, a
+    del cases, calls, didx8, mesh, didx1, a
+    torch.cuda.empty_cache()
+    gp_rows = phase_prescan(dev, peak_ops, didx, genome.codes)
+    del didx
+    torch.cuda.empty_cache()
     syn = synthetic_index(dev, synthetic_n)
     rows += [run_fs_case(name, fn, args, peak_ops, reps=5)
              for name, fn, args in synthetic_cases(rng, syn, dev)]
+    gp_rows.append(run_prescan_case(
+        "synthetic", prescan_synthetic_case(rng, syn, dev), syn, dev,
+        peak_ops, reps=5))
     del syn
     torch.cuda.empty_cache()
-    return fs_kernel_rows(rows), rows, repeat
+    return (fs_kernel_rows(rows) + [gp_kernel_row(gp_rows)], rows + gp_rows,
+            repeat)
 
 
 FS_ROWS = {  # label: (name in the JSON line, the TPU-side code it replaces)
@@ -2153,6 +2184,418 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
               + f"; plain {row['plain_ms']:.3f} ms; {len(mine)} cases in "
               f"{sum(r['wall_s'] for r in mine):.2f} s")
     return out
+
+
+# ------------------------------------------------------------------
+# GP: the DP rescue's gapless prescan against its plain version
+# ------------------------------------------------------------------
+
+# the largest gapless_prescan call of phases 4 and 5, (M candidates,
+# max_win), both in 120-wide rows of 100-base reads (compare_prescan.py
+# on the parent, PERF.md section 5), and the plain version's full chunk
+# at phase 5's window
+PRESCAN_PATH = {"path_phase4": (8532, 300), "path_phase5": (8655, 4100),
+                "chunk_phase5": (16384, 4100)}
+# the edges' genome: its bases and its run of A (start, length)
+PRESCAN_GENOME_N, PRESCAN_POLY_A = 40_000, (12_000, 800)
+PRESCAN_MIXED = (1, 15, 16, 17, 31, 32, 33, 100, 120, 250)
+PRESCAN_EDGES = ("mixed_lengths", "rc_length_apart", "no_valid",
+                 "full_room", "poly_a", "genome_end", "shared_read", "one",
+                 "above_chunk")
+# int32 operations a valid offset's read word: funnel shift, XOR, fold
+# (shift and or), mask; and the add of its popcount
+OPS_PRESCAN_WORD = 5
+
+
+def prescan_genome():
+    """The edges' genome (a PackedGenome): seeded, PRESCAN_GENOME_N bases
+    with a run of A at PRESCAN_POLY_A."""
+    import dataclasses
+
+    from soap3dp_tpu_torch import workloads
+    from soap3dp_tpu_torch.utils import dna
+
+    genome = workloads.random_genome(np.random.default_rng(41),
+                                     PRESCAN_GENOME_N, name="chrP")
+    codes = genome.codes.copy()
+    s, n = PRESCAN_POLY_A
+    codes[s:s + n] = 0
+    return dataclasses.replace(genome, codes=codes, pac=dna.pack_codes(codes))
+
+
+def _planted(rng, codes, rlens, L, O, strand, room):
+    """Reads of ``rlens`` bases (rows of L) cut from ``codes`` at a random
+    offset of a window of rlen + room bases, m % 3 substitutions in read
+    m, reverse-complemented where ``strand`` is 1 (so that the
+    prescan's orientation finds them); returns (reads, ws, wlens)."""
+    M = len(rlens)
+    reads = np.zeros((M, L), np.uint8)
+    wlens = (rlens + room).astype(np.int32)
+    ws = rng.integers(0, len(codes) - O - L - 1, M).astype(np.int64)
+    for m, n in enumerate(rlens):
+        o = int(rng.integers(0, max(min(room[m], O - 1), 0) + 1))
+        seg = _mutate(rng, codes[ws[m] + o:ws[m] + o + n], m % 3, 0, 0)
+        reads[m, :n] = 3 - seg[::-1] if strand[m] == 1 else seg
+    return reads, ws, wlens
+
+
+def _prescan_inputs(reads, lens_rows, read_idx, strand, ws, rlens, wlens,
+                    O: int) -> dict:
+    L = reads.shape[1]
+    return {"reads": np.ascontiguousarray(reads, np.uint8),
+            "lens_rows": np.asarray(lens_rows, np.int32),
+            "read_idx": np.asarray(read_idx, np.int64),
+            "strand": np.asarray(strand, np.int8),
+            "ws": np.asarray(ws, np.int64),
+            "rlens": np.asarray(rlens, np.int32),
+            "wlens": np.asarray(wlens, np.int32), "O": O,
+            "W": O + ((L + 127) // 128) * 128}
+
+
+def prescan_edge_case(name: str, codes: np.ndarray, seed: int = 7) -> dict:
+    """The inputs of dp_rescue._prescan_impl (reads (B, L) uint8,
+    lens_rows (B,), read_idx, strand, ws, rlens, wlens (M,), O, W) at the
+    edge ``name`` of PRESCAN_EDGES, on prescan_genome's ``codes``: reads
+    of PRESCAN_MIXED bases in one call, both strands; reverse
+    complements of other lengths than the counted ones (some past the
+    row); no valid offset; every offset valid (wlens - rlens = O - 1 and
+    more); a poly-A read on a poly-A window (every valid offset ties at
+    0); windows that end at the genome's last base, and one past it;
+    one read behind two candidates of different lengths; one candidate;
+    more candidates than the plain version's chunk."""
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    rng = np.random.default_rng(seed)
+    N = len(codes)
+    O = 384
+    if name in ("mixed_lengths", "rc_length_apart"):
+        rlens = np.array(PRESCAN_MIXED * 4, np.int32)
+        L, M = 256, len(rlens)
+        if name == "mixed_lengths":
+            strand = (np.arange(M) // len(PRESCAN_MIXED)) % 2
+        else:
+            strand = np.ones(M, np.int8)
+        reads, ws, wlens = _planted(rng, codes, rlens, L, O, strand,
+                                    rng.integers(0, O + 40, M))
+        lens_rows = rlens.copy()
+        if name == "mixed_lengths":  # a quarter on a random window
+            ws[::4] = rng.integers(0, N - O - L, len(ws[::4]))
+        else:
+            lens_rows = np.clip(rlens + rng.integers(-3, 4, M), 0, L)
+            lens_rows[::5] = L + 5  # past the row: clamped
+        return _prescan_inputs(reads, lens_rows, np.arange(M), strand, ws,
+                               rlens, wlens, O)
+    if name in ("no_valid", "full_room"):
+        rlens = np.array(PRESCAN_MIXED[3:], np.int32).repeat(3)
+        L, M = 256, len(rlens)
+        strand = np.arange(M) % 2
+        room = (np.tile([O - 1, O, O + 300], M // 3) if name == "full_room"
+                else -rng.integers(1, 50, M))
+        reads, ws, _ = _planted(rng, codes, rlens, L, O, strand,
+                                np.maximum(room, 0))
+        wlens = rlens + room
+        if name == "no_valid":
+            wlens[0] = 0
+        return _prescan_inputs(reads, rlens, np.arange(M), strand, ws,
+                               rlens, wlens, O)
+    if name == "poly_a":
+        rlens = np.array([1, 16, 33, 100, 120, 100], np.int32)
+        reads = np.zeros((len(rlens), 120), np.uint8)
+        reads[-1] = 3  # poly-T: its reverse complement is poly-A
+        ws = PRESCAN_POLY_A[0] + rng.integers(0, 50, len(rlens))
+        return _prescan_inputs(reads, rlens, np.arange(len(rlens)),
+                               [0, 0, 0, 0, 0, 1], ws, rlens,
+                               [300, 200, 500, 700, 500, O - 1 + 100], O)
+    if name == "genome_end":
+        rlens = np.array([100, 120, 17, 16, 1, 100], np.int32)
+        wlens = np.array([400, 130, 17, 300, O - 1, 200], np.int32)
+        ws = (N - wlens).astype(np.int64)
+        ws[-1] = N - 50  # past the last base: the last word again
+        strand = np.array([0, 1, 0, 1, 0, 0])
+        reads = np.zeros((len(rlens), 120), np.uint8)
+        for m, n in enumerate(rlens[:-1]):
+            seg = codes[N - n:]  # the genome's last n bases
+            reads[m, :n] = 3 - seg[::-1] if strand[m] == 1 else seg
+        reads[-1] = rng.integers(0, 4, 120)
+        return _prescan_inputs(reads, rlens, np.arange(len(rlens)), strand,
+                               ws, rlens, wlens, O)
+    if name == "shared_read":  # read 0 behind three candidates
+        reads, ws, _ = _planted(rng, codes, np.array([100, 100]), 120, O,
+                                [0, 1], np.array([200, 250]))
+        return _prescan_inputs(reads, [100, 100], [0, 0, 1, 1, 0],
+                               [0, 0, 1, 1, 1], ws[[0, 0, 1, 1, 0]],
+                               [100, 60, 100, 31, 120],
+                               [300, 300, 350, 350, 300], O)
+    if name == "one":
+        reads, ws, wlens = _planted(rng, codes, np.array([100]), 120, O,
+                                    [1], np.array([300]))
+        return _prescan_inputs(reads, [100], [0], [1], ws, [100], wlens, O)
+    if name == "above_chunk":
+        O, L, B = 128, 20, 64
+        M = dp_rescue._PRESCAN_CHUNK + 37
+        rlens = rng.integers(1, L + 1, M)
+        return _prescan_inputs(
+            rng.integers(0, 4, (B, L)), np.full(B, L), rng.integers(0, B, M),
+            rng.integers(0, 2, M), rng.integers(0, N - O - L, M), rlens,
+            rlens + rng.integers(-5, O + 10, M), O)
+    raise ValueError(f"no prescan edge {name!r}")
+
+
+def prescan_path_case(rng, codes: np.ndarray, M: int, max_win: int,
+                      L: int = 120, read_len: int = 100) -> dict:
+    """A gapless_prescan chunk as the half rescue makes it (one row a
+    candidate, reads of ``read_len`` bases in rows of L, windows of
+    max_win bases, a tenth of them shorter) on the genome ``codes``: the
+    mate cut from its window at a random offset, 0.5% of its bases
+    substituted, 10% of them with a 3-base deletion, 2% random, half on
+    the reverse strand."""
+    from soap3dp_tpu_torch.utils import shapes
+
+    rlens = np.full(M, read_len, np.int32)
+    wlens = np.full(M, max_win, np.int32)
+    short = rng.random(M) < 0.1
+    wlens[short] = rng.integers(read_len // 2, max_win, int(short.sum()))
+    ws = rng.integers(0, len(codes) - max_win - L, M).astype(np.int64)
+    off = (rng.random(M) * np.maximum(wlens - read_len - 3, 0)).astype(int)
+    at = ws + off
+    reads = codes[at[:, None] + np.arange(read_len + 3)].astype(np.uint8)
+    dele = rng.random(M) < 0.1
+    cut = rng.integers(10, read_len - 10, M)
+    src = np.arange(read_len)[None, :] + np.where(
+        dele[:, None] & (np.arange(read_len)[None, :] >= cut[:, None]), 3, 0)
+    reads = np.take_along_axis(reads, src, 1)
+    sub = rng.random(reads.shape) < 0.005
+    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    rand = rng.random(M) < 0.02
+    reads[rand] = rng.integers(0, 4, (int(rand.sum()), read_len))
+    strand = (rng.random(M) < 0.5).astype(np.int8)
+    reads[strand == 1] = 3 - reads[strand == 1][:, ::-1]
+    rows = np.zeros((M, L), np.uint8)
+    rows[:, :read_len] = reads
+    return _prescan_inputs(rows, rlens, np.arange(M), strand, ws, rlens,
+                           wlens, shapes.bucket_multiple(max_win, 128))
+
+
+def prescan_synthetic_case(rng, didx, dev, M: int = 8192,
+                           max_win: int = 4100) -> dict:
+    """A path-like chunk on a synthetic_index: windows past 2^31 (a
+    quarter ending at the text's last base), the reads cut from its
+    packed genome (read back from the card) as prescan_path_case cuts
+    them, half of them planted at a random offset."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+    from soap3dp_tpu_torch.utils import shapes
+
+    n, L, rl = didx.n, 120, 100
+    ws = rng.integers(min(1 << 31, n // 2), n - max_win, M).astype(np.int64)
+    ws[: M // 4] = n - max_win
+    off = rng.integers(0, max_win - rl + 1, M)
+    seg = fmindex.extract_genome(
+        didx, torch.from_numpy(ws + off).to(dev), rl).cpu().numpy()
+    seg[M // 2:] = rng.integers(0, 4, (M - M // 2, rl))
+    strand = (rng.random(M) < 0.5).astype(np.int8)
+    seg[strand == 1] = 3 - seg[strand == 1][:, ::-1]
+    reads = np.zeros((M, L), np.uint8)
+    reads[:, :rl] = seg
+    rlens = np.full(M, rl, np.int32)
+    return _prescan_inputs(reads, rlens, np.arange(M), strand, ws, rlens,
+                           np.full(M, max_win, np.int32),
+                           shapes.bucket_multiple(max_win, 128))
+
+
+def prescan_args(c: dict, didx, dev) -> tuple:
+    """The arguments of dp_rescue._prescan_impl of case ``c`` on
+    ``dev``."""
+    import torch
+
+    def t(k):
+        return torch.from_numpy(np.ascontiguousarray(c[k])).to(dev)
+
+    return (didx, t("reads"), t("lens_rows"), t("read_idx"), t("strand"),
+            t("ws"), t("rlens"), t("wlens"), c["O"], c["W"])
+
+
+def prescan_work(c: dict) -> dict:
+    """What GP needs on case ``c``: the valid offsets of each candidate
+    (min(O - 1, wlens - rlens) + 1, at least 0) times the words of its
+    counted bases (ceil(min(rlen, L) / 16)), OPS_PRESCAN_WORD int32
+    operations and a popcount each; bytes: each window's W / 16 genome
+    words, each read row referenced and the (M, 3) output once, and the
+    candidates' inputs (read, strand, ws, rlens, wlens)."""
+    L = c["reads"].shape[1]
+    rl = c["rlens"].astype(np.int64)
+    valid = np.clip(np.minimum(c["O"] - 1, c["wlens"] - rl) + 1, 0, None)
+    words = int((valid * ((np.clip(rl, 0, L) + 15) // 16)).sum())
+    M = len(rl)
+    rows = len(np.unique(c["read_idx"]))
+    nbytes = M * (c["W"] // 16) * 4 + rows * (L + 4) + M * (24 + 8 + 1 + 16)
+    return {"candidates": M, "valid_offsets": int(valid.sum()),
+            "words": words, "ops": OPS_PRESCAN_WORD * words,
+            "popcounts": words, "bytes": nbytes}
+
+
+def prescan_bound(work: dict, peak_ops: float) -> tuple[float, str]:
+    """GP's bound: the larger of its int32 operations over the int32
+    peak, its popcounts over the popcount rate (16 lanes an SM, a
+    quarter of the int32 peak) and its bytes over the memory rate."""
+    t = {"operations": work["ops"] / peak_ops * 1e3,
+         "popcounts": work["popcounts"] / (peak_ops / 4) * 1e3,
+         "bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by
+
+
+def prescan_conv1d(args: tuple):
+    """The one PyTorch call that computes the same mismatch counts: a
+    grouped conv1d of the windows' one-hot codes (1, 4M, W) with the
+    masked one-hot oriented reads (M, 4, Lr), groups=M (matches at every
+    offset; the counted bases less them give mm). Returns (the call,
+    the (M, 3) output its counts give, for a check)."""
+    import torch
+    import torch.nn.functional as F
+
+    from soap3dp_tpu_torch.fm import fmindex
+
+    idx, reads, lens_rows, read_idx, strand, ws, rlens, wlens, O, W = args
+    M, L = read_idx.shape[0], reads.shape[1]
+    ori = torch.where(strand[:, None] == 1,
+                      fmindex.revcomp_reads(reads, lens_rows)[read_idx],
+                      reads[read_idx])
+    keep = torch.arange(L, device=ws.device)[None, :] \
+        < rlens.long()[:, None]
+    rd = (F.one_hot(ori.long().clamp(max=4), 5)[..., :4] * keep[..., None]
+          ).permute(0, 2, 1).float().contiguous()
+    x = F.one_hot(fmindex.extract_genome(idx, ws, W).long(), 4).permute(
+        0, 2, 1).reshape(1, 4 * M, W).float()
+
+    def call():
+        return F.conv1d(x, rd, groups=M)
+
+    mm = keep.sum(1)[:, None] - call()[0, :, :O].round().long()
+    o = torch.arange(O, device=ws.device)[None, :]
+    mm = torch.where(o <= (wlens.long() - rlens.long())[:, None], mm,
+                     1 << 20)
+    mn = mm.min(1).values
+    out = torch.stack([mn, (mm == mn[:, None]).int().argmax(1),
+                       (mm == 0).sum(1)], 1)
+    return call, out
+
+
+def run_prescan_case(name: str, c: dict, didx, dev, peak_ops: float,
+                     reps: int = 20, library: bool = False) -> dict:
+    """One GP case on the card: dp_rescue._prescan_impl (GP) against
+    _prescan_plain on the same tensors, every element; GP's device time
+    (torch.profiler, _timed), the plain version's (CUDA events), the
+    bound (prescan_bound) and, with ``library``, the grouped conv1d's
+    time (CUDA events around the call) and whether its counts give the
+    same output."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import fm_search as fs
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    t0 = time.perf_counter()
+    args = prescan_args(c, didx, dev)
+    n0 = fs.PRESCAN_KERNEL.launches
+    got = dp_rescue._prescan_impl(*args)
+    torch.cuda.synchronize()
+    launched = fs.PRESCAN_KERNEL.launches - n0
+    want = dp_rescue._prescan_plain(*args)
+    err, ndiff = _fs_diff(got, want)
+    ms, call_ms, timer = _timed(lambda: dp_rescue._prescan_impl(*args),
+                                reps, "prescan_kernel")
+    plain_ms = _events_ms(lambda: dp_rescue._prescan_plain(*args),
+                          max(1, reps // 10))
+    work = prescan_work(c)
+    bms, by = prescan_bound(work, peak_ops)
+    M, L = len(c["rlens"]), c["reads"].shape[1]
+    row = {"case": name, "kernel": "GP", "shape": f"{M}x{c['O']}x{L}",
+           "ms": ms, "call_ms": call_ms, "timer": timer,
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_term": by,
+           "bound_by": "bytes" if by == "bytes" else "operations",
+           "max_abs_err": err, "differing": ndiff, "launches": launched,
+           "library_ms": None, **work}
+    lib = ""
+    if library:
+        try:
+            conv, conv_out = prescan_conv1d(args)
+            row["library_ms"] = _events_ms(conv, 2)
+            row["library_equal"] = bool(torch.equal(conv_out, want))
+            lib = (f" conv1d_ms={row['library_ms']:.3f} (its counts give "
+                   f"the same output: {row['library_equal']})")
+            del conv, conv_out
+        except RuntimeError as e:  # out of memory, or no algorithm
+            lib = f" conv1d: {str(e)[:120]}"
+        torch.cuda.empty_cache()
+    row["wall_s"] = time.perf_counter() - t0
+    phase("kernel prescan GP",
+          f"{name}: shape={row['shape']} equal={err == 0 and ndiff == 0} "
+          f"max_abs_err={err} differing={ndiff} launches={launched} "
+          f"ms={ms:.4f} ({timer}) call_ms={call_ms:.4f} "
+          f"bound_ms={bms:.4f} ({by}) share={bms / ms:.1%} "
+          f"plain_ms={plain_ms:.3f}{lib} valid_offsets="
+          f"{work['valid_offsets']} words={work['words']} "
+          f"zero_mm={int((want[:, 0] == 0).sum())} "
+          f"wall_s={row['wall_s']:.2f}")
+    if err or ndiff:
+        fail(f"GP disagrees with its plain version ({name})")
+    if launched != 1:
+        fail(f"GP launched {launched} times for one call ({name})")
+    return row
+
+
+def phase_prescan(dev, peak_ops: float, didx, codes: np.ndarray
+                  ) -> list[dict]:
+    """GP against its plain version on the card: the largest calls of
+    phases 4 and 5 and the plain version's full chunk (PRESCAN_PATH) on
+    phase 4's index ``didx`` (genome ``codes``), each with the grouped
+    conv1d beside it, and the edges (PRESCAN_EDGES) on prescan_genome's
+    index."""
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import build_index
+
+    rng = np.random.default_rng(20261022)
+    rows = [run_prescan_case(name, prescan_path_case(rng, codes, M, win),
+                             didx, dev, peak_ops, library=True)
+            for name, (M, win) in PRESCAN_PATH.items()]
+    genome = prescan_genome()
+    edx = device_index(build_index(genome, sa_rate=8), dev)
+    rows += [run_prescan_case(f"edge_{name}",
+                              prescan_edge_case(name, genome.codes), edx,
+                              dev, peak_ops, reps=5)
+             for name in PRESCAN_EDGES]
+    return rows
+
+
+def gp_kernel_row(rows: list[dict]) -> dict:
+    """The JSON line's row of GP: its time at phase 5's largest call,
+    with the largest difference over every GP case."""
+    main = next(r for r in rows if r["case"] == "path_phase5")
+    p4 = next(r for r in rows if r["case"] == "path_phase4")
+    row = {"name": "gapless_prescan", "route": "cuda",
+           "source": "soap3dp_tpu_torch/csrc/fm_search.cu",
+           "replaces": "soap3dp_tpu/pipeline/dp_rescue.py:276",
+           "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "ms": main["ms"], "timer": main["timer"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "bound_term": main["bound_term"],
+           "peak": "int32", "library_ms": main["library_ms"],
+           "library": "torch.nn.functional.conv1d(groups=M)",
+           "shape": main["shape"], "case": main["case"],
+           "phase4_ms": p4["ms"], "phase4_bound_ms": p4["bound_ms"],
+           "phase4_plain_ms": p4["plain_ms"],
+           "phase4_library_ms": p4["library_ms"]}
+    phase("kernel prescan GP summary",
+          f"{main['case']} ({main['shape']}): {row['ms']:.4f} ms; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_term']}) "
+          f"{row['bound_ms'] / row['ms']:.1%}; plain {row['plain_ms']:.3f} "
+          f"ms; conv1d " + (f"{row['library_ms']:.3f} ms"
+                            if row["library_ms"] else "not timed")
+          + f"; phase 4's ({p4['shape']}): {p4['ms']:.4f} ms, bound "
+          f"{p4['bound_ms']:.4f} ms, plain {p4['plain_ms']:.3f} ms; "
+          f"{len(rows)} cases in {sum(r['wall_s'] for r in rows):.2f} s")
+    return row
 
 
 def phase_golden(dev) -> None:
@@ -2365,6 +2808,9 @@ def search_device_items(dev, reads: dict, out_dir: str,
 # the mate-pair library of phases 5 and 6: -/+ (StrandArrangement of the
 # ini), inserts ~N(4000, 400) in [2100, 5900], aligned with -v 2000
 # -u 6000 over the whole insert window (SOAP3DP_HALF_NARROW_PAD=0)
+# phases 4 and 5: the seeded genome and the read pairs of the real size
+E2E_GENOME_BP = 250_000_000
+E2E_PAIRS = 100_000
 MATE_PAIR_LIBRARY = dict(orientation="-/+", insert=4000, insert_sd=400,
                          insert_range=(2100, 5900))
 MATE_PAIR_ARGS = ["-v", "2000", "-u", "6000"]
@@ -2410,7 +2856,7 @@ def _kernels() -> dict:
             "TB": bd.TRACEBACK_KERNEL, "FS1": fs.SEARCH_KERNEL,
             "FS2": fs.DECODE_KERNEL, "FS2x": fs.EXPAND_KERNEL,
             "FS3": fs.VERIFY_KERNEL, "FS4": fs.DEDUPE_KERNEL,
-            "FS2s": fs.SEED_EXPAND_KERNEL}
+            "FS2s": fs.SEED_EXPAND_KERNEL, "GP": fs.PRESCAN_KERNEL}
 
 
 def _launches() -> dict:
@@ -2422,7 +2868,7 @@ def _launch_shapes() -> dict:
     (the shapes the path itself gave each kernel: P x Lr x Lw for the
     DP kernels; lanes x L x max_steps for FS1, rows x sa_rate for FS2,
     slots x lanes x sa_rate for FS2x and FS2s, placements x words for
-    FS3, K x K2 x hb for FS4)."""
+    FS3, K x K2 x hb for FS4, M x O x Lr for GP)."""
     return {name: {"x".join(map(str, shape)): n for shape, n in
                    sorted(k.shapes.items())}
             for name, k in _kernels().items() if k.shapes}
@@ -2440,8 +2886,9 @@ def _launches_per_device() -> dict:
 def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
     """Run ``fn()`` under ``env`` with every launch count set to 0 just
     before; returns (its result, wall s, stderr, launch counts just
-    after). Fails if a plain search primitive ran on a card's index in
-    the run (a CUDA tensor must take the kernel)."""
+    after). Fails if a plain search primitive ran on a card's index or
+    the plain prescan on CUDA tensors in the run (a CUDA tensor must
+    take the kernel)."""
     import contextlib
 
     saved = {k: os.environ.get(k) for k in env or {}}
@@ -2466,6 +2913,9 @@ def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
     if rec.plain_on_card:
         fail(f"{rec.plain_on_card} plain search primitive calls ran on a "
              "card's index")
+    if rec.prescan_plain_on_card:
+        fail(f"{rec.prescan_plain_on_card} plain prescan calls ran on CUDA "
+             "tensors")
     return out, time.perf_counter() - t0, tee.text(), _launches()
 
 
@@ -2551,6 +3001,7 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     import re
 
     from soap3dp_tpu_torch import workloads
+    from soap3dp_tpu_torch.utils import timers
 
     rng, genome, idx_path, how, build_s, lut_k = _genome_index(genome_bp,
                                                                 work)
@@ -2572,7 +3023,15 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     argv = ["pair", idx_path, r1, r2] + opts + ["-o", out, "--device",
                                                str(dev)]
     env = MATE_PAIR_ENV if mate_pair else None
-    wall, log, launches = _run_cli(argv, dev, env)
+    # the stage timers (SOAP3DP_TIMERS=1) on in the measured run: a clock
+    # read at each end of a few dozen stages, no device sync
+    saved, timers.ENABLED = timers.ENABLED, True
+    try:
+        wall, log, launches = _run_cli(argv, dev, env)
+    finally:
+        timers.ENABLED = saved
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\[timers\] (\S+)\s+([0-9.]+)s", log)}
     shapes = _launch_shapes()
     with open(os.path.join(out_dir, f"{tag}e2e_stderr.log"), "w") as fh:
         fh.write(log)
@@ -2600,6 +3059,8 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
         _fs_launched(name, launches)
         if launches["K1"] <= 0:
             fail("the run never launched the fused DP kernel (K1)")
+        if launches["GP"] <= 0:
+            fail("the run never launched the gapless prescan kernel (GP)")
         if mate_pair and min(launches["K2"], launches["TB"]) <= 0:
             fail("the full-window mate rescue never launched K2 and TB")
         if not mate_pair and launches["K2"] + launches["TB"]:
@@ -2607,6 +3068,12 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     inputs = {"r1": r1, "r2": r2, "planted": p1, "random": rand[0],
               "index": idx_path, "opts": opts, "sam": out + ".sam",
               "summary": summ}
+    res["stage_s"] = stages
+    phase(f"{name} stage timers",
+          f"BC.prescan {stages.get('BC.prescan')} s, BC.half_rescue "
+          f"{stages.get('BC.half_rescue')} s (SOAP3DP_TIMERS=1 in the run); "
+          f"GP launches in the run {launches['GP']}, none of the plain "
+          "prescan on CUDA tensors (_counted checks)")
     if profile:
         from soap3dp_tpu_torch.cli.main import main as cli_main
         res["profile"] = _profiled_pass(
@@ -2753,6 +3220,9 @@ def phase_mesh(dev, reads: dict, work: str, out_dir: str,
     if dev.type == "cuda":
         for card in sorted({str(d) for d in devices}):
             _fs_launched(f"the mesh run on {card}", per_dev.get(card, {}))
+        # the prescan runs on the card of the index replica it is given
+        if per_dev.get(str(devices[0]), {}).get("GP", 0) <= 0:
+            fail(f"the mesh run never launched GP on {devices[0]}")
 
     P, Lr, Lw, rl = dp_case
     prob = main_path_problems(np.random.default_rng(20261018), P, Lr, Lw,
@@ -2793,7 +3263,8 @@ _HOST_MAIN = (
     " 'FS1': fs.SEARCH_KERNEL.launches, 'FS2': fs.DECODE_KERNEL.launches,"
     " 'FS2x': fs.EXPAND_KERNEL.launches,"
     " 'FS3': fs.VERIFY_KERNEL.launches, 'FS4': fs.DEDUPE_KERNEL.launches,"
-    " 'FS2s': fs.SEED_EXPAND_KERNEL.launches}), flush=True)\n"
+    " 'FS2s': fs.SEED_EXPAND_KERNEL.launches,"
+    " 'GP': fs.PRESCAN_KERNEL.launches}), flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -3017,11 +3488,11 @@ def main(argv=None) -> int:
     lap("FS cases (index build and repeat genome included)")
     phase_golden(dev)
     lap("golden")
-    e2e, reads = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR)
+    e2e, reads = phase_e2e(dev, E2E_GENOME_BP, E2E_PAIRS, card, work, OUT_DIR)
     lap("PE default")
     small = phase_mate_pair_devices(
         dev, os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "mp_small"))
-    mate, _ = phase_e2e(dev, 250_000_000, 100_000, card, work, OUT_DIR,
+    mate, _ = phase_e2e(dev, E2E_GENOME_BP, E2E_PAIRS, card, work, OUT_DIR,
                         profile=False, mate_pair=True)
     lap("mate-pair, small and full")
     single = phase_single_e2e(dev, reads, card, work, OUT_DIR)
@@ -3043,6 +3514,9 @@ def main(argv=None) -> int:
         row["main_path"] = label in FS_PATH
         row["sector_share"] = row["sector_bound_ms"] / row["ms"]
         row["block_sector_share"] = row["block_sector_bound_ms"] / row["ms"]
+    gp = next(r for r in kernels if r["name"] == "gapless_prescan")
+    gp["launches"] = e2e["launches"]["GP"]
+    gp["launches_mate_pair"] = mate["launches"]["GP"]
     for row in kernels:
         row["share"] = row["bound_ms"] / row["ms"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

@@ -1,9 +1,11 @@
 // The gather stages of the seed search for Hopper (sm_90a), one thread
 // per lane or slot: FM backward search (FS1), SA decode (FS2, with the
 // lane expansions of the search and of the DP seeding), packed
-// verification (FS3) and the hash dedupe (FS4). Each reproduces its
-// plain-torch version in soap3dp_tpu_torch/fm/fmindex.py element for
-// element.
+// verification (FS3) and the hash dedupe (FS4); and the DP rescue's
+// gapless prescan (GP, one warp a candidate), which reads the genome and
+// the reads as FS3 does. Each reproduces its plain-torch version in
+// soap3dp_tpu_torch/fm/fmindex.py (GP: pipeline/dp_rescue.py) element
+// for element.
 //
 // FS1, soap3dp_fm_search, replaces the XLA programs of
 // soap3dp_tpu/fm/fmindex.py:391 `backward_search`, :456
@@ -78,6 +80,25 @@
 // Positions, SA rows and intervals are 64-bit throughout: on a 3.1 Gbp
 // index they pass 2^31. Shifts by a variable amount are guarded where
 // the plain version's 64-bit shift reaches 32.
+//
+// GP, soap3dp_prescan, replaces the XLA program of the DP rescue's
+// gapless prescan (soap3dp_tpu/pipeline/dp_rescue.py:276 `_prescan_impl`,
+// L shift-and-add steps of (M, O) byte compares, then a min, an argmax
+// and a sum over the offsets): the mismatches of each candidate's read
+// placed gapless at every valid offset of its genome window, reduced in
+// the kernel to the least count, its leftmost offset and the count of
+// zero-mismatch offsets, so no (M, O) matrix and no (M, W) window of
+// codes is written. What bounds it: operations, not bytes. The window is
+// a few KB of packed genome a candidate, read once; each valid offset
+// costs, a read word, a funnel shift, XOR, fold, mask, popcount and add:
+// ~0.14 ms of int32 work at the mate-pair cell's 16,384 x 4,224 x 120
+// against ~5 us of bytes. Design: one warp a candidate, its window's
+// packed words and its oriented read's words (the row read through
+// Reads as FS3 reads it, bases that are not 0-3 counted apart) in shared
+// memory; a lane counts 8 consecutive offsets at once from the same two
+// shared window words a read word, so each shared load serves 8 offsets
+// and the loop is the int32 work alone; the (min, leftmost argmin, zero
+// count) reduction is the lane's running one, then warp shuffles.
 //
 // Plain C interface for ctypes; each launcher returns cudaGetLastError().
 
@@ -802,6 +823,156 @@ verify_kernel(Reads s, const int64_t* __restrict__ rows,
   out[i] = total;
 }
 
+// GP: the gapless prescan. Candidate m's oriented row rows[m] (its
+// first min(L, rlens[m]) bases) against the genome window at ws[m]:
+// mm(o) = the bases l where window base o + l differs from read base l,
+// over the valid offsets o <= min(O - 1, wlens[m] - rlens[m]); out[m] =
+// (the least mm, its leftmost offset, the count of offsets with mm 0),
+// or (NO_VALID, 0, 0) where no offset is valid.
+constexpr int GP_GROUP = 8;  // consecutive offsets a thread counts
+constexpr int GP_CHUNK = 8;  // read words a pass over them
+constexpr int64_t GP_NO_VALID = 1 << 20;
+
+struct Prescan {
+  const int64_t* rows;   // (M,) oriented rows
+  const int64_t* ws;     // (M,) window starts
+  const int64_t* rlens;  // (M,) read lengths
+  const int64_t* wlens;  // (M,) window lengths
+  int64_t M;
+  int O;                 // offsets a window
+  int cap;               // window words a warp holds
+  int nrw;               // read words a warp holds (a multiple of GP_CHUNK)
+};
+
+// read words and masks of candidate m (lanes over words): base l < nb of
+// the oriented row into word l / 16 and its bit in the mask where it is
+// a base code (0-3); every other code mismatches every window base, so
+// it is left out of the words and counted, for every offset, in the
+// warp's return value
+__device__ int prescan_read_words(const Reads& s, int64_t row, int64_t nb,
+                                  int nw, uint32_t* rw, uint32_t* rm,
+                                  int lane) {
+  int other = 0;
+  for (int j = lane; j < nw; j += 32) {
+    uint32_t w = 0u, mk = 0u;
+    for (int t = 0; t < 16; ++t) {
+      const int64_t l = 16 * static_cast<int64_t>(j) + t;
+      if (l >= nb) break;
+      const uint32_t c = base_at(s, row, l);
+      if (c < 4u) {
+        w |= c << (2 * t);
+        mk |= 1u << (2 * t);
+      } else {
+        ++other;
+      }
+    }
+    rw[j] = w;
+    rm[j] = mk;
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) other += __shfl_xor_sync(FULL, other, d);
+  return other;
+}
+
+// one warp a candidate: the window's packed words (pac[w0 + k], the
+// index clamped to pac, window base b at bit 2 (ws & 15) + 2 b of them)
+// and the read's words in the warp's slice of shared memory; lane i
+// counts the offsets of groups i, i + 32, ...: GP_GROUP offsets at once,
+// GP_CHUNK read words at a time, a window word the funnel of two shared
+// words, then XOR, fold, mask and popcount; then (min, leftmost argmin,
+// zero count) over the warp by shuffles
+__global__ void __launch_bounds__(THREADS)
+prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
+               int64_t n_pac, int64_t* __restrict__ out) {
+  extern __shared__ uint32_t gp_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t m =
+      blockIdx.x * static_cast<int64_t>(blockDim.x >> 5) + warp;
+  if (m >= c.M) return;  // the whole warp
+  uint32_t* win = gp_smem + warp * (c.cap + 2 * c.nrw);
+  uint32_t* rw = win + c.cap;
+  uint32_t* rm = rw + c.nrw;
+  const int64_t rlen = ld64(c.rlens + m);
+  const int64_t room = ld64(c.wlens + m) - rlen;
+  const int64_t last = room < c.O - 1 ? room : c.O - 1;
+  if (last < 0) {
+    if (lane == 0) {
+      out[3 * m] = GP_NO_VALID;
+      out[3 * m + 1] = 0;
+      out[3 * m + 2] = 0;
+    }
+    return;
+  }
+  const int64_t nb = clamp64(rlen, 0, s.L);
+  const int nw = static_cast<int>((nb + 15) >> 4);
+  const int nwp = (nw + GP_CHUNK - 1) / GP_CHUNK * GP_CHUNK;  // gw's reach
+  const uint32_t other =
+      prescan_read_words(s, ld64(c.rows + m), nb, nw, rw, rm, lane);
+  const int64_t p = ld64(c.ws + m);
+  const int a = static_cast<int>(p & 15);
+  const int64_t w0 = p >> 4;
+  // offset o is bit position t = a + o of the words; group g holds t in
+  // [GP_GROUP g, GP_GROUP (g + 1))
+  const int groups = static_cast<int>((a + last) / GP_GROUP) + 1;
+  const int nwin = (a + static_cast<int>(last)) / 16 + nwp + 1;
+  for (int k = lane; k < nwin; k += 32)
+    win[k] = u32_at(pac, clamp64(w0 + k, 0, n_pac - 1));
+  __syncwarp();
+
+  uint32_t best = 0xFFFFFFFFu;
+  int best_o = 0, zeros = 0;
+  for (int g = lane; g < groups; g += 32) {
+    const int k0 = g * GP_GROUP / 16;
+    const uint32_t sh0 = 2 * ((g * GP_GROUP) & 15);
+    uint32_t cnt[GP_GROUP];
+#pragma unroll
+    for (int q = 0; q < GP_GROUP; ++q) cnt[q] = 0u;
+    for (int j0 = 0; j0 < nw; j0 += GP_CHUNK) {
+      uint32_t gw[GP_CHUNK + 1];
+#pragma unroll
+      for (int j = 0; j <= GP_CHUNK; ++j) gw[j] = win[k0 + j0 + j];
+#pragma unroll
+      for (int j = 0; j < GP_CHUNK; ++j) {
+        if (j0 + j >= nw) break;  // the same for the whole warp
+        const uint32_t r = rw[j0 + j], mk = rm[j0 + j];
+#pragma unroll
+        for (int q = 0; q < GP_GROUP; ++q) {
+          const uint32_t x =
+              __funnelshift_r(gw[j], gw[j + 1], sh0 + 2 * q) ^ r;
+          cnt[q] += __popc((x | (x >> 1)) & mk);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < GP_GROUP; ++q) {
+      const int o = g * GP_GROUP + q - a;
+      if (o >= 0 && o <= last) {
+        const uint32_t v = cnt[q] + other;
+        if (v < best) {  // offsets rise: the first is the leftmost
+          best = v;
+          best_o = o;
+        }
+        zeros += v == 0u;
+      }
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const uint32_t b2 = __shfl_xor_sync(FULL, best, d);
+    const int o2 = __shfl_xor_sync(FULL, best_o, d);
+    if (b2 < best || (b2 == best && o2 < best_o)) {
+      best = b2;
+      best_o = o2;
+    }
+    zeros += __shfl_xor_sync(FULL, zeros, d);
+  }
+  if (lane == 0) {
+    out[3 * m] = best;
+    out[3 * m + 1] = best_o;
+    out[3 * m + 2] = zeros;
+  }
+}
+
 unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + THREADS - 1) / THREADS);
 }
@@ -932,6 +1103,38 @@ int soap3dp_verify(const void* reads, int kind, long long B, int L, int Ws,
   else
     verify_kernel_any<<<blocks_for(M), THREADS, 0, st>>>(
         s, rows, tp, read_len, M, W, pac, n_pac, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// shared memory: a warp's window words (cap) and read words and masks
+// (nrw each), as many warps a block as 48 KB hold (at most THREADS / 32;
+// one warp up to the 227 KB a block may have)
+int soap3dp_prescan(const void* reads, int kind, long long B, int L, int Ws,
+                    const int64_t* rc_len, const int64_t* rows,
+                    const int64_t* ws, const int64_t* rlens,
+                    const int64_t* wlens, long long M, int O,
+                    const int32_t* pac, long long n_pac, int64_t* out,
+                    void* stream) {
+  const Reads s{reads, rc_len, B, kind, L, Ws};
+  const int nrw = ((L + 15) / 16 + GP_CHUNK - 1) / GP_CHUNK * GP_CHUNK;
+  const int cap = (O + 14) / 16 + nrw + 1;
+  const long long warp_bytes = 4ll * (cap + 2 * nrw);
+  long long warps = 48 * 1024 / warp_bytes;
+  warps = warps < 1 ? 1 : (warps > THREADS / 32 ? THREADS / 32 : warps);
+  const long long smem = warps * warp_bytes;
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        prescan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const Prescan c{rows, ws, rlens, wlens, M, O, cap, nrw};
+  prescan_kernel<<<static_cast<unsigned>((M + warps - 1) / warps),
+                   static_cast<unsigned>(32 * warps),
+                   static_cast<size_t>(smem),
+                   static_cast<cudaStream_t>(stream)>>>(s, c, pac, n_pac,
+                                                        out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,11 +20,15 @@ nvcc at first use into ``_build/`` and loaded with ctypes:
 * FS3 ``verify``: packed XOR/popcount against the genome
   (``count_mismatches_packed``, fmindex.py:653);
 * FS4 ``dedupe``: the search's scatter-min hash dedupe and the
-  compaction of its first occurrences (soap3dp_tpu/fm/search.py:275-301).
+  compaction of its first occurrences (soap3dp_tpu/fm/search.py:275-301);
+* GP ``prescan``: the DP rescue's gapless prescan, each candidate's
+  mismatches at every window offset reduced to (min, leftmost argmin,
+  zero count) in the kernel (soap3dp_tpu/pipeline/dp_rescue.py:276).
 
 These are the launch wrappers: every tensor must lie on one CUDA device
-(anything else raises; there is no fallback). ``fm/fmindex.py`` routes a
-CUDA tensor here and a CPU tensor to the plain-torch version. A wrapper
+(anything else raises; there is no fallback). ``fm/fmindex.py`` (GP:
+``pipeline/dp_rescue.py``) routes a CUDA tensor here and a CPU tensor to
+the plain-torch version. A wrapper
 launches on the device's current stream, allocates its outputs with
 ``torch.empty``, reads nothing back to the host and counts its launch
 on its ``CudaKernel`` (by card and by launch shape).
@@ -76,6 +80,15 @@ DEDUPE_KERNEL = CudaKernel(
 VERIFY_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_verify",
     [_P, _I, _LL, _I, _I, _P, _P, _P, _P, _LL, _I, _P, _LL, _P, _P])
+
+# soap3dp_prescan(reads, kind, B, L, Ws, rc_len, rows, ws, rlens, wlens, M,
+#   O, pac, n_pac, out, stream)
+PRESCAN_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_prescan",
+    [_P, _I, _LL, _I, _I] + [_P] * 5 + [_LL, _I, _P, _LL, _P, _P])
+# the count of an offset past a window's valid ones (and the minimum of a
+# candidate with none): above any read's mismatches
+PRESCAN_NO_VALID = 1 << 20
 
 # where a kernel reads the bases of its rows (csrc/fm_search.cu SRC_*)
 SRC_CODES, SRC_PACKED = range(2)
@@ -382,4 +395,38 @@ def verify(idx, src: ReadRows, rows: torch.Tensor, tp: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"verify kernel launch failed: CUDA error {err}")
     VERIFY_KERNEL.count(dev, (M, W))
+    return out
+
+
+def prescan(idx, src: ReadRows, rows: torch.Tensor, ws: torch.Tensor,
+            rlens: torch.Tensor, wlens: torch.Tensor, O: int) -> torch.Tensor:
+    """GP: candidate m's oriented row ``rows[m]`` placed gapless at each
+    offset o < O of the genome window at ``ws[m]``; its mismatches over
+    the first min(L, rlens[m]) bases, at the valid offsets o <=
+    wlens[m] - rlens[m] (PRESCAN_NO_VALID elsewhere), reduced to (least
+    count, its leftmost offset, the count of zero-mismatch offsets):
+    (M, 3) int64 (dp_rescue._prescan_impl)."""
+    M = rows.shape[0]
+    dev = rows.device
+    _check("prescan", dev, reads=src.data, rc_len=src.rc_len, rows=rows,
+           ws=ws, rlens=rlens, wlens=wlens)
+    _tables("prescan", idx, dev)
+    for key, t in (("rows", rows), ("ws", ws), ("rlens", rlens),
+                   ("wlens", wlens)):
+        _vector("prescan", key, t, M, torch.int64)
+    if not 1 <= O < (1 << 30) or not 1 <= src.L < PRESCAN_NO_VALID:
+        raise ValueError(f"prescan: O {O}, L {src.L} out of range")
+    out = torch.empty((M, 3), dtype=torch.int64, device=dev)
+    if M == 0:
+        return out
+    _, fn = PRESCAN_KERNEL.function()
+    with torch.cuda.device(dev):
+        err = fn(src.data.data_ptr(), src.kind, src.B, src.L, src.W,
+                 src.rc_len.data_ptr(), rows.data_ptr(), ws.data_ptr(),
+                 rlens.data_ptr(), wlens.data_ptr(), M, O,
+                 idx.pac.data_ptr(), idx.pac.shape[0], out.data_ptr(),
+                 _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"prescan kernel launch failed: CUDA error {err}")
+    PRESCAN_KERNEL.count(dev, (M, O, src.L))
     return out

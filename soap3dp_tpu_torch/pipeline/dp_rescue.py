@@ -1,12 +1,15 @@
 """DP rescue: seeding, candidate windows, batched banded DP, results.
 
 Port of soap3dp_tpu/pipeline/dp_rescue.py. The seed matrices and the
-result containers are the reference's numpy code; the device halves
-(``_seed_cand_batch``, ``_prescan_impl``, ``_pack_problems``) are torch
-on the index's device (the seeds' backward search, lane expansion and SA
-decode through fmindex, the FS1 and FS2s kernels on the card), and ``run_banded_dp``
-calls the port's ``dp_align`` (the Hopper kernels on CUDA, their plain
-versions on CPU), one slice of problems per device on a mesh.
+result containers are the reference's numpy code; the device halves run
+on the index's device: ``_seed_cand_batch`` (the seeds' backward search,
+lane expansion and SA decode through fmindex, the FS1 and FS2s kernels
+on the card), ``_prescan_impl`` (the GP kernel on the card,
+``_prescan_plain`` on the CPU; ``_PRESCAN_CHUNK`` bounds the plain
+version's (M, O) matrix only) and ``_pack_problems`` (plain torch); and
+``run_banded_dp`` calls the port's ``dp_align`` (the Hopper kernels on
+CUDA, their plain versions on CPU), one slice of problems per device on
+a mesh.
 """
 
 from __future__ import annotations
@@ -21,10 +24,11 @@ from soap3dp_tpu_torch.utils import shapes, timers
 from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.fm.fmindex import DeviceIndex, to_device
+from soap3dp_tpu_torch.kernels import fm_search
 from soap3dp_tpu_torch.kernels.banded_dp import DPScores, dp_align_shards
 
 MERGE_GAP = 50  # candidates within 50bp collapse (DP2_DIVIDE_GAP)
-_PRESCAN_CHUNK = 1 << 14  # candidates per prescan pass (bounds memory)
+_PRESCAN_CHUNK = 1 << 14  # candidates a plain prescan pass (bounds memory)
 
 
 def dp_margin(rlen: np.ndarray) -> np.ndarray:
@@ -191,9 +195,35 @@ def _prescan_impl(idx: DeviceIndex, reads_p: torch.Tensor,
                   strand: torch.Tensor, ws: torch.Tensor,
                   rlens: torch.Tensor, wlens: torch.Tensor, O: int, W: int
                   ) -> torch.Tensor:
-    """Cross-correlation mismatch counts mm[m, o] of read m placed
-    gapless at window offset o; returns (M, 3) [min_mm, leftmost best
-    offset, #zero-mismatch offsets]."""
+    """Mismatch counts mm[m, o] of read ``read_idx[m]`` (its reverse
+    complement of ``lens_rows`` bases where ``strand[m] == 1``) placed
+    gapless at offset o of the genome window [ws[m], ws[m] + W), over
+    its first rlens[m] bases; offsets past wlens[m] - rlens[m] score
+    1 << 20. Returns (M, 3) [min_mm, leftmost best offset, #zero-mismatch
+    offsets]. GP on CUDA tensors (no (M, O) matrix), _prescan_plain on
+    CPU tensors."""
+    if reads_p.is_cuda:
+        B, Lr = reads_p.shape
+        if W < O + Lr - 1:
+            raise ValueError(f"prescan: a window of {W} bases cannot hold "
+                             f"{O} offsets of {Lr}-base reads")
+        src = fm_search.oriented_rows(reads_p.contiguous(), Lr,
+                                      fmindex._i64(lens_rows))
+        rows = fmindex._i64(read_idx) + B * (strand == 1).to(torch.int64)
+        return fm_search.prescan(idx, src, rows, fmindex._i64(ws),
+                                 fmindex._i64(rlens), fmindex._i64(wlens), O)
+    fmindex._require_cpu("_prescan_impl", reads_p)
+    return _prescan_plain(idx, reads_p, lens_rows, read_idx, strand, ws,
+                          rlens, wlens, O, W)
+
+
+def _prescan_plain(idx: DeviceIndex, reads_p: torch.Tensor,
+                   lens_rows: torch.Tensor, read_idx: torch.Tensor,
+                   strand: torch.Tensor, ws: torch.Tensor,
+                   rlens: torch.Tensor, wlens: torch.Tensor, O: int, W: int
+                   ) -> torch.Tensor:
+    """The plain version of _prescan_impl: Lr shift-and-add steps over
+    the (M, O) matrix of mismatch counts."""
     rc = fmindex.revcomp_reads(reads_p, lens_rows)
     oriented = torch.where(strand[:, None] == 1, rc[read_idx],
                            reads_p[read_idx])
@@ -234,8 +264,10 @@ def gapless_prescan(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     reads_d = to_device(np.asarray(reads), dev)
     lens_rows_d = to_device(lens_rows, dev)
     outs = []
-    for s0 in range(0, M, _PRESCAN_CHUNK):
-        sl = slice(s0, min(s0 + _PRESCAN_CHUNK, M))
+    # the plain version's (M, O) matrix is cut into chunks; GP holds none
+    chunk = M if dev.type == "cuda" else _PRESCAN_CHUNK
+    for s0 in range(0, M, chunk):
+        sl = slice(s0, min(s0 + chunk, M))
         outs.append(_prescan_impl(
             idx, reads_d, lens_rows_d,
             to_device(cand.read[sl].astype(np.int64), dev),

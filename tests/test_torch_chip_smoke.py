@@ -60,7 +60,7 @@ def test_multi_device_phases_on_cpu(tmp_path):
     assert hosts["records_equal"] and hosts["summary_equal"]
     assert sum(hosts["per_process_pairs"]) == 200
     assert hosts["launches"] == [dict.fromkeys(
-        ("K1", "K2", "TB", "FS1", "FS2", "FS2x", "FS3", "FS4", "FS2s"),
+        ("K1", "K2", "TB", "FS1", "FS2", "FS2x", "FS3", "FS4", "FS2s", "GP"),
         0)] * 2  # no card
     assert len(hosts["index_upload_s"]) == 2
     assert chip_smoke.phase_all_cards(cpu, reads, w) == {"not_run": "1 card"}
@@ -511,3 +511,63 @@ def test_seed_expansion_and_dedupe_cases(fs_index):
     w = work["dedupe_collide_1024"]
     assert w["hb"] == 10 and w["collided"] > 0 and w["surviving_dups"] > 0
     assert work["dedupe_K_16384"]["slots"] == 1 << 14
+
+
+def test_prescan_cases_and_kernel_row(fs_index):
+    """Phase 2's GP cases: the path-shaped chunks of phases 4 and 5
+    (PRESCAN_PATH's windows, at a small M), the edges on prescan_genome's
+    index and the synthetic index's case are what they name, run through
+    the plain version on the CPU, with the bound's count of valid offsets
+    and words; the grouped conv1d yardstick gives the same output; the
+    JSON row of GP carries every key of the kernels line."""
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import build_index
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    codes, didx = fs_index
+    rng = np.random.default_rng(14)
+    for name, (_, win) in chip_smoke.PRESCAN_PATH.items():
+        c = chip_smoke.prescan_path_case(rng, codes, 300, win)
+        O = {300: 384, 4100: 4224}[win]
+        assert (c["O"], c["W"], c["reads"].shape) == (O, O + 128, (300, 120))
+        assert (c["rlens"] == 100).all() and not c["reads"][:, 100:].any()
+        args = chip_smoke.prescan_args(c, didx, "cpu")
+        want = dp_rescue._prescan_plain(*args)
+        assert torch.equal(dp_rescue._prescan_impl(*args), want)
+        found = float((want[:, 0] == 0).double().mean())
+        assert 0.5 < found < 0.95, (name, found)  # substitutions, deletions
+        conv, out = chip_smoke.prescan_conv1d(args)
+        assert torch.equal(out, want)
+        w = chip_smoke.prescan_work(c)
+        valid = np.clip(np.minimum(O - 1, c["wlens"] - 100) + 1, 0, None)
+        assert w["valid_offsets"] == valid.sum() and w["words"] == 7 * (
+            valid.sum()) and w["ops"] == 5 * w["words"]
+        ms, by = chip_smoke.prescan_bound(w, 16.7e12)
+        assert by == "operations" and ms == w["ops"] / 16.7e12 * 1e3
+    genome = chip_smoke.prescan_genome()
+    s, n = chip_smoke.PRESCAN_POLY_A
+    assert not genome.codes[s:s + n].any()
+    edx = device_index(build_index(genome, sa_rate=8), "cpu")
+    for name in chip_smoke.PRESCAN_EDGES:
+        c = chip_smoke.prescan_edge_case(name, genome.codes)
+        args = chip_smoke.prescan_args(c, edx, "cpu")
+        assert torch.equal(dp_rescue._prescan_impl(*args),
+                           dp_rescue._prescan_plain(*args))
+    n = (1 << 20) + 5
+    syn = chip_smoke.synthetic_index(torch.device("cpu"), n, lut_k=6)
+    c = chip_smoke.prescan_synthetic_case(rng, syn, "cpu", M=64)
+    assert (c["ws"] + c["wlens"] <= n).all() and (c["ws"] + c["wlens"]
+                                                   == n).any()
+    out = dp_rescue._prescan_plain(*chip_smoke.prescan_args(c, syn, "cpu"))
+    assert (out[:32, 0] == 0).all()   # the planted half, found
+    rows = [{"case": case, "kernel": "GP", "ms": 1.0, "timer": "torch.profiler",
+             "plain_ms": 2.0, "bound_ms": 0.1, "bound_by": "operations",
+             "bound_term": "operations", "library_ms": 3.0,
+             "max_abs_err": 0, "shape": "8x384x120", "wall_s": 0.5}
+            for case in ("path_phase4", "path_phase5", "edge_one")]
+    row = chip_smoke.gp_kernel_row(rows)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert keys <= set(row) and row["route"] == "cuda"
+    assert row["replaces"] == "soap3dp_tpu/pipeline/dp_rescue.py:276"
+    assert "GP" in chip_smoke._kernels()
