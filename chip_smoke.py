@@ -59,18 +59,25 @@ Phases, each printing one line, any failure exits non-zero:
    beside the grouped conv1d that computes the same counts), the edges
    of tests/test_torch_prescan.py on a 40 kbp genome with a run of A,
    and windows past 2^31 on the synthetic index, with GP's device time,
-   its bound (int32 operations, popcounts or bytes) and share;
+   its bound (int32 operations, popcounts or bytes) and share. Then PK
+   (the DP rescue's problem pack, dp_rescue._pack_problems) against
+   _pack_problems_plain, every byte of both outputs: phase 4's and phase
+   5's pack calls on phase 4's index, the edges of
+   tests/test_torch_pack.py on the same 40 kbp genome, and windows past
+   2^31 on the synthetic index, with PK's device time, its bound (bytes)
+   and share, and the plain version's time;
 3. golden SAM: the five paired-end and two single-end golden cases of
    tests/golden rendered through the port on cuda, every record equal
    (@PG excepted);
 4. end to end at a real size: a 250 Mbp genome, 100,000 read pairs,
    the port's `pair` CLI with default options (-u 500 -v 300); checks
    records, planted-locus recall, rescue counts and kernel launches (K1
-   and the path's FS kernels: FS1, FS2x, FS2s, FS3 and FS4, and GP, and
-   no K2: its windows are narrow; no plain search primitive and no plain
-   prescan on the card) with a histogram of the launch shapes (phases
-   5, 6 and 7a likewise), the run's stage timers (SOAP3DP_TIMERS=1:
-   BC.prescan beside BC.half_rescue; phase 5 likewise), then
+   and the path's FS kernels: FS1, FS2x, FS2s, FS3 and FS4, GP and PK,
+   and no K2: its windows are narrow; no plain search primitive, no
+   plain prescan and no plain pack on the card) with a histogram of the
+   launch shapes (phases 5, 6 and 7a likewise), the run's stage timers
+   (SOAP3DP_TIMERS=1: BC.prescan beside BC.half_rescue, dp.pack beside
+   dp.align; phase 5 likewise), then
    runs it once more under torch.profiler (device busy share, top device
    events in the output directory's e2e_profile.txt), and searches its
    first batch alone under torch.profiler (the search's device items
@@ -81,14 +88,16 @@ Phases, each printing one line, any failure exits non-zero:
    the whole insert window, where dp_align takes K2 + TB). First 200
    pairs on a 200 kbp genome, on cuda and on cpu, SAM records equal;
    then 100,000 pairs on phase 4's 250 Mbp index, checking records,
-   recall and the launches of K1, K2, TB and GP;
+   recall and the launches of K1, K2, TB, GP and PK;
 6. single-end: the port's `single` CLI over phase 4's end-1 reads on the
-   same index, checking records, recall and K1 launches (salvage);
+   same index, checking records, recall and K1 and PK launches
+   (salvage);
 7. several devices and processes, on phase 4's inputs: (a) the runner's
    pair loop on an in-process mesh of max(2, cards) index replicas (two
    on one card), records and summary equal to phase 4's, K1 and the
    path's FS kernels (FS4 and FS2s among them) launched on each card,
-   GP on the card of the index replica the prescan is given,
+   GP on the card of the index replica the prescan is given, PK on each
+   replica's card,
    and dp_align(mesh=) at the mate-pair window equal to one device's,
    K2 and TB launched; (b) two `pair --hosts 2` processes (process i on
    card i % cards), merged records and global summary equal to phase
@@ -97,9 +106,10 @@ Phases, each printing one line, any failure exits non-zero:
    prints "not run: 1 card".
 
 Then one JSON line with the kernels (K1, K2, TB, FS1, FS2, FS2x, FS3,
-FS4, FS2s, GP, each with its device time, its bound on this card, the share of the
-bound it reaches and the operations peak the bound used: int16x2,
-twice the int32 peak, where the 16-bit forward runs), and the last line
+FS4, FS2s, GP, PK, each with its device time, its bound on this card,
+the share of the bound it reaches and the operations peak the bound
+used: int16x2, twice the int32 peak, where the 16-bit forward runs),
+and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
 index builder, readers and writers); imports neither JAX nor the JAX
 package.
@@ -1414,16 +1424,18 @@ class _Recorder:
     """Within ``with``: every call of an fmindex entry point of the three
     kernels (FS_FUNCTIONS) is recorded, (name, args), and goes through;
     every call of a plain search primitive whose index lies on a card is
-    counted in ``plain_on_card``, and every call of the plain prescan
+    counted in ``plain_on_card``, every call of the plain prescan
     (dp_rescue._prescan_plain) with CUDA tensors in
-    ``prescan_plain_on_card`` (a CUDA tensor never takes a plain
-    version)."""
+    ``prescan_plain_on_card`` and of the plain pack
+    (dp_rescue._pack_problems_plain) in ``pack_plain_on_card`` (a CUDA
+    tensor never takes a plain version)."""
 
     def __init__(self, record: bool = True):
         self.record = record
         self.calls: list[tuple[str, tuple]] = []
         self.plain_on_card = 0
         self.prescan_plain_on_card = 0
+        self.pack_plain_on_card = 0
         self._saved = {}
 
     def __enter__(self):
@@ -1437,6 +1449,13 @@ class _Recorder:
             return plain(*args, **kw)
 
         dp_rescue._prescan_plain = prescan_plain
+        pack = self._pack_plain = dp_rescue._pack_problems_plain
+
+        def pack_plain(*args, **kw):
+            self.pack_plain_on_card += args[1].device.type == "cuda"
+            return pack(*args, **kw)
+
+        dp_rescue._pack_problems_plain = pack_plain
         for name in FS_FUNCTIONS:
             for fn_name in ((name, plain_of(name)) if self.record
                             else (plain_of(name),)):
@@ -1460,6 +1479,7 @@ class _Recorder:
         from soap3dp_tpu_torch.pipeline import dp_rescue
 
         dp_rescue._prescan_plain = self._prescan_plain
+        dp_rescue._pack_problems_plain = self._pack_plain
         for fn_name, fn in self._saved.items():
             setattr(fmindex, fn_name, fn)
         return False
@@ -1848,7 +1868,11 @@ def _kernel_device_ms(fn, reps: int, symbol: str, per_call: int = 1
     host). A profile now and then holds no device event, and a run of
     them has held none three times in a row: up to PROFILE_TRIES
     profiles, each of twice the last one's calls, a pause between. NaN
-    if none holds such an event."""
+    if none holds such an event. In a long run most profiles hold only
+    some of the calls' events, and one that lost some once held cut
+    ones (a PK case read half its time): a call of one kernel takes the
+    median of the events held, of several kernels their mean times
+    ``per_call``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1861,7 +1885,8 @@ def _kernel_device_ms(fn, reps: int, symbol: str, per_call: int = 1
             torch.cuda.synchronize()
         durs = [b - a for a, b, n in _device_spans(prof) if symbol in n]
         if durs:
-            return float(np.mean(durs)) * per_call / 1e3
+            mid = np.median(durs) if per_call == 1 else np.mean(durs)
+            return float(mid) * per_call / 1e3
         time.sleep(0.5)
     return float("nan")
 
@@ -2110,6 +2135,7 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
     del cases, calls, didx8, mesh, didx1, a
     torch.cuda.empty_cache()
     gp_rows = phase_prescan(dev, peak_ops, didx, genome.codes)
+    pk_rows = phase_pack(dev, didx, genome.codes)
     del didx
     torch.cuda.empty_cache()
     syn = synthetic_index(dev, synthetic_n)
@@ -2118,10 +2144,13 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
     gp_rows.append(run_prescan_case(
         "synthetic", prescan_synthetic_case(rng, syn, dev), syn, dev,
         peak_ops, reps=5))
+    pk_rows.append(run_pack_case("synthetic", pack_synthetic_case(rng, syn),
+                                 syn, dev, reps=5))
     del syn
     torch.cuda.empty_cache()
-    return (fs_kernel_rows(rows) + [gp_kernel_row(gp_rows)], rows + gp_rows,
-            repeat)
+    return (fs_kernel_rows(rows) + [gp_kernel_row(gp_rows),
+                                    pk_kernel_row(pk_rows)],
+            rows + gp_rows + pk_rows, repeat)
 
 
 FS_ROWS = {  # label: (name in the JSON line, the TPU-side code it replaces)
@@ -2446,6 +2475,41 @@ def prescan_bound(work: dict, peak_ops: float) -> tuple[float, str]:
     return t[by], by
 
 
+def _distinct_words(w0: np.ndarray, nw: int, n_pac: int) -> int:
+    """The distinct pac words of the ranges [w0, w0 + nw] (each word
+    index clamped to [0, n_pac - 1], as aligned_genome_words clamps it):
+    the size of the union of the clamped ranges."""
+    w0 = np.sort(w0)
+    lo, hi = np.clip(w0, 0, n_pac - 1), np.clip(w0 + nw, 0, n_pac - 1)
+    before = np.maximum.accumulate(np.concatenate([[-1], hi[:-1]]))
+    return int(np.maximum(hi - np.maximum(lo, before + 1) + 1, 0).sum())
+
+
+def pack_work(c: dict) -> dict:
+    """What PK (the DP rescue's problem pack, dp_rescue._pack_problems)
+    needs on case ``c`` (reads (B, L), cread, win_start (P,), max_win,
+    n_pac): the (P, L) oriented reads and (P, max_win) window codes
+    written once; each distinct pac word of the windows (ceil(max_win /
+    16) + 1 words from win_start // 16, clamped) read once; each
+    distinct read row named (its L code bytes and its 8-byte length) read
+    once; and the problems' cread (8 B), strand (1 B) and win_start (8 B).
+    No arithmetic to speak of: bytes only."""
+    L = c["reads"].shape[1]
+    P, W = len(c["cread"]), int(c["max_win"])
+    nw = (W + 15) // 16
+    words = _distinct_words(np.asarray(c["win_start"], np.int64) >> 4, nw,
+                            int(c["n_pac"])) if P and W else 0
+    rows = len(np.unique(c["cread"]))
+    nbytes = P * (L + W) + 4 * words + rows * (L + 8) + P * (8 + 1 + 8)
+    return {"problems": P, "pac_words": words, "read_rows": rows,
+            "bytes": nbytes}
+
+
+def pack_bound(work: dict) -> tuple[float, str]:
+    """PK's bound: its bytes over the memory rate."""
+    return work["bytes"] / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def prescan_conv1d(args: tuple):
     """The one PyTorch call that computes the same mismatch counts: a
     grouped conv1d of the windows' one-hot codes (1, 4M, W) with the
@@ -2595,6 +2659,201 @@ def gp_kernel_row(rows: list[dict]) -> dict:
           + f"; phase 4's ({p4['shape']}): {p4['ms']:.4f} ms, bound "
           f"{p4['bound_ms']:.4f} ms, plain {p4['plain_ms']:.3f} ms; "
           f"{len(rows)} cases in {sum(r['wall_s'] for r in rows):.2f} s")
+    return row
+
+
+# ------------------------------------------------------------------
+# PK: the DP rescue's problem pack against its plain version
+# ------------------------------------------------------------------
+
+# the pack calls of phases 4 and 5 on phase 4's index, (problems, the
+# distinct read rows they name, max_win), in 120-wide rows of 100-base
+# reads: the largest of each phase and phase 4's most frequent
+# (compare_prescan.py on the parent, PERF.md section 5)
+PACK_PATH = {"path_phase4": (16384, 8532, 256),
+             "frequent_phase4": (8192, 4134, 256),
+             "path_phase5": (16384, 8655, 4224)}
+PACK_EDGES = ("uniform", "ragged", "text_end", "shift_0", "win_1", "win_16",
+              "win_17", "win_4224", "code_4", "pad_problems")
+
+
+def pack_edge_case(name: str, n_text: int, n_pac: int, seed: int = 11
+                   ) -> dict:
+    """The inputs of dp_rescue._pack_problems (reads (B, L) uint8, lens,
+    cread, strand, win_start, un, max_win) and n_pac at the edge ``name``
+    of PACK_EDGES, on a text of n_text bases in n_pac pac words, both
+    strands in every case: every read of 100 bases (the plain version's
+    uniform branch); lengths of 0-120 (the reverse complements of other
+    lengths, bytes past a length not zero); windows that end at the
+    text's last base, run past it, or start past pac's last word (its
+    words clamped); window starts on a word (a shift of 0); max_win of 1,
+    16, 17 and 4,224; reads holding code 4; pad problems (cread 0,
+    strand 0, win_start 0, as run_banded_dp pads them)."""
+    rng = np.random.default_rng(seed)
+    B, L, P = 40, 120, 96
+    max_win = int(name[4:]) if name.startswith("win_") else 300
+    if name == "uniform":
+        lens = np.full(B, 100, np.int64)
+    else:
+        lens = rng.integers(0, L + 1, B)
+        lens[:8] = (0, 1, 15, 16, 17, 100, 119, 120)
+    reads = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    if name == "code_4":
+        reads[rng.random((B, L)) < 0.05] = 4
+    cread = rng.integers(0, B, P)
+    strand = np.arange(P) % 2 == 1
+    win_start = rng.integers(0, n_text - max_win, P)
+    if name == "shift_0":
+        win_start &= ~15
+    if name == "text_end":
+        k = P // 3
+        win_start[:k] = n_text - max_win
+        win_start[k:2 * k] = n_text - rng.integers(1, max_win, k)
+        win_start[2 * k:] = 16 * n_pac + rng.integers(-64, 40, P - 2 * k)
+    if name == "pad_problems":
+        pad = 32
+        cread = np.concatenate([cread, np.zeros(pad, np.int64)])
+        strand = np.concatenate([strand, np.zeros(pad, bool)])
+        win_start = np.concatenate([win_start, np.zeros(pad, np.int64)])
+    return {"reads": reads, "lens": np.asarray(lens, np.int64),
+            "cread": np.asarray(cread, np.int64), "strand": strand,
+            "win_start": np.asarray(win_start, np.int64),
+            "un": 100 if name == "uniform" else 0, "max_win": max_win,
+            "n_pac": n_pac}
+
+
+def pack_path_case(rng, n_text: int, n_pac: int, P: int, rows: int,
+                   max_win: int, L: int = 120, read_len: int = 100,
+                   win_lo: int = 0) -> dict:
+    """A run_banded_dp slice as the rescue makes it: ``rows`` reads of
+    ``read_len`` bases in rows of L (every one named, the rest of the P
+    problems naming them at random, half on the reverse strand), windows
+    of max_win bases at random starts from ``win_lo`` in a text of
+    n_text bases."""
+    reads = np.zeros((rows, L), np.uint8)
+    reads[:, :read_len] = rng.integers(0, 4, (rows, read_len))
+    cread = rng.integers(0, rows, P)
+    cread[:rows] = np.arange(rows)
+    return {"reads": reads, "lens": np.full(rows, read_len, np.int64),
+            "cread": cread.astype(np.int64),
+            "strand": rng.random(P) < 0.5,
+            "win_start": rng.integers(win_lo, n_text - max_win,
+                                      P).astype(np.int64),
+            "un": read_len, "max_win": max_win, "n_pac": n_pac}
+
+
+def pack_synthetic_case(rng, didx, P: int = 16384, rows: int = 8655,
+                        max_win: int = 4224) -> dict:
+    """Phase 5's largest pack call on a synthetic_index: windows past
+    2^31, a quarter of them ending at the text's last base and an eighth
+    running past it."""
+    n = didx.n
+    c = pack_path_case(rng, n, didx.pac.shape[0], P, rows, max_win,
+                       win_lo=min(1 << 31, n // 2))
+    ws = c["win_start"]
+    ws[: P // 4] = n - max_win
+    ws[P // 4: P // 4 + P // 8] = n - rng.integers(1, max_win, P // 8)
+    return c
+
+
+def pack_args(c: dict, didx, dev) -> tuple:
+    """The arguments of dp_rescue._pack_problems of case ``c`` on
+    ``dev``."""
+    import torch
+
+    def t(k):
+        return torch.from_numpy(np.ascontiguousarray(c[k])).to(dev)
+
+    return (didx, t("reads"), t("lens"), t("cread"), t("strand"),
+            t("win_start"), int(c["un"]), int(c["max_win"]))
+
+
+def run_pack_case(name: str, c: dict, didx, dev, reps: int = 20) -> dict:
+    """One PK case on the card: dp_rescue._pack_problems (PK) against
+    _pack_problems_plain on the same tensors, every byte of both
+    outputs; PK's device time (torch.profiler, _timed), the plain
+    version's (CUDA events) and the bound (pack_work, pack_bound)."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import fm_search as fs
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    t0 = time.perf_counter()
+    args = pack_args(c, didx, dev)
+    n0 = fs.PACK_KERNEL.launches
+    got = dp_rescue._pack_problems(*args)
+    torch.cuda.synchronize()
+    launched = fs.PACK_KERNEL.launches - n0
+    want = dp_rescue._pack_problems_plain(*args)
+    err, ndiff = _fs_diff(got, want)
+    ms, call_ms, timer = _timed(lambda: dp_rescue._pack_problems(*args),
+                                reps, "pack_kernel")
+    plain_ms = _events_ms(lambda: dp_rescue._pack_problems_plain(*args),
+                          max(1, reps // 4))
+    work = pack_work(c)
+    bms, by = pack_bound(work)
+    P, L = len(c["cread"]), c["reads"].shape[1]
+    row = {"case": name, "kernel": "PK", "shape": f"{P}x{L}x{c['max_win']}",
+           "ms": ms, "call_ms": call_ms, "timer": timer,
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "max_abs_err": err, "differing": ndiff, "launches": launched,
+           "library_ms": None, **work, "wall_s": time.perf_counter() - t0}
+    phase("kernel pack PK",
+          f"{name}: shape={row['shape']} equal={err == 0 and ndiff == 0} "
+          f"max_abs_err={err} differing={ndiff} launches={launched} "
+          f"ms={ms:.4f} ({timer}) call_ms={call_ms:.4f} "
+          f"bound_ms={bms:.4f} ({by}) share={bms / ms:.1%} "
+          f"plain_ms={plain_ms:.3f} bytes={work['bytes']} "
+          f"wall_s={row['wall_s']:.2f}")
+    if err or ndiff:
+        fail(f"PK disagrees with its plain version ({name})")
+    if launched != 1:
+        fail(f"PK launched {launched} times for one call ({name})")
+    return row
+
+
+def phase_pack(dev, didx, codes: np.ndarray) -> list[dict]:
+    """PK against its plain version on the card: phase 4's and phase 5's
+    pack calls (PACK_PATH) on phase 4's index ``didx`` (genome
+    ``codes``), and the edges (PACK_EDGES) on prescan_genome's index."""
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import build_index
+
+    rng = np.random.default_rng(20261023)
+    rows = [run_pack_case(name, pack_path_case(
+        rng, len(codes), didx.pac.shape[0], P, R, W), didx, dev)
+        for name, (P, R, W) in PACK_PATH.items()]
+    genome = prescan_genome()
+    edx = device_index(build_index(genome, sa_rate=8), dev)
+    rows += [run_pack_case(f"edge_{name}", pack_edge_case(
+        name, len(genome.codes), edx.pac.shape[0]), edx, dev, reps=5)
+        for name in PACK_EDGES]
+    return rows
+
+
+def pk_kernel_row(rows: list[dict]) -> dict:
+    """The JSON line's row of PK: its time at phase 5's largest call,
+    with the largest difference over every PK case."""
+    main = next(r for r in rows if r["case"] == "path_phase5")
+    p4 = next(r for r in rows if r["case"] == "path_phase4")
+    row = {"name": "problem_pack", "route": "cuda",
+           "source": "soap3dp_tpu_torch/csrc/fm_search.cu",
+           "replaces": "soap3dp_tpu/pipeline/dp_rescue.py:357",
+           "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "ms": main["ms"], "timer": main["timer"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": None,
+           "shape": main["shape"], "case": main["case"],
+           "phase4_ms": p4["ms"], "phase4_bound_ms": p4["bound_ms"],
+           "phase4_plain_ms": p4["plain_ms"], "phase4_shape": p4["shape"]}
+    phase("kernel pack PK summary",
+          f"{main['case']} ({main['shape']}): {row['ms']:.4f} ms; bound "
+          f"{row['bound_ms']:.4f} ms (bytes) "
+          f"{row['bound_ms'] / row['ms']:.1%}; plain {row['plain_ms']:.3f} "
+          f"ms; no one PyTorch call computes both outputs; phase 4's "
+          f"({p4['shape']}): {p4['ms']:.4f} ms, bound {p4['bound_ms']:.4f} "
+          f"ms, plain {p4['plain_ms']:.3f} ms; {len(rows)} cases in "
+          f"{sum(r['wall_s'] for r in rows):.2f} s")
     return row
 
 
@@ -2856,7 +3115,8 @@ def _kernels() -> dict:
             "TB": bd.TRACEBACK_KERNEL, "FS1": fs.SEARCH_KERNEL,
             "FS2": fs.DECODE_KERNEL, "FS2x": fs.EXPAND_KERNEL,
             "FS3": fs.VERIFY_KERNEL, "FS4": fs.DEDUPE_KERNEL,
-            "FS2s": fs.SEED_EXPAND_KERNEL, "GP": fs.PRESCAN_KERNEL}
+            "FS2s": fs.SEED_EXPAND_KERNEL, "GP": fs.PRESCAN_KERNEL,
+            "PK": fs.PACK_KERNEL}
 
 
 def _launches() -> dict:
@@ -2868,7 +3128,8 @@ def _launch_shapes() -> dict:
     (the shapes the path itself gave each kernel: P x Lr x Lw for the
     DP kernels; lanes x L x max_steps for FS1, rows x sa_rate for FS2,
     slots x lanes x sa_rate for FS2x and FS2s, placements x words for
-    FS3, K x K2 x hb for FS4, M x O x Lr for GP)."""
+    FS3, K x K2 x hb for FS4, M x O x Lr for GP, P x Lr x max_win for
+    PK)."""
     return {name: {"x".join(map(str, shape)): n for shape, n in
                    sorted(k.shapes.items())}
             for name, k in _kernels().items() if k.shapes}
@@ -2887,8 +3148,8 @@ def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
     """Run ``fn()`` under ``env`` with every launch count set to 0 just
     before; returns (its result, wall s, stderr, launch counts just
     after). Fails if a plain search primitive ran on a card's index or
-    the plain prescan on CUDA tensors in the run (a CUDA tensor must
-    take the kernel)."""
+    the plain prescan or the plain pack on CUDA tensors in the run (a
+    CUDA tensor must take the kernel)."""
     import contextlib
 
     saved = {k: os.environ.get(k) for k in env or {}}
@@ -2915,6 +3176,9 @@ def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
              "card's index")
     if rec.prescan_plain_on_card:
         fail(f"{rec.prescan_plain_on_card} plain prescan calls ran on CUDA "
+             "tensors")
+    if rec.pack_plain_on_card:
+        fail(f"{rec.pack_plain_on_card} plain pack calls ran on CUDA "
              "tensors")
     return out, time.perf_counter() - t0, tee.text(), _launches()
 
@@ -3061,6 +3325,8 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
             fail("the run never launched the fused DP kernel (K1)")
         if launches["GP"] <= 0:
             fail("the run never launched the gapless prescan kernel (GP)")
+        if launches["PK"] <= 0:
+            fail("the run never launched the problem pack kernel (PK)")
         if mate_pair and min(launches["K2"], launches["TB"]) <= 0:
             fail("the full-window mate rescue never launched K2 and TB")
         if not mate_pair and launches["K2"] + launches["TB"]:
@@ -3071,9 +3337,11 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     res["stage_s"] = stages
     phase(f"{name} stage timers",
           f"BC.prescan {stages.get('BC.prescan')} s, BC.half_rescue "
-          f"{stages.get('BC.half_rescue')} s (SOAP3DP_TIMERS=1 in the run); "
-          f"GP launches in the run {launches['GP']}, none of the plain "
-          "prescan on CUDA tensors (_counted checks)")
+          f"{stages.get('BC.half_rescue')} s, dp.pack "
+          f"{stages.get('dp.pack')} s, dp.align {stages.get('dp.align')} s "
+          f"(SOAP3DP_TIMERS=1 in the run); GP launches in the run "
+          f"{launches['GP']}, PK {launches['PK']}, none of the plain "
+          "prescan or pack on CUDA tensors (_counted checks)")
     if profile:
         from soap3dp_tpu_torch.cli.main import main as cli_main
         res["profile"] = _profiled_pass(
@@ -3152,8 +3420,8 @@ def phase_single_e2e(dev, reads: dict, card: str, work: str,
         fail(f"single-end planted-locus recall {recall:.4f} < 0.95")
     if summ.get("num_records", 0) != n:
         fail("the single-end run did not write one record per read")
-    if dev.type == "cuda" and launches["K1"] <= 0:
-        fail("the single-end salvage never launched K1")
+    if dev.type == "cuda" and min(launches["K1"], launches["PK"]) <= 0:
+        fail("the single-end salvage never launched K1 and PK")
     if dev.type == "cuda":
         _fs_launched("the single-end run", launches)
     return res
@@ -3223,6 +3491,10 @@ def phase_mesh(dev, reads: dict, work: str, out_dir: str,
         # the prescan runs on the card of the index replica it is given
         if per_dev.get(str(devices[0]), {}).get("GP", 0) <= 0:
             fail(f"the mesh run never launched GP on {devices[0]}")
+        # each replica packs its slice of the DP problems on its card
+        for card in sorted({str(d) for d in devices}):
+            if per_dev.get(card, {}).get("PK", 0) <= 0:
+                fail(f"the mesh run never launched PK on {card}")
 
     P, Lr, Lw, rl = dp_case
     prob = main_path_problems(np.random.default_rng(20261018), P, Lr, Lw,
@@ -3264,7 +3536,8 @@ _HOST_MAIN = (
     " 'FS2x': fs.EXPAND_KERNEL.launches,"
     " 'FS3': fs.VERIFY_KERNEL.launches, 'FS4': fs.DEDUPE_KERNEL.launches,"
     " 'FS2s': fs.SEED_EXPAND_KERNEL.launches,"
-    " 'GP': fs.PRESCAN_KERNEL.launches}), flush=True)\n"
+    " 'GP': fs.PRESCAN_KERNEL.launches,"
+    " 'PK': fs.PACK_KERNEL.launches}), flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -3353,6 +3626,8 @@ def phase_hosts(dev, reads: dict, work: str, out_dir: str,
     if dev.type == "cuda":
         for i, l in enumerate(res["launches"]):
             _fs_launched(f"--hosts 2 process {i}", l)
+            if l["PK"] <= 0:
+                fail(f"--hosts 2 process {i} never launched PK")
     return res
 
 
@@ -3517,6 +3792,10 @@ def main(argv=None) -> int:
     gp = next(r for r in kernels if r["name"] == "gapless_prescan")
     gp["launches"] = e2e["launches"]["GP"]
     gp["launches_mate_pair"] = mate["launches"]["GP"]
+    pk = next(r for r in kernels if r["name"] == "problem_pack")
+    pk["launches"] = e2e["launches"]["PK"]
+    pk["launches_mate_pair"] = mate["launches"]["PK"]
+    pk["launches_single"] = single["launches"]["PK"]
     for row in kernels:
         row["share"] = row["bound_ms"] / row["ms"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

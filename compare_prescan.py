@@ -18,9 +18,22 @@ of its device events, read between marker kernels), its device events
 (launches and copies) and its span. The run saves the replayed inputs;
 this process counts GP's bound on them with chip_smoke.prescan_work and
 prescan_bound, so every checkout is held to the same one
-(chip_smoke.py times the grouped conv1d yardstick). Prints one line per
-run and writes them to compare_prescan.json in chip_smoke.py's output
-directory. Both phases share phase 4's cached index and seeded reads.
+(chip_smoke.py times the grouped conv1d yardstick).
+
+It measures the DP rescue's problem pack (dp_rescue._pack_problems, which
+run_banded_dp calls before every dp_align) the same way: each phase's
+pack calls (a histogram of their problems x read width x max_win, the
+bytes of reads and lengths each uploads, the timers dp.pack and
+dp.align), then the largest call (by bytes written) and the most
+frequent call shape of each phase replayed through that checkout's
+_pack_problems: its device time and device events between marker
+kernels, its peak extra device memory (max_memory_allocated over the
+call, less what was allocated before it) and the device time of the
+upload of that call's reads and lengths. The run saves the replayed
+inputs; this process counts PK's bound on them with chip_smoke.pack_work
+and pack_bound. Prints one line per run and writes them to
+compare_prescan.json in chip_smoke.py's output directory. Both phases
+share phase 4's cached index and seeded reads.
 """
 
 import argparse
@@ -51,6 +64,9 @@ largest = {{}}
 impl = collections.Counter()
 orig_gp, orig_impl = dp_rescue.gapless_prescan, dp_rescue._prescan_impl
 orig_plain = getattr(dp_rescue, "_prescan_plain", None)
+orig_pack = dp_rescue._pack_problems
+packs = collections.defaultdict(list)  # phase: [(P, Lr, max_win, bytes up)]
+first_pack = {{}}  # (phase, P, Lr, max_win): the first such call's inputs
 
 
 def gp(idx, reads, lens, cand, win_start, win_len, max_win):
@@ -75,7 +91,19 @@ def counted_plain(*a):
     return orig_plain(*a)
 
 
+def pack(idx, reads, lens, cread, strand_rev, win_start, un, max_win):
+    key = (phase_of[0], cread.shape[0], reads.shape[1], max_win)
+    packs[key[0]].append(key[1:] + (
+        reads.numel() * reads.element_size()
+        + lens.numel() * lens.element_size(),))
+    first_pack.setdefault(key, (reads, lens, cread, strand_rev, win_start,
+                                un, max_win))
+    return orig_pack(idx, reads, lens, cread, strand_rev, win_start, un,
+                     max_win)
+
+
 dp_rescue.gapless_prescan = gp
+dp_rescue._pack_problems = pack
 dp_rescue._prescan_impl = counted_impl
 if orig_plain is not None:
     dp_rescue._prescan_plain = counted_plain
@@ -88,6 +116,10 @@ for key, mate in (("phase4", False), ("phase5", True)):
                             + "e2e_stderr.log")).read()
     stage = {{m.group(1): float(m.group(2)) for m in re.finditer(
         r"\\[timers\\] (\\S+)\\s+([0-9.]+)s", log)}}
+    stage_n = {{m.group(1): int(m.group(2)) for m in re.finditer(
+        r"\\[timers\\] (\\S+)\\s+[0-9.]+s \\(cpu +[0-9.]+s\\) x(\\d+)",
+        log)}}
+    up = [b for *_, b in packs[key]]
     out[key] = {{"reads_per_s": res["reads_per_s"], "recall": res["recall"],
                 "launches": res["launches"],
                 "BC.prescan_s": stage.get("BC.prescan"),
@@ -96,8 +128,19 @@ for key, mate in (("phase4", False), ("phase5", True)):
                 "impl_calls": impl[key, "calls"],
                 "plain_on_card": impl[key, "plain_on_card"],
                 "M_O_histogram": {{f"{{m}}x{{o}}": n for (m, o), n in sorted(
-                    collections.Counter(calls[key]).items())}}}}
+                    collections.Counter(calls[key]).items())}},
+                "dp.pack_s": stage.get("dp.pack"),
+                "dp.pack_n": stage_n.get("dp.pack"),
+                "dp.align_s": stage.get("dp.align"),
+                "dp.align_n": stage_n.get("dp.align"),
+                "pack_calls": len(packs[key]),
+                "pack_histogram": {{f"{{p}}x{{l}}x{{w}}": n for (p, l, w), n in
+                                   sorted(collections.Counter(
+                                       x[:3] for x in packs[key]).items())}},
+                "upload_bytes_per_call": up,
+                "upload_bytes": sum(up)}}
 dp_rescue.gapless_prescan, dp_rescue._prescan_impl = orig_gp, orig_impl
+dp_rescue._pack_problems = orig_pack
 if orig_plain is not None:
     dp_rescue._prescan_plain = orig_plain
 
@@ -155,6 +198,50 @@ for key in ("phase4", "phase5"):
     out[key]["replay"] = {{"M": M, "M_call": Mall, "O": O, "W": W, "Lr": L,
                           "case": npz, **device_items(
                               lambda: dp_rescue._prescan_impl(*a), {reps})}}
+
+
+def peak_extra(fn):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    m0 = torch.cuda.memory_allocated(dev)
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev) - m0
+
+
+for key in ("phase4", "phase5"):
+    shapes_n = collections.Counter(x[:3] for x in packs[key])
+    if not shapes_n:
+        continue
+    largest_shape = max(shapes_n, key=lambda s: s[0] * (s[1] + s[2]))
+    frequent = max(shapes_n, key=lambda s: (shapes_n[s], s[0] * s[2]))
+    out[key]["pack_replay"] = []
+    for what, shp in (("largest", largest_shape), ("most_frequent", frequent)):
+        if what == "most_frequent" and shp == largest_shape:
+            out[key]["pack_replay"][0]["what"] += " and most_frequent"
+            continue
+        a = first_pack[(key,) + shp]
+        reads, lens = a[0], a[1]
+        P, L, max_win = shp
+        host = [reads.cpu().numpy(), lens.cpu().numpy()]
+        npz = os.path.join({work!r},
+                           f"pack_{{os.getpid()}}_{{key}}_{{what}}.npz")
+        np.savez(npz, reads=host[0], lens=host[1],
+                 cread=a[2].cpu().numpy(), strand=a[3].cpu().numpy(),
+                 win_start=a[4].cpu().numpy(), un=a[5], max_win=max_win,
+                 n_pac=didx.pac.shape[0])
+        row = {{"what": what, "P": P, "Lr": L, "max_win": max_win,
+               "calls_of_shape": shapes_n[shp], "case": npz,
+               "output_bytes": P * (L + max_win),
+               **device_items(lambda: dp_rescue._pack_problems(didx, *a),
+                              {reps}),
+               "peak_extra_bytes": peak_extra(
+                   lambda: dp_rescue._pack_problems(didx, *a))}}
+        upl = device_items(lambda: [fmindex.to_device(h, dev) for h in host],
+                           {reps})
+        row["upload"] = {{"bytes": sum(h.nbytes for h in host),
+                         "rows": host[0].shape[0], **upl}}
+        out[key]["pack_replay"].append(row)
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -174,6 +261,12 @@ def main(argv=None) -> int:
             tree, RUN, work=work, reps=REPS, bp=cs.E2E_GENOME_BP,
             pairs=cs.E2E_PAIRS)}
         for key in ("phase4", "phase5"):
+            for row in run[key].get("pack_replay", []):
+                with np.load(row.pop("case")) as z:
+                    c = {k: z[k] for k in z.files}
+                need = cs.pack_work(c)
+                row["bound_ms"], row["bound_by"] = cs.pack_bound(need)
+                row.update(need)
             row = run[key].get("replay")
             if row is None:
                 continue

@@ -2,10 +2,11 @@
 // per lane or slot: FM backward search (FS1), SA decode (FS2, with the
 // lane expansions of the search and of the DP seeding), packed
 // verification (FS3) and the hash dedupe (FS4); and the DP rescue's
-// gapless prescan (GP, one warp a candidate), which reads the genome and
-// the reads as FS3 does. Each reproduces its plain-torch version in
-// soap3dp_tpu_torch/fm/fmindex.py (GP: pipeline/dp_rescue.py) element
-// for element.
+// gapless prescan (GP, one warp a candidate) and problem pack (PK, one
+// thread a 16-byte unit of its outputs), which read the genome and the
+// reads as FS3 does. Each reproduces its plain-torch version in
+// soap3dp_tpu_torch/fm/fmindex.py (GP, PK: pipeline/dp_rescue.py)
+// element for element.
 //
 // FS1, soap3dp_fm_search, replaces the XLA programs of
 // soap3dp_tpu/fm/fmindex.py:391 `backward_search`, :456
@@ -100,6 +101,27 @@
 // and the loop is the int32 work alone; the (min, leftmost argmin, zero
 // count) reduction is the lane's running one, then warp shuffles.
 //
+// PK, soap3dp_pack_problems, replaces the XLA program of the DP rescue's
+// problem pack (soap3dp_tpu/pipeline/dp_rescue.py:357 `_pack_problems`,
+// over soap3dp_tpu/fm/fmindex.py:593 `extract_genome`, :642
+// `aligned_genome_words`, :670 `revcomp_reads` and :679
+// `revcomp_reads_uniform`): each DP problem's read oriented by its strand
+// and its genome window as 2-bit codes, the two uint8 inputs of K1 and
+// K2. What bounds it: bytes: the outputs written once, a window's pac
+// words and a read row read once (81 MB, 0.024 ms at 3.35 TB/s, at the
+// mate-pair cell's largest call, 16,384 x 4,224); no arithmetic to speak
+// of. The plain version's cost is its temporaries, not its work: the
+// batch's reverse complement and a gather of it, and an (M, W, 16) int64
+// code tensor (554 MB at that call). Design: no temporaries. One thread a unit of 16 output bytes: a window unit is
+// the funnel shift of two pac words (pac_word, the index clamped as
+// aligned_genome_words clamps it; a shift of 0 takes no bits of the
+// second word), spread to 16 code bytes and stored as one 16-byte vector;
+// a read unit is 16 bytes of the oriented row read in place through Reads
+// (base_at: the forward bytes as stored, the reverse complement
+// (3 - c) & 0xFF from the read's end, 0 past its length). A problem's
+// units are consecutive, so a warp's loads and stores are contiguous.
+// Window starts and pac indices are 64-bit (past 2^31 on a 3.1 Gbp text).
+//
 // Plain C interface for ctypes; each launcher returns cudaGetLastError().
 
 #include <cstdint>
@@ -165,6 +187,13 @@ __device__ __forceinline__ int64_t ld64(const int64_t* p) {
 __device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo,
                                            int64_t hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// packed genome word k, the index clamped to pac (a window past the
+// text's end repeats the last word, as aligned_genome_words clamps it)
+__device__ __forceinline__ uint32_t pac_word(const int32_t* pac,
+                                             int64_t n_pac, int64_t k) {
+  return u32_at(pac, clamp64(k, 0, n_pac - 1));
 }
 
 // base i of forward read b
@@ -702,10 +731,10 @@ verify_kernel_any(Reads s, const int64_t* __restrict__ rows,
   const int64_t len = ld64(read_len + i);
   const int64_t w0 = p >> 4;
   const uint32_t sh = 2 * static_cast<uint32_t>(p & 15);
-  uint32_t lo = u32_at(pac, clamp64(w0, 0, n_pac - 1));
+  uint32_t lo = pac_word(pac, n_pac, w0);
   int64_t total = 0;
   for (int j = 0; j < W && len > 16 * static_cast<int64_t>(j); ++j) {
-    const uint32_t hi = u32_at(pac, clamp64(w0 + j + 1, 0, n_pac - 1));
+    const uint32_t hi = pac_word(pac, n_pac, w0 + j + 1);
     total += mismatches(lo, hi, sh, read_word(s, row, j), len, j);
     lo = hi;
   }
@@ -761,7 +790,7 @@ verify_kernel(Reads s, const int64_t* __restrict__ rows,
   } else {
 #pragma unroll
     for (int x = 0; x <= NW; ++x)
-      gw[x] = x <= W ? u32_at(pac, clamp64(w0 + x, 0, n_pac - 1)) : 0u;
+      gw[x] = x <= W ? pac_word(pac, n_pac, w0 + x) : 0u;
   }
 
   // the read's words
@@ -916,7 +945,7 @@ prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
   const int groups = static_cast<int>((a + last) / GP_GROUP) + 1;
   const int nwin = (a + static_cast<int>(last)) / 16 + nwp + 1;
   for (int k = lane; k < nwin; k += 32)
-    win[k] = u32_at(pac, clamp64(w0 + k, 0, n_pac - 1));
+    win[k] = pac_word(pac, n_pac, w0 + k);
   __syncwarp();
 
   uint32_t best = 0xFFFFFFFFu;
@@ -971,6 +1000,99 @@ prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
     out[3 * m + 1] = best_o;
     out[3 * m + 2] = zeros;
   }
+}
+
+// PK: the DP rescue's problem pack. Problem p's read row, oriented by
+// its strand (cread[p], or that read's reverse complement where
+// strand[p] is 1: rows B..2B-1 of Reads), to oriented[p] (L bytes), and
+// its genome window's max_win 2-bit codes from win_start[p] to wins[p].
+struct Pack {
+  const int64_t* cread;      // (P,) read rows
+  const uint8_t* strand;     // (P,) 1: the reverse complement
+  const int64_t* win_start;  // (P,) window starts (text positions)
+  int64_t P;
+  int max_win;               // window bases a problem
+  int nw;                    // window units a problem: ceil(max_win / 16)
+  int units;                 // nw + ceil(L / 16)
+};
+
+// the 16 bases of a word as 16 code bytes (byte k = base k): each byte
+// of the word (4 bases) spread to 4 bytes
+__device__ __forceinline__ uint4 word_codes(uint32_t w) {
+  uint32_t v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t b = (w >> (8 * q)) & 0xFFu;
+    v[q] = (b | (b << 6) | (b << 12) | (b << 18)) & 0x03030303u;
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// bytes 0 .. n-1 (n <= 16) of v to dst: one 16-byte store where dst is
+// 16-byte aligned, two 8-byte ones where it is 8-byte aligned (a row of
+// L = 120), else whole 4-byte words and single bytes as the alignment
+// and n allow
+__device__ __forceinline__ void store_bytes(uint8_t* dst, const uint4& v,
+                                            int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+  if (n == 16 && (a & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = v;
+    return;
+  }
+  if (n == 16 && (a & 7) == 0) {
+    reinterpret_cast<uint2*>(dst)[0] = make_uint2(v.x, v.y);
+    reinterpret_cast<uint2*>(dst)[1] = make_uint2(v.z, v.w);
+    return;
+  }
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  const bool words = (a & 3) == 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (words && 4 * q + 4 <= n) {
+      *reinterpret_cast<uint32_t*>(dst + 4 * q) = w[q];
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * q + k < n)
+          dst[4 * q + k] = static_cast<uint8_t>(w[q] >> (8 * k));
+    }
+  }
+}
+
+// one thread a unit of 16 output bytes: units 0 .. nw-1 of problem p are
+// its window's words (pac words w0 + u and w0 + u + 1, funnel-shifted to
+// the 2-bit grid, spread to codes); units nw .. are its oriented read's
+// bytes, read through Reads as FS3 and GP read them. A warp's units are
+// consecutive, so its stores are contiguous.
+__global__ void __launch_bounds__(THREADS)
+pack_kernel(Reads s, Pack c, const int32_t* __restrict__ pac, int64_t n_pac,
+            uint8_t* __restrict__ oriented, uint8_t* __restrict__ wins) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  const int64_t p = t / c.units;
+  if (p >= c.P) return;
+  const int u = static_cast<int>(t - p * c.units);
+  if (u < c.nw) {
+    const int64_t ws = ld64(c.win_start + p);
+    const int64_t k = (ws >> 4) + u;
+    const uint32_t sh = 2 * static_cast<uint32_t>(ws & 15);
+    const uint32_t w = __funnelshift_r(pac_word(pac, n_pac, k),
+                                       pac_word(pac, n_pac, k + 1), sh);
+    const int n = c.max_win - 16 * u;
+    store_bytes(wins + p * c.max_win + 16 * u, word_codes(w),
+                n < 16 ? n : 16);
+    return;
+  }
+  const int i0 = 16 * (u - c.nw);
+  const int64_t row =
+      ld64(c.cread + p) + (__ldg(c.strand + p) ? s.B : 0);
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (i0 + k < s.L) v[k >> 2] |= base_at(s, row, i0 + k) << (8 * (k & 3));
+  const int n = s.L - i0;
+  store_bytes(oriented + p * s.L + i0, make_uint4(v[0], v[1], v[2], v[3]),
+              n < 16 ? n : 16);
 }
 
 unsigned blocks_for(long long n) {
@@ -1135,6 +1257,21 @@ int soap3dp_prescan(const void* reads, int kind, long long B, int L, int Ws,
                    static_cast<size_t>(smem),
                    static_cast<cudaStream_t>(stream)>>>(s, c, pac, n_pac,
                                                         out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int soap3dp_pack_problems(const void* reads, int kind, long long B, int L,
+                          int Ws, const int64_t* rc_len,
+                          const int64_t* cread, const uint8_t* strand,
+                          const int64_t* win_start, long long P, int max_win,
+                          const int32_t* pac, long long n_pac,
+                          uint8_t* oriented, uint8_t* wins, void* stream) {
+  const Reads s{reads, rc_len, B, kind, L, Ws};
+  const int nw = (max_win + 15) / 16;
+  const Pack c{cread, strand, win_start, P, max_win, nw, nw + (L + 15) / 16};
+  pack_kernel<<<blocks_for(P * c.units), THREADS, 0,
+                static_cast<cudaStream_t>(stream)>>>(s, c, pac, n_pac,
+                                                     oriented, wins);
   return static_cast<int>(cudaGetLastError());
 }
 

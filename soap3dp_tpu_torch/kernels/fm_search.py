@@ -23,10 +23,13 @@ nvcc at first use into ``_build/`` and loaded with ctypes:
   compaction of its first occurrences (soap3dp_tpu/fm/search.py:275-301);
 * GP ``prescan``: the DP rescue's gapless prescan, each candidate's
   mismatches at every window offset reduced to (min, leftmost argmin,
-  zero count) in the kernel (soap3dp_tpu/pipeline/dp_rescue.py:276).
+  zero count) in the kernel (soap3dp_tpu/pipeline/dp_rescue.py:276);
+* PK ``pack_problems``: the DP rescue's problem pack, each problem's
+  read oriented by its strand and its genome window's codes
+  (soap3dp_tpu/pipeline/dp_rescue.py:357).
 
 These are the launch wrappers: every tensor must lie on one CUDA device
-(anything else raises; there is no fallback). ``fm/fmindex.py`` (GP:
+(anything else raises; there is no fallback). ``fm/fmindex.py`` (GP, PK:
 ``pipeline/dp_rescue.py``) routes a CUDA tensor here and a CPU tensor to
 the plain-torch version. A wrapper
 launches on the device's current stream, allocates its outputs with
@@ -86,6 +89,11 @@ VERIFY_KERNEL = CudaKernel(
 PRESCAN_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_prescan",
     [_P, _I, _LL, _I, _I] + [_P] * 5 + [_LL, _I, _P, _LL, _P, _P])
+# soap3dp_pack_problems(reads, kind, B, L, Ws, rc_len, cread, strand,
+#   win_start, P, max_win, pac, n_pac, oriented, wins, stream)
+PACK_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_pack_problems",
+    [_P, _I, _LL, _I, _I] + [_P] * 4 + [_LL, _I, _P, _LL, _P, _P, _P])
 # the count of an offset past a window's valid ones (and the minimum of a
 # candidate with none): above any read's mismatches
 PRESCAN_NO_VALID = 1 << 20
@@ -430,3 +438,42 @@ def prescan(idx, src: ReadRows, rows: torch.Tensor, ws: torch.Tensor,
         raise RuntimeError(f"prescan kernel launch failed: CUDA error {err}")
     PRESCAN_KERNEL.count(dev, (M, O, src.L))
     return out
+
+
+def pack_problems(idx, src: ReadRows, cread: torch.Tensor,
+                  strand_rev: torch.Tensor, win_start: torch.Tensor,
+                  max_win: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """PK: problem p's oriented row (row ``cread[p]``, or its reverse
+    complement where ``strand_rev[p]``), (P, L) uint8, and the 2-bit
+    genome codes at [win_start[p], win_start[p] + max_win), (P, max_win)
+    uint8 (dp_rescue._pack_problems)."""
+    P = cread.shape[0]
+    dev = cread.device
+    _check("pack problems", dev, reads=src.data, rc_len=src.rc_len,
+           cread=cread, strand_rev=strand_rev, win_start=win_start,
+           pac=idx.pac)
+    _vector("pack problems", "cread", cread, P, torch.int64)
+    _vector("pack problems", "strand_rev", strand_rev, P, torch.bool)
+    _vector("pack problems", "win_start", win_start, P, torch.int64)
+    if idx.pac.dtype != torch.int32 or idx.pac.dim() != 1 \
+            or idx.pac.shape[0] < 1:
+        raise ValueError("pack problems: the index's pac must be int32 "
+                         "(n,), n >= 1")
+    if not 0 <= max_win < (1 << 30):
+        raise ValueError(f"pack problems: max_win {max_win} out of range")
+    oriented = torch.empty((P, src.L), dtype=torch.uint8, device=dev)
+    wins = torch.empty((P, max_win), dtype=torch.uint8, device=dev)
+    if P == 0 or src.L + max_win == 0:
+        return oriented, wins
+    _, fn = PACK_KERNEL.function()
+    with torch.cuda.device(dev):
+        err = fn(src.data.data_ptr(), src.kind, src.B, src.L, src.W,
+                 src.rc_len.data_ptr(), cread.data_ptr(),
+                 strand_rev.data_ptr(), win_start.data_ptr(), P, max_win,
+                 idx.pac.data_ptr(), idx.pac.shape[0], oriented.data_ptr(),
+                 wins.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"pack problems kernel launch failed: CUDA error "
+                           f"{err}")
+    PACK_KERNEL.count(dev, (P, src.L, max_win))
+    return oriented, wins

@@ -6,10 +6,11 @@ on the index's device: ``_seed_cand_batch`` (the seeds' backward search,
 lane expansion and SA decode through fmindex, the FS1 and FS2s kernels
 on the card), ``_prescan_impl`` (the GP kernel on the card,
 ``_prescan_plain`` on the CPU; ``_PRESCAN_CHUNK`` bounds the plain
-version's (M, O) matrix only) and ``_pack_problems`` (plain torch); and
-``run_banded_dp`` calls the port's ``dp_align`` (the Hopper kernels on
-CUDA, their plain versions on CPU), one slice of problems per device on
-a mesh.
+version's (M, O) matrix only) and ``_pack_problems`` (the PK kernel on
+the card, ``_pack_problems_plain`` on the CPU); and ``run_banded_dp``
+uploads the rows its problems name and calls the port's ``dp_align``
+(the Hopper kernels on CUDA, their plain versions on CPU), one slice of
+problems per device on a mesh.
 """
 
 from __future__ import annotations
@@ -283,8 +284,30 @@ def gapless_prescan(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
 def _pack_problems(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
                    cread: torch.Tensor, strand_rev: torch.Tensor,
                    win_start: torch.Tensor, un: int, max_win: int):
-    """Device pack of DP problems: orient reads per candidate strand and
-    extract the genome windows."""
+    """Device pack of DP problems: orient reads per candidate strand
+    (read cread[p], or its reverse complement of lens[cread[p]] bases
+    where strand_rev[p]) and extract the genome windows of max_win bases
+    at win_start: ((P, L), (P, max_win)) uint8. ``un``, where not 0, is
+    the length of every read (the plain version's uniform branch; PK
+    reads ``lens`` either way). PK on CUDA tensors (one launch, the read
+    rows read in place), _pack_problems_plain on CPU tensors."""
+    if reads.is_cuda:
+        src = fm_search.oriented_rows(reads.contiguous(), reads.shape[1],
+                                      fmindex._i64(lens))
+        return fm_search.pack_problems(idx, src, fmindex._i64(cread),
+                                       strand_rev, fmindex._i64(win_start),
+                                       max_win)
+    fmindex._require_cpu("_pack_problems", reads)
+    return _pack_problems_plain(idx, reads, lens, cread, strand_rev,
+                                win_start, un, max_win)
+
+
+def _pack_problems_plain(idx: DeviceIndex, reads: torch.Tensor,
+                         lens: torch.Tensor, cread: torch.Tensor,
+                         strand_rev: torch.Tensor, win_start: torch.Tensor,
+                         un: int, max_win: int):
+    """The plain version of _pack_problems: the batch's reverse
+    complement gathered by strand, and extract_genome."""
     rc = fmindex.revcomp_reads_uniform(reads, un) if un \
         else fmindex.revcomp_reads(reads, lens)
     oriented = torch.where(strand_rev[:, None], rc[cread], reads[cread])
@@ -354,15 +377,14 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     unreachable cutoff, so they never survive). On a mesh the problem
     axis is padded to a mesh multiple and split evenly: each replica
     packs its slice's problems and aligns them on its device
-    (dp_align_shards)."""
+    (dp_align_shards). Only the read rows a slice's problems name are
+    uploaded (cread indexes them)."""
     M_real = cand.read.shape[0]
     if M_real == 0:
         return empty_dpresult()
     replicas = dmesh.replicas_of(idx)
     n = len(replicas)
-    Bp = shapes.bucket(reads.shape[0], min_size=64)
-    reads = shapes.pad_rows(np.asarray(reads), Bp)
-    lens = shapes.pad_rows(np.asarray(lens), Bp)
+    reads, lens = np.asarray(reads), np.asarray(lens)
     M_pad = dmesh.pad_to_mesh(dmesh.mesh_of(idx),
                               shapes.bucket(M_real, min_size=128))
     max_win = shapes.bucket_multiple(max_win, 128)
@@ -377,8 +399,6 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     anchor_l, anchor_r = pad(anchor_l), pad(anchor_r)
     cutoff = np.concatenate([np.asarray(cutoff, np.int64),
                              np.full(M_pad - M_real, 1 << 20, np.int64)])
-    lens_h = np.asarray(lens)
-    un = int(lens_h[0]) if len(lens_h) and (lens_h == lens_h[0]).all() else 0
     rlen = lens[cand.read].astype(np.int32)
     cutoff32 = np.minimum(cutoff, 1 << 20).astype(np.int32)
     Ms = M_pad // n
@@ -392,10 +412,13 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
             def d32(a):
                 return to_device(np.asarray(a[sl], np.int32), dev)
 
+            # only the read rows the slice's problems name go up
+            rows, cread = np.unique(cand.read[sl], return_inverse=True)
+            rlens = lens[rows].astype(np.int64)
+            un = int(rlens[0]) if (rlens == rlens[0]).all() else 0
             oriented, wins = _pack_problems(
-                rep, to_device(reads, dev),
-                to_device(lens_h.astype(np.int64), dev),
-                to_device(cand.read[sl].astype(np.int64), dev),
+                rep, to_device(reads[rows], dev), to_device(rlens, dev),
+                to_device(cread.astype(np.int64), dev),
                 to_device(cand.strand[sl] == 1, dev),
                 to_device(np.asarray(win_start[sl], np.int64), dev), un,
                 max_win)

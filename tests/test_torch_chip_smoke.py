@@ -60,8 +60,8 @@ def test_multi_device_phases_on_cpu(tmp_path):
     assert hosts["records_equal"] and hosts["summary_equal"]
     assert sum(hosts["per_process_pairs"]) == 200
     assert hosts["launches"] == [dict.fromkeys(
-        ("K1", "K2", "TB", "FS1", "FS2", "FS2x", "FS3", "FS4", "FS2s", "GP"),
-        0)] * 2  # no card
+        ("K1", "K2", "TB", "FS1", "FS2", "FS2x", "FS3", "FS4", "FS2s", "GP",
+         "PK"), 0)] * 2  # no card
     assert len(hosts["index_upload_s"]) == 2
     assert chip_smoke.phase_all_cards(cpu, reads, w) == {"not_run": "1 card"}
 
@@ -571,3 +571,62 @@ def test_prescan_cases_and_kernel_row(fs_index):
     assert keys <= set(row) and row["route"] == "cuda"
     assert row["replaces"] == "soap3dp_tpu/pipeline/dp_rescue.py:276"
     assert "GP" in chip_smoke._kernels()
+
+
+def test_pack_cases_and_kernel_row(fs_index):
+    """Phase 2's PK cases: the path-shaped calls of phases 4 and 5
+    (PACK_PATH's shapes, at a small P), the edges on prescan_genome's
+    index and the synthetic index's windows past 2^31 are what they
+    name, run through the plain version on the CPU, with the bound's
+    count of distinct pac words and rows; the JSON row of PK carries
+    every key of the kernels line."""
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import build_index
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    codes, didx = fs_index
+    rng = np.random.default_rng(15)
+    n_pac = didx.pac.shape[0]
+    for name, (_, _, W) in chip_smoke.PACK_PATH.items():
+        c = chip_smoke.pack_path_case(rng, len(codes), n_pac, 64, 40, W)
+        assert c["reads"].shape == (40, 120) and c["un"] == 100
+        assert set(c["cread"]) == set(range(40))
+        assert (c["win_start"] + W <= len(codes)).all()
+        args = chip_smoke.pack_args(c, didx, "cpu")
+        oriented, wins = dp_rescue._pack_problems(*args)
+        assert oriented.shape == (64, 120) and wins.shape == (64, W)
+        ws = c["win_start"][0]
+        np.testing.assert_array_equal(wins[0].numpy(), codes[ws:ws + W])
+        w = chip_smoke.pack_work(c)
+        assert w["read_rows"] == 40 and w["problems"] == 64
+        assert w["pac_words"] <= 64 * (W // 16 + 1)
+        assert w["bytes"] == (64 * (120 + W) + 4 * w["pac_words"]
+                              + 40 * 128 + 64 * 17)
+        ms, by = chip_smoke.pack_bound(w)
+        assert by == "bytes" and ms == w["bytes"] / 3.35e12 * 1e3
+    genome = chip_smoke.prescan_genome()
+    edx = device_index(build_index(genome, sa_rate=8), "cpu")
+    for name in chip_smoke.PACK_EDGES:
+        c = chip_smoke.pack_edge_case(name, len(genome.codes),
+                                      edx.pac.shape[0])
+        args = chip_smoke.pack_args(c, edx, "cpu")
+        for a, b in zip(dp_rescue._pack_problems(*args),
+                        dp_rescue._pack_problems_plain(*args)):
+            assert torch.equal(a, b)
+    n = (1 << 20) + 5
+    syn = chip_smoke.synthetic_index(torch.device("cpu"), n, lut_k=6)
+    c = chip_smoke.pack_synthetic_case(rng, syn, P=64, rows=16, max_win=300)
+    ws = c["win_start"]
+    assert (ws >= n // 2).all() and (ws + 300 == n).any()
+    assert (ws + 300 > n).any()
+    rows = [{"case": case, "kernel": "PK", "ms": 1.0, "timer": "torch.profiler",
+             "plain_ms": 2.0, "bound_ms": 0.1, "bound_by": "bytes",
+             "library_ms": None, "max_abs_err": 0,
+             "shape": "16384x120x4224", "wall_s": 0.5}
+            for case in ("path_phase4", "path_phase5", "edge_uniform")]
+    row = chip_smoke.pk_kernel_row(rows)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert keys <= set(row) and row["route"] == "cuda"
+    assert row["replaces"] == "soap3dp_tpu/pipeline/dp_rescue.py:357"
+    assert "PK" in chip_smoke._kernels()

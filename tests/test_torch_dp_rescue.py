@@ -168,6 +168,63 @@ def test_run_banded_dp_equal(work, with_host):
         np.testing.assert_array_equal(a.cnts[i, :n], b.cnts[i, :n])
 
 
+def test_run_banded_dp_uploads_the_rows_it_names(work, monkeypatch):
+    """The problems name a few rows of a large batch of mixed lengths:
+    run_banded_dp equals the JAX package's, and the pack is given only
+    the rows named, with their lengths."""
+    index, jd, td, reads, lens = work
+    cand, ws, wl = _windows(work, 3)
+    keep = np.flatnonzero(cand.read % 7 == 0)
+    cand = jr.Candidates(cand.read[keep], cand.strand[keep], cand.pos[keep])
+    ws, wl = ws[keep], wl[keep]
+    rng = np.random.default_rng(4)
+    B = 2000
+    big = rng.integers(0, 4, (B, reads.shape[1])).astype(np.uint8)
+    big_lens = rng.integers(20, reads.shape[1] + 1, B).astype(np.int32)
+    at = rng.choice(B, len(reads), replace=False)
+    big[at], big_lens[at] = reads, lens
+    big_lens[at[::3]] -= 3  # the named rows of mixed lengths too
+    cand = jr.Candidates(at[cand.read].astype(np.int32), cand.strand,
+                         cand.pos)
+    M = cand.read.size
+    clip_l = np.where(cand.strand == 1, 49, 20)
+    clip_r = np.where(cand.strand == 1, 20, 49)
+    al = np.full(M, int(wl.max()) + 1, np.int32)
+    ar = np.zeros(M, np.int32)
+    cutoff = (big_lens[cand.read] * 0.3).astype(int)
+    a = jr.run_banded_dp(jd, big, big_lens, cand, ws, wl, int(wl.max()),
+                         clip_l, clip_r, al, ar, cutoff, JScores())
+    packed = []
+    pack = tr._pack_problems
+
+    def spy(idx, reads_d, lens_d, *rest):
+        packed.append((reads_d.numpy(), lens_d.numpy()))
+        return pack(idx, reads_d, lens_d, *rest)
+
+    monkeypatch.setattr(tr, "_pack_problems", spy)
+    b = tr.run_banded_dp(td, big, big_lens,
+                         tr.Candidates(cand.read, cand.strand, cand.pos),
+                         ws, wl, int(wl.max()), clip_l, clip_r, al, ar,
+                         cutoff, TScores())
+    from soap3dp_tpu_torch.utils import shapes
+
+    # the problems' rows, and row 0 of the pad problems
+    pad = shapes.bucket(M, min_size=128) > M
+    rows = np.unique(np.concatenate([cand.read, [0] * pad]))
+    assert len(packed) == 1 and len(rows) < B // 20
+    assert len(set(big_lens[rows])) > 1
+    np.testing.assert_array_equal(packed[0][0], big[rows])
+    np.testing.assert_array_equal(packed[0][1], big_lens[rows])
+    assert a.read.size > M // 4
+    for f in ("read", "strand", "pos", "score", "nrun", "win_start",
+              "n_best_cells", "problem"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    for i in range(a.read.size):
+        n = int(a.nrun[i])
+        np.testing.assert_array_equal(a.ops[i, :n], b.ops[i, :n])
+        np.testing.assert_array_equal(a.cnts[i, :n], b.cnts[i, :n])
+
+
 def test_concat_and_empty_results():
     e = tr.empty_dpresult()
     assert tr.concat_dpresults([e, None]).read.size == 0
