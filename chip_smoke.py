@@ -38,8 +38,9 @@ Phases, each printing one line, any failure exits non-zero:
    kernels read), its time when it read the separate tables (quoted
    from PERF.md) and the plain version's: the
    calls of the main path on phase 4's index (a 65,536-pair batch's
-   search, the index built and cached here, and phase 4's largest
-   deep-DP seeding, 107,648 lanes), each FS1 branch at its edges, FS2
+   search, the index built and cached here, and a deep-DP seeding of
+   as many reads as phase 4's largest, 107,648 lanes), each FS1 branch
+   at its edges, FS2
    at sa_rate 1, 2 and 8 and with the SA split over a two-replica mesh,
    the expansion's edges at the search's K (a total of 0, past K and
    equal to K, one lane holding every slot), the seeding expansion's
@@ -49,7 +50,10 @@ Phases, each printing one line, any failure exits non-zero:
    4, 2 or 3 words; seeds that decode below their start), FS3 at its
    edges, FS4 at its edges (uniq above and equal to K2, no pos_ok, K at
    the 1,024-slot table with collisions forced so that same-key losers
-   survive, whose count must be above 0, and K of 2^22), FS1-FS3 on a
+   survive, whose count must be above 0, K of 2^22 and of 3,363, every
+   key in one slot, one key everywhere, and five calls in a row on the
+   table it keeps), FS2s where its warps search
+   for lanes (98% of the lanes empty, fewer lanes than a warp), FS1-FS3 on a
    synthetic 3.2 Gbp index (rows, bounds and positions past 2^31), and
    a repeat genome's search (rounds 2 and 3) on the card and the CPU
    with equal hits. Then GP (the half rescue's gapless prescan,
@@ -82,7 +86,10 @@ Phases, each printing one line, any failure exits non-zero:
    events in the output directory's e2e_profile.txt), and searches its
    first batch alone under torch.profiler (the search's device items
    beside PR 7's total, search_profile.txt; no cummax scan and no
-   scatter-min);
+   scatter-min); the measured run keeps the first call of each launch
+   shape of FS2x, FS2s and FS4, and after the phase each is held to its
+   plain version, every element, with its device time and bound (the
+   kernels line's FS2s is phase 4's largest seeding);
 5. mate-pair: a -/+ library of 2-6 kbp inserts aligned with
    -v 2000 -u 6000 and SOAP3DP_HALF_NARROW_PAD=0 (the half rescue over
    the whole insert window, where dp_align takes K2 + TB). First 200
@@ -924,6 +931,15 @@ SECTOR = 32  # bytes the card moves for one scattered load
 BEFORE_REDESIGN_MS = {"FS1": 0.127, "FS2": 0.035, "FS3": 0.055}
 # the search's scatter-min before FS4 (PR 7's run, PERF.md section 5)
 SCATTER_MIN_BEFORE_MS = 0.219
+# FS4, FS2s and FS2x at phase 4's largest call before PR 12 (five FS4
+# kernels; a binary search a slot for its lane), the parent's replayed
+# calls in compare_prescan.py on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md section 6), quoted in the summary lines only
+SEARCH_REDESIGN_BEFORE_MS = {
+    "FS4": "0.0176-0.0177 ms of events, a 0.0236-0.0278 ms span at "
+           "524288x262144x20",
+    "FS2s": "0.0342 ms at 524288x107648x2",
+    "FS2x": "0.0423-0.0427 ms at 524288x524288x2"}
 # the search's device items of phase 4's first batch before FS4 (PR 7)
 SEARCH_DEVICE_BEFORE_MS = 0.681
 
@@ -1184,6 +1200,119 @@ def dedupe_cases(rng, dev, path_args=None, K: int = 524288,
     return cases
 
 
+def same_slot_keys(rng, K: int, ok_share: float = 0.9):
+    """K distinct keys whose hashes are one value, so that every key
+    falls in one table slot whatever the table's size: distinct rows,
+    each tp solved from its row (the tp product's factor is odd, so
+    invertible mod 2^32); pos_ok for ``ok_share`` of them."""
+    m = np.uint64(0xFFFFFFFF)
+    h = np.uint64(rng.integers(0, 1 << 32))
+    rows = rng.choice(1 << 20, K, replace=False).astype(np.uint64)
+    inv = np.uint64(pow(0x85EBCA77, -1, 1 << 32))
+    tps = (((rows * np.uint64(0x9E3779B1)) & m) ^ h) * inv & m
+    return (rows.astype(np.int64), tps.astype(np.int64),
+            rng.random(K) < ok_share)
+
+
+def dedupe_more_cases(rng, dev, ragged: int = 3363
+                      ) -> list[tuple[str, str, tuple]]:
+    """FS4 at the edges of its two launches (phase 4's own shapes are
+    path_cases'): K of ``ragged``, a multiple neither of a tile (1,024
+    slots) nor of a block, with uniq > K2; every key distinct and in
+    one table slot (same_slot_keys: each atomic on one slot, every
+    pos_ok slot but the winner's a first); one key in every slot."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = [(f"dedupe_K_{ragged}", "dedupe",
+              tuple(map(t, dedupe_keys(rng, ragged, ragged // 2)))
+              + (ragged // 4,))]
+    cases.append(("dedupe_one_slot", "dedupe",
+                  tuple(map(t, same_slot_keys(rng, 4096))) + (4096,)))
+    one = t(np.full(2000, 7, np.int64))
+    cases.append(("dedupe_one_key", "dedupe",
+                  (one, one * 1000, t(np.ones(2000, bool)), 64)))
+    return cases
+
+
+def dedupe_repeat_check(rng, dev) -> int:
+    """FS4's table is kept across calls on a card and stream: with the
+    stream's table dropped first, keys A (a new table), A again, B (a
+    table twice as large, so a new one, its generation from 1 again), A,
+    B, each call held to the plain version, every element; on a card the
+    tables and generations must be those. Fails otherwise. Returns the
+    calls made."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+    from soap3dp_tpu_torch.kernels import fm_search as fs
+
+    def keys(K):
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in dedupe_keys(rng, K, K // 3, 0.6)) + (K // 2,)
+
+    card = torch.device(dev).type == "cuda"
+    key = (torch.device(dev).index, fs._stream(dev)) if card else None
+    fs._DEDUPE_TABLES.pop(key, None)
+    a, b = keys(65536), keys(131072)
+    calls = (("A", a), ("A", a), ("B", b), ("A", a), ("B", b))
+    tables = []
+    for i, (name, args) in enumerate(calls):
+        err, ndiff = _fs_diff(fmindex.dedupe(*args),
+                              fmindex.dedupe_plain(*args))
+        if err or ndiff:
+            fail(f"FS4 call {i} ({name}) of a repeat disagrees with its "
+                 f"plain version: {ndiff} elements differ")
+        if card:
+            table, gen = fs._DEDUPE_TABLES[key]
+            tables.append((table.data_ptr(), table.shape[0], gen))
+    if card and ([t[1:] for t in tables] != [
+            (1 << 17, 1), (1 << 17, 2), (1 << 18, 1), (1 << 18, 2),
+            (1 << 18, 3)] or tables[1][0] != tables[0][0]
+            or tables[4][0] != tables[2][0]):
+        fail(f"FS4's table across the repeat (address, slots, generation): "
+             f"{tables}")
+    phase("kernel fm_search FS4 repeat",
+          f"{len(calls)} calls in a row (A, A, B, A, B) from no table, a "
+          "new table at A and at B, every output equal to the plain "
+          "version's")
+    return len(calls)
+
+
+def seed_lane_cases(rng, didx, dev, RS: int, S: int
+                    ) -> list[tuple[str, str, tuple]]:
+    """FS2s where its warps look for their slots' lanes
+    (warp_slot_lane): RS lanes, 98% of them empty (a warp's slots past
+    its window of 32 lanes, which binary-search beyond it), all slots
+    walked and the rest past the total; one row of S lanes (fewer lanes than a
+    warp), K below the total and not a multiple of 32; RS lanes of
+    SEED_WIDTHS with K odd, half the total."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    n = didx.n
+
+    def case(name, width, K):
+        sp = rng.integers(0, 75, width.shape[0])
+        l = rng.integers(0, n + 1 - width)
+        return (name, "seed_expand_decode",
+                (didx, t(l), t(np.cumsum(np.minimum(width, 64))), t(sp), S,
+                 K))
+
+    sparse = np.where(rng.random(RS) < 0.98, 0, rng.integers(1, 65, RS))
+    total = int(sparse.sum())
+    few = np.resize(np.array([0, 64, 1, 30]), S)
+    wide = rng.choice(SEED_WIDTHS, RS)
+    return [case("seed_sparse", sparse, total + total // 4 + 1),
+            case("seed_one_row", few, int(np.minimum(few, 64).sum()) - 55),
+            case("seed_K_odd", wide,
+                 int(np.minimum(wide, 64).sum()) // 2 | 1)]
+
+
 def block_edge_cases(rng, dev, m: int = 1000, B: int = 256, L: int = 100
                      ) -> list[tuple[str, str, tuple]]:
     """The occ blocks' edges on three small indexes (sa_rate 4, lut_k 8)
@@ -1428,10 +1557,14 @@ class _Recorder:
     (dp_rescue._prescan_plain) with CUDA tensors in
     ``prescan_plain_on_card`` and of the plain pack
     (dp_rescue._pack_problems_plain) in ``pack_plain_on_card`` (a CUDA
-    tensor never takes a plain version)."""
+    tensor never takes a plain version). With ``kept`` (a dict), the
+    first call of each launch shape of a PATH_KEPT entry is kept there,
+    {(entry, the arguments' shapes and ints): its arguments, each tensor
+    copied}."""
 
-    def __init__(self, record: bool = True):
+    def __init__(self, record: bool = True, kept: dict | None = None):
         self.record = record
+        self.kept = kept
         self.calls: list[tuple[str, tuple]] = []
         self.plain_on_card = 0
         self.prescan_plain_on_card = 0
@@ -1457,7 +1590,9 @@ class _Recorder:
 
         dp_rescue._pack_problems_plain = pack_plain
         for name in FS_FUNCTIONS:
-            for fn_name in ((name, plain_of(name)) if self.record
+            entry = self.record or (self.kept is not None
+                                    and name in PATH_KEPT)
+            for fn_name in ((name, plain_of(name)) if entry
                             else (plain_of(name),)):
                 fn = getattr(fmindex, fn_name)
                 self._saved[fn_name] = fn
@@ -1469,9 +1604,17 @@ class _Recorder:
             if fn_name.endswith("_plain"):
                 if args[0].device.type == "cuda":
                     self.plain_on_card += 1
-            else:
+            elif self.record:
                 self.calls.append((fn_name, args))
-            return fn(*args, **kw)
+            out = fn(*args, **kw)
+            if self.kept is not None and fn_name in PATH_KEPT:
+                key = (fn_name,) + tuple(
+                    tuple(a.shape) if hasattr(a, "clone")
+                    else a if isinstance(a, int) else None for a in args)
+                if key not in self.kept:
+                    self.kept[key] = tuple(
+                        a.clone() if hasattr(a, "clone") else a for a in args)
+            return out
         return call
 
     def __exit__(self, *exc):
@@ -1851,12 +1994,46 @@ def _fs_diff(got, want) -> tuple[int, int]:
 
 # the kernels' symbols, as torch.profiler names their device events (a
 # part of the name every kernel of the call holds), and the kernels a
-# call launches: FS4 is five (dedupe_clear, _scatter, _first, _scan,
-# _write)
+# call launches: FS4 is two (dedupe_scatter, dedupe_scan)
 FS_SYMBOLS = {"FS1": "fm_search_kernel", "FS2": "sa_decode_kernel",
               "FS2x": "expand_decode_kernel", "FS2s": "seed_expand_kernel",
               "FS3": "verify_kernel", "FS4": "dedupe_"}
-FS_KERNELS_PER_CALL = {"FS4": 5}
+FS_KERNELS_PER_CALL = {"FS4": 2}
+
+
+def _call_span_ms(fn, reps: int, symbol: str) -> tuple[float, float]:
+    """(span, events) of a call of ``fn``, medians, ms: the device span
+    from the start of its first kernel named ``symbol`` to the end of
+    its last (the kernels and the gaps between them), and the sum of
+    those kernels' device times; each call between two marker kernels
+    (torch.cuda._sleep) of one torch.profiler profile; only calls that
+    hold the most such events count (a profile may lose some). NaN if
+    no call held one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(reps):
+            fn()
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    spans = _device_spans(prof)
+    marks = [(a, b) for a, b, n in spans if "spin_kernel" in n]
+    calls = []
+    for (_, b0), (a1, _) in zip(marks, marks[1:]):
+        ev = [(a, b) for a, b, n in spans if b0 <= a < a1 and symbol in n]
+        if ev:
+            calls.append((len(ev), max(b for _, b in ev) - ev[0][0],
+                          sum(b - a for a, b in ev)))
+    if not calls:
+        return float("nan"), float("nan")
+    most = max(c[0] for c in calls)
+    calls = [c for c in calls if c[0] == most]
+    return (float(np.median([c[1] for c in calls])) / 1e3,
+            float(np.median([c[2] for c in calls])) / 1e3)
 
 
 def _kernel_device_ms(fn, reps: int, symbol: str, per_call: int = 1
@@ -1915,9 +2092,12 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     shape = [s for s, c in counter.shapes.items() if c > shapes0.get(s, 0)]
     want = plain(*args)
     err, ndiff = _fs_diff(got, want)
+    per_call = FS_KERNELS_PER_CALL.get(label, 1)
     ms, call_ms, timer = _timed(lambda: kern(*args), reps,
-                                FS_SYMBOLS[label],
-                                FS_KERNELS_PER_CALL.get(label, 1))
+                                FS_SYMBOLS[label], per_call)
+    # several kernels a call: the call's device span beside their sum
+    span_ms = (_call_span_ms(lambda: kern(*args), reps, FS_SYMBOLS[label])[0]
+               if per_call > 1 else ms)
     plain_ms = _events_ms(lambda: plain(*args), max(1, reps // 10))
     work = fs_work(fn, args, want)
     counts = {k: v for k, v in work.items()
@@ -1931,8 +2111,8 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     phase(f"kernel fm_search {label}",
           f"{name}: {fn} shape={shape_s} equal={err == 0 and ndiff == 0} "
           f"max_abs_err={err} differing={ndiff} launches={launched} "
-          f"ms={ms:.4f} ({timer}) call_ms={call_ms:.4f} "
-          f"bound_ms={bms:.4f} ({by}, int32 peak) "
+          f"ms={ms:.4f} ({timer}) span_ms={span_ms:.4f} "
+          f"call_ms={call_ms:.4f} bound_ms={bms:.4f} ({by}, int32 peak) "
           f"share={bms / ms:.1%} sector_bound_ms={sms:.4f} "
           f"sector_share={sms / ms:.1%} block_sector_bound_ms={bsms:.4f} "
           f"block_sector_share={bsms / ms:.1%} plain_ms={plain_ms:.3f} "
@@ -1942,8 +2122,9 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     if launched != 1:
         fail(f"{label} launched {launched} times for one call ({name})")
     return {"case": name, "kernel": label, "fn": fn, "shape": shape_s,
-            "ms": ms, "call_ms": call_ms, "timer": timer, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "sector_bound_ms": sms,
+            "ms": ms, "span_ms": span_ms, "call_ms": call_ms, "timer": timer,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "sector_bound_ms": sms,
             "block_sector_bound_ms": bsms, "max_abs_err": err,
             "wall_s": time.perf_counter() - t0, **work}
 
@@ -2059,7 +2240,7 @@ def path_calls(didx, codes: np.ndarray, B: int = 65536, seed_reads=13456
 def phase_fm_kernels(dev, peak_ops: float, work: str,
                      genome_bp: int = 250_000_000, path_pairs: int = 65536,
                      synthetic_n: int = 3_200_000_000
-                     ) -> tuple[list[dict], list[dict], dict]:
+                     ) -> tuple[list[dict], list[dict], list[dict], dict]:
     """FS1-FS4 against their plain versions, every element of every
     output: the main path's calls on phase 4's index (built here and
     cached for phase 4); the edges of each FS1 branch; FS2 at sa_rate 1
@@ -2070,8 +2251,10 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
     edges (uniq above and equal to K2, no pos_ok, forced collisions at
     the 1,024-slot table, K of 2^22); FS1-FS3 on a synthetic index of
     ``synthetic_n`` bases; the repeat genome's search on the card and
-    the CPU. Returns (the kernels' rows of the JSON line, every case's
-    row, the repeat genome's result)."""
+    the CPU; GP and PK (phase_prescan, phase_pack). Returns (every FS
+    case's row, GP's and PK's rows of the JSON line, every GP and PK
+    case's row, the repeat genome's result): main makes the FS rows of
+    the JSON line (fs_kernel_rows) once phase 4's path_cases ran."""
     import torch
 
     from soap3dp_tpu_torch.distributed import mesh as dmesh
@@ -2120,6 +2303,8 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
                                "seed_sa8_split")
     cases += dedupe_cases(rng, dev, next(args for fn, args in calls
                                          if fn == "dedupe"))
+    cases += dedupe_more_cases(rng, dev)
+    cases += seed_lane_cases(rng, didx, dev, RSs, Ss)
     didx1, repeat = phase_repeat_search(dev)
     cases.append(fs_decode_case(rng, "decode_sa1", didx1, dev))
     cases += expansion_cases(rng, didx1, dev, RS, S, K, "expand_sa1",
@@ -2132,6 +2317,7 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
     if collide["surviving_dups"] <= 0:
         fail("the forced collisions left no same-key loser of a slot "
              "another key won")
+    dedupe_repeat_check(rng, dev)
     del cases, calls, didx8, mesh, didx1, a
     torch.cuda.empty_cache()
     gp_rows = phase_prescan(dev, peak_ops, didx, genome.codes)
@@ -2148,9 +2334,24 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
                                  syn, dev, reps=5))
     del syn
     torch.cuda.empty_cache()
-    return (fs_kernel_rows(rows) + [gp_kernel_row(gp_rows),
-                                    pk_kernel_row(pk_rows)],
-            rows + gp_rows + pk_rows, repeat)
+    return (rows, [gp_kernel_row(gp_rows), pk_kernel_row(pk_rows)],
+            gp_rows + pk_rows, repeat)
+
+
+# the entries phase 4 keeps the first call of each launch shape of
+# (_Recorder's ``kept``), held to their plain versions after its run
+PATH_KEPT = ("expand_decode", "seed_expand_decode", "dedupe")
+
+
+def path_cases(kept: dict) -> list[tuple[str, str, tuple]]:
+    """FS cases, (name, entry, arguments), of the calls phase 4 kept
+    (_Recorder's ``kept``): each launch shape of FS2x, FS2s and FS4 on
+    the main path, its real inputs, the largest K of each entry first."""
+    order = sorted(kept, key=lambda key: (PATH_KEPT.index(key[0]),
+                                          -max(x for x in key[1:]
+                                               if isinstance(x, int))))
+    return [(f"path4_{key[0]}_{i}", key[0], kept[key])
+            for i, key in enumerate(order)]
 
 
 FS_ROWS = {  # label: (name in the JSON line, the TPU-side code it replaces)
@@ -2167,12 +2368,13 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
     """The JSON line's rows of FS1, FS2 (sa_decode of ready rows), FS2x
     (FS2's expand_decode), FS3, FS4 (the dedupe) and FS2s (FS2's
     seed_expand_decode): each kernel's largest main-path call (FS1,
-    FS2x, FS3 and FS4: the round-1 search of a phase-4 batch; FS2s: the
-    deep-DP seeding; FS2, on no path since FS2s took the seeding: its
-    largest case), with the largest difference over every case of that
-    kernel and the bound with the sectors of the occ blocks; each
-    printed on one line beside what ran before it, quoted from PERF.md
-    (BEFORE_REDESIGN_MS, SCATTER_MIN_BEFORE_MS)."""
+    FS2x, FS3 and FS4: the round-1 search of a phase-4 batch; FS2s:
+    phase 4's largest deep-DP seeding (path_cases); FS2, on no path
+    since FS2s took the seeding: its largest case), with the largest
+    difference over every case of that kernel and the bound with the
+    sectors of the occ blocks; each printed on one line beside what ran
+    before it, quoted from PERF.md (BEFORE_REDESIGN_MS,
+    SCATTER_MIN_BEFORE_MS, SEARCH_REDESIGN_BEFORE_MS)."""
     out = []
     for label, (name, replaces) in FS_ROWS.items():
         mine = [r for r in rows if r["kernel"] == label]
@@ -2183,8 +2385,8 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
                "source": "soap3dp_tpu_torch/csrc/fm_search.cu",
                "replaces": replaces, "launches": 0,
                "max_abs_err": max(r["max_abs_err"] for r in mine),
-               "ms": main["ms"], "timer": main["timer"],
-               "plain_ms": main["plain_ms"],
+               "ms": main["ms"], "span_ms": main.get("span_ms", main["ms"]),
+               "timer": main["timer"], "plain_ms": main["plain_ms"],
                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                "peak": "int32", "sector_bound_ms": main["sector_bound_ms"],
                "block_sector_bound_ms": main.get("block_sector_bound_ms"),
@@ -2192,14 +2394,20 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
                "case": main["case"]}
         out.append(row)
         block = row["block_sector_bound_ms"]
-        before = BEFORE_REDESIGN_MS
-        was = {"FS2x": f"before its redesign: FS2 {before['FS2']:.3f} ms "
-                       "after the plain-torch compaction, PERF.md",
-               "FS4": "before it: plain torch, whose scatter-min alone "
-                      f"took {SCATTER_MIN_BEFORE_MS:.3f} ms of PR 7's search, "
+        before, last = BEFORE_REDESIGN_MS, SEARCH_REDESIGN_BEFORE_MS
+        was = {"FS2x": "a binary search a slot before PR 12: "
+                       f"{last['FS2x']}; before its redesign FS2 "
+                       f"{before['FS2']:.3f} ms after the plain-torch "
+                       "compaction, PERF.md",
+               "FS4": f"call span {row['span_ms']:.4f} ms; its five "
+                      f"kernels before the redesign {last['FS4']}; "
+                      "before FS4 plain torch, whose scatter-min alone took "
+                      f"{SCATTER_MIN_BEFORE_MS:.3f} ms of PR 7's search, "
                       "PERF.md",
-               "FS2s": "before it: plain torch (a slot mask of 64 a lane, "
-                       "its nonzero, FS2)"}.get(
+               "FS2s": "a binary search a slot before the redesign: "
+                       f"{last['FS2s']}; before FS2s plain torch "
+                       "(a slot mask of 64 a lane, its nonzero, FS2), "
+                       "PERF.md"}.get(
             label, f"before its redesign: {before.get(label, 0):.3f} ms, "
                    "PERF.md")
         phase(f"kernel fm_search {label} summary",
@@ -2669,9 +2877,12 @@ def gp_kernel_row(rows: list[dict]) -> dict:
 # the pack calls of phases 4 and 5 on phase 4's index, (problems, the
 # distinct read rows they name, max_win), in 120-wide rows of 100-base
 # reads: the largest of each phase and phase 4's most frequent
-# (compare_prescan.py on the parent, PERF.md section 5)
+# (compare_prescan.py on the parent, PERF.md section 5), and phase 4's
+# other shapes (its launch-shape histogram; half the problems' rows)
 PACK_PATH = {"path_phase4": (16384, 8532, 256),
              "frequent_phase4": (8192, 4134, 256),
+             "p4_4096": (4096, 2048, 256), "p4_1024": (1024, 512, 256),
+             "p4_512": (512, 256, 256),
              "path_phase5": (16384, 8655, 4224)}
 PACK_EDGES = ("uniform", "ragged", "text_end", "shift_0", "win_1", "win_16",
               "win_17", "win_4224", "code_4", "pad_problems")
@@ -3085,14 +3296,16 @@ def _mate_pair_ini(work: str) -> str:
 
 def _genome_index(genome_bp: int, work: str, sa_rate: int = 2):
     """(rng after the genome, genome, index path, how, build s, lut_k):
-    the seeded genome and its index, built once and cached in ``work``."""
+    the seeded genome and its index at ``sa_rate``, built once and
+    cached in ``work``."""
     from soap3dp_tpu_torch.index.builder import build_index, load_index, save_index
     from soap3dp_tpu_torch import workloads
 
     os.makedirs(work, exist_ok=True)
     rng = np.random.default_rng(20261016)
     genome = workloads.random_genome(rng, genome_bp, name="chr1")
-    idx_path = os.path.join(work, f"genome_{genome_bp}.t3i")
+    tag = "" if sa_rate == 2 else f"_sa{sa_rate}"
+    idx_path = os.path.join(work, f"genome_{genome_bp}{tag}.t3i")
     t0 = time.perf_counter()
     if os.path.exists(os.path.join(idx_path, "meta.json")):
         lut_k = load_index(idx_path).lut_k
@@ -3135,6 +3348,28 @@ def _launch_shapes() -> dict:
             for name, k in _kernels().items() if k.shapes}
 
 
+def rank_by_loss(launch_shapes: dict, timed: dict) -> list[dict]:
+    """The kernels of ``timed`` ({kernel: {"shape": (ms, bound ms)}})
+    ranked by the device time they lose on a run whose launch-shape
+    histogram is ``launch_shapes`` ({kernel: {"shape": launches}}, as
+    _launch_shapes gives it): the sum over its shapes of launches x
+    (time - bound), the largest first. A launched shape with no time is
+    left out of the sum and listed under "untimed"."""
+    out = []
+    for kernel, times in timed.items():
+        loss, launches, untimed = 0.0, 0, []
+        for shape, n in launch_shapes.get(kernel, {}).items():
+            if shape in times:
+                ms, bound = times[shape]
+                loss += n * (ms - bound)
+                launches += n
+            else:
+                untimed.append(shape)
+        out.append({"kernel": kernel, "loss_ms": loss, "launches": launches,
+                    "untimed": untimed})
+    return sorted(out, key=lambda r: -r["loss_ms"])
+
+
 def _launches_per_device() -> dict:
     """{card: {kernel: launches}} since the counts were last set to 0."""
     out = {}
@@ -3144,12 +3379,12 @@ def _launches_per_device() -> dict:
     return out
 
 
-def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
+def _counted(fn, dev, env=None, kept=None) -> tuple[object, float, str, dict]:
     """Run ``fn()`` under ``env`` with every launch count set to 0 just
     before; returns (its result, wall s, stderr, launch counts just
     after). Fails if a plain search primitive ran on a card's index or
     the plain prescan or the plain pack on CUDA tensors in the run (a
-    CUDA tensor must take the kernel)."""
+    CUDA tensor must take the kernel). ``kept``: as _Recorder's."""
     import contextlib
 
     saved = {k: os.environ.get(k) for k in env or {}}
@@ -3159,7 +3394,8 @@ def _counted(fn, dev, env=None) -> tuple[object, float, str, dict]:
         k.reset()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stderr(tee), _Recorder(record=False) as rec:
+        with contextlib.redirect_stderr(tee), _Recorder(record=False,
+                                                          kept=kept) as rec:
             out = fn()
         if dev.type == "cuda":
             import torch
@@ -3196,12 +3432,14 @@ def _fs_launched(where: str, launches: dict) -> None:
         fail(f"{where} never launched {missing}")
 
 
-def _run_cli(argv, dev, env=None) -> tuple[float, str, dict]:
+def _run_cli(argv, dev, env=None, kept=None) -> tuple[float, str, dict]:
     """Run the port's CLI with every launch count set to 0 just before;
-    returns (wall s, stderr, launch counts just after)."""
+    returns (wall s, stderr, launch counts just after). ``kept``: as
+    _Recorder's."""
     from soap3dp_tpu_torch.cli.main import main as cli_main
 
-    rc, wall, log, launches = _counted(lambda: cli_main(argv), dev, env)
+    rc, wall, log, launches = _counted(lambda: cli_main(argv), dev, env,
+                                       kept)
     if rc != 0:
         fail(f"the {argv[0]} CLI exited {rc}")
     return wall, log, launches
@@ -3253,13 +3491,15 @@ def _rates(reads: int, wall: float, log: str) -> dict:
 
 
 def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
-              out_dir: str, profile: bool = True, mate_pair: bool = False
-              ) -> tuple[dict, dict]:
+              out_dir: str, profile: bool = True, mate_pair: bool = False,
+              kept: dict | None = None) -> tuple[dict, dict]:
     """The port's `pair` CLI on ``dev`` over a seeded genome of
     ``genome_bp`` and ``n_pairs`` read pairs: default options
     (-u 500 -v 300) on a +/- library, or with ``mate_pair`` the mate-pair
     library over the whole insert window. Checks records, planted-locus
-    recall, rescue counts and kernel launches. Returns (result, the run's
+    recall, rescue counts and kernel launches. With ``kept`` (a dict),
+    the measured run keeps the first call of each launch shape of the
+    PATH_KEPT entries there (_Recorder). Returns (result, the run's
     inputs and outputs: FASTQ paths, end-1 planted positions and random
     mask, index, options, SAM path, summary)."""
     import re
@@ -3291,7 +3531,7 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     # read at each end of a few dozen stages, no device sync
     saved, timers.ENABLED = timers.ENABLED, True
     try:
-        wall, log, launches = _run_cli(argv, dev, env)
+        wall, log, launches = _run_cli(argv, dev, env, kept)
     finally:
         timers.ENABLED = saved
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
@@ -3758,13 +3998,23 @@ def main(argv=None) -> int:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k1_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], k2_err)
     work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e")
-    fs_rows, fs_cases, repeat = phase_fm_kernels(dev, peak_ops, work)
-    kernels += fs_rows
+    fs_cases, gp_pk, gp_pk_cases, repeat = phase_fm_kernels(dev, peak_ops,
+                                                            work)
     lap("FS cases (index build and repeat genome included)")
     phase_golden(dev)
     lap("golden")
-    e2e, reads = phase_e2e(dev, E2E_GENOME_BP, E2E_PAIRS, card, work, OUT_DIR)
+    kept = {}
+    e2e, reads = phase_e2e(dev, E2E_GENOME_BP, E2E_PAIRS, card, work, OUT_DIR,
+                           kept=kept)
     lap("PE default")
+    # FS2x, FS2s and FS4 at each of phase 4's launch shapes, its inputs
+    fs_cases += [run_fs_case(name, fn, args, peak_ops)
+                 for name, fn, args in path_cases(kept)]
+    del kept
+    torch.cuda.empty_cache()
+    kernels += fs_kernel_rows(fs_cases) + gp_pk
+    fs_cases += gp_pk_cases
+    lap("phase 4's FS calls")
     small = phase_mate_pair_devices(
         dev, os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "mp_small"))
     mate, _ = phase_e2e(dev, E2E_GENOME_BP, E2E_PAIRS, card, work, OUT_DIR,

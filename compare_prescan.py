@@ -31,9 +31,27 @@ kernels, its peak extra device memory (max_memory_allocated over the
 call, less what was allocated before it) and the device time of the
 upload of that call's reads and lengths. The run saves the replayed
 inputs; this process counts PK's bound on them with chip_smoke.pack_work
-and pack_bound. Prints one line per run and writes them to
-compare_prescan.json in chip_smoke.py's output directory. Both phases
-share phase 4's cached index and seeded reads.
+and pack_bound.
+
+It also ranks the kernels a redesign chooses among: each run keeps the
+first call of each phase-4 launch shape of FS2x (fmindex.expand_decode),
+FS2s (fmindex.seed_expand_decode), FS4 (fmindex.dedupe), GP
+(dp_rescue._prescan_impl) and PK (dp_rescue._pack_problems), replays it
+REPS times through that checkout's entry and times it with this
+checkout's chip_smoke._call_span_ms (so every tree is timed by the same
+code): the call's device span, its first kernel's start to its last
+one's end (FS4 launches several a call), and its kernels' device time
+summed; and holds its output to the plain version's. FS2x and FS2s
+are also replayed on the genome's index at sa_rate 1 (the same SA rows,
+no walk: each slot reads its SA value), so their span there is the
+lane search's and the outputs' time without the walk. This process
+counts each shape's bound once on the first run's inputs
+(chip_smoke.fs_work, prescan_work, pack_work) and ranks the kernels by
+launches x (span - bound) over the run's launch-shape histogram
+(chip_smoke.rank_by_loss). Prints one line per run and writes them to
+compare_prescan.json in chip_smoke.py's output directory; exits non-zero
+after that if a replayed call disagrees with its plain version. Both
+phases share phase 4's cached index and seeded reads.
 """
 
 import argparse
@@ -49,13 +67,17 @@ from compare_e2e import ROOT, run_in_tree
 REPS = 5  # replayed calls a timing
 
 RUN = """
-import collections, re
+import collections, importlib.util, re
 from torch.profiler import ProfilerActivity, profile
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.index.builder import load_index
 from soap3dp_tpu_torch.pipeline import dp_rescue
 from soap3dp_tpu_torch.utils import shapes, timers
 
+# the calling checkout's chip_smoke.py times every tree's replays
+spec = importlib.util.spec_from_file_location("smoke_timing", {timing!r})
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
 timers.ENABLED = True
 CHUNK = dp_rescue._PRESCAN_CHUNK
 phase_of = [None]
@@ -65,8 +87,36 @@ impl = collections.Counter()
 orig_gp, orig_impl = dp_rescue.gapless_prescan, dp_rescue._prescan_impl
 orig_plain = getattr(dp_rescue, "_prescan_plain", None)
 orig_pack = dp_rescue._pack_problems
+orig_fs = {{"FS2x": fmindex.expand_decode, "FS2s": fmindex.seed_expand_decode,
+           "FS4": fmindex.dedupe}}
 packs = collections.defaultdict(list)  # phase: [(P, Lr, max_win, bytes up)]
-first_pack = {{}}  # (phase, P, Lr, max_win): the first such call's inputs
+seen = collections.Counter()  # (phase, kernel, launch shape): calls
+first = {{}}  # (phase, kernel, launch shape): the first call's inputs
+
+
+def keep(kernel, shape, args):
+    key = (phase_of[0], kernel, "x".join(map(str, shape)))
+    seen[key] += 1
+    if key not in first:
+        first[key] = tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args)
+
+
+def expand(idx, l, *a):
+    keep("FS2x", (a[-1], l.shape[0], idx.sa_rate), (l,) + a)
+    return orig_fs["FS2x"](idx, l, *a)
+
+
+def seed_expand(idx, l, *a):
+    keep("FS2s", (a[-1], l.shape[0], idx.sa_rate), (l,) + a)
+    return orig_fs["FS2s"](idx, l, *a)
+
+
+def dedupe(krow, ktp, pos_ok, K2):
+    K = krow.shape[0]
+    keep("FS4", (K, K2, max((K - 1).bit_length() + 1, 10)),
+         (krow, ktp, pos_ok, K2))
+    return orig_fs["FS4"](krow, ktp, pos_ok, K2)
 
 
 def gp(idx, reads, lens, cand, win_start, win_len, max_win):
@@ -81,9 +131,10 @@ def gp(idx, reads, lens, cand, win_start, win_len, max_win):
     return orig_gp(idx, reads, lens, cand, win_start, win_len, max_win)
 
 
-def counted_impl(*a):
+def counted_impl(idx, reads_p, *a):
     impl[phase_of[0], "calls"] += 1
-    return orig_impl(*a)
+    keep("GP", (a[1].shape[0], a[-2], reads_p.shape[1]), (reads_p,) + a)
+    return orig_impl(idx, reads_p, *a)
 
 
 def counted_plain(*a):
@@ -96,17 +147,21 @@ def pack(idx, reads, lens, cread, strand_rev, win_start, un, max_win):
     packs[key[0]].append(key[1:] + (
         reads.numel() * reads.element_size()
         + lens.numel() * lens.element_size(),))
-    first_pack.setdefault(key, (reads, lens, cread, strand_rev, win_start,
-                                un, max_win))
+    keep("PK", key[1:], (reads, lens, cread, strand_rev, win_start, un,
+                         max_win))
     return orig_pack(idx, reads, lens, cread, strand_rev, win_start, un,
                      max_win)
 
 
 dp_rescue.gapless_prescan = gp
 dp_rescue._pack_problems = pack
+fmindex.expand_decode, fmindex.seed_expand_decode = expand, seed_expand
+fmindex.dedupe = dedupe
 dp_rescue._prescan_impl = counted_impl
 if orig_plain is not None:
     dp_rescue._prescan_plain = counted_plain
+SYMBOL = {{"FS2x": "expand_decode_kernel", "FS2s": "seed_expand_kernel",
+          "FS4": "dedupe_", "GP": "prescan_kernel", "PK": "pack_kernel"}}
 out = {{"card": cs.card_line()}}
 for key, mate in (("phase4", False), ("phase5", True)):
     phase_of[0] = key
@@ -138,9 +193,14 @@ for key, mate in (("phase4", False), ("phase5", True)):
                                    sorted(collections.Counter(
                                        x[:3] for x in packs[key]).items())}},
                 "upload_bytes_per_call": up,
-                "upload_bytes": sum(up)}}
+                "upload_bytes": sum(up),
+                "launch_shapes": {{k: res["launch_shapes"].get(k, {{}})
+                                  for k in SYMBOL}}}}
 dp_rescue.gapless_prescan, dp_rescue._prescan_impl = orig_gp, orig_impl
 dp_rescue._pack_problems = orig_pack
+fmindex.expand_decode = orig_fs["FS2x"]
+fmindex.seed_expand_decode = orig_fs["FS2s"]
+fmindex.dedupe = orig_fs["FS4"]
 if orig_plain is not None:
     dp_rescue._prescan_plain = orig_plain
 
@@ -220,7 +280,7 @@ for key in ("phase4", "phase5"):
         if what == "most_frequent" and shp == largest_shape:
             out[key]["pack_replay"][0]["what"] += " and most_frequent"
             continue
-        a = first_pack[(key,) + shp]
+        a = first[key, "PK", "x".join(map(str, shp))]
         reads, lens = a[0], a[1]
         P, L, max_win = shp
         host = [reads.cpu().numpy(), lens.cpu().numpy()]
@@ -242,8 +302,98 @@ for key in ("phase4", "phase5"):
         row["upload"] = {{"bytes": sum(h.nbytes for h in host),
                          "rows": host[0].shape[0], **upl}}
         out[key]["pack_replay"].append(row)
+
+CALL = {{"FS2x": lambda a: fmindex.expand_decode(didx, *a),
+        "FS2s": lambda a: fmindex.seed_expand_decode(didx, *a),
+        "FS4": lambda a: fmindex.dedupe(*a),
+        "GP": lambda a: dp_rescue._prescan_impl(didx, *a),
+        "PK": lambda a: dp_rescue._pack_problems(didx, *a)}}
+PLAIN = {{"FS2x": lambda a: fmindex.expand_decode_plain(didx, *a),
+         "FS2s": lambda a: fmindex.seed_expand_plain(didx, *a),
+         "FS4": lambda a: fmindex.dedupe_plain(*a),
+         "GP": lambda a: dp_rescue._prescan_plain(didx, *a),
+         "PK": lambda a: dp_rescue._pack_problems_plain(didx, *a)}}
+
+
+def same(a, b):
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return all(x.shape == y.shape and x.dtype == y.dtype
+               and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def host(x):
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+out["replays"] = []
+for (ph, kernel, shape), args in sorted(first.items()):
+    if ph != "phase4":
+        continue
+    fn = CALL[kernel]
+    span, events = timing._call_span_ms(lambda: fn(args), {reps},
+                                        SYMBOL[kernel])
+    npz = os.path.join({work!r},
+                       f"replay_{{os.getpid()}}_{{len(out['replays'])}}.npz")
+    np.savez(npz, **{{f"a{{i}}": host(a) for i, a in enumerate(args)}})
+    out["replays"].append({{
+        "kernel": kernel, "shape": shape, "launches": seen[ph, kernel, shape],
+        "equal": same(fn(args), PLAIN[kernel](args)), "span_ms": span,
+        "events_ms": events, "case": npz}})
+    torch.cuda.empty_cache()
+
+# FS2x and FS2s on the same lanes with no walk: the genome's index at
+# sa_rate 1 (the same BWT, so the same SA rows; each slot reads its SA
+# value), built once by this checkout's chip_smoke
+_, _, path1, _, _, _ = timing._genome_index({bp}, {work!r}, sa_rate=1)
+didx1 = fmindex.device_index(load_index(path1), dev)
+ENTRY = {{"FS2x": (fmindex.expand_decode, fmindex.expand_decode_plain),
+         "FS2s": (fmindex.seed_expand_decode, fmindex.seed_expand_plain)}}
+for row in out["replays"]:
+    if row["kernel"] not in ENTRY:
+        continue
+    kern, plain = ENTRY[row["kernel"]]
+    args = first["phase4", row["kernel"], row["shape"]]
+    row["sa1_span_ms"] = timing._call_span_ms(
+        lambda: kern(didx1, *args), {reps}, SYMBOL[row["kernel"]])[0]
+    row["sa1_equal"] = same(kern(didx1, *args), plain(didx1, *args))
 print("RESULT " + json.dumps(out), flush=True)
 """
+
+
+def replay_work(kernel: str, args: list, didx, dev, peak: float) -> dict:
+    """The bound (ms, what bounds it) and the work counted for it of a
+    replayed call of ``kernel`` from its saved inputs ``args`` (numpy
+    arrays, in the entry's order after the index), by chip_smoke's
+    functions."""
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+
+    if kernel in ("FS2x", "FS2s", "FS4"):
+        t = [torch.from_numpy(a).to(dev) if a.ndim else int(a)
+             for a in args]
+        fn = {"FS2x": "expand_decode", "FS2s": "seed_expand_decode",
+              "FS4": "dedupe"}[kernel]
+        a = tuple(t) if kernel == "FS4" else (didx, *t)
+        work = cs.fs_work(fn, a, getattr(fmindex, cs.plain_of(fn))(*a))
+        bms, by = cs.bound_ms(work["ops"], work["bytes"], peak)
+        return {"bound_ms": bms, "bound_by": by,
+                **{k: v for k, v in work.items() if k not in (
+                    "sectors", "block_sectors")}}
+    if kernel == "GP":
+        reads, lens_rows, read_idx, strand, ws, rlens, wlens, O, W = args
+        need = cs.prescan_work({
+            "reads": reads, "lens_rows": lens_rows, "read_idx": read_idx,
+            "strand": strand, "ws": ws, "rlens": rlens, "wlens": wlens,
+            "O": int(O), "W": int(W)})
+        bms, by = cs.prescan_bound(need, peak)
+    else:
+        reads, lens, cread, strand, ws, un, max_win = args
+        need = cs.pack_work({"reads": reads, "cread": cread,
+                             "win_start": ws, "max_win": int(max_win),
+                             "n_pac": didx.pac.shape[0]})
+        bms, by = cs.pack_bound(need)
+    return {"bound_ms": bms, "bound_by": by, **need}
 
 
 def main(argv=None) -> int:
@@ -259,7 +409,7 @@ def main(argv=None) -> int:
     for tree in args.trees:
         run = {"tree": tree, **run_in_tree(
             tree, RUN, work=work, reps=REPS, bp=cs.E2E_GENOME_BP,
-            pairs=cs.E2E_PAIRS)}
+            pairs=cs.E2E_PAIRS, timing=os.path.abspath(cs.__file__))}
         for key in ("phase4", "phase5"):
             for row in run[key].get("pack_replay", []):
                 with np.load(row.pop("case")) as z:
@@ -279,10 +429,38 @@ def main(argv=None) -> int:
             row.update(need, same_case_as_first=all(
                 np.array_equal(c[k], first[key][k]) for k in c))
         runs.append(run)
+    # each replayed shape's bound, counted once on the first run's inputs
+    import torch
+
+    from soap3dp_tpu_torch.fm import fmindex
+    from soap3dp_tpu_torch.index.builder import load_index
+
+    dev = torch.device("cuda", 0)
+    _, _, path, _, _, _ = cs._genome_index(cs.E2E_GENOME_BP, work)
+    didx = fmindex.device_index(load_index(path), dev)
+    bounds = {}
+    for run in runs:
+        timed = {}
+        for row in run["replays"]:
+            with np.load(row.pop("case")) as z:
+                a = [z[f"a{i}"] for i in range(len(z.files))]
+            key = (row["kernel"], row["shape"])
+            if key not in bounds:
+                bounds[key] = replay_work(row["kernel"], a, didx, dev, peak)
+            row.update(bounds[key])
+            timed.setdefault(row["kernel"], {})[row["shape"]] = (
+                row["span_ms"], row["bound_ms"])
+        run["ranking"] = cs.rank_by_loss(run["phase4"]["launch_shapes"],
+                                         timed)
         print(json.dumps(run), flush=True)
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     with open(os.path.join(cs.OUT_DIR, "compare_prescan.json"), "w") as fh:
         json.dump({"card": card, "runs": runs}, fh, indent=1)
+    bad = [(r["tree"], x["kernel"], x["shape"]) for r in runs
+           for x in r["replays"]
+           if not (x["equal"] and x.get("sa1_equal", True))]
+    if bad:
+        sys.exit(f"a replayed call disagrees with its plain version: {bad}")
     return 0
 
 

@@ -24,24 +24,27 @@
 // soap3dp_sa_decode decodes ready rows; soap3dp_expand_decode (FS2x)
 // also does the lane expansion of the reference's `_search_batch`
 // (soap3dp_tpu/fm/search.py:247-273): output slot k belongs to the
-// first lane whose inclusive count exceeds k (a binary search in the
-// counts' cumsum, whose upper levels the slots of a block share in L1),
-// decodes row l[lane] + (k - the lane's offset), and writes the hash
-// dedupe's keys (oriented row, text position, or the sentinel where the
-// placement leaves the text) directly; soap3dp_seed_expand_decode
-// (FS2s) does the same expansion for the DP seeding
-// (soap3dp_tpu/pipeline/dp_rescue.py:176-188, whose (lanes, occ_cap)
-// slot mask and nonzero give the same slot order) and writes its
-// candidates (oriented row, read start, valid). The three forms are one
-// template (expand_slot).
+// first lane whose inclusive count exceeds k (found a warp of slots at
+// a time, warp_slot_lane: a 32-ary search, then a window of 32 counts
+// read once and searched by shuffles), decodes row l[lane] + (k - the
+// lane's offset), and writes the hash dedupe's keys (oriented row, text
+// position, or the sentinel where the placement leaves the text)
+// directly; soap3dp_seed_expand_decode (FS2s) does the same expansion
+// for the DP seeding (soap3dp_tpu/pipeline/dp_rescue.py:176-188, whose
+// (lanes, occ_cap) slot mask and nonzero give the same slot order) and
+// writes its candidates (oriented row, read start, valid). The three
+// forms are one template (expand_at, expand_slot).
 // FS4, soap3dp_dedupe, replaces the scatter-min hash dedupe of the
 // reference's `_search_batch` (soap3dp_tpu/fm/search.py:275-301) and
-// the nonzero of its first occurrences: five short passes (clear the
-// table, atomicMax of K - k into it, the first test with a ballot word
-// a warp and a count a block, one block's scan of the counts, the
-// ordered write), no sort and no library scan. What bounds it: the
-// table's random atomics and reads (4 MB at round 1's K, L2-resident)
-// and the gathers of the winners' keys; the keys and outputs stream.
+// the nonzero of its first occurrences: two launches, no sort and no
+// library scan. The scatter (a 64-bit atomicMax of generation << 32 |
+// K - k into a table the wrapper keeps across calls, so no pass clears
+// it); then the first test, a single-pass scan of the firsts (decoupled
+// look-back between tiles that take tickets in order) and the ordered
+// write of the firsts, the keys read once there. What bounds it: the
+// table's random atomics and reads (the slots the keys touch,
+// L2-resident) and the gathers of the winners' keys; the keys and
+// outputs stream.
 // FS3, soap3dp_verify, replaces `count_mismatches_packed`
 // (fmindex.py:653): W+1 packed genome words, the funnel shift to the
 // 2-bit grid, XOR with the read words, the length mask, popcount. What
@@ -134,6 +137,7 @@ constexpr uint32_t LANES = 0x55555555u;  // one bit per 2-bit base slot
 constexpr int64_t MASK32 = 0xFFFFFFFFll;
 constexpr int64_t SENTINEL = 0xFFFFFFFFll;  // fm/search.py SENTINEL
 constexpr int THREADS = 256;
+constexpr uint32_t FULL = 0xFFFFFFFFu;  // a whole warp
 
 // where the bases of the oriented rows come from: rows 0..B-1 the
 // forward reads, rows B..2B-1 their reverse complements
@@ -475,26 +479,95 @@ struct Slots {
 // lane, sample rank and steps, whose samples the owner routing gathers
 enum : int { OUT_KEYS = 0, OUT_SEED = 1, OUT_RANKS = 2 };
 
-// slot k of the expansion, decoded and written in form OUT
+// the lane of live slot k in lanes [a, b] (incl[b] > k): the first lane
+// whose inclusive count exceeds k, by binary search
+__device__ __forceinline__ int64_t lane_in(const Lanes& e, int64_t k,
+                                           int64_t a, int64_t b) {
+  while (a < b) {
+    const int64_t m = (a + b) >> 1;
+    if (ld64(e.incl + m) > k)
+      b = m;
+    else
+      a = m + 1;
+  }
+  return a;
+}
+
+// the whole warp narrows [a, b], which holds the lane of slot `key`, to
+// fewer than 32 lanes: each round it probes 32 counts and one ballot
+// keeps a 32nd of the range. The same probes bound the lane of a later
+// slot `key2`: hi, if not below it, becomes the first probe above key2.
+__device__ __forceinline__ void warp_narrow(const Lanes& e, int64_t key,
+                                            int64_t key2, int64_t& a,
+                                            int64_t& b, int64_t& hi,
+                                            int lane_id) {
+  while (b - a >= 32) {
+    const int64_t n = b - a + 1;
+    const int64_t p = a + (lane_id + 1) * n / 32 - 1;
+    const int64_t v = ld64(e.incl + p);
+    const uint32_t above = __ballot_sync(FULL, v > key);
+    const uint32_t above2 = __ballot_sync(FULL, v > key2);
+    const int f = __ffs(above) - 1;  // bit 31 (p == b) is always set
+    const int64_t pf = __shfl_sync(FULL, p, f);
+    const int64_t pb = __shfl_sync(FULL, p, f > 0 ? f - 1 : 0);
+    const int64_t p2 = __shfl_sync(FULL, p, above2 ? __ffs(above2) - 1 : 31);
+    if (above2 && p2 < hi) hi = p2;
+    a = f > 0 ? pb + 1 : a;
+    b = pf;
+  }
+}
+
+// of the 32 counts w held one a thread (ascending), how many are at most
+// key: shuffles only
+__device__ __forceinline__ int window_count(int64_t w, int64_t key) {
+  int pos = 0;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    if (__shfl_sync(FULL, w, pos + d - 1) <= key) pos += d;
+  const int64_t last = __shfl_sync(FULL, w, 31);  // every thread shuffles
+  return pos == 31 && last <= key ? 32 : pos;
+}
+
+// the 32 counts from lane a on, one a thread (past the last lane: above
+// any slot)
+__device__ __forceinline__ int64_t window_at(const Lanes& e, int64_t a,
+                                             int lane_id) {
+  const int64_t j = a + lane_id;
+  return j < e.RS ? ld64(e.incl + j) : INT64_MAX;
+}
+
+// the lane of live slot k, found by the whole warp for its 32
+// consecutive slots: the lowest live slot's lane narrowed to 32 lanes
+// (warp_narrow: 3 rounds at 107,648 lanes, where a binary search takes
+// 17 dependent loads), then those 32 counts read once, in which each
+// slot finds its lane by shuffles. Where the warp's slots reach past
+// those 32 lanes (empty lanes between them), each slot past the window
+// binary-searches from it up to the bound that the same probes gave the
+// highest live slot's lane. Every thread of the warp calls it.
+__device__ int64_t warp_slot_lane(const Lanes& e, int64_t k, bool live,
+                                  int lane_id) {
+  const uint32_t pending = __ballot_sync(FULL, live);
+  if (pending == 0) return 0;
+  const int64_t kmin = __shfl_sync(FULL, k, __ffs(pending) - 1);
+  const int64_t kmax = __shfl_sync(FULL, k, 31 - __clz(pending));
+  int64_t a = 0, b = e.RS - 1, hi = e.RS - 1;  // incl[hi] > kmax
+  warp_narrow(e, kmin, kmax, a, b, hi, lane_id);
+  const int64_t w = window_at(e, a, lane_id);
+  const int pos = window_count(w, k);
+  if (!live) return 0;  // a slot past the total keeps lane 0
+  return pos < 32 ? a + pos : lane_in(e, k, a + 32, hi);
+}
+
+// slot k of the expansion (``live`` below the total count, of lane
+// ``lane``), decoded and written in form OUT
 template <int OUT>
 __device__ __forceinline__ void expand_slot(const Lanes& e, const Marks& mk,
                                             const Tables& t, const Slots& o,
-                                            int64_t k) {
-  const bool live = k < ld64(e.incl + e.RS - 1);
-  int64_t lane = 0, row = 0;
-  if (live) {
-    // the first lane whose inclusive count exceeds k: it holds slot k
-    int64_t a = 0, b = e.RS - 1;
-    while (a < b) {
-      const int64_t m = (a + b) >> 1;
-      if (ld64(e.incl + m) > k)
-        b = m;
-      else
-        a = m + 1;
-    }
-    lane = a;
-    row = ld64(e.lo + lane) + k - (lane ? ld64(e.incl + lane - 1) : 0);
-  }
+                                            int64_t k, bool live,
+                                            int64_t lane) {
+  const int64_t row =
+      live ? ld64(e.lo + lane) + k - (lane ? ld64(e.incl + lane - 1) : 0)
+           : 0;
   const Ranked rk = walk(mk, t, row, live);
   if (OUT == OUT_RANKS) {
     o.a[k] = lane;
@@ -521,39 +594,61 @@ __device__ __forceinline__ void expand_slot(const Lanes& e, const Marks& mk,
   o.ok[k] = ok ? 1 : 0;
 }
 
+// slot k of an expansion of K slots, its lane found a warp at a time
+// (warp_slot_lane); every thread of the warp reaches it
+template <int OUT>
+__device__ __forceinline__ void expand_at(const Lanes& e, int64_t K,
+                                          const Marks& mk, const Tables& t,
+                                          const Slots& o) {
+  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  const bool live = k < K && k < ld64(e.incl + e.RS - 1);
+  const int64_t lane = warp_slot_lane(e, k, live, threadIdx.x & 31);
+  if (k < K) expand_slot<OUT>(e, mk, t, o, k, live, lane);
+}
+
 // FS2x: the search's lane expansion (OUT_KEYS or OUT_RANKS)
 template <int OUT>
 __global__ void __launch_bounds__(THREADS)
 expand_decode_kernel(Lanes e, int64_t K, Marks mk, Tables t, Slots o) {
-  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (k < K) expand_slot<OUT>(e, mk, t, o, k);
+  expand_at<OUT>(e, K, mk, t, o);
 }
 
 // FS2s: the DP seeding's lane expansion (OUT_SEED or OUT_RANKS)
 template <int OUT>
 __global__ void __launch_bounds__(THREADS)
 seed_expand_kernel(Lanes e, int64_t K, Marks mk, Tables t, Slots o) {
-  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (k < K) expand_slot<OUT>(e, mk, t, o, k);
+  expand_at<OUT>(e, K, mk, t, o);
 }
 
 // FS4, the hash dedupe of the search's keys (krow, ktp, pos_ok). Slot k
-// with pos_ok hashes to table slot hslot (dedupe_slot); the table keeps
-// K - k of the least such k (atomicMax of K - k in a table of zeros, so
-// the winner does not depend on the order of the atomics); k is a first
-// unless the winner is another slot with the same key. The firsts are
-// one ballot word a warp and a count a block; one block scans the
-// counts; the last pass writes the first K2 firsts, in ascending k, by
-// their ranks.
+// with pos_ok hashes to table slot dedupe_slot; the table keeps K - k of
+// the least such k (a 64-bit atomicMax of gen << 32 | K - k, so the
+// winner does not depend on the order of the atomics); k is a first
+// unless the winner is another slot with the same key. Two launches:
+// the scatter, then the first test, a single-pass scan of the firsts and
+// their ordered write. The table is the wrapper's, kept across calls on
+// one card and stream and zeroed once: each call's generation `gen` is
+// above every earlier one's, so a call's first atomicMax on a slot
+// replaces what an earlier call left there, and nothing is cleared.
+// The first launch also fills every output slot as the plain version
+// fills the slots past the firsts, and the second overwrites the firsts'.
+// Its blocks take tickets from a counter: a tile of 1,024 slots (4 rows
+// of 256) counts its firsts (a ballot word a warp and row, one warp's
+// scan of the 32 counts) and finds the firsts before it by decoupled
+// look-back over the tiles before it (a 64-bit status word a tile: a
+// flag and its count, or the count of every first up to it), so it
+// waits only on blocks that already run.
 constexpr uint32_t HASH_ROW = 0x9E3779B1u;
 constexpr uint32_t HASH_TP = 0x85EBCA77u;
 constexpr uint32_t HASH_MIX = 0xC2B2AE3Du;
 constexpr int64_t ROW_SENTINEL = 0x7FFFFFFFll;  // fm/search.py ROW_SENTINEL
-constexpr int SCAN_THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
-constexpr uint32_t FULL = 0xFFFFFFFFu;
+constexpr int DEDUPE_ROWS = 4;                // slots a thread of a tile
+constexpr int TILE = DEDUPE_ROWS * THREADS;   // slots a tile
+constexpr int LOOKBACK = 8;                   // status words a lane a round
+constexpr uint64_t ST_AGG = 1ull << 32;       // the tile's own count
+constexpr uint64_t ST_INCL = 2ull << 32;      // the count up to the tile
 
 // the table slot of a key (32-bit products, as fmindex.mul32)
 __device__ __forceinline__ uint32_t dedupe_slot(int64_t row, int64_t tp,
@@ -563,57 +658,32 @@ __device__ __forceinline__ uint32_t dedupe_slot(int64_t row, int64_t tp,
   return (h * HASH_MIX) >> (32 - hb);
 }
 
-__global__ void __launch_bounds__(THREADS)
-dedupe_clear_kernel(uint4* __restrict__ table, int64_t n4) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (i < n4) table[i] = make_uint4(0u, 0u, 0u, 0u);
-}
-
+// the scatter; the second launch's tile status words and ticket counter
+// set to 0; output slot k (< K2) filled as past the firsts (ROW_SENTINEL,
+// ktp[0], 0), which the second launch overwrites for the firsts
 __global__ void __launch_bounds__(THREADS)
 dedupe_scatter_kernel(const int64_t* __restrict__ krow,
                       const int64_t* __restrict__ ktp,
-                      const uint8_t* __restrict__ pos_ok, int64_t K, int hb,
-                      int32_t* __restrict__ table) {
+                      const uint8_t* __restrict__ pos_ok, int64_t K,
+                      int64_t K2, int hb, uint32_t gen,
+                      unsigned long long* __restrict__ table,
+                      unsigned long long* __restrict__ status, int64_t tiles,
+                      unsigned* __restrict__ ticket,
+                      int64_t* __restrict__ urow, int64_t* __restrict__ utp,
+                      uint8_t* __restrict__ uvalid) {
   const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
+  if (k < tiles) status[k] = 0ull;
+  if (k == 0) *ticket = 0u;
+  if (k < K2) {
+    urow[k] = ROW_SENTINEL;
+    utp[k] = ld64(ktp);
+    uvalid[k] = 0;
+  }
   if (k >= K || !__ldg(pos_ok + k)) return;
   atomicMax(table + dedupe_slot(ld64(krow + k), ld64(ktp + k), hb),
-            static_cast<int32_t>(K - k));
-}
-
-// whether each slot is a first: bits (one ballot word a warp of slots)
-// and the block's count of firsts
-__global__ void __launch_bounds__(THREADS)
-dedupe_first_kernel(const int64_t* __restrict__ krow,
-                    const int64_t* __restrict__ ktp,
-                    const uint8_t* __restrict__ pos_ok, int64_t K, int hb,
-                    const int32_t* __restrict__ table,
-                    uint32_t* __restrict__ bits,
-                    int32_t* __restrict__ counts) {
-  __shared__ int32_t warp_n[WARPS];
-  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  bool first = false;
-  if (k < K && __ldg(pos_ok + k)) {
-    const int64_t row = ld64(krow + k), tp = ld64(ktp + k);
-    const int64_t won = K - __ldg(table + dedupe_slot(row, tp, hb));
-    const int64_t w = won < K - 1 ? won : K - 1;
-    first = w == k || ld64(krow + w) != row || ld64(ktp + w) != tp;
-  }
-  const uint32_t ballot = __ballot_sync(FULL, first);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    if (k < K) bits[k >> 5] = ballot;  // lane 0 holds the warp's first slot
-    warp_n[warp] = __popc(ballot);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int32_t n = 0;
-#pragma unroll
-    for (int i = 0; i < WARPS; ++i) n += warp_n[i];
-    counts[blockIdx.x] = n;
-  }
+            (static_cast<unsigned long long>(gen) << 32) |
+                static_cast<uint32_t>(K - k));
 }
 
 // the inclusive scan of x over a warp
@@ -626,67 +696,132 @@ __device__ __forceinline__ int32_t warp_scan(int32_t x, int lane) {
   return x;
 }
 
-// one block: the exclusive offsets of the nb block counts, 1024 at a
-// time with the running carry, and their total (uniq)
-__global__ void __launch_bounds__(SCAN_THREADS)
-dedupe_scan_kernel(const int32_t* __restrict__ counts, int64_t nb,
-                   int32_t* __restrict__ offsets, int64_t* __restrict__ uniq) {
-  __shared__ int32_t warp_sum[SCAN_THREADS / 32];
-  __shared__ int32_t carry;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int64_t base = 0; base < nb; base += SCAN_THREADS) {
-    const int64_t i = base + threadIdx.x;
-    const int32_t v = i < nb ? counts[i] : 0;
-    const int32_t x = warp_scan(v, lane);
-    if (lane == 31) warp_sum[warp] = x;
-    __syncthreads();
-    if (warp == 0) warp_sum[lane] = warp_scan(warp_sum[lane], lane);
-    __syncthreads();
-    if (i < nb) offsets[i] = carry + (warp ? warp_sum[warp - 1] : 0) + x - v;
-    __syncthreads();
-    if (threadIdx.x == 0) carry += warp_sum[SCAN_THREADS / 32 - 1];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *uniq = carry;
+__device__ __forceinline__ uint64_t ld_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-// the firsts of rank < K2 to their output slots, and the slots past the
-// firsts filled as the plain version's gathers of slot 0 fill them
+__device__ __forceinline__ void st_status(unsigned long long* p,
+                                          uint64_t v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// one warp: publish tile t's count, sum the counts of the tiles before
+// it back to the nearest that holds its inclusive count (before tile 0
+// an inclusive 0), publish its inclusive count; returns the firsts
+// before the tile. A round reads the status words of the 256 tiles
+// before the last round's at once (8 a lane), so a tile that finds no
+// inclusive count near it walks back 256 tiles a round, not 32.
+__device__ int32_t dedupe_lookback(unsigned long long* status, int64_t t,
+                                   int32_t count, int lane) {
+  if (t == 0) {
+    if (lane == 0) st_status(status, ST_INCL | static_cast<uint32_t>(count));
+    return 0;
+  }
+  if (lane == 0) st_status(status + t, ST_AGG | static_cast<uint32_t>(count));
+  int32_t before = 0;
+  for (int64_t j = t - 1;; j -= 32 * LOOKBACK) {
+    uint64_t s[LOOKBACK];
+#pragma unroll
+    for (int q = 0; q < LOOKBACK; ++q) {
+      const int64_t i = j - 32 * q - lane;
+      s[q] = i >= 0 ? ld_status(status + i) : ST_INCL;
+    }
+    for (;;) {  // until every word holds a count
+      bool wait = false;
+#pragma unroll
+      for (int q = 0; q < LOOKBACK; ++q) wait |= (s[q] >> 32) == 0;
+      if (!__any_sync(FULL, wait)) break;
+      __nanosleep(32);
+#pragma unroll
+      for (int q = 0; q < LOOKBACK; ++q)
+        if ((s[q] >> 32) == 0) s[q] = ld_status(status + j - 32 * q - lane);
+    }
+    // the nearest inclusive count: the least distance 32 q + lane
+    int near = 32 * LOOKBACK;
+#pragma unroll
+    for (int q = LOOKBACK - 1; q >= 0; --q)
+      if ((s[q] >> 32) == 2) near = 32 * q + lane;
+    near = __reduce_min_sync(FULL, near);
+    uint32_t sum = 0;
+#pragma unroll
+    for (int q = 0; q < LOOKBACK; ++q)
+      if (32 * q + lane <= near) sum += static_cast<uint32_t>(s[q]);
+    before += static_cast<int32_t>(__reduce_add_sync(FULL, sum));
+    if (near < 32 * LOOKBACK) break;
+  }
+  if (lane == 0)
+    st_status(status + t, ST_INCL | static_cast<uint32_t>(before + count));
+  return before;
+}
+
+// the first test of a tile's slots, the firsts before each (look-back),
+// the firsts of rank < K2 to their output slots; the last tile writes
+// uniq
 __global__ void __launch_bounds__(THREADS)
-dedupe_write_kernel(const int64_t* __restrict__ krow,
-                    const int64_t* __restrict__ ktp, int64_t K, int64_t K2,
-                    const uint32_t* __restrict__ bits,
-                    const int32_t* __restrict__ offsets,
-                    const int64_t* __restrict__ uniq,
-                    int64_t* __restrict__ urow, int64_t* __restrict__ utp,
-                    uint8_t* __restrict__ uvalid) {
-  __shared__ int32_t warp_n[WARPS];
-  const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint32_t word = k - lane < K ? __ldg(bits + (k >> 5)) : 0u;
-  if (lane == 0) warp_n[warp] = __popc(word);
+dedupe_scan_kernel(const int64_t* __restrict__ krow,
+                   const int64_t* __restrict__ ktp,
+                   const uint8_t* __restrict__ pos_ok, int64_t K, int64_t K2,
+                   int hb, const unsigned long long* __restrict__ table,
+                   unsigned long long* status, int64_t tiles,
+                   unsigned* __restrict__ ticket, int64_t* __restrict__ urow,
+                   int64_t* __restrict__ utp, uint8_t* __restrict__ uvalid,
+                   int64_t* __restrict__ uniq) {
+  __shared__ unsigned my_ticket;
+  __shared__ int32_t off[DEDUPE_ROWS * WARPS];  // (row, warp): firsts before
+  __shared__ int32_t tile_before;
+  if (threadIdx.x == 0) my_ticket = atomicAdd(ticket, 1u);
   __syncthreads();
-  if ((word >> lane) & 1u) {
-    int64_t rank = __ldg(offsets + blockIdx.x) +
-                   __popc(word & ((1u << lane) - 1u));
-    for (int i = 0; i < warp; ++i) rank += warp_n[i];
+  const int64_t t = my_ticket;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t k0 = t * TILE + threadIdx.x;
+  int64_t row[DEDUPE_ROWS], tp[DEDUPE_ROWS];
+  bool first[DEDUPE_ROWS];
+#pragma unroll
+  for (int r = 0; r < DEDUPE_ROWS; ++r) {  // every load of a slot at once
+    const int64_t k = k0 + r * THREADS;
+    first[r] = k < K && __ldg(pos_ok + k);
+    row[r] = k < K ? ld64(krow + k) : 0;
+    tp[r] = k < K ? ld64(ktp + k) : 0;
+  }
+  uint32_t ballot[DEDUPE_ROWS];
+#pragma unroll
+  for (int r = 0; r < DEDUPE_ROWS; ++r) {
+    const int64_t k = k0 + r * THREADS;
+    if (first[r]) {
+      const int64_t won = K - static_cast<int64_t>(static_cast<uint32_t>(
+                                  __ldg(table + dedupe_slot(row[r], tp[r], hb))));
+      const int64_t w = won < K - 1 ? won : K - 1;
+      first[r] = w == k || ld64(krow + w) != row[r] || ld64(ktp + w) != tp[r];
+    }
+    ballot[r] = __ballot_sync(FULL, first[r]);
+    if (lane == 0) off[r * WARPS + warp] = __popc(ballot[r]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int32_t x = off[lane];
+    const int32_t incl = warp_scan(x, lane);
+    off[lane] = incl - x;
+    const int32_t count = __shfl_sync(FULL, incl, 31);
+    const int32_t before = dedupe_lookback(status, t, count, lane);
+    if (lane == 0) {
+      tile_before = before;
+      if (t == tiles - 1) *uniq = before + count;
+    }
+  }
+  __syncthreads();
+  const uint32_t below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < DEDUPE_ROWS; ++r) {
+    if (!first[r]) continue;
+    const int64_t rank = static_cast<int64_t>(tile_before) +
+                         off[r * WARPS + warp] + __popc(ballot[r] & below);
     if (rank < K2) {
-      urow[rank] = ld64(krow + k);
-      utp[rank] = ld64(ktp + k);
+      urow[rank] = row[r];
+      utp[rank] = tp[r];
       uvalid[rank] = 1;
     }
   }
-  const int64_t u = ld64(uniq);
-  const int64_t tp0 = ld64(ktp);
-  for (int64_t j = k; j < K2; j += gridDim.x * static_cast<int64_t>(THREADS))
-    if (j >= u) {
-      urow[j] = ROW_SENTINEL;
-      utp[j] = tp0;
-      uvalid[j] = 0;
-    }
 }
 
 // count_mismatches_packed of placement i over W words: the genome word
@@ -1181,30 +1316,24 @@ int soap3dp_seed_expand_decode(const int64_t* lo, const int64_t* incl,
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: int32 table (2^hb), bits (ceil(K / 32)), counts and offsets
-// (ceil(K / THREADS) each), the table first (16-byte aligned)
+// table: the caller's 64-bit table of at least 2^hb slots, kept across
+// calls on this stream (zeroed once), gen above every earlier call's on
+// it; scratch: ceil(K / TILE) tile status words and the ticket counter.
+// The first launch has a thread for each of max(K, K2) slots.
 int soap3dp_dedupe(const int64_t* krow, const int64_t* ktp,
                    const uint8_t* pos_ok, long long K, long long K2, int hb,
-                   int32_t* scratch, int64_t* urow, int64_t* utp,
+                   unsigned gen, unsigned long long* table,
+                   unsigned long long* scratch, int64_t* urow, int64_t* utp,
                    uint8_t* uvalid, int64_t* uniq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t slots = 1ll << hb;
-  const int64_t nb = (K + THREADS - 1) / THREADS;
-  int32_t* table = scratch;
-  uint32_t* bits = reinterpret_cast<uint32_t*>(scratch + slots);
-  int32_t* counts = scratch + slots + (K + 31) / 32;
-  int32_t* offsets = counts + nb;
-  const unsigned grid = static_cast<unsigned>(nb);
-  dedupe_clear_kernel<<<blocks_for(slots / 4), THREADS, 0, st>>>(
-      reinterpret_cast<uint4*>(table), slots / 4);
-  dedupe_scatter_kernel<<<grid, THREADS, 0, st>>>(krow, ktp, pos_ok, K, hb,
-                                                   table);
-  dedupe_first_kernel<<<grid, THREADS, 0, st>>>(krow, ktp, pos_ok, K, hb,
-                                                table, bits, counts);
-  dedupe_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(counts, nb, offsets, uniq);
-  dedupe_write_kernel<<<grid, THREADS, 0, st>>>(krow, ktp, K, K2, bits,
-                                                offsets, uniq, urow, utp,
-                                                uvalid);
+  const int64_t tiles = (K + TILE - 1) / TILE;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + tiles);
+  dedupe_scatter_kernel<<<blocks_for(K > K2 ? K : K2), THREADS, 0, st>>>(
+      krow, ktp, pos_ok, K, K2, hb, gen, table, scratch, tiles, ticket,
+      urow, utp, uvalid);
+  dedupe_scan_kernel<<<static_cast<unsigned>(tiles), THREADS, 0, st>>>(
+      krow, ktp, pos_ok, K, K2, hb, table, scratch, tiles, ticket, urow, utp,
+      uvalid, uniq);
   return static_cast<int>(cudaGetLastError());
 }
 

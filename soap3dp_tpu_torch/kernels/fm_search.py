@@ -40,6 +40,7 @@ on its ``CudaKernel`` (by card and by launch shape).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -73,11 +74,18 @@ EXPAND_KERNEL = CudaKernel(
 SEED_EXPAND_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_seed_expand_decode",
     [_P, _P, _LL, _P, _I, _LL, _I] + [_P] * 4 + [_LL, _P, _LL] + [_P] * 7)
-# soap3dp_dedupe(krow, ktp, pos_ok, K, K2, hb, scratch, urow, utp, uvalid,
-#   uniq, stream)
+# soap3dp_dedupe(krow, ktp, pos_ok, K, K2, hb, gen, table, scratch, urow,
+#   utp, uvalid, uniq, stream)
 DEDUPE_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_dedupe",
-    [_P, _P, _P, _LL, _LL, _I] + [_P] * 6)
+    [_P, _P, _P, _LL, _LL, _I, ctypes.c_uint] + [_P] * 7)
+# FS4's second launch: tiles of 1,024 slots (csrc/fm_search.cu TILE)
+DEDUPE_TILE = 1024
+# FS4's tables, one a card and stream, kept across calls: (card, stream)
+# -> [int64 table, the last call's generation]
+_DEDUPE_TABLES: dict[tuple, list] = {}
+_DEDUPE_LOCK = threading.Lock()
+_GEN_MAX = 0xFFFFFFFF
 # soap3dp_verify(reads, kind, B, L, Ws, rc_len, rows, tp, read_len, M, W,
 #   pac, n_pac, out, stream)
 VERIFY_KERNEL = CudaKernel(
@@ -343,6 +351,34 @@ def seed_expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor,
                          ranks=True))
 
 
+def dedupe_tiles(K: int, K2: int) -> int:
+    """The tiles of FS4's second launch, ceil(K / 1,024), each the first
+    test, scan and write of 1,024 slots. Raises unless 1 <= K < 2^31 and
+    0 <= K2 < 2^31: the kernel keeps K - k and the counts of firsts in
+    32 bits."""
+    if not 1 <= K < 1 << 31 or not 0 <= K2 < 1 << 31:
+        raise ValueError(f"dedupe: K {K}, K2 {K2} out of range")
+    return -(-K // DEDUPE_TILE)
+
+
+def dedupe_table(dev: torch.device, stream: int, slots: int
+                 ) -> tuple[torch.Tensor, int]:
+    """FS4's table on card ``dev`` for ``stream`` (at least ``slots``
+    int64 slots, zeroed when made) and the next call's generation, above
+    every earlier call's on it; a new table when it is too small or the
+    32-bit generation is spent. The caller holds _DEDUPE_LOCK until its
+    launches are queued, so two threads that share a stream queue their
+    calls one after the other, never interleaved."""
+    key = (dev.index, stream)
+    ent = _DEDUPE_TABLES.get(key)
+    if ent is None or ent[0].shape[0] < slots or ent[1] >= _GEN_MAX:
+        size = max(slots, ent[0].shape[0] if ent is not None else 0)
+        ent = _DEDUPE_TABLES[key] = [
+            torch.zeros(size, dtype=torch.int64, device=dev), 0]
+    ent[1] += 1
+    return ent[0], ent[1]
+
+
 def dedupe(krow: torch.Tensor, ktp: torch.Tensor, pos_ok: torch.Tensor,
            K2: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
@@ -351,28 +387,29 @@ def dedupe(krow: torch.Tensor, ktp: torch.Tensor, pos_ok: torch.Tensor,
     least pos_ok slot of its hash-table slot is another slot with the
     same key. Returns (urow, utp int64, uvalid bool) of the first K2
     firsts in ascending k (ROW_SENTINEL, ktp[0] and False past them) and
-    uniq, the count of all firsts (int64, 0-dim) (fmindex.dedupe)."""
+    uniq, the count of all firsts (int64, 0-dim) (fmindex.dedupe). Two
+    launches on the card's table for the current stream (dedupe_table)."""
     K = krow.shape[0]
     dev = krow.device
     _check("dedupe", dev, krow=krow, ktp=ktp, pos_ok=pos_ok)
     _vector("dedupe", "krow", krow, K, torch.int64)
     _vector("dedupe", "ktp", ktp, K, torch.int64)
     _vector("dedupe", "pos_ok", pos_ok, K, torch.bool)
-    if not 1 <= K < (1 << 31) - 1 or K2 < 0:
-        raise ValueError(f"dedupe: K {K}, K2 {K2} out of range")
+    tiles = dedupe_tiles(K, K2)
     hb = max((K - 1).bit_length() + 1, 10)  # as fmindex.dedupe_plain
-    nb = -(-K // 256)  # csrc/fm_search.cu THREADS
-    scratch = torch.empty((1 << hb) + -(-K // 32) + 2 * nb,
-                          dtype=torch.int32, device=dev)
+    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
     urow = torch.empty(K2, dtype=torch.int64, device=dev)
     utp = torch.empty(K2, dtype=torch.int64, device=dev)
     uvalid = torch.empty(K2, dtype=torch.bool, device=dev)
     uniq = torch.empty((), dtype=torch.int64, device=dev)
     _, fn = DEDUPE_KERNEL.function()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _DEDUPE_LOCK:
+        stream = _stream(dev)
+        table, gen = dedupe_table(dev, stream, 1 << hb)
         err = fn(krow.data_ptr(), ktp.data_ptr(), pos_ok.data_ptr(), K, K2,
-                 hb, scratch.data_ptr(), urow.data_ptr(), utp.data_ptr(),
-                 uvalid.data_ptr(), uniq.data_ptr(), _stream(dev))
+                 hb, gen, table.data_ptr(), scratch.data_ptr(),
+                 urow.data_ptr(), utp.data_ptr(), uvalid.data_ptr(),
+                 uniq.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dedupe kernel launch failed: CUDA error {err}")
     DEDUPE_KERNEL.count(dev, (K, K2, hb))

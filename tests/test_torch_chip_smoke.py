@@ -27,12 +27,32 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_golden_and_e2e_phases_on_cpu(tmp_path):
+    """The golden and end-to-end phases; phase 4 keeps the first call of
+    each launch shape of FS2x, FS2s and FS4 (path_cases: each its
+    entry's real inputs, equal to its plain version here)."""
+    from soap3dp_tpu_torch.fm import fmindex
+
     cpu = torch.device("cpu")
     chip_smoke.phase_golden(cpu)
+    kept = {}
     res, reads = chip_smoke.phase_e2e(cpu, 300_000, 400, "cpu",
                                       str(tmp_path / "w"), str(tmp_path),
-                                      profile=False)
+                                      profile=False, kept=kept)
     assert res["reads"] == 800 and res["recall"] >= 0.95
+    assert fmindex.dedupe.__name__ == "dedupe"      # the wrappers are gone
+    cases = chip_smoke.path_cases(kept)
+    fns = [fn for _, fn, _ in cases]
+    assert set(fns) == set(chip_smoke.PATH_KEPT)
+    assert fns == sorted(fns, key=chip_smoke.PATH_KEPT.index)
+    assert len(set(kept)) == len(cases) > 3
+    seeds = [a for _, fn, a in cases if fn == "seed_expand_decode"]
+    assert [a[-1] for a in seeds] == sorted((a[-1] for a in seeds),
+                                            reverse=True)
+    for name, fn, args in cases:
+        assert name.startswith("path4_")
+        got = getattr(fmindex, fn)(*args)
+        want = getattr(fmindex, chip_smoke.plain_of(fn))(*args)
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
     s = res["summary"]
     assert s["num_records"] == 800
     assert s["paired_bwt"] and s["paired_dp"] and s["single_rescued"]
@@ -511,6 +531,68 @@ def test_seed_expansion_and_dedupe_cases(fs_index):
     w = work["dedupe_collide_1024"]
     assert w["hb"] == 10 and w["collided"] > 0 and w["surviving_dups"] > 0
     assert work["dedupe_K_16384"]["slots"] == 1 << 14
+
+
+def test_rank_by_loss_over_a_launch_histogram():
+    """Kernels ranked by launches x (time - bound) over a launch-shape
+    histogram, the largest loss first; a launched shape with no time is
+    left out of the sum and listed; a timed shape never launched adds
+    nothing."""
+    shapes = {"FS4": {"8x8x10": 1, "16x8x10": 2},
+              "PK": {"4x120x256": 3, "9x120x256": 1},
+              "GP": {"2x384x120": 1}}
+    timed = {"FS4": {"8x8x10": (0.010, 0.002), "16x8x10": (0.020, 0.005)},
+             "PK": {"4x120x256": (0.006, 0.001)},
+             "GP": {"2x384x120": (0.004, 0.003), "3x384x120": (1.0, 0.0)},
+             "FS2s": {"1x1x2": (0.5, 0.1)}}
+    out = chip_smoke.rank_by_loss(shapes, timed)
+    assert [r["kernel"] for r in out] == ["FS4", "PK", "GP", "FS2s"]
+    assert out[0]["loss_ms"] == pytest.approx(0.008 + 2 * 0.015)
+    assert out[0]["launches"] == 3 and out[0]["untimed"] == []
+    assert out[1]["loss_ms"] == pytest.approx(3 * 0.005)
+    assert out[1]["untimed"] == ["9x120x256"] and out[1]["launches"] == 3
+    assert out[2]["loss_ms"] == pytest.approx(0.001)
+    assert out[3] == {"kernel": "FS2s", "loss_ms": 0.0, "launches": 0,
+                      "untimed": []}
+
+
+def test_more_dedupe_and_seed_cases(fs_index):
+    """Phase 2's FS4 cases at its launches' edges (K not a multiple of
+    a tile or a block with uniq > K2, every key in one table slot, one
+    key everywhere), FS4's repeat
+    on one table, FS2s where its warps search for lanes (98% empty
+    lanes, one row of fewer lanes than a warp, K odd): each is the edge
+    it names and the entry point is its plain version on the CPU."""
+    from soap3dp_tpu_torch.fm import fmindex
+
+    _, didx = fs_index
+    rng = np.random.default_rng(16)
+    cases = chip_smoke.dedupe_more_cases(rng, "cpu", ragged=1299)
+    cases += chip_smoke.seed_lane_cases(rng, didx, "cpu", 600, 4)
+    names = [c[0] for c in cases]
+    assert names == ["dedupe_K_1299", "dedupe_one_slot", "dedupe_one_key",
+                     "seed_sparse", "seed_one_row", "seed_K_odd"]
+    work = {}
+    for name, fn, args in cases:
+        got = getattr(fmindex, fn)(*args)
+        want = getattr(fmindex, chip_smoke.plain_of(fn))(*args)
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
+        work[name] = chip_smoke.fs_work(fn, args, want)
+    w = work["dedupe_K_1299"]
+    assert w["slots"] % 1024 and w["slots"] % 256 and w["uniq"] > w["K2"]
+    w = work["dedupe_one_slot"]
+    assert w["collided"] == w["pos_ok"] - 1 == w["uniq"] - 1
+    assert work["dedupe_one_key"]["uniq"] == 1
+    args = dict((n, a) for n, _, a in cases)
+    cnt = args["seed_sparse"][2].diff()
+    assert float((cnt == 0).float().mean()) > 0.95
+    assert work["seed_sparse"]["walked"] == int(args["seed_sparse"][2][-1])
+    one = args["seed_one_row"]
+    assert one[1].shape[0] == one[4] == 4 and one[5] % 32
+    assert 0 < one[5] < int(one[2][-1])
+    odd = args["seed_K_odd"]
+    assert odd[5] % 2 == 1 and odd[5] < int(odd[2][-1])
+    assert chip_smoke.dedupe_repeat_check(rng, "cpu") == 5
 
 
 def test_prescan_cases_and_kernel_row(fs_index):

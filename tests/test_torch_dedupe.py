@@ -8,9 +8,13 @@ _search_batch against the JAX package's on a K small enough for the
 count of first occurrences (uniq); and dedupe_plain against a copy of
 the reference's dedupe lines (soap3dp_tpu/fm/search.py:287-301, inline
 in its _search_batch) run in jnp on keys with forced collisions, no
-pos_ok, one key everywhere and K2 past K. The kernel against its plain
-version is marked ``cuda`` and skips here; chip_smoke.py runs the same
-cases on the card.
+pos_ok, one key everywhere, K2 past K, every key in one table slot
+and a K that is a multiple of neither a tile (1,024) nor a block. The
+kernel against its plain version (and two calls in a row on its table,
+which the wrapper keeps across calls) is marked ``cuda`` and skips here;
+chip_smoke.py runs the same cases on the card. The wrapper's host
+arithmetic (the second launch's grid, the table and its generation) is
+tested here.
 """
 
 import jax.numpy as jnp
@@ -74,12 +78,19 @@ def _keys(case: str):
     if case == "one_key":
         return (np.full(600, 7, np.int64), np.full(600, 123456, np.int64),
                 np.ones(600, bool), 64)
+    if case == "one_slot":
+        return chip_smoke.same_slot_keys(rng, 2048) + (2048,)
+    if case == "K_not_tile":
+        return chip_smoke.dedupe_keys(rng, 3363, 1500) + (700,)
     krow, ktp, ok = chip_smoke.dedupe_keys(rng, 3000, 900)
     return krow, ktp, ok, {"uniq_gt_K2": 300, "K2_past_K": 4096}[case]
 
 
-@pytest.mark.parametrize("case", ["collide_1024", "no_pos_ok", "one_key",
-                                  "uniq_gt_K2", "K2_past_K"])
+CASES = ["collide_1024", "no_pos_ok", "one_key", "uniq_gt_K2", "K2_past_K",
+         "one_slot", "K_not_tile"]
+
+
+@pytest.mark.parametrize("case", CASES)
 def test_dedupe_plain_matches_reference_lines(case):
     """dedupe_plain equals the reference's dedupe lines on the same keys,
     every output element (urow, utp, uvalid and uniq); the forced
@@ -102,6 +113,11 @@ def test_dedupe_plain_matches_reference_lines(case):
         assert uniq > K2 and bool(got[2].all())
     if case == "K2_past_K":
         assert K2 > len(krow) and int(got[2].sum()) == uniq
+    if case == "one_slot":   # distinct keys, one slot: all but one collide
+        assert len(np.unique(chip_smoke._slot_of(krow, ktp, work["hb"]))) == 1
+        assert uniq == int(ok.sum()) == work["collided"] + 1
+    if case == "K_not_tile":
+        assert len(krow) % fs.DEDUPE_TILE and len(krow) % 256 and uniq > K2
 
 
 def _search(reads, lens, jd, td, monkeypatch, K2):
@@ -174,9 +190,43 @@ def test_dedupe_on_cpu_takes_the_plain_version():
 # On the card (skips here; chip_smoke.py runs the same cases)
 # ------------------------------------------------------------------
 
+def test_dedupe_grid_and_range():
+    """FS4's second launch's grid: a tile of 1,024 slots each; K outside
+    [1, 2^31) or K2 outside [0, 2^31) raises (the kernel keeps K - k and
+    the counts of firsts in 32 bits)."""
+    assert fs.dedupe_tiles(1, 0) == 1
+    assert fs.dedupe_tiles(1024, 2048) == 1
+    assert fs.dedupe_tiles(1025, 256) == 2
+    assert fs.dedupe_tiles(524288, 262144) == 512
+    assert fs.dedupe_tiles((1 << 31) - 1, (1 << 31) - 1) == 1 << 21
+    for K, K2 in ((0, 1), (1 << 31, 1), (5, -1), (5, 1 << 31)):
+        with pytest.raises(ValueError, match="out of range"):
+            fs.dedupe_tiles(K, K2)
+
+
+def test_dedupe_table_generations(monkeypatch):
+    """The table a card and stream keep: made zeroed at first use, kept
+    (the generation one higher each call) while it is large enough,
+    made anew (the larger size kept) when a call needs more slots or
+    the 32-bit generation is spent; another stream has its own."""
+    monkeypatch.setattr(fs, "_DEDUPE_TABLES", {})
+    cpu = torch.device("cpu")
+    t1, g1 = fs.dedupe_table(cpu, 7, 1024)
+    assert t1.shape == (1024,) and not t1.any() and g1 == 1
+    t2, g2 = fs.dedupe_table(cpu, 7, 512)
+    assert t2 is t1 and g2 == 2
+    t3, g3 = fs.dedupe_table(cpu, 7, 4096)
+    assert t3 is not t1 and t3.shape == (4096,) and g3 == 1
+    assert fs.dedupe_table(cpu, 7, 1024)[0] is t3
+    fs._DEDUPE_TABLES[(None, 7)][1] = fs._GEN_MAX
+    t4, g4 = fs.dedupe_table(cpu, 7, 16)
+    assert t4 is not t3 and t4.shape == (4096,) and g4 == 1
+    t5, g5 = fs.dedupe_table(cpu, 8, 16)
+    assert t5 is not t4 and g5 == 1
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["collide_1024", "no_pos_ok", "one_key",
-                                  "uniq_gt_K2", "K2_past_K"])
+@pytest.mark.parametrize("case", CASES)
 def test_dedupe_kernel_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -188,3 +238,19 @@ def test_dedupe_kernel_matches_plain(case):
     assert fs.DEDUPE_KERNEL.launches == n0 + 1
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_dedupe_kernel_twice_in_a_row():
+    """Two calls in a row on the card's table give equal outputs, and so
+    do calls after a larger table replaced it (chip_smoke's
+    dedupe_repeat_check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    assert chip_smoke.dedupe_repeat_check(np.random.default_rng(3), dev) == 5
+    krow, ktp, ok, K2 = _keys("uniq_gt_K2")
+    args = (_t(krow).to(dev), _t(ktp).to(dev), _t(ok).to(dev), K2)
+    first, second = tf.dedupe(*args), tf.dedupe(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -5,7 +5,9 @@ lane expansion (_seed_cand_batch through fmindex.seed_expand_decode;
 the FS2s kernel on the card) at its edges: interval widths of 0, 1, 63,
 64, 65 and 200 (a unit pasted that often), seeds at read offset 0 and at
 the read's end (some decoding below their start), totals above, equal
-to and below K and 0. Tolerance: exact.
+to and below K and 0, and lanes mostly empty (runs longer than a warp's
+32 lanes without a slot, past the window the kernel's warps read).
+Tolerance: exact.
 """
 
 import jax.numpy as jnp
@@ -294,6 +296,31 @@ def test_seed_cand_batch_matches_reference(edges, case):
         assert (live & ~valid).any()       # decoded below the seed start
 
 
+@pytest.mark.parametrize("case", ["K_eq_total", "K_below_total"])
+def test_seed_cand_batch_on_sparse_lanes_matches_reference(edges, case):
+    """_seed_cand_batch against the JAX package's where most lanes hold
+    no slot: a fifth of the edge reads between 150 and 70 random reads
+    (no 26-base seed of a random read lies in the 100 kbp text), so
+    runs of hundreds of empty lanes; row, pos, valid and the total
+    equal at K equal to the total and at half of it plus 1."""
+    jd, td, reads, lens, sp, sl = edges
+    rng = np.random.default_rng(9)
+    pad = rng.integers(0, 4, (150, reads.shape[1])).astype(np.uint8)
+    mixed = np.concatenate([pad, reads[::5], pad[:70]])
+    n = len(mixed)
+    sparse = (jd, td, mixed, np.full(n, reads.shape[1], np.int32),
+              np.tile(sp[0], (n, 1)), np.full(n, 26, np.int32))
+    K_of = {"K_eq_total": lambda t: t,
+            "K_below_total": lambda t: t // 2 + 1}[case]
+    (row, pos, valid, total), want, jtotal = _seed_batches(sparse, K_of)
+    assert int(total) == jtotal > 0
+    for a, b, name in zip((row, pos, valid), want, ("row", "pos", "valid")):
+        np.testing.assert_array_equal(a.numpy().astype(np.int64), b,
+                                      err_msg=f"{case} {name}")
+    r = row[:jtotal] % n          # rows n.. are the reverse complements
+    assert int(r.min()) >= 150 and int(r.max()) < n - 70   # no random read
+
+
 def test_seed_expand_on_cpu_takes_the_plain_version(edges):
     """seed_expand_decode on CPU tensors is its plain version and
     launches nothing; the kernel wrappers refuse CPU tensors."""
@@ -330,3 +357,22 @@ def test_seed_expand_kernel_matches_plain(edges):
         assert fs.SEED_EXPAND_KERNEL.launches == n0 + 1
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_seed_expand_kernel_on_sparse_and_few_lanes(edges):
+    """FS2s where its warps search for their slots' lanes
+    (chip_smoke.seed_lane_cases: 98% of the lanes empty, one row of
+    fewer lanes than a warp, K odd): equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+
+    dev = torch.device("cuda", 0)
+    td = tf.DeviceIndex(**{k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                           for k, v in vars(edges[1]).items()})
+    for name, fn, args in chip_smoke.seed_lane_cases(
+            np.random.default_rng(6), td, dev, 4000, 4):
+        got, want = tf.seed_expand_decode(*args), tf.seed_expand_plain(*args)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()), name

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package.
 
 An AST scan of every module of soap3dp_tpu_torch (and of chip_smoke.py
-and compare_e2e.py) finds no import of ``jax``, ``jaxlib`` or any
+and the compare scripts) finds no import of ``jax``, ``jaxlib`` or any
 ``soap3dp_tpu`` module;
 a subprocess builds an index with ``soap3dp-torch build``, runs the
 port's CLI (pair on one device and on a two-replica mesh, so through
@@ -24,7 +24,8 @@ PORT = os.path.join(ROOT, "soap3dp_tpu_torch")
 
 def _sources():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "compare_e2e.py",
-                                           "compare_kernels.py")]
+                                           "compare_kernels.py",
+                                           "compare_prescan.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
