@@ -1558,13 +1558,16 @@ class _Recorder:
     ``prescan_plain_on_card`` and of the plain pack
     (dp_rescue._pack_problems_plain) in ``pack_plain_on_card`` (a CUDA
     tensor never takes a plain version). With ``kept`` (a dict), the
-    first call of each launch shape of a PATH_KEPT entry is kept there,
-    {(entry, the arguments' shapes and ints): its arguments, each tensor
-    copied}."""
+    first call of each launch shape of a ``keep`` entry (of PATH_KEPT) is
+    kept there, {(entry, the arguments' shapes and ints, or for GP's and
+    PK's entries in dp_rescue their launch shape): its arguments, each
+    tensor copied}."""
 
-    def __init__(self, record: bool = True, kept: dict | None = None):
+    def __init__(self, record: bool = True, kept: dict | None = None,
+                 keep: tuple | None = None):
         self.record = record
         self.kept = kept
+        self.keep = PATH_KEPT if keep is None else keep
         self.calls: list[tuple[str, tuple]] = []
         self.plain_on_card = 0
         self.prescan_plain_on_card = 0
@@ -1589,9 +1592,14 @@ class _Recorder:
             return pack(*args, **kw)
 
         dp_rescue._pack_problems_plain = pack_plain
+        if self.kept is not None:
+            for fn_name in (n for n in RESCUE_KEPT if n in self.keep):
+                fn = getattr(dp_rescue, fn_name)
+                self._saved[fn_name] = fn
+                setattr(dp_rescue, fn_name, self._wrap(fn_name, fn))
         for name in FS_FUNCTIONS:
             entry = self.record or (self.kept is not None
-                                    and name in PATH_KEPT)
+                                    and name in self.keep)
             for fn_name in ((name, plain_of(name)) if entry
                             else (plain_of(name),)):
                 fn = getattr(fmindex, fn_name)
@@ -1607,10 +1615,11 @@ class _Recorder:
             elif self.record:
                 self.calls.append((fn_name, args))
             out = fn(*args, **kw)
-            if self.kept is not None and fn_name in PATH_KEPT:
-                key = (fn_name,) + tuple(
+            if self.kept is not None and fn_name in self.keep:
+                key = (fn_name,) + (rescue_shape(fn_name, args)
+                                    if fn_name in RESCUE_KEPT else tuple(
                     tuple(a.shape) if hasattr(a, "clone")
-                    else a if isinstance(a, int) else None for a in args)
+                    else a if isinstance(a, int) else None for a in args))
                 if key not in self.kept:
                     self.kept[key] = tuple(
                         a.clone() if hasattr(a, "clone") else a for a in args)
@@ -1624,7 +1633,8 @@ class _Recorder:
         dp_rescue._prescan_plain = self._prescan_plain
         dp_rescue._pack_problems_plain = self._pack_plain
         for fn_name, fn in self._saved.items():
-            setattr(fmindex, fn_name, fn)
+            setattr(dp_rescue if fn_name in RESCUE_KEPT else fmindex,
+                    fn_name, fn)
         return False
 
 
@@ -2338,20 +2348,68 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
             gp_rows + pk_rows, repeat)
 
 
-# the entries phase 4 keeps the first call of each launch shape of
-# (_Recorder's ``kept``), held to their plain versions after its run
-PATH_KEPT = ("expand_decode", "seed_expand_decode", "dedupe")
+# the entries phases 4 and 5 keep the first call of each launch shape of
+# (_Recorder's ``kept``), held to their plain versions after the run:
+# FS2x, FS2s and FS4 in fmindex (phase 4), GP and PK in dp_rescue
+FS_KEPT = ("expand_decode", "seed_expand_decode", "dedupe")
+RESCUE_KEPT = ("_prescan_impl", "_pack_problems")
+PATH_KEPT = FS_KEPT + RESCUE_KEPT
+
+
+def rescue_shape(fn_name: str, args: tuple) -> tuple:
+    """The launch shape of a call of dp_rescue's ``fn_name`` (GP: M x O x
+    Lr; PK: P x Lr x max_win)."""
+    if fn_name == "_prescan_impl":
+        return (args[3].shape[0], args[8], args[1].shape[1])
+    return (args[3].shape[0], args[1].shape[1], args[7])
 
 
 def path_cases(kept: dict) -> list[tuple[str, str, tuple]]:
     """FS cases, (name, entry, arguments), of the calls phase 4 kept
     (_Recorder's ``kept``): each launch shape of FS2x, FS2s and FS4 on
     the main path, its real inputs, the largest K of each entry first."""
-    order = sorted(kept, key=lambda key: (PATH_KEPT.index(key[0]),
-                                          -max(x for x in key[1:]
-                                               if isinstance(x, int))))
+    order = sorted((key for key in kept if key[0] in FS_KEPT),
+                   key=lambda key: (PATH_KEPT.index(key[0]),
+                                    -max(x for x in key[1:]
+                                         if isinstance(x, int))))
     return [(f"path4_{key[0]}_{i}", key[0], kept[key])
             for i, key in enumerate(order)]
+
+
+def rescue_cases(kept: dict, tag: str) -> list[tuple[str, str, dict, object]]:
+    """GP and PK cases, (name, kernel, case dict as run_prescan_case and
+    run_pack_case take it, the call's index), of the calls a run kept
+    (_Recorder's ``kept``): each launch shape of GP and PK, its real
+    inputs, the largest first; named ``tag``_GP_MxOxLr, ``tag``_PK_PxLrxW."""
+    def host(t):
+        return t.cpu().numpy() if hasattr(t, "cpu") else t
+
+    out = []
+    for key in sorted((k for k in kept if k[0] in RESCUE_KEPT),
+                      key=lambda k: (RESCUE_KEPT.index(k[0]),
+                                     -k[1] * k[2] * k[3])):
+        a = kept[key]
+        shape = "x".join(map(str, key[1:]))
+        if key[0] == "_prescan_impl":
+            c = dict(zip(("reads", "lens_rows", "read_idx", "strand", "ws",
+                          "rlens", "wlens", "O", "W"), map(host, a[1:])))
+            out.append((f"{tag}_GP_{shape}", "GP", c, a[0]))
+        else:
+            c = dict(zip(("reads", "lens", "cread", "strand", "win_start",
+                          "un", "max_win"), map(host, a[1:])))
+            c["n_pac"] = a[0].pac.shape[0]
+            out.append((f"{tag}_PK_{shape}", "PK", c, a[0]))
+    return out
+
+
+def run_rescue_cases(kept: dict, tag: str, dev, peak_ops: float
+                     ) -> list[dict]:
+    """Each GP and PK call a run kept (rescue_cases) as a case on the
+    card: held to its plain version, every element, timed, with its
+    bound."""
+    return [run_prescan_case(name, c, idx, dev, peak_ops) if kernel == "GP"
+            else run_pack_case(name, c, idx, dev)
+            for name, kernel, c, idx in rescue_cases(kept, tag)]
 
 
 FS_ROWS = {  # label: (name in the JSON line, the TPU-side code it replaces)
@@ -2433,12 +2491,31 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
 # at phase 5's window
 PRESCAN_PATH = {"path_phase4": (8532, 300), "path_phase5": (8655, 4100),
                 "chunk_phase5": (16384, 4100)}
+# GP's and PK's spans before their redesign (ms), at each launch shape
+# of phases 4 and 5 (phase 4's where a shape is in both): the parent's
+# replays of the real calls (compare_prescan.py, PERF.md section 6)
+RESCUE_BEFORE_MS = {
+    "GP": {"4598x384x120": 0.0126, "8532x384x120": 0.0208,
+           "4552x4224x120": 0.0726, "8655x4224x120": 0.1264},
+    "PK": {"512x120x256": 0.0060, "1024x120x256": 0.0061,
+           "4096x120x256": 0.0057, "8192x120x256": 0.0088,
+           "16384x120x256": 0.0175, "8192x120x4224": 0.0265,
+           "16384x120x4224": 0.0483}}
 # the edges' genome: its bases and its run of A (start, length)
 PRESCAN_GENOME_N, PRESCAN_POLY_A = 40_000, (12_000, 800)
 PRESCAN_MIXED = (1, 15, 16, 17, 31, 32, 33, 100, 120, 250)
+# the edges of the aligned loads GP and PK read their rows with
+# (csrc/fm_search.cu oriented16): rows of these widths start off 8- and
+# 16-byte boundaries; reverse complements of rc_edge_lengths(L) bases;
+# the batch's last row ending off a 16-byte boundary; code 4 at the
+# first and last bytes of 4- and 16-byte groups (ROW_GROUP_EDGES)
+ROW_EDGE_WIDTHS = (100, 101, 127, 128, 250)
+ROW_EDGES = tuple(f"width_{L}" for L in ROW_EDGE_WIDTHS) + (
+    "last_row", "code_4_groups")
+ROW_GROUP_EDGES = (0, 3, 4, 7, 12, 15, 16, 31, 32, 47)
 PRESCAN_EDGES = ("mixed_lengths", "rc_length_apart", "no_valid",
                  "full_room", "poly_a", "genome_end", "shared_read", "one",
-                 "above_chunk")
+                 "above_chunk") + ROW_EDGES
 # int32 operations a valid offset's read word: funnel shift, XOR, fold
 # (shift and or), mask; and the add of its popcount
 OPS_PRESCAN_WORD = 5
@@ -2476,6 +2553,47 @@ def _planted(rng, codes, rlens, L, O, strand, room):
     return reads, ws, wlens
 
 
+def rc_edge_lengths(L: int) -> tuple:
+    """The reverse complements' lengths an aligned-load edge of rows of
+    L bases holds: 1, the 8-byte word's edges, the 16-byte one's, L - 1,
+    L, and past the row (the plain version clamps the source index)."""
+    return (1, 7, 8, 9, 15, 16, 17, L - 1, L, L + 5)
+
+
+def row_edge_reads(rng, name: str, codes=None
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(reads (B, L) codes, lens (B,) the reverse complements' lengths,
+    pos (B,)) of the aligned-load edge ``name`` of ROW_EDGES: B odd, so
+    that the batch's last row ends off a 16-byte boundary (not at L =
+    128); rows 0-9 of rc_edge_lengths(L), the last row's L + 5 (L - 1 in
+    last_row), the rest at random in 0..L. With ``codes``, row b is cut
+    from them at pos[b] (odd rows as the reverse complement of their
+    lens[b] bases), else random. In code_4_groups, code 4 at
+    ROW_GROUP_EDGES of each forward row and of its reverse complement."""
+    L = int(name[6:]) if name.startswith("width_") else 120
+    B = 33 if name == "last_row" else 41
+    reads = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    lens = rng.integers(0, L + 1, B)
+    lens[:10] = rc_edge_lengths(L)
+    lens[-1] = L - 1 if name == "last_row" else L + 5
+    pos = np.zeros(B, np.int64)
+    if codes is not None:
+        pos = rng.integers(0, len(codes) - L, B)
+        for b in range(B):
+            seg = codes[pos[b]:pos[b] + L]
+            n = int(min(lens[b], L))
+            if b % 2:
+                reads[b, :n] = 3 - seg[:n][::-1]
+            else:
+                reads[b] = seg
+    if name == "code_4_groups":
+        for b in range(B):
+            reads[b, list(ROW_GROUP_EDGES)] = 4
+            at = lens[b] - 1 - np.array(ROW_GROUP_EDGES)
+            reads[b, at[(at >= 0) & (at < L)]] = 4
+    return reads, np.asarray(lens, np.int64), pos
+
+
 def _prescan_inputs(reads, lens_rows, read_idx, strand, ws, rlens, wlens,
                     O: int) -> dict:
     L = reads.shape[1]
@@ -2499,7 +2617,10 @@ def prescan_edge_case(name: str, codes: np.ndarray, seed: int = 7) -> dict:
     more); a poly-A read on a poly-A window (every valid offset ties at
     0); windows that end at the genome's last base, and one past it;
     one read behind two candidates of different lengths; one candidate;
-    more candidates than the plain version's chunk."""
+    more candidates than the plain version's chunk; and the aligned
+    loads' edges (ROW_EDGES, row_edge_reads: every row on both strands,
+    on its own window on the strand it was cut for, 16 more candidates
+    of the last row)."""
     from soap3dp_tpu_torch.pipeline import dp_rescue
 
     rng = np.random.default_rng(seed)
@@ -2567,6 +2688,23 @@ def prescan_edge_case(name: str, codes: np.ndarray, seed: int = 7) -> dict:
         reads, ws, wlens = _planted(rng, codes, np.array([100]), 120, O,
                                     [1], np.array([300]))
         return _prescan_inputs(reads, [100], [0], [1], ws, [100], wlens, O)
+    if name in ROW_EDGES:  # every row on both strands (cut on one)
+        reads, lens_rows, pos = row_edge_reads(rng, name, codes)
+        B, L = reads.shape
+        off = rng.integers(0, 50, B)
+        rlens = np.clip(lens_rows, 1, L)
+        rlens[::7] = L
+        extra = 16  # more candidates of the last row
+        idx = np.concatenate([np.arange(B), np.arange(B),
+                              np.full(extra, B - 1)])
+        strand = np.concatenate([np.arange(B) % 2, 1 - np.arange(B) % 2,
+                                 np.arange(extra) % 2])
+        ws = np.concatenate([np.maximum(pos - off, 0), rng.integers(
+            0, N - O - L, B + extra)])
+        rl = rlens[idx]
+        wlens = rl + rng.integers(50, O + 40, len(idx))
+        return _prescan_inputs(reads, lens_rows, idx, strand, ws, rl, wlens,
+                               O)
     if name == "above_chunk":
         O, L, B = 128, 20, 64
         M = dp_rescue._PRESCAN_CHUNK + 37
@@ -2840,6 +2978,31 @@ def phase_prescan(dev, peak_ops: float, didx, codes: np.ndarray
     return rows
 
 
+def rescue_path_rows(kernels: list[dict], cases: list[dict]) -> None:
+    """Add to the JSON line's rows of GP and PK the calls phases 4 and 5
+    kept (run_rescue_cases: ``cases``), each launch shape's measured time
+    and bound, and count their differences in max_abs_err; print each
+    beside its span before the redesign (RESCUE_BEFORE_MS, quoted from
+    PERF.md) on the phase line only."""
+    for row in kernels:
+        label = {"gapless_prescan": "GP", "problem_pack": "PK"}.get(
+            row["name"])
+        mine = [r for r in cases if r["kernel"] == label]
+        if not mine:
+            continue
+        before = RESCUE_BEFORE_MS[label]
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [r["max_abs_err"] for r in mine])
+        row["path_calls"] = [{
+            "case": r["case"], "shape": r["shape"], "ms": r["ms"],
+            "timer": r["timer"], "bound_ms": r["bound_ms"]} for r in mine]
+        phase(f"kernel {label} path calls", "; ".join(
+            f"{r['shape']}: {r['ms']:.4f} ms (before the redesign "
+            + (f"{before[r['shape']]:.4f}" if r["shape"] in before else "-")
+            + f" ms, PERF.md), bound {r['bound_ms']:.4f} ms "
+            f"{r['bound_ms'] / r['ms']:.1%}" for r in mine))
+
+
 def gp_kernel_row(rows: list[dict]) -> dict:
     """The JSON line's row of GP: its time at phase 5's largest call,
     with the largest difference over every GP case."""
@@ -2885,7 +3048,7 @@ PACK_PATH = {"path_phase4": (16384, 8532, 256),
              "p4_512": (512, 256, 256),
              "path_phase5": (16384, 8655, 4224)}
 PACK_EDGES = ("uniform", "ragged", "text_end", "shift_0", "win_1", "win_16",
-              "win_17", "win_4224", "code_4", "pad_problems")
+              "win_17", "win_4224", "code_4", "pad_problems") + ROW_EDGES
 
 
 def pack_edge_case(name: str, n_text: int, n_pac: int, seed: int = 11
@@ -2899,10 +3062,25 @@ def pack_edge_case(name: str, n_text: int, n_pac: int, seed: int = 11
     text's last base, run past it, or start past pac's last word (its
     words clamped); window starts on a word (a shift of 0); max_win of 1,
     16, 17 and 4,224; reads holding code 4; pad problems (cread 0,
-    strand 0, win_start 0, as run_banded_dp pads them)."""
+    strand 0, win_start 0, as run_banded_dp pads them); and the aligned
+    loads' edges (ROW_EDGES, row_edge_reads: every row on both strands,
+    30 more problems of the last row)."""
     rng = np.random.default_rng(seed)
     B, L, P = 40, 120, 96
     max_win = int(name[4:]) if name.startswith("win_") else 300
+    if name in ROW_EDGES:  # every row on both strands, more of the last
+        reads, lens, _ = row_edge_reads(rng, name)
+        B = len(reads)
+        extra = 30
+        cread = np.concatenate([np.arange(B), np.arange(B),
+                                np.full(extra, B - 1)])
+        strand = np.concatenate([np.zeros(B, bool), np.ones(B, bool),
+                                 np.arange(extra) % 2 == 1])
+        return {"reads": reads, "lens": lens,
+                "cread": cread.astype(np.int64), "strand": strand,
+                "win_start": rng.integers(0, n_text - max_win,
+                                          len(cread)).astype(np.int64),
+                "un": 0, "max_win": max_win, "n_pac": n_pac}
     if name == "uniform":
         lens = np.full(B, 100, np.int64)
     else:
@@ -3379,12 +3557,14 @@ def _launches_per_device() -> dict:
     return out
 
 
-def _counted(fn, dev, env=None, kept=None) -> tuple[object, float, str, dict]:
+def _counted(fn, dev, env=None, kept=None,
+             keep=None) -> tuple[object, float, str, dict]:
     """Run ``fn()`` under ``env`` with every launch count set to 0 just
     before; returns (its result, wall s, stderr, launch counts just
     after). Fails if a plain search primitive ran on a card's index or
     the plain prescan or the plain pack on CUDA tensors in the run (a
-    CUDA tensor must take the kernel). ``kept``: as _Recorder's."""
+    CUDA tensor must take the kernel). ``kept``, ``keep``: as
+    _Recorder's."""
     import contextlib
 
     saved = {k: os.environ.get(k) for k in env or {}}
@@ -3394,8 +3574,8 @@ def _counted(fn, dev, env=None, kept=None) -> tuple[object, float, str, dict]:
         k.reset()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stderr(tee), _Recorder(record=False,
-                                                          kept=kept) as rec:
+        with contextlib.redirect_stderr(tee), _Recorder(
+                record=False, kept=kept, keep=keep) as rec:
             out = fn()
         if dev.type == "cuda":
             import torch
@@ -3432,14 +3612,15 @@ def _fs_launched(where: str, launches: dict) -> None:
         fail(f"{where} never launched {missing}")
 
 
-def _run_cli(argv, dev, env=None, kept=None) -> tuple[float, str, dict]:
+def _run_cli(argv, dev, env=None, kept=None,
+             keep=None) -> tuple[float, str, dict]:
     """Run the port's CLI with every launch count set to 0 just before;
-    returns (wall s, stderr, launch counts just after). ``kept``: as
-    _Recorder's."""
+    returns (wall s, stderr, launch counts just after). ``kept``,
+    ``keep``: as _Recorder's."""
     from soap3dp_tpu_torch.cli.main import main as cli_main
 
     rc, wall, log, launches = _counted(lambda: cli_main(argv), dev, env,
-                                       kept)
+                                       kept, keep)
     if rc != 0:
         fail(f"the {argv[0]} CLI exited {rc}")
     return wall, log, launches
@@ -3492,14 +3673,16 @@ def _rates(reads: int, wall: float, log: str) -> dict:
 
 def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
               out_dir: str, profile: bool = True, mate_pair: bool = False,
-              kept: dict | None = None) -> tuple[dict, dict]:
+              kept: dict | None = None,
+              keep: tuple | None = None) -> tuple[dict, dict]:
     """The port's `pair` CLI on ``dev`` over a seeded genome of
     ``genome_bp`` and ``n_pairs`` read pairs: default options
     (-u 500 -v 300) on a +/- library, or with ``mate_pair`` the mate-pair
     library over the whole insert window. Checks records, planted-locus
     recall, rescue counts and kernel launches. With ``kept`` (a dict),
     the measured run keeps the first call of each launch shape of the
-    PATH_KEPT entries there (_Recorder). Returns (result, the run's
+    ``keep`` entries (default PATH_KEPT) there (_Recorder), the copies
+    inside its timed wall. Returns (result, the run's
     inputs and outputs: FASTQ paths, end-1 planted positions and random
     mask, index, options, SAM path, summary)."""
     import re
@@ -3531,7 +3714,7 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     # read at each end of a few dozen stages, no device sync
     saved, timers.ENABLED = timers.ENABLED, True
     try:
-        wall, log, launches = _run_cli(argv, dev, env, kept)
+        wall, log, launches = _run_cli(argv, dev, env, kept, keep)
     finally:
         timers.ENABLED = saved
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
@@ -4007,19 +4190,29 @@ def main(argv=None) -> int:
     e2e, reads = phase_e2e(dev, E2E_GENOME_BP, E2E_PAIRS, card, work, OUT_DIR,
                            kept=kept)
     lap("PE default")
-    # FS2x, FS2s and FS4 at each of phase 4's launch shapes, its inputs
+    # FS2x, FS2s, FS4, GP and PK at each of phase 4's launch shapes, its
+    # inputs
     fs_cases += [run_fs_case(name, fn, args, peak_ops)
                  for name, fn, args in path_cases(kept)]
+    rescue = run_rescue_cases(kept, "path4", dev, peak_ops)
     del kept
     torch.cuda.empty_cache()
     kernels += fs_kernel_rows(fs_cases) + gp_pk
-    fs_cases += gp_pk_cases
-    lap("phase 4's FS calls")
+    lap("phase 4's FS, GP and PK calls")
     small = phase_mate_pair_devices(
         dev, os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "mp_small"))
+    kept = {}
     mate, _ = phase_e2e(dev, E2E_GENOME_BP, E2E_PAIRS, card, work, OUT_DIR,
-                        profile=False, mate_pair=True)
+                        profile=False, mate_pair=True, kept=kept,
+                        keep=RESCUE_KEPT)
     lap("mate-pair, small and full")
+    # GP and PK at each of phase 5's launch shapes, its inputs
+    rescue += run_rescue_cases(kept, "path5", dev, peak_ops)
+    del kept
+    torch.cuda.empty_cache()
+    rescue_path_rows(kernels, rescue)
+    fs_cases += gp_pk_cases + rescue
+    lap("phase 5's GP and PK calls")
     single = phase_single_e2e(dev, reads, card, work, OUT_DIR)
     lap("single-end")
     multi = {"card": card, "mesh": phase_mesh(dev, reads, work, OUT_DIR),

@@ -28,30 +28,35 @@ dp.align), then the largest call (by bytes written) and the most
 frequent call shape of each phase replayed through that checkout's
 _pack_problems: its device time and device events between marker
 kernels, its peak extra device memory (max_memory_allocated over the
-call, less what was allocated before it) and the device time of the
-upload of that call's reads and lengths. The run saves the replayed
-inputs; this process counts PK's bound on them with chip_smoke.pack_work
-and pack_bound.
+call, less what was allocated before it), the device time of the
+upload of that call's reads and lengths, and whether it equals the
+plain version (the prescan's largest call too). The run saves the
+replayed inputs; this process counts PK's bound on them with
+chip_smoke.pack_work and pack_bound.
 
 It also ranks the kernels a redesign chooses among: each run keeps the
 first call of each phase-4 launch shape of FS2x (fmindex.expand_decode),
 FS2s (fmindex.seed_expand_decode), FS4 (fmindex.dedupe), GP
-(dp_rescue._prescan_impl) and PK (dp_rescue._pack_problems), replays it
-REPS times through that checkout's entry and times it with this
-checkout's chip_smoke._call_span_ms (so every tree is timed by the same
-code): the call's device span, its first kernel's start to its last
-one's end (FS4 launches several a call), and its kernels' device time
-summed; and holds its output to the plain version's. FS2x and FS2s
-are also replayed on the genome's index at sa_rate 1 (the same SA rows,
-no walk: each slot reads its SA value), so their span there is the
-lane search's and the outputs' time without the walk. This process
-counts each shape's bound once on the first run's inputs
-(chip_smoke.fs_work, prescan_work, pack_work) and ranks the kernels by
-launches x (span - bound) over the run's launch-shape histogram
+(dp_rescue._prescan_impl) and PK (dp_rescue._pack_problems), and of
+each phase-5 launch shape of GP and PK, replays it REPS times through
+that checkout's entry and times it with this checkout's
+chip_smoke._call_span_ms (so every tree is timed by the same code): the
+call's device span, its first kernel's start to its last one's end (FS4
+launches several a call), and its kernels' device time summed; and
+holds its output to the plain version's. PK is also replayed at max_win
+0 (its read units alone: reads_only_span_ms). FS2x and FS2s are also
+replayed on the genome's index at sa_rate 1 (the same SA rows, no walk:
+each slot reads its SA value), so their span there is the lane search's
+and the outputs' time without the walk. This process counts each
+shape's bound once on the first run's inputs (chip_smoke.fs_work,
+prescan_work, pack_work) and ranks the kernels by launches x (span -
+bound) over the run's phase-4 launch-shape histogram
 (chip_smoke.rank_by_loss). Prints one line per run and writes them to
 compare_prescan.json in chip_smoke.py's output directory; exits non-zero
-after that if a replayed call disagrees with its plain version. Both
-phases share phase 4's cached index and seeded reads.
+after that if a replayed call (or the largest calls above) disagrees
+with its plain version. Both phases share phase 4's cached index and
+seeded reads. The rescue queue's flushes follow the host's timing, so
+a run's pack shapes may differ from another's.
 """
 
 import argparse
@@ -234,6 +239,12 @@ def device_items(fn, reps):
             "span_ms": float(np.median([p[2] for p in per]))}}
 
 
+def same(a, b):
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return all(x.shape == y.shape and x.dtype == y.dtype
+               and torch.equal(x, y) for x, y in zip(a, b))
+
+
 for key in ("phase4", "phase5"):
     if key not in largest:
         continue
@@ -256,7 +267,9 @@ for key in ("phase4", "phase5"):
     npz = os.path.join({work!r}, f"prescan_{{os.getpid()}}_{{key}}.npz")
     np.savez(npz, **case)
     out[key]["replay"] = {{"M": M, "M_call": Mall, "O": O, "W": W, "Lr": L,
-                          "case": npz, **device_items(
+                          "case": npz, "equal": same(
+                              dp_rescue._prescan_impl(*a),
+                              dp_rescue._prescan_plain(*a)), **device_items(
                               lambda: dp_rescue._prescan_impl(*a), {reps})}}
 
 
@@ -293,6 +306,8 @@ for key in ("phase4", "phase5"):
         row = {{"what": what, "P": P, "Lr": L, "max_win": max_win,
                "calls_of_shape": shapes_n[shp], "case": npz,
                "output_bytes": P * (L + max_win),
+               "equal": same(dp_rescue._pack_problems(didx, *a),
+                             dp_rescue._pack_problems_plain(didx, *a)),
                **device_items(lambda: dp_rescue._pack_problems(didx, *a),
                               {reps}),
                "peak_extra_bytes": peak_extra(
@@ -315,19 +330,13 @@ PLAIN = {{"FS2x": lambda a: fmindex.expand_decode_plain(didx, *a),
          "PK": lambda a: dp_rescue._pack_problems_plain(didx, *a)}}
 
 
-def same(a, b):
-    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
-    return all(x.shape == y.shape and x.dtype == y.dtype
-               and torch.equal(x, y) for x, y in zip(a, b))
-
-
 def host(x):
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 out["replays"] = []
 for (ph, kernel, shape), args in sorted(first.items()):
-    if ph != "phase4":
+    if ph != "phase4" and kernel not in ("GP", "PK"):
         continue
     fn = CALL[kernel]
     span, events = timing._call_span_ms(lambda: fn(args), {reps},
@@ -335,10 +344,16 @@ for (ph, kernel, shape), args in sorted(first.items()):
     npz = os.path.join({work!r},
                        f"replay_{{os.getpid()}}_{{len(out['replays'])}}.npz")
     np.savez(npz, **{{f"a{{i}}": host(a) for i, a in enumerate(args)}})
-    out["replays"].append({{
-        "kernel": kernel, "shape": shape, "launches": seen[ph, kernel, shape],
-        "equal": same(fn(args), PLAIN[kernel](args)), "span_ms": span,
-        "events_ms": events, "case": npz}})
+    row = {{"phase": ph, "kernel": kernel, "shape": shape,
+           "launches": seen[ph, kernel, shape],
+           "equal": same(fn(args), PLAIN[kernel](args)), "span_ms": span,
+           "events_ms": events, "case": npz}}
+    if kernel == "PK":  # its read units alone: the same call at max_win 0
+        rd = args[:-1] + (0,)
+        row["reads_only_span_ms"] = timing._call_span_ms(
+            lambda: fn(rd), {reps}, SYMBOL[kernel])[0]
+        row["reads_only_equal"] = same(fn(rd), PLAIN[kernel](rd))
+    out["replays"].append(row)
     torch.cuda.empty_cache()
 
 # FS2x and FS2s on the same lanes with no walk: the genome's index at
@@ -444,12 +459,13 @@ def main(argv=None) -> int:
         for row in run["replays"]:
             with np.load(row.pop("case")) as z:
                 a = [z[f"a{i}"] for i in range(len(z.files))]
-            key = (row["kernel"], row["shape"])
+            key = (row["phase"], row["kernel"], row["shape"])
             if key not in bounds:
                 bounds[key] = replay_work(row["kernel"], a, didx, dev, peak)
             row.update(bounds[key])
-            timed.setdefault(row["kernel"], {})[row["shape"]] = (
-                row["span_ms"], row["bound_ms"])
+            if row["phase"] == "phase4":
+                timed.setdefault(row["kernel"], {})[row["shape"]] = (
+                    row["span_ms"], row["bound_ms"])
         run["ranking"] = cs.rank_by_loss(run["phase4"]["launch_shapes"],
                                          timed)
         print(json.dumps(run), flush=True)
@@ -458,7 +474,12 @@ def main(argv=None) -> int:
         json.dump({"card": card, "runs": runs}, fh, indent=1)
     bad = [(r["tree"], x["kernel"], x["shape"]) for r in runs
            for x in r["replays"]
-           if not (x["equal"] and x.get("sa1_equal", True))]
+           if not (x["equal"] and x.get("sa1_equal", True)
+                   and x.get("reads_only_equal", True))]
+    bad += [(r["tree"], key, x.get("what", "GP")) for r in runs
+            for key in ("phase4", "phase5")
+            for x in r[key].get("pack_replay", []) + [r[key].get("replay")]
+            if x is not None and not x["equal"]]
     if bad:
         sys.exit(f"a replayed call disagrees with its plain version: {bad}")
     return 0

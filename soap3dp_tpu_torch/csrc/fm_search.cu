@@ -3,10 +3,10 @@
 // lane expansions of the search and of the DP seeding), packed
 // verification (FS3) and the hash dedupe (FS4); and the DP rescue's
 // gapless prescan (GP, one warp a candidate) and problem pack (PK, one
-// thread a 16-byte unit of its outputs), which read the genome and the
-// reads as FS3 does. Each reproduces its plain-torch version in
-// soap3dp_tpu_torch/fm/fmindex.py (GP, PK: pipeline/dp_rescue.py)
-// element for element.
+// thread a 16-byte unit of its outputs), which read the genome as FS3
+// does and their read rows as whole aligned words (oriented16). Each
+// reproduces its plain-torch version in soap3dp_tpu_torch/fm/fmindex.py
+// (GP, PK: pipeline/dp_rescue.py) element for element.
 //
 // FS1, soap3dp_fm_search, replaces the XLA programs of
 // soap3dp_tpu/fm/fmindex.py:391 `backward_search`, :456
@@ -87,22 +87,30 @@
 //
 // GP, soap3dp_prescan, replaces the XLA program of the DP rescue's
 // gapless prescan (soap3dp_tpu/pipeline/dp_rescue.py:276 `_prescan_impl`,
-// L shift-and-add steps of (M, O) byte compares, then a min, an argmax
-// and a sum over the offsets): the mismatches of each candidate's read
-// placed gapless at every valid offset of its genome window, reduced in
-// the kernel to the least count, its leftmost offset and the count of
-// zero-mismatch offsets, so no (M, O) matrix and no (M, W) window of
-// codes is written. What bounds it: operations, not bytes. The window is
-// a few KB of packed genome a candidate, read once; each valid offset
-// costs, a read word, a funnel shift, XOR, fold, mask, popcount and add:
-// ~0.14 ms of int32 work at the mate-pair cell's 16,384 x 4,224 x 120
-// against ~5 us of bytes. Design: one warp a candidate, its window's
-// packed words and its oriented read's words (the row read through
-// Reads as FS3 reads it, bases that are not 0-3 counted apart) in shared
-// memory; a lane counts 8 consecutive offsets at once from the same two
-// shared window words a read word, so each shared load serves 8 offsets
-// and the loop is the int32 work alone; the (min, leftmost argmin, zero
-// count) reduction is the lane's running one, then warp shuffles.
+// over soap3dp_tpu/fm/fmindex.py:593 `extract_genome` and :670
+// `revcomp_reads`: L shift-and-add steps of (M, O) byte compares, then a
+// min, an argmax and a sum over the offsets): the mismatches of each
+// candidate's read placed gapless at every valid offset of its genome
+// window, reduced in the kernel to the least count, its leftmost offset
+// and the count of zero-mismatch offsets, so no (M, O) matrix and no
+// (M, W) window of codes is written. What bounds it: operations at wide
+// windows (each valid offset costs, a read word, a funnel shift, XOR,
+// fold, mask, popcount and add: ~0.14 ms of int32 work at the mate-pair
+// cell's 16,384 x 4,224 x 120 against ~5 us of bytes); at the paired-end
+// cell's O = 384 a candidate has ~190 valid offsets, so its set-up, the
+// read's words and the window's, is as long as its offset loop. Design:
+// one warp a candidate (its ~26 groups of offsets fill it); its scalars,
+// its window's first words and its read row are all loaded before any
+// is waited on, the row as whole aligned words (lane j reads bytes
+// 16j..16j+15 with oriented16, two or three 8-byte loads, and packs them
+// to a 2-bit word and its mask by SWAR, read_word_mask, the codes above
+// 3 counted apart, with no loop over bases); the window's packed words
+// and the read's words in
+// the warp's slice of shared memory; a lane counts 8 consecutive offsets
+// at once from the same two shared window words a read word, so each
+// shared load serves 8 offsets and the loop is the int32 work alone; the
+// (min, leftmost argmin, zero count) reduction is the lane's running one,
+// then warp shuffles.
 //
 // PK, soap3dp_pack_problems, replaces the XLA program of the DP rescue's
 // problem pack (soap3dp_tpu/pipeline/dp_rescue.py:357 `_pack_problems`,
@@ -113,17 +121,25 @@
 // K2. What bounds it: bytes: the outputs written once, a window's pac
 // words and a read row read once (81 MB, 0.024 ms at 3.35 TB/s, at the
 // mate-pair cell's largest call, 16,384 x 4,224); no arithmetic to speak
-// of. The plain version's cost is its temporaries, not its work: the
+// of. At the paired-end cell's 256-wide windows a call is a few
+// microseconds, and the bytes do not hold it: a read unit's chain of
+// dependent loads (the problem's row, then the read's length, then its
+// bytes) does, and a block that held read units beside window units
+// would wait on them. The plain version's cost is its temporaries: the
 // batch's reverse complement and a gather of it, and an (M, W, 16) int64
-// code tensor (554 MB at that call). Design: no temporaries. One thread a unit of 16 output bytes: a window unit is
+// code tensor (554 MB at that call). Design: no temporaries. One thread a
+// unit of 16 output bytes, with a 32-bit index (the wrapper keeps P
+// times the units below 2^31); read units and window units in blocks of
+// their own, so no warp diverges between the two. A read unit is one
+// oriented16 (the 16 bytes of its oriented row from two or three aligned
+// 8-byte loads, reversed and complemented in registers for a reverse
+// strand, the read's length read once) and one store. A window unit is
 // the funnel shift of two pac words (pac_word, the index clamped as
 // aligned_genome_words clamps it; a shift of 0 takes no bits of the
-// second word), spread to 16 code bytes and stored as one 16-byte vector;
-// a read unit is 16 bytes of the oriented row read in place through Reads
-// (base_at: the forward bytes as stored, the reverse complement
-// (3 - c) & 0xFF from the read's end, 0 past its length). A problem's
-// units are consecutive, so a warp's loads and stores are contiguous.
-// Window starts and pac indices are 64-bit (past 2^31 on a 3.1 Gbp text).
+// second word), spread to 16 code bytes and stored as one 16-byte
+// vector. A problem's units are consecutive, so a warp's loads and
+// stores are contiguous. Window starts and pac indices are 64-bit (past
+// 2^31 on a 3.1 Gbp text).
 //
 // Plain C interface for ctypes; each launcher returns cudaGetLastError().
 
@@ -987,6 +1003,99 @@ verify_kernel(Reads s, const int64_t* __restrict__ rows,
   out[i] = total;
 }
 
+// An oriented row's 16 bytes from aligned loads, for GP and PK. A code
+// source is B rows of L bytes at [data, data + B L): a row starts on an
+// 8-byte boundary only where L is a multiple of 8, so 16 bytes at any
+// offset are read as the (at most three) aligned 8-byte words that
+// cover them, shifted into place. A word that lies inside the rows' bytes
+// is one load; one that reaches past them (the batch's first bytes where
+// data is not 8-aligned, its last ones where B L is not a multiple of 8,
+// a reverse complement's bytes before its row) is read a byte at a time
+// inside them, 0 outside. So no load reaches past the reads tensor, and
+// the wrappers allocate no padding.
+
+// bytes off .. off+7 of the rows' bytes (off a multiple of 8 from an
+// 8-byte boundary), byte by byte inside [0, n), 0 outside
+__device__ __noinline__ uint2 edge_word(const uint8_t* data, int64_t n,
+                                        int64_t off) {
+  uint32_t v[2] = {0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (off + k >= 0 && off + k < n)
+      v[k >> 2] |= static_cast<uint32_t>(__ldg(data + off + k))
+                   << (8 * (k & 3));
+  return make_uint2(v[0], v[1]);
+}
+
+// bytes off .. off+15 (off >= -16) of the rows' bytes, little-endian in
+// v[0..3]; bytes outside [0, n) are 0
+__device__ __forceinline__ void bytes16(const uint8_t* data, int64_t n,
+                                        int64_t off, uint32_t v[4]) {
+  const int r =
+      static_cast<int>((reinterpret_cast<uintptr_t>(data) + off) & 7);
+  const int64_t o0 = off - r;  // the first covering word, 8-aligned
+  uint2 w[3];
+  if (o0 >= 0 && o0 + (r ? 24 : 16) <= n) {
+    const uint2* a = reinterpret_cast<const uint2*>(data + o0);
+    w[0] = __ldg(a);
+    w[1] = __ldg(a + 1);
+    w[2] = r ? __ldg(a + 2) : make_uint2(0u, 0u);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) w[k] = edge_word(data, n, o0 + 8 * k);
+  }
+  const uint32_t u[6] = {w[0].x, w[0].y, w[1].x, w[1].y, w[2].x, w[2].y};
+  const uint32_t sh = 8 * static_cast<uint32_t>(r & 3);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)  // a shift of 4-7 bytes starts a word later
+    v[q] = __funnelshift_r(r & 4 ? u[q + 1] : u[q],
+                           r & 4 ? u[q + 2] : u[q + 1], sh);
+}
+
+// 0xFF in each of the first k bytes of a word (k clamped to 0..4)
+__device__ __forceinline__ uint32_t byte_mask(int64_t k) {
+  return k <= 0 ? 0u : k >= 4 ? 0xFFFFFFFFu : (1u << (8 * k)) - 1u;
+}
+
+// bytes i0 .. i0+15 (0 <= i0 < L) of oriented row `row` of code rows, as
+// base_at gives them, in v[0..3] (bytes past L are the next row's or 0).
+// A reverse complement of n bases (rc_len read once): forward bytes
+// n-16-i0 .. n-1-i0 reversed (__byte_perm) and complemented ((3 - c) &
+// 0xFF, __vsub4), bytes at i >= n zeroed; where n > L a source byte past
+// L-1 is byte L-1 (revcomp_reads clamps the index). GP and PK read their
+// rows with it alone: their wrappers refuse packed rows.
+__device__ __forceinline__ void oriented16(const Reads& s, int64_t row,
+                                           int i0, uint32_t v[4]) {
+  const uint8_t* data = static_cast<const uint8_t*>(s.data);
+  const int64_t total = s.B * s.L;
+  if (row < s.B) {
+    bytes16(data, total, row * s.L + i0, v);
+    return;
+  }
+  const int64_t b = row - s.B;
+  const int64_t n = ld64(s.rc_len + b);
+  const int64_t z = n - i0;  // bytes of the 16 inside the reverse complement
+  if (z <= 0) {
+    v[0] = v[1] = v[2] = v[3] = 0u;
+    return;
+  }
+  const int64_t j0 = n - 16 - i0;  // the forward byte of output byte 15
+  uint32_t f[4] = {0u, 0u, 0u, 0u};
+  if (j0 < s.L) bytes16(data, total, b * s.L + j0, f);
+  if (n > s.L) {  // forward bytes t >= L - j0 lie past the row: byte L-1
+    const uint32_t c = __ldg(data + b * s.L + s.L - 1) * 0x01010101u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t in = byte_mask(s.L - j0 - 4 * q);
+      f[q] = (f[q] & in) | (c & ~in);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    v[q] = __vsub4(0x03030303u, __byte_perm(f[3 - q], 0u, 0x0123)) &
+           byte_mask(z - 4 * q);
+}
+
 // GP: the gapless prescan. Candidate m's oriented row rows[m] (its
 // first min(L, rlens[m]) bases) against the genome window at ws[m]:
 // mm(o) = the bases l where window base o + l differs from read base l,
@@ -995,6 +1104,7 @@ verify_kernel(Reads s, const int64_t* __restrict__ rows,
 // or (NO_VALID, 0, 0) where no offset is valid.
 constexpr int GP_GROUP = 8;  // consecutive offsets a thread counts
 constexpr int GP_CHUNK = 8;  // read words a pass over them
+constexpr int GP_EARLY = 2;  // rounds of window words loaded with the scalars
 constexpr int64_t GP_NO_VALID = 1 << 20;
 
 struct Prescan {
@@ -1008,43 +1118,46 @@ struct Prescan {
   int nrw;               // read words a warp holds (a multiple of GP_CHUNK)
 };
 
-// read words and masks of candidate m (lanes over words): base l < nb of
-// the oriented row into word l / 16 and its bit in the mask where it is
-// a base code (0-3); every other code mismatches every window base, so
-// it is left out of the words and counted, for every offset, in the
-// warp's return value
-__device__ int prescan_read_words(const Reads& s, int64_t row, int64_t nb,
-                                  int nw, uint32_t* rw, uint32_t* rm,
-                                  int lane) {
+// the four bytes' 2-bit fields (byte k's low bits to bits 2k, 2k+1)
+__device__ __forceinline__ uint32_t pack4(uint32_t x) {
+  x &= 0x03030303u;
+  x |= x >> 6;
+  return (x & 0xFu) | ((x >> 12) & 0xF0u);
+}
+
+// read word j of a candidate from its 16 code bytes v, of which the first
+// k count: the bases as 2-bit fields (*w) and the bit 2t of each base t
+// that is a code 0-3 (*mk); returns how many counted bytes are not (they
+// mismatch every window base: counted apart, for every offset)
+__device__ __forceinline__ int read_word_mask(const uint32_t v[4], int64_t k,
+                                              uint32_t* w, uint32_t* mk) {
+  uint32_t ww = 0u, mm = 0u;
   int other = 0;
-  for (int j = lane; j < nw; j += 32) {
-    uint32_t w = 0u, mk = 0u;
-    for (int t = 0; t < 16; ++t) {
-      const int64_t l = 16 * static_cast<int64_t>(j) + t;
-      if (l >= nb) break;
-      const uint32_t c = base_at(s, row, l);
-      if (c < 4u) {
-        w |= c << (2 * t);
-        mk |= 1u << (2 * t);
-      } else {
-        ++other;
-      }
-    }
-    rw[j] = w;
-    rm[j] = mk;
-  }
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1) other += __shfl_xor_sync(FULL, other, d);
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t in = byte_mask(k - 4 * q) & 0x01010101u;
+    // bit 0 of each byte whose code is above 3 (the bits above its two
+    // low ones, summed into bit 6 without a carry between bytes)
+    const uint32_t high =
+        ((((v[q] >> 2) & 0x3F3F3F3Fu) + 0x3F3F3F3Fu) >> 6) & 0x01010101u;
+    other += __popc(high & in);
+    ww |= pack4(v[q]) << (8 * q);
+    mm |= pack4(in & ~high) << (8 * q);
+  }
+  *w = ww & (mm | (mm << 1));
+  *mk = mm;
   return other;
 }
 
-// one warp a candidate: the window's packed words (pac[w0 + k], the
-// index clamped to pac, window base b at bit 2 (ws & 15) + 2 b of them)
-// and the read's words in the warp's slice of shared memory; lane i
-// counts the offsets of groups i, i + 32, ...: GP_GROUP offsets at once,
-// GP_CHUNK read words at a time, a window word the funnel of two shared
-// words, then XOR, fold, mask and popcount; then (min, leftmost argmin,
-// zero count) over the warp by shuffles
+// one warp a candidate: its scalars, its first GP_EARLY rounds of window
+// words (pac[w0 + k], the index clamped to pac, so any k may load) and its
+// read row (lane j: bytes 16j .. 16j+15, oriented16) are all in flight before
+// any is waited on; the window's words and the read's words and
+// masks go to the warp's slice of shared memory; lane i counts the
+// offsets of groups i, i + 32, ...: GP_GROUP offsets at once, GP_CHUNK
+// read words at a time, a window word the funnel of two shared words,
+// then XOR, fold, mask and popcount; then (min, leftmost argmin, zero
+// count) over the warp by shuffles
 __global__ void __launch_bounds__(THREADS)
 prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
                int64_t n_pac, int64_t* __restrict__ out) {
@@ -1056,8 +1169,25 @@ prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
   uint32_t* win = gp_smem + warp * (c.cap + 2 * c.nrw);
   uint32_t* rw = win + c.cap;
   uint32_t* rm = rw + c.nrw;
+  const int64_t row = ld64(c.rows + m);
+  const int64_t p = ld64(c.ws + m);
   const int64_t rlen = ld64(c.rlens + m);
-  const int64_t room = ld64(c.wlens + m) - rlen;
+  const int64_t wlen = ld64(c.wlens + m);
+  const int64_t w0 = p >> 4;
+  uint32_t early[GP_EARLY];
+#pragma unroll
+  for (int e = 0; e < GP_EARLY; ++e)
+    early[e] = pac_word(pac, n_pac, w0 + lane + 32 * e);
+  const int64_t nb = clamp64(rlen, 0, s.L);
+  int other = 0;
+  for (int j = lane; 16 * j < s.L; j += 32) {
+    uint32_t v[4];
+    oriented16(s, row, 16 * j, v);
+    other += read_word_mask(v, nb - 16 * j, rw + j, rm + j);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) other += __shfl_xor_sync(FULL, other, d);
+  const int64_t room = wlen - rlen;
   const int64_t last = room < c.O - 1 ? room : c.O - 1;
   if (last < 0) {
     if (lane == 0) {
@@ -1067,19 +1197,17 @@ prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
     }
     return;
   }
-  const int64_t nb = clamp64(rlen, 0, s.L);
   const int nw = static_cast<int>((nb + 15) >> 4);
   const int nwp = (nw + GP_CHUNK - 1) / GP_CHUNK * GP_CHUNK;  // gw's reach
-  const uint32_t other =
-      prescan_read_words(s, ld64(c.rows + m), nb, nw, rw, rm, lane);
-  const int64_t p = ld64(c.ws + m);
   const int a = static_cast<int>(p & 15);
-  const int64_t w0 = p >> 4;
   // offset o is bit position t = a + o of the words; group g holds t in
   // [GP_GROUP g, GP_GROUP (g + 1))
   const int groups = static_cast<int>((a + last) / GP_GROUP) + 1;
   const int nwin = (a + static_cast<int>(last)) / 16 + nwp + 1;
-  for (int k = lane; k < nwin; k += 32)
+#pragma unroll
+  for (int e = 0; e < GP_EARLY; ++e)
+    if (lane + 32 * e < nwin) win[lane + 32 * e] = early[e];
+  for (int k = lane + 32 * GP_EARLY; k < nwin; k += 32)
     win[k] = pac_word(pac, n_pac, w0 + k);
   __syncwarp();
 
@@ -1145,10 +1273,11 @@ struct Pack {
   const int64_t* cread;      // (P,) read rows
   const uint8_t* strand;     // (P,) 1: the reverse complement
   const int64_t* win_start;  // (P,) window starts (text positions)
-  int64_t P;
+  uint32_t P;
   int max_win;               // window bases a problem
-  int nw;                    // window units a problem: ceil(max_win / 16)
-  int units;                 // nw + ceil(L / 16)
+  uint32_t nw;               // window units a problem: ceil(max_win / 16)
+  uint32_t nr;               // read units a problem: ceil(L / 16)
+  uint32_t rblocks;          // the blocks of read units, before the others
 };
 
 // the 16 bases of a word as 16 code bytes (byte k = base k): each byte
@@ -1194,40 +1323,43 @@ __device__ __forceinline__ void store_bytes(uint8_t* dst, const uint4& v,
   }
 }
 
-// one thread a unit of 16 output bytes: units 0 .. nw-1 of problem p are
-// its window's words (pac words w0 + u and w0 + u + 1, funnel-shifted to
-// the 2-bit grid, spread to codes); units nw .. are its oriented read's
-// bytes, read through Reads as FS3 and GP read them. A warp's units are
-// consecutive, so its stores are contiguous.
+// one thread a unit of 16 output bytes, the read units and the window
+// units in blocks of their own (the first rblocks blocks: read units), so
+// no warp mixes the two; P times either count of units is below 2^31
+// (the wrapper checks it), so a unit's index is 32-bit. Read unit i of
+// problem p: bytes 16i .. 16i+15 of its oriented row (oriented16), one store.
+// Window unit u: pac words w0 + u and w0 + u + 1, funnel-shifted to the
+// 2-bit grid, spread to codes. A warp's units are consecutive, so its
+// stores are contiguous.
 __global__ void __launch_bounds__(THREADS)
 pack_kernel(Reads s, Pack c, const int32_t* __restrict__ pac, int64_t n_pac,
             uint8_t* __restrict__ oriented, uint8_t* __restrict__ wins) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  const int64_t p = t / c.units;
-  if (p >= c.P) return;
-  const int u = static_cast<int>(t - p * c.units);
-  if (u < c.nw) {
-    const int64_t ws = ld64(c.win_start + p);
-    const int64_t k = (ws >> 4) + u;
-    const uint32_t sh = 2 * static_cast<uint32_t>(ws & 15);
-    const uint32_t w = __funnelshift_r(pac_word(pac, n_pac, k),
-                                       pac_word(pac, n_pac, k + 1), sh);
-    const int n = c.max_win - 16 * u;
-    store_bytes(wins + p * c.max_win + 16 * u, word_codes(w),
-                n < 16 ? n : 16);
+  if (blockIdx.x < c.rblocks) {
+    const uint32_t t = blockIdx.x * THREADS + threadIdx.x;
+    const uint32_t p = t / c.nr;
+    if (p >= c.P) return;
+    const int i0 = 16 * static_cast<int>(t - p * c.nr);
+    const int64_t row =
+        ld64(c.cread + p) + (__ldg(c.strand + p) ? s.B : 0);
+    uint32_t v[4];
+    oriented16(s, row, i0, v);
+    const int n = s.L - i0;
+    store_bytes(oriented + static_cast<int64_t>(p) * s.L + i0,
+                make_uint4(v[0], v[1], v[2], v[3]), n < 16 ? n : 16);
     return;
   }
-  const int i0 = 16 * (u - c.nw);
-  const int64_t row =
-      ld64(c.cread + p) + (__ldg(c.strand + p) ? s.B : 0);
-  uint32_t v[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int k = 0; k < 16; ++k)
-    if (i0 + k < s.L) v[k >> 2] |= base_at(s, row, i0 + k) << (8 * (k & 3));
-  const int n = s.L - i0;
-  store_bytes(oriented + p * s.L + i0, make_uint4(v[0], v[1], v[2], v[3]),
-              n < 16 ? n : 16);
+  const uint32_t t = (blockIdx.x - c.rblocks) * THREADS + threadIdx.x;
+  const uint32_t p = t / c.nw;
+  if (p >= c.P) return;
+  const uint32_t u = t - p * c.nw;
+  const int64_t ws = ld64(c.win_start + p);
+  const int64_t k = (ws >> 4) + u;
+  const uint32_t sh = 2 * static_cast<uint32_t>(ws & 15);
+  const uint32_t w = __funnelshift_r(pac_word(pac, n_pac, k),
+                                     pac_word(pac, n_pac, k + 1), sh);
+  const int n = c.max_win - 16 * static_cast<int>(u);
+  store_bytes(wins + static_cast<int64_t>(p) * c.max_win + 16 * u,
+              word_codes(w), n < 16 ? n : 16);
 }
 
 unsigned blocks_for(long long n) {
@@ -1396,9 +1528,11 @@ int soap3dp_pack_problems(const void* reads, int kind, long long B, int L,
                           const int32_t* pac, long long n_pac,
                           uint8_t* oriented, uint8_t* wins, void* stream) {
   const Reads s{reads, rc_len, B, kind, L, Ws};
-  const int nw = (max_win + 15) / 16;
-  const Pack c{cread, strand, win_start, P, max_win, nw, nw + (L + 15) / 16};
-  pack_kernel<<<blocks_for(P * c.units), THREADS, 0,
+  const uint32_t nw = (max_win + 15) / 16, nr = (L + 15) / 16;
+  const unsigned rblocks = blocks_for(P * nr);
+  const Pack c{cread, strand, win_start, static_cast<uint32_t>(P), max_win,
+               nw, nr, rblocks};
+  pack_kernel<<<rblocks + blocks_for(P * nw), THREADS, 0,
                 static_cast<cudaStream_t>(stream)>>>(s, c, pac, n_pac,
                                                      oriented, wins);
   return static_cast<int>(cudaGetLastError());

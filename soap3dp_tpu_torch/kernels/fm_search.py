@@ -143,6 +143,13 @@ def oriented_rows(reads: torch.Tensor, L: int,
     return ReadRows(reads, kind, B, L, W, rc_len)
 
 
+def _code_rows(name: str, src: ReadRows) -> None:
+    """GP and PK read (B, L) uint8 code rows only (no caller passes
+    packed words)."""
+    if src.kind != SRC_CODES:
+        raise ValueError(f"{name} reads code rows, not packed words")
+
+
 def _check(name: str, dev: torch.device, **tensors) -> None:
     """Every tensor on ``dev`` (a CUDA device) and contiguous."""
     if dev.type != "cuda":
@@ -453,6 +460,7 @@ def prescan(idx, src: ReadRows, rows: torch.Tensor, ws: torch.Tensor,
     (M, 3) int64 (dp_rescue._prescan_impl)."""
     M = rows.shape[0]
     dev = rows.device
+    _code_rows("prescan", src)
     _check("prescan", dev, reads=src.data, rc_len=src.rc_len, rows=rows,
            ws=ws, rlens=rlens, wlens=wlens)
     _tables("prescan", idx, dev)
@@ -477,15 +485,29 @@ def prescan(idx, src: ReadRows, rows: torch.Tensor, ws: torch.Tensor,
     return out
 
 
+def pack_units(P: int, L: int, max_win: int) -> int:
+    """PK's 16-byte units a problem, ceil(max_win / 16) + ceil(L / 16).
+    Raises unless 0 <= max_win < 2^30 and P times the units is below
+    2^31: the kernel's unit index is 32-bit."""
+    if not 0 <= max_win < (1 << 30):
+        raise ValueError(f"pack problems: max_win {max_win} out of range")
+    units = (max_win + 15) // 16 + (L + 15) // 16
+    if P * units >= 1 << 31:
+        raise ValueError(f"pack problems: {P} problems of {units} 16-byte "
+                         "units pass 2^31")
+    return units
+
+
 def pack_problems(idx, src: ReadRows, cread: torch.Tensor,
                   strand_rev: torch.Tensor, win_start: torch.Tensor,
                   max_win: int) -> tuple[torch.Tensor, torch.Tensor]:
     """PK: problem p's oriented row (row ``cread[p]``, or its reverse
     complement where ``strand_rev[p]``), (P, L) uint8, and the 2-bit
     genome codes at [win_start[p], win_start[p] + max_win), (P, max_win)
-    uint8 (dp_rescue._pack_problems)."""
+    uint8 (dp_rescue._pack_problems); pack_units checks the range."""
     P = cread.shape[0]
     dev = cread.device
+    _code_rows("pack problems", src)
     _check("pack problems", dev, reads=src.data, rc_len=src.rc_len,
            cread=cread, strand_rev=strand_rev, win_start=win_start,
            pac=idx.pac)
@@ -496,8 +518,7 @@ def pack_problems(idx, src: ReadRows, cread: torch.Tensor,
             or idx.pac.shape[0] < 1:
         raise ValueError("pack problems: the index's pac must be int32 "
                          "(n,), n >= 1")
-    if not 0 <= max_win < (1 << 30):
-        raise ValueError(f"pack problems: max_win {max_win} out of range")
+    pack_units(P, src.L, max_win)
     oriented = torch.empty((P, src.L), dtype=torch.uint8, device=dev)
     wins = torch.empty((P, max_win), dtype=torch.uint8, device=dev)
     if P == 0 or src.L + max_win == 0:

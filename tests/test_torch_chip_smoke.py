@@ -42,9 +42,16 @@ def test_golden_and_e2e_phases_on_cpu(tmp_path):
     assert fmindex.dedupe.__name__ == "dedupe"      # the wrappers are gone
     cases = chip_smoke.path_cases(kept)
     fns = [fn for _, fn, _ in cases]
-    assert set(fns) == set(chip_smoke.PATH_KEPT)
+    assert set(fns) == set(chip_smoke.FS_KEPT)
     assert fns == sorted(fns, key=chip_smoke.PATH_KEPT.index)
-    assert len(set(kept)) == len(cases) > 3
+    assert len([k for k in kept if k[0] in chip_smoke.FS_KEPT]) \
+        == len(cases) > 3
+    # GP's and PK's calls, one a launch shape, each equal to its plain
+    # version (rescue_cases)
+    rescue = chip_smoke.rescue_cases(kept, "path4")
+    assert {kernel for _, kernel, _, _ in rescue} == {"GP", "PK"}
+    assert len(rescue) == len([k for k in kept
+                               if k[0] in chip_smoke.RESCUE_KEPT])
     seeds = [a for _, fn, a in cases if fn == "seed_expand_decode"]
     assert [a[-1] for a in seeds] == sorted((a[-1] for a in seeds),
                                             reverse=True)
@@ -89,13 +96,17 @@ def test_multi_device_phases_on_cpu(tmp_path):
 def test_mate_pair_phases_on_cpu(tmp_path):
     """The full-window mate rescue (-v 2000 -u 6000, -/+ library,
     SOAP3DP_HALF_NARROW_PAD=0) at a small size: the card-vs-CPU phase
-    and the end-to-end phase, on the index the default phase caches."""
+    and the end-to-end phase, on the index the default phase caches,
+    keeping GP's and PK's calls alone (keep=RESCUE_KEPT)."""
     cpu = torch.device("cpu")
     info = chip_smoke.phase_mate_pair_devices(cpu, str(tmp_path / "s"), 40)
     assert set(info) == {"cpu"}
+    kept = {}
     res, _ = chip_smoke.phase_e2e(cpu, 300_000, 120, "cpu",
                                   str(tmp_path / "w"), str(tmp_path),
-                                  profile=False, mate_pair=True)
+                                  profile=False, mate_pair=True, kept=kept,
+                                  keep=chip_smoke.RESCUE_KEPT)
+    assert {k[0] for k in kept} == set(chip_smoke.RESCUE_KEPT)
     assert res["reads"] == 240 and res["recall"] >= 0.95
     assert res["summary"]["paired_dp"] > 0
     assert (tmp_path / "mp_e2e_stderr.log").exists()
@@ -443,6 +454,69 @@ def test_path_calls_and_kernel_rows(fs_index):
     assert all(keys <= set(r) and r["route"] == "cuda" for r in out)
     # the path's FS kernels: every one but FS2's sa_decode of ready rows
     assert set(chip_smoke.FS_PATH) == set(chip_smoke.FS_ROWS) - {"FS2"}
+
+
+def test_rescue_calls_kept_and_kernel_rows(fs_index):
+    """_Recorder keeps the first call of each launch shape of GP's and
+    PK's entries (dp_rescue._prescan_impl, _pack_problems) and lets every
+    call through; rescue_cases gives each as a case whose arguments
+    reproduce the call; rescue_path_rows adds their measured times and
+    bounds to the JSON line's GP and PK rows."""
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    codes, didx = fs_index
+    rng = np.random.default_rng(16)
+    gp = [chip_smoke.prescan_path_case(rng, codes, M, 300)
+          for M in (40, 40, 24)]
+    pk = [chip_smoke.pack_path_case(rng, len(codes), didx.pac.shape[0], P,
+                                    8, 256) for P in (32, 32, 16)]
+    kept, want = {}, {}
+    with chip_smoke._Recorder(record=False, kept=kept):
+        for c in gp:
+            want.setdefault(("GP", len(c["rlens"])), dp_rescue._prescan_impl(
+                *chip_smoke.prescan_args(c, didx, "cpu")))
+        for c in pk:
+            want.setdefault(("PK", len(c["cread"])), dp_rescue._pack_problems(
+                *chip_smoke.pack_args(c, didx, "cpu")))
+    assert dp_rescue._prescan_impl.__name__ == "_prescan_impl"
+    assert dp_rescue._pack_problems.__name__ == "_pack_problems"
+    assert sorted(kept) == [("_pack_problems", 16, 120, 256),
+                            ("_pack_problems", 32, 120, 256),
+                            ("_prescan_impl", 24, 384, 120),
+                            ("_prescan_impl", 40, 384, 120)]
+    cases = chip_smoke.rescue_cases(kept, "path4")
+    assert [name for name, *_ in cases] == [
+        "path4_GP_40x384x120", "path4_GP_24x384x120",
+        "path4_PK_32x120x256", "path4_PK_16x120x256"]
+    rows = []
+    for name, kernel, c, idx in cases:
+        assert idx is didx
+        if kernel == "GP":
+            got = dp_rescue._prescan_plain(
+                *chip_smoke.prescan_args(c, idx, "cpu"))
+            assert torch.equal(got, want["GP", len(c["rlens"])])
+            w = chip_smoke.prescan_work(c)
+        else:
+            got = dp_rescue._pack_problems_plain(
+                *chip_smoke.pack_args(c, idx, "cpu"))
+            for a, b in zip(got, want["PK", len(c["cread"])]):
+                assert torch.equal(a, b)
+            w = chip_smoke.pack_work(c)
+        assert w["bytes"] > 0
+        rows.append({"case": name, "kernel": kernel, "ms": 0.01,
+                     "timer": "torch.profiler", "bound_ms": 0.001,
+                     "max_abs_err": 0, "shape": name.split("_")[-1]})
+    kernels = [{"name": "gapless_prescan", "max_abs_err": 0},
+               {"name": "problem_pack", "max_abs_err": 0},
+               {"name": "fm_hash_dedupe", "max_abs_err": 0}]
+    chip_smoke.rescue_path_rows(kernels, rows)
+    assert [len(r.get("path_calls", ())) for r in kernels] == [2, 2, 0]
+    assert "8532x384x120" in chip_smoke.RESCUE_BEFORE_MS["GP"]
+    assert "16384x120x256" in chip_smoke.RESCUE_BEFORE_MS["PK"]
+    # the JSON line carries measured numbers only: the spans before the
+    # redesign go to the phase line
+    assert set(kernels[0]["path_calls"][0]) == {"case", "shape", "ms",
+                                                "timer", "bound_ms"}
 
 
 def test_expansion_and_block_edge_cases(fs_index):

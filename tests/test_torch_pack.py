@@ -8,8 +8,13 @@ phase 2 hold it to the plain version). The cases are the pack's edges
 length (the uniform branch) and lengths of 0-120 (the ragged one, bytes
 past a length not zero), windows that end at the text's last base, run
 past it or start past pac's last word, window starts on a word (a shift
-of 0), max_win of 1, 16, 17 and 4,224, reads holding code 4, and pad
-problems. Tolerance: none, the outputs are codes.
+of 0), max_win of 1, 16, 17 and 4,224, reads holding code 4, pad
+problems, and the edges of the aligned loads PK reads its rows with
+(chip_smoke.ROW_EDGES: rows of 100, 101, 127, 128 and 250 bases,
+reverse complements of 1, 7-9, 15-17, L - 1, L and L + 5 bases, the
+batch's last row ending off a 16-byte boundary, code 4 at the first and
+last bytes of 4- and 16-byte groups). Tolerance: none, the outputs are
+codes.
 """
 
 import jax.numpy as jnp
@@ -95,6 +100,18 @@ def test_pack_problems_equal(genome, name):
         assert W == int(name[4:])
     if name == "code_4":
         assert (c["reads"] == 4).any() and (want[0] == 255).any()
+    if name in chip_smoke.ROW_EDGES:
+        B, L = c["reads"].shape
+        assert B % 2 and ((B * L) % 16 or L == 128)  # the last row's end
+        assert set(chip_smoke.rc_edge_lengths(L)) <= set(c["lens"])
+        for s in (False, True):
+            assert set(c["cread"][c["strand"] == s]) == set(range(B))
+        if name.startswith("width_"):
+            assert L == int(name[6:])
+        if name == "code_4_groups":
+            edges = list(chip_smoke.ROW_GROUP_EDGES)
+            assert (c["reads"][:, edges] == 4).all()
+            assert (want[0][c["strand"]][:, edges] == 255).any()
     if name == "pad_problems":
         assert not c["cread"][-32:].any() and not c["strand"][-32:].any()
         assert not ws[-32:].any()
@@ -105,6 +122,32 @@ def test_pack_kernel_refuses_cpu_tensors(genome):
     src = fs.oriented_rows(a[1], a[1].shape[1], a[2])
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fs.pack_problems(a[0], src, a[3], a[4], a[5], a[7])
+
+
+def test_pack_kernel_refuses_packed_rows(genome):
+    """PK reads code rows only: packed words are refused before any
+    launch, on any device."""
+    a = chip_smoke.pack_args(_case(genome, "ragged"), genome[2], "cpu")
+    B, L = a[1].shape
+    src = fs.oriented_rows(torch.zeros((B, (L + 15) // 16), dtype=torch.int32),
+                           L, a[2])
+    with pytest.raises(ValueError, match="code rows, not packed"):
+        fs.pack_problems(a[0], src, a[3], a[4], a[5], a[7])
+
+
+def test_pack_units_range():
+    """PK's unit index is 32-bit: P times the units a problem below 2^31,
+    checked by the wrapper alone, which raises."""
+    assert fs.pack_units(16384, 120, 4224) == 264 + 8
+    assert fs.pack_units(3, 120, 0) == 8 and fs.pack_units(3, 0, 17) == 2
+    units = fs.pack_units(1, 120, (1 << 30) - 1)
+    assert fs.pack_units((1 << 31) // units - 1, 120, (1 << 30) - 1)
+    with pytest.raises(ValueError, match="pass 2"):
+        fs.pack_units(-(-(1 << 31) // units), 120, (1 << 30) - 1)
+    with pytest.raises(ValueError, match="max_win"):
+        fs.pack_units(1, 120, 1 << 30)
+    with pytest.raises(ValueError, match="max_win"):
+        fs.pack_units(1, 120, -1)
 
 
 def test_pack_problems_routes_cpu_to_plain(genome, monkeypatch):

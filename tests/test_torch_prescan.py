@@ -11,8 +11,12 @@ counted one, no valid offset (wlens < rlens), every offset valid
 (wlens - rlens = O - 1 and more), a poly-A read on a poly-A window (the
 leftmost of tied offsets), windows that end at the genome's last base or
 run past it, one read behind two candidates of different lengths, one
-candidate, and more candidates than the plain version's chunk.
-Tolerance: exact.
+candidate, more candidates than the plain version's chunk, and the
+edges of the aligned loads GP reads its rows with (chip_smoke.ROW_EDGES:
+rows of 100, 101, 127, 128 and 250 bases, reverse complements of 1, 7-9,
+15-17, L - 1, L and L + 5 bases, the batch's last row ending off a
+16-byte boundary, code 4 at the first and last bytes of 4- and 16-byte
+groups). Tolerance: exact.
 """
 
 import jax.numpy as jnp
@@ -89,6 +93,18 @@ def test_prescan_impl_equal(genome, name):
         assert len(set(c["rlens"][c["read_idx"] == 0])) > 1
     elif name == "above_chunk":
         assert len(c["ws"]) > tr._PRESCAN_CHUNK
+    elif name in chip_smoke.ROW_EDGES:
+        B, L = c["reads"].shape
+        assert B % 2 and ((B * L) % 16 or L == 128)  # the last row's end
+        assert set(chip_smoke.rc_edge_lengths(L)) <= set(c["lens_rows"])
+        for s in (0, 1):
+            assert set(c["read_idx"][c["strand"] == s]) == set(range(B))
+        assert (mm < 1 << 20).all()
+        if name == "code_4_groups":  # code 4 at base 0: never a 0
+            assert (c["reads"][:, list(chip_smoke.ROW_GROUP_EDGES)]
+                    == 4).all() and mm.min() > 0
+        else:  # the rows cut from the genome, found
+            assert (mm == 0).sum() > B * 3 // 4
 
 
 @pytest.mark.parametrize("name", ["mixed_lengths", "shared_read", "one",
@@ -114,6 +130,19 @@ def test_prescan_kernel_refuses_cpu_tensors(genome):
         chip_smoke.prescan_edge_case("one", codes), td, "cpu")
     src = fs.oriented_rows(a[1], a[1].shape[1], a[2].to(torch.int64))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fs.prescan(td, src, a[3], a[5], a[6].long(), a[7].long(), a[8])
+
+
+def test_prescan_kernel_refuses_packed_rows(genome):
+    """GP reads code rows only: packed words are refused before any
+    launch, on any device."""
+    codes, _, td = genome
+    a = chip_smoke.prescan_args(
+        chip_smoke.prescan_edge_case("one", codes), td, "cpu")
+    B, L = a[1].shape
+    src = fs.oriented_rows(torch.zeros((B, (L + 15) // 16), dtype=torch.int32),
+                           L, a[2].to(torch.int64))
+    with pytest.raises(ValueError, match="code rows, not packed"):
         fs.prescan(td, src, a[3], a[5], a[6].long(), a[7].long(), a[8])
 
 
