@@ -110,13 +110,30 @@ Phases, each printing one line, any failure exits non-zero:
    card i % cards), merged records and global summary equal to phase
    4's; (c) with two cards or more, `--devices 0` and a search and both
    DP routes on the last card while card 0 is current; on one card it
-   prints "not run: 1 card".
+   prints "not run: 1 card";
+8. accuracy, through the port's copy of the repo's accuracy harness
+   (soap3dp_tpu_torch/tools/evaluate_accuracy.py run_eval: the whole
+   pair path, seed search to MAPQ, on simulated mutated pairs): (a) the
+   three gates of tests/test_accuracy.py at its genomes, seeds and
+   sizes (easy and stressed on a 1 Mbp uniform genome, the repeat gate
+   on tools/repeat_genome.py's 4 Mbp genome at lut_k 11), each on cuda
+   and on the CPU route, the result dicts equal key for key and the
+   gate held; (b) repeat text at a real size: the repeat genome at
+   250 Mbp (seed 5, 24 chromosomes with N runs), its index built here
+   (sa_rate 2, lut_k 13) and cached, 50,000 pairs (1% substitutions,
+   0.1% indels, insert 300, k = 3, inserts kept off N runs) held to the
+   repeat gate, with the MAPQ buckets, the PairSummary, wall and reads/s,
+   the stage timers (SOAP3DP_TIMERS=1), the launches and launch shapes
+   (K1, FS1, FS3, FS4, GP and PK must launch; no plain search
+   primitive, prescan or pack on the card); (c) 1,000 pairs on the same
+   index on cuda and on the CPU route, the dicts equal.
 
-Then one JSON line with the kernels (K1, K2, TB, FS1, FS2, FS2x, FS3,
-FS4, FS2s, GP, PK, each with its device time, its bound on this card,
-the share of the bound it reaches and the operations peak the bound
-used: int16x2, twice the int32 peak, where the 16-bit forward runs),
-and the last line
+Then a `wall:` line (each part's seconds), one JSON line with the
+kernels (K1, K2, TB, FS1, FS2, FS2x, FS3, FS4, FS2s, GP, PK, each with
+its device time, its bound on this card, the share of the bound it
+reaches and the operations peak the bound used: int16x2, twice the
+int32 peak, where the 16-bit forward runs; its launches on the main
+path and on phase 8's repeat text), and the last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
 index builder, readers and writers); imports neither JAX nor the JAX
 package.
@@ -4114,6 +4131,226 @@ def phase_all_cards(dev, reads: dict, work: str) -> dict:
             "records_equal": same, "last_card_equal": last_ok}
 
 
+# ------------------------------------------------------------------
+# Phase 8: the accuracy gate, through the port's copy of the repo's
+# tools/evaluate_accuracy.py (soap3dp_tpu_torch/tools/)
+
+# (name, genome, pairs, substitution rate, indel rate): the gates of
+# tests/test_accuracy.py, at its seeds (run_eval's 7, genomes below)
+ACCURACY_GATES = (("easy", "random", 1500, 0.01, 0.001),
+                  ("stressed", "random", 1500, 0.03, 0.01),
+                  ("repeat", "repeat", 800, 0.01, 0.001))
+ACCURACY_RANDOM_BP = 1_000_000      # numpy seed 3, sa_rate 2
+ACCURACY_REPEAT_BP = 4_000_000      # repeat_genome seed 5, lut_k 11
+ACCURACY_REPEAT_LUT_K = 11
+# repeat text at a real size: human chr1's, the scale of phases 4-6
+REPEAT_TEXT_BP = 250_000_000
+REPEAT_TEXT_PAIRS = 50_000          # the pair count of ACCURACY_hg3100.json
+REPEAT_TEXT_LUT_K = 13
+REPEAT_CROSS_PAIRS = 1_000          # cuda against cpu on the same index
+REPEAT_TEXT_KERNELS = ("K1", "FS1", "FS3", "FS4", "GP", "PK")
+REPEAT_TEXT_STAGES = ("A.host_realign", "BC.half_rescue", "BC.prescan",
+                      "dp.pack", "dp.align")
+
+
+def gate_failures(name: str, res: dict) -> list[str]:
+    """The conditions of the reference's gate ``name``
+    (tests/test_accuracy.py, thresholds as there) that run_eval's result
+    dict ``res`` fails; empty if it holds."""
+    hi = res["mapq_buckets"]["mapq30-255"]
+    checks = {
+        "easy": (("recall >= 0.999", res["recall"] >= 0.999),
+                 ("wrong <= 0.0005", res["wrong"] <= 0.0005)),
+        "stressed": (("recall >= 0.995", res["recall"] >= 0.995),
+                     ("MAPQ>=30 wrong <= max(1, right // 2000)",
+                      hi["wrong"] <= max(1, hi["right"] // 2000))),
+        "repeat": (("unaligned <= 0.01", res["unaligned"] <= 0.01),
+                   ("recall >= 0.77", res["recall"] >= 0.77),
+                   ("mapq30_wrong_rate <= 0.01",
+                    res["mapq30_wrong_rate"] <= 0.01),
+                   ("still_flagged > 0", res["still_flagged"] > 0)),
+    }[name]
+    return [cond for cond, ok in checks if not ok]
+
+
+def _accuracy_line(res: dict) -> str:
+    hi = res["mapq_buckets"]["mapq30-255"]
+    return (f"recall {res['recall']:.6f}, wrong {res['wrong']:.6f}, "
+            f"unaligned {res['unaligned']:.6f}, MAPQ>=30 right {hi['right']} "
+            f"wrong {hi['wrong']} (rate {res['mapq30_wrong_rate']:.6f}), "
+            f"still_flagged {res['still_flagged']}")
+
+
+def _no_log(msg: str) -> None:
+    pass
+
+
+def phase_accuracy_gates(dev, gates=ACCURACY_GATES,
+                         random_bp: int = ACCURACY_RANDOM_BP,
+                         repeat_bp: int = ACCURACY_REPEAT_BP) -> dict:
+    """8a: each of ``gates`` through the port's run_eval on ``dev`` and on
+    the CPU route, over the uniform genome of tests/test_accuracy.py
+    (numpy seed 3) or its repeat genome (repeat_genome seed 5, lut_k
+    11), each indexed once at sa_rate 2: the two result dicts must be
+    equal, key for key, and hold the gate. Returns {gate: {"result",
+    "wall_s", "cpu_wall_s", "launches"}}."""
+    from soap3dp_tpu_torch import workloads
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import build_index
+    from soap3dp_tpu_torch.tools import evaluate_accuracy, repeat_genome
+
+    out, built = {}, {}
+    for name, kind, pairs, sub, indel in gates:
+        if kind not in built:
+            if kind == "repeat":
+                genome = repeat_genome.generate(repeat_bp, seed=5,
+                                                log=_no_log)
+                excluded = evaluate_accuracy.excluded_runs(genome)
+                lut_k = ACCURACY_REPEAT_LUT_K
+            else:
+                genome = workloads.random_genome(np.random.default_rng(3),
+                                                 random_bp, name="chr1")
+                excluded, lut_k = None, None
+            index = build_index(genome, sa_rate=2, lut_k=lut_k)
+            built[kind] = (genome.codes, index, excluded,
+                           device_index(index, dev),
+                           device_index(index, "cpu"))
+        codes, index, excluded, didx, cpu_idx = built[kind]
+        res, wall, _, launches = _counted(lambda: evaluate_accuracy.run_eval(
+            codes, index, didx, pairs, sub, indel, excluded=excluded), dev)
+        t0 = time.perf_counter()
+        cpu = evaluate_accuracy.run_eval(codes, index, cpu_idx, pairs, sub,
+                                         indel, excluded=excluded)
+        cpu_wall = time.perf_counter() - t0
+        phase(f"accuracy gate {name}",
+              f"{pairs} pairs on {dev}: {_accuracy_line(res)}; {wall:.2f}s "
+              f"(cpu route {cpu_wall:.2f}s, dict equal: {res == cpu}); "
+              f"launches {launches}")
+        if res != cpu:
+            diff = sorted(k for k in res if res[k] != cpu.get(k))
+            fail(f"accuracy gate {name}: {dev} and cpu differ in {diff}")
+        bad = gate_failures(name, res)
+        if bad:
+            fail(f"accuracy gate {name} fails {bad}: {res}")
+        out[name] = {"result": res, "wall_s": wall, "cpu_wall_s": cpu_wall,
+                     "launches": launches}
+    return out
+
+
+def _repeat_index(genome, genome_bp: int, work: str, lut_k: int):
+    """(index, how, s): the repeat genome's index at sa_rate 2 and
+    ``lut_k``, built and saved once in ``work`` (then loaded)."""
+    from soap3dp_tpu_torch.index.builder import build_index, load_index, save_index
+
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, f"repeat_{genome_bp}_k{lut_k}.t3i")
+    t0 = time.perf_counter()
+    if os.path.exists(os.path.join(path, "meta.json")):
+        return load_index(path), "cached", time.perf_counter() - t0
+    index = build_index(genome, sa_rate=2, lut_k=lut_k)
+    save_index(index, path)
+    return index, "built", time.perf_counter() - t0
+
+
+def phase_repeat_text(dev, card: str, work: str, out_dir: str,
+                      genome_bp: int = REPEAT_TEXT_BP,
+                      n_pairs: int = REPEAT_TEXT_PAIRS,
+                      cross_pairs: int = REPEAT_CROSS_PAIRS,
+                      lut_k: int = REPEAT_TEXT_LUT_K) -> dict:
+    """8b and 8c: run_eval on ``dev`` over ``n_pairs`` pairs of the repeat
+    genome at ``genome_bp`` (seed 5; 1% substitutions, 0.1% indels,
+    insert 300, k = 3, inserts kept off N runs over 10 bp), held to the
+    reference's repeat-genome gate, with the stage timers on, the
+    launches and their shapes (no plain search primitive, prescan or
+    pack on the card: _counted; its stderr to ``out_dir``'s
+    repeat_text_stderr.log); then ``cross_pairs`` pairs on ``dev`` and on
+    the CPU route over the same index, the dicts equal."""
+    import re
+
+    import torch
+
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.tools import evaluate_accuracy, repeat_genome
+    from soap3dp_tpu_torch.utils import timers
+
+    t0 = time.perf_counter()
+    genome = repeat_genome.generate(genome_bp, seed=5, log=_no_log)
+    gen_s = time.perf_counter() - t0
+    excluded = evaluate_accuracy.excluded_runs(genome)
+    codes = genome.codes
+    index, how, build_s = _repeat_index(genome, genome_bp, work, lut_k)
+    del genome
+    t0 = time.perf_counter()
+    didx = device_index(index, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    upload_s = time.perf_counter() - t0
+    phase("repeat text setup",
+          f"{genome_bp} bp repeat genome generated in {gen_s:.2f}s "
+          f"({len(excluded[0])} N runs over 10 bp), index {how} in "
+          f"{build_s:.2f}s (sa_rate=2, lut_k={index.lut_k}), uploaded to "
+          f"{dev} in {upload_s:.2f}s")
+
+    def evaluate():
+        res = evaluate_accuracy.run_eval(codes, index, didx, n_pairs, 0.01,
+                                         0.001, excluded=excluded)
+        timers.report()
+        return res
+
+    saved, timers.ENABLED = timers.ENABLED, True
+    try:
+        res, wall, log, launches = _counted(evaluate, dev)
+    finally:
+        timers.ENABLED = saved
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\[timers\] (\S+)\s+([0-9.]+)s", log)}
+    shapes = _launch_shapes()
+    with open(os.path.join(out_dir, "repeat_text_stderr.log"), "w") as fh:
+        fh.write(log)
+    reads = 2 * n_pairs
+    phase("repeat text", f"{n_pairs} pairs on {dev}: {_accuracy_line(res)}; "
+                         f"{reads} reads in {wall:.2f}s = "
+                         f"{reads / wall:.0f} reads/s (the harness's wall: "
+                         f"simulation and scoring included); card: {card}")
+    phase("repeat text MAPQ buckets", json.dumps(res["mapq_buckets"]))
+    phase("repeat text summary", res["summary"])
+    phase("repeat text stage timers",
+          ", ".join(f"{k} {stages.get(k)} s" for k in REPEAT_TEXT_STAGES)
+          + " (SOAP3DP_TIMERS=1 in the run)")
+    phase("repeat text launches", json.dumps(launches))
+    phase("repeat text launch shapes", json.dumps(shapes))
+    bad = gate_failures("repeat", res)
+    if bad:
+        fail(f"repeat text at {genome_bp} bp fails {bad}: {res}")
+    if dev.type == "cuda":
+        missing = [k for k in REPEAT_TEXT_KERNELS if launches.get(k, 0) <= 0]
+        if missing:
+            fail(f"the repeat-text run never launched {missing}")
+
+    got, dev_wall, _, _ = _counted(lambda: evaluate_accuracy.run_eval(
+        codes, index, didx, cross_pairs, 0.01, 0.001, excluded=excluded), dev)
+    t0 = time.perf_counter()
+    cpu = evaluate_accuracy.run_eval(
+        codes, index, device_index(index, "cpu"), cross_pairs, 0.01, 0.001,
+        excluded=excluded)
+    cpu_wall = time.perf_counter() - t0
+    phase("repeat text cuda = cpu",
+          f"{cross_pairs} pairs on {dev} ({dev_wall:.2f}s) and on the cpu "
+          f"route ({cpu_wall:.2f}s, index upload included): dict equal: "
+          f"{got == cpu}; {_accuracy_line(got)}")
+    if got != cpu:
+        diff = sorted(k for k in got if got[k] != cpu.get(k))
+        fail(f"repeat text: {dev} and cpu differ in {diff}")
+    return {"genome_bp": genome_bp, "pairs": n_pairs, "lut_k": index.lut_k,
+            "generate_s": gen_s, "index": how, "index_build_s": build_s,
+            "index_upload_s": upload_s, "result": res, "wall_s": wall,
+            "reads_per_s": reads / wall, "stage_s": stages,
+            "launches": launches, "launch_shapes": shapes,
+            "cross_check": {"result": got, "equal": True,
+                            "wall_s": dev_wall, "cpu_wall_s": cpu_wall},
+            "card": card}
+
+
 def _build_all() -> None:
     """Build every kernel library, one nvcc per source, started together;
     print each build's registers and spills."""
@@ -4219,6 +4456,10 @@ def main(argv=None) -> int:
              "hosts": phase_hosts(dev, reads, work, OUT_DIR),
              "all_cards": phase_all_cards(dev, reads, work)}
     lap("several devices")
+    accuracy = {"card": card, "gates": phase_accuracy_gates(dev),
+                "repeat_text": phase_repeat_text(dev, card, work, OUT_DIR)}
+    torch.cuda.empty_cache()
+    lap("accuracy")
     phase("wall", ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
           + f"; all {sum(walls.values()):.1f} s")
     # launches on each kernel's main path: K1 on the default pair run,
@@ -4239,6 +4480,10 @@ def main(argv=None) -> int:
     pk["launches"] = e2e["launches"]["PK"]
     pk["launches_mate_pair"] = mate["launches"]["PK"]
     pk["launches_single"] = single["launches"]["PK"]
+    # launches on phase 8's repeat text, beside the main path's
+    for row, label in zip(kernels, _kernels(), strict=True):
+        row["launches_repeat_text"] = \
+            accuracy["repeat_text"]["launches"][label]
     for row in kernels:
         row["share"] = row["bound_ms"] / row["ms"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -4246,7 +4491,7 @@ def main(argv=None) -> int:
                    "repeat_search": repeat, "e2e": e2e,
                    "mate_pair_small": small, "mate_pair": mate,
                    "single": single, "multi_device": multi,
-                   "wall_s": walls}, fh, indent=1)
+                   "accuracy": accuracy, "wall_s": walls}, fh, indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k != "cases"} for r in kernels]}),
         flush=True)

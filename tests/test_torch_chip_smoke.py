@@ -113,6 +113,88 @@ def test_mate_pair_phases_on_cpu(tmp_path):
     assert "SOAP3DP_HALF_NARROW_PAD" not in os.environ
 
 
+def test_accuracy_phase_on_cpu(tmp_path, capsys):
+    """Phase 8 at a small size on the CPU: the easy gate on a 200 kbp
+    uniform genome (cuda's place taken by cpu, so the dicts must be
+    equal), then repeat text at the CPU gate's size (4 Mbp, lut_k 11,
+    800 pairs: the repeat gate holds there) with a 50-pair cross-check;
+    a second call loads the cached index, and its 50 pairs fail the
+    repeat gate (recall 0.72), which exits non-zero."""
+    cpu = torch.device("cpu")
+    gates = chip_smoke.phase_accuracy_gates(
+        cpu, gates=(("easy", "random", 100, 0.01, 0.001),),
+        random_bp=200_000)
+    assert set(gates) == {"easy"}
+    assert gates["easy"]["result"]["n_ends"] == 200
+    assert gates["easy"]["launches"] == dict.fromkeys(chip_smoke._kernels(),
+                                                      0)  # no card
+    w = str(tmp_path / "w")
+    rep = chip_smoke.phase_repeat_text(cpu, "cpu", w, str(tmp_path),
+                                       genome_bp=4_000_000, n_pairs=800,
+                                       cross_pairs=50, lut_k=11)
+    assert rep["index"] == "built" and rep["lut_k"] == 11
+    res = rep["result"]
+    assert res["n_ends"] == 1600 and res["still_flagged"] > 0
+    assert not chip_smoke.gate_failures("repeat", res)
+    assert set(chip_smoke.REPEAT_TEXT_STAGES) <= set(rep["stage_s"])
+    assert rep["cross_check"]["equal"]
+    assert rep["cross_check"]["result"]["n_ends"] == 100
+    assert (tmp_path / "repeat_text_stderr.log").exists()
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as exc:
+        chip_smoke.phase_repeat_text(cpu, "cpu", w, str(tmp_path),
+                                     genome_bp=4_000_000, n_pairs=50,
+                                     cross_pairs=50, lut_k=11)
+    assert exc.value.code == 1
+    out = capsys.readouterr().out
+    assert "index cached" in out
+    assert "FAIL: repeat text at 4000000 bp fails ['recall >= 0.77']" in out
+
+
+def _passing(name):
+    """A result dict that holds gate ``name``."""
+    return {"recall": 1.0, "wrong": 0.0, "unaligned": 0.0,
+            "mapq30_wrong_rate": 0.0, "still_flagged": 3 if name == "repeat"
+            else 0, "mapq_buckets": {"mapq30-255": {"right": 2000,
+                                                    "wrong": 0}}}
+
+
+# each condition of each gate: the dict's edit that breaks it, and the
+# condition gate_failures names (the thresholds of tests/test_accuracy.py)
+GATE_BREAKS = {
+    "easy": ((dict(recall=0.9989), "recall >= 0.999"),
+             (dict(wrong=0.0006), "wrong <= 0.0005")),
+    "stressed": ((dict(recall=0.9949), "recall >= 0.995"),
+                 (dict(mapq_buckets={"mapq30-255": {"right": 2000,
+                                                    "wrong": 2}}),
+                  "MAPQ>=30 wrong <= max(1, right // 2000)")),
+    "repeat": ((dict(unaligned=0.0101), "unaligned <= 0.01"),
+               (dict(recall=0.7699), "recall >= 0.77"),
+               (dict(mapq30_wrong_rate=0.0101), "mapq30_wrong_rate <= 0.01"),
+               (dict(still_flagged=0), "still_flagged > 0")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GATE_BREAKS))
+def test_accuracy_gate_check(name):
+    ok = _passing(name)
+    assert chip_smoke.gate_failures(name, ok) == []
+    # at the thresholds themselves the gate holds
+    edge = dict(ok, recall={"easy": 0.999, "stressed": 0.995,
+                            "repeat": 0.77}[name], wrong=0.0005,
+                unaligned=0.01, mapq30_wrong_rate=0.01)
+    assert chip_smoke.gate_failures(name, edge) == []
+    for edit, cond in GATE_BREAKS[name]:
+        assert chip_smoke.gate_failures(name, dict(ok, **edit)) == [cond]
+    assert len(chip_smoke.gate_failures(
+        name, dict(ok, **{k: v for edit, _ in GATE_BREAKS[name]
+                          for k, v in edit.items()}))) \
+        == len(GATE_BREAKS[name])
+    # one MAPQ>=30 error is allowed below 4,000 right (max(1, ...))
+    one = dict(ok, mapq_buckets={"mapq30-255": {"right": 10, "wrong": 1}})
+    assert chip_smoke.gate_failures("stressed", one) == []
+
+
 def test_dp_problem_generators():
     from tests.test_dp import make_problems
 

@@ -1,8 +1,9 @@
 """The port imports neither JAX nor the JAX package.
 
 An AST scan of every module of soap3dp_tpu_torch (and of chip_smoke.py
-and the compare scripts) finds no import of ``jax``, ``jaxlib`` or any
-``soap3dp_tpu`` module;
+and the compare scripts) finds no import of ``jax``, ``jaxlib``, any
+``soap3dp_tpu`` module or the repo's ``tests`` and ``tools`` (which
+drive the JAX package);
 a subprocess builds an index with ``soap3dp-torch build``, runs the
 port's CLI (pair on one device and on a two-replica mesh, so through
 soap3dp_tpu_torch.distributed; single) and API end to end on the CPU,
@@ -49,8 +50,23 @@ def test_module_imports_no_jax(path):
     for mod, name in _imports(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "soap3dp_tpu"), (path, mod, name)
-        if root == "tests" or mod == "__graft_entry__":
+        # the repo's top-level tools drive the JAX package
+        if root in ("tests", "tools") or mod == "__graft_entry__":
             raise AssertionError((path, mod))
+
+
+@pytest.mark.parametrize("line", [
+    "from tools import repeat_genome",
+    "import tools.evaluate_accuracy",
+    "from tools.measure_phased_divergence import run_ab",
+    "from tests.conftest import make_genome",
+])
+def test_scan_refuses_the_repo_scripts(tmp_path, line):
+    """The scan fails on an import of the repo's tools or tests."""
+    path = tmp_path / "m.py"
+    path.write_text(line + "\n")
+    with pytest.raises(AssertionError):
+        test_module_imports_no_jax(str(path))
 
 
 def test_cli_run_leaves_jax_unimported(tmp_path):
