@@ -117,16 +117,20 @@ Phases, each printing one line, any failure exits non-zero:
    three gates of tests/test_accuracy.py at its genomes, seeds and
    sizes (easy and stressed on a 1 Mbp uniform genome, the repeat gate
    on tools/repeat_genome.py's 4 Mbp genome at lut_k 11), each on cuda
-   and on the CPU route, the result dicts equal key for key and the
-   gate held; (b) repeat text at a real size: the repeat genome at
-   250 Mbp (seed 5, 24 chromosomes with N runs), its index built here
-   (sa_rate 2, lut_k 13) and cached, 50,000 pairs (1% substitutions,
-   0.1% indels, insert 300, k = 3, inserts kept off N runs) held to the
-   repeat gate, with the MAPQ buckets, the PairSummary, wall and reads/s,
-   the stage timers (SOAP3DP_TIMERS=1), the launches and launch shapes
-   (K1, FS1, FS3, FS4, GP and PK must launch; no plain search
-   primitive, prescan or pack on the card); (c) 1,000 pairs on the same
-   index on cuda and on the CPU route, the dicts equal.
+   and on the CPU route, the result dicts equal key for key, every
+   record equal (CIGAR, mate fields and tags included) and the gate
+   held; (b) repeat text at a real size: the repeat genome at 250 Mbp
+   (seed 5, 24 chromosomes with N runs), its index built here (sa_rate
+   2, lut_k 13) and cached, 50,000 pairs (1% substitutions, 0.1%
+   indels, insert 300, k = 3, inserts kept off N runs) held to the
+   repeat gate, with the MAPQ buckets, the PairSummary, wall and
+   reads/s, the stage timers (SOAP3DP_TIMERS=1), the launches and
+   launch shapes (K1, FS1, FS3, FS4, GP and PK must launch; no plain
+   search primitive, prescan or pack on the card); the first call of
+   each launch shape of every kernel, kept in the run, is then held to
+   its plain version, every element, and no launch shape may go
+   unheld; (c) 1,000 pairs on the same index on cuda and on the CPU
+   route, the dicts and the records equal.
 
 Then a `wall:` line (each part's seconds), one JSON line with the
 kernels (K1, K2, TB, FS1, FS2, FS2x, FS3, FS4, FS2s, GP, PK, each with
@@ -553,6 +557,48 @@ def k1_cases(rng) -> list[tuple[str, tuple]]:
     ]
 
 
+def run_k1_case(name: str, args: list, peak_ops: float, sc=None) -> dict:
+    """One K1 case on the card: dp_align on ``args`` (its nine inputs,
+    on the card) against dp_align_plain on the same tensors, every
+    element, under scores ``sc`` (default DPScores); its launches and
+    their shapes (an overflow's re-launch among them), the kernel's
+    time, the plain version's and the bound."""
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    sc = sc or bd.DPScores()
+    n0, shapes0 = bd.DP_KERNEL.launches, dict(bd.DP_KERNEL.shapes)
+    got, first_ms = _host_ms(lambda: bd.dp_align(*args, sc=sc))
+    n_launch = bd.DP_KERNEL.launches - n0
+    shapes = ["x".join(map(str, k)) for k, c in bd.DP_KERNEL.shapes.items()
+              if c > shapes0.get(k, 0)]
+    _, ms = _host_ms(lambda: bd.dp_align(*args, sc=sc), 3)
+    want, plain_ms = _host_ms(lambda: bd.dp_align_plain(*args, sc))
+    ok, err = _dp_equal(got, want)
+    npass = int((np.asarray(want[6]) > 0).sum())
+    prob = [a.cpu().numpy() for a in args]
+    P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
+    kms, kcall, ktimer = _k1_ms(bd, args, sc=sc)
+    mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
+    peak, pname = forward_peak(Lr, sc, peak_ops)
+    bms, by = k1_bound(prob, mr, peak)
+    phase("kernel banded_dp",
+          f"{name}: P={P} Lr={Lr} Lw={Lw} equal={ok} max_abs_err={err} "
+          f"passing_lanes={npass} launches={n_launch} "
+          f"first_ms={first_ms:.3f} dp_align_ms={ms:.3f} "
+          f"kernel_ms={kms:.4f} ({ktimer}) call_ms={kcall:.4f} "
+          f"GCUPS={dp_cells(prob) / (kms * 1e6):.1f} "
+          f"bound_ms={bms:.4f} ({by}, {pname} peak) "
+          f"share={bms / kms:.1%} plain_ms={plain_ms:.3f}")
+    if not ok:
+        fail(f"banded_dp kernel disagrees with its plain version ({name})")
+    return {"case": name, "kernel": "K1", "shape": f"{P}x{Lr}x{Lw}",
+            "launch_shapes": shapes, "P": P, "Lr": Lr, "Lw": Lw,
+            "launches": n_launch,
+            "max_abs_err": err, "dp_align_ms": ms, "kernel_ms": kms,
+            "call_ms": kcall, "timer": ktimer, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "peak": pname}
+
+
 def phase_kernels(dev, peak_ops: float) -> list[dict]:
     import torch
 
@@ -563,39 +609,15 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
     for name, prob in k1_cases(np.random.default_rng(K1_SEED)):
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in prob]
-        n0 = bd.DP_KERNEL.launches
-        got, first_ms = _host_ms(lambda: bd.dp_align(*args))
-        n_launch = bd.DP_KERNEL.launches - n0
-        _, ms = _host_ms(lambda: bd.dp_align(*args), 3)
-        want, plain_ms = _host_ms(lambda: bd.dp_align_plain(*args))
-        ok, err = _dp_equal(got, want)
-        npass = int((np.asarray(want[6]) > 0).sum())
-        P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
-        kms, kcall, ktimer = _k1_ms(bd, args)
-        mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
-        peak, pname = forward_peak(Lr, bd.DPScores(), peak_ops)
-        bms, by = k1_bound(prob, mr, peak)
-        phase("kernel banded_dp",
-              f"{name}: P={P} Lr={Lr} Lw={Lw} equal={ok} max_abs_err={err} "
-              f"passing_lanes={npass} launches={n_launch} "
-              f"first_ms={first_ms:.3f} dp_align_ms={ms:.3f} "
-              f"kernel_ms={kms:.4f} ({ktimer}) call_ms={kcall:.4f} "
-              f"GCUPS={dp_cells(prob) / (kms * 1e6):.1f} "
-              f"bound_ms={bms:.4f} ({by}, {pname} peak) "
-              f"share={bms / kms:.1%} plain_ms={plain_ms:.3f}")
-        if not ok:
-            fail(f"banded_dp kernel disagrees with its plain version ({name})")
-        if name.startswith("overflow") and n_launch != 2:
+        row = run_k1_case(name, args, peak_ops)
+        if name.startswith("overflow") and row["launches"] != 2:
             fail("overflow case did not re-launch the DP kernel")
-        max_err = max(max_err, err)
-        rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
-                     "dp_align_ms": ms, "kernel_ms": kms, "call_ms": kcall,
-                     "timer": ktimer,
-                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                     "peak": pname})
+        max_err = max(max_err, row["max_abs_err"])
+        rows.append(row)
         if name == "Lr100_Lw768":
             # K2 on the same problems: what K1 adds is its traceback and
             # its direction scratch
+            P, Lr, Lw, kms = row["P"], row["Lr"], row["Lw"], row["kernel_ms"]
             params = bd._params(args[1], args[3], *args[4:8])
             dirs = torch.empty((Lr + Lw, P, Lr + 1), dtype=torch.uint8,
                                device=dev)
@@ -1575,16 +1597,18 @@ class _Recorder:
     ``prescan_plain_on_card`` and of the plain pack
     (dp_rescue._pack_problems_plain) in ``pack_plain_on_card`` (a CUDA
     tensor never takes a plain version). With ``kept`` (a dict), the
-    first call of each launch shape of a ``keep`` entry (of PATH_KEPT) is
-    kept there, {(entry, the arguments' shapes and ints, or for GP's and
-    PK's entries in dp_rescue their launch shape): its arguments, each
-    tensor copied}."""
+    first call of each launch shape of a ``keep`` entry (of PATH_KEPT,
+    or of HELD_ENTRIES) is kept there, {(entry, the arguments' shapes
+    and ints, or for the entries in dp_rescue (GP's, PK's, K1's) their
+    launch shape): its arguments, each tensor copied}; with
+    ``launched_only``, only a call that launched its kernel."""
 
     def __init__(self, record: bool = True, kept: dict | None = None,
-                 keep: tuple | None = None):
+                 keep: tuple | None = None, launched_only: bool = False):
         self.record = record
         self.kept = kept
         self.keep = PATH_KEPT if keep is None else keep
+        self.launched_only = launched_only
         self.calls: list[tuple[str, tuple]] = []
         self.plain_on_card = 0
         self.prescan_plain_on_card = 0
@@ -1610,7 +1634,8 @@ class _Recorder:
 
         dp_rescue._pack_problems_plain = pack_plain
         if self.kept is not None:
-            for fn_name in (n for n in RESCUE_KEPT if n in self.keep):
+            for fn_name in (n for n in RESCUE_KEPT + DP_KEPT
+                            if n in self.keep):
                 fn = getattr(dp_rescue, fn_name)
                 self._saved[fn_name] = fn
                 setattr(dp_rescue, fn_name, self._wrap(fn_name, fn))
@@ -1631,15 +1656,24 @@ class _Recorder:
                     self.plain_on_card += 1
             elif self.record:
                 self.calls.append((fn_name, args))
+            keep = self.kept is not None and fn_name in self.keep
+            if keep:
+                counter = _kernels()[KEPT_LABEL.get(fn_name)
+                                     or FS_FUNCTIONS[fn_name]]
+                n0 = counter.launches
             out = fn(*args, **kw)
-            if self.kept is not None and fn_name in self.keep:
+            if keep and (counter.launches > n0 or not self.launched_only):
                 key = (fn_name,) + (rescue_shape(fn_name, args)
-                                    if fn_name in RESCUE_KEPT else tuple(
+                                    if fn_name in KEPT_LABEL else tuple(
                     tuple(a.shape) if hasattr(a, "clone")
                     else a if isinstance(a, int) else None for a in args))
                 if key not in self.kept:
+                    if fn_name in DP_KEPT:  # (shards, scores): one shard
+                        args = (list(args[0][0]),) + args[1:]
                     self.kept[key] = tuple(
-                        a.clone() if hasattr(a, "clone") else a for a in args)
+                        [t.clone() for t in a] if isinstance(a, list)
+                        else a.clone() if hasattr(a, "clone") else a
+                        for a in args)
             return out
         return call
 
@@ -1650,7 +1684,7 @@ class _Recorder:
         dp_rescue._prescan_plain = self._prescan_plain
         dp_rescue._pack_problems_plain = self._pack_plain
         for fn_name, fn in self._saved.items():
-            setattr(dp_rescue if fn_name in RESCUE_KEPT else fmindex,
+            setattr(dp_rescue if fn_name in KEPT_LABEL else fmindex,
                     fn_name, fn)
         return False
 
@@ -2371,26 +2405,72 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
 FS_KEPT = ("expand_decode", "seed_expand_decode", "dedupe")
 RESCUE_KEPT = ("_prescan_impl", "_pack_problems")
 PATH_KEPT = FS_KEPT + RESCUE_KEPT
+# K1's entry as dp_rescue calls it; phase 8 keeps every kernel's entries
+DP_KEPT = ("dp_align_shards",)
+HELD_ENTRIES = tuple(FS_FUNCTIONS) + RESCUE_KEPT + DP_KEPT
+KEPT_LABEL = {"_prescan_impl": "GP", "_pack_problems": "PK",
+              "dp_align_shards": "K1"}
 
 
 def rescue_shape(fn_name: str, args: tuple) -> tuple:
     """The launch shape of a call of dp_rescue's ``fn_name`` (GP: M x O x
-    Lr; PK: P x Lr x max_win)."""
+    Lr; PK: P x Lr x max_win; K1, its first shard: P x Lr x Lw)."""
     if fn_name == "_prescan_impl":
         return (args[3].shape[0], args[8], args[1].shape[1])
+    if fn_name == "dp_align_shards":
+        reads, _, wins = args[0][0][:3]
+        return (reads.shape[0], reads.shape[1], wins.shape[1])
     return (args[3].shape[0], args[1].shape[1], args[7])
 
 
-def path_cases(kept: dict) -> list[tuple[str, str, tuple]]:
-    """FS cases, (name, entry, arguments), of the calls phase 4 kept
-    (_Recorder's ``kept``): each launch shape of FS2x, FS2s and FS4 on
-    the main path, its real inputs, the largest K of each entry first."""
-    order = sorted((key for key in kept if key[0] in FS_KEPT),
-                   key=lambda key: (PATH_KEPT.index(key[0]),
-                                    -max(x for x in key[1:]
-                                         if isinstance(x, int))))
-    return [(f"path4_{key[0]}_{i}", key[0], kept[key])
+def path_cases(kept: dict, tag: str = "path4"
+               ) -> list[tuple[str, str, tuple]]:
+    """FS cases, (name, entry, arguments), of the calls a run kept
+    (_Recorder's ``kept``; phase 4: FS2x's, FS2s's and FS4's): each
+    launch shape of each FS entry, its real inputs, in FS_FUNCTIONS'
+    order, the largest int argument of each entry first; named
+    ``tag``_entry_i."""
+    entries = list(FS_FUNCTIONS)
+    order = sorted((key for key in kept if key[0] in FS_FUNCTIONS),
+                   key=lambda key: (entries.index(key[0]), -max(
+                       (x for x in key[1:] if isinstance(x, int)),
+                       default=0)))
+    return [(f"{tag}_{key[0]}_{i}", key[0], kept[key])
             for i, key in enumerate(order)]
+
+
+def k1_kept_cases(kept: dict, tag: str) -> list[tuple[str, list, object]]:
+    """K1 cases, (name, dp_align's nine inputs, scores), of the calls a
+    run kept (_Recorder's ``kept``): each launch shape, its real inputs,
+    the largest first; named ``tag``_K1_PxLrxLw."""
+    keys = sorted((k for k in kept if k[0] in DP_KEPT),
+                  key=lambda k: -k[1] * k[2] * k[3])
+    return [(f"{tag}_K1_" + "x".join(map(str, key[1:])), *kept[key])
+            for key in keys]
+
+
+def run_held_cases(kept: dict, tag: str, dev, peak_ops: float
+                   ) -> list[dict]:
+    """Every call a run kept, held to its plain version on the card,
+    every element, timed, with its bound: the FS entries' (path_cases,
+    run_fs_case), GP's and PK's (run_rescue_cases), K1's (run_k1_case)."""
+    return ([run_fs_case(name, fn, args, peak_ops)
+             for name, fn, args in path_cases(kept, tag)]
+            + run_rescue_cases(kept, tag, dev, peak_ops)
+            + [run_k1_case(name, args, peak_ops, sc)
+               for name, args, sc in k1_kept_cases(kept, tag)])
+
+
+def unheld_shapes(launch_shapes: dict, rows: list[dict]) -> dict:
+    """{kernel: [launch shape]}: each shape of a run's launch-shape
+    histogram (_launch_shapes) that no held case (``rows``: run_fs_case,
+    run_prescan_case, run_pack_case or run_k1_case rows; K1's with the
+    shapes of its re-launches) ran at."""
+    held = {(r["kernel"], s) for r in rows
+            for s in [r["shape"]] + r.get("launch_shapes", [])}
+    out = {k: [s for s in shapes if (k, s) not in held]
+           for k, shapes in launch_shapes.items()}
+    return {k: v for k, v in out.items() if v}
 
 
 def rescue_cases(kept: dict, tag: str) -> list[tuple[str, str, dict, object]]:
@@ -3489,30 +3569,34 @@ def _mate_pair_ini(work: str) -> str:
     return path
 
 
+def _cached_index(genome, path: str, sa_rate: int, lut_k):
+    """(index, how, s): ``genome``'s index at ``sa_rate`` and ``lut_k``,
+    built and saved at ``path`` once ("built"), then loaded from there
+    ("cached")."""
+    from soap3dp_tpu_torch.index.builder import build_index, load_index, save_index
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    if os.path.exists(os.path.join(path, "meta.json")):
+        return load_index(path), "cached", time.perf_counter() - t0
+    index = build_index(genome, sa_rate=sa_rate, lut_k=lut_k)
+    save_index(index, path)
+    return index, "built", time.perf_counter() - t0
+
+
 def _genome_index(genome_bp: int, work: str, sa_rate: int = 2):
     """(rng after the genome, genome, index path, how, build s, lut_k):
     the seeded genome and its index at ``sa_rate``, built once and
     cached in ``work``."""
-    from soap3dp_tpu_torch.index.builder import build_index, load_index, save_index
     from soap3dp_tpu_torch import workloads
 
-    os.makedirs(work, exist_ok=True)
     rng = np.random.default_rng(20261016)
     genome = workloads.random_genome(rng, genome_bp, name="chr1")
     tag = "" if sa_rate == 2 else f"_sa{sa_rate}"
     idx_path = os.path.join(work, f"genome_{genome_bp}{tag}.t3i")
-    t0 = time.perf_counter()
-    if os.path.exists(os.path.join(idx_path, "meta.json")):
-        lut_k = load_index(idx_path).lut_k
-        how = "cached"
-    else:
-        index = build_index(genome, sa_rate=sa_rate,
-                            lut_k=13 if genome_bp >= 1_000_000 else None)
-        lut_k = index.lut_k
-        save_index(index, idx_path)
-        del index
-        how = "built"
-    return rng, genome, idx_path, how, time.perf_counter() - t0, lut_k
+    index, how, s = _cached_index(genome, idx_path, sa_rate,
+                                  13 if genome_bp >= 1_000_000 else None)
+    return rng, genome, idx_path, how, s, index.lut_k
 
 
 def _kernels() -> dict:
@@ -3581,7 +3665,8 @@ def _counted(fn, dev, env=None, kept=None,
     after). Fails if a plain search primitive ran on a card's index or
     the plain prescan or the plain pack on CUDA tensors in the run (a
     CUDA tensor must take the kernel). ``kept``, ``keep``: as
-    _Recorder's."""
+    _Recorder's; on a card only calls that launched their kernel are
+    kept."""
     import contextlib
 
     saved = {k: os.environ.get(k) for k in env or {}}
@@ -3592,7 +3677,8 @@ def _counted(fn, dev, env=None, kept=None,
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(tee), _Recorder(
-                record=False, kept=kept, keep=keep) as rec:
+                record=False, kept=kept, keep=keep,
+                launched_only=dev.type == "cuda") as rec:
             out = fn()
         if dev.type == "cuda":
             import torch
@@ -4185,15 +4271,55 @@ def _no_log(msg: str) -> None:
     pass
 
 
+def eval_on_both(name: str, dev, codes: np.ndarray, index, didx, cpu_idx,
+                 pairs: int, sub: float, indel: float, excluded=None
+                 ) -> tuple[dict, float, dict, float, dict]:
+    """The port's run_eval of ``pairs`` pairs on ``dev`` (``didx``,
+    _counted) and on the CPU route (``cpu_idx``), the same index, every
+    record kept (run_eval's ``all_records``): fails unless the two
+    result dicts are equal, key for key, and the records, sorted
+    (deferred rescue records interleave on a worker thread), equal
+    record for record, CIGAR, mate fields and tags included. Returns
+    (result, wall s, launches, the CPU route's wall s, {"records": their
+    count, "sha256": of the sorted records})."""
+    import hashlib
+
+    from soap3dp_tpu_torch.tools import evaluate_accuracy
+
+    got, want = [], []
+    res, wall, _, launches = _counted(lambda: evaluate_accuracy.run_eval(
+        codes, index, didx, pairs, sub, indel, excluded=excluded,
+        all_records=got), dev)
+    t0 = time.perf_counter()
+    cpu = evaluate_accuracy.run_eval(codes, index, cpu_idx, pairs, sub,
+                                     indel, excluded=excluded,
+                                     all_records=want)
+    cpu_wall = time.perf_counter() - t0
+    got.sort()
+    want.sort()
+    if res != cpu:
+        diff = sorted(k for k in res if res[k] != cpu.get(k))
+        fail(f"{name}: {dev} and cpu differ in {diff}")
+    if got != want:
+        bad = [(a, b) for a, b in zip(got, want) if a != b]
+        fail(f"{name}: {dev} and cpu write different records ({len(got)} "
+             f"and {len(want)}; {len(bad)} of the sorted pairs differ, the "
+             f"first {bad[:1]})")
+    recs = {"records": len(got), "sha256": hashlib.sha256(
+        repr(got).encode()).hexdigest()}
+    return res, wall, launches, cpu_wall, recs
+
+
 def phase_accuracy_gates(dev, gates=ACCURACY_GATES,
                          random_bp: int = ACCURACY_RANDOM_BP,
                          repeat_bp: int = ACCURACY_REPEAT_BP) -> dict:
     """8a: each of ``gates`` through the port's run_eval on ``dev`` and on
     the CPU route, over the uniform genome of tests/test_accuracy.py
     (numpy seed 3) or its repeat genome (repeat_genome seed 5, lut_k
-    11), each indexed once at sa_rate 2: the two result dicts must be
-    equal, key for key, and hold the gate. Returns {gate: {"result",
-    "wall_s", "cpu_wall_s", "launches"}}."""
+    11), each indexed once at sa_rate 2: the two result dicts and the
+    two runs' records must be equal (eval_on_both), and the dict hold
+    the gate. Returns {gate: {"result", "wall_s", "cpu_wall_s",
+    "launches", "records"}}."""
     from soap3dp_tpu_torch import workloads
     from soap3dp_tpu_torch.fm.fmindex import device_index
     from soap3dp_tpu_torch.index.builder import build_index
@@ -4216,43 +4342,24 @@ def phase_accuracy_gates(dev, gates=ACCURACY_GATES,
                            device_index(index, dev),
                            device_index(index, "cpu"))
         codes, index, excluded, didx, cpu_idx = built[kind]
-        res, wall, _, launches = _counted(lambda: evaluate_accuracy.run_eval(
-            codes, index, didx, pairs, sub, indel, excluded=excluded), dev)
-        t0 = time.perf_counter()
-        cpu = evaluate_accuracy.run_eval(codes, index, cpu_idx, pairs, sub,
-                                         indel, excluded=excluded)
-        cpu_wall = time.perf_counter() - t0
+        res, wall, launches, cpu_wall, recs = eval_on_both(
+            f"accuracy gate {name}", dev, codes, index, didx, cpu_idx, pairs,
+            sub, indel, excluded)
         phase(f"accuracy gate {name}",
               f"{pairs} pairs on {dev}: {_accuracy_line(res)}; {wall:.2f}s "
-              f"(cpu route {cpu_wall:.2f}s, dict equal: {res == cpu}); "
+              f"(cpu route {cpu_wall:.2f}s; dict equal, {recs['records']} "
+              f"records equal, sha256 {recs['sha256'][:16]}); "
               f"launches {launches}")
-        if res != cpu:
-            diff = sorted(k for k in res if res[k] != cpu.get(k))
-            fail(f"accuracy gate {name}: {dev} and cpu differ in {diff}")
         bad = gate_failures(name, res)
         if bad:
             fail(f"accuracy gate {name} fails {bad}: {res}")
         out[name] = {"result": res, "wall_s": wall, "cpu_wall_s": cpu_wall,
-                     "launches": launches}
+                     "launches": launches, "records": recs}
     return out
 
 
-def _repeat_index(genome, genome_bp: int, work: str, lut_k: int):
-    """(index, how, s): the repeat genome's index at sa_rate 2 and
-    ``lut_k``, built and saved once in ``work`` (then loaded)."""
-    from soap3dp_tpu_torch.index.builder import build_index, load_index, save_index
-
-    os.makedirs(work, exist_ok=True)
-    path = os.path.join(work, f"repeat_{genome_bp}_k{lut_k}.t3i")
-    t0 = time.perf_counter()
-    if os.path.exists(os.path.join(path, "meta.json")):
-        return load_index(path), "cached", time.perf_counter() - t0
-    index = build_index(genome, sa_rate=2, lut_k=lut_k)
-    save_index(index, path)
-    return index, "built", time.perf_counter() - t0
-
-
 def phase_repeat_text(dev, card: str, work: str, out_dir: str,
+                      peak_ops: float | None = None,
                       genome_bp: int = REPEAT_TEXT_BP,
                       n_pairs: int = REPEAT_TEXT_PAIRS,
                       cross_pairs: int = REPEAT_CROSS_PAIRS,
@@ -4263,8 +4370,13 @@ def phase_repeat_text(dev, card: str, work: str, out_dir: str,
     reference's repeat-genome gate, with the stage timers on, the
     launches and their shapes (no plain search primitive, prescan or
     pack on the card: _counted; its stderr to ``out_dir``'s
-    repeat_text_stderr.log); then ``cross_pairs`` pairs on ``dev`` and on
-    the CPU route over the same index, the dicts equal."""
+    repeat_text_stderr.log). The run keeps the first call of each launch
+    shape of every kernel's entry (HELD_ENTRIES; the copies inside its
+    wall); on a card each is then held to its plain version, every
+    element (run_held_cases, timed against ``peak_ops``), and every
+    launch shape of the run must have been held. Then ``cross_pairs``
+    pairs on ``dev`` and on the CPU route over the same index, the dicts
+    and the records equal (eval_on_both)."""
     import re
 
     import torch
@@ -4278,7 +4390,9 @@ def phase_repeat_text(dev, card: str, work: str, out_dir: str,
     gen_s = time.perf_counter() - t0
     excluded = evaluate_accuracy.excluded_runs(genome)
     codes = genome.codes
-    index, how, build_s = _repeat_index(genome, genome_bp, work, lut_k)
+    index, how, build_s = _cached_index(
+        genome, os.path.join(work, f"repeat_{genome_bp}_k{lut_k}.t3i"), 2,
+        lut_k)
     del genome
     t0 = time.perf_counter()
     didx = device_index(index, dev)
@@ -4297,9 +4411,11 @@ def phase_repeat_text(dev, card: str, work: str, out_dir: str,
         timers.report()
         return res
 
+    kept = {}
     saved, timers.ENABLED = timers.ENABLED, True
     try:
-        res, wall, log, launches = _counted(evaluate, dev)
+        res, wall, log, launches = _counted(evaluate, dev, kept=kept,
+                                            keep=HELD_ENTRIES)
     finally:
         timers.ENABLED = saved
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
@@ -4311,7 +4427,8 @@ def phase_repeat_text(dev, card: str, work: str, out_dir: str,
     phase("repeat text", f"{n_pairs} pairs on {dev}: {_accuracy_line(res)}; "
                          f"{reads} reads in {wall:.2f}s = "
                          f"{reads / wall:.0f} reads/s (the harness's wall: "
-                         f"simulation and scoring included); card: {card}")
+                         f"simulation, scoring and the kept calls' copies "
+                         f"included); card: {card}")
     phase("repeat text MAPQ buckets", json.dumps(res["mapq_buckets"]))
     phase("repeat text summary", res["summary"])
     phase("repeat text stage timers",
@@ -4322,31 +4439,45 @@ def phase_repeat_text(dev, card: str, work: str, out_dir: str,
     bad = gate_failures("repeat", res)
     if bad:
         fail(f"repeat text at {genome_bp} bp fails {bad}: {res}")
+    kept_names = [c[0] for c in path_cases(kept, "repeat")
+                  + rescue_cases(kept, "repeat")
+                  + k1_kept_cases(kept, "repeat")]
+    held = []
     if dev.type == "cuda":
         missing = [k for k in REPEAT_TEXT_KERNELS if launches.get(k, 0) <= 0]
         if missing:
             fail(f"the repeat-text run never launched {missing}")
+        held = run_held_cases(kept, "repeat", dev, peak_ops)
+        unheld = unheld_shapes(shapes, held)
+        phase("repeat text held calls",
+              f"{len(held)} of the run's calls, each launch shape's first, "
+              "held to their plain versions on the same inputs: every "
+              f"element equal; launch shapes not held: {unheld or 'none'}")
+        if unheld:
+            fail(f"the repeat-text run launched {unheld}, shapes whose "
+                 "calls were not held to their plain versions")
+    else:
+        phase("repeat text kept calls",
+              f"{len(kept_names)} (held to their plain versions on a card "
+              "only)")
+    del kept
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
-    got, dev_wall, _, _ = _counted(lambda: evaluate_accuracy.run_eval(
-        codes, index, didx, cross_pairs, 0.01, 0.001, excluded=excluded), dev)
-    t0 = time.perf_counter()
-    cpu = evaluate_accuracy.run_eval(
-        codes, index, device_index(index, "cpu"), cross_pairs, 0.01, 0.001,
-        excluded=excluded)
-    cpu_wall = time.perf_counter() - t0
+    got, dev_wall, _, cpu_wall, recs = eval_on_both(
+        "repeat text", dev, codes, index, didx, device_index(index, "cpu"),
+        cross_pairs, 0.01, 0.001, excluded)
     phase("repeat text cuda = cpu",
           f"{cross_pairs} pairs on {dev} ({dev_wall:.2f}s) and on the cpu "
-          f"route ({cpu_wall:.2f}s, index upload included): dict equal: "
-          f"{got == cpu}; {_accuracy_line(got)}")
-    if got != cpu:
-        diff = sorted(k for k in got if got[k] != cpu.get(k))
-        fail(f"repeat text: {dev} and cpu differ in {diff}")
+          f"route ({cpu_wall:.2f}s): dict equal, {recs['records']} records "
+          f"equal (sha256 {recs['sha256'][:16]}); {_accuracy_line(got)}")
     return {"genome_bp": genome_bp, "pairs": n_pairs, "lut_k": index.lut_k,
             "generate_s": gen_s, "index": how, "index_build_s": build_s,
             "index_upload_s": upload_s, "result": res, "wall_s": wall,
             "reads_per_s": reads / wall, "stage_s": stages,
             "launches": launches, "launch_shapes": shapes,
-            "cross_check": {"result": got, "equal": True,
+            "kept_calls": kept_names, "held": held,
+            "cross_check": {"result": got, "equal": True, "records": recs,
                             "wall_s": dev_wall, "cpu_wall_s": cpu_wall},
             "card": card}
 
@@ -4457,7 +4588,8 @@ def main(argv=None) -> int:
              "all_cards": phase_all_cards(dev, reads, work)}
     lap("several devices")
     accuracy = {"card": card, "gates": phase_accuracy_gates(dev),
-                "repeat_text": phase_repeat_text(dev, card, work, OUT_DIR)}
+                "repeat_text": phase_repeat_text(dev, card, work, OUT_DIR,
+                                                 peak_ops)}
     torch.cuda.empty_cache()
     lap("accuracy")
     phase("wall", ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
@@ -4480,10 +4612,14 @@ def main(argv=None) -> int:
     pk["launches"] = e2e["launches"]["PK"]
     pk["launches_mate_pair"] = mate["launches"]["PK"]
     pk["launches_single"] = single["launches"]["PK"]
-    # launches on phase 8's repeat text, beside the main path's
+    # launches on phase 8's repeat text, beside the main path's, and the
+    # differences of its calls held to their plain versions
+    repeat_text = accuracy["repeat_text"]
     for row, label in zip(kernels, _kernels(), strict=True):
-        row["launches_repeat_text"] = \
-            accuracy["repeat_text"]["launches"][label]
+        row["launches_repeat_text"] = repeat_text["launches"][label]
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            r["max_abs_err"] for r in repeat_text["held"]
+            if r["kernel"] == label])
     for row in kernels:
         row["share"] = row["bound_ms"] / row["ms"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

@@ -103,7 +103,12 @@ def simulate_pairs(codes: np.ndarray, n_pairs: int, read_len: int,
 def run_eval(codes: np.ndarray, index, didx, n_pairs: int,
              sub_rate: float, indel_rate: float, read_len: int = 100,
              insert: int = 300, tol: int = 8, seed: int = 7,
-             excluded=None) -> dict:
+             excluded=None, all_records: list | None = None) -> dict:
+    """The harness's result dict. With ``all_records`` (a list), every
+    record the pipeline writes is appended there as (qname, flag, chrom,
+    pos, mapq, CIGAR, mate chrom, mate pos, TLEN, tags), its tags built,
+    so two runs can be held to each other record for record; the dict
+    is the same either way."""
     rng = np.random.default_rng(seed)
     left, right, lens, tp1, tp2 = simulate_pairs(
         codes, n_pairs, read_len, insert, sub_rate, indel_rate, rng,
@@ -123,9 +128,15 @@ def run_eval(codes: np.ndarray, index, didx, n_pairs: int,
 
     class Collect:
         needs_seq = False
-        needs_tags = False
+        needs_tags = all_records is not None
 
         def write(self, rec):
+            if all_records is not None:
+                all_records.append((
+                    bytes(rec.qname), int(rec.flag), int(rec.chrom),
+                    int(rec.pos), int(rec.mapq), rec.cigar,
+                    int(rec.mate_chrom), int(rec.mate_pos), int(rec.tlen),
+                    tuple(rec.tags)))
             if rec.flag & 0x4:
                 return
             records.append((int(rec.qname[1:]), bool(rec.flag & 0x40),
@@ -134,6 +145,22 @@ def run_eval(codes: np.ndarray, index, didx, n_pairs: int,
 
         def write_block(self, names_, flags, chroms, poss, mapqs, cigars,
                         nms, **kw):
+            if all_records is not None:
+                # as write() would see each record (SamWriter.write_block's
+                # CIGAR and tags)
+                tags = kw.get("tags")
+                for j in range(len(names_)):
+                    all_records.append((
+                        bytes(names_[j]), int(flags[j]), int(chroms[j]),
+                        int(poss[j]), int(mapqs[j]),
+                        cigars[j] if cigars is not None
+                        else f"{int(kw['seq_lens'][j])}M",
+                        int(kw["mate_chroms"][j]), int(kw["mate_poss"][j]),
+                        int(kw["tlens"][j]),
+                        () if tags is None else (
+                            f"X0:i:{int(tags[0][j])}",
+                            f"X1:i:{int(tags[1][j])}",
+                            f"XM:i:{int(tags[2][j])}", "XO:i:0", "XG:i:0")))
             for j in range(len(names_)):
                 f = int(flags[j])
                 if f & 0x4:
@@ -205,11 +232,10 @@ def excluded_runs(genome) -> tuple[np.ndarray, np.ndarray]:
 
 
 def main(argv=None) -> int:
+    from soap3dp_tpu_torch import workloads
     from soap3dp_tpu_torch.cli.runner import resolve_device
     from soap3dp_tpu_torch.fm.fmindex import device_index
     from soap3dp_tpu_torch.index.builder import build_index
-    from soap3dp_tpu_torch.index.packing import PackedGenome
-    from soap3dp_tpu_torch.utils.dna import pack_codes
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n_pairs", nargs="?", type=int, default=20_000)
@@ -231,13 +257,8 @@ def main(argv=None) -> int:
         genome = repeat_genome.generate(n, seed=5)
         excluded = excluded_runs(genome)
     else:
-        rng = np.random.default_rng(3)
-        codes = rng.integers(0, 4, n).astype(np.uint8)
-        genome = PackedGenome(
-            codes=codes, pac=pack_codes(codes), length=n, names=["chr1"],
-            offsets=np.array([0, n], np.uint64),
-            amb_starts=np.zeros(0, np.uint64),
-            amb_lengths=np.zeros(0, np.uint64))
+        genome = workloads.random_genome(np.random.default_rng(3), n,
+                                         name="chr1")
     index = build_index(genome, sa_rate=2, lut_k=a.lut_k)
     didx = device_index(index, dev)
     res = run_eval(genome.codes, index, didx, a.n_pairs, a.sub_rate,

@@ -123,6 +123,25 @@ def test_repeat_genome_accuracy(repeat_setup, jax_dicts):
     assert res == jax_dicts["repeat"]
 
 
+def test_all_records_leave_the_dict_as_it_is(repeat_setup):
+    """``all_records`` collects every record the pipeline writes (each
+    read end's, unmapped ones included, tags built) and leaves the
+    result dict as it is without them."""
+    genome, _, (index, didx), excluded = repeat_setup
+    args = (genome.codes, index, didx, 120, 0.01, 0.001)
+    recs = []
+    res = evaluate_accuracy.run_eval(*args, excluded=excluded,
+                                     all_records=recs)
+    assert res == evaluate_accuracy.run_eval(*args, excluded=excluded)
+    assert {(q, bool(f & 0x40)) for q, f, *_ in recs} == {
+        (b"e%07d" % i, first) for i in range(120) for first in (True, False)}
+    mapped = [r for r in recs if not r[1] & 0x4]
+    assert len(mapped) >= 2 * 120 * (1 - res["unaligned"])
+    assert all(r[5] and any(t.startswith("XM:i:") for t in r[9])
+               for r in mapped)
+    assert any(t.startswith("XA:Z:") for r in mapped for t in r[9])
+
+
 @pytest.mark.parametrize("total_bp,seed", [(4_000_000, 5), (6_000_000, 11)])
 def test_generate_equals_reference(total_bp, seed):
     want = jax_repeat_genome.generate(total_bp, seed=seed, log=_quiet)

@@ -115,9 +115,11 @@ def test_mate_pair_phases_on_cpu(tmp_path):
 
 def test_accuracy_phase_on_cpu(tmp_path, capsys):
     """Phase 8 at a small size on the CPU: the easy gate on a 200 kbp
-    uniform genome (cuda's place taken by cpu, so the dicts must be
-    equal), then repeat text at the CPU gate's size (4 Mbp, lut_k 11,
-    800 pairs: the repeat gate holds there) with a 50-pair cross-check;
+    uniform genome (cuda's place taken by cpu, so the dicts and the
+    records must be equal), then repeat text at the CPU gate's size
+    (4 Mbp, lut_k 11, 800 pairs: the repeat gate holds there), keeping
+    the first call of each launch shape of every kernel's entry (held
+    to the plain versions on a card only), with a 50-pair cross-check;
     a second call loads the cached index, and its 50 pairs fail the
     repeat gate (recall 0.72), which exits non-zero."""
     cpu = torch.device("cpu")
@@ -126,6 +128,7 @@ def test_accuracy_phase_on_cpu(tmp_path, capsys):
         random_bp=200_000)
     assert set(gates) == {"easy"}
     assert gates["easy"]["result"]["n_ends"] == 200
+    assert gates["easy"]["records"]["records"] >= 200
     assert gates["easy"]["launches"] == dict.fromkeys(chip_smoke._kernels(),
                                                       0)  # no card
     w = str(tmp_path / "w")
@@ -139,6 +142,14 @@ def test_accuracy_phase_on_cpu(tmp_path, capsys):
     assert set(chip_smoke.REPEAT_TEXT_STAGES) <= set(rep["stage_s"])
     assert rep["cross_check"]["equal"]
     assert rep["cross_check"]["result"]["n_ends"] == 100
+    assert rep["cross_check"]["records"]["records"] >= 100
+    # every kernel entry of the path kept (GP, PK and K1 once each at the
+    # 4 Mbp gate's size), none held here: the card holds them
+    kinds = {name.split("_", 1)[1].rsplit("_", 1)[0]
+             for name in rep["kept_calls"]}
+    assert {"seed_intervals", "expand_decode", "count_mismatches_rows",
+            "dedupe", "GP", "PK", "K1"} <= kinds
+    assert rep["held"] == []
     assert (tmp_path / "repeat_text_stderr.log").exists()
     capsys.readouterr()
     with pytest.raises(SystemExit) as exc:
@@ -193,6 +204,47 @@ def test_accuracy_gate_check(name):
     # one MAPQ>=30 error is allowed below 4,000 right (max(1, ...))
     one = dict(ok, mapq_buckets={"mapq30-255": {"right": 10, "wrong": 1}})
     assert chip_smoke.gate_failures("stressed", one) == []
+
+
+def test_k1_calls_kept_and_unheld_shapes():
+    """_Recorder keeps K1's entry as dp_rescue calls it
+    (dp_align_shards): the first call of each launch shape, one shard's
+    nine inputs copied and the scores, restored on exit; k1_kept_cases
+    names each by its shape and its inputs give the call's result;
+    unheld_shapes lists the launched shapes no case ran at."""
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    rng = np.random.default_rng(5)
+    probs = [chip_smoke.main_path_problems(rng, P, 120, Lw, read_len=100)
+             for P, Lw in ((24, 256), (24, 256), (16, 640))]
+    kept, want = {}, []
+    with chip_smoke._Recorder(record=False, kept=kept,
+                              keep=chip_smoke.HELD_ENTRIES):
+        for prob in probs:
+            shard = [torch.from_numpy(np.ascontiguousarray(x))
+                     for x in prob]
+            want.append(dp_rescue.dp_align_shards([shard], bd.DPScores()))
+    assert dp_rescue.dp_align_shards is bd.dp_align_shards
+    assert sorted(kept) == [("dp_align_shards", 16, 120, 640),
+                            ("dp_align_shards", 24, 120, 256)]
+    cases = chip_smoke.k1_kept_cases(kept, "repeat")
+    assert [name for name, *_ in cases] == ["repeat_K1_16x120x640",
+                                            "repeat_K1_24x120x256"]
+    for (name, args, sc), w in zip(cases, (want[2], want[0])):
+        assert len(args) == 9 and sc == bd.DPScores()
+        ok, err = chip_smoke._dp_equal(bd.dp_align_plain(*args, sc), w)
+        assert ok and err == 0, name
+    # K1's held call re-launched its overflowing lanes at a shape of its
+    # own
+    rows = [{"kernel": "K1", "shape": "24x120x256",
+             "launch_shapes": ["24x120x256", "3x120x256"]},
+            {"kernel": "FS1", "shape": "240x100x13"}]
+    shapes = {"K1": {"24x120x256": 2, "3x120x256": 1, "16x120x640": 1},
+              "FS1": {"240x100x13": 4}, "GP": {"4521x640x100": 1}}
+    assert chip_smoke.unheld_shapes(shapes, rows) == {
+        "K1": ["16x120x640"], "GP": ["4521x640x100"]}
+    assert chip_smoke.unheld_shapes({"FS1": shapes["FS1"]}, rows) == {}
 
 
 def test_dp_problem_generators():
