@@ -130,14 +130,36 @@ Phases, each printing one line, any failure exits non-zero:
    each launch shape of every kernel, kept in the run, is then held to
    its plain version, every element, and no launch shape may go
    unheld; (c) 1,000 pairs on the same index on cuda and on the CPU
-   route, the dicts and the records equal.
+   route, the dicts and the records equal;
+9. the A/B tools behind three of the port's defaults, through the
+   port's copies of the repo's tools (soap3dp_tpu_torch/tools/), each
+   run keeping the first call of each launch shape of every kernel's
+   entry, held to its plain version after it (no launch shape may go
+   unheld), with its launches and launch shapes, then a small run on
+   cuda and on the CPU route over the same index, equal: (a) the storm
+   gate (host_realign_budget) against complete host re-alignment
+   (SOAP3DP_HOST_REALIGN_FULL=1), measure_storm_divergence.run on phase
+   8's 250 Mbp repeat genome and cached index, 1,000 pairs a pool
+   (uniform and repeat-enriched; the tool's 50,000 cut), each pool's
+   diff dict, both arms' walls, PairSummary and storm-gate skips (the
+   repeat pool's default arm must skip at least once); 100 pairs a pool
+   cuda = cpu; (b) the
+   phased search on and off, run_ab and divergence over phase 4's
+   index, 100,000 of the JAX tool's pairs (insert 400, 0.5%
+   substitutions, numpy seed 17); 1,000 pairs cuda = cpu, every record;
+   (c) the DP seeding's exact against halved seeds,
+   seed_sensitivity.measure over the JAX tool's 40 Mbp genome (numpy
+   seed 7), its index built here at sa_rate 1 and lut_k 14 (a 2 GiB
+   LUT) and cached, 20,000 reads at 4%: both arms' recall, candidates
+   and seeding ms; 2,000 reads cuda = cpu, every candidate.
 
 Then a `wall:` line (each part's seconds), one JSON line with the
 kernels (K1, K2, TB, FS1, FS2, FS2x, FS3, FS4, FS2s, GP, PK, each with
 its device time, its bound on this card, the share of the bound it
 reaches and the operations peak the bound used: int16x2, twice the
 int32 peak, where the 16-bit forward runs; its launches on the main
-path and on phase 8's repeat text), and the last line
+path, on phase 8's repeat text and, by A/B, on phase 9's), and the
+last line
 {"ok": true, "device": {...}}. Uses only soap3dp_tpu_torch (its own
 index builder, readers and writers); imports neither JAX nor the JAX
 package.
@@ -148,6 +170,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3754,7 +3777,6 @@ def _sam_recall(path: str, planted: list, rand: np.ndarray) -> float:
 
 
 def _summary(log: str, cls: str) -> dict:
-    import re
 
     m = re.search(rf"done: {cls}\(([^)]*)\)", log)
     if m is None:
@@ -3763,7 +3785,6 @@ def _summary(log: str, cls: str) -> dict:
 
 
 def _rates(reads: int, wall: float, log: str) -> dict:
-    import re
 
     up = re.search(r"uploaded to \S+ in ([0-9.]+)s", log)
     load = re.search(r"index loaded in ([0-9.]+)s", log)
@@ -3788,7 +3809,6 @@ def phase_e2e(dev, genome_bp: int, n_pairs: int, card: str, work: str,
     inside its timed wall. Returns (result, the run's
     inputs and outputs: FASTQ paths, end-1 planted positions and random
     mask, index, options, SAM path, summary)."""
-    import re
 
     from soap3dp_tpu_torch import workloads
     from soap3dp_tpu_torch.utils import timers
@@ -3919,7 +3939,6 @@ def phase_single_e2e(dev, reads: dict, card: str, work: str,
                      out_dir: str) -> dict:
     """The port's `single` CLI over phase 4's end-1 reads on the same
     index: a record per read, planted-locus recall, K1 launches."""
-    import re
 
     out = os.path.join(work, "se_out")
     wall, log, launches = _run_cli(
@@ -4073,7 +4092,6 @@ def phase_hosts(dev, reads: dict, work: str, out_dir: str,
     inputs, process i on card i % cards: the merged records and the
     global summary equal phase 4's. Each process is waited for with a
     deadline and killed past it, and reports its kernel launches."""
-    import re
     import socket
 
     import torch
@@ -4358,6 +4376,39 @@ def phase_accuracy_gates(dev, gates=ACCURACY_GATES,
     return out
 
 
+def hold_kept(name: str, tag: str, kept: dict, launches: dict,
+              shapes: dict, kernels: tuple, dev, peak_ops: float | None
+              ) -> tuple[list[str], list[dict]]:
+    """After a run that kept the first call of each launch shape of every
+    kernel's entry (_counted's ``kept``, ``keep=HELD_ENTRIES``) and
+    launched ``launches`` at ``shapes`` (_launch_shapes): on a card,
+    fails unless each of ``kernels`` launched, holds each kept call to
+    its plain version, every element (run_held_cases, timed against
+    ``peak_ops``; cases named ``tag``_...), and fails on a launch shape
+    no held call ran at. Returns (the kept calls' case names, the held
+    cases' rows; none off a card)."""
+    kept_names = [c[0] for c in path_cases(kept, tag)
+                  + rescue_cases(kept, tag) + k1_kept_cases(kept, tag)]
+    if dev.type != "cuda":
+        phase(f"{name} kept calls",
+              f"{len(kept_names)} (held to their plain versions on a card "
+              "only)")
+        return kept_names, []
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"the {name} run never launched {missing}")
+    held = run_held_cases(kept, tag, dev, peak_ops)
+    unheld = unheld_shapes(shapes, held)
+    phase(f"{name} held calls",
+          f"{len(held)} of the run's calls, each launch shape's first, "
+          "held to their plain versions on the same inputs: every "
+          f"element equal; launch shapes not held: {unheld or 'none'}")
+    if unheld:
+        fail(f"the {name} run launched {unheld}, shapes whose calls were "
+             "not held to their plain versions")
+    return kept_names, held
+
+
 def phase_repeat_text(dev, card: str, work: str, out_dir: str,
                       peak_ops: float | None = None,
                       genome_bp: int = REPEAT_TEXT_BP,
@@ -4377,7 +4428,6 @@ def phase_repeat_text(dev, card: str, work: str, out_dir: str,
     launch shape of the run must have been held. Then ``cross_pairs``
     pairs on ``dev`` and on the CPU route over the same index, the dicts
     and the records equal (eval_on_both)."""
-    import re
 
     import torch
 
@@ -4394,11 +4444,7 @@ def phase_repeat_text(dev, card: str, work: str, out_dir: str,
         genome, os.path.join(work, f"repeat_{genome_bp}_k{lut_k}.t3i"), 2,
         lut_k)
     del genome
-    t0 = time.perf_counter()
-    didx = device_index(index, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    upload_s = time.perf_counter() - t0
+    didx, upload_s = _upload(index, dev)
     phase("repeat text setup",
           f"{genome_bp} bp repeat genome generated in {gen_s:.2f}s "
           f"({len(excluded[0])} N runs over 10 bp), index {how} in "
@@ -4439,27 +4485,8 @@ def phase_repeat_text(dev, card: str, work: str, out_dir: str,
     bad = gate_failures("repeat", res)
     if bad:
         fail(f"repeat text at {genome_bp} bp fails {bad}: {res}")
-    kept_names = [c[0] for c in path_cases(kept, "repeat")
-                  + rescue_cases(kept, "repeat")
-                  + k1_kept_cases(kept, "repeat")]
-    held = []
-    if dev.type == "cuda":
-        missing = [k for k in REPEAT_TEXT_KERNELS if launches.get(k, 0) <= 0]
-        if missing:
-            fail(f"the repeat-text run never launched {missing}")
-        held = run_held_cases(kept, "repeat", dev, peak_ops)
-        unheld = unheld_shapes(shapes, held)
-        phase("repeat text held calls",
-              f"{len(held)} of the run's calls, each launch shape's first, "
-              "held to their plain versions on the same inputs: every "
-              f"element equal; launch shapes not held: {unheld or 'none'}")
-        if unheld:
-            fail(f"the repeat-text run launched {unheld}, shapes whose "
-                 "calls were not held to their plain versions")
-    else:
-        phase("repeat text kept calls",
-              f"{len(kept_names)} (held to their plain versions on a card "
-              "only)")
+    kept_names, held = hold_kept("repeat text", "repeat", kept, launches,
+                                 shapes, REPEAT_TEXT_KERNELS, dev, peak_ops)
     del kept
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -4479,6 +4506,337 @@ def phase_repeat_text(dev, card: str, work: str, out_dir: str,
             "kept_calls": kept_names, "held": held,
             "cross_check": {"result": got, "equal": True, "records": recs,
                             "wall_s": dev_wall, "cpu_wall_s": cpu_wall},
+            "card": card}
+
+
+# ------------------------------------------------------------------
+# Phase 9: the A/B tools behind three of the port's defaults, through
+# the port's copies of the repo's tools/measure_storm_divergence.py
+# (host_realign_budget), measure_phased_divergence.py (phased_search)
+# and seed_sensitivity.py (dp_seed_1mm) in soap3dp_tpu_torch/tools/
+
+# pairs a pool, cut from the tool's 50,000: the full arm enumerates
+# every flagged read on the host, and at 50,000 it did not end in 450 s
+STORM_PAIRS = 1_000
+STORM_CROSS_PAIRS = 100             # cuda against cpu, pairs a pool
+STORM_KERNELS = ("K1", "FS1", "FS3", "FS4", "GP", "PK")
+PHASED_PAIRS = 100_000              # the JAX tool's main
+PHASED_CROSS_PAIRS = 1_000
+# no FS2s: 0.5% substitutions leave no pair to the deep DP
+PHASED_KERNELS = ("K1", "FS1", "FS2x", "FS3", "FS4", "GP", "PK")
+SEED_GENOME_BP = 40_000_000         # bench.get_index's, as the JAX tool
+SEED_LUT_K = 14
+SEED_READS = 20_000
+SEED_CROSS_READS = 2_000
+SEED_SUB_RATE = 0.04
+SEED_KERNELS = ("FS1", "FS2s")
+AB_PHASES = ("storm", "phased", "seed")
+SKIPPED = re.compile(r"host re-align skipped: (\d+) flagged")
+REALIGNED = "re-aligned on host"
+
+
+def _upload(index, dev) -> tuple[object, float]:
+    """(``index`` on ``dev``, upload s)."""
+    import torch
+
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+
+    t0 = time.perf_counter()
+    didx = device_index(index, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return didx, time.perf_counter() - t0
+
+
+def _timeless(d: dict) -> dict:
+    """``d`` without its keys named time_*, at any depth."""
+    return {k: _timeless(v) if isinstance(v, dict) else v
+            for k, v in d.items() if not k.startswith("time_")}
+
+
+def storm_arms(log: str) -> dict:
+    """{"pool/arm": {"wall_s", "summary", "skips", "skipped_flagged",
+    "realigns"}} from the stderr of measure_storm_divergence.run: an
+    arm's lines come just before its "[storm-ab] pool/arm:" line; skips
+    counts its "host re-align skipped" lines (skipped_flagged, their
+    flagged reads), realigns its host re-aligns."""
+    out, lines = {}, []
+    for line in log.splitlines():
+        m = re.match(r"\[storm-ab\] (\w+/\w+): ([0-9.]+)s\s+(.*)", line)
+        if m:
+            skipped = [int(n) for x in lines for n in SKIPPED.findall(x)]
+            out[m.group(1)] = {
+                "wall_s": float(m.group(2)), "summary": m.group(3),
+                "skips": len(skipped), "skipped_flagged": skipped,
+                "realigns": sum(REALIGNED in x for x in lines)}
+        lines = [] if line.startswith("[storm-ab]") else lines + [line]
+    return out
+
+
+def storm_failures(res: dict, arms: dict) -> list[str]:
+    """What makes a storm A/B measure nothing, or leaves an arm out:
+    each pool's dict and both arms' lines present, and the repeat pool's
+    default arm skipping host re-align at least once."""
+    bad = [f"no {k}" for k in ("uniform", "repeat") if k not in res]
+    bad += [f"no {p}/{a} line" for p in ("uniform", "repeat")
+            for a in ("default", "full") if f"{p}/{a}" not in arms]
+    if not arms.get("repeat/default", {}).get("skips"):
+        bad.append("the repeat pool's default arm skipped no host re-align: "
+                   "the A/B measured nothing")
+    return bad
+
+
+def phase_storm_ab(dev, card: str, work: str, out_dir: str,
+                   peak_ops: float | None = None,
+                   genome_bp: int = REPEAT_TEXT_BP,
+                   n_per_pool: int = STORM_PAIRS,
+                   cross_pairs: int = STORM_CROSS_PAIRS,
+                   lut_k: int = REPEAT_TEXT_LUT_K) -> dict:
+    """9a: the storm gate's A/B (measure_storm_divergence.run: a uniform
+    and a repeat-enriched pool of ``n_per_pool`` pairs, seed 11, k = 3,
+    insert 300, each aligned with the storm gate and with
+    SOAP3DP_HOST_REALIGN_FULL=1) on phase 8's repeat genome and its
+    cached index, on ``dev``, through _counted with every kernel's
+    first call of each launch shape kept and held to its plain version
+    (hold_kept); each pool's diff dict, both arms' walls, PairSummary
+    and storm-gate skips; fails unless the repeat pool's default arm
+    skipped (storm_failures). Then ``cross_pairs`` a pool on ``dev`` and
+    on the CPU route over the same index: equal dicts, times aside."""
+    import torch
+
+    from soap3dp_tpu_torch.tools import measure_storm_divergence as storm
+    from soap3dp_tpu_torch.tools import repeat_genome
+    from soap3dp_tpu_torch.tools.evaluate_accuracy import excluded_runs
+
+    t0 = time.perf_counter()
+    genome = repeat_genome.generate(genome_bp, seed=5, log=_no_log)
+    gen_s = time.perf_counter() - t0
+    excluded, codes = excluded_runs(genome), genome.codes
+    index, how, build_s = _cached_index(
+        genome, os.path.join(work, f"repeat_{genome_bp}_k{lut_k}.t3i"), 2,
+        lut_k)
+    del genome
+    didx, upload_s = _upload(index, dev)
+    phase("storm A/B setup",
+          f"{genome_bp} bp repeat genome generated in {gen_s:.2f}s, index "
+          f"{how} in {build_s:.2f}s (sa_rate 2, lut_k {index.lut_k}), "
+          f"uploaded to {dev} in {upload_s:.2f}s")
+    kept = {}
+    res, wall, log, launches = _counted(
+        lambda: storm.run(index, codes, excluded, n_per_pool, didx=didx),
+        dev, kept=kept, keep=HELD_ENTRIES)
+    shapes = _launch_shapes()
+    with open(os.path.join(out_dir, "storm_ab_stderr.log"), "w") as fh:
+        fh.write(log)
+    arms = storm_arms(log)
+    for pool in ("uniform", "repeat"):
+        phase(f"storm A/B {pool}", json.dumps(res.get(pool)))
+    for arm, a in arms.items():
+        phase(f"storm A/B {arm}",
+              f"{a['wall_s']} s, {a['skips']} storm skips "
+              f"(flagged {a['skipped_flagged']}), {a['realigns']} host "
+              f"re-aligns; {a['summary']}")
+    phase("storm A/B", f"{n_per_pool} pairs a pool on {dev} in {wall:.2f}s "
+                       f"(pools drawn, 4 arms; card: {card})")
+    phase("storm A/B launches", json.dumps(launches))
+    phase("storm A/B launch shapes", json.dumps(shapes))
+    bad = storm_failures(res, arms)
+    if bad:
+        fail(f"storm A/B: {bad}")
+    kept_names, held = hold_kept("storm A/B", "storm", kept, launches,
+                                 shapes, STORM_KERNELS, dev, peak_ops)
+    del kept
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    got = storm.run(index, codes, excluded, cross_pairs, didx=didx)
+    dev_wall = time.perf_counter() - t0
+    cpu_idx, cpu_up = _upload(index, torch.device("cpu"))
+    t0 = time.perf_counter()
+    want = storm.run(index, codes, excluded, cross_pairs, didx=cpu_idx)
+    cpu_wall = time.perf_counter() - t0
+    if _timeless(got) != _timeless(want):
+        fail(f"storm A/B: {dev} and cpu differ: {got} {want}")
+    phase("storm A/B cuda = cpu",
+          f"{cross_pairs} pairs a pool on {dev} ({dev_wall:.2f}s) and on the "
+          f"cpu route ({cpu_wall:.2f}s, its index {cpu_up:.2f}s): dicts "
+          "equal, times aside")
+    return {"genome_bp": genome_bp, "n_per_pool": n_per_pool,
+            "lut_k": index.lut_k, "generate_s": gen_s, "index": how,
+            "index_build_s": build_s, "index_upload_s": upload_s,
+            "result": res, "arms": arms, "wall_s": wall,
+            "launches": launches, "launch_shapes": shapes,
+            "kept_calls": kept_names, "held": held,
+            "cross_check": {"result": got, "equal": True,
+                            "wall_s": dev_wall, "cpu_wall_s": cpu_wall},
+            "card": card}
+
+
+def phase_phased_ab(dev, card: str, work: str, out_dir: str,
+                    peak_ops: float | None = None,
+                    genome_bp: int = E2E_GENOME_BP,
+                    n_pairs: int = PHASED_PAIRS,
+                    cross_pairs: int = PHASED_CROSS_PAIRS) -> dict:
+    """9b: the phased search's A/B (measure_phased_divergence.run_ab and
+    divergence: the same pairs aligned with phased_search on and off,
+    records diffed field by field) on phase 4's cached index, over
+    ``n_pairs`` of the JAX tool's pairs (make_pairs: insert 400, 0.5%
+    substitutions, numpy seed 17), on ``dev``, through _counted with
+    every kernel's calls kept and held (hold_kept). Then the first
+    ``cross_pairs`` of those pairs on ``dev`` and on the CPU route:
+    record maps and divergence dicts equal."""
+    import torch
+
+    from soap3dp_tpu_torch.index.builder import load_index
+    from soap3dp_tpu_torch.pipeline.pair import _phase1_range
+    from soap3dp_tpu_torch.pipeline.options import AlignOptions
+    from soap3dp_tpu_torch.tools import measure_phased_divergence as ph
+
+    _, genome, idx_path, how, build_s, _ = _genome_index(genome_bp, work)
+    index = load_index(idx_path)
+    didx, upload_s = _upload(index, dev)
+    opts = dict(min_insert=ph.INSERT // 2, max_insert=ph.INSERT * 2,
+                soap3_mismatch_allow=3)
+    engaged = _phase1_range(didx, AlignOptions(**opts), 3) is not None
+    b1, b2 = ph.make_pairs(genome.codes, n_pairs, np.random.default_rng(17))
+    phase("phased A/B setup",
+          f"phase 4's index ({genome_bp} bp, sa_rate 2, lut_k "
+          f"{index.lut_k}) {how} in {build_s:.2f}s, uploaded to {dev} in "
+          f"{upload_s:.2f}s; phased search engages: {engaged}")
+    if not engaged:
+        fail("phased A/B: the phased search does not engage on this index")
+    kept = {}
+
+    def ab():
+        a, b = ph.run_ab(index, didx, b1, b2, opts)
+        return a, b, ph.divergence(a, b)
+
+    (a, b, res), wall, _, launches = _counted(ab, dev, kept=kept,
+                                              keep=HELD_ENTRIES)
+    shapes = _launch_shapes()
+    phase("phased A/B", f"{n_pairs} pairs on {dev}, phased on and off, in "
+                        f"{wall:.2f}s (SAM text included; card: {card}): "
+                        + json.dumps(res))
+    phase("phased A/B launches", json.dumps(launches))
+    phase("phased A/B launch shapes", json.dumps(shapes))
+    if res["records"] != 2 * n_pairs:
+        fail(f"phased A/B: {res['records']} records for {n_pairs} pairs")
+    del a, b
+    kept_names, held = hold_kept("phased A/B", "phased", kept, launches,
+                                 shapes, PHASED_KERNELS, dev, peak_ops)
+    del kept
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    c1, c2 = (type(x)(x.names[:cross_pairs], x.codes[:cross_pairs],
+                      x.lens[:cross_pairs], None) for x in (b1, b2))
+    t0 = time.perf_counter()
+    got = ph.run_ab(index, didx, c1, c2, opts)
+    dev_wall = time.perf_counter() - t0
+    cpu_idx, _ = _upload(index, torch.device("cpu"))
+    t0 = time.perf_counter()
+    want = ph.run_ab(index, cpu_idx, c1, c2, opts)
+    cpu_wall = time.perf_counter() - t0
+    if got != want:
+        fail(f"phased A/B: {dev} and cpu write different records")
+    cross = ph.divergence(*got)
+    phase("phased A/B cuda = cpu",
+          f"{cross_pairs} pairs on {dev} ({dev_wall:.2f}s) and on the cpu "
+          f"route ({cpu_wall:.2f}s): both arms' {cross['records']} records "
+          "equal, every field; " + json.dumps(cross))
+    return {"genome_bp": genome_bp, "pairs": n_pairs, "lut_k": index.lut_k,
+            "index": how, "index_upload_s": upload_s, "result": res,
+            "wall_s": wall, "launches": launches, "launch_shapes": shapes,
+            "kept_calls": kept_names, "held": held,
+            "cross_check": {"result": cross, "equal": True,
+                            "wall_s": dev_wall, "cpu_wall_s": cpu_wall},
+            "card": card}
+
+
+def phase_seed_sensitivity(dev, card: str, work: str, out_dir: str,
+                           peak_ops: float | None = None,
+                           genome_bp: int = SEED_GENOME_BP,
+                           n_reads: int = SEED_READS,
+                           cross_reads: int = SEED_CROSS_READS,
+                           lut_k: int = SEED_LUT_K) -> dict:
+    """9c: the DP seeding's sensitivity, exact seeds against halved ones
+    (seed_sensitivity.measure: ``n_reads`` reads at 4% substitutions,
+    those with more than 2 mismatches) over bench_genome's genome,
+    indexed here at sa_rate 1 and ``lut_k`` and cached, on ``dev``,
+    through _counted with the calls kept and held (hold_kept): both
+    arms' recall, candidates and seeding wall, and the JAX tool's
+    deltas and ratios. Then ``cross_reads`` on ``dev`` and on the CPU
+    route: candidates, recall and counts equal."""
+    import torch
+
+    from soap3dp_tpu_torch.tools import seed_sensitivity as sens
+
+    t0 = time.perf_counter()
+    genome = sens.bench_genome(genome_bp)
+    gen_s = time.perf_counter() - t0
+    index, how, build_s = _cached_index(
+        genome, os.path.join(work, f"synth_{genome_bp}_sa1_k{lut_k}.t3i"), 1,
+        lut_k)
+    didx, upload_s = _upload(index, dev)
+    phase("seed sensitivity setup",
+          f"{genome_bp} bp genome (numpy seed 7) in {gen_s:.2f}s, index "
+          f"{how} in {build_s:.2f}s (sa_rate 1, lut_k {index.lut_k}: "
+          f"{2 * 4 * 4 ** index.lut_k / 2 ** 30:.2f} GiB of LUT), uploaded "
+          f"to {dev} in {upload_s:.2f}s (apart from the seeding times)")
+    if index.lut_k != lut_k or index.sa_rate != 1:
+        fail(f"seed sensitivity: the index has lut_k {index.lut_k}, sa_rate "
+             f"{index.sa_rate}")
+    kept = {}
+    res, wall, _, launches = _counted(
+        lambda: sens.measure(didx, genome.codes, SEED_SUB_RATE, n_reads),
+        dev, kept=kept, keep=HELD_ENTRIES)
+    shapes = _launch_shapes()
+    ratios = sens.ratios(res)
+    for arm, r in res.items():
+        phase(f"seed sensitivity {arm}",
+              f"recall {r['recall']:.6f}, candidates {r['candidates']}, "
+              f"seeding {r['seconds'] * 1e3:.2f} ms")
+    phase("seed sensitivity",
+          f"{n_reads} reads on {dev} in {wall:.2f}s (card: {card}): recall "
+          f"delta {ratios['recall_delta']:+.6f}, candidate ratio "
+          f"{ratios['candidate_ratio']:.3f}x, time ratio "
+          f"{ratios['time_ratio']:.3f}x")
+    phase("seed sensitivity launches", json.dumps(launches))
+    phase("seed sensitivity launch shapes", json.dumps(shapes))
+    kept_names, held = hold_kept("seed sensitivity", "seed", kept, launches,
+                                 shapes, SEED_KERNELS, dev, peak_ops)
+    del kept
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    got = sens.measure(didx, genome.codes, SEED_SUB_RATE, cross_reads)
+    cpu_idx, _ = _upload(index, torch.device("cpu"))
+    want = sens.measure(cpu_idx, genome.codes, SEED_SUB_RATE, cross_reads)
+    for arm in got:
+        for k in ("recall", "candidates"):
+            if got[arm][k] != want[arm][k]:
+                fail(f"seed sensitivity {arm}: {k} {got[arm][k]} on {dev}, "
+                     f"{want[arm][k]} on cpu")
+        for k in ("read", "pos", "strand"):
+            if not np.array_equal(got[arm][k], want[arm][k]):
+                fail(f"seed sensitivity {arm}: the candidates' {k} differ "
+                     f"on {dev} and cpu")
+    phase("seed sensitivity cuda = cpu",
+          f"{cross_reads} reads on {dev} and on the cpu route: candidates, "
+          "recall and counts equal in both arms ("
+          + ", ".join(f"{a} {got[a]['candidates']}" for a in got) + ")")
+    summary = {a: {k: r[k] for k in ("recall", "candidates", "seconds")}
+               for a, r in res.items()}
+    return {"genome_bp": genome_bp, "reads": n_reads, "lut_k": index.lut_k,
+            "sa_rate": index.sa_rate, "index": how, "index_build_s": build_s,
+            "index_upload_s": upload_s, "result": summary, **ratios,
+            "wall_s": wall, "launches": launches, "launch_shapes": shapes,
+            "kept_calls": kept_names, "held": held,
+            "cross_check": {"equal": True, "reads": cross_reads,
+                            "result": {a: {k: got[a][k] for k in
+                                           ("recall", "candidates")}
+                                       for a in got}},
             "card": card}
 
 
@@ -4592,6 +4950,12 @@ def main(argv=None) -> int:
                                                  peak_ops)}
     torch.cuda.empty_cache()
     lap("accuracy")
+    ab = {"card": card}
+    for name, fn in zip(AB_PHASES, (phase_storm_ab, phase_phased_ab,
+                                    phase_seed_sensitivity)):
+        ab[name] = fn(dev, card, work, OUT_DIR, peak_ops)
+        torch.cuda.empty_cache()
+        lap(f"A/B {name}")
     phase("wall", ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
           + f"; all {sum(walls.values()):.1f} s")
     # launches on each kernel's main path: K1 on the default pair run,
@@ -4615,11 +4979,15 @@ def main(argv=None) -> int:
     # launches on phase 8's repeat text, beside the main path's, and the
     # differences of its calls held to their plain versions
     repeat_text = accuracy["repeat_text"]
+    # and phase 9's, by A/B
     for row, label in zip(kernels, _kernels(), strict=True):
         row["launches_repeat_text"] = repeat_text["launches"][label]
+        row["launches_ab"] = {name: ab[name]["launches"][label]
+                              for name in AB_PHASES}
         row["max_abs_err"] = max([row["max_abs_err"]] + [
-            r["max_abs_err"] for r in repeat_text["held"]
-            if r["kernel"] == label])
+            r["max_abs_err"] for held in [repeat_text["held"]] + [
+                ab[name]["held"] for name in AB_PHASES]
+            for r in held if r["kernel"] == label])
     for row in kernels:
         row["share"] = row["bound_ms"] / row["ms"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
@@ -4627,7 +4995,8 @@ def main(argv=None) -> int:
                    "repeat_search": repeat, "e2e": e2e,
                    "mate_pair_small": small, "mate_pair": mate,
                    "single": single, "multi_device": multi,
-                   "accuracy": accuracy, "wall_s": walls}, fh, indent=1)
+                   "accuracy": accuracy, "ab": ab, "wall_s": walls}, fh,
+                  indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k != "cases"} for r in kernels]}),
         flush=True)

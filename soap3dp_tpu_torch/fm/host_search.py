@@ -307,8 +307,16 @@ def realign_flagged(index: Index, h, codes: np.ndarray, lens: np.ndarray,
     keep[va] = ~np.isin(read_of[va], sel)
 
     still = flagged.copy()
+    # a read's placements do not depend on the batch: enumerate each
+    # distinct read once (a phase-2 batch repeats its first pair in every
+    # pad row) and give each copy its placements
+    first, inv = _distinct_reads(codes, lens, sel)
     lane_read, lane_strand, tps, nms, over = _realign_batched(
-        index, codes, lens, sel, k, max_interval, max_decode)
+        index, codes, lens, sel[first], k, max_interval, max_decode)
+    if len(first) < len(sel):
+        lane_read, take = _spread_lanes(lane_read, inv, len(first))
+        lane_strand, tps, nms, over = (lane_strand[take], tps[take],
+                                       nms[take], over[inv])
     still[sel] = over
     new_row = (sel[lane_read] + lane_strand.astype(np.int64) * B)
     print(f"[soap3dp] host re-align: {len(sel)} super-repetitive read(s) "
@@ -324,6 +332,40 @@ def realign_flagged(index: Index, h, codes: np.ndarray, lens: np.ndarray,
         nmis=np.concatenate([nm[keep], nms]).astype(np.int32),
         valid=np.ones(int(keep.sum()) + len(tps), bool),
         flagged=still)
+
+
+def _distinct_reads(codes: np.ndarray, lens: np.ndarray, sel: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """(first, inv): ``sel[first]`` are the distinct reads of ``sel``
+    (codes up to each read's length), in ``sel``'s order, and
+    ``sel[first][inv]`` is ``sel`` read for read."""
+    rl = np.asarray(lens)[sel].astype(np.int64)
+    rows = np.asarray(codes)[sel]
+    rows = np.where(np.arange(rows.shape[1]) < rl[:, None], rows, 0)
+    key = np.concatenate([rows.astype(np.uint8),
+                          rl.astype("<i8").view(np.uint8).reshape(-1, 8)],
+                         axis=1)
+    _, first, inv = np.unique(key, axis=0, return_index=True,
+                              return_inverse=True)
+    order = np.argsort(first)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    return first[order], rank[inv.reshape(-1)]
+
+
+def _spread_lanes(lane_read: np.ndarray, inv: np.ndarray, n: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """(lane_read, take) of the copies: the lanes of distinct read
+    ``inv[i]`` (``lane_read``, sorted, over ``n`` distinct reads) given
+    to read i, in read order; ``take`` indexes the distinct reads'
+    lanes."""
+    cnt = np.bincount(lane_read, minlength=n)
+    start = np.cumsum(cnt) - cnt
+    per = cnt[inv]
+    out = np.repeat(np.arange(len(inv), dtype=np.int64), per)
+    off = np.arange(int(per.sum()), dtype=np.int64) - np.repeat(
+        np.cumsum(per) - per, per)
+    return out, start[inv][out] + off
 
 
 def _realign_batched(index: Index, codes: np.ndarray, lens: np.ndarray,

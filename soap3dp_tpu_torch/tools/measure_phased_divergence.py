@@ -10,15 +10,30 @@ undercount and MAPQ can read high for phase-1-resolved pairs. run_ab
 aligns the same pairs with phased_search on and off and divergence
 counts the records that differ in each SAM field.
 
-The JAX package's command line (its main) reads that package's cached
-bench index and has no counterpart here; tests/test_torch_phased.py
-drives these functions on the CPU.
+Usage (on a CUDA card unless ``--device cpu``; phasing engages on
+indexes whose LUT leaves segments to search, so not on LUT-only ones):
+
+  python -m soap3dp_tpu_torch.tools.measure_phased_divergence \
+      [n_pairs=100000] [--device cuda] [--genome-bp 250000000] [--lut-k 13]
+
+aligns ``n_pairs`` pairs of make_pairs (the JAX package's bench.py
+pairs: insert 400, 0.5% substitutions, numpy seed 17) over
+seed_sensitivity.bench_genome's genome, indexed at sa_rate 2, and
+prints a JSON line with the divergence rates.
+tests/test_torch_phased.py drives these functions on the CPU against
+the JAX package's.
 """
 
 from __future__ import annotations
 
+import argparse
 import io
+import json
+import sys
 
+import numpy as np
+
+from soap3dp_tpu_torch.io.fastq import ReadBatch
 from soap3dp_tpu_torch.io.sam import SamWriter
 from soap3dp_tpu_torch.pipeline.options import AlignOptions
 from soap3dp_tpu_torch.pipeline.pair import (Phase2Queue, RescueQueue,
@@ -85,3 +100,79 @@ def divergence(a: dict, b: dict) -> dict:
         "any_field_rate": round(any_diff / n, 6),
         **{f + "_rate": round(diff[f] / n, 6) for f in fields},
     }
+
+
+READ_LEN = 100
+INSERT = 400
+
+
+def _sample_positions(rng, n_pos: int, hi: int, excluded) -> np.ndarray:
+    """Insert start positions in [0, hi), resampled off excluded (N-run)
+    spans: real reads never originate from assembly gaps."""
+    pos = rng.integers(0, hi, n_pos)
+    if excluded is None or not len(excluded[0]):
+        return pos
+    starts, ends = excluded
+    for _ in range(64):
+        # insert [pos, pos+INSERT) overlaps run i iff
+        # starts[i] < pos+INSERT and ends[i] > pos
+        i = np.searchsorted(ends, pos, side="right")
+        bad = (i < len(starts)) & (starts[np.minimum(i, len(starts) - 1)]
+                                   < pos + INSERT)
+        nbad = int(bad.sum())
+        if not nbad:
+            break
+        pos[bad] = rng.integers(0, hi, nbad)
+    return pos
+
+
+def make_pairs(codes, n_pairs, rng, excluded=None):
+    """(end 1, end 2) ReadBatches of ``n_pairs`` pairs: READ_LEN-base
+    ends of INSERT-base inserts, +/- strands, ~0.5% substitutions."""
+    n = len(codes)
+    pos = _sample_positions(rng, n_pairs, n - INSERT - 1, excluded)
+    idx = pos[:, None] + np.arange(READ_LEN)
+    left = np.asarray(codes)[idx]
+    ridx = (pos + INSERT - READ_LEN)[:, None] + np.arange(READ_LEN)
+    right = (3 - np.asarray(codes)[ridx])[:, ::-1]
+    for mat in (left, right):
+        mask = rng.random(mat.shape) < 0.005
+        mat[mask] = (mat[mask] + rng.integers(1, 4, int(mask.sum()))) % 4
+    lens = np.full(n_pairs, READ_LEN, np.int32)
+    names = [b"p%d" % i for i in range(n_pairs)]
+    b1 = ReadBatch(names=names, codes=np.ascontiguousarray(left), lens=lens,
+                   quals=None)
+    b2 = ReadBatch(names=names, codes=np.ascontiguousarray(right),
+                   lens=lens.copy(), quals=None)
+    return b1, b2
+
+
+def main(argv=None) -> int:
+    from soap3dp_tpu_torch.cli.runner import resolve_device
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import build_index
+    from soap3dp_tpu_torch.tools.seed_sensitivity import bench_genome
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("n_pairs", nargs="?", type=int, default=100_000)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default), cuda:K or cpu")
+    ap.add_argument("--genome-bp", type=int, default=250_000_000)
+    ap.add_argument("--lut-k", type=int, default=13,
+                    help="the index's LUT k (13, the JAX tool's index)")
+    a = ap.parse_args(argv)
+    dev = resolve_device(a.device)
+
+    genome = bench_genome(a.genome_bp)
+    index = build_index(genome, sa_rate=2, lut_k=a.lut_k)
+    didx = device_index(index, dev)
+    b1, b2 = make_pairs(genome.codes, a.n_pairs, np.random.default_rng(17))
+    ra, rb = run_ab(index, didx, b1, b2,
+                    dict(min_insert=INSERT // 2, max_insert=INSERT * 2,
+                         soap3_mismatch_allow=3))
+    print(json.dumps({"n_pairs": a.n_pairs, **divergence(ra, rb)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -162,6 +162,105 @@ def test_accuracy_phase_on_cpu(tmp_path, capsys):
     assert "FAIL: repeat text at 4000000 bp fails ['recall >= 0.77']" in out
 
 
+def test_ab_phases_on_cpu(tmp_path, capsys):
+    """Phase 9 at a small size on the CPU (cuda's place taken by cpu, so
+    each cross-check's two runs must be equal): the storm A/B on the
+    4 Mbp repeat genome (lut_k 11, 300 pairs a pool: its repeat pool's
+    default arm skips host re-align), the phased A/B on a 300 kbp genome
+    (lut_k 8: the phased search engages) and the seed sensitivity on a
+    2 Mbp bench genome at sa_rate 1, lut_k 10, each keeping the first
+    call of each launch shape of every kernel's entry (held on a card
+    only)."""
+    cpu = torch.device("cpu")
+    w = str(tmp_path / "w")
+    storm = chip_smoke.phase_storm_ab(cpu, "cpu", w, str(tmp_path),
+                                      genome_bp=4_000_000, n_per_pool=300,
+                                      cross_pairs=30, lut_k=11)
+    assert storm["index"] == "built" and storm["lut_k"] == 11
+    assert storm["result"]["repeat"]["n_ends"] == 600
+    assert set(storm["arms"]) == {"uniform/default", "uniform/full",
+                                  "repeat/default", "repeat/full"}
+    assert storm["arms"]["repeat/default"]["skips"] > 0
+    assert storm["arms"]["repeat/full"]["skips"] == 0
+    assert storm["arms"]["repeat/full"]["realigns"] > 0
+    assert storm["cross_check"]["equal"]
+    assert storm["cross_check"]["result"]["n_per_pool"] == 30
+    assert storm["held"] == [] and storm["kept_calls"]
+    assert (tmp_path / "storm_ab_stderr.log").exists()
+    assert "SOAP3DP_HOST_REALIGN_FULL" not in os.environ
+
+    phased = chip_smoke.phase_phased_ab(cpu, "cpu", w, str(tmp_path),
+                                        genome_bp=300_000, n_pairs=300,
+                                        cross_pairs=40)
+    assert phased["result"]["records"] == 600
+    assert phased["result"]["missing_either"] == 0
+    assert phased["cross_check"]["result"]["records"] == 80
+    assert phased["held"] == [] and phased["kept_calls"]
+
+    seed = chip_smoke.phase_seed_sensitivity(cpu, "cpu", w, str(tmp_path),
+                                             genome_bp=2_000_000,
+                                             n_reads=600, cross_reads=100,
+                                             lut_k=10)
+    assert seed["lut_k"] == 10 and seed["sa_rate"] == 1
+    ex, hv = seed["result"]["exact"], seed["result"]["halved-1mm"]
+    assert 0 < ex["recall"] < hv["recall"] <= 1
+    assert seed["candidate_ratio"] == hv["candidates"] / ex["candidates"]
+    assert seed["cross_check"]["equal"]
+    kinds = {name.split("_", 1)[1].rsplit("_", 1)[0]
+             for name in seed["kept_calls"]}
+    assert kinds == {"seed_intervals", "seed_expand_decode"}
+    assert seed["launches"] == dict.fromkeys(chip_smoke._kernels(), 0)
+    capsys.readouterr()
+
+
+def test_storm_checks(tmp_path, monkeypatch):
+    """storm_failures on a run with no flagged read (a uniform random
+    genome): the repeat pool's default arm skipped nothing, so the A/B
+    measured nothing and the phase fails; and the storm A/B removes
+    SOAP3DP_HOST_REALIGN_FULL after its full arm raises."""
+    from soap3dp_tpu_torch import workloads
+    from soap3dp_tpu_torch.fm.fmindex import device_index
+    from soap3dp_tpu_torch.index.builder import build_index
+    from soap3dp_tpu_torch.tools import measure_storm_divergence as storm
+
+    cpu = torch.device("cpu")
+    genome = workloads.random_genome(np.random.default_rng(2), 400_000)
+    index = build_index(genome, sa_rate=2, lut_k=8)
+    res, _, log, _ = chip_smoke._counted(lambda: storm.run(
+        index, genome.codes, None, 40, didx=device_index(index, "cpu")), cpu)
+    arms = chip_smoke.storm_arms(log)
+    assert set(arms) == {"uniform/default", "uniform/full",
+                         "repeat/default", "repeat/full"}
+    assert all(a["skips"] == 0 for a in arms.values())
+    assert chip_smoke.storm_failures(res, arms) == [
+        "the repeat pool's default arm skipped no host re-align: the A/B "
+        "measured nothing"]
+    skipped = dict(arms, **{"repeat/default": dict(
+        arms["repeat/default"], skips=1)})
+    assert chip_smoke.storm_failures(res, skipped) == []
+    assert chip_smoke.storm_failures({}, {}) == [
+        "no uniform", "no repeat", "no uniform/default line",
+        "no uniform/full line", "no repeat/default line",
+        "no repeat/full line", chip_smoke.storm_failures(res, arms)[0]]
+
+    calls = []
+
+    def align_once(*args):
+        calls.append(os.environ.get(storm.FULL_ENV))
+        if calls[-1]:
+            raise RuntimeError("the full arm fails")
+        return real(*args)
+
+    real = storm.align_once
+    monkeypatch.setattr(storm, "align_once", align_once)
+    with pytest.raises(RuntimeError, match="the full arm fails"):
+        chip_smoke.phase_storm_ab(cpu, "cpu", str(tmp_path / "w"),
+                                  str(tmp_path), genome_bp=4_000_000,
+                                  n_per_pool=20, cross_pairs=10, lut_k=11)
+    assert calls == [None, "1"]
+    assert storm.FULL_ENV not in os.environ
+
+
 def _passing(name):
     """A result dict that holds gate ``name``."""
     return {"recall": 1.0, "wrong": 0.0, "unaligned": 0.0,

@@ -2,8 +2,9 @@
 
 An AST scan of every module of soap3dp_tpu_torch (and of chip_smoke.py
 and the compare scripts) finds no import of ``jax``, ``jaxlib``, any
-``soap3dp_tpu`` module or the repo's ``tests`` and ``tools`` (which
-drive the JAX package);
+``soap3dp_tpu`` module, the repo's ``tests`` and ``tools`` (which
+drive the JAX package) or its ``bench`` (the JAX package's benchmark,
+whose genomes and pairs the port's tools copy);
 a subprocess builds an index with ``soap3dp-torch build``, runs the
 port's CLI (pair on one device and on a two-replica mesh, so through
 soap3dp_tpu_torch.distributed; single) and API end to end on the CPU,
@@ -50,8 +51,8 @@ def test_module_imports_no_jax(path):
     for mod, name in _imports(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "soap3dp_tpu"), (path, mod, name)
-        # the repo's top-level tools drive the JAX package
-        if root in ("tests", "tools") or mod == "__graft_entry__":
+        # the repo's top-level tools and bench.py drive the JAX package
+        if root in ("tests", "tools", "bench") or mod == "__graft_entry__":
             raise AssertionError((path, mod))
 
 
@@ -60,9 +61,13 @@ def test_module_imports_no_jax(path):
     "import tools.evaluate_accuracy",
     "from tools.measure_phased_divergence import run_ab",
     "from tests.conftest import make_genome",
+    "import bench",
+    "from bench import INSERT, make_pairs",
+    "import bench.sub",
 ])
 def test_scan_refuses_the_repo_scripts(tmp_path, line):
-    """The scan fails on an import of the repo's tools or tests."""
+    """The scan fails on an import of the repo's tools, tests or
+    bench.py."""
     path = tmp_path / "m.py"
     path.write_text(line + "\n")
     with pytest.raises(AssertionError):

@@ -7,7 +7,8 @@ divergence (soap3dp_tpu_torch/tools/measure_phased_divergence.py) on
 the CPU. The phased path must engage in both packages; the bounds are
 the reference's, copied verbatim; the port's record maps (phased on and
 off) and its divergence dict must equal the JAX run_ab's on the same
-batches, tolerance zero.
+batches, tolerance zero. The tool's pairs (make_pairs, bench.py's)
+and its main are held to the JAX package's too.
 """
 
 import dataclasses
@@ -98,3 +99,60 @@ def test_phased_divergence_bounded(phased_setup):
     assert a == ja
     assert b == jb
     assert d == jax_measure.divergence(ja, jb)
+
+
+@pytest.mark.parametrize("excluded", [False, True])
+def test_make_pairs_equals_bench(excluded):
+    """The port's make_pairs gives bench.make_pairs' batches (both ends'
+    codes, names and lens) for the same codes and rng, with and without
+    N runs to keep the inserts off."""
+    import bench
+    from soap3dp_tpu_torch.tools import measure_phased_divergence as port
+
+    codes = np.random.default_rng(3).integers(0, 4, 200_000).astype(np.uint8)
+    ex = None
+    if excluded:
+        starts = np.arange(10_000, 190_000, 20_000, dtype=np.int64)
+        ex = (starts, starts + 3_000)
+    assert (port.INSERT, port.READ_LEN) == (bench.INSERT, bench.READ_LEN)
+    got = port.make_pairs(codes, 500, np.random.default_rng(17), ex)
+    want = bench.make_pairs(codes, 500, np.random.default_rng(17), ex)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.codes, w.codes)
+        np.testing.assert_array_equal(g.lens, w.lens)
+        assert list(g.names) == list(w.names)
+        assert g.quals is None and w.quals is None
+
+
+def test_phased_main_equals_the_jax_main(monkeypatch, capsys):
+    """The port's main on a 300 kbp bench_genome (lut_k 8, 200 pairs)
+    prints the JSON line the JAX tool's main prints over the same
+    genome's index (bench.get_index swapped for it); without
+    ``--device cpu`` it needs a card."""
+    import json
+    import sys
+
+    import bench
+    from soap3dp_tpu.index.packing import PackedGenome as JaxPackedGenome
+    from soap3dp_tpu.utils import jaxcache
+    from soap3dp_tpu_torch.tools import measure_phased_divergence as port
+    from soap3dp_tpu_torch.tools.seed_sensitivity import bench_genome
+
+    argv = ["200", "--genome-bp", "300000", "--lut-k", "8"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.main(argv)
+    assert port.main(argv + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    genome = bench_genome(300_000)
+    jax_index = jax_build_index(
+        JaxPackedGenome(**dataclasses.asdict(genome)), sa_rate=2, lut_k=8)
+    monkeypatch.setattr(bench, "get_index",
+                        lambda bp, sa_rate, lut_k: (jax_index, genome.codes))
+    monkeypatch.setattr(jaxcache, "enable_persistent_cache", lambda: None)
+    monkeypatch.setattr(sys, "argv", ["measure_phased_divergence.py", "200"])
+    assert jax_measure.main() == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == want
+    assert got["n_pairs"] == 200 and got["records"] == 400
