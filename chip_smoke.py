@@ -30,8 +30,11 @@ Phases, each printing one line, any failure exits non-zero:
    (the 32-bit form). Then the seed search's kernels, FS1 (backward
    search), FS2 (SA decode: of ready rows; with the search's lane
    expansion, expand_decode, "FS2x"; with the DP seeding's,
-   seed_expand_decode, "FS2s"), FS3 (packed verify) and FS4 (the hash
-   dedupe), every output
+   seed_expand_decode, "FS2s", its candidates as the u32 words of one
+   packed transfer), FS3 (packed verify), FS4 (the hash dedupe), FS5
+   (the lanes' counts, their scan and the result wire's flagged words;
+   beside it torch.cumsum of the counts, its library_ms) and FS6 (the
+   search's hit test and result wire), every output
    element equal to the plain version's, with each kernel's device time,
    its bound and share (bytes and 32-byte sectors of the reference's
    separate occ and BWT tables, and the sectors of the occ blocks the
@@ -53,7 +56,11 @@ Phases, each printing one line, any failure exits non-zero:
    survive, whose count must be above 0, K of 2^22 and of 3,363, every
    key in one slot, one key everywhere, and five calls in a row on the
    table it keeps), FS2s where its warps search
-   for lanes (98% of the lanes empty, fewer lanes than a warp), FS1-FS3 on a
+   for lanes (98% of the lanes empty, fewer lanes than a warp), FS5 at
+   its edges (lanes not a multiple of the tile, an overflow on one
+   strand only, cap 4,096, one read, the seeding's mode, a total of 0)
+   and FS6 at its (reads not a multiple of 32, mismatches past k and
+   127, K2 of 0), FS1-FS3, FS2s, FS5 and FS6 on a
    synthetic 3.2 Gbp index (rows, bounds and positions past 2^31), and
    a repeat genome's search (rounds 2 and 3) on the card and the CPU
    with equal hits. Then GP (the half rescue's gapless prescan,
@@ -76,7 +83,8 @@ Phases, each printing one line, any failure exits non-zero:
 4. end to end at a real size: a 250 Mbp genome, 100,000 read pairs,
    the port's `pair` CLI with default options (-u 500 -v 300); checks
    records, planted-locus recall, rescue counts and kernel launches (K1
-   and the path's FS kernels: FS1, FS2x, FS2s, FS3 and FS4, GP and PK,
+   and the path's FS kernels: FS1, FS2x, FS2s, FS3, FS4, FS5 and FS6,
+   GP and PK,
    and no K2: its windows are narrow; no plain search primitive, no
    plain prescan and no plain pack on the card) with a histogram of the
    launch shapes (phases 5, 6 and 7a likewise), the run's stage timers
@@ -86,8 +94,10 @@ Phases, each printing one line, any failure exits non-zero:
    events in the output directory's e2e_profile.txt), and searches its
    first batch alone under torch.profiler (the search's device items
    beside PR 7's total, search_profile.txt; no cummax scan and no
-   scatter-min); the measured run keeps the first call of each launch
-   shape of FS2x, FS2s and FS4, and after the phase each is held to its
+   scatter-min; the result wires' bytes, the copy's time and the library
+   launches beside the parent's); the measured run keeps the first call
+   of each launch shape of FS2x, FS2s, FS4, FS5 and FS6, and after the
+   phase each is held to its
    plain version, every element, with its device time and bound (the
    kernels line's FS2s is phase 4's largest seeding);
 5. mate-pair: a -/+ library of 2-6 kbp inserts aligned with
@@ -154,7 +164,8 @@ Phases, each printing one line, any failure exits non-zero:
    and seeding ms; 2,000 reads cuda = cpu, every candidate.
 
 Then a `wall:` line (each part's seconds), one JSON line with the
-kernels (K1, K2, TB, FS1, FS2, FS2x, FS3, FS4, FS2s, GP, PK, each with
+kernels (K1, K2, TB, FS1, FS2, FS2x, FS3, FS4, FS2s, FS5, FS6, GP, PK,
+each with
 its device time, its bound on this card, the share of the bound it
 reaches and the operations peak the bound used: int16x2, twice the
 int32 peak, where the 16-bit forward runs; its launches on the main
@@ -958,19 +969,34 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
 # FS2 has three entries: sa_decode of ready rows ("FS2"), the search's
 # expand_decode, which expands the lanes into slots first ("FS2x"), and
 # the DP seeding's seed_expand_decode ("FS2s"); FS4 is the search's hash
-# dedupe.
+# dedupe, FS5 the lanes' counts and their scan (the search's and the
+# seeding's), FS6 the search's result wire.
 FS_FUNCTIONS = {"seed_intervals": "FS1", "backward_search": "FS1",
                 "backward_search_packed": "FS1", "sa_decode": "FS2",
                 "expand_decode": "FS2x", "seed_expand_decode": "FS2s",
                 "count_mismatches_rows": "FS3",
-                "count_mismatches_packed": "FS3", "dedupe": "FS4"}
+                "count_mismatches_packed": "FS3", "dedupe": "FS4",
+                "lane_counts": "FS5", "search_wire": "FS6"}
 # an entry's plain version, where it is not the entry's name + "_plain"
 FS_PLAIN = {"seed_expand_decode": "seed_expand_plain"}
+# the argument an entry writes in place (FS5: the wire's flagged words;
+# FS6: the wire): a case gives the kernel and the plain version each
+# its own copy (fresh_args)
+FS_WRITES = {"lane_counts": 4, "search_wire": 0}
 
 
 def plain_of(fn: str) -> str:
     """The name in fmindex of the plain version of entry ``fn``."""
     return FS_PLAIN.get(fn, fn + "_plain")
+
+
+def fresh_args(fn: str, args: tuple) -> tuple:
+    """``args`` with a copy of the tensor entry ``fn`` writes in place
+    (FS_WRITES), so two calls do not share it."""
+    i = FS_WRITES.get(fn)
+    if i is None or len(args) <= i or not hasattr(args[i], "clone"):
+        return args
+    return args[:i] + (args[i].clone(),) + args[i + 1:]
 # integer operations, as the plain versions write them: one FM step
 # (both bounds: the sentinel skip, word and occ indices, the match
 # mask of 5, the lane mask, popcount, two adds: 18 each), a lane's
@@ -984,6 +1010,10 @@ OPS_VERIFY_WORD = 14
 # a dedupe slot: the hash twice (3 products, xor, shift), the atomic,
 # the winner's two compares, the ballot and its popcounts
 OPS_DEDUPE_SLOT = 16
+# a lane of FS5: the width, its test against cap, the select, a scan
+# step; a slot of FS6: the hit test, two clips, two shifts and three ors
+OPS_COUNT_LANE = 4
+OPS_WIRE_SLOT = 10
 SECTOR = 32  # bytes the card moves for one scattered load
 # the kernels' times at round 1 before their redesign, quoted from
 # PERF.md section 6 in the summary lines only: FS1 and FS2 when they read
@@ -1004,6 +1034,11 @@ SEARCH_REDESIGN_BEFORE_MS = {
     "FS2x": "0.0423-0.0427 ms at 524288x524288x2"}
 # the search's device items of phase 4's first batch before FS4 (PR 7)
 SEARCH_DEVICE_BEFORE_MS = 0.681
+# the same batch's download and library launches before FS5 and FS6
+# (compare_search.py, the parent tree, PERF.md section 6)
+SEARCH_BEFORE_WIRE = ("9,437,200 bytes in one int64 vector, its copy "
+                      "0.1727 ms; 35 library launches of 43; 0.606 ms of "
+                      "device items")
 
 
 def sample_reads(rng, codes: np.ndarray, B: int, L: int, lens=None,
@@ -1187,6 +1222,93 @@ def seed_expand_cases(rng, didx, dev, RS: int, S: int, name: str = "seed",
     return cases
 
 
+# FS5's edges: widths about a cap, the search's S lanes a strand and
+# the seeding's; lanes not a multiple of the 1,024-lane tile
+COUNT_EDGES = ("search_ragged", "search_one_strand", "search_cap4096",
+               "search_one_read", "seed_ragged", "seed_total_0")
+
+
+def lane_count_inputs(rng, B: int, S: int, cap: int, lo: int = 0,
+                      hi: int = 1 << 32):
+    """(l, r) numpy int64 of 2 B S lanes (rows b and B + b a read's two
+    strands, S lanes a row): widths of 0, 1, cap - 1, cap, cap + 1 and
+    5,000, l in [lo, hi - 6,000); read 0 overflows on its forward strand
+    only, read 1 on its reverse strand only (B >= 2)."""
+    RS = 2 * B * S
+    width = rng.choice([0, 1, max(cap - 1, 0), cap, cap + 1, 5000],
+                       RS).reshape(2 * B, S)
+    if B >= 2:
+        width[[0, 1, B, B + 1]] = 0
+        width[0, S - 1] = width[B + 1, 0] = cap + 1
+    l = rng.integers(lo, hi - 6000, RS)
+    return l, l + width.reshape(-1)
+
+
+def count_cases(rng, dev, B: int, S: int, seed_lanes: int, seed_S: int,
+                name: str = "counts", edges=COUNT_EDGES, lo: int = 0,
+                hi: int = 1 << 32) -> list[tuple[str, str, tuple]]:
+    """FS5 at its edges: the search's mode at B reads of S lanes a strand
+    (2 B S lanes; B is the path's plus 45, so the lanes are not a
+    multiple of the tile), with an overflow on one strand only, at the
+    round-3 cap of 4,096 and for one read; the seeding's mode at
+    ``seed_lanes`` lanes of ``seed_S`` a row (the largest seeding call's
+    107,648: 105 tiles and an eighth) and with every width 0."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def flags(b):
+        return torch.empty(-(-b // 32), dtype=torch.int32, device=dev)
+
+    cases = []
+    for edge in edges:
+        if edge.startswith("search"):
+            b, cap = {"search_ragged": (B + 45, 16),
+                      "search_one_strand": (45, 16),
+                      "search_cap4096": (8192 + 45, 4096),
+                      "search_one_read": (1, 256)}[edge]
+            l, r = lane_count_inputs(rng, b, S, cap, lo, hi)
+            cases.append((f"{name}_{edge}", "lane_counts",
+                          (t(l), t(r), cap, S, flags(b))))
+        else:
+            rows = seed_lanes // seed_S
+            l, r = lane_count_inputs(rng, rows // 2, seed_S, 64, lo, hi)
+            if edge == "seed_total_0":
+                r = l.copy()
+            cases.append((f"{name}_{edge}", "lane_counts",
+                          (t(l), t(r), 64, seed_S)))
+    return cases
+
+
+def wire_cases(rng, dev, B: int, K2: int, name: str = "wire",
+               tp_lo: int = 0) -> list[tuple[str, str, tuple]]:
+    """FS6 at its edges: B reads (plus 13, not a multiple of 32) and K2
+    slots: 80% unique placements, their mismatches 0-3 (k = 2) or 200
+    (past 127), the rest past uniq (ROW_SENTINEL, not valid); text
+    positions in [tp_lo, 2^32); and K2 of 0 (the totals alone)."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    B += 13
+    cases = []
+    for tag, k2 in ((f"K2_{K2}", K2), ("K2_0", 0)):
+        uniq = int(0.8 * k2)
+        urow = np.full(k2, 0x7FFFFFFF, np.int64)
+        urow[:uniq] = rng.integers(0, 2 * B, uniq)
+        wire = torch.full((2 + -(-B // 32) + 2 * k2,), -7, dtype=torch.int32,
+                          device=dev)
+        cases.append((f"{name}_{tag}", "search_wire",
+                      (wire, B, torch.tensor(3 * k2 // 2 + 5, device=dev),
+                       torch.tensor(uniq, device=dev), t(urow),
+                       t(rng.integers(tp_lo, 1 << 32, k2)),
+                       t(np.arange(k2) < uniq),
+                       t(rng.choice([0, 1, 2, 3, 200], k2)), 2)))
+    return cases
+
+
 def _slot_of(krow: np.ndarray, ktp: np.ndarray, hb: int) -> np.ndarray:
     """The dedupe's table slot of each key (fmindex.dedupe_plain)."""
     m = np.uint64(0xFFFFFFFF)
@@ -1300,12 +1422,13 @@ def dedupe_more_cases(rng, dev, ragged: int = 3363
 
 
 def dedupe_repeat_check(rng, dev) -> int:
-    """FS4's table is kept across calls on a card and stream: with the
-    stream's table dropped first, keys A (a new table), A again, B (a
-    table twice as large, so a new one, its generation from 1 again), A,
-    B, each call held to the plain version, every element; on a card the
-    tables and generations must be those. Fails otherwise. Returns the
-    calls made."""
+    """FS4's table and the scan state it shares with FS5 are kept across
+    calls on a card and stream: with both dropped first, keys A (a new
+    table), A again, B (a table twice as large, so a new one, its
+    generation from 1 again), A, B, each call held to the plain version,
+    every element; on a card the tables, scan states, generations and
+    ticket bases must be those. Fails otherwise. Returns the calls
+    made."""
     import torch
 
     from soap3dp_tpu_torch.fm import fmindex
@@ -1316,11 +1439,12 @@ def dedupe_repeat_check(rng, dev) -> int:
                      for a in dedupe_keys(rng, K, K // 3, 0.6)) + (K // 2,)
 
     card = torch.device(dev).type == "cuda"
-    key = (torch.device(dev).index, fs._stream(dev)) if card else None
-    fs._DEDUPE_TABLES.pop(key, None)
+    where = (torch.device(dev).index, fs._stream(dev)) if card else None
+    for kind in ("dedupe", "scan"):
+        fs._STATES.pop((kind,) + (where or ()), None)
     a, b = keys(65536), keys(131072)
     calls = (("A", a), ("A", a), ("B", b), ("A", a), ("B", b))
-    tables = []
+    tables, scans = [], []
     for i, (name, args) in enumerate(calls):
         err, ndiff = _fs_diff(fmindex.dedupe(*args),
                               fmindex.dedupe_plain(*args))
@@ -1328,18 +1452,24 @@ def dedupe_repeat_check(rng, dev) -> int:
             fail(f"FS4 call {i} ({name}) of a repeat disagrees with its "
                  f"plain version: {ndiff} elements differ")
         if card:
-            table, gen = fs._DEDUPE_TABLES[key]
+            table, gen, _ = fs._STATES[("dedupe",) + where]
             tables.append((table.data_ptr(), table.shape[0], gen))
+            scan, gen, taken = fs._STATES[("scan",) + where]
+            scans.append((scan.shape[0], gen, taken))
     if card and ([t[1:] for t in tables] != [
             (1 << 17, 1), (1 << 17, 2), (1 << 18, 1), (1 << 18, 2),
             (1 << 18, 3)] or tables[1][0] != tables[0][0]
             or tables[4][0] != tables[2][0]):
         fail(f"FS4's table across the repeat (address, slots, generation): "
              f"{tables}")
+    if card and scans != [(65, 1, 64), (65, 2, 128), (129, 1, 128),
+                          (129, 2, 192), (129, 3, 320)]:
+        fail(f"FS4's scan state across the repeat (words, generation, "
+             f"tickets): {scans}")
     phase("kernel fm_search FS4 repeat",
           f"{len(calls)} calls in a row (A, A, B, A, B) from no table, a "
-          "new table at A and at B, every output equal to the plain "
-          "version's")
+          "new table and scan state at A and at B, every output equal to "
+          "the plain version's")
     return len(calls)
 
 
@@ -1549,10 +1679,12 @@ def synthetic_index(dev, n: int, sa_rate: int = 8, lut_k: int = 13,
 
 def synthetic_cases(rng, didx, dev, B: int = 4096, L: int = 100
                     ) -> list[tuple[str, str, tuple]]:
-    """All three kernels on a synthetic_index: random packed reads and
-    their reverse complements, segments in each FS1 mode (LUT intervals
+    """FS1-FS3 on a synthetic_index: random packed reads and their
+    reverse complements, segments in each FS1 mode (LUT intervals
     anywhere in [0, n]), SA rows and placements over the whole text, a
-    quarter of them past 2^31 or in the text's last words."""
+    quarter of them past 2^31 or in the text's last words; FS2s's
+    seeding expansion over the whole SA, FS5's intervals and FS6's text
+    positions past 2^31."""
     import torch
 
     from soap3dp_tpu_torch.fm import fmindex
@@ -1584,6 +1716,14 @@ def synthetic_cases(rng, didx, dev, B: int = 4096, L: int = 100
     olens = np.concatenate([lens, lens])
     cases.append(("synthetic_verify", "count_mismatches_rows",
                   (didx, t(tp), ori, t(rows), t(olens[rows]))))
+    # FS2s, FS5 and FS6 with positions and intervals past 2^31 (the
+    # packed words' high bit set)
+    hi = min(1 << 31, n // 2)
+    cases += seed_expand_cases(rng, didx, dev, N, S, "synthetic_seed",
+                               ("widths",))
+    cases += count_cases(rng, dev, B, S, N, S, "synthetic_counts",
+                         ("search_ragged", "seed_ragged"), lo=hi, hi=n)
+    cases += wire_cases(rng, dev, B, M, "synthetic_wire", tp_lo=hi)[:1]
     return cases
 
 
@@ -1972,7 +2112,9 @@ def fs_work(fn: str, args: tuple, want) -> dict:
     which must give the plain version's output ``want``; FS3 the genome
     words up to each read's length; FS4 its keys (8 + 8 + 1 B each), its
     table written and read once (4 B a slot each way) and its K2
-    outputs (17 B each) and count."""
+    outputs (17 B each) and count; FS5 each lane's l, r and incl (24 B)
+    and its flagged words; FS6 each slot's utp, nmis, uvalid and two
+    words (25 B) and a hit's urow (8 B)."""
     import torch
 
     idx = args[0]
@@ -2013,18 +2155,21 @@ def fs_work(fn: str, args: tuple, want) -> dict:
                + walked * (4 * levels + OPS_SA_PROBE))
         counts = {"slots": K, "lanes": RS, "walked": walked, "lf_steps": lf}
     elif label == "FS2s":
+        from soap3dp_tpu_torch.fm import fmindex
+
         l, incl, sp, S, K = args[1:]
         out, probes, lf, gathers, walked, lanes, levels, below = fs2s_replay(
             idx, l.long(), incl.long(), sp.long(), S, K)
-        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+        if not torch.equal(fmindex.seed_words(*out), want):
             fail(f"FS2's seeding replay disagrees with {plain_of(fn)}")
         RS = l.shape[0]
         # the cumsum once (its last element alone when no slot is
         # walked); l and sp once a walked lane (the split entry reads l
-        # alone); the three outputs (or lane, rank and step) once a slot
+        # alone); the three packed words (or lane, rank and step) once a
+        # slot
         io = ((RS * 8 if walked else 8) + 40
               + lanes * (8 if idx.sa_parts else 16)
-              + K * (24 if idx.sa_parts else 17))
+              + K * (24 if idx.sa_parts else 12))
         ops = (probes * OPS_SA_PROBE + lf * OPS_SA_LF
                + walked * (4 * levels + OPS_SA_PROBE))
         counts = {"slots": K, "lanes": RS, "walked": walked, "lf_steps": lf,
@@ -2034,6 +2179,29 @@ def fs_work(fn: str, args: tuple, want) -> dict:
         counts = dedupe_work(krow, ktp, pos_ok, K2, want)
         io = 17 * counts["slots"] + 8 * (1 << counts["hb"]) + 17 * K2 + 8
         ops = counts["slots"] * OPS_DEDUPE_SLOT
+        gathers = {}
+    elif label == "FS5":
+        # each lane's l and r read and its incl written once, the total
+        # and the flagged words written once; a count, its scan and, in
+        # the search's mode, its overflow test a few operations a lane
+        l, flags = args[0], args[4] if len(args) > 4 else None
+        RS = l.shape[0]
+        nf = 0 if flags is None else flags.shape[0]
+        io = 24 * RS + 8 + 4 * nf
+        ops = RS * OPS_COUNT_LANE
+        counts = {"lanes": RS, "mode": "seed" if flags is None else "search",
+                  "total": int(want[1]), "flag_words": nf}
+        gathers = {}
+    elif label == "FS6":
+        # each slot's utp and nmis (8 B), uvalid (1 B) read and its two
+        # words written once, its urow (8 B) read where it holds a hit;
+        # the totals read and written
+        wire, B, _, _, urow, _, uvalid, nmis, k = args
+        K2 = urow.shape[0]
+        hits = int((uvalid & (nmis <= k)).sum())
+        io = 25 * K2 + 8 * hits + 16 + 8
+        ops = K2 * OPS_WIRE_SLOT
+        counts = {"slots": K2, "reads": B, "hits": hits}
         gathers = {}
     else:
         tp, M = args[1].long(), args[1].shape[0]
@@ -2081,7 +2249,8 @@ def _fs_diff(got, want) -> tuple[int, int]:
 # call launches: FS4 is two (dedupe_scatter, dedupe_scan)
 FS_SYMBOLS = {"FS1": "fm_search_kernel", "FS2": "sa_decode_kernel",
               "FS2x": "expand_decode_kernel", "FS2s": "seed_expand_kernel",
-              "FS3": "verify_kernel", "FS4": "dedupe_"}
+              "FS3": "verify_kernel", "FS4": "dedupe_",
+              "FS5": "lane_counts_kernel", "FS6": "search_wire_kernel"}
 FS_KERNELS_PER_CALL = {"FS4": 2}
 
 
@@ -2152,6 +2321,59 @@ def _kernel_device_ms(fn, reps: int, symbol: str, per_call: int = 1
     return float("nan")
 
 
+# FS5 and FS6 stream inputs that fit the 50 MB L2, where the path's
+# kernel before them leaves them and where the repeated calls of a case
+# find them, so at those sizes a call can beat the bound, which counts
+# device-memory bytes; their cases are also timed with the L2 evicted
+# before each call (cold_ms), a read of L2_EVICT_BYTES
+COLD_TIMED = ("FS5", "FS6")
+L2_EVICT_BYTES = 128 << 20
+
+
+def _cold_device_ms(fn, reps: int, symbol: str, dev) -> float:
+    """_kernel_device_ms of ``fn`` with the L2 evicted before each call:
+    a sum over L2_EVICT_BYTES, more than the card's 50 MB L2, leaves
+    clean lines of another buffer there, so the call reads its inputs
+    from device memory and nothing is written back meanwhile."""
+    import torch
+
+    junk = torch.ones(L2_EVICT_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def call():
+        junk.sum()
+        fn()
+
+    return _kernel_device_ms(call, reps, symbol)
+
+
+# the one PyTorch call that computes (part of) a kernel's function, the
+# kernels line's "library_ms": FS5's scan alone, torch.cumsum over the
+# lanes' counts (not their counts or the flagged words)
+LIBRARY_CALLS = {"FS5": "torch.cumsum over the counts, the scan alone"}
+
+
+def library_call(fn: str, args: tuple, want):
+    """A callable of the one PyTorch call of LIBRARY_CALLS for a case of
+    entry ``fn`` (its inputs from the case's, here FS5's counts from
+    the plain version's scan ``want``), or None."""
+    import torch
+
+    if FS_FUNCTIONS[fn] != "FS5":
+        return None
+    incl = want[0]
+    cnt = torch.diff(incl, prepend=incl.new_zeros(1))
+    return lambda: torch.cumsum(cnt, 0)
+
+
+def _library_ms(fn, reps: int) -> float:
+    """Device time of a PyTorch call ``fn()``: the median over calls of
+    the sum of its device events, whatever kernels the library launches
+    (_call_span_ms, each call between marker kernels), else the
+    CUDA-event time of a call."""
+    ms = _call_span_ms(fn, reps, "")[1]
+    return ms if ms == ms else _events_ms(fn, reps)
+
+
 def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
                 reps: int = 20) -> dict:
     """One FS case on the card: the kernel's output against the plain
@@ -2160,7 +2382,8 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     work included), the plain version's, the bound (operations over the
     int32 peak or bytes over the memory rate, the larger), the same
     bound with every scattered gather a 32-byte sector, and with the
-    sectors the kernel's walk touches in the occ blocks."""
+    sectors the kernel's walk touches in the occ blocks; FS5's and FS6's
+    device time with the L2 evicted before each call too (COLD_TIMED)."""
     import torch
 
     from soap3dp_tpu_torch.fm import fmindex
@@ -2170,18 +2393,23 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     counter = _kernels()[label]
     t0 = time.perf_counter()
     n0, shapes0 = counter.launches, dict(counter.shapes)
-    got = kern(*args)
+    got = kern(*fresh_args(fn, args))
     torch.cuda.synchronize()
     launched = counter.launches - n0
     shape = [s for s, c in counter.shapes.items() if c > shapes0.get(s, 0)]
-    want = plain(*args)
+    want = plain(*fresh_args(fn, args))
     err, ndiff = _fs_diff(got, want)
+    library = library_call(fn, args, want)
+    library_ms = None if library is None else _library_ms(library, reps)
     per_call = FS_KERNELS_PER_CALL.get(label, 1)
     ms, call_ms, timer = _timed(lambda: kern(*args), reps,
                                 FS_SYMBOLS[label], per_call)
     # several kernels a call: the call's device span beside their sum
     span_ms = (_call_span_ms(lambda: kern(*args), reps, FS_SYMBOLS[label])[0]
                if per_call > 1 else ms)
+    cold_ms = (_cold_device_ms(lambda: kern(*args), reps, FS_SYMBOLS[label],
+                               args[0].device)
+               if label in COLD_TIMED else None)
     plain_ms = _events_ms(lambda: plain(*args), max(1, reps // 10))
     work = fs_work(fn, args, want)
     counts = {k: v for k, v in work.items()
@@ -2200,7 +2428,12 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
           f"share={bms / ms:.1%} sector_bound_ms={sms:.4f} "
           f"sector_share={sms / ms:.1%} block_sector_bound_ms={bsms:.4f} "
           f"block_sector_share={bsms / ms:.1%} plain_ms={plain_ms:.3f} "
-          f"work={counts} wall_s={time.perf_counter() - t0:.2f}")
+          + ("" if cold_ms is None else
+             f"cold_ms={cold_ms:.4f} (L2 evicted) "
+             f"cold_share={bms / cold_ms:.1%} ")
+          + ("" if library_ms is None else
+             f"library_ms={library_ms:.4f} ({LIBRARY_CALLS[label]}) ")
+          + f"work={counts} wall_s={time.perf_counter() - t0:.2f}")
     if err or ndiff:
         fail(f"{label} disagrees with its plain version ({name})")
     if launched != 1:
@@ -2208,7 +2441,8 @@ def run_fs_case(name: str, fn: str, args: tuple, peak_ops: float,
     return {"case": name, "kernel": label, "fn": fn, "shape": shape_s,
             "ms": ms, "span_ms": span_ms, "call_ms": call_ms, "timer": timer,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "sector_bound_ms": sms,
+            "sector_bound_ms": sms, "library_ms": library_ms,
+            "cold_ms": cold_ms,
             "block_sector_bound_ms": bsms, "max_abs_err": err,
             "wall_s": time.perf_counter() - t0, **work}
 
@@ -2389,6 +2623,11 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
                                          if fn == "dedupe"))
     cases += dedupe_more_cases(rng, dev)
     cases += seed_lane_cases(rng, didx, dev, RSs, Ss)
+    # FS5 at the search's and the seeding's lanes, FS6 at the round-1
+    # search's reads and K2
+    cases += count_cases(rng, dev, RS // (2 * S), S, RSs, Ss)
+    a = next(args for fn, args in calls if fn == "search_wire")
+    cases += wire_cases(rng, dev, a[1], a[4].shape[0])
     didx1, repeat = phase_repeat_search(dev)
     cases.append(fs_decode_case(rng, "decode_sa1", didx1, dev))
     cases += expansion_cases(rng, didx1, dev, RS, S, K, "expand_sa1",
@@ -2425,7 +2664,8 @@ def phase_fm_kernels(dev, peak_ops: float, work: str,
 # the entries phases 4 and 5 keep the first call of each launch shape of
 # (_Recorder's ``kept``), held to their plain versions after the run:
 # FS2x, FS2s and FS4 in fmindex (phase 4), GP and PK in dp_rescue
-FS_KEPT = ("expand_decode", "seed_expand_decode", "dedupe")
+FS_KEPT = ("expand_decode", "seed_expand_decode", "dedupe", "lane_counts",
+           "search_wire")
 RESCUE_KEPT = ("_prescan_impl", "_pack_problems")
 PATH_KEPT = FS_KEPT + RESCUE_KEPT
 # K1's entry as dp_rescue calls it; phase 8 keeps every kernel's entries
@@ -2539,7 +2779,9 @@ FS_ROWS = {  # label: (name in the JSON line, the TPU-side code it replaces)
     "FS3": ("fm_packed_verify", "soap3dp_tpu/fm/fmindex.py:653"),
     "FS4": ("fm_hash_dedupe", "soap3dp_tpu/fm/search.py:275"),
     "FS2s": ("fm_seed_expand_decode",
-             "soap3dp_tpu/pipeline/dp_rescue.py:176")}
+             "soap3dp_tpu/pipeline/dp_rescue.py:176"),
+    "FS5": ("fm_lane_counts", "soap3dp_tpu/fm/search.py:232"),
+    "FS6": ("fm_search_wire", "soap3dp_tpu/fm/search.py:322")}
 
 
 def fs_kernel_rows(rows: list[dict]) -> list[dict]:
@@ -2568,7 +2810,8 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                "peak": "int32", "sector_bound_ms": main["sector_bound_ms"],
                "block_sector_bound_ms": main.get("block_sector_bound_ms"),
-               "library_ms": None, "shape": main["shape"],
+               "library_ms": main.get("library_ms"),
+               "cold_ms": main.get("cold_ms"), "shape": main["shape"],
                "case": main["case"]}
         out.append(row)
         block = row["block_sector_bound_ms"]
@@ -2585,7 +2828,15 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
                "FS2s": "a binary search a slot before the redesign: "
                        f"{last['FS2s']}; before FS2s plain torch "
                        "(a slot mask of 64 a lane, its nonzero, FS2), "
-                       "PERF.md"}.get(
+                       "PERF.md; its packed words since FS5",
+               "FS5": "before FS5 plain torch: the width, overflow mask, "
+                      "any, where, clamp and torch.cumsum (8 launches in "
+                      "the search, 3 in the seeding); one PyTorch call, "
+                      f"{LIBRARY_CALLS['FS5']}: "
+                      + ("-" if row["library_ms"] is None
+                         else f"{row['library_ms']:.4f} ms"),
+               "FS6": "before FS6 plain torch: the hit test, where, stack "
+                      "and an int64 cat of 32 bytes a slot"}.get(
             label, f"before its redesign: {before.get(label, 0):.3f} ms, "
                    "PERF.md")
         phase(f"kernel fm_search {label} summary",
@@ -2596,6 +2847,9 @@ def fs_kernel_rows(rows: list[dict]) -> list[dict]:
               f"{row['sector_bound_ms']:.4f} ms "
               f"{row['sector_bound_ms'] / row['ms']:.1%}; occ-block sectors "
               + (f"{block:.4f} ms {block / row['ms']:.1%}" if block else "-")
+              + ("" if row["cold_ms"] is None else
+                 f"; L2 evicted {row['cold_ms']:.4f} ms, bound "
+                 f"{row['bound_ms'] / row['cold_ms']:.1%}")
               + f"; plain {row['plain_ms']:.3f} ms; {len(mine)} cases in "
               f"{sum(r['wall_s'] for r in mine):.2f} s")
     return out
@@ -3524,17 +3778,31 @@ def search_device_items(dev, reads: dict, out_dir: str,
     lens = np.concatenate([b1.lens, b2.lens]).astype(np.int32)
     cfg = fsearch.config_for(didx, 2)
 
+    copies = []
+    host_copy = fsearch._HostCopy
+
+    class Counted(host_copy):
+        """_HostCopy counting the bytes each dispatch downloads."""
+
+        def __init__(self, vec):
+            copies.append(vec.numel() * vec.element_size())
+            super().__init__(vec)
+
     def run():
         fsearch.PendingSearch(didx, codes, lens, cfg,
                               seed_range=(0, 2)).result()
         torch.cuda.synchronize(dev)
 
     run()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            run()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize(dev)
+    fsearch._HostCopy = Counted
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                run()
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize(dev)
+    finally:
+        fsearch._HostCopy = host_copy
     spans = _device_spans(prof)
     marks = [a for a, _, name in spans if "spin_kernel" in name]
     window = (spans if len(marks) < 2 else
@@ -3549,6 +3817,10 @@ def search_device_items(dev, reads: dict, out_dir: str,
         for name, (ms, k) in top:
             fh.write(f"{ms:10.4f} ms x{k:<5d} {name[:200]}\n")
     total = sum(ms for ms, _ in items.values())
+    library = library_items(items)
+    down = [v for n, v in items.items() if n.startswith("Memcpy DtoH")]
+    down_ms, downs = sum(v[0] for v in down), sum(v[1] for v in down)
+    wire_bytes = copies[len(copies) // 2:]  # the second search's
     scans = {n for _, _, n in spans if "with_indices" in n}
     reduce = {tag: sum(tag in n for _, _, n in spans)
               for tag in ("ReduceMaximum", "ReduceMinimum")}
@@ -3564,13 +3836,30 @@ def search_device_items(dev, reads: dict, out_dir: str,
           f"{SEARCH_DEVICE_BEFORE_MS:.3f} ms, PERF.md); scans with indices "
           f"(cummax) {len(scans)}, scatter-reduce kernels {reduce}; top: "
           f"{short}; all in search_profile.txt")
+    phase("e2e search download",
+          f"{len(wire_bytes)} result wires, {sum(wire_bytes)} bytes "
+          f"({wire_bytes}); device to host copies {downs} in "
+          f"{down_ms:.4f} ms; library launches {sum(library.values())} "
+          f"({library}); before the wire ({SEARCH_BEFORE_WIRE}, "
+          "PERF.md)")
     if scans:
         fail(f"the search ran a scan with indices: {list(scans)}")
     if reduce["ReduceMinimum"]:
         fail("the search ran a scatter-reduce with ReduceMinimum (the "
              "plain dedupe's scatter-min)")
     return {"device_ms": total, "items": dict(top), "marked": marked,
-            "scans_with_indices": len(scans), "scatter_reduce": reduce}
+            "scans_with_indices": len(scans), "scatter_reduce": reduce,
+            "download_bytes": wire_bytes, "download_ms": down_ms,
+            "downloads": downs, "library_launches": library}
+
+
+def library_items(items: dict) -> dict:
+    """{name: launches} of a search profile's items (name -> [ms,
+    launches]) that are library launches: neither a kernel of
+    csrc/fm_search.cu (FS_SYMBOLS), a marker kernel nor a copy."""
+    ours = tuple(FS_SYMBOLS.values()) + ("spin_kernel",)
+    return {n: v[1] for n, v in items.items()
+            if not n.startswith("Mem") and not any(o in n for o in ours)}
 
 
 # the mate-pair library of phases 5 and 6: -/+ (StrandArrangement of the
@@ -3630,7 +3919,8 @@ def _kernels() -> dict:
             "TB": bd.TRACEBACK_KERNEL, "FS1": fs.SEARCH_KERNEL,
             "FS2": fs.DECODE_KERNEL, "FS2x": fs.EXPAND_KERNEL,
             "FS3": fs.VERIFY_KERNEL, "FS4": fs.DEDUPE_KERNEL,
-            "FS2s": fs.SEED_EXPAND_KERNEL, "GP": fs.PRESCAN_KERNEL,
+            "FS2s": fs.SEED_EXPAND_KERNEL, "FS5": fs.LANE_COUNTS_KERNEL,
+            "FS6": fs.SEARCH_WIRE_KERNEL, "GP": fs.PRESCAN_KERNEL,
             "PK": fs.PACK_KERNEL}
 
 
@@ -3726,9 +4016,9 @@ def _counted(fn, dev, env=None, kept=None,
 
 
 # the seed search's kernels of the main path: FS1, FS2's two expansions
-# (the search's, the DP seeding's), FS3 and FS4; FS2's sa_decode of
-# ready rows is on no path since FS2s took the DP seeding
-FS_PATH = ("FS1", "FS2x", "FS2s", "FS3", "FS4")
+# (the search's, the DP seeding's), FS3, FS4, FS5 and FS6; FS2's
+# sa_decode of ready rows is on no path since FS2s took the DP seeding
+FS_PATH = ("FS1", "FS2x", "FS2s", "FS3", "FS4", "FS5", "FS6")
 
 
 def _fs_launched(where: str, launches: dict) -> None:
@@ -4081,6 +4371,8 @@ _HOST_MAIN = (
     " 'FS2x': fs.EXPAND_KERNEL.launches,"
     " 'FS3': fs.VERIFY_KERNEL.launches, 'FS4': fs.DEDUPE_KERNEL.launches,"
     " 'FS2s': fs.SEED_EXPAND_KERNEL.launches,"
+    " 'FS5': fs.LANE_COUNTS_KERNEL.launches,"
+    " 'FS6': fs.SEARCH_WIRE_KERNEL.launches,"
     " 'GP': fs.PRESCAN_KERNEL.launches,"
     " 'PK': fs.PACK_KERNEL.launches}), flush=True)\n"
     "sys.exit(rc)\n")

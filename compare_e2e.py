@@ -67,7 +67,7 @@ def main(argv=None) -> int:
     ap.add_argument("--genome-bp", type=int, default=250_000_000)
     ap.add_argument("--pairs", type=int, default=100_000)
     args = ap.parse_args(argv)
-    work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "compare_e2e")
+    work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e")
     card = card_line()
     print(card, flush=True)
     runs = []

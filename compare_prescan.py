@@ -51,7 +51,12 @@ and the outputs' time without the walk. This process counts each
 shape's bound once on the first run's inputs (chip_smoke.fs_work,
 prescan_work, pack_work) and ranks the kernels by launches x (span -
 bound) over the run's phase-4 launch-shape histogram
-(chip_smoke.rank_by_loss). Prints one line per run and writes them to
+(chip_smoke.rank_by_loss). Every run also replays FS4 on the same keys:
+the first run saves its phase-4 FS4 call of the largest K (round 1,
+K2 < K) and each run times its own fmindex.dedupe on those keys
+(SAME_KEY_REPS calls) and says whether its own call's keys equal them,
+so a change in FS4's replayed time is split into the kernel's and the
+keys'. Prints one line per run and writes them to
 compare_prescan.json in chip_smoke.py's output directory; exits non-zero
 after that if a replayed call (or the largest calls above) disagrees
 with its plain version. Both phases share phase 4's cached index and
@@ -70,6 +75,7 @@ import chip_smoke as cs
 from compare_e2e import ROOT, run_in_tree
 
 REPS = 5  # replayed calls a timing
+SAME_KEY_REPS = 30  # FS4's calls on the first run's keys
 
 RUN = """
 import collections, importlib.util, re
@@ -371,6 +377,24 @@ for row in out["replays"]:
     row["sa1_span_ms"] = timing._call_span_ms(
         lambda: kern(didx1, *args), {reps}, SYMBOL[row["kernel"]])[0]
     row["sa1_equal"] = same(kern(didx1, *args), plain(didx1, *args))
+
+# FS4 on the first run's keys: its phase-4 call of the largest K
+fs4 = max((k for k in first if k[:2] == ("phase4", "FS4")),
+          key=lambda k: first[k][0].shape[0])
+own = first[fs4]
+if not os.path.exists({keys!r}):
+    np.savez({keys!r}, **{{f"a{{i}}": host(a) for i, a in enumerate(own)}})
+with np.load({keys!r}) as z:
+    keys = tuple(torch.from_numpy(z[f"a{{i}}"]).to(dev) for i in range(3))
+    keys += (int(z["a3"]),)
+span, events = timing._call_span_ms(lambda: fmindex.dedupe(*keys),
+                                    {same_reps}, SYMBOL["FS4"])
+out["fs4_same_keys"] = {{
+    "shape": "x".join(map(str, (keys[0].shape[0], keys[3]))),
+    "span_ms": span, "events_ms": events,
+    "equal": same(fmindex.dedupe(*keys), fmindex.dedupe_plain(*keys)),
+    "own_keys_equal": all(np.array_equal(host(a), host(b))
+                          for a, b in zip(own, keys))}}
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -417,6 +441,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e")
     os.makedirs(work, exist_ok=True)
+    keys = os.path.join(work, "fs4_keys.npz")
+    if os.path.exists(keys):
+        os.remove(keys)
     card = cs.card_line()
     print(card, flush=True)
     peak = cs.int32_peak_ops()
@@ -424,7 +451,8 @@ def main(argv=None) -> int:
     for tree in args.trees:
         run = {"tree": tree, **run_in_tree(
             tree, RUN, work=work, reps=REPS, bp=cs.E2E_GENOME_BP,
-            pairs=cs.E2E_PAIRS, timing=os.path.abspath(cs.__file__))}
+            pairs=cs.E2E_PAIRS, timing=os.path.abspath(cs.__file__),
+            keys=keys, same_reps=SAME_KEY_REPS)}
         for key in ("phase4", "phase5"):
             for row in run[key].get("pack_replay", []):
                 with np.load(row.pop("case")) as z:
@@ -476,6 +504,8 @@ def main(argv=None) -> int:
            for x in r["replays"]
            if not (x["equal"] and x.get("sa1_equal", True)
                    and x.get("reads_only_equal", True))]
+    bad += [(r["tree"], "FS4 same keys") for r in runs
+            if not r["fs4_same_keys"]["equal"]]
     bad += [(r["tree"], key, x.get("what", "GP")) for r in runs
             for key in ("phase4", "phase5")
             for x in r[key].get("pack_replay", []) + [r[key].get("replay")]

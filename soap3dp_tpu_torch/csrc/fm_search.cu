@@ -1,7 +1,8 @@
 // The gather stages of the seed search for Hopper (sm_90a), one thread
 // per lane or slot: FM backward search (FS1), SA decode (FS2, with the
 // lane expansions of the search and of the DP seeding), packed
-// verification (FS3) and the hash dedupe (FS4); and the DP rescue's
+// verification (FS3), the hash dedupe (FS4), the lanes' counts and
+// their scan (FS5) and the result wire (FS6); and the DP rescue's
 // gapless prescan (GP, one warp a candidate) and problem pack (PK, one
 // thread a 16-byte unit of its outputs), which read the genome as FS3
 // does and their read rows as whole aligned words (oriented16). Each
@@ -32,8 +33,22 @@
 // directly; soap3dp_seed_expand_decode (FS2s) does the same expansion
 // for the DP seeding (soap3dp_tpu/pipeline/dp_rescue.py:176-188, whose
 // (lanes, occ_cap) slot mask and nonzero give the same slot order) and
-// writes its candidates (oriented row, read start, valid). The three
-// forms are one template (expand_at, expand_slot).
+// writes its candidates (oriented row, read start, valid) as the u32
+// words of the reference's one packed transfer, [row | pos | valid]
+// (dp_rescue.py:184-190). The three forms are one template (expand_at,
+// expand_slot).
+// FS5, soap3dp_lane_counts, replaces the counts and their cumsum of the
+// reference's `_search_batch` (soap3dp_tpu/fm/search.py:232-252: the
+// overflow mask, the per-read any, the where / minimum, the cumsum) and
+// of the DP seeding (the widths' minimum and the slot count,
+// soap3dp_tpu/pipeline/dp_rescue.py:176-178): each lane's count, their
+// inclusive scan (the tiles and look-back of FS4's scan, shared) and
+// the total, and in the search's mode the flagged words of the result
+// wire. What bounds it: bytes (each lane's l, r and incl, 24 B).
+// FS6, soap3dp_search_wire, replaces the hit test and the packing of
+// `_search_batch_wire` (soap3dp_tpu/fm/search.py:312, :322-346): one
+// thread a unique placement writes its two words of the wire, the
+// first thread the totals.
 // FS4, soap3dp_dedupe, replaces the scatter-min hash dedupe of the
 // reference's `_search_batch` (soap3dp_tpu/fm/search.py:275-301) and
 // the nonzero of its first occurrences: two launches, no sort and no
@@ -484,15 +499,18 @@ struct Lanes {
 
 // what an expansion writes for each slot, by its form
 struct Slots {
-  int64_t* a;     // krow | row | lane
-  int64_t* b;     // ktp | pos | rank
-  uint8_t* ok;    // pos_ok | valid | -
-  int64_t* step;  // - | - | LF steps
+  int64_t* a;       // krow | - | lane
+  int64_t* b;       // ktp | - | rank
+  uint8_t* ok;      // pos_ok | - | -
+  int64_t* step;    // - | - | LF steps
+  uint32_t* words;  // - | [row (K) | pos (K) | valid (K)] | -
+  int64_t K;        // the slots
 };
 
 // the three forms: the search's dedupe keys (FS2x), the DP seeding's
-// candidates (FS2s), and, for an SA table split over a mesh, each slot's
-// lane, sample rank and steps, whose samples the owner routing gathers
+// candidates as the u32 words of the reference's one packed transfer
+// (FS2s), and, for an SA table split over a mesh, each slot's lane,
+// sample rank and steps, whose samples the owner routing gathers
 enum : int { OUT_KEYS = 0, OUT_SEED = 1, OUT_RANKS = 2 };
 
 // the lane of live slot k in lanes [a, b] (incl[b] > k): the first lane
@@ -595,12 +613,12 @@ __device__ __forceinline__ void expand_slot(const Lanes& e, const Marks& mk,
   const int64_t st = ld64(e.start + lane);
   const int64_t orow = lane / e.S;
   if (OUT == OUT_SEED) {
-    // dp_rescue._seed_cand_batch: the read's start, no test of its end;
-    // a slot past the total keeps row 0 (lane 0's)
+    // dp_rescue._seed_cand_batch: the read's start (below 2^32: pos is),
+    // no test of its end; a slot past the total keeps row 0 (lane 0's)
     const bool ok = live && pos >= st;
-    o.a[k] = orow;
-    o.b[k] = ok ? pos - st : 0;
-    o.ok[k] = ok ? 1 : 0;
+    o.words[k] = static_cast<uint32_t>(orow);
+    o.words[o.K + k] = ok ? static_cast<uint32_t>(pos - st) : 0u;
+    o.words[2 * o.K + k] = ok ? 1u : 0u;
     return;
   }
   const int64_t tp = pos - st;
@@ -654,7 +672,8 @@ seed_expand_kernel(Lanes e, int64_t K, Marks mk, Tables t, Slots o) {
 // scan of the 32 counts) and finds the firsts before it by decoupled
 // look-back over the tiles before it (a 64-bit status word a tile: a
 // flag and its count, or the count of every first up to it), so it
-// waits only on blocks that already run.
+// waits only on blocks that already run. The statuses and the ticket
+// counter are kept across calls too, shared with FS5 (status_word).
 constexpr uint32_t HASH_ROW = 0x9E3779B1u;
 constexpr uint32_t HASH_TP = 0x85EBCA77u;
 constexpr uint32_t HASH_MIX = 0xC2B2AE3Du;
@@ -663,8 +682,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr int DEDUPE_ROWS = 4;                // slots a thread of a tile
 constexpr int TILE = DEDUPE_ROWS * THREADS;   // slots a tile
 constexpr int LOOKBACK = 8;                   // status words a lane a round
-constexpr uint64_t ST_AGG = 1ull << 32;       // the tile's own count
-constexpr uint64_t ST_INCL = 2ull << 32;      // the count up to the tile
+constexpr uint32_t ST_AGG = 1u;               // the tile's own count
+constexpr uint32_t ST_INCL = 2u;              // the count up to the tile
 
 // the table slot of a key (32-bit products, as fmindex.mul32)
 __device__ __forceinline__ uint32_t dedupe_slot(int64_t row, int64_t tp,
@@ -674,23 +693,19 @@ __device__ __forceinline__ uint32_t dedupe_slot(int64_t row, int64_t tp,
   return (h * HASH_MIX) >> (32 - hb);
 }
 
-// the scatter; the second launch's tile status words and ticket counter
-// set to 0; output slot k (< K2) filled as past the firsts (ROW_SENTINEL,
-// ktp[0], 0), which the second launch overwrites for the firsts
+// the scatter; output slot k (< K2) filled as past the firsts
+// (ROW_SENTINEL, ktp[0], 0), which the second launch overwrites for the
+// firsts
 __global__ void __launch_bounds__(THREADS)
 dedupe_scatter_kernel(const int64_t* __restrict__ krow,
                       const int64_t* __restrict__ ktp,
                       const uint8_t* __restrict__ pos_ok, int64_t K,
                       int64_t K2, int hb, uint32_t gen,
                       unsigned long long* __restrict__ table,
-                      unsigned long long* __restrict__ status, int64_t tiles,
-                      unsigned* __restrict__ ticket,
                       int64_t* __restrict__ urow, int64_t* __restrict__ utp,
                       uint8_t* __restrict__ uvalid) {
   const int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
-  if (k < tiles) status[k] = 0ull;
-  if (k == 0) *ticket = 0u;
   if (k < K2) {
     urow[k] = ROW_SENTINEL;
     utp[k] = ld64(ktp);
@@ -722,42 +737,63 @@ __device__ __forceinline__ void st_status(unsigned long long* p,
   *reinterpret_cast<volatile unsigned long long*>(p) = v;
 }
 
+// A tile's status word: the high 32 bits its tag (the call's
+// generation << 2) and state (1: its own count, 2: the count of every
+// tile up to it), the low 32 bits the count. FS4 and FS5 keep their
+// statuses and ticket counter across calls on one card and stream (the
+// wrappers' scan state, zeroed once); each call takes a generation above
+// every earlier call's there, so a word an earlier call left reads as
+// not yet written, and counts its tickets from the ones they took.
+__device__ __forceinline__ uint64_t status_word(uint32_t tag, uint32_t state,
+                                                uint32_t count) {
+  return (static_cast<uint64_t>(tag | state) << 32) | count;
+}
+
 // one warp: publish tile t's count, sum the counts of the tiles before
 // it back to the nearest that holds its inclusive count (before tile 0
-// an inclusive 0), publish its inclusive count; returns the firsts
+// an inclusive 0), publish its inclusive count; returns the count
 // before the tile. A round reads the status words of the 256 tiles
 // before the last round's at once (8 a lane), so a tile that finds no
-// inclusive count near it walks back 256 tiles a round, not 32.
-__device__ int32_t dedupe_lookback(unsigned long long* status, int64_t t,
-                                   int32_t count, int lane) {
+// inclusive count near it walks back 256 tiles a round, not 32. The
+// single-pass scan of FS4 (the firsts) and FS5 (the lanes' counts).
+__device__ int32_t tile_lookback(unsigned long long* status, int64_t t,
+                                 int32_t count, int lane, uint32_t tag) {
+  const uint32_t agg = tag | ST_AGG, incl = tag | ST_INCL;
+  const uint32_t own = static_cast<uint32_t>(count);
   if (t == 0) {
-    if (lane == 0) st_status(status, ST_INCL | static_cast<uint32_t>(count));
+    if (lane == 0) st_status(status, status_word(tag, ST_INCL, own));
     return 0;
   }
-  if (lane == 0) st_status(status + t, ST_AGG | static_cast<uint32_t>(count));
+  if (lane == 0) st_status(status + t, status_word(tag, ST_AGG, own));
   int32_t before = 0;
   for (int64_t j = t - 1;; j -= 32 * LOOKBACK) {
     uint64_t s[LOOKBACK];
 #pragma unroll
     for (int q = 0; q < LOOKBACK; ++q) {
       const int64_t i = j - 32 * q - lane;
-      s[q] = i >= 0 ? ld_status(status + i) : ST_INCL;
+      s[q] = i >= 0 ? ld_status(status + i) : status_word(tag, ST_INCL, 0);
     }
-    for (;;) {  // until every word holds a count
+    for (;;) {  // until every word holds a count of this call
       bool wait = false;
 #pragma unroll
-      for (int q = 0; q < LOOKBACK; ++q) wait |= (s[q] >> 32) == 0;
+      for (int q = 0; q < LOOKBACK; ++q) {
+        const uint32_t hi = static_cast<uint32_t>(s[q] >> 32);
+        wait |= hi != agg && hi != incl;
+      }
       if (!__any_sync(FULL, wait)) break;
       __nanosleep(32);
 #pragma unroll
-      for (int q = 0; q < LOOKBACK; ++q)
-        if ((s[q] >> 32) == 0) s[q] = ld_status(status + j - 32 * q - lane);
+      for (int q = 0; q < LOOKBACK; ++q) {
+        const uint32_t hi = static_cast<uint32_t>(s[q] >> 32);
+        if (hi != agg && hi != incl)
+          s[q] = ld_status(status + j - 32 * q - lane);
+      }
     }
     // the nearest inclusive count: the least distance 32 q + lane
     int near = 32 * LOOKBACK;
 #pragma unroll
     for (int q = LOOKBACK - 1; q >= 0; --q)
-      if ((s[q] >> 32) == 2) near = 32 * q + lane;
+      if (static_cast<uint32_t>(s[q] >> 32) == incl) near = 32 * q + lane;
     near = __reduce_min_sync(FULL, near);
     uint32_t sum = 0;
 #pragma unroll
@@ -767,26 +803,28 @@ __device__ int32_t dedupe_lookback(unsigned long long* status, int64_t t,
     if (near < 32 * LOOKBACK) break;
   }
   if (lane == 0)
-    st_status(status + t, ST_INCL | static_cast<uint32_t>(before + count));
+    st_status(status + t, status_word(tag, ST_INCL,
+                                      static_cast<uint32_t>(before + count)));
   return before;
 }
 
-// the first test of a tile's slots, the firsts before each (look-back),
-// the firsts of rank < K2 to their output slots; the last tile writes
-// uniq
+// the first test of a tile's slots, the firsts before each (look-back;
+// tickets counted from `base`, statuses tagged `tag`), the firsts of
+// rank < K2 to their output slots; the last tile writes uniq
 __global__ void __launch_bounds__(THREADS)
 dedupe_scan_kernel(const int64_t* __restrict__ krow,
                    const int64_t* __restrict__ ktp,
                    const uint8_t* __restrict__ pos_ok, int64_t K, int64_t K2,
                    int hb, const unsigned long long* __restrict__ table,
                    unsigned long long* status, int64_t tiles,
-                   unsigned* __restrict__ ticket, int64_t* __restrict__ urow,
+                   unsigned* __restrict__ ticket, uint32_t base,
+                   uint32_t tag, int64_t* __restrict__ urow,
                    int64_t* __restrict__ utp, uint8_t* __restrict__ uvalid,
                    int64_t* __restrict__ uniq) {
   __shared__ unsigned my_ticket;
   __shared__ int32_t off[DEDUPE_ROWS * WARPS];  // (row, warp): firsts before
   __shared__ int32_t tile_before;
-  if (threadIdx.x == 0) my_ticket = atomicAdd(ticket, 1u);
+  if (threadIdx.x == 0) my_ticket = atomicAdd(ticket, 1u) - base;
   __syncthreads();
   const int64_t t = my_ticket;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -819,7 +857,7 @@ dedupe_scan_kernel(const int64_t* __restrict__ krow,
     const int32_t incl = warp_scan(x, lane);
     off[lane] = incl - x;
     const int32_t count = __shfl_sync(FULL, incl, 31);
-    const int32_t before = dedupe_lookback(status, t, count, lane);
+    const int32_t before = tile_lookback(status, t, count, lane, tag);
     if (lane == 0) {
       tile_before = before;
       if (t == tiles - 1) *uniq = before + count;
@@ -838,6 +876,124 @@ dedupe_scan_kernel(const int64_t* __restrict__ krow,
       uvalid[rank] = 1;
     }
   }
+}
+
+// FS5, the lanes' counts and their inclusive scan. Lane k's count from
+// its SA interval [l, r): in the search's mode (flags given) 0 where the
+// width passes cap, else the width (fm/search.py's where / minimum); in
+// the seeding's, the width clamped to [0, cap]. Blocks below `tiles`
+// take tickets and scan tiles of 1,024 lanes as FS4's second launch
+// scans its firsts (tile_lookback, on the scan state FS4 uses); the
+// last tile writes the total. In
+// the search's mode the blocks past them write the wire's flagged
+// words: read b (of B = RS / 2S) is bit b % 32 of word b / 32 where any
+// of its S lanes on either strand (rows b and B + b) overflowed, one
+// ballot a warp. The wrapper keeps RS x cap below 2^31, so every count
+// and partial sum fits 32 bits.
+__device__ __forceinline__ int32_t lane_count(const int64_t* l,
+                                              const int64_t* r, int64_t k,
+                                              int64_t cap, bool search) {
+  const int64_t w = ld64(r + k) - ld64(l + k);
+  if (search) return static_cast<int32_t>(w > cap ? 0 : w);
+  return static_cast<int32_t>(clamp64(w, 0, cap));
+}
+
+__global__ void __launch_bounds__(THREADS)
+lane_counts_kernel(const int64_t* __restrict__ l,
+                   const int64_t* __restrict__ r, int64_t RS, int64_t cap,
+                   int S, int64_t tiles, unsigned long long* status,
+                   unsigned* __restrict__ ticket, uint32_t base,
+                   uint32_t tag, int64_t* __restrict__ incl,
+                   int64_t* __restrict__ total, uint32_t* __restrict__ flags,
+                   int64_t nf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (blockIdx.x >= tiles) {  // the flagged words
+    const int64_t B = RS / (2 * S);
+    const int64_t b = (blockIdx.x - tiles) * static_cast<int64_t>(THREADS) +
+                      threadIdx.x;
+    bool over = false;
+    for (int s = 0; b < B && s < S; ++s) {
+      const int64_t i = b * S + s, j = (B + b) * S + s;
+      over |= ld64(r + i) - ld64(l + i) > cap;
+      over |= ld64(r + j) - ld64(l + j) > cap;
+    }
+    const uint32_t word = __ballot_sync(FULL, over);  // every lane takes part
+    if (lane == 0 && (b >> 5) < nf) flags[b >> 5] = word;
+    return;
+  }
+  __shared__ unsigned my_ticket;
+  __shared__ int32_t off[DEDUPE_ROWS * WARPS];  // (row, warp): counts before
+  __shared__ int32_t tile_before;
+  if (threadIdx.x == 0) my_ticket = atomicAdd(ticket, 1u) - base;
+  __syncthreads();
+  const int64_t t = my_ticket;
+  const int64_t k0 = t * TILE + threadIdx.x;
+  const bool search = flags != nullptr;
+  int32_t x[DEDUPE_ROWS];
+#pragma unroll
+  for (int q = 0; q < DEDUPE_ROWS; ++q) {  // every load of a lane at once
+    const int64_t k = k0 + q * THREADS;
+    x[q] = k < RS ? lane_count(l, r, k, cap, search) : 0;
+  }
+#pragma unroll
+  for (int q = 0; q < DEDUPE_ROWS; ++q) {
+    x[q] = warp_scan(x[q], lane);  // every lane takes part
+    if (lane == 31) off[q * WARPS + warp] = x[q];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int32_t v = off[lane];
+    const int32_t sum = warp_scan(v, lane);
+    off[lane] = sum - v;
+    const int32_t count = __shfl_sync(FULL, sum, 31);
+    const int32_t before = tile_lookback(status, t, count, lane, tag);
+    if (lane == 0) {
+      tile_before = before;
+      if (t == tiles - 1) *total = before + count;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < DEDUPE_ROWS; ++q) {
+    const int64_t k = k0 + q * THREADS;
+    if (k < RS)
+      incl[k] = static_cast<int64_t>(tile_before) + off[q * WARPS + warp] +
+                x[q];
+  }
+}
+
+// FS6, the search's result wire (fm/search.py _search_batch_wire): slot
+// j's hit test (a unique placement verified within k mismatches), its
+// text position's word and its meta word, row (24 bits, ROW_SENTINEL
+// where no hit, clipped) | mismatches (7 bits, clipped) | hit (1 bit),
+// at wire words 2 + nf + j and 2 + nf + K2 + j; thread 0 writes the
+// totals, words 0 and 1, from FS5's and FS4's device scalars, so no
+// host sync comes between the kernels. What bounds it: bytes, each
+// slot's utp, nmis and uvalid read and its two words written (25 B),
+// and urow read where the slot holds a hit (8 B).
+__global__ void __launch_bounds__(THREADS)
+search_wire_kernel(const int64_t* __restrict__ urow,
+                   const int64_t* __restrict__ utp,
+                   const uint8_t* __restrict__ uvalid,
+                   const int64_t* __restrict__ nmis, int64_t K2, int k,
+                   const int64_t* __restrict__ total,
+                   const int64_t* __restrict__ uniq,
+                   uint32_t* __restrict__ wire, int64_t nf) {
+  const int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (j == 0) {
+    wire[0] = static_cast<uint32_t>(ld64(total));
+    wire[1] = static_cast<uint32_t>(ld64(uniq));
+  }
+  if (j >= K2) return;
+  const int64_t nm = ld64(nmis + j);
+  const bool hit = __ldg(uvalid + j) != 0 && nm <= k;
+  const int64_t row = hit ? ld64(urow + j) : ROW_SENTINEL;
+  uint32_t* out = wire + 2 + nf;
+  out[j] = static_cast<uint32_t>(ld64(utp + j));
+  out[K2 + j] = static_cast<uint32_t>(clamp64(row, 0, 0xFFFFFF)) |
+                (static_cast<uint32_t>(clamp64(nm, 0, 127)) << 24) |
+                (hit ? 0x80000000u : 0u);
 }
 
 // count_mismatches_packed of placement i over W words: the genome word
@@ -1417,10 +1573,11 @@ int soap3dp_expand_decode(const int64_t* lo, const int64_t* incl,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rank_out)
     expand_decode_kernel<OUT_RANKS><<<blocks_for(K), THREADS, 0, st>>>(
-        e, K, mk, t, Slots{lane_out, rank_out, nullptr, step_out});
+        e, K, mk, t,
+        Slots{lane_out, rank_out, nullptr, step_out, nullptr, K});
   else
     expand_decode_kernel<OUT_KEYS><<<blocks_for(K), THREADS, 0, st>>>(
-        e, K, mk, t, Slots{krow, ktp, pos_ok, nullptr});
+        e, K, mk, t, Slots{krow, ktp, pos_ok, nullptr, nullptr, K});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1431,41 +1588,76 @@ int soap3dp_seed_expand_decode(const int64_t* lo, const int64_t* incl,
                                const int32_t* mark_rank,
                                const int32_t* blocks, const int64_t* counts,
                                long long primary, const int32_t* sa,
-                               long long n_sa, int64_t* row, int64_t* pos,
-                               uint8_t* valid, int64_t* lane_out,
-                               int64_t* rank_out, int64_t* step_out,
-                               void* stream) {
+                               long long n_sa, uint32_t* words,
+                               int64_t* lane_out, int64_t* rank_out,
+                               int64_t* step_out, void* stream) {
   const Marks mk{mark_words, mark_rank, sa, n_sa, sa_rate};
   const Tables t{reinterpret_cast<const uint4*>(blocks), counts, primary};
   const Lanes e{lo, incl, sp, nullptr, RS, 0, S};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rank_out)
     seed_expand_kernel<OUT_RANKS><<<blocks_for(K), THREADS, 0, st>>>(
-        e, K, mk, t, Slots{lane_out, rank_out, nullptr, step_out});
+        e, K, mk, t,
+        Slots{lane_out, rank_out, nullptr, step_out, nullptr, K});
   else
     seed_expand_kernel<OUT_SEED><<<blocks_for(K), THREADS, 0, st>>>(
-        e, K, mk, t, Slots{row, pos, valid, nullptr});
+        e, K, mk, t,
+        Slots{nullptr, nullptr, nullptr, nullptr, words, K});
   return static_cast<int>(cudaGetLastError());
 }
 
 // table: the caller's 64-bit table of at least 2^hb slots, kept across
 // calls on this stream (zeroed once), gen above every earlier call's on
-// it; scratch: ceil(K / TILE) tile status words and the ticket counter.
-// The first launch has a thread for each of max(K, K2) slots.
+// it; scan, base, tag: the scan state, as soap3dp_lane_counts's, for
+// ceil(K / TILE) tiles. The first launch has a thread for each of
+// max(K, K2) slots.
 int soap3dp_dedupe(const int64_t* krow, const int64_t* ktp,
                    const uint8_t* pos_ok, long long K, long long K2, int hb,
                    unsigned gen, unsigned long long* table,
-                   unsigned long long* scratch, int64_t* urow, int64_t* utp,
-                   uint8_t* uvalid, int64_t* uniq, void* stream) {
+                   unsigned long long* scan, unsigned base, unsigned tag,
+                   int64_t* urow, int64_t* utp, uint8_t* uvalid,
+                   int64_t* uniq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t tiles = (K + TILE - 1) / TILE;
-  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + tiles);
   dedupe_scatter_kernel<<<blocks_for(K > K2 ? K : K2), THREADS, 0, st>>>(
-      krow, ktp, pos_ok, K, K2, hb, gen, table, scratch, tiles, ticket,
-      urow, utp, uvalid);
+      krow, ktp, pos_ok, K, K2, hb, gen, table, urow, utp, uvalid);
   dedupe_scan_kernel<<<static_cast<unsigned>(tiles), THREADS, 0, st>>>(
-      krow, ktp, pos_ok, K, K2, hb, table, scratch, tiles, ticket, urow, utp,
-      uvalid, uniq);
+      krow, ktp, pos_ok, K, K2, hb, table, scan + 1, tiles,
+      reinterpret_cast<unsigned*>(scan), base, tag, urow, utp, uvalid, uniq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch: the scan state, the caller's int64 words kept across calls on
+// this stream (zeroed once), shared with soap3dp_dedupe: the ticket
+// counter, then at least ceil(RS / TILE) tile statuses; base: the
+// tickets earlier calls took there; tag: this call's generation << 2,
+// above every earlier call's there. flags
+// (search mode; null for the seeding's): ceil(B / 32) words.
+int soap3dp_lane_counts(const int64_t* l, const int64_t* r, long long RS,
+                        long long cap, int S, unsigned long long* scratch,
+                        unsigned base, unsigned tag, int64_t* incl,
+                        int64_t* total, uint32_t* flags, long long nf,
+                        void* stream) {
+  const int64_t tiles = (RS + TILE - 1) / TILE;
+  const unsigned fblocks = flags ? blocks_for(32 * nf) : 0u;
+  lane_counts_kernel<<<static_cast<unsigned>(tiles) + fblocks, THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      l, r, RS, cap, S, tiles, scratch + 1,
+      reinterpret_cast<unsigned*>(scratch), base, tag, incl, total, flags,
+      nf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// wire: 2 + nf + 2 K2 words; one thread a slot (one at least, for the
+// totals)
+int soap3dp_search_wire(const int64_t* urow, const int64_t* utp,
+                        const uint8_t* uvalid, const int64_t* nmis,
+                        long long K2, int k, const int64_t* total,
+                        const int64_t* uniq, uint32_t* wire, long long nf,
+                        void* stream) {
+  search_wire_kernel<<<blocks_for(K2 > 0 ? K2 : 1), THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      urow, utp, uvalid, nmis, K2, k, total, uniq, wire, nf);
   return static_cast<int>(cudaGetLastError());
 }
 

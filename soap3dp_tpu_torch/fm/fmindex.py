@@ -14,9 +14,10 @@ intervals are int64 tensors.
 ``n`` and ``primary`` are host ints on the DeviceIndex, so no search
 step ever reads a device scalar back.
 
-The seed search's device stages (``seed_intervals``, ``sa_decode``,
-``expand_decode``, ``count_mismatches_rows``, ``dedupe``) and the DP
-seeding's ``seed_expand_decode`` take a CUDA tensor to the
+The seed search's device stages (``seed_intervals``, ``lane_counts``,
+``sa_decode``, ``expand_decode``, ``count_mismatches_rows``,
+``dedupe``, ``search_wire``) and the DP seeding's ``lane_counts`` and
+``seed_expand_decode`` take a CUDA tensor to the
 hand-written kernels of kernels/fm_search.py (or raise) and a CPU
 tensor to their plain-torch versions, the ``*_plain`` functions here,
 which the CPU tests hold to the JAX package. The FM steps and LF steps
@@ -567,16 +568,17 @@ def expand_decode_plain(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
 
 
 def seed_expand_decode(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
-                       sp: torch.Tensor, S: int, K: int
-                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                       sp: torch.Tensor, S: int, K: int) -> torch.Tensor:
     """The DP seeding's lane expansion and SA decode: lane j (row j // S,
     seed start ``sp[j]``) owns the slots incl[j - 1]..incl[j] - 1 of the
     inclusive count cumsum ``incl``, slot k of them SA row
     l[j] + k - incl[j - 1]; each of the K slots gets its candidate (row,
     pos, valid): the oriented row (0 past the total count) and the read's
     text position where the decoded position is not below the seed
-    start, else 0 and False. FS2s on CUDA tensors (with the SA table
-    split over a mesh, its ranks form and the owner routing)."""
+    start, else 0 and 0. Returns them as the reference's one packed
+    transfer, the (3K,) int32 bit patterns of the u32 words [row (K) |
+    pos (K) | valid (K)] (seed_words). FS2s on CUDA tensors (with the SA
+    table split over a mesh, its ranks form and the owner routing)."""
     if l.is_cuda:
         args = (idx, _i64(l), _i64(incl), _i64(sp), S, K)
         if not idx.sa_parts:
@@ -590,7 +592,7 @@ def seed_expand_decode(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
 def _seed_from_ranks(idx: DeviceIndex, lane: torch.Tensor,
                      rank: torch.Tensor, step: torch.Tensor,
                      incl: torch.Tensor, sp: torch.Tensor, S: int
-                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     ) -> torch.Tensor:
     """seed_expand_decode's candidates from each slot's (lane, sample
     rank, LF steps), the samples gathered by the owner routing of a
     split SA table (_sa_value)."""
@@ -599,12 +601,26 @@ def _seed_from_ranks(idx: DeviceIndex, lane: torch.Tensor,
     sa_pos = torch.where(live, (_sa_value(idx, rank) + step) & MASK32, zero)
     st = sp[lane]
     valid = live & (sa_pos >= st)
-    return lane // S, torch.where(valid, sa_pos - st, zero), valid
+    return seed_words(lane // S, torch.where(valid, sa_pos - st, zero), valid)
+
+
+def i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int32 tensor of the bit patterns of ``x``'s values mod 2^32 (the
+    reference's u32 words)."""
+    return (((x.to(torch.int64) & MASK32) ^ 0x80000000)
+            - 0x80000000).to(torch.int32)
+
+
+def seed_words(row: torch.Tensor, pos: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """The DP seeding's candidates as its packed transfer: the (3K,)
+    int32 bit patterns of [row | pos | valid]."""
+    return i32_bits(torch.cat([row.to(torch.int64), pos.to(torch.int64),
+                               valid.to(torch.int64)]))
 
 
 def seed_expand_plain(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
-                      sp: torch.Tensor, S: int, K: int
-                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      sp: torch.Tensor, S: int, K: int) -> torch.Tensor:
     """The plain version of seed_expand_decode: the reference's slot mask
     of (lanes, the widest count) and its nonzero, then sa_decode_plain
     (the mask's row-major order is the expansion's slot order)."""
@@ -624,7 +640,49 @@ def seed_expand_plain(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
     st = sp.to(torch.int64)[lane]
     cvalid = cvalid & (sa_pos >= st)
     pos = torch.where(cvalid, sa_pos - st, torch.zeros_like(sa_pos))
-    return rows[lane], pos, cvalid
+    return seed_words(rows[lane], pos, cvalid)
+
+
+def lane_counts(l: torch.Tensor, r: torch.Tensor, cap: int, S: int,
+                flags: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, ...]:
+    """Each seed lane's candidate count from its SA interval [l, r),
+    their inclusive cumsum ``incl`` and the total (0-dim). The search's
+    (``flags`` given, int32 (ceil(B / 32),) for B = RS / 2S reads of S
+    lanes a strand): 0 where the width passes cap, else the width; the
+    flagged words of the result wire, read b at bit b % 32 of word
+    b // 32 where a lane of its row b or B + b passed cap, written into
+    ``flags``; returns (incl, total, flags). The DP seeding's (S lanes a
+    row): the width clamped to [0, cap]; returns (incl, total). FS5 on
+    CUDA tensors."""
+    if l.is_cuda:
+        return fm_search.lane_counts(_i64(l), _i64(r), cap, S, flags)
+    _require_cpu("lane_counts", l)
+    return lane_counts_plain(l, r, cap, S, flags)
+
+
+def lane_counts_plain(l: torch.Tensor, r: torch.Tensor, cap: int, S: int,
+                      flags: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, ...]:
+    """The plain version of lane_counts: the reference's overflow mask,
+    its any over each read's lanes, the where / minimum and the cumsum
+    (search); the widths' clamp and the cumsum (seeding)."""
+    width = r.to(torch.int64) - l.to(torch.int64)
+    if flags is None:
+        incl = torch.cumsum(width.clamp(0, cap), 0)
+        return incl, incl[-1]
+    overflow = width > cap
+    read = overflow.reshape(-1, S).any(dim=1)
+    B = read.shape[0] // 2
+    read = read[:B] | read[B:]
+    bits = torch.zeros(flags.shape[0] * 32, dtype=torch.int64,
+                       device=l.device)
+    bits[:B] = read.to(torch.int64)
+    shift = torch.arange(32, device=l.device)
+    flags.copy_(i32_bits((bits.reshape(-1, 32) << shift).sum(dim=1)))
+    cnt = torch.where(overflow, torch.zeros_like(width), width.clamp(max=cap))
+    incl = torch.cumsum(cnt, 0)
+    return incl, incl[-1], flags
 
 
 def _nonzero_prefix(mask: torch.Tensor, size: int) -> torch.Tensor:
@@ -689,6 +747,49 @@ def dedupe_plain(krow: torch.Tensor, ktp: torch.Tensor, pos_ok: torch.Tensor,
     urow = torch.where(uvalid, krow[idx2s], torch.full_like(idx2s, ROW_SENTINEL))
     utp = ktp[idx2s]
     return urow, utp, uvalid, uniq
+
+
+def search_wire(wire: torch.Tensor, B: int, total: torch.Tensor,
+                uniq: torch.Tensor, urow: torch.Tensor, utp: torch.Tensor,
+                uvalid: torch.Tensor, nmis: torch.Tensor, k: int
+                ) -> torch.Tensor:
+    """The search's result wire of B reads, the reference's
+    _search_batch_wire: ``wire`` (int32 bit patterns of its u32 words,
+    [total, uniq | ceil(B / 32) flagged words | tp (K2) | meta (K2)],
+    the flagged words already written by lane_counts) filled in place
+    and returned: the totals, each slot's text position and its meta
+    word, row (24 bits, ROW_SENTINEL where it holds no hit: a unique
+    placement verified within k mismatches) | nmis (7 bits) | the hit
+    (bit 31), each clipped. FS6 on CUDA tensors."""
+    if urow.is_cuda:
+        return fm_search.search_wire(wire, B, _i64(total), _i64(uniq),
+                                     _i64(urow), _i64(utp),
+                                     uvalid.to(torch.bool).contiguous(),
+                                     _i64(nmis), k)
+    _require_cpu("search_wire", urow)
+    return search_wire_plain(wire, B, total, uniq, urow, utp, uvalid, nmis,
+                             k)
+
+
+def search_wire_plain(wire: torch.Tensor, B: int, total: torch.Tensor,
+                      uniq: torch.Tensor, urow: torch.Tensor,
+                      utp: torch.Tensor, uvalid: torch.Tensor,
+                      nmis: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain version of search_wire: the reference's hit test, its
+    where and its meta word's clips, shifts and ors."""
+    K2 = urow.shape[0]
+    o = 2 + fm_search.flag_words(B)
+    nmis = nmis.to(torch.int64)
+    hit = uvalid & (nmis <= k)
+    row = torch.where(hit, urow.to(torch.int64),
+                      torch.full_like(nmis, ROW_SENTINEL))
+    meta = (row.clamp(0, (1 << 24) - 1) | (nmis.clamp(0, 127) << 24)
+            | (hit.to(torch.int64) << 31))
+    wire[:2] = i32_bits(torch.stack([total.to(torch.int64),
+                                     uniq.to(torch.int64)]))
+    wire[o:o + K2] = i32_bits(utp)
+    wire[o + K2:o + 2 * K2] = i32_bits(meta)
+    return wire
 
 
 # ------------------------------------------------------------------

@@ -6,18 +6,24 @@ and packed XOR/popcount verification, with the same two/three-round
 budget escalation. Results are element-for-element those of the
 reference (same slot order, same hash, same dedupe winners).
 
-``_search_batch`` reads nothing back to the host (no ``.item()``, no
-``nonzero``, no ``.cpu()``), so on a CUDA device its work is only
-enqueued and batch i+1's search overlaps batch i's host work;
-``PendingSearch.result()`` is the one synchronisation point. On the
-card the kernels of kernels/fm_search.py do the device work: the backward
-search and the verify read the packed reads in place, one SA-decode
-kernel takes each of the K candidate slots from the lanes' count
-cumsum to its dedupe keys (fmindex.expand_decode), and the dedupe
-kernel (fmindex.dedupe) writes the first occurrences in slot order, so
-the reference's compaction (a scatter-max and a cummax over the slots),
-its scatter-min and its nonzero run only in the plain versions on the
-CPU. Torch's own kernels do the counts' cumsum.
+A dispatch (``_search_batch_wire``) reads nothing back to the host (no
+``.item()``, no ``nonzero``, no ``.cpu()``), so on a CUDA device its
+work is only enqueued and batch i+1's search overlaps batch i's host
+work; ``PendingSearch.result()`` is the one synchronisation point, and
+the dispatch's one transfer is the reference's u32 result wire (8 bytes
+a unique-placement slot, a bit a read), decoded by ``_parse_wire``. On
+the card the kernels of kernels/fm_search.py do the device work: the
+backward search and the verify read the packed reads in place, one
+kernel counts the lanes' candidates, scans them and writes the wire's
+flagged words (fmindex.lane_counts), one SA-decode kernel takes each of
+the K candidate slots from that scan to its dedupe keys
+(fmindex.expand_decode), the dedupe kernel (fmindex.dedupe) writes the
+first occurrences in slot order, and one kernel tests the hits and
+writes the rest of the wire (fmindex.search_wire), so the reference's
+compaction (a scatter-max and a cummax over the slots), its scatter-min,
+its nonzero, its cumsum and its packing run only in the plain versions
+on the CPU. Torch's own kernels do the seeds' bounds and the verify's
+argument prep.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from soap3dp_tpu_torch.utils import shapes, timers
 from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.fm.fmindex import ROW_SENTINEL, DeviceIndex
+from soap3dp_tpu_torch.kernels import fm_search
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,14 +105,31 @@ def pack_read_matrix(reads: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(by).view("<u4")
 
 
-def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
-                  cfg: SearchConfig, cap: int, max_seed_steps: int,
-                  seed_q: int = 0, K: int = 0, L: int = 0, K2: int = 0,
-                  uniform_len: int = 0, seed_lo: int = 0, seed_hi: int = 0
-                  ) -> tuple[HitArrays, torch.Tensor]:
-    """One seed search dispatch. ``reads`` is a (B, L) uint8 code matrix
-    or (B, W) int32 packed words (then L is given). Returns device
-    HitArrays and the (total candidates, unique placements) pair."""
+@dataclasses.dataclass
+class _Stages:
+    """One dispatch's device results before its hit test: the batch's B
+    reads, the total candidates (0-dim), the flagged words (int32
+    (ceil(B / 32),)), the unique placements (urow, utp, uvalid) and
+    their count uniq (0-dim), and each placement's mismatches nmis."""
+
+    B: int
+    total: torch.Tensor
+    flags: torch.Tensor
+    urow: torch.Tensor
+    utp: torch.Tensor
+    uvalid: torch.Tensor
+    uniq: torch.Tensor
+    nmis: torch.Tensor
+
+
+def _search_stages(idx: DeviceIndex, reads: torch.Tensor,
+                   lens: torch.Tensor, cfg: SearchConfig, cap: int,
+                   max_seed_steps: int, seed_q: int, K: int, L: int, K2: int,
+                   uniform_len: int, seed_lo: int, seed_hi: int,
+                   wire: torch.Tensor | None = None) -> _Stages:
+    """The device stages of one seed search dispatch (see _search_batch)
+    up to the verify. With ``wire`` (the dispatch's int32 result wire)
+    the flagged words are written into its words 2 .. 1 + ceil(B / 32)."""
     ori = fmindex.OrientedReads.of(reads, lens, L, uniform_len)
     B, L = ori.B, ori.L
     S = cfg.num_seeds
@@ -114,6 +138,8 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     R = 2 * B
     if K <= 0:
         K = R * S * cap
+    if K2 <= 0:
+        K2 = K
 
     sstart, slen = _seed_bounds(olens, S, seed_q)
     if seed_hi <= 0:
@@ -130,22 +156,18 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
         mode = "general"
     l, r = fmindex.seed_intervals(idx, ori, S, sstart.reshape(-1),
                                   slen.reshape(-1), max_seed_steps, mode)
-    width = r - l
-    overflow = width > cap
-    flagged = overflow.reshape(R, S).any(dim=1)
-    flagged = flagged[:B] | flagged[B:]
 
-    # each lane's candidates (its width clamped to cap, none on
-    # overflow) expanded into K slots in lane order and decoded
-    cnt = torch.where(overflow, torch.zeros_like(width), width.clamp(max=cap))
-    incl = torch.cumsum(cnt, 0)
-    total = incl[-1]
+    # each lane's candidates (its width, none past cap, where its read is
+    # flagged) counted and scanned, expanded into K slots in lane order
+    # and decoded
+    nf = fm_search.flag_words(B)
+    flags = (wire[2:2 + nf] if wire is not None else
+             torch.empty(nf, dtype=torch.int32, device=l.device))
+    incl, total, _ = fmindex.lane_counts(l, r, cap, S, flags)
     krow, ktp, pos_ok = fmindex.expand_decode(
         idx, l, incl, sstart.reshape(-1), olens, S, K)
 
     # scatter-min hash dedupe of (row, tp) before verification
-    if K2 <= 0:
-        K2 = K
     urow, utp, uvalid, uniq = fmindex.dedupe(krow, ktp, pos_ok, K2)
 
     # verify unique placements in the packed domain
@@ -153,29 +175,73 @@ def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     nmis = fmindex.count_mismatches_rows(
         idx, torch.where(uvalid, utp, torch.zeros_like(utp)), ori, urow_c,
         olens[urow_c])
-    hit_ok = uvalid & (nmis <= cfg.k)
-    hits = HitArrays(row=torch.where(hit_ok, urow,
-                                     torch.full_like(urow, ROW_SENTINEL)),
-                     tp=utp, nmis=nmis, valid=hit_ok, flagged=flagged)
-    return hits, torch.stack([total, uniq])
+    return _Stages(B, total, flags, urow, utp, uvalid, uniq, nmis)
 
 
-def _fetch(hits: HitArrays, totals: torch.Tensor) -> torch.Tensor:
-    """Everything the host needs from one dispatch as ONE int64 vector:
-    [total, uniq | flagged (B) | row | tp | nmis | valid (K2 each)]."""
-    return torch.cat([totals, hits.flagged.to(torch.int64), hits.row,
-                      hits.tp, hits.nmis, hits.valid.to(torch.int64)])
+def _search_batch(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
+                  cfg: SearchConfig, cap: int, max_seed_steps: int,
+                  seed_q: int = 0, K: int = 0, L: int = 0, K2: int = 0,
+                  uniform_len: int = 0, seed_lo: int = 0, seed_hi: int = 0
+                  ) -> tuple[HitArrays, torch.Tensor]:
+    """One seed search dispatch. ``reads`` is a (B, L) uint8 code matrix
+    or (B, W) int32 packed words (then L is given). Returns device
+    HitArrays and the (total candidates, unique placements) pair: the
+    reference's _search_batch, for callers that keep its arrays on the
+    device; the search's own dispatches fetch _search_batch_wire."""
+    st = _search_stages(idx, reads, lens, cfg, cap, max_seed_steps, seed_q,
+                        K, L, K2, uniform_len, seed_lo, seed_hi)
+    hit_ok = st.uvalid & (st.nmis <= cfg.k)
+    shift = torch.arange(32, device=st.flags.device)
+    flagged = ((st.flags.to(torch.int64)[:, None] >> shift) & 1
+               ).reshape(-1)[:st.B].to(torch.bool)
+    hits = HitArrays(row=torch.where(hit_ok, st.urow,
+                                     torch.full_like(st.urow, ROW_SENTINEL)),
+                     tp=st.utp, nmis=st.nmis, valid=hit_ok, flagged=flagged)
+    return hits, torch.stack([st.total, st.uniq])
 
 
-def _parse(vec: np.ndarray, B: int) -> tuple[int, int, HitArrays]:
-    t, u = int(vec[0]), int(vec[1])
-    K2 = (len(vec) - 2 - B) // 4
-    o = 2 + B
-    cols = [vec[o + i * K2:o + (i + 1) * K2] for i in range(4)]
-    return t, u, HitArrays(
-        row=cols[0].astype(np.int32), tp=cols[1].astype(np.uint32),
-        nmis=cols[2].astype(np.int32), valid=cols[3].astype(bool),
-        flagged=vec[2:2 + B].astype(bool))
+def _search_batch_wire(idx: DeviceIndex, reads: torch.Tensor,
+                       lens: torch.Tensor, cfg: SearchConfig, cap: int,
+                       max_seed_steps: int, seed_q: int = 0, K: int = 0,
+                       L: int = 0, K2: int = 0, uniform_len: int = 0,
+                       seed_lo: int = 0, seed_hi: int = 0) -> torch.Tensor:
+    """_search_batch with everything the host needs in ONE vector, the
+    int32 bit patterns of the reference's u32 words: [total, uniq |
+    ceil(B / 32) flagged words (read b at bit b % 32 of word b // 32) |
+    tp (K2) | meta (K2)], meta row (24 bits) | nmis (7 bits) | valid
+    (bit 31), row and nmis clipped. 8 bytes a K2 slot and a bit a read
+    cross the link; FS5 writes the flagged words and FS6 the rest on
+    the card."""
+    B = reads.shape[0]
+    if K <= 0:
+        K = 2 * B * cfg.num_seeds * cap
+    if K2 <= 0:
+        K2 = K
+    wire = torch.empty(2 + fm_search.flag_words(B) + 2 * K2,
+                       dtype=torch.int32, device=reads.device)
+    st = _search_stages(idx, reads, lens, cfg, cap, max_seed_steps, seed_q,
+                        K, L, K2, uniform_len, seed_lo, seed_hi, wire)
+    return fmindex.search_wire(wire, st.B, st.total, st.uniq, st.urow,
+                               st.utp, st.uvalid, st.nmis, cfg.k)
+
+
+def _parse_wire(wire_h: np.ndarray, B: int, K2: int
+                ) -> tuple[int, int, HitArrays]:
+    """Host-side decode of _search_batch_wire's vector (its int32 bit
+    patterns read as the u32 words): (total, uniq, host HitArrays)."""
+    wire_h = wire_h.view(np.uint32)
+    total, uniq = int(wire_h[0]), int(wire_h[1])
+    nf = fm_search.flag_words(B)
+    fl_words = wire_h[2:2 + nf]
+    flagged = ((fl_words[:, None] >> np.arange(32, dtype=np.uint32)[None, :])
+               & 1).astype(bool).reshape(-1)[:B]
+    tp = wire_h[2 + nf:2 + nf + K2]
+    meta = wire_h[2 + nf + K2:2 + nf + 2 * K2]
+    row = (meta & 0xFFFFFF).astype(np.int32)
+    nmis = ((meta >> 24) & 0x7F).astype(np.int32)
+    valid = (meta >> 31).astype(bool)
+    return total, uniq, HitArrays(row=row, tp=tp, nmis=nmis, valid=valid,
+                                  flagged=flagged)
 
 
 class _HostCopy:
@@ -236,17 +302,17 @@ _K_CEIL = int(os.environ.get("SOAP3DP_K_CEIL", 1 << 24))
 
 def _run_compacted(idx, reads, lens, cfg, cap, steps, seed_q, B, S,
                    uniform_len=0) -> HitArrays:
-    """Dispatch _search_batch, growing the compaction budget on overflow;
-    returns device arrays sliced to a bucketed prefix."""
+    """Dispatch _search_batch_wire (K2 = K, lossless), growing the
+    compaction budget on overflow; returns host arrays sliced to a
+    bucketed prefix."""
     cap = max(16, min(cap, _K_CEIL // max(2 * B * S, 1)))
     K = shapes.bucket(2 * B * S * 2, min_size=1024)
     K_max = 2 * B * S * cap
     while True:
         Kc = min(K, K_max)
-        hits, totals = _search_batch(idx, reads, lens, cfg, cap, steps,
-                                     seed_q, Kc, uniform_len=uniform_len)
-        th = totals.cpu().numpy()
-        t, u = int(th[0]), int(th[1])
+        wire = _search_batch_wire(idx, reads, lens, cfg, cap, steps, seed_q,
+                                  Kc, uniform_len=uniform_len)
+        t, u, hits = _parse_wire(_HostCopy(wire).numpy(), B, Kc)
         if t <= Kc or K >= K_max:
             break
         K = min(shapes.bucket(t), K_max)
@@ -325,12 +391,11 @@ class PendingSearch:
         """Shard j's search with budgets K, K2 (clipped to its share of
         the lossless maxima)."""
         n = len(self.replicas)
-        hits, totals = _search_batch(
+        return _HostCopy(_search_batch_wire(
             self.replicas[j], self.packed[j], self.lens[j], self.cfg,
             self.cap1, self.steps, self.seed_q, min(K, self.K_max // n),
             L=self.L, K2=min(K2, self.K2_max // n), uniform_len=self.uniform,
-            seed_lo=self.seed_lo, seed_hi=self.seed_hi)
-        return _HostCopy(_fetch(hits, totals))
+            seed_lo=self.seed_lo, seed_hi=self.seed_hi))
 
     def _shard_result(self, j: int) -> HitArrays:
         """Shard j's round-1 hits, re-dispatched until lossless."""
@@ -338,14 +403,15 @@ class PendingSearch:
         Bs = self.B // n
         K_max, K2_max = self.K_max // n, self.K2_max // n
         K, K2 = -(-self.K // n), -(-self.K2 // n)
-        t, u, hits = _parse(self._out[j].numpy(), Bs)
+        t, u, hits = _parse_wire(self._out[j].numpy(), Bs, min(K2, K2_max))
         while ((t > min(K, K_max) or u > min(K2, K2_max))
                and (K < K_max or K2 < K2_max)):
             if t > min(K, K_max):
                 K = min(shapes.bucket(t), K_max)
             if u > min(K2, K2_max):
                 K2 = min(shapes.bucket(u), K2_max)
-            t, u, hits = _parse(self._dispatch(j, K, K2).numpy(), Bs)
+            t, u, hits = _parse_wire(self._dispatch(j, K, K2).numpy(), Bs,
+                                     min(K2, K2_max))
         tb = min(shapes.bucket(u, min_size=1024), hits.row.shape[0])
         if tb < hits.row.shape[0]:
             hits = HitArrays(row=hits.row[:tb], tp=hits.tp[:tb],

@@ -16,11 +16,16 @@ nvcc at first use into ``_build/`` and loaded with ctypes:
   after it (FS2x); and ``seed_expand_decode`` / ``seed_expand_ranks``:
   the same expansion for the DP seeding, which replaces the reference's
   slot mask and nonzero (soap3dp_tpu/pipeline/dp_rescue.py:176-188) and
-  writes its candidates (FS2s);
+  writes its candidates as the words of its packed transfer (FS2s);
 * FS3 ``verify``: packed XOR/popcount against the genome
   (``count_mismatches_packed``, fmindex.py:653);
 * FS4 ``dedupe``: the search's scatter-min hash dedupe and the
   compaction of its first occurrences (soap3dp_tpu/fm/search.py:275-301);
+* FS5 ``lane_counts``: the lanes' counts and their scan, and the result
+  wire's flagged words, of the search (soap3dp_tpu/fm/search.py:232-252)
+  and the DP seeding (soap3dp_tpu/pipeline/dp_rescue.py:176-179);
+* FS6 ``search_wire``: the search's hit test and its result wire
+  (soap3dp_tpu/fm/search.py:312, :322-346);
 * GP ``prescan``: the DP rescue's gapless prescan, each candidate's
   mismatches at every window offset reduced to (min, leftmost argmin,
   zero count) in the kernel (soap3dp_tpu/pipeline/dp_rescue.py:276);
@@ -69,23 +74,37 @@ EXPAND_KERNEL = CudaKernel(
     [_P, _P, _LL, _P, _P, _I, _LL, _LL, _I] + [_P] * 4 + [_LL, _P, _LL]
     + [_P] * 7)
 # soap3dp_seed_expand_decode(l, incl, RS, sp, S, K, sa_rate, mark_words,
-#   mark_rank, blocks, counts, primary, sa, n_sa, row, pos, valid,
-#   lane_out, rank_out, step_out, stream)
+#   mark_rank, blocks, counts, primary, sa, n_sa, words, lane_out,
+#   rank_out, step_out, stream)
 SEED_EXPAND_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_seed_expand_decode",
-    [_P, _P, _LL, _P, _I, _LL, _I] + [_P] * 4 + [_LL, _P, _LL] + [_P] * 7)
-# soap3dp_dedupe(krow, ktp, pos_ok, K, K2, hb, gen, table, scratch, urow,
-#   utp, uvalid, uniq, stream)
+    [_P, _P, _LL, _P, _I, _LL, _I] + [_P] * 4 + [_LL, _P, _LL] + [_P] * 5)
+_U = ctypes.c_uint
+# soap3dp_dedupe(krow, ktp, pos_ok, K, K2, hb, gen, table, scan, base,
+#   tag, urow, utp, uvalid, uniq, stream)
 DEDUPE_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_dedupe",
-    [_P, _P, _P, _LL, _LL, _I, ctypes.c_uint] + [_P] * 7)
-# FS4's second launch: tiles of 1,024 slots (csrc/fm_search.cu TILE)
+    [_P, _P, _P, _LL, _LL, _I, _U, _P, _P, _U, _U] + [_P] * 5)
+# soap3dp_lane_counts(l, r, RS, cap, S, scan, base, tag, incl, total,
+#   flags, nf, stream)
+LANE_COUNTS_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_lane_counts",
+    [_P, _P, _LL, _LL, _I, _P, _U, _U, _P, _P, _P, _LL, _P])
+# the look-back scans of FS4 and FS5: tiles of 1,024 slots or lanes
+# (csrc/fm_search.cu TILE)
 DEDUPE_TILE = 1024
-# FS4's tables, one a card and stream, kept across calls: (card, stream)
-# -> [int64 table, the last call's generation]
-_DEDUPE_TABLES: dict[tuple, list] = {}
-_DEDUPE_LOCK = threading.Lock()
-_GEN_MAX = 0xFFFFFFFF
+# scratch kept across calls (gen_state): (kind, card, stream) -> [int64
+# scratch, the last call's generation, the tickets taken]. Kinds: FS4's
+# table ("dedupe"); the scan state FS4 and FS5 share ("scan": the ticket
+# counter, then the tile statuses)
+_STATES: dict[tuple, list] = {}
+_STATE_LOCK = threading.Lock()
+_GEN_MAX = (1 << 30) - 1  # a generation << 2 (a status's tag) fits 32 bits
+# soap3dp_search_wire(urow, utp, uvalid, nmis, K2, k, total, uniq, wire,
+#   nf, stream)
+SEARCH_WIRE_KERNEL = CudaKernel(
+    FM_SEARCH_LIB, "soap3dp_search_wire",
+    [_P] * 4 + [_LL, _I, _P, _P, _P, _LL, _P])
 # soap3dp_verify(reads, kind, B, L, Ws, rc_len, rows, tp, read_len, M, W,
 #   pac, n_pac, out, stream)
 VERIFY_KERNEL = CudaKernel(
@@ -271,8 +290,8 @@ def sa_ranks(idx, rows: torch.Tensor, valid: torch.Tensor
 def _expand(kernel: CudaKernel, idx, l: torch.Tensor, incl: torch.Tensor,
             start: torch.Tensor, olens, S: int, K: int, ranks: bool):
     """A lane expansion of FS2: the search's (``olens`` given, the
-    dedupe keys) or the DP seeding's (``olens`` None, the candidates),
-    or either's ranks form."""
+    dedupe keys) or the DP seeding's (``olens`` None, the candidates'
+    packed words), or either's ranks form."""
     RS = l.shape[0]
     dev = l.device
     name = kernel.symbol[len("soap3dp_"):].replace("_", " ")
@@ -288,14 +307,20 @@ def _expand(kernel: CudaKernel, idx, l: torch.Tensor, incl: torch.Tensor,
     if RS < 1 or S < 1 or RS != rows * S or K < 0 or idx.sa_rate < 1:
         raise ValueError(f"{name}: {RS} lanes, S {S}, {rows} rows, K {K}, "
                          f"sa_rate {idx.sa_rate} out of range")
-    outs = [torch.empty(K, dtype=torch.int64, device=dev) for _ in range(3)]
-    if not ranks:
+    seed = olens is None and not ranks
+    if seed:
+        outs = [torch.empty(3 * K, dtype=torch.int32, device=dev)]
+    else:
+        outs = [torch.empty(K, dtype=torch.int64, device=dev)
+                for _ in range(3)]
+    if not ranks and not seed:
         outs[2] = torch.empty(K, dtype=torch.bool, device=dev)
     if K == 0:
         return outs
     _, fn = kernel.function()
     ptrs = [o.data_ptr() for o in outs]
-    keys = [None] * 3 + ptrs if ranks else ptrs + [None] * 3
+    blank = [None] * (1 if olens is None else 3)
+    keys = blank + ptrs if ranks else ptrs + [None] * 3
     lead = (S, K, idx.sa_rate) if olens is None \
         else (olens.data_ptr(), S, idx.n, K, idx.sa_rate)
     with torch.cuda.device(dev):
@@ -336,16 +361,15 @@ def expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor,
 
 
 def seed_expand_decode(idx, l: torch.Tensor, incl: torch.Tensor,
-                       sp: torch.Tensor, S: int, K: int
-                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                       sp: torch.Tensor, S: int, K: int) -> torch.Tensor:
     """FS2s, the DP seeding's lane expansion: slot k (< K) of lane j
     decodes SA row l[j] + k - incl[j - 1] as expand_decode does; returns
-    the candidates (row, pos int64, valid bool): the oriented row j // S
-    (0 past the total count), and the text position minus the seed
-    start ``sp[j]`` where it is not below it, else 0 and False
-    (fmindex.seed_expand_decode)."""
-    return tuple(_expand(SEED_EXPAND_KERNEL, idx, l, incl, sp, None, S, K,
-                         ranks=False))
+    the candidates as one (3K,) int32 tensor of u32 bit patterns, [row |
+    pos | valid]: the oriented row j // S (0 past the total count), and
+    the text position minus the seed start ``sp[j]`` and 1 where it is
+    not below it, else 0 and 0 (fmindex.seed_expand_decode)."""
+    return _expand(SEED_EXPAND_KERNEL, idx, l, incl, sp, None, S, K,
+                   ranks=False)[0]
 
 
 def seed_expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor,
@@ -368,22 +392,36 @@ def dedupe_tiles(K: int, K2: int) -> int:
     return -(-K // DEDUPE_TILE)
 
 
-def dedupe_table(dev: torch.device, stream: int, slots: int
-                 ) -> tuple[torch.Tensor, int]:
-    """FS4's table on card ``dev`` for ``stream`` (at least ``slots``
-    int64 slots, zeroed when made) and the next call's generation, above
-    every earlier call's on it; a new table when it is too small or the
-    32-bit generation is spent. The caller holds _DEDUPE_LOCK until its
-    launches are queued, so two threads that share a stream queue their
-    calls one after the other, never interleaved."""
-    key = (dev.index, stream)
-    ent = _DEDUPE_TABLES.get(key)
-    if ent is None or ent[0].shape[0] < slots or ent[1] >= _GEN_MAX:
+def gen_state(kind: str, dev: torch.device, stream: int, slots: int,
+              tickets: int = 0) -> tuple[torch.Tensor, int, int]:
+    """Scratch ``kind`` on card ``dev`` for ``stream``: at least
+    ``slots`` int64 words, zeroed when made; this call's generation,
+    above every earlier call's there; and the tickets earlier calls took
+    there (this call takes ``tickets``). A new scratch (the larger size
+    kept) when it is too small or the generations or the 32-bit tickets
+    are spent. The caller holds _STATE_LOCK until its launches are
+    queued, so two threads that share a stream queue their calls one
+    after the other, never interleaved."""
+    key = (kind, dev.index, stream)
+    ent = _STATES.get(key)
+    if (ent is None or ent[0].shape[0] < slots or ent[1] >= _GEN_MAX
+            or ent[2] + tickets >= 1 << 32):
         size = max(slots, ent[0].shape[0] if ent is not None else 0)
-        ent = _DEDUPE_TABLES[key] = [
-            torch.zeros(size, dtype=torch.int64, device=dev), 0]
+        ent = _STATES[key] = [
+            torch.zeros(size, dtype=torch.int64, device=dev), 0, 0]
     ent[1] += 1
-    return ent[0], ent[1]
+    base = ent[2]
+    ent[2] += tickets
+    return ent[0], ent[1], base
+
+
+def _launched(name: str, err: int, dev: torch.device, stream: int) -> None:
+    """Raises after a failed launch, first dropping the states of ``dev``
+    and ``stream`` (the kernels did not take the tickets counted)."""
+    if err != 0:
+        for key in [k for k in _STATES if k[1:] == (dev.index, stream)]:
+            del _STATES[key]
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def dedupe(krow: torch.Tensor, ktp: torch.Tensor, pos_ok: torch.Tensor,
@@ -395,7 +433,8 @@ def dedupe(krow: torch.Tensor, ktp: torch.Tensor, pos_ok: torch.Tensor,
     same key. Returns (urow, utp int64, uvalid bool) of the first K2
     firsts in ascending k (ROW_SENTINEL, ktp[0] and False past them) and
     uniq, the count of all firsts (int64, 0-dim) (fmindex.dedupe). Two
-    launches on the card's table for the current stream (dedupe_table)."""
+    launches on the card's table and scan state for the current stream
+    (gen_state)."""
     K = krow.shape[0]
     dev = krow.device
     _check("dedupe", dev, krow=krow, ktp=ktp, pos_ok=pos_ok)
@@ -404,23 +443,110 @@ def dedupe(krow: torch.Tensor, ktp: torch.Tensor, pos_ok: torch.Tensor,
     _vector("dedupe", "pos_ok", pos_ok, K, torch.bool)
     tiles = dedupe_tiles(K, K2)
     hb = max((K - 1).bit_length() + 1, 10)  # as fmindex.dedupe_plain
-    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
     urow = torch.empty(K2, dtype=torch.int64, device=dev)
     utp = torch.empty(K2, dtype=torch.int64, device=dev)
     uvalid = torch.empty(K2, dtype=torch.bool, device=dev)
     uniq = torch.empty((), dtype=torch.int64, device=dev)
     _, fn = DEDUPE_KERNEL.function()
-    with torch.cuda.device(dev), _DEDUPE_LOCK:
+    with torch.cuda.device(dev), _STATE_LOCK:
         stream = _stream(dev)
-        table, gen = dedupe_table(dev, stream, 1 << hb)
-        err = fn(krow.data_ptr(), ktp.data_ptr(), pos_ok.data_ptr(), K, K2,
-                 hb, gen, table.data_ptr(), scratch.data_ptr(),
-                 urow.data_ptr(), utp.data_ptr(), uvalid.data_ptr(),
-                 uniq.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"dedupe kernel launch failed: CUDA error {err}")
+        table, gen, _ = gen_state("dedupe", dev, stream, 1 << hb)
+        scan, sgen, base = gen_state("scan", dev, stream, tiles + 1, tiles)
+        _launched("dedupe", fn(
+            krow.data_ptr(), ktp.data_ptr(), pos_ok.data_ptr(), K, K2, hb,
+            gen, table.data_ptr(), scan.data_ptr(), base & 0xFFFFFFFF,
+            sgen << 2, urow.data_ptr(), utp.data_ptr(), uvalid.data_ptr(),
+            uniq.data_ptr(), stream), dev, stream)
     DEDUPE_KERNEL.count(dev, (K, K2, hb))
     return urow, utp, uvalid, uniq
+
+
+def flag_words(B: int) -> int:
+    """The result wire's flagged words of B reads: ceil(B / 32)."""
+    return -(-B // 32)
+
+
+def lane_counts(l: torch.Tensor, r: torch.Tensor, cap: int, S: int,
+                flags: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, ...]:
+    """FS5: each of the RS lanes' count from its SA interval [l, r)
+    (int64), their inclusive scan ``incl`` (int64 (RS,)) and the total
+    (int64, 0-dim). The search's mode (``flags`` given): a count is 0
+    where the width passes cap, else the width, and ``flags`` (int32
+    (ceil(B / 32),), B = RS / 2S reads of S lanes a strand) gets the
+    result wire's flagged words, read b at bit b % 32 of word b // 32
+    where a lane of row b or B + b passed cap; returns (incl, total,
+    flags). The seeding's (S lanes a row): the width clamped to
+    [0, cap]; returns (incl, total) (fmindex.lane_counts). One launch,
+    on the card's scan state for the current stream (gen_state, shared
+    with dedupe).
+    Raises unless RS >= 1 and RS x cap < 2^31 (32-bit counts)."""
+    RS = l.shape[0]
+    dev = l.device
+    name = "lane counts"
+    _check(name, dev, l=l, r=r,
+           **({} if flags is None else {"flags": flags}))
+    _vector(name, "l", l, RS, torch.int64)
+    _vector(name, "r", r, RS, torch.int64)
+    search = flags is not None
+    if RS < 1 or S < 1 or RS % (2 * S if search else S) or cap < 0 \
+            or RS * max(cap, 1) >= 1 << 31:
+        raise ValueError(f"{name}: {RS} lanes, S {S}, cap {cap} out of "
+                         "range")
+    nf = flag_words(RS // (2 * S)) if search else 0
+    if search:
+        _vector(name, "flags", flags, nf, torch.int32)
+    incl = torch.empty(RS, dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    tiles = -(-RS // DEDUPE_TILE)
+    _, fn = LANE_COUNTS_KERNEL.function()
+    with torch.cuda.device(dev), _STATE_LOCK:
+        stream = _stream(dev)
+        scan, gen, base = gen_state("scan", dev, stream, tiles + 1, tiles)
+        _launched(name, fn(
+            l.data_ptr(), r.data_ptr(), RS, cap, S, scan.data_ptr(),
+            base & 0xFFFFFFFF, gen << 2, incl.data_ptr(), total.data_ptr(),
+            flags.data_ptr() if search else None, nf, stream), dev, stream)
+    LANE_COUNTS_KERNEL.count(dev, (RS, S, int(search)))
+    return (incl, total, flags) if search else (incl, total)
+
+
+def search_wire(wire: torch.Tensor, B: int, total: torch.Tensor,
+                uniq: torch.Tensor, urow: torch.Tensor, utp: torch.Tensor,
+                uvalid: torch.Tensor, nmis: torch.Tensor, k: int
+                ) -> torch.Tensor:
+    """FS6: the search's result wire, ``wire`` (int32 (2 + ceil(B / 32)
+    + 2 K2,), the u32 words of the reference's _search_batch_wire), its
+    words 2 .. 1 + ceil(B / 32) the flagged words FS5 wrote there, filled
+    in place: words 0 and 1 the totals ``total`` and ``uniq`` (int64
+    0-dim), then each of the K2 slots' text position ``utp`` and meta
+    word, row (24 bits: urow where uvalid and nmis <= k, else
+    ROW_SENTINEL, clipped) | nmis (7 bits, clipped) | that hit test (bit
+    31); returns ``wire`` (fmindex.search_wire)."""
+    K2 = urow.shape[0]
+    dev = urow.device
+    name = "search wire"
+    _check(name, dev, wire=wire, total=total, uniq=uniq, urow=urow, utp=utp,
+           uvalid=uvalid, nmis=nmis)
+    nf = flag_words(B)
+    _vector(name, "wire", wire, 2 + nf + 2 * K2, torch.int32)
+    _vector(name, "utp", utp, K2, torch.int64)
+    _vector(name, "uvalid", uvalid, K2, torch.bool)
+    _vector(name, "nmis", nmis, K2, torch.int64)
+    _vector(name, "urow", urow, K2, torch.int64)
+    for key, t in (("total", total), ("uniq", uniq)):
+        if t.dtype != torch.int64 or t.dim() != 0:
+            raise ValueError(f"{name}: {key} must be int64, 0-dim")
+    _, fn = SEARCH_WIRE_KERNEL.function()
+    with torch.cuda.device(dev):
+        err = fn(urow.data_ptr(), utp.data_ptr(), uvalid.data_ptr(),
+                 nmis.data_ptr(), K2, k, total.data_ptr(), uniq.data_ptr(),
+                 wire.data_ptr(), nf, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"search wire kernel launch failed: CUDA error "
+                           f"{err}")
+    SEARCH_WIRE_KERNEL.count(dev, (K2, B))
+    return wire
 
 
 def verify(idx, src: ReadRows, rows: torch.Tensor, tp: torch.Tensor,

@@ -3,9 +3,10 @@
 Port of soap3dp_tpu/pipeline/dp_rescue.py. The seed matrices and the
 result containers are the reference's numpy code; the device halves run
 on the index's device: ``_seed_cand_batch`` (the seeds' backward search,
-lane expansion and SA decode through fmindex, the FS1 and FS2s kernels
-on the card), ``_prescan_impl`` (the GP kernel on the card,
-``_prescan_plain`` on the CPU; ``_PRESCAN_CHUNK`` bounds the plain
+their counts' scan, the lane expansion and SA decode through fmindex,
+the FS1, FS5 and FS2s kernels on the card, the candidates fetched as
+one packed vector of u32 words), ``_prescan_impl`` (the GP kernel on
+the card, ``_prescan_plain`` on the CPU; ``_PRESCAN_CHUNK`` bounds the plain
 version's (M, O) matrix only) and ``_pack_problems`` (the PK kernel on
 the card, ``_pack_problems_plain`` on the CPU); and ``run_banded_dp``
 uploads the rows its problems name and calls the port's ``dp_align``
@@ -104,8 +105,11 @@ def _seed_cand_batch(idx: DeviceIndex, reads: torch.Tensor,
                      seed_len: torch.Tensor, occ_cap: int, max_steps: int,
                      K: int):
     """Device half of seed_candidates: search + compacted SA decode.
-    Returns (row, pos, valid, total) tensors: row is the oriented row
-    id, pos the candidate read-start text position."""
+    Returns (packed, total): packed the (3K,) int32 bit patterns of the
+    reference's u32 words [row | pos | valid], row the oriented row id,
+    pos the candidate read-start text position (0 where not valid);
+    total the candidates before K (0-dim). The seeds' clamps (sp, the
+    lengths) are FS1's argument prep."""
     S = seed_pos.shape[1]
     lens = lens.to(torch.int64)
     ori = fmindex.OrientedReads.of(reads, lens)
@@ -116,13 +120,12 @@ def _seed_cand_batch(idx: DeviceIndex, reads: torch.Tensor,
     slen_arr = torch.minimum(sl2, ln2)[:, None].expand(sp.shape)
     l, r = fmindex.seed_intervals(idx, ori, S, sp.reshape(-1),
                                   slen_arr.reshape(-1), max_steps, "general")
-    # each lane's candidates (its width clamped to occ_cap) expanded into
-    # K slots in lane order and decoded (FS2s on the card)
-    cnt = (r - l).clamp(0, occ_cap)
-    incl = torch.cumsum(cnt, 0)
-    row, pos, valid = fmindex.seed_expand_decode(idx, l, incl, sp.reshape(-1),
-                                                 S, K)
-    return row, pos, valid, incl[-1]
+    # each lane's candidates (its width clamped to occ_cap) counted and
+    # scanned (FS5), expanded into K slots in lane order and decoded
+    # (FS2s) on the card
+    incl, total = fmindex.lane_counts(l, r, occ_cap, S)
+    packed = fmindex.seed_expand_decode(idx, l, incl, sp.reshape(-1), S, K)
+    return packed, total
 
 
 def seed_candidates(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
@@ -157,16 +160,20 @@ def seed_candidates(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
         def shard(j):
             K = K0
             while True:
-                row, pos, valid, total = _seed_cand_batch(
+                packed, total = _seed_cand_batch(
                     replicas[j], *(a[j] for a in shards), occ_cap, max_steps,
                     min(K, K_max))
                 t = int(total)
                 if t <= K or K >= K_max:
                     break
                 K = min(shapes.bucket(t), K_max)
-            tb = min(shapes.bucket(t, min_size=1024), min(K, K_max))
-            return torch.stack([row[:tb], pos[:tb],
-                                valid[:tb].to(torch.int64)]).cpu().numpy()
+            # a bucketed prefix of each third (the expansion's pad slots
+            # are at the end), in one transfer
+            Kc = min(K, K_max)
+            tb = min(shapes.bucket(t, min_size=1024), Kc)
+            return torch.cat([packed[:tb], packed[Kc:Kc + tb],
+                              packed[2 * Kc:2 * Kc + tb]]
+                             ).cpu().numpy().view(np.uint32).reshape(3, -1)
 
         parts = dmesh.map_shards(devices, shard)
     read, strand, posf = [], [], []

@@ -87,8 +87,8 @@ def test_multi_device_phases_on_cpu(tmp_path):
     assert hosts["records_equal"] and hosts["summary_equal"]
     assert sum(hosts["per_process_pairs"]) == 200
     assert hosts["launches"] == [dict.fromkeys(
-        ("K1", "K2", "TB", "FS1", "FS2", "FS2x", "FS3", "FS4", "FS2s", "GP",
-         "PK"), 0)] * 2  # no card
+        ("K1", "K2", "TB", "FS1", "FS2", "FS2x", "FS3", "FS4", "FS2s",
+         "FS5", "FS6", "GP", "PK"), 0)] * 2  # no card
     assert len(hosts["index_upload_s"]) == 2
     assert chip_smoke.phase_all_cards(cpu, reads, w) == {"not_run": "1 card"}
 
@@ -208,7 +208,7 @@ def test_ab_phases_on_cpu(tmp_path, capsys):
     assert seed["cross_check"]["equal"]
     kinds = {name.split("_", 1)[1].rsplit("_", 1)[0]
              for name in seed["kept_calls"]}
-    assert kinds == {"seed_intervals", "seed_expand_decode"}
+    assert kinds == {"seed_intervals", "lane_counts", "seed_expand_decode"}
     assert seed["launches"] == dict.fromkeys(chip_smoke._kernels(), 0)
     capsys.readouterr()
 
@@ -622,12 +622,18 @@ def test_synthetic_index_and_its_cases():
                                        B=64)
     assert [c[0] for c in cases] == [
         "synthetic_lut", "synthetic_packed", "synthetic_general",
-        "synthetic_decode", "synthetic_verify"]
+        "synthetic_decode", "synthetic_verify", "synthetic_seed_widths",
+        "synthetic_counts_search_ragged", "synthetic_counts_seed_ragged",
+        "synthetic_wire_K2_65536"]
     for name, fn, args in cases:
         out = getattr(fmindex, fn)(*args)
         for t in out if isinstance(out, tuple) else (out,):
+            if t.dtype == torch.int32:     # the u32 words' bit patterns
+                t = t.to(torch.int64) & 0xFFFFFFFF
             assert int(t.min()) >= 0 and int(t.max()) <= max(n + 1, 1 << 32)
-    assert (cases[-1][2][1] >= n - 200).any()
+        if fn == "lane_counts":            # intervals past 2^31
+            assert int(args[0].min()) >= 1 << 19 and int(out[1]) > 0
+    assert (cases[4][2][1] >= n - 200).any()
 
 
 def test_repeat_genome_search_runs_rounds_2_and_3():
@@ -654,8 +660,9 @@ def test_path_calls_and_kernel_rows(fs_index):
     codes, didx = fs_index
     calls = chip_smoke.path_calls(didx, codes, B=128, seed_reads=64)
     fns = [fn for fn, _ in calls]
-    assert {"seed_intervals", "expand_decode", "dedupe",
-            "count_mismatches_rows", "seed_expand_decode"} == set(fns)
+    assert {"seed_intervals", "lane_counts", "expand_decode", "dedupe",
+            "count_mismatches_rows", "search_wire",
+            "seed_expand_decode"} == set(fns)
     assert fns[0] == "seed_intervals" and calls[0][1][6] == "lut"
     assert calls[0][1][1].L == 120      # phase 4's 120-wide rows
     # the seeding as _deep_dp_round seeds 120-wide rows: 4 seeds a read
@@ -673,7 +680,9 @@ def test_path_calls_and_kernel_rows(fs_index):
                                           ("FS2x", "slots"),
                                           ("FS3", "placements"),
                                           ("FS4", "slots"),
-                                          ("FS2s", "slots")))]
+                                          ("FS2s", "slots"),
+                                          ("FS5", "lanes"),
+                                          ("FS6", "slots")))]
     out = chip_smoke.fs_kernel_rows(rows)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -681,9 +690,12 @@ def test_path_calls_and_kernel_rows(fs_index):
         "soap3dp_tpu/fm/fmindex.py:391", "soap3dp_tpu/fm/fmindex.py:509",
         "soap3dp_tpu/fm/search.py:247", "soap3dp_tpu/fm/fmindex.py:653",
         "soap3dp_tpu/fm/search.py:275",
-        "soap3dp_tpu/pipeline/dp_rescue.py:176"]
-    assert [r["name"] for r in out][-2:] == ["fm_hash_dedupe",
-                                             "fm_seed_expand_decode"]
+        "soap3dp_tpu/pipeline/dp_rescue.py:176",
+        "soap3dp_tpu/fm/search.py:232", "soap3dp_tpu/fm/search.py:322"]
+    assert [r["name"] for r in out][-4:] == ["fm_hash_dedupe",
+                                             "fm_seed_expand_decode",
+                                             "fm_lane_counts",
+                                             "fm_search_wire"]
     assert all(keys <= set(r) and r["route"] == "cuda" for r in out)
     # the path's FS kernels: every one but FS2's sa_decode of ready rows
     assert set(chip_smoke.FS_PATH) == set(chip_smoke.FS_ROWS) - {"FS2"}
@@ -838,6 +850,70 @@ def test_seed_expansion_and_dedupe_cases(fs_index):
     w = work["dedupe_collide_1024"]
     assert w["hb"] == 10 and w["collided"] > 0 and w["surviving_dups"] > 0
     assert work["dedupe_K_16384"]["slots"] == 1 << 14
+
+
+def test_count_and_wire_cases(fs_index):
+    """Phase 2's cases of FS5 (the search's mode with lanes not a
+    multiple of the tile, an overflow on one strand only, cap 4,096, one
+    read; the seeding's, and a total of 0) and FS6 (reads not a multiple
+    of 32, mismatches past k and past 127, slots past uniq, K2 of 0):
+    each is the edge it names, the entry point is its plain version on
+    the CPU, a case gives each call its own copy of what the entry
+    writes in place, and the bounds count 24 bytes a lane, 25 a slot and
+    8 more a slot that holds a hit (its urow, read only there);
+    FS5's one PyTorch call is the scan of its counts; a search profile's
+    library launches are the items of no FS kernel, marker or copy."""
+    from soap3dp_tpu_torch.fm import fmindex
+
+    rng = np.random.default_rng(17)
+    B, S = 300, 2
+    cases = chip_smoke.count_cases(rng, "cpu", B, S, 3000 * 4, 4)
+    cases += chip_smoke.wire_cases(rng, "cpu", 100, 700)
+    assert [c[0] for c in cases] == [
+        f"counts_{e}" for e in chip_smoke.COUNT_EDGES] + [
+        "wire_K2_700", "wire_K2_0"]
+    for name, fn, args in cases:
+        a, b = chip_smoke.fresh_args(fn, args), chip_smoke.fresh_args(fn, args)
+        if fn in chip_smoke.FS_WRITES and len(args) > 4:
+            i = chip_smoke.FS_WRITES[fn]
+            assert a[i] is not b[i] and a[i] is not args[i]
+        got = getattr(fmindex, fn)(*a)
+        want = getattr(fmindex, chip_smoke.plain_of(fn))(*b)
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
+        w = chip_smoke.fs_work(fn, args, want)
+        lib = chip_smoke.library_call(fn, args, want)
+        if fn == "lane_counts":
+            RS = args[0].shape[0]
+            assert w["lanes"] == RS and w["bytes"] >= 24 * RS
+            assert torch.equal(lib(), want[0])      # the scan of the counts
+            search = len(args) > 4
+            assert w["mode"] == ("search" if search else "seed")
+            if name.endswith(("ragged", "cap4096")):
+                assert RS % 1024
+            if search:
+                b_reads = RS // (2 * S)
+                assert args[4].shape[0] == -(-b_reads // 32)
+                bits = ((want[2].long()[:, None] >> torch.arange(32)) & 1
+                        ).reshape(-1)[:b_reads]
+                if b_reads >= 2:             # one strand's overflow alone
+                    assert bits[0] == 1 and bits[1] == 1
+            if name == "counts_seed_total_0":
+                assert int(want[1]) == 0
+        else:
+            assert lib is None and w["slots"] == args[4].shape[0]
+            assert w["bytes"] == 25 * w["slots"] + 8 * w["hits"] + 24
+            assert w["hits"] < w["slots"] or not w["slots"]
+            assert args[1] % 32 and got.dtype == torch.int32
+            if w["slots"]:
+                meta = got[-w["slots"]:].long() & 0xFFFFFFFF
+                nm = (meta >> 24) & 127
+                assert (nm == 127).any() and ((meta >> 31) == 0).any()
+                assert ((meta & 0xFFFFFF) == 0xFFFFFF).any()
+    items = {"expand_decode_kernel<1>": [0.1, 2], "Memcpy DtoH": [0.2, 1],
+             "void at::native::vectorized_elementwise_kernel": [0.01, 3],
+             "spin_kernel": [1.0, 2], "search_wire_kernel": [0.01, 1]}
+    assert chip_smoke.library_items(items) == {
+        "void at::native::vectorized_elementwise_kernel": 3}
 
 
 def test_rank_by_loss_over_a_launch_histogram():

@@ -205,24 +205,47 @@ def test_dedupe_grid_and_range():
 
 
 def test_dedupe_table_generations(monkeypatch):
-    """The table a card and stream keep: made zeroed at first use, kept
-    (the generation one higher each call) while it is large enough,
-    made anew (the larger size kept) when a call needs more slots or
-    the 32-bit generation is spent; another stream has its own."""
-    monkeypatch.setattr(fs, "_DEDUPE_TABLES", {})
+    """The table a card and stream keep (gen_state "dedupe"): made
+    zeroed at first use, kept (the generation one higher each call)
+    while it is large enough, made anew (the larger size kept) when a
+    call needs more slots or the generations are spent; another stream
+    has its own."""
+    monkeypatch.setattr(fs, "_STATES", {})
     cpu = torch.device("cpu")
-    t1, g1 = fs.dedupe_table(cpu, 7, 1024)
+    t1, g1, _ = fs.gen_state("dedupe", cpu, 7, 1024)
     assert t1.shape == (1024,) and not t1.any() and g1 == 1
-    t2, g2 = fs.dedupe_table(cpu, 7, 512)
+    t2, g2, _ = fs.gen_state("dedupe", cpu, 7, 512)
     assert t2 is t1 and g2 == 2
-    t3, g3 = fs.dedupe_table(cpu, 7, 4096)
+    t3, g3, _ = fs.gen_state("dedupe", cpu, 7, 4096)
     assert t3 is not t1 and t3.shape == (4096,) and g3 == 1
-    assert fs.dedupe_table(cpu, 7, 1024)[0] is t3
-    fs._DEDUPE_TABLES[(None, 7)][1] = fs._GEN_MAX
-    t4, g4 = fs.dedupe_table(cpu, 7, 16)
+    assert fs.gen_state("dedupe", cpu, 7, 1024)[0] is t3
+    fs._STATES[("dedupe", None, 7)][1] = fs._GEN_MAX
+    t4, g4, _ = fs.gen_state("dedupe", cpu, 7, 16)
     assert t4 is not t3 and t4.shape == (4096,) and g4 == 1
-    t5, g5 = fs.dedupe_table(cpu, 8, 16)
+    t5, g5, _ = fs.gen_state("dedupe", cpu, 8, 16)
     assert t5 is not t4 and g5 == 1
+    assert (fs._GEN_MAX << 2 | 3) < 1 << 32  # a status's tag and state
+
+
+def test_scan_state_tickets(monkeypatch):
+    """The scan state FS4 and FS5 share (gen_state "scan"): each call's
+    ticket base is the tickets the calls before it took there, kept
+    apart from FS4's table; a new scratch (tickets from 0) when a call
+    needs more tiles or the 32-bit tickets would run out."""
+    monkeypatch.setattr(fs, "_STATES", {})
+    cpu = torch.device("cpu")
+    s1, g1, b1 = fs.gen_state("scan", cpu, 7, 65, 64)
+    assert s1.shape == (65,) and (g1, b1) == (1, 0)
+    table, _, _ = fs.gen_state("dedupe", cpu, 7, 1 << 10)
+    assert table is not s1
+    s2, g2, b2 = fs.gen_state("scan", cpu, 7, 9, 8)
+    assert s2 is s1 and (g2, b2) == (2, 64)
+    s3, g3, b3 = fs.gen_state("scan", cpu, 7, 129, 128)
+    assert s3 is not s1 and s3.shape == (129,) and (g3, b3) == (1, 0)
+    fs._STATES[("scan", None, 7)][2] = (1 << 32) - 100
+    s4, g4, b4 = fs.gen_state("scan", cpu, 7, 129, 128)
+    assert s4 is not s3 and (g4, b4) == (1, 0)
+    assert fs.gen_state("scan", cpu, 7, 2, 1)[1:] == (2, 128)
 
 
 @pytest.mark.cuda

@@ -245,42 +245,47 @@ def test_concat_and_empty_results():
 
 def _seed_batches(edges, K_of):
     """Both packages' _seed_cand_batch over the edge reads at the K that
-    K_of(total) gives: (the port's row, pos, valid, total; the JAX
-    package's packed [row | pos | valid] split, and total)."""
+    K_of(total) gives: (the port's packed words as u32, split into row,
+    pos and valid, and total; the JAX package's packed [row | pos |
+    valid], and total)."""
     jd, td, reads, lens, sp, sl = edges
     steps = max(26 - td.lut_k, min(td.lut_k, 26))
     t = [torch.from_numpy(np.ascontiguousarray(a))
          for a in (reads, lens, sp, sl)]
-    total = int(tr._seed_cand_batch(td, *t, 64, steps, 1024)[3])
+    total = int(tr._seed_cand_batch(td, *t, 64, steps, 1024)[1])
     K = K_of(total)
-    got = tr._seed_cand_batch(td, *t, 64, steps, K)
-    packed, jtotal = jr._seed_cand_batch(
+    packed, total = tr._seed_cand_batch(td, *t, 64, steps, K)
+    jpacked, jtotal = jr._seed_cand_batch(
         jd, jnp.asarray(reads), jnp.asarray(lens), jnp.asarray(sp),
         jnp.asarray(sl), occ_cap=64, max_steps=steps, K=K)
-    packed = np.asarray(packed).astype(np.int64)
-    return got, [packed[:K], packed[K:2 * K], packed[2 * K:]], int(jtotal)
+    assert packed.dtype == torch.int32 and packed.shape == (3 * K,)
+    words = packed.numpy().view(np.uint32)
+    jwords = np.asarray(jpacked)
+    assert jwords.dtype == np.uint32
+    # word for word, tolerance zero
+    np.testing.assert_array_equal(words, jwords)
+    return (words[:K], words[K:2 * K], words[2 * K:] != 0, total), \
+        jwords, int(jtotal)
 
 
 @pytest.mark.parametrize("case", ["K_eq_total", "K_below_total",
                                   "K_past_total", "total_0"])
 def test_seed_cand_batch_matches_reference(edges, case):
-    """The port's _seed_cand_batch (the lane expansion, then SA decode)
-    against the JAX package's (its (lanes, 64) slot mask and nonzero):
-    row, pos and valid equal element for element at the same K, and the
-    total; the widths reach 0, 1, 63, 64 and past 64, and seeds at the
-    read's end decode below their start."""
+    """The port's _seed_cand_batch (the lanes' counts and scan, the lane
+    expansion, then SA decode) against the JAX package's (its (lanes, 64)
+    slot mask and nonzero): the packed [row | pos | valid] words equal
+    word for word at the same K, and the total; the widths reach 0, 1,
+    63, 64 and past 64, and seeds at the read's end decode below their
+    start."""
     if case == "total_0":
         edges = tuple(a[-8:] if isinstance(a, np.ndarray) else a
                       for a in edges)
     K_of = {"K_eq_total": lambda t: t, "K_below_total": lambda t: t // 2,
             "K_past_total": lambda t: t + 100,
             "total_0": lambda t: 1024}[case]
-    (row, pos, valid, total), want, jtotal = _seed_batches(edges, K_of)
+    (row, pos, valid, total), _, jtotal = _seed_batches(edges, K_of)
     assert int(total) == jtotal
     assert (jtotal == 0) == (case == "total_0")
-    for a, b, name in zip((row, pos, valid), want, ("row", "pos", "valid")):
-        np.testing.assert_array_equal(a.numpy().astype(np.int64), b,
-                                      err_msg=f"{case} {name}")
     if case == "K_past_total":
         assert not valid[jtotal:].any() and not row[jtotal:].any()
         # the mask of 64 slots a lane: widths 0, 1 and 63, and 64 slots
@@ -292,7 +297,7 @@ def test_seed_cand_batch_matches_reference(edges, case):
         l, r = tf.seed_intervals(td, ori, 2, sp2, torch.full_like(sp2, 26),
                                  26, "general")
         assert set((r - l).tolist()) >= {0, 1} | set(COPIES)
-        live = torch.arange(valid.shape[0]) < jtotal
+        live = np.arange(valid.shape[0]) < jtotal
         assert (live & ~valid).any()       # decoded below the seed start
 
 
@@ -312,11 +317,8 @@ def test_seed_cand_batch_on_sparse_lanes_matches_reference(edges, case):
               np.tile(sp[0], (n, 1)), np.full(n, 26, np.int32))
     K_of = {"K_eq_total": lambda t: t,
             "K_below_total": lambda t: t // 2 + 1}[case]
-    (row, pos, valid, total), want, jtotal = _seed_batches(sparse, K_of)
+    (row, pos, valid, total), _, jtotal = _seed_batches(sparse, K_of)
     assert int(total) == jtotal > 0
-    for a, b, name in zip((row, pos, valid), want, ("row", "pos", "valid")):
-        np.testing.assert_array_equal(a.numpy().astype(np.int64), b,
-                                      err_msg=f"{case} {name}")
     r = row[:jtotal] % n          # rows n.. are the reverse complements
     assert int(r.min()) >= 150 and int(r.max()) < n - 70   # no random read
 
@@ -332,7 +334,7 @@ def test_seed_expand_on_cpu_takes_the_plain_version(edges):
             torch.from_numpy(rng.integers(0, 75, 600)), 3, 20000)
     n0 = fs.SEED_EXPAND_KERNEL.launches
     got, want = tf.seed_expand_decode(*args), tf.seed_expand_plain(*args)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got.dtype == torch.int32 and torch.equal(got, want)
     assert fs.SEED_EXPAND_KERNEL.launches == n0
     for fn in (fs.seed_expand_decode, fs.seed_expand_ranks):
         with pytest.raises(ValueError, match="CUDA"):
@@ -355,8 +357,7 @@ def test_seed_expand_kernel_matches_plain(edges):
         n0 = fs.SEED_EXPAND_KERNEL.launches
         got, want = tf.seed_expand_decode(*args), tf.seed_expand_plain(*args)
         assert fs.SEED_EXPAND_KERNEL.launches == n0 + 1
-        for a, b in zip(got, want):
-            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want.cpu())
 
 
 @pytest.mark.cuda
@@ -374,5 +375,122 @@ def test_seed_expand_kernel_on_sparse_and_few_lanes(edges):
     for name, fn, args in chip_smoke.seed_lane_cases(
             np.random.default_rng(6), td, dev, 4000, 4):
         got, want = tf.seed_expand_decode(*args), tf.seed_expand_plain(*args)
+        assert got.dtype == want.dtype and torch.equal(got.cpu(),
+                                                       want.cpu()), name
+
+
+@pytest.mark.parametrize("mode", ["search", "seed"])
+def test_lane_counts_plain_matches_reference(mode):
+    """lane_counts_plain (FS5's plain version) against the reference's
+    lines in jnp: the search's overflow mask, per-read any over both
+    strands, where / minimum and cumsum (soap3dp_tpu/fm/search.py:232-252)
+    and its wire's flagged words (:336-340), or the seeding's minimum of
+    the widths and occ_cap (dp_rescue.py:176-179); 45 reads (not a
+    multiple of 32) of 3 lanes a strand, overflows on one strand only.
+    Tolerance: zero."""
+    import chip_smoke
+    from soap3dp_tpu.utils import scans
+
+    B, S, cap = 45, 3, 16
+    l, r = chip_smoke.lane_count_inputs(np.random.default_rng(21), B, S, cap)
+    width = jnp.asarray(r.astype(np.uint32)) - jnp.asarray(
+        l.astype(np.uint32))
+    if mode == "search":
+        overflow = width > jnp.uint32(cap)
+        fl = overflow.reshape(2 * B, S).any(axis=1)
+        fl = (fl[:B] | fl[B:]).astype(jnp.uint32)
+        fl = jnp.zeros(64, jnp.uint32).at[:B].set(fl)
+        want_flags = (fl.reshape(-1, 32) << jnp.arange(32, dtype=jnp.uint32)
+                      ).sum(axis=1, dtype=jnp.uint32)
+        cnt = jnp.where(overflow, jnp.uint32(0),
+                        jnp.minimum(width, jnp.uint32(cap))).astype(jnp.int32)
+        flags = torch.full((2,), 7, dtype=torch.int32)
+        incl, total, out = tf.lane_counts(torch.from_numpy(l),
+                                          torch.from_numpy(r), cap, S, flags)
+        assert out is flags
+        np.testing.assert_array_equal(flags.numpy().view(np.uint32),
+                                      np.asarray(want_flags))
+        got = flags.numpy().view(np.uint32)
+        assert got[0] & 0b11 == 0b11     # one strand's overflow alone
+    else:
+        cnt = jnp.minimum(width, jnp.uint32(cap)).astype(jnp.int32)
+        incl, total = tf.lane_counts(torch.from_numpy(l), torch.from_numpy(r),
+                                     cap, S)
+    want = np.asarray(scans.cumsum_1d(cnt))
+    assert incl.dtype == torch.int64
+    np.testing.assert_array_equal(incl.numpy(), want)
+    assert int(total) == int(want[-1]) > 0
+    n0 = fs.LANE_COUNTS_KERNEL.launches
+    plain = tf.lane_counts_plain(torch.from_numpy(l), torch.from_numpy(r),
+                                 cap, S, *([torch.zeros(2, dtype=torch.int32)]
+                                           if mode == "search" else []))
+    assert torch.equal(plain[0], incl) and fs.LANE_COUNTS_KERNEL.launches == n0
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.lane_counts(torch.from_numpy(l), torch.from_numpy(r), cap, S)
+
+
+def test_search_wire_refuses_cpu_tensors():
+    """The FS5 and FS6 wrappers refuse CPU tensors (the entry points take
+    them to the plain versions): no fallback."""
+    z = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.search_wire(torch.zeros(2 + 1 + 8, dtype=torch.int32), 3,
+                       z[0], z[0], z, z, z.to(torch.bool), z, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.lane_counts(z, z, 4, 1, torch.zeros(1, dtype=torch.int32))
+
+
+def _cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [45, 11667, 131072])
+def test_lane_counts_kernel_matches_plain(B):
+    """FS5 against lane_counts_plain on the card in both modes, every
+    output element (incl, total, the flagged words); 2 B S lanes, S = 3:
+    270 and 70,002 lanes (not multiples of the 1,024-lane tile) and
+    phase 4's 786,432."""
+    import chip_smoke
+
+    dev = _cuda_dev()
+    l, r = (torch.from_numpy(a).to(dev) for a in chip_smoke.lane_count_inputs(
+        np.random.default_rng(B), B, 3, 16))
+    nf = -(-B // 32)
+    for flags in (None, torch.empty(nf, dtype=torch.int32, device=dev)):
+        extra = [] if flags is None else [flags]
+        n0 = fs.LANE_COUNTS_KERNEL.launches
+        got = tf.lane_counts(l, r, 16, 3, *extra)
+        assert fs.LANE_COUNTS_KERNEL.launches == n0 + 1
+        want = tf.lane_counts_plain(
+            l, r, 16, 3, *[torch.empty_like(f) for f in extra])
         for a, b in zip(got, want):
-            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()), name
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_search_wire_kernel_matches_plain():
+    """FS6 against search_wire_plain on the card, every word of the wire:
+    K2 slots of random hits, misses past uniq, mismatches past k and
+    past 127, text positions past 2^31."""
+    dev = _cuda_dev()
+    rng = np.random.default_rng(5)
+    B, K2 = 45, 3000
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    urow = np.where(rng.random(K2) < 0.8, rng.integers(0, 2 * B, K2),
+                    0x7FFFFFFF)
+    args = (B, torch.tensor(901, device=dev),
+            torch.tensor(2400, device=dev), t(urow),
+            t(rng.integers(0, 1 << 32, K2)), t(urow < 2 * B),
+            t(rng.choice([0, 1, 2, 3, 200], K2)), 2)
+    wire = torch.full((2 + 2 + 2 * K2,), 9, dtype=torch.int32, device=dev)
+    want = tf.search_wire_plain(wire.clone(), *args)
+    n0 = fs.SEARCH_WIRE_KERNEL.launches
+    got = tf.search_wire(wire.clone(), *args)
+    assert fs.SEARCH_WIRE_KERNEL.launches == n0 + 1
+    assert torch.equal(got.cpu(), want.cpu())

@@ -193,3 +193,81 @@ def test_empty_batch(indexes):
     h = ts.PendingSearch(td, np.zeros((0, 30), np.uint8),
                          np.zeros(0, np.int32)).result()
     assert h.to_host()[0].size == 0
+
+
+@pytest.fixture(scope="module")
+def repeat_indexes():
+    """(genome codes, JAX device index, the port's CPU device index) of
+    a 25-base unit tiled 60 times before 4,000 random bases (sa_rate 4,
+    lut_k 4): seeds in the repeat overflow a small cap."""
+    from soap3dp_tpu.index.builder import build_index
+
+    rng = np.random.default_rng(77)
+    unit = rng.integers(0, 4, size=25).astype(np.uint8)
+    codes = np.concatenate([np.tile(unit, 60),
+                            rng.integers(0, 4, size=4000).astype(np.uint8)])
+    idx = build_index(_genome_from_codes(codes), sa_rate=4, lut_k=4)
+    return codes, jf.device_index(idx), tf.device_index(port_index(idx),
+                                                        "cpu")
+
+
+@pytest.mark.parametrize("setting", ["round1", "escalation"])
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_search_batch_wire_matches_reference(repeat_indexes, k, setting):
+    """One dispatch's result wire, the port's _search_batch_wire against
+    the JAX package's on the same reads: 45 reads (not a multiple of
+    32), some inside the repeat so their seeds overflow the cap and they
+    are flagged, some random, lengths 40-60; round 1 (genome-scaled seed
+    prefixes, cap 2, PendingSearch's first budgets K and K2) and an
+    escalation round (full segments, cap 256, the lossless K = K2). The
+    wires are equal word for word, and _parse_wire's host arrays lane
+    for lane, the lanes that hold no hit included. Tolerance: zero."""
+    import jax.numpy as jnp
+
+    from soap3dp_tpu.utils import shapes
+
+    codes, jd, td = repeat_indexes
+    rng = np.random.default_rng(100 + k)
+    B, L = 45, 60
+    starts = np.concatenate([rng.integers(0, 1400, 15),
+                             rng.integers(1500, len(codes) - L, 30)])
+    reads = np.stack([codes[p:p + L] for p in starts]).astype(np.uint8)
+    reads[40:] = rng.integers(0, 4, (5, L))            # found nowhere
+    lens = rng.integers(40, L + 1, B).astype(np.int32)
+    for i, n in enumerate(lens):
+        reads[i, n:] = 0
+    cfg_j, cfg_t = js.SearchConfig(k=k), ts.SearchConfig(k=k)
+    S = k + 1
+    if setting == "round1":
+        seed_q = js.default_seed_q(jd, cfg_j)
+        assert seed_q == ts.default_seed_q(td, cfg_t)
+        steps = js._steps_for(jd, seed_q, min(int(lens.min()) // S, seed_q))
+        cap = 2
+        K = shapes.bucket(B * S * 5 // 4, min_size=1024)
+        K2 = shapes.bucket(B * 2, min_size=1024)
+    else:
+        longest = -(-L // S)
+        seed_q, steps = 0, js._steps_for(jd, longest,
+                                         min(int(lens.min()) // S, longest))
+        cap, K, K2 = 256, 0, 0
+    wj = np.asarray(js._search_batch_wire(
+        jd, jnp.asarray(reads), jnp.asarray(lens), cfg_j, cap, steps, seed_q,
+        K, K2=K2))
+    wt = ts._search_batch_wire(td, torch.from_numpy(reads),
+                               torch.from_numpy(lens), cfg_t, cap, steps,
+                               seed_q, K, K2=K2)
+    assert wj.dtype == np.uint32 and wt.dtype == torch.int32
+    np.testing.assert_array_equal(wt.numpy().view(np.uint32), wj)
+    K2 = K2 or 2 * B * S * cap
+    assert wj.shape == (2 + 2 + 2 * K2,)      # ceil(45 / 32) flag words
+    tj, uj, hj = js._parse_wire(wj, B, K2)
+    tt, ut, ht = ts._parse_wire(wt.numpy(), B, K2)
+    assert (tt, ut) == (tj, uj) and uj > 0
+    for name in ("row", "tp", "nmis", "valid", "flagged"):
+        a, b = getattr(hj, name), getattr(ht, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert ht.valid.any() and not ht.valid.all()
+    assert (ht.row[~ht.valid] == 0xFFFFFF).all()   # no hit: the clipped
+    if setting == "round1":                        # sentinel
+        assert ht.flagged.any() and not ht.flagged[40:].any()
