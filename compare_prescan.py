@@ -56,9 +56,15 @@ the first run saves its phase-4 FS4 call of the largest K (round 1,
 K2 < K) and each run times its own fmindex.dedupe on those keys
 (SAME_KEY_REPS calls) and says whether its own call's keys equal them,
 so a change in FS4's replayed time is split into the kernel's and the
-keys'. Prints one line per run and writes them to
-compare_prescan.json in chip_smoke.py's output directory; exits non-zero
-after that if a replayed call (or the largest calls above) disagrees
+keys'. The same for FS5: the first run saves its phase-4 calls of the
+most lanes in the search's mode (round 1) and in the seeding's (the
+largest seeding call), and each run times its own lane counts on those
+counts (SAME_KEY_REPS calls, warm and with the L2 evicted before each
+call, fs5_same_counts). FS1, FS3 and FS5 are replayed with the other phase-4
+launch shapes (FS1's and FS3's bounds: chip_smoke.py's phase 2; FS5's
+counted from its shape, 24 bytes a lane). Prints one line per run and
+writes them to compare_prescan.json in chip_smoke.py's output
+directory; exits non-zero after that if a replayed call (or the largest calls above) disagrees
 with its plain version. Both phases share phase 4's cached index and
 seeded reads. The rescue queue's flushes follow the host's timing, so
 a run's pack shapes may differ from another's.
@@ -78,7 +84,7 @@ REPS = 5  # replayed calls a timing
 SAME_KEY_REPS = 30  # FS4's calls on the first run's keys
 
 RUN = """
-import collections, importlib.util, re
+import collections, dataclasses, importlib.util, re
 from torch.profiler import ProfilerActivity, profile
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.index.builder import load_index
@@ -99,7 +105,8 @@ orig_gp, orig_impl = dp_rescue.gapless_prescan, dp_rescue._prescan_impl
 orig_plain = getattr(dp_rescue, "_prescan_plain", None)
 orig_pack = dp_rescue._pack_problems
 orig_fs = {{"FS2x": fmindex.expand_decode, "FS2s": fmindex.seed_expand_decode,
-           "FS4": fmindex.dedupe}}
+           "FS4": fmindex.dedupe, "FS1": fmindex.seed_intervals,
+           "FS3": fmindex.count_mismatches_rows, "FS5": fmindex.lane_counts}}
 packs = collections.defaultdict(list)  # phase: [(P, Lr, max_win, bytes up)]
 seen = collections.Counter()  # (phase, kernel, launch shape): calls
 first = {{}}  # (phase, kernel, launch shape): the first call's inputs
@@ -121,6 +128,21 @@ def expand(idx, l, *a):
 def seed_expand(idx, l, *a):
     keep("FS2s", (a[-1], l.shape[0], idx.sa_rate), (l,) + a)
     return orig_fs["FS2s"](idx, l, *a)
+
+
+def search1(idx, ori, S, *a):
+    keep("FS1", (2 * ori.B * S, ori.L, a[-2], a[-1]), (ori, S) + a)
+    return orig_fs["FS1"](idx, ori, S, *a)
+
+
+def verify3(idx, tp, ori, *a):
+    keep("FS3", (tp.shape[0], (ori.L + 15) // 16), (tp, ori) + a)
+    return orig_fs["FS3"](idx, tp, ori, *a)
+
+
+def counts5(l, r, cap, S, *a):
+    keep("FS5", (l.shape[0], S, int(bool(a))), (l, r, cap, S) + a)
+    return orig_fs["FS5"](l, r, cap, S, *a)
 
 
 def dedupe(krow, ktp, pos_ok, K2):
@@ -168,11 +190,15 @@ dp_rescue.gapless_prescan = gp
 dp_rescue._pack_problems = pack
 fmindex.expand_decode, fmindex.seed_expand_decode = expand, seed_expand
 fmindex.dedupe = dedupe
+fmindex.seed_intervals, fmindex.count_mismatches_rows = search1, verify3
+fmindex.lane_counts = counts5
 dp_rescue._prescan_impl = counted_impl
 if orig_plain is not None:
     dp_rescue._prescan_plain = counted_plain
 SYMBOL = {{"FS2x": "expand_decode_kernel", "FS2s": "seed_expand_kernel",
-          "FS4": "dedupe_", "GP": "prescan_kernel", "PK": "pack_kernel"}}
+          "FS4": "dedupe_", "GP": "prescan_kernel", "PK": "pack_kernel",
+          "FS1": "fm_search_kernel", "FS3": "verify_kernel",
+          "FS5": "lane_counts_kernel"}}
 out = {{"card": cs.card_line()}}
 for key, mate in (("phase4", False), ("phase5", True)):
     phase_of[0] = key
@@ -212,6 +238,9 @@ dp_rescue._pack_problems = orig_pack
 fmindex.expand_decode = orig_fs["FS2x"]
 fmindex.seed_expand_decode = orig_fs["FS2s"]
 fmindex.dedupe = orig_fs["FS4"]
+fmindex.seed_intervals = orig_fs["FS1"]
+fmindex.count_mismatches_rows = orig_fs["FS3"]
+fmindex.lane_counts = orig_fs["FS5"]
 if orig_plain is not None:
     dp_rescue._prescan_plain = orig_plain
 
@@ -328,16 +357,38 @@ CALL = {{"FS2x": lambda a: fmindex.expand_decode(didx, *a),
         "FS2s": lambda a: fmindex.seed_expand_decode(didx, *a),
         "FS4": lambda a: fmindex.dedupe(*a),
         "GP": lambda a: dp_rescue._prescan_impl(didx, *a),
-        "PK": lambda a: dp_rescue._pack_problems(didx, *a)}}
+        "PK": lambda a: dp_rescue._pack_problems(didx, *a),
+        "FS1": lambda a: fmindex.seed_intervals(didx, *a),
+        "FS3": lambda a: fmindex.count_mismatches_rows(didx, *a),
+        "FS5": lambda a: fmindex.lane_counts(*a)}}
 PLAIN = {{"FS2x": lambda a: fmindex.expand_decode_plain(didx, *a),
          "FS2s": lambda a: fmindex.seed_expand_plain(didx, *a),
          "FS4": lambda a: fmindex.dedupe_plain(*a),
          "GP": lambda a: dp_rescue._prescan_plain(didx, *a),
-         "PK": lambda a: dp_rescue._pack_problems_plain(didx, *a)}}
+         "PK": lambda a: dp_rescue._pack_problems_plain(didx, *a),
+         "FS1": lambda a: fmindex.seed_intervals_plain(didx, *a),
+         "FS3": lambda a: fmindex.count_mismatches_rows_plain(didx, *a),
+         "FS5": lambda a: fmindex.lane_counts_plain(*a)}}
+# the replays whose inputs are saved for this process's bounds (FS1's and
+# FS3's hold the reads' rows, FS5's bound is counted from its shape)
+SAVED = ("FS2x", "FS2s", "FS4", "GP", "PK")
 
 
 def host(x):
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def saved(args):  # the arrays of a call's inputs; a SeedLanes' fields
+    out = {{}}         # as a<i>_<field>
+    for i, a in enumerate(args):
+        if dataclasses.is_dataclass(a):
+            for f in dataclasses.fields(a):
+                v = getattr(a, f.name)
+                if v is not None:
+                    out[f"a{{i}}_{{f.name}}"] = host(v)
+        else:
+            out[f"a{{i}}"] = host(a)
+    return out
 
 
 out["replays"] = []
@@ -347,13 +398,17 @@ for (ph, kernel, shape), args in sorted(first.items()):
     fn = CALL[kernel]
     span, events = timing._call_span_ms(lambda: fn(args), {reps},
                                         SYMBOL[kernel])
-    npz = os.path.join({work!r},
-                       f"replay_{{os.getpid()}}_{{len(out['replays'])}}.npz")
-    np.savez(npz, **{{f"a{{i}}": host(a) for i, a in enumerate(args)}})
+    npz = None
+    if kernel in SAVED:
+        npz = os.path.join(
+            {work!r}, f"replay_{{os.getpid()}}_{{len(out['replays'])}}.npz")
+        np.savez(npz, **saved(args))
+    fresh = (lambda a: timing.fresh_args("lane_counts", a)) \
+        if kernel == "FS5" else (lambda a: a)
     row = {{"phase": ph, "kernel": kernel, "shape": shape,
            "launches": seen[ph, kernel, shape],
-           "equal": same(fn(args), PLAIN[kernel](args)), "span_ms": span,
-           "events_ms": events, "case": npz}}
+           "equal": same(fn(fresh(args)), PLAIN[kernel](fresh(args))),
+           "span_ms": span, "events_ms": events, "case": npz}}
     if kernel == "PK":  # its read units alone: the same call at max_win 0
         rd = args[:-1] + (0,)
         row["reads_only_span_ms"] = timing._call_span_ms(
@@ -395,8 +450,59 @@ out["fs4_same_keys"] = {{
     "equal": same(fmindex.dedupe(*keys), fmindex.dedupe_plain(*keys)),
     "own_keys_equal": all(np.array_equal(host(a), host(b))
                           for a, b in zip(own, keys))}}
+
+# FS5 on the first run's counts: phase 4's round-1 search call (the most
+# lanes with flagged words) and its largest seeding call (the most lanes
+# without), warm and with the L2 evicted before each call
+from soap3dp_tpu_torch.kernels import fm_search as fsk
+fs5 = [k for k in first if k[:2] == ("phase4", "FS5")]
+out["fs5_same_counts"] = {{}}
+for mode, search in (("search", 1), ("seed", 0)):
+    mine = [k for k in fs5 if int(k[2].split("x")[2]) == search]
+    if not mine:
+        continue
+    k = max(mine, key=lambda k: int(k[2].split("x")[0]))
+    npz = os.path.join({work!r}, f"fs5_counts_{{mode}}.npz")
+    if not os.path.exists(npz):
+        a = first[k]
+        np.savez(npz, l=host(a[0]), r=host(a[1]), cap=a[2], S=a[3])
+    with np.load(npz) as z:
+        l, r = (torch.from_numpy(z[x]).to(dev) for x in ("l", "r"))
+        cap, S = int(z["cap"]), int(z["S"])
+    nf = -(-(l.shape[0] // (2 * S)) // 32)
+
+    def call():
+        flags = (torch.empty(nf, dtype=torch.int32, device=dev),) \
+            if search else ()
+        return fsk.lane_counts(l, r, cap, S, *flags)
+
+    want = fmindex.lane_counts_plain(
+        l, r, cap, S, *((torch.zeros(nf, dtype=torch.int32,
+                                     device=dev),) if search else ()))
+    res = {{"lanes": l.shape[0], "S": S, "cap": cap,
+           "warm_ms": timing._kernel_device_ms(call, {same_reps},
+                                               SYMBOL["FS5"]),
+           "cold_ms": timing._cold_device_ms(call, {same_reps},
+                                             SYMBOL["FS5"], dev),
+           "equal": same(call(), want)}}
+    res["own_counts_equal"] = all(np.array_equal(host(x), y) for x, y in
+                                  zip(first[k][:2], (host(l), host(r))))
+    out["fs5_same_counts"][mode] = res
 print("RESULT " + json.dumps(out), flush=True)
 """
+
+
+def saved_args(z) -> list:
+    """A replayed call's saved inputs in order: arrays, and a SeedLanes'
+    fields (a<i>_<field>) as a dict."""
+    out = {}
+    for key in z.files:
+        i, _, field = key[1:].partition("_")
+        if field:
+            out.setdefault(int(i), {})[field] = z[key]
+        else:
+            out[int(i)] = z[key]
+    return [out[i] for i in sorted(out)]
 
 
 def replay_work(kernel: str, args: list, didx, dev, peak: float) -> dict:
@@ -408,9 +514,24 @@ def replay_work(kernel: str, args: list, didx, dev, peak: float) -> dict:
 
     from soap3dp_tpu_torch.fm import fmindex
 
+    def tensor(a):
+        return torch.from_numpy(a).to(dev) if a.ndim else int(a)
+
+    if kernel == "FS5":
+        RS, S, search = args
+        nf = -(-(RS // (2 * S)) // 32) if search else 0
+        bms, by = cs.bound_ms(RS * cs.OPS_COUNT_LANE, 24 * RS + 8 + 4 * nf,
+                              peak)
+        return {"bound_ms": bms, "bound_by": by, "lanes": RS}
     if kernel in ("FS2x", "FS2s", "FS4"):
-        t = [torch.from_numpy(a).to(dev) if a.ndim else int(a)
-             for a in args]
+        t = [fmindex.SeedLanes(**{k: tensor(v) for k, v in a.items()})
+             if isinstance(a, dict) else tensor(a) for a in args]
+        # a parent's seeds as arrays: each lane's start (FS2x: and each
+        # row's read length)
+        if kernel == "FS2x" and len(t) == 6:
+            t = t[:2] + [fmindex.SeedLanes.given(t[2], lens=t[3])] + t[4:]
+        if kernel == "FS2s" and torch.is_tensor(t[2]):
+            t[2] = fmindex.SeedLanes.given(t[2])
         fn = {"FS2x": "expand_decode", "FS2s": "seed_expand_decode",
               "FS4": "dedupe"}[kernel]
         a = tuple(t) if kernel == "FS4" else (didx, *t)
@@ -442,8 +563,10 @@ def main(argv=None) -> int:
     work = os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "e2e")
     os.makedirs(work, exist_ok=True)
     keys = os.path.join(work, "fs4_keys.npz")
-    if os.path.exists(keys):
-        os.remove(keys)
+    for name in (keys, os.path.join(work, "fs5_counts_search.npz"),
+                 os.path.join(work, "fs5_counts_seed.npz")):
+        if os.path.exists(name):     # the first run of this call saves them
+            os.remove(name)
     card = cs.card_line()
     print(card, flush=True)
     peak = cs.int32_peak_ops()
@@ -485,9 +608,15 @@ def main(argv=None) -> int:
     for run in runs:
         timed = {}
         for row in run["replays"]:
-            with np.load(row.pop("case")) as z:
-                a = [z[f"a{i}"] for i in range(len(z.files))]
             key = (row["phase"], row["kernel"], row["shape"])
+            case = row.pop("case")
+            if case is not None:
+                with np.load(case) as z:
+                    a = saved_args(z)
+            elif row["kernel"] == "FS5":
+                a = [int(x) for x in row["shape"].split("x")]
+            else:   # FS1, FS3: bounds in chip_smoke.py's phase 2
+                continue
             if key not in bounds:
                 bounds[key] = replay_work(row["kernel"], a, didx, dev, peak)
             row.update(bounds[key])
@@ -506,6 +635,9 @@ def main(argv=None) -> int:
                    and x.get("reads_only_equal", True))]
     bad += [(r["tree"], "FS4 same keys") for r in runs
             if not r["fs4_same_keys"]["equal"]]
+    bad += [(r["tree"], "FS5 same counts", mode) for r in runs
+            for mode, res in r.get("fs5_same_counts", {}).items()
+            if not res["equal"]]
     bad += [(r["tree"], key, x.get("what", "GP")) for r in runs
             for key in ("phase4", "phase5")
             for x in r[key].get("pack_replay", []) + [r[key].get("replay")]

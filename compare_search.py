@@ -18,8 +18,9 @@ profiles the DP seeding (dp_rescue.seed_candidates, as the single-end
 salvage seeds) of the batch's first SEED_READS end-1 reads the same way:
 its device items by name (ms, launches) and their total, its
 device-to-host copies' times (the candidates' prefix and the total's
-scalar), the bytes of its downloads (counted at torch.Tensor.cpu) and
-its library launches. Prints one line a run and
+scalar), the bytes of its downloads (counted at torch.Tensor.cpu and,
+where a checkout has it, dp_rescue._prefix_to_host) and its library
+launches. Prints one line a run and
 writes compare_search.json in chip_smoke.py's output directory.
 """
 
@@ -63,12 +64,18 @@ b1, _ = next(read_pairs({reads!r}["r1"], {reads!r}["r2"],
 sp, sl = dp_rescue.single_dp_seed_matrix(b1.lens, b1.codes.shape[1])
 seed_bytes = []
 to_host = torch.Tensor.cpu
+to_prefix = getattr(dp_rescue, "_prefix_to_host", None)
 
 
 def counted_cpu(t, *a, **kw):
     if t.is_cuda:
         seed_bytes.append(t.numel() * t.element_size())
     return to_host(t, *a, **kw)
+
+
+def counted_prefix(packed, K, n):
+    seed_bytes.append(3 * n * packed.element_size())
+    return to_prefix(packed, K, n)
 
 
 def seed():
@@ -78,6 +85,8 @@ def seed():
 
 seed()
 torch.Tensor.cpu = counted_cpu
+if to_prefix is not None:
+    dp_rescue._prefix_to_host = counted_prefix
 try:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
@@ -86,6 +95,8 @@ try:
             torch.cuda.synchronize(dev)
 finally:
     torch.Tensor.cpu = to_host
+    if to_prefix is not None:
+        dp_rescue._prefix_to_host = to_prefix
 spans = cs._device_spans(prof)
 marks = [a for a, _, n in spans if "spin_kernel" in n]
 window = (spans if len(marks) < 2 else

@@ -17,7 +17,13 @@
 // branch reads the A-padded k-mer at the segment start whatever the
 // segment's length; the packed branch clamps the k-mer tail and the
 // extension offset; the general branch clamps every base position and
-// takes no LUT below lut_k bases).
+// takes no LUT below lut_k bases). A lane's segment is given or made
+// from its row's read length (Seeds: the search's pigeonhole segments,
+// the reference's `_seed_bounds` at soap3dp_tpu/fm/search.py:120 and its
+// seed range, :199; the DP seeding's staged seeds clamped into the read,
+// soap3dp_tpu/pipeline/dp_rescue.py:155-164), as FS2x and FS2s make
+// their lanes' seed starts, so no plain-torch pass makes the lanes'
+// arrays.
 // FS2 replaces `sa_decode` (fmindex.py:509): the bounded LF walk over
 // the mark bitvector, then the rank and sample gathers (or, for an SA
 // table split over a mesh, the rank and step count, which the caller
@@ -42,9 +48,10 @@
 // overflow mask, the per-read any, the where / minimum, the cumsum) and
 // of the DP seeding (the widths' minimum and the slot count,
 // soap3dp_tpu/pipeline/dp_rescue.py:176-178): each lane's count, their
-// inclusive scan (the tiles and look-back of FS4's scan, shared) and
-// the total, and in the search's mode the flagged words of the result
-// wire. What bounds it: bytes (each lane's l, r and incl, 24 B).
+// inclusive scan (the look-back of FS4's scan, shared; tiles of 2,048
+// lanes read as 16-byte vectors) and the total, and in
+// the search's mode the flagged words of the result wire, ORed by the
+// tiles. What bounds it: bytes (each lane's l, r and incl, 24 B).
 // FS6, soap3dp_search_wire, replaces the hit test and the packing of
 // `_search_batch_wire` (soap3dp_tpu/fm/search.py:312, :322-346): one
 // thread a unique placement writes its two words of the wire, the
@@ -73,7 +80,10 @@
 // two of the row's words (a funnel shift, the bases reversed and
 // complemented) where it was 16 loads of single bases; code bytes and
 // other widths keep the word-at-a-time form (verify_kernel_any).
-// Placements of one read share its row in L1, not in registers.
+// Placements of one read share its row in L1, not in registers. It
+// takes the dedupe's outputs as they are and does the reference's
+// argument prep (soap3dp_tpu/fm/search.py:305-310: the rows' clamp, the
+// positions' where, the lengths' gather) as it loads them.
 //
 // What bounds them on this card: random gathers into index tables of
 // about 1 GB (250 Mbp) to 5 GB (3.1 Gbp), each a 32-byte sector from
@@ -159,6 +169,7 @@
 // Plain C interface for ctypes; each launcher returns cudaGetLastError().
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -182,7 +193,8 @@ enum : int { MODE_LUT = 0, MODE_PACKED = 1, MODE_GENERAL = 2 };
 
 struct Reads {
   const void* data;
-  const int64_t* rc_len;  // (B,) bases of each reverse-complement row
+  const int32_t* rc_len;  // (B,) bases of each reverse-complement row, or
+  int64_t rc_all;         // null: every one has rc_all bases
   int64_t B;              // forward rows
   int kind;
   int L;                  // bases per oriented row
@@ -219,6 +231,11 @@ __device__ __forceinline__ int64_t ld64(const int64_t* p) {
   return __ldg(reinterpret_cast<const long long*>(p));
 }
 
+// the bases of reverse-complement row B + b
+__device__ __forceinline__ int64_t rc_bases(const Reads& s, int64_t b) {
+  return s.rc_len ? static_cast<int64_t>(__ldg(s.rc_len + b)) : s.rc_all;
+}
+
 __device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo,
                                            int64_t hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -241,15 +258,26 @@ __device__ __forceinline__ uint32_t fwd_base(const Reads& s, int64_t b,
   return (w >> (2 * (i & 15))) & 3u;
 }
 
-// base i (0 <= i < L) of oriented row `row`, as the plain versions'
+// an oriented row: its forward read b and, for a reverse complement,
+// its n bases, read once for a lane's many bases (FS1's walk reads one
+// a step)
+struct RowRef {
+  int64_t b, n;
+  bool rc;
+};
+
+__device__ __forceinline__ RowRef row_ref(const Reads& s, int64_t row) {
+  if (row < s.B) return RowRef{row, 0, false};
+  return RowRef{row - s.B, rc_bases(s, row - s.B), true};
+}
+
+// base i (0 <= i < L) of an oriented row, as the plain versions'
 // materialized matrix holds it (fmindex.OrientedReads.matrix: a
 // reverse-complement row is 3 - read[n-1-i] for i < n, else 0)
-__device__ uint32_t base_at(const Reads& s, int64_t row, int64_t i) {
-  if (row < s.B) return fwd_base(s, row, i);
-  const int64_t b = row - s.B;
-  const int64_t n = ld64(s.rc_len + b);
-  if (i >= n) return 0u;
-  return (3u - fwd_base(s, b, clamp64(n - 1 - i, 0, s.L - 1))) & 0xFFu;
+__device__ uint32_t base_at(const Reads& s, const RowRef& r, int64_t i) {
+  if (!r.rc) return fwd_base(s, r.b, i);
+  if (i >= r.n) return 0u;
+  return (3u - fwd_base(s, r.b, clamp64(r.n - 1 - i, 0, s.L - 1))) & 0xFFu;
 }
 
 // forward bases q..q+15 of packed read b (q + 16 <= L), LSB-first: the
@@ -275,19 +303,17 @@ __device__ __forceinline__ uint32_t reverse_bases(uint32_t w) {
 // row's bases p..p+15 are the complements of forward bases
 // n-16-p..n-1-p, whose LSB-first window is already in MSB-first order),
 // else base by base.
-__device__ uint32_t word16(const Reads& s, int64_t row, int64_t p) {
+__device__ uint32_t word16(const Reads& s, const RowRef& r, int64_t p) {
   if (s.kind == SRC_PACKED) {
-    if (row < s.B) {
-      if (p + 16 <= s.L) return reverse_bases(packed_window(s, row, p));
-    } else {
-      const int64_t n = ld64(s.rc_len + row - s.B);
-      if (n <= s.L && p + 16 <= n)
-        return ~packed_window(s, row - s.B, n - 16 - p);
+    if (!r.rc) {
+      if (p + 16 <= s.L) return reverse_bases(packed_window(s, r.b, p));
+    } else if (r.n <= s.L && p + 16 <= r.n) {
+      return ~packed_window(s, r.b, r.n - 16 - p);
     }
   }
   const int n = static_cast<int>(s.L - p < 16 ? s.L - p : 16);
   uint32_t w = 0;
-  for (int j = 0; j < n; ++j) w |= base_at(s, row, p + j) << (2 * (15 - j));
+  for (int j = 0; j < n; ++j) w |= base_at(s, r, p + j) << (2 * (15 - j));
   return w;
 }
 
@@ -302,8 +328,9 @@ __device__ uint32_t read_word(const Reads& s, int64_t row, int j) {
                               row * s.W + j);
     return n == 16 ? w : w & ((1u << (2 * n)) - 1u);
   }
+  const RowRef r = row_ref(s, row);
   uint32_t w = 0;
-  for (int t = 0; t < n; ++t) w |= base_at(s, row, i0 + t) << (2 * t);
+  for (int t = 0; t < n; ++t) w |= base_at(s, r, i0 + t) << (2 * t);
   return w;
 }
 
@@ -371,10 +398,91 @@ __device__ __forceinline__ int64_t lf_step(const Tables& t, int64_t row) {
   return ld64(t.counts + c) + block_occ(b, c, kp);
 }
 
+// Where seed lane i's segment lies in its row i / S (S lanes a row):
+// given, a start and a length a lane; or made from the read length of
+// the row as the reference makes it, so no (lanes,) arrays of starts and
+// lengths are made on the card: the search's pigeonhole segments
+// (soap3dp_tpu/fm/search.py:120 `_seed_bounds`, then its seed range:
+// segment j = lo + i % S of `segments` a read, [j n / segments,
+// (j + 1) n / segments), truncated to q bases where q > 0), or the DP
+// seeding's staged seeds (soap3dp_tpu/pipeline/dp_rescue.py:155-164:
+// seed i % S at pos, of slen bases, clamped into the read). Row r's read
+// is r mod nl (rows B + b are read b's reverse complement).
+struct Seeds {
+  const int64_t* start;   // (N,) given starts, or null: made
+  const int64_t* length;  // (N,) given lengths (FS1 only)
+  const int32_t* lens;    // (nl,) read lengths, or null
+  const int32_t* pos;     // (nl, S) the DP seeding's seed starts, or null
+  const int32_t* slen;    // (nl,) the DP seeding's seed lengths
+  int64_t nl;
+  int segments;           // pigeonhole segments a read
+  int lo;                 // the segment of a row's first lane
+  int q;                  // the seed prefix (seed_q; 0: untruncated)
+};
+
+// row's read, r mod n (rows of a batch and its reverse complements lie
+// below 2n)
+__device__ __forceinline__ int64_t read_of(int64_t row, int64_t n) {
+  return row < n ? row : (row < 2 * n ? row - n : row % n);
+}
+
+// the read length of oriented row `row`
+__device__ __forceinline__ int64_t row_len(const Seeds& sd, int64_t row) {
+  return __ldg(sd.lens + read_of(row, sd.nl));
+}
+
+struct Segment {
+  int64_t start, length;
+};
+
+// a Seeds' form, a template parameter of the kernels that take one, so
+// each instantiation holds only its own form's loads and arithmetic
+enum : int { SEED_GIVEN = 0, SEED_PIGEONHOLE = 1, SEED_STAGED = 2 };
+
+int seed_form(const Seeds& sd) {
+  return sd.start ? SEED_GIVEN : (sd.pos ? SEED_STAGED : SEED_PIGEONHOLE);
+}
+
+// f(std::integral_constant<int, form>) for sd's form: the launchers'
+// dispatch to the instantiation of that form
+template <typename F>
+void with_seed_form(const Seeds& sd, F&& f) {
+  switch (seed_form(sd)) {
+    case SEED_GIVEN:
+      f(std::integral_constant<int, SEED_GIVEN>{});
+      break;
+    case SEED_STAGED:
+      f(std::integral_constant<int, SEED_STAGED>{});
+      break;
+    default:
+      f(std::integral_constant<int, SEED_PIGEONHOLE>{});
+  }
+}
+
+// lane i's segment (S lanes a row), sd of form FORM
+template <int FORM>
+__device__ __forceinline__ Segment seed_at(const Seeds& sd, int64_t i, int S) {
+  if (FORM == SEED_GIVEN)
+    return Segment{ld64(sd.start + i), sd.length ? ld64(sd.length + i) : 0};
+  const int64_t row = i / S;
+  const int64_t j = i - row * S;
+  const int64_t b = read_of(row, sd.nl);
+  const int64_t n = __ldg(sd.lens + b);
+  if (FORM == SEED_STAGED) {
+    const int64_t sp = __ldg(sd.pos + b * S + j);
+    const int64_t sl = __ldg(sd.slen + b);
+    const int64_t room = n - sl > 0 ? n - sl : 0;
+    return Segment{sp < room ? sp : room, sl < n ? sl : n};
+  }
+  const int64_t seg = sd.lo + j;
+  const int64_t st = seg * n / sd.segments;
+  const int64_t len = (seg + 1) * n / sd.segments - st;
+  return Segment{st, sd.q > 0 && len > sd.q ? sd.q : len};
+}
+
+template <int FORM>
 __global__ void __launch_bounds__(THREADS)
-fm_search_kernel(Reads s, int S,
-                 const int64_t* __restrict__ start,
-                 const int64_t* __restrict__ length, int64_t N, int mode,
+fm_search_kernel(Reads s, int S, Seeds sd, int64_t N, int mode,
                  int max_steps, int k, Tables t,
                  const int32_t* __restrict__ lut_lo,
                  const int32_t* __restrict__ lut_hi, int64_t n1,
@@ -382,9 +490,10 @@ fm_search_kernel(Reads s, int S,
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
   if (i >= N) return;
-  const int64_t row = i / S;
-  const int64_t st = ld64(start + i);
-  const int64_t len = ld64(length + i);
+  const RowRef row = row_ref(s, i / S);
+  const Segment seg = seed_at<FORM>(sd, i, S);
+  const int64_t st = seg.start;
+  const int64_t len = seg.length;
   const int64_t last = s.L - 1;
   if (mode == MODE_LUT) {
     const uint32_t m = word16(s, row, clamp64(st, 0, last)) >> (2 * (16 - k));
@@ -490,8 +599,8 @@ sa_decode_kernel(const int64_t* __restrict__ rows,
 struct Lanes {
   const int64_t* lo;     // (RS,) each lane's SA interval start
   const int64_t* incl;   // (RS,) the inclusive cumsum of the lanes' counts
-  const int64_t* start;  // (RS,) each lane's segment (seed) start in its row
-  const int64_t* olens;  // (RS / S,) each row's read length (the search's)
+  Seeds sd;              // each lane's segment (seed) start in its row, and
+                         // each row's read length (the search's)
   int64_t RS;
   int64_t n;             // the text's length
   int S;                 // lanes a row
@@ -593,8 +702,8 @@ __device__ int64_t warp_slot_lane(const Lanes& e, int64_t k, bool live,
 }
 
 // slot k of the expansion (``live`` below the total count, of lane
-// ``lane``), decoded and written in form OUT
-template <int OUT>
+// ``lane``), decoded and written in form OUT, the seeds of form FORM
+template <int OUT, int FORM>
 __device__ __forceinline__ void expand_slot(const Lanes& e, const Marks& mk,
                                             const Tables& t, const Slots& o,
                                             int64_t k, bool live,
@@ -610,7 +719,7 @@ __device__ __forceinline__ void expand_slot(const Lanes& e, const Marks& mk,
     return;
   }
   const int64_t pos = live ? position(mk, rk) : 0;
-  const int64_t st = ld64(e.start + lane);
+  const int64_t st = seed_at<FORM>(e.sd, lane, e.S).start;
   const int64_t orow = lane / e.S;
   if (OUT == OUT_SEED) {
     // dp_rescue._seed_cand_batch: the read's start (below 2^32: pos is),
@@ -622,7 +731,7 @@ __device__ __forceinline__ void expand_slot(const Lanes& e, const Marks& mk,
     return;
   }
   const int64_t tp = pos - st;
-  const bool ok = live && pos >= st && tp + ld64(e.olens + orow) <= e.n;
+  const bool ok = live && pos >= st && tp + row_len(e.sd, orow) <= e.n;
   o.a[k] = ok ? orow : SENTINEL;
   o.b[k] = ok ? (tp & MASK32) : SENTINEL;
   o.ok[k] = ok ? 1 : 0;
@@ -630,7 +739,7 @@ __device__ __forceinline__ void expand_slot(const Lanes& e, const Marks& mk,
 
 // slot k of an expansion of K slots, its lane found a warp at a time
 // (warp_slot_lane); every thread of the warp reaches it
-template <int OUT>
+template <int OUT, int FORM>
 __device__ __forceinline__ void expand_at(const Lanes& e, int64_t K,
                                           const Marks& mk, const Tables& t,
                                           const Slots& o) {
@@ -638,21 +747,21 @@ __device__ __forceinline__ void expand_at(const Lanes& e, int64_t K,
                     threadIdx.x;
   const bool live = k < K && k < ld64(e.incl + e.RS - 1);
   const int64_t lane = warp_slot_lane(e, k, live, threadIdx.x & 31);
-  if (k < K) expand_slot<OUT>(e, mk, t, o, k, live, lane);
+  if (k < K) expand_slot<OUT, FORM>(e, mk, t, o, k, live, lane);
 }
 
 // FS2x: the search's lane expansion (OUT_KEYS or OUT_RANKS)
-template <int OUT>
+template <int OUT, int FORM>
 __global__ void __launch_bounds__(THREADS)
 expand_decode_kernel(Lanes e, int64_t K, Marks mk, Tables t, Slots o) {
-  expand_at<OUT>(e, K, mk, t, o);
+  expand_at<OUT, FORM>(e, K, mk, t, o);
 }
 
 // FS2s: the DP seeding's lane expansion (OUT_SEED or OUT_RANKS)
-template <int OUT>
+template <int OUT, int FORM>
 __global__ void __launch_bounds__(THREADS)
 seed_expand_kernel(Lanes e, int64_t K, Marks mk, Tables t, Slots o) {
-  expand_at<OUT>(e, K, mk, t, o);
+  expand_at<OUT, FORM>(e, K, mk, t, o);
 }
 
 // FS4, the hash dedupe of the search's keys (krow, ktp, pos_ok). Slot k
@@ -756,6 +865,11 @@ __device__ __forceinline__ uint64_t status_word(uint32_t tag, uint32_t state,
 // before the last round's at once (8 a lane), so a tile that finds no
 // inclusive count near it walks back 256 tiles a round, not 32. The
 // single-pass scan of FS4 (the firsts) and FS5 (the lanes' counts).
+// With ACQUIRE the warp fences after the statuses it read and before it
+// publishes its own (FS5's flagged words: what tile 0 wrote before its
+// status is seen before the tile's ORs), while none of its stores is in
+// flight.
+template <bool ACQUIRE>
 __device__ int32_t tile_lookback(unsigned long long* status, int64_t t,
                                  int32_t count, int lane, uint32_t tag) {
   const uint32_t agg = tag | ST_AGG, incl = tag | ST_INCL;
@@ -802,6 +916,7 @@ __device__ int32_t tile_lookback(unsigned long long* status, int64_t t,
     before += static_cast<int32_t>(__reduce_add_sync(FULL, sum));
     if (near < 32 * LOOKBACK) break;
   }
+  if (ACQUIRE) __threadfence();
   if (lane == 0)
     st_status(status + t, status_word(tag, ST_INCL,
                                       static_cast<uint32_t>(before + count)));
@@ -857,7 +972,7 @@ dedupe_scan_kernel(const int64_t* __restrict__ krow,
     const int32_t incl = warp_scan(x, lane);
     off[lane] = incl - x;
     const int32_t count = __shfl_sync(FULL, incl, 31);
-    const int32_t before = tile_lookback(status, t, count, lane, tag);
+    const int32_t before = tile_lookback<false>(status, t, count, lane, tag);
     if (lane == 0) {
       tile_before = before;
       if (t == tiles - 1) *uniq = before + count;
@@ -881,22 +996,31 @@ dedupe_scan_kernel(const int64_t* __restrict__ krow,
 // FS5, the lanes' counts and their inclusive scan. Lane k's count from
 // its SA interval [l, r): in the search's mode (flags given) 0 where the
 // width passes cap, else the width (fm/search.py's where / minimum); in
-// the seeding's, the width clamped to [0, cap]. Blocks below `tiles`
-// take tickets and scan tiles of 1,024 lanes as FS4's second launch
-// scans its firsts (tile_lookback, on the scan state FS4 uses); the
-// last tile writes the total. In
-// the search's mode the blocks past them write the wire's flagged
-// words: read b (of B = RS / 2S) is bit b % 32 of word b / 32 where any
-// of its S lanes on either strand (rows b and B + b) overflowed, one
-// ballot a warp. The wrapper keeps RS x cap below 2^31, so every count
-// and partial sum fits 32 bits.
-__device__ __forceinline__ int32_t lane_count(const int64_t* l,
-                                              const int64_t* r, int64_t k,
-                                              int64_t cap, bool search) {
-  const int64_t w = ld64(r + k) - ld64(l + k);
-  if (search) return static_cast<int32_t>(w > cap ? 0 : w);
-  return static_cast<int32_t>(clamp64(w, 0, cap));
-}
+// the seeding's, the width clamped to [0, cap]. The wrapper keeps RS x
+// cap below 2^31, so every count and partial sum fits 32 bits.
+//
+// What bounds it: bytes, each lane's l and r read and its incl written
+// once (24 B a lane). Design: each l and r is read once, as 16-byte
+// vectors of two lanes. A block takes a ticket and scans a tile of
+// COUNT_TILE lanes (COUNT_PAIRS pairs of lanes a thread, pair row q of
+// thread j at pair q THREADS + j, so a warp's vectors are contiguous;
+// of 2, 4 and 8 pairs, 4 was the fastest on an H100 at both of the
+// path's shapes: 8 leave too few tiles to fill the card at the
+// seeding's, 2 take twice the tickets and look-backs), finds the
+// counts before it by FS4's look-back on the scan state the
+// two share (tile_lookback) and writes its incl as 16-byte vectors; the
+// last tile writes the total. In the search's mode the tiles also set
+// the wire's flagged words: read b (of B = RS / 2S) is bit b % 32 of
+// word b / 32 where any of its lanes on either strand (rows b and B + b)
+// overflowed. A read's two strands lie in different tiles, so a word is
+// an OR across tiles: the tile of ticket 0 zeroes the words before it
+// publishes its status, and every other tile sets its bits (an atomicOr
+// a word a warp, and only where a lane overflowed) after its look-back,
+// which ends at a status published after tile 0's (every inclusive
+// count descends from tile 0's), each side behind a fence. So no pass
+// reads l and r again for the flags, and no launch zeroes them.
+constexpr int COUNT_PAIRS = 4;                        // pairs a thread
+constexpr int COUNT_TILE = 2 * COUNT_PAIRS * THREADS;  // lanes a tile
 
 __global__ void __launch_bounds__(THREADS)
 lane_counts_kernel(const int64_t* __restrict__ l,
@@ -906,59 +1030,124 @@ lane_counts_kernel(const int64_t* __restrict__ l,
                    uint32_t tag, int64_t* __restrict__ incl,
                    int64_t* __restrict__ total, uint32_t* __restrict__ flags,
                    int64_t nf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (blockIdx.x >= tiles) {  // the flagged words
-    const int64_t B = RS / (2 * S);
-    const int64_t b = (blockIdx.x - tiles) * static_cast<int64_t>(THREADS) +
-                      threadIdx.x;
-    bool over = false;
-    for (int s = 0; b < B && s < S; ++s) {
-      const int64_t i = b * S + s, j = (B + b) * S + s;
-      over |= ld64(r + i) - ld64(l + i) > cap;
-      over |= ld64(r + j) - ld64(l + j) > cap;
-    }
-    const uint32_t word = __ballot_sync(FULL, over);  // every lane takes part
-    if (lane == 0 && (b >> 5) < nf) flags[b >> 5] = word;
-    return;
-  }
+  constexpr int E = COUNT_PAIRS * WARPS;  // (pair row, warp) sums of a tile
+  constexpr int PER = (E + 31) / 32;  // of them a lane of warp 0 scans
   __shared__ unsigned my_ticket;
-  __shared__ int32_t off[DEDUPE_ROWS * WARPS];  // (row, warp): counts before
+  __shared__ int32_t off[E];  // (pair row, warp): the counts before it
   __shared__ int32_t tile_before;
   if (threadIdx.x == 0) my_ticket = atomicAdd(ticket, 1u) - base;
   __syncthreads();
   const int64_t t = my_ticket;
-  const int64_t k0 = t * TILE + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool search = flags != nullptr;
-  int32_t x[DEDUPE_ROWS];
+  const int64_t p0 = t * (COUNT_PAIRS * THREADS) + threadIdx.x;  // row 0's
+  longlong2 lv[COUNT_PAIRS], rv[COUNT_PAIRS];
 #pragma unroll
-  for (int q = 0; q < DEDUPE_ROWS; ++q) {  // every load of a lane at once
-    const int64_t k = k0 + q * THREADS;
-    x[q] = k < RS ? lane_count(l, r, k, cap, search) : 0;
+  for (int q = 0; q < COUNT_PAIRS; ++q) {  // every load of the tile at once
+    const int64_t k = 2 * (p0 + q * THREADS);
+    if (k + 1 < RS) {
+      lv[q] = __ldg(reinterpret_cast<const longlong2*>(l + k));
+      rv[q] = __ldg(reinterpret_cast<const longlong2*>(r + k));
+    } else {
+      lv[q] = make_longlong2(k < RS ? ld64(l + k) : 0, 0);
+      rv[q] = make_longlong2(k < RS ? ld64(r + k) : 0, 0);
+    }
   }
+  int32_t c1[COUNT_PAIRS], x[COUNT_PAIRS];
+  uint32_t over = 0u;  // bit 2 q + e: lane e of pair row q overflowed
 #pragma unroll
-  for (int q = 0; q < DEDUPE_ROWS; ++q) {
-    x[q] = warp_scan(x[q], lane);  // every lane takes part
+  for (int q = 0; q < COUNT_PAIRS; ++q) {
+    const int64_t w0 = rv[q].x - lv[q].x, w1 = rv[q].y - lv[q].y;
+    int32_t c0;
+    if (search) {
+      c0 = static_cast<int32_t>(w0 > cap ? 0 : w0);
+      c1[q] = static_cast<int32_t>(w1 > cap ? 0 : w1);
+      over |= ((w0 > cap ? 1u : 0u) | (w1 > cap ? 2u : 0u)) << (2 * q);
+    } else {
+      c0 = static_cast<int32_t>(clamp64(w0, 0, cap));
+      c1[q] = static_cast<int32_t>(clamp64(w1, 0, cap));
+    }
+    x[q] = warp_scan(c0 + c1[q], lane);  // every lane takes part
     if (lane == 31) off[q * WARPS + warp] = x[q];
+  }
+  if (search && t == 0) {  // zeroed before tile 0 publishes its status
+    for (int64_t j = threadIdx.x; j < nf; j += THREADS) flags[j] = 0u;
+    __threadfence();
   }
   __syncthreads();
   if (warp == 0) {
-    const int32_t v = off[lane];
-    const int32_t sum = warp_scan(v, lane);
-    off[lane] = sum - v;
-    const int32_t count = __shfl_sync(FULL, sum, 31);
-    const int32_t before = tile_lookback(status, t, count, lane, tag);
+    int32_t v[PER];
+    int32_t sum = 0;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int j = lane * PER + e;
+      v[e] = j < E ? off[j] : 0;
+      sum += v[e];
+    }
+    const int32_t inc = warp_scan(sum, lane);
+    int32_t run = inc - sum;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      const int j = lane * PER + e;
+      if (j < E) off[j] = run;
+      run += v[e];
+    }
+    const int32_t count = __shfl_sync(FULL, inc, 31);
+    if (search && t == 0) __threadfence();
+    const int32_t before =
+        search ? tile_lookback<true>(status, t, count, lane, tag)
+               : tile_lookback<false>(status, t, count, lane, tag);
     if (lane == 0) {
       tile_before = before;
       if (t == tiles - 1) *total = before + count;
     }
   }
   __syncthreads();
+  const int32_t tb = tile_before;
 #pragma unroll
-  for (int q = 0; q < DEDUPE_ROWS; ++q) {
-    const int64_t k = k0 + q * THREADS;
-    if (k < RS)
-      incl[k] = static_cast<int64_t>(tile_before) + off[q * WARPS + warp] +
-                x[q];
+  for (int q = 0; q < COUNT_PAIRS; ++q) {
+    const int64_t k = 2 * (p0 + q * THREADS);
+    const int64_t b = static_cast<int64_t>(tb + off[q * WARPS + warp] + x[q]);
+    const int64_t a = b - c1[q];
+    if (k + 1 < RS)
+      *reinterpret_cast<longlong2*>(incl + k) = make_longlong2(a, b);
+    else if (k < RS)
+      incl[k] = a;
+  }
+  if (!search) return;
+  // a warp's 64 lanes of a pair row lie in rows of at most 33
+  // consecutive reads (S >= 2), so in words w0 and w0 + 1 of its first
+  // lane's read: a warp ORs its bits of each and sets them with one
+  // atomicOr; a bit of another word (a lane past the strand's end, whose
+  // read starts at 0 again, or S = 1) is set alone
+  // (lanes fit 32 bits: the wrapper keeps RS below 2^31)
+  const uint32_t us = static_cast<uint32_t>(S);
+  const uint32_t B = static_cast<uint32_t>(RS) / (2 * us);
+#pragma unroll
+  for (int q = 0; q < COUNT_PAIRS; ++q) {
+    const uint32_t o = (over >> (2 * q)) & 3u;
+    if (!__any_sync(FULL, o != 0u)) continue;  // the same for the warp
+    const uint32_t k = static_cast<uint32_t>(2 * (p0 + q * THREADS));
+    const uint32_t row0 = (k - 2 * lane) / us;
+    const uint32_t w0 = (row0 < B ? row0 : row0 - B) >> 5;
+    uint32_t lo = 0u, hi = 0u;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (!((o >> e) & 1u)) continue;
+      const uint32_t row = (k + e) / us;
+      const uint32_t b = row < B ? row : row - B;
+      const uint32_t bit = 1u << (b & 31);
+      if ((b >> 5) == w0)
+        lo |= bit;
+      else if ((b >> 5) == w0 + 1)
+        hi |= bit;
+      else
+        atomicOr(flags + (b >> 5), bit);
+    }
+    lo = __reduce_or_sync(FULL, lo);
+    hi = __reduce_or_sync(FULL, hi);
+    if (lane == 0 && lo) atomicOr(flags + w0, lo);
+    if (lane == 0 && hi) atomicOr(flags + w0 + 1, hi);
   }
 }
 
@@ -1022,20 +1211,45 @@ __device__ __forceinline__ void shift_down(uint32_t (&e)[N], int s) {
   }
 }
 
+// FS3's placements as the search hands them over (fm/search.py
+// _search_stages, the reference's soap3dp_tpu/fm/search.py:305-310): the
+// dedupe's rows clamped to the 2B oriented rows, its text positions 0
+// where the slot holds no placement, and each row's read length looked
+// up, as the kernel loads them
+struct Placements {
+  const int64_t* rows;   // (M,) oriented rows
+  const int64_t* tp;     // (M,) text positions
+  const uint8_t* valid;  // (M,) 0: tp taken as 0; or null: every one
+  const int32_t* lens;   // (nl,) read lengths: row r's is lens[r mod nl]
+  int64_t nl;
+  int64_t M;
+};
+
+struct Placement {
+  int64_t row, tp, len;
+};
+
+__device__ __forceinline__ Placement placement_at(const Reads& s,
+                                                  const Placements& v,
+                                                  int64_t i) {
+  const int64_t row = clamp64(ld64(v.rows + i), 0, 2 * s.B - 1);
+  const bool ok = v.valid == nullptr || __ldg(v.valid + i) != 0;
+  const int64_t tp = ld64(v.tp + i);  // not behind valid's load: the
+                                      // genome's gathers wait on it
+  return Placement{row, ok ? tp : 0, __ldg(v.lens + read_of(row, v.nl))};
+}
+
 // FS3 for any W: the words one at a time (the read's base by base for
 // code bytes and for reverse complements longer than L)
 __global__ void __launch_bounds__(THREADS)
-verify_kernel_any(Reads s, const int64_t* __restrict__ rows,
-                  const int64_t* __restrict__ tp,
-                  const int64_t* __restrict__ read_len, int64_t M, int W,
+verify_kernel_any(Reads s, Placements v, int W,
                   const int32_t* __restrict__ pac, int64_t n_pac,
                   int64_t* __restrict__ out) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
-  if (i >= M) return;
-  const int64_t row = ld64(rows + i);
-  const int64_t p = ld64(tp + i);
-  const int64_t len = ld64(read_len + i);
+  if (i >= v.M) return;
+  const Placement pl = placement_at(s, v, i);
+  const int64_t row = pl.row, p = pl.tp, len = pl.len;
   const int64_t w0 = p >> 4;
   const uint32_t sh = 2 * static_cast<uint32_t>(p & 15);
   uint32_t lo = pac_word(pac, n_pac, w0);
@@ -1060,18 +1274,14 @@ verify_kernel_any(Reads s, const int64_t* __restrict__ rows,
 // the index clamped to the last word.
 template <int NW>
 __global__ void __launch_bounds__(THREADS)
-verify_kernel(Reads s, const int64_t* __restrict__ rows,
-              const int64_t* __restrict__ tp,
-              const int64_t* __restrict__ read_len, int64_t M, int W,
-              const int32_t* __restrict__ pac, int64_t n_pac,
-              int64_t* __restrict__ out) {
+verify_kernel(Reads s, Placements v, int W, const int32_t* __restrict__ pac,
+              int64_t n_pac, int64_t* __restrict__ out) {
   constexpr int NG = (NW + 7) / 4;  // vectors covering NW + 1 words
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
-  if (i >= M) return;
-  const int64_t row = ld64(rows + i);
-  const int64_t p = ld64(tp + i);
-  const int64_t len = ld64(read_len + i);
+  if (i >= v.M) return;
+  const Placement pl = placement_at(s, v, i);
+  const int64_t row = pl.row, p = pl.tp, len = pl.len;
 
   // the genome: words w0 .. w0 + NW (only those up to w0 + W are used)
   const int64_t w0 = p >> 4;
@@ -1104,7 +1314,7 @@ verify_kernel(Reads s, const int64_t* __restrict__ rows,
   uint32_t rw[NW];
   const bool fwd = row < s.B;
   const int64_t b = fwd ? row : row - s.B;
-  const int64_t n = fwd ? 0 : ld64(s.rc_len + b);
+  const int64_t n = fwd ? 0 : rc_bases(s, b);
   if (s.kind == SRC_PACKED && (fwd || n <= s.L)) {
     uint32_t sw[NW];  // the stored row's words 0 .. NW-1, zero past W
     const int32_t* src = static_cast<const int32_t*>(s.data) + b * s.W;
@@ -1215,7 +1425,7 @@ __device__ __forceinline__ uint32_t byte_mask(int64_t k) {
 
 // bytes i0 .. i0+15 (0 <= i0 < L) of oriented row `row` of code rows, as
 // base_at gives them, in v[0..3] (bytes past L are the next row's or 0).
-// A reverse complement of n bases (rc_len read once): forward bytes
+// A reverse complement of n bases (its length read once): forward bytes
 // n-16-i0 .. n-1-i0 reversed (__byte_perm) and complemented ((3 - c) &
 // 0xFF, __vsub4), bytes at i >= n zeroed; where n > L a source byte past
 // L-1 is byte L-1 (revcomp_reads clamps the index). GP and PK read their
@@ -1229,7 +1439,7 @@ __device__ __forceinline__ void oriented16(const Reads& s, int64_t row,
     return;
   }
   const int64_t b = row - s.B;
-  const int64_t n = ld64(s.rc_len + b);
+  const int64_t n = rc_bases(s, b);
   const int64_t z = n - i0;  // bytes of the 16 inside the reverse complement
   if (z <= 0) {
     v[0] = v[1] = v[2] = v[3] = 0u;
@@ -1526,20 +1736,28 @@ unsigned blocks_for(long long n) {
 
 extern "C" {
 
+// the seed arguments of FS1, FS2x and FS2s (Seeds): start, length, lens,
+// pos, slen, nl, segments, lo, q
 int soap3dp_fm_search(const void* reads, int kind, long long B, int L, int W,
-                      const int64_t* rc_len, int S,
+                      const int32_t* rc_len, long long rc_all, int S,
                       const int64_t* start, const int64_t* length,
+                      const int32_t* lens, const int32_t* pos,
+                      const int32_t* slen, long long nl, int segments, int lo,
+                      int q,
                       long long N, int mode, int max_steps, int k,
                       const int32_t* blocks, const int64_t* counts,
                       const int32_t* lut_lo, const int32_t* lut_hi,
                       long long primary, long long n1,
                       int64_t* l_out, int64_t* r_out, void* stream) {
-  const Reads s{reads, rc_len, B, kind, L, W};
+  const Reads s{reads, rc_len, rc_all, B, kind, L, W};
   const Tables t{reinterpret_cast<const uint4*>(blocks), counts, primary};
-  fm_search_kernel<<<blocks_for(N), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      s, S, start, length, N, mode, max_steps, k, t, lut_lo,
-      lut_hi, n1, l_out, r_out);
+  const Seeds sd{start, length, lens, pos, slen, nl, segments, lo, q};
+  with_seed_form(sd, [&](auto form) {
+    fm_search_kernel<decltype(form)::value>
+        <<<blocks_for(N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+            s, S, sd, N, mode, max_steps, k, t, lut_lo, lut_hi, n1, l_out,
+            r_out);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1558,8 +1776,10 @@ int soap3dp_sa_decode(const int64_t* rows, const uint8_t* valid, long long N,
 }
 
 int soap3dp_expand_decode(const int64_t* lo, const int64_t* incl,
-                          long long RS, const int64_t* sstart,
-                          const int64_t* olens, int S, long long n,
+                          long long RS, const int64_t* start,
+                          const int32_t* lens, const int32_t* pos,
+                          const int32_t* slen, long long nl, int segments,
+                          int seg_lo, int q, int S, long long n,
                           long long K, int sa_rate, const int32_t* mark_words,
                           const int32_t* mark_rank, const int32_t* blocks,
                           const int64_t* counts, long long primary,
@@ -1569,20 +1789,28 @@ int soap3dp_expand_decode(const int64_t* lo, const int64_t* incl,
                           void* stream) {
   const Marks mk{mark_words, mark_rank, sa, n_sa, sa_rate};
   const Tables t{reinterpret_cast<const uint4*>(blocks), counts, primary};
-  const Lanes e{lo, incl, sstart, olens, RS, n, S};
+  const Seeds sd{start, nullptr, lens, pos, slen, nl, segments, seg_lo, q};
+  const Lanes e{lo, incl, sd, RS, n, S};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rank_out)
-    expand_decode_kernel<OUT_RANKS><<<blocks_for(K), THREADS, 0, st>>>(
-        e, K, mk, t,
-        Slots{lane_out, rank_out, nullptr, step_out, nullptr, K});
+  if (rank_out)  // the ranks form reads no seed
+    expand_decode_kernel<OUT_RANKS, SEED_GIVEN>
+        <<<blocks_for(K), THREADS, 0, st>>>(
+            e, K, mk, t,
+            Slots{lane_out, rank_out, nullptr, step_out, nullptr, K});
   else
-    expand_decode_kernel<OUT_KEYS><<<blocks_for(K), THREADS, 0, st>>>(
-        e, K, mk, t, Slots{krow, ktp, pos_ok, nullptr, nullptr, K});
+    with_seed_form(sd, [&](auto form) {
+      expand_decode_kernel<OUT_KEYS, decltype(form)::value>
+          <<<blocks_for(K), THREADS, 0, st>>>(
+              e, K, mk, t, Slots{krow, ktp, pos_ok, nullptr, nullptr, K});
+    });
   return static_cast<int>(cudaGetLastError());
 }
 
 int soap3dp_seed_expand_decode(const int64_t* lo, const int64_t* incl,
-                               long long RS, const int64_t* sp, int S,
+                               long long RS, const int64_t* start,
+                               const int32_t* lens, const int32_t* pos,
+                               const int32_t* slen, long long nl,
+                               int segments, int seg_lo, int q, int S,
                                long long K, int sa_rate,
                                const int32_t* mark_words,
                                const int32_t* mark_rank,
@@ -1593,16 +1821,21 @@ int soap3dp_seed_expand_decode(const int64_t* lo, const int64_t* incl,
                                int64_t* step_out, void* stream) {
   const Marks mk{mark_words, mark_rank, sa, n_sa, sa_rate};
   const Tables t{reinterpret_cast<const uint4*>(blocks), counts, primary};
-  const Lanes e{lo, incl, sp, nullptr, RS, 0, S};
+  const Seeds sd{start, nullptr, lens, pos, slen, nl, segments, seg_lo, q};
+  const Lanes e{lo, incl, sd, RS, 0, S};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rank_out)
-    seed_expand_kernel<OUT_RANKS><<<blocks_for(K), THREADS, 0, st>>>(
-        e, K, mk, t,
-        Slots{lane_out, rank_out, nullptr, step_out, nullptr, K});
+  if (rank_out)  // the ranks form reads no seed
+    seed_expand_kernel<OUT_RANKS, SEED_GIVEN>
+        <<<blocks_for(K), THREADS, 0, st>>>(
+            e, K, mk, t,
+            Slots{lane_out, rank_out, nullptr, step_out, nullptr, K});
   else
-    seed_expand_kernel<OUT_SEED><<<blocks_for(K), THREADS, 0, st>>>(
-        e, K, mk, t,
-        Slots{nullptr, nullptr, nullptr, nullptr, words, K});
+    with_seed_form(sd, [&](auto form) {
+      seed_expand_kernel<OUT_SEED, decltype(form)::value>
+          <<<blocks_for(K), THREADS, 0, st>>>(
+              e, K, mk, t,
+              Slots{nullptr, nullptr, nullptr, nullptr, words, K});
+    });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1629,23 +1862,35 @@ int soap3dp_dedupe(const int64_t* krow, const int64_t* ktp,
 
 // scratch: the scan state, the caller's int64 words kept across calls on
 // this stream (zeroed once), shared with soap3dp_dedupe: the ticket
-// counter, then at least ceil(RS / TILE) tile statuses; base: the
-// tickets earlier calls took there; tag: this call's generation << 2,
-// above every earlier call's there. flags
-// (search mode; null for the seeding's): ceil(B / 32) words.
+// counter, then at least ceil(RS / COUNT_TILE) tile statuses;
+// base: the tickets earlier calls took there; tag: this call's
+// generation << 2, above every earlier call's there. flags (search mode;
+// null for the seeding's): ceil(B / 32) words. l, r and incl lie on
+// 16-byte boundaries.
 int soap3dp_lane_counts(const int64_t* l, const int64_t* r, long long RS,
                         long long cap, int S, unsigned long long* scratch,
                         unsigned base, unsigned tag, int64_t* incl,
                         int64_t* total, uint32_t* flags, long long nf,
                         void* stream) {
-  const int64_t tiles = (RS + TILE - 1) / TILE;
-  const unsigned fblocks = flags ? blocks_for(32 * nf) : 0u;
-  lane_counts_kernel<<<static_cast<unsigned>(tiles) + fblocks, THREADS, 0,
+  const int64_t tiles = (RS + COUNT_TILE - 1) / COUNT_TILE;
+  lane_counts_kernel<<<static_cast<unsigned>(tiles), THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       l, r, RS, cap, S, tiles, scratch + 1,
       reinterpret_cast<unsigned*>(scratch), base, tag, incl, total, flags,
       nf);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the first n words of each of `rows` rows of `pitch` words at src (on
+// the card) to dst (pinned host memory, rows of n words): one 2-D copy
+// on the stream (the DP seeding's prefix of its packed words), no kernel
+int soap3dp_copy_prefix(const int32_t* src, long long pitch, long long n,
+                        int rows, int32_t* dst, void* stream) {
+  if (n == 0) return 0;
+  const size_t w = static_cast<size_t>(n) * sizeof(int32_t);
+  return static_cast<int>(cudaMemcpy2DAsync(
+      dst, w, src, static_cast<size_t>(pitch) * sizeof(int32_t), w, rows,
+      cudaMemcpyDeviceToHost, static_cast<cudaStream_t>(stream)));
 }
 
 // wire: 2 + nf + 2 K2 words; one thread a slot (one at least, for the
@@ -1661,23 +1906,27 @@ int soap3dp_search_wire(const int64_t* urow, const int64_t* utp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows clamped to the 2B oriented rows, tp 0 where valid (null: every
+// placement) is 0, row r's read length lens[r mod nl]
 int soap3dp_verify(const void* reads, int kind, long long B, int L, int Ws,
-                   const int64_t* rc_len, const int64_t* rows,
-                   const int64_t* tp, const int64_t* read_len, long long M,
-                   int W, const int32_t* pac, long long n_pac, int64_t* out,
-                   void* stream) {
-  const Reads s{reads, rc_len, B, kind, L, Ws};
+                   const int32_t* rc_len, long long rc_all,
+                   const int64_t* rows, const int64_t* tp,
+                   const uint8_t* valid, const int32_t* lens, long long nl,
+                   long long M, int W, const int32_t* pac, long long n_pac,
+                   int64_t* out, void* stream) {
+  const Reads s{reads, rc_len, rc_all, B, kind, L, Ws};
+  const Placements v{rows, tp, valid, lens, nl, M};
   const int need = W > (L + 15) / 16 ? W : (L + 15) / 16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (need <= 8)
-    verify_kernel<8><<<blocks_for(M), THREADS, 0, st>>>(
-        s, rows, tp, read_len, M, W, pac, n_pac, out);
+    verify_kernel<8><<<blocks_for(M), THREADS, 0, st>>>(s, v, W, pac, n_pac,
+                                                         out);
   else if (need <= 16)
-    verify_kernel<16><<<blocks_for(M), THREADS, 0, st>>>(
-        s, rows, tp, read_len, M, W, pac, n_pac, out);
+    verify_kernel<16><<<blocks_for(M), THREADS, 0, st>>>(s, v, W, pac,
+                                                          n_pac, out);
   else
-    verify_kernel_any<<<blocks_for(M), THREADS, 0, st>>>(
-        s, rows, tp, read_len, M, W, pac, n_pac, out);
+    verify_kernel_any<<<blocks_for(M), THREADS, 0, st>>>(s, v, W, pac, n_pac,
+                                                         out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1685,12 +1934,13 @@ int soap3dp_verify(const void* reads, int kind, long long B, int L, int Ws,
 // (nrw each), as many warps a block as 48 KB hold (at most THREADS / 32;
 // one warp up to the 227 KB a block may have)
 int soap3dp_prescan(const void* reads, int kind, long long B, int L, int Ws,
-                    const int64_t* rc_len, const int64_t* rows,
+                    const int32_t* rc_len, long long rc_all,
+                    const int64_t* rows,
                     const int64_t* ws, const int64_t* rlens,
                     const int64_t* wlens, long long M, int O,
                     const int32_t* pac, long long n_pac, int64_t* out,
                     void* stream) {
-  const Reads s{reads, rc_len, B, kind, L, Ws};
+  const Reads s{reads, rc_len, rc_all, B, kind, L, Ws};
   const int nrw = ((L + 15) / 16 + GP_CHUNK - 1) / GP_CHUNK * GP_CHUNK;
   const int cap = (O + 14) / 16 + nrw + 1;
   const long long warp_bytes = 4ll * (cap + 2 * nrw);
@@ -1714,12 +1964,12 @@ int soap3dp_prescan(const void* reads, int kind, long long B, int L, int Ws,
 }
 
 int soap3dp_pack_problems(const void* reads, int kind, long long B, int L,
-                          int Ws, const int64_t* rc_len,
+                          int Ws, const int32_t* rc_len, long long rc_all,
                           const int64_t* cread, const uint8_t* strand,
                           const int64_t* win_start, long long P, int max_win,
                           const int32_t* pac, long long n_pac,
                           uint8_t* oriented, uint8_t* wins, void* stream) {
-  const Reads s{reads, rc_len, B, kind, L, Ws};
+  const Reads s{reads, rc_len, rc_all, B, kind, L, Ws};
   const uint32_t nw = (max_win + 15) / 16, nr = (L + 15) / 16;
   const unsigned rblocks = blocks_for(P * nr);
   const Pack c{cread, strand, win_start, static_cast<uint32_t>(P), max_win,

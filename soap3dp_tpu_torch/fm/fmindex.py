@@ -313,6 +313,10 @@ def _i64(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64).contiguous()
 
 
+def _i32(t: torch.Tensor | None) -> torch.Tensor | None:
+    return None if t is None else t.to(torch.int32).contiguous()
+
+
 def backward_search(idx: DeviceIndex, seqs: torch.Tensor, start: torch.Tensor,
                     length: torch.Tensor, max_steps: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -322,9 +326,9 @@ def backward_search(idx: DeviceIndex, seqs: torch.Tensor, start: torch.Tensor,
     ``max_steps`` steps. FS1 on CUDA tensors: lane i reads row i, the
     rows held as forward reads."""
     if seqs.is_cuda:
-        ori = OrientedReads.of(seqs.to(torch.uint8), _no_rc(seqs))
-        return seed_intervals(idx, ori, 1, start, length, max_steps,
-                              "general")
+        ori = OrientedReads.forward(seqs.to(torch.uint8))
+        return seed_intervals(idx, ori, 1, SeedLanes.given(start, length),
+                              max_steps, "general")
     _require_cpu("backward_search", seqs)
     return backward_search_plain(idx, seqs, start, length, max_steps)
 
@@ -382,8 +386,8 @@ def backward_search_packed(idx: DeviceIndex, roll16: torch.Tensor,
     code)."""
     if roll16.is_cuda:
         codes = ((roll16[_i64(seq_rows)] >> 30) & 3).to(torch.uint8)
-        ori = OrientedReads.of(codes, _no_rc(codes))
-        return seed_intervals(idx, ori, 1, start, length, max_steps,
+        return seed_intervals(idx, OrientedReads.forward(codes), 1,
+                              SeedLanes.given(start, length), max_steps,
                               "packed")
     _require_cpu("backward_search_packed", roll16)
     return backward_search_packed_plain(idx, roll16, seq_rows, start, length,
@@ -503,38 +507,42 @@ SENTINEL = 0xFFFFFFFF  # the dedupe key of a slot that holds no placement
 
 
 def expand_decode(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
-                  sstart: torch.Tensor, olens: torch.Tensor, S: int, K: int
+                  seeds: SeedLanes, S: int, K: int
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The lane expansion and SA decode of _search_batch: lane j (row
-    j // S of ``olens``, segment start ``sstart[j]``) owns the slots
-    incl[j - 1]..incl[j] - 1 of the inclusive count cumsum ``incl``, slot
-    k of them SA row l[j] + k - incl[j - 1]; each of the K slots gets
-    the hash dedupe's keys (krow, ktp, pos_ok): the oriented row and the
-    read's text position where its decoded position starts a placement
-    inside the text, else SENTINEL and False. FS2 on CUDA tensors (with
-    the SA table split over a mesh, FS2 gives each slot's lane, rank and
-    step count and the owner routing gathers the samples)."""
+    j // S, its segment start and its row's read length from ``seeds``)
+    owns the slots incl[j - 1]..incl[j] - 1 of the inclusive count
+    cumsum ``incl``, slot k of them SA row l[j] + k - incl[j - 1]; each
+    of the K slots gets the hash dedupe's keys (krow, ktp, pos_ok): the
+    oriented row and the read's text position where its decoded position
+    starts a placement inside the text, else SENTINEL and False. FS2 on
+    CUDA tensors (with the SA table split over a mesh, FS2 gives each
+    slot's lane, rank and step count and the owner routing gathers the
+    samples)."""
     if l.is_cuda:
-        args = (idx, _i64(l), _i64(incl), _i64(sstart), _i64(olens), S, K)
+        args = (idx, _i64(l), _i64(incl), seeds, S, K)
         if not idx.sa_parts:
             return fm_search.expand_decode(*args)
         lane, rank, step = fm_search.expand_ranks(*args)
         valid = torch.arange(K, device=l.device) < incl[-1]
         sa_pos = torch.where(valid, (_sa_value(idx, rank) + step) & MASK32,
                              torch.zeros_like(rank))
-        return _placements(idx, valid, sa_pos, lane, args[3], args[4], S)
+        return _placements(idx, valid, sa_pos, lane, seeds, S)
     _require_cpu("expand_decode", l)
-    return expand_decode_plain(idx, l, incl, sstart, olens, S, K)
+    return expand_decode_plain(idx, l, incl, seeds, S, K)
 
 
 def _placements(idx: DeviceIndex, valid: torch.Tensor, sa_pos: torch.Tensor,
-                lane: torch.Tensor, sstart: torch.Tensor, olens: torch.Tensor,
-                S: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                lane: torch.Tensor, seeds: SeedLanes, S: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(krow, ktp, pos_ok) of slots whose lane's segment decoded to
-    sa_pos: the read starts sa_pos - sstart[lane] into the text."""
+    sa_pos: the read starts sa_pos less the lane's segment start into
+    the text."""
+    sstart = seeds.bounds(S)[0]
     st = sstart[lane]
     tp = sa_pos - st
     orow = lane // S
+    olens = seeds.row_lens(sstart.shape[0] // S)
     pos_ok = valid & (sa_pos >= st) & (tp + olens[orow] <= idx.n)
     krow = torch.where(pos_ok, orow, torch.full_like(orow, SENTINEL))
     ktp = torch.where(pos_ok, tp & MASK32, torch.full_like(tp, SENTINEL))
@@ -542,8 +550,7 @@ def _placements(idx: DeviceIndex, valid: torch.Tensor, sa_pos: torch.Tensor,
 
 
 def expand_decode_plain(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
-                        sstart: torch.Tensor, olens: torch.Tensor, S: int,
-                        K: int
+                        seeds: SeedLanes, S: int, K: int
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version of expand_decode: the reference's compaction
     (exclusive offsets, a scatter-max of lane ids at each lane's offset,
@@ -563,15 +570,14 @@ def expand_decode_plain(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
     lane = (lane_p1 - 1).clamp(min=0)
     cslot = torch.where(cvalid, idxK - off[lane], torch.zeros_like(idxK))
     sa_pos = sa_decode_plain(idx, l.to(torch.int64)[lane] + cslot, cvalid)
-    return _placements(idx, cvalid, sa_pos, lane, sstart.to(torch.int64),
-                       olens.to(torch.int64), S)
+    return _placements(idx, cvalid, sa_pos, lane, seeds, S)
 
 
 def seed_expand_decode(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
-                       sp: torch.Tensor, S: int, K: int) -> torch.Tensor:
+                       seeds: SeedLanes, S: int, K: int) -> torch.Tensor:
     """The DP seeding's lane expansion and SA decode: lane j (row j // S,
-    seed start ``sp[j]``) owns the slots incl[j - 1]..incl[j] - 1 of the
-    inclusive count cumsum ``incl``, slot k of them SA row
+    its seed start from ``seeds``) owns the slots incl[j - 1]..incl[j] - 1
+    of the inclusive count cumsum ``incl``, slot k of them SA row
     l[j] + k - incl[j - 1]; each of the K slots gets its candidate (row,
     pos, valid): the oriented row (0 past the total count) and the read's
     text position where the decoded position is not below the seed
@@ -580,13 +586,14 @@ def seed_expand_decode(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
     pos (K) | valid (K)] (seed_words). FS2s on CUDA tensors (with the SA
     table split over a mesh, its ranks form and the owner routing)."""
     if l.is_cuda:
-        args = (idx, _i64(l), _i64(incl), _i64(sp), S, K)
+        args = (idx, _i64(l), _i64(incl), seeds, S, K)
         if not idx.sa_parts:
             return fm_search.seed_expand_decode(*args)
         lane, rank, step = fm_search.seed_expand_ranks(*args)
-        return _seed_from_ranks(idx, lane, rank, step, args[2], args[3], S)
+        return _seed_from_ranks(idx, lane, rank, step, args[2],
+                                seeds.bounds(S)[0], S)
     _require_cpu("seed_expand_decode", l)
-    return seed_expand_plain(idx, l, incl, sp, S, K)
+    return seed_expand_plain(idx, l, incl, seeds, S, K)
 
 
 def _seed_from_ranks(idx: DeviceIndex, lane: torch.Tensor,
@@ -620,7 +627,7 @@ def seed_words(row: torch.Tensor, pos: torch.Tensor,
 
 
 def seed_expand_plain(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
-                      sp: torch.Tensor, S: int, K: int) -> torch.Tensor:
+                      seeds: SeedLanes, S: int, K: int) -> torch.Tensor:
     """The plain version of seed_expand_decode: the reference's slot mask
     of (lanes, the widest count) and its nonzero, then sa_decode_plain
     (the mask's row-major order is the expansion's slot order)."""
@@ -637,7 +644,7 @@ def seed_expand_plain(idx: DeviceIndex, l: torch.Tensor, incl: torch.Tensor,
     lane = safe // occ_cap
     cslot = safe % occ_cap
     sa_pos = sa_decode_plain(idx, l.to(torch.int64)[lane] + cslot, cvalid)
-    st = sp.to(torch.int64)[lane]
+    st = seeds.bounds(S)[0][lane]
     cvalid = cvalid & (sa_pos >= st)
     pos = torch.where(cvalid, sa_pos - st, torch.zeros_like(sa_pos))
     return seed_words(rows[lane], pos, cvalid)
@@ -840,7 +847,7 @@ def count_mismatches_packed(idx: DeviceIndex, tp: torch.Tensor,
     if tp.is_cuda:
         M, W = read_words.shape
         words = ((_i64(read_words) + (1 << 31)) & MASK32) - (1 << 31)
-        ori = OrientedReads.of(words.to(torch.int32), _no_rc(words), 16 * W)
+        ori = OrientedReads.forward(words.to(torch.int32), 16 * W)
         return count_mismatches_rows(
             idx, tp, ori, torch.arange(M, device=tp.device), read_len)
     _require_cpu("count_mismatches_packed", tp)
@@ -869,15 +876,16 @@ def count_mismatches_packed_plain(idx: DeviceIndex, tp: torch.Tensor,
 class OrientedReads:
     """The 2B oriented rows of a read batch, held as the forward reads:
     row b < B is read b, row B + b its reverse complement of rc_len[b]
-    bases (3 - read[n-1-i] for i < n, zero past n). ``reads`` is (B, L)
-    uint8 codes or (B, W) int32 packed words of L bases (the layout of
-    search.pack_read_matrix). The kernels read the rows where they lie;
-    the plain versions read ``matrix``, the (2B, L) code matrix, made
-    once."""
+    bases, or of rc_all where rc_len is None (3 - read[n-1-i] for i < n,
+    zero past n). ``reads`` is (B, L) uint8 codes or (B, W) int32 packed
+    words of L bases (the layout of search.pack_read_matrix). The
+    kernels read the rows where they lie; the plain versions read
+    ``matrix``, the (2B, L) code matrix, made once."""
 
     reads: torch.Tensor
     L: int
-    rc_len: torch.Tensor  # (B,) int64
+    rc_len: torch.Tensor | None  # (B,) int32
+    rc_all: int = 0
 
     @classmethod
     def of(cls, reads: torch.Tensor, lens: torch.Tensor, L: int = 0,
@@ -885,22 +893,36 @@ class OrientedReads:
         """The batch's oriented rows (L is given for packed words); with
         ``uniform_len`` (every read that long) each reverse complement
         has min(uniform_len, L) bases, as revcomp_reads_uniform makes
-        it, else lens[b]."""
+        it, else lens[b]. The batch's int32 lengths are held as they
+        are."""
         if reads.dtype != torch.int32:
             L = reads.shape[1]
         if uniform_len:
-            rc_len = torch.full((reads.shape[0],), min(uniform_len, L),
-                                dtype=torch.int64, device=reads.device)
-        else:
-            rc_len = _i64(lens)
-        return cls(reads.contiguous(), L, rc_len)
+            return cls(reads.contiguous(), L, None, min(uniform_len, L))
+        return cls(reads.contiguous(), L, _i32(lens))
+
+    @classmethod
+    def forward(cls, reads: torch.Tensor, L: int = 0) -> "OrientedReads":
+        """Rows whose lanes read the forward rows only (reverse
+        complements of no base)."""
+        if reads.dtype != torch.int32:
+            L = reads.shape[1]
+        return cls(reads.contiguous(), L, None, 0)
 
     @property
     def B(self) -> int:
         return self.reads.shape[0]
 
+    def rc_lengths(self) -> torch.Tensor:
+        """(B,) int64: each reverse-complement row's bases."""
+        if self.rc_len is None:
+            return torch.full((self.B,), self.rc_all, dtype=torch.int64,
+                              device=self.reads.device)
+        return self.rc_len.to(torch.int64)
+
     def source(self) -> fm_search.ReadRows:
-        return fm_search.oriented_rows(self.reads, self.L, self.rc_len)
+        return fm_search.oriented_rows(self.reads, self.L, self.rc_len,
+                                       self.rc_all)
 
     @functools.cached_property
     def matrix(self) -> torch.Tensor:
@@ -908,12 +930,8 @@ class OrientedReads:
         reads = self.reads
         if reads.dtype == torch.int32:
             reads = _unpack_read_matrix(reads, self.L)
-        return torch.cat([reads, revcomp_reads(reads, self.rc_len)], dim=0)
-
-
-def _no_rc(reads: torch.Tensor) -> torch.Tensor:
-    """rc_len of a batch whose lanes read its forward rows only."""
-    return torch.zeros(reads.shape[0], dtype=torch.int64, device=reads.device)
+        return torch.cat([reads, revcomp_reads(reads, self.rc_lengths())],
+                         dim=0)
 
 
 def _unpack_read_matrix(words: torch.Tensor, L: int) -> torch.Tensor:
@@ -925,35 +943,123 @@ def _unpack_read_matrix(words: torch.Tensor, L: int) -> torch.Tensor:
     return codes.reshape(B, W * 16)[:, :L].to(torch.uint8)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeedLanes:
+    """Where seed lane i's segment lies in its row i // S (S lanes a
+    row). Given: ``start`` (and ``length``) a lane. Made from the read
+    length of the row (row r's read is r mod the n reads of ``lens``),
+    as the reference makes it: the search's pigeonhole segments lo,
+    lo + 1, .. of ``segments`` a read, truncated to ``seed_q`` bases
+    where it is above 0 (soap3dp_tpu/fm/search.py ``_seed_bounds`` and
+    its seed range), or the DP seeding's staged seeds, ``pos`` (n, S) of
+    ``slen`` (n,) bases each, clamped into the read
+    (soap3dp_tpu/pipeline/dp_rescue.py ``_seed_cand_batch``). The
+    kernels make a lane's segment from its row's read as they load it;
+    the plain versions take ``bounds``. The made forms hold the reads'
+    int32 tensors as they are, so nothing is launched for them. ``lens``
+    also gives the search's expansion each row's read length
+    (``row_lens``)."""
+
+    start: torch.Tensor | None = None
+    length: torch.Tensor | None = None
+    lens: torch.Tensor | None = None
+    pos: torch.Tensor | None = None
+    slen: torch.Tensor | None = None
+    segments: int = 0
+    lo: int = 0
+    seed_q: int = 0
+
+    @classmethod
+    def given(cls, start: torch.Tensor, length: torch.Tensor | None = None,
+              lens: torch.Tensor | None = None) -> "SeedLanes":
+        """Each lane's start (and length); ``lens``, where given, each
+        row's read length, row r's lens[r mod n]."""
+        return cls(start=_i64(start),
+                   length=None if length is None else _i64(length),
+                   lens=_i32(lens))
+
+    @classmethod
+    def pigeonhole(cls, lens: torch.Tensor, segments: int, lo: int = 0,
+                   seed_q: int = 0) -> "SeedLanes":
+        """The search's: a row's lanes are segments lo, lo + 1, .. of its
+        read (n reads: rows 0..2n-1)."""
+        return cls(lens=_i32(lens), segments=segments, lo=lo, seed_q=seed_q)
+
+    @classmethod
+    def staged(cls, pos: torch.Tensor, slen: torch.Tensor,
+               lens: torch.Tensor) -> "SeedLanes":
+        """The DP seeding's: read b's seeds at pos[b] of slen[b] bases,
+        on both strands (rows b and n + b)."""
+        return cls(lens=_i32(lens), pos=_i32(pos), slen=_i32(slen))
+
+    @property
+    def shape(self) -> tuple:
+        """The lanes given, or the reads (a recorder's key)."""
+        return tuple((self.start if self.start is not None
+                      else self.lens).shape)
+
+    def clone(self) -> "SeedLanes":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).clone()
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    def row_lens(self, rows: int) -> torch.Tensor:
+        """(rows,) int64: each row's read length."""
+        r = torch.arange(rows, device=self.lens.device)
+        return self.lens.to(torch.int64)[r % self.lens.shape[0]]
+
+    def bounds(self, S: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(start, length) int64 of every lane, S lanes a row, in plain
+        torch: the reference's formulas."""
+        if self.start is not None:
+            length = self.length if self.length is not None \
+                else torch.zeros_like(self.start)
+            return self.start, length
+        olens = self.lens.to(torch.int64).repeat(2)[:, None]
+        if self.pos is not None:
+            sp = self.pos.to(torch.int64).repeat(2, 1)
+            sl2 = self.slen.to(torch.int64).repeat(2)[:, None]
+            sp = torch.minimum(sp, (olens - sl2).clamp(min=0))
+            slen = torch.minimum(sl2, olens).expand(sp.shape)
+            return sp.reshape(-1), slen.reshape(-1)
+        j = torch.arange(self.lo, self.lo + S, device=olens.device)[None, :]
+        start = j * olens // self.segments
+        length = (j + 1) * olens // self.segments - start
+        if self.seed_q > 0:
+            length = length.clamp(max=self.seed_q)
+        return start.reshape(-1), length.reshape(-1)
+
+
 def seed_intervals(idx: DeviceIndex, ori: OrientedReads, S: int,
-                   start: torch.Tensor, length: torch.Tensor, max_steps: int,
-                   mode: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """SA interval [l, r) of each seed lane: lane i searches the segment
-    [start[i], start[i] + length[i]) of oriented row i // S, as one of
-    the three branches of the reference's _search_batch (``mode``):
-    "lut", one LUT lookup of the k-mer at the segment start; "packed",
-    backward_search_packed over the rows' rolling 16-base codes;
-    "general", backward_search over the rows. FS1 on CUDA tensors."""
+                   seeds: SeedLanes, max_steps: int, mode: str
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SA interval [l, r) of each seed lane: lane i searches its segment
+    (``seeds``) of oriented row i // S, as one of the three branches of
+    the reference's _search_batch (``mode``): "lut", one LUT lookup of
+    the k-mer at the segment start; "packed", backward_search_packed
+    over the rows' rolling 16-base codes; "general", backward_search
+    over the rows. FS1 on CUDA tensors."""
     if mode not in fm_search.MODES:
         raise ValueError(f"seed_intervals: unknown mode {mode!r}")
     if ori.reads.is_cuda:
-        return fm_search.search(idx, ori.source(), S, _i64(start),
-                                _i64(length), max_steps, mode)
+        return fm_search.search(idx, ori.source(), S, seeds, max_steps, mode)
     _require_cpu("seed_intervals", ori.reads)
-    return seed_intervals_plain(idx, ori, S, start, length, max_steps, mode)
+    return seed_intervals_plain(idx, ori, S, seeds, max_steps, mode)
 
 
 def seed_intervals_plain(idx: DeviceIndex, ori: OrientedReads, S: int,
-                         start: torch.Tensor, length: torch.Tensor,
-                         max_steps: int, mode: str
+                         seeds: SeedLanes, max_steps: int, mode: str
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of seed_intervals, over the materialized rows."""
+    """The plain version of seed_intervals, over the materialized rows:
+    the segments' bounds first (SeedLanes.bounds)."""
     oriented = ori.matrix
     R, L = oriented.shape
-    rows = torch.arange(R, device=oriented.device).repeat_interleave(S)
+    start, length = seeds.bounds(S)
+    rows = torch.arange(start.shape[0], device=oriented.device) // S
     if mode == "lut":
         km = rolling_kmer_codes(oriented, idx.lut_k)
-        m = km[rows, start.to(torch.int64).clamp(0, L - 1)]
+        m = km[rows, start.clamp(0, L - 1)]
         return _u32(idx.lut_lo[m]), _u32(idx.lut_hi[m])
     if mode == "packed":
         return backward_search_packed_plain(
@@ -965,20 +1071,35 @@ def seed_intervals_plain(idx: DeviceIndex, ori: OrientedReads, S: int,
 
 def count_mismatches_rows(idx: DeviceIndex, tp: torch.Tensor,
                           ori: OrientedReads, rows: torch.Tensor,
-                          read_len: torch.Tensor) -> torch.Tensor:
+                          lens: torch.Tensor,
+                          valid: torch.Tensor | None = None) -> torch.Tensor:
     """count_mismatches_packed of oriented row rows[i] (its packed words,
-    pack_reads of the (2B, L) matrix) at tp[i]. FS3 on CUDA tensors."""
+    pack_reads of the (2B, L) matrix) at tp[i] over its read's length,
+    the placements as the search hands them over (the reference's
+    soap3dp_tpu/fm/search.py:305-310): each row clamped to [0, 2B), tp
+    taken as 0 where ``valid`` is False, row r's read length lens[r mod
+    n] of the (n,) ``lens``. FS3 on CUDA tensors, which does that as it
+    loads them."""
     if tp.is_cuda:
-        return fm_search.verify(idx, ori.source(), _i64(rows), _i64(tp),
-                                _i64(read_len), (ori.L + 15) // 16)
+        return fm_search.verify(
+            idx, ori.source(), _i64(rows), _i64(tp),
+            None if valid is None else valid.to(torch.bool).contiguous(),
+            _i32(lens), (ori.L + 15) // 16)
     _require_cpu("count_mismatches_rows", tp)
-    return count_mismatches_rows_plain(idx, tp, ori, rows, read_len)
+    return count_mismatches_rows_plain(idx, tp, ori, rows, lens, valid)
 
 
 def count_mismatches_rows_plain(idx: DeviceIndex, tp: torch.Tensor,
                                 ori: OrientedReads, rows: torch.Tensor,
-                                read_len: torch.Tensor) -> torch.Tensor:
-    """The plain version of count_mismatches_rows."""
+                                lens: torch.Tensor,
+                                valid: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """The plain version of count_mismatches_rows: the reference's clamp,
+    where and length gather, then count_mismatches_packed_plain."""
+    rows = rows.to(torch.int64).clamp(0, 2 * ori.B - 1)
+    if valid is not None:
+        tp = torch.where(valid, tp, torch.zeros_like(tp))
+    read_len = lens.to(torch.int64)[rows % lens.shape[0]]
     read_words = pack_reads(ori.matrix)
     return count_mismatches_packed_plain(idx, tp, read_words[rows], read_len)
 

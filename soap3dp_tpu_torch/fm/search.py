@@ -22,8 +22,10 @@ first occurrences in slot order, and one kernel tests the hits and
 writes the rest of the wire (fmindex.search_wire), so the reference's
 compaction (a scatter-max and a cummax over the slots), its scatter-min,
 its nonzero, its cumsum and its packing run only in the plain versions
-on the CPU. Torch's own kernels do the seeds' bounds and the verify's
-argument prep.
+on the CPU. No library kernel runs in a dispatch: the seeds' bounds are
+made in the kernels from the reads' lengths (fmindex.SeedLanes), the
+verify takes the dedupe's outputs as they are, and the batch's int32
+lengths cross to the card once.
 """
 
 from __future__ import annotations
@@ -81,18 +83,6 @@ class HitArrays:
                 h(self.flagged).astype(bool))
 
 
-def _seed_bounds(lens: torch.Tensor, num_seeds: int, seed_q: int
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pigeonhole segments of [0, len), truncated to seed_q: (R,S)."""
-    j = torch.arange(num_seeds, device=lens.device)[None, :]
-    lens = lens.to(torch.int64)[:, None]
-    start = j * lens // num_seeds
-    length = (j + 1) * lens // num_seeds - start
-    if seed_q > 0:
-        length = length.clamp(max=seed_q)
-    return start, length
-
-
 def pack_read_matrix(reads: np.ndarray) -> np.ndarray:
     """Host-side 2-bit pack of (B, L) codes into (B, ceil(L/16)) uint32
     (byte 0 = codes 0-3, little-endian words)."""
@@ -132,30 +122,24 @@ def _search_stages(idx: DeviceIndex, reads: torch.Tensor,
     the flagged words are written into its words 2 .. 1 + ceil(B / 32)."""
     ori = fmindex.OrientedReads.of(reads, lens, L, uniform_len)
     B, L = ori.B, ori.L
-    S = cfg.num_seeds
-    lens = lens.to(torch.int64)
-    olens = torch.cat([lens, lens])
     R = 2 * B
     if K <= 0:
-        K = R * S * cap
+        K = R * cfg.num_seeds * cap
     if K2 <= 0:
         K2 = K
-
-    sstart, slen = _seed_bounds(olens, S, seed_q)
     if seed_hi <= 0:
-        seed_hi = S
-    if (seed_lo, seed_hi) != (0, S):
-        sstart = sstart[:, seed_lo:seed_hi]
-        slen = slen[:, seed_lo:seed_hi]
-        S = seed_hi - seed_lo
+        seed_hi = cfg.num_seeds
+    # pigeonhole segments seed_lo .. seed_hi - 1 of each read, truncated
+    # to seed_q (the reference's _seed_bounds), S lanes a row
+    S = seed_hi - seed_lo
+    seeds = fmindex.SeedLanes.pigeonhole(lens, cfg.num_seeds, seed_lo, seed_q)
     if seed_q == idx.lut_k and max_seed_steps == 0:
         mode = "lut"      # LUT-only seeds: one table lookup per lane
     elif 0 < seed_q <= idx.lut_k + 16 and idx.lut_k <= 16:
         mode = "packed"   # the extension window fits one 16-base word
     else:
         mode = "general"
-    l, r = fmindex.seed_intervals(idx, ori, S, sstart.reshape(-1),
-                                  slen.reshape(-1), max_seed_steps, mode)
+    l, r = fmindex.seed_intervals(idx, ori, S, seeds, max_seed_steps, mode)
 
     # each lane's candidates (its width, none past cap, where its read is
     # flagged) counted and scanned, expanded into K slots in lane order
@@ -164,17 +148,14 @@ def _search_stages(idx: DeviceIndex, reads: torch.Tensor,
     flags = (wire[2:2 + nf] if wire is not None else
              torch.empty(nf, dtype=torch.int32, device=l.device))
     incl, total, _ = fmindex.lane_counts(l, r, cap, S, flags)
-    krow, ktp, pos_ok = fmindex.expand_decode(
-        idx, l, incl, sstart.reshape(-1), olens, S, K)
+    krow, ktp, pos_ok = fmindex.expand_decode(idx, l, incl, seeds, S, K)
 
     # scatter-min hash dedupe of (row, tp) before verification
     urow, utp, uvalid, uniq = fmindex.dedupe(krow, ktp, pos_ok, K2)
 
-    # verify unique placements in the packed domain
-    urow_c = urow.clamp(0, R - 1)
-    nmis = fmindex.count_mismatches_rows(
-        idx, torch.where(uvalid, utp, torch.zeros_like(utp)), ori, urow_c,
-        olens[urow_c])
+    # verify unique placements in the packed domain (rows clamped, tp 0
+    # where not valid, each row's read length: the verify's own loads)
+    nmis = fmindex.count_mismatches_rows(idx, utp, ori, urow, lens, uvalid)
     return _Stages(B, total, flags, urow, utp, uvalid, uniq, nmis)
 
 

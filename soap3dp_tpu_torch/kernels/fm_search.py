@@ -7,7 +7,11 @@ nvcc at first use into ``_build/`` and loaded with ctypes:
   one of the three modes of the reference's ``_search_batch`` ("lut",
   "packed", "general"); replaces ``backward_search`` and
   ``backward_search_packed`` (soap3dp_tpu/fm/fmindex.py:391, :456) and
-  the LUT-only branch (soap3dp_tpu/fm/search.py:207-214);
+  the LUT-only branch (soap3dp_tpu/fm/search.py:207-214); a lane's
+  segment given or made from its row's read length (``_seed_args``: the
+  search's ``_seed_bounds``, soap3dp_tpu/fm/search.py:120, and the DP
+  seeding's clamps, soap3dp_tpu/pipeline/dp_rescue.py:155-164), as FS2x
+  and FS2s make their lanes' seed starts;
 * FS2 ``sa_decode`` / ``sa_ranks``: the bounded LF walk, then the rank
   and sample gathers (fmindex.py:509), of ready rows; and
   ``expand_decode`` / ``expand_ranks``: the same walk with the lane
@@ -18,12 +22,16 @@ nvcc at first use into ``_build/`` and loaded with ctypes:
   slot mask and nonzero (soap3dp_tpu/pipeline/dp_rescue.py:176-188) and
   writes its candidates as the words of its packed transfer (FS2s);
 * FS3 ``verify``: packed XOR/popcount against the genome
-  (``count_mismatches_packed``, fmindex.py:653);
+  (``count_mismatches_packed``, fmindex.py:653), its placements as the
+  search's dedupe hands them over (soap3dp_tpu/fm/search.py:305-310:
+  the rows' clamp, the positions' where and the lengths' gather in its
+  loads);
 * FS4 ``dedupe``: the search's scatter-min hash dedupe and the
   compaction of its first occurrences (soap3dp_tpu/fm/search.py:275-301);
 * FS5 ``lane_counts``: the lanes' counts and their scan, and the result
   wire's flagged words, of the search (soap3dp_tpu/fm/search.py:232-252)
-  and the DP seeding (soap3dp_tpu/pipeline/dp_rescue.py:176-179);
+  and the DP seeding (soap3dp_tpu/pipeline/dp_rescue.py:176-179), each
+  lane's l and r read once (tiles of ``COUNT_TILE`` lanes);
 * FS6 ``search_wire``: the search's hit test and its result wire
   (soap3dp_tpu/fm/search.py:312, :322-346);
 * GP ``prescan``: the DP rescue's gapless prescan, each candidate's
@@ -53,33 +61,39 @@ import torch
 from soap3dp_tpu_torch.kernels.cudalib import CudaKernel, CudaLibrary
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U = ctypes.c_uint
 FM_SEARCH_LIB = CudaLibrary("fm_search.cu")
-# soap3dp_fm_search(reads, kind, B, L, W, rc_len, S, start, length, N,
-#   mode, max_steps, k, blocks, counts, lut_lo, lut_hi, primary, n1,
-#   l_out, r_out, stream)
+# a kernel's rows (ReadRows): reads, kind, B, L, W, rc_len, rc_all
+_ROWS = [_P, _I, _LL, _I, _I, _P, _LL]
+# the seed arguments (seed_args): start, lens, pos, slen, nl, segments,
+# lo, q (FS1 also takes length, after start)
+_SEEDS = [_P] * 4 + [_LL, _I, _I, _I]
+# soap3dp_fm_search(rows..., S, start, length, lens, pos, slen, nl,
+#   segments, lo, q, N, mode, max_steps, k, blocks, counts, lut_lo,
+#   lut_hi, primary, n1, l_out, r_out, stream)
 SEARCH_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_fm_search",
-    [_P, _I, _LL, _I, _I, _P, _I, _P, _P, _LL, _I, _I, _I]
+    _ROWS + [_I, _P] + _SEEDS + [_LL, _I, _I, _I]
     + [_P] * 4 + [_LL, _LL, _P, _P, _P])
 # soap3dp_sa_decode(rows, valid, N, sa_rate, mark_words, mark_rank,
 #   blocks, counts, primary, sa, n_sa, out, rank_out, step_out, stream)
 DECODE_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_sa_decode",
     [_P, _P, _LL, _I] + [_P] * 4 + [_LL, _P, _LL] + [_P] * 4)
-# soap3dp_expand_decode(l, incl, RS, sstart, olens, S, n, K, sa_rate,
+# soap3dp_expand_decode(l, incl, RS, seeds..., S, n, K, sa_rate,
 #   mark_words, mark_rank, blocks, counts, primary, sa, n_sa, krow, ktp,
 #   pos_ok, lane_out, rank_out, step_out, stream)
 EXPAND_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_expand_decode",
-    [_P, _P, _LL, _P, _P, _I, _LL, _LL, _I] + [_P] * 4 + [_LL, _P, _LL]
+    [_P, _P, _LL] + _SEEDS + [_I, _LL, _LL, _I] + [_P] * 4 + [_LL, _P, _LL]
     + [_P] * 7)
-# soap3dp_seed_expand_decode(l, incl, RS, sp, S, K, sa_rate, mark_words,
-#   mark_rank, blocks, counts, primary, sa, n_sa, words, lane_out,
-#   rank_out, step_out, stream)
+# soap3dp_seed_expand_decode(l, incl, RS, seeds..., S, K, sa_rate,
+#   mark_words, mark_rank, blocks, counts, primary, sa, n_sa, words,
+#   lane_out, rank_out, step_out, stream)
 SEED_EXPAND_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_seed_expand_decode",
-    [_P, _P, _LL, _P, _I, _LL, _I] + [_P] * 4 + [_LL, _P, _LL] + [_P] * 5)
-_U = ctypes.c_uint
+    [_P, _P, _LL] + _SEEDS + [_I, _LL, _I] + [_P] * 4 + [_LL, _P, _LL]
+    + [_P] * 5)
 # soap3dp_dedupe(krow, ktp, pos_ok, K, K2, hb, gen, table, scan, base,
 #   tag, urow, utp, uvalid, uniq, stream)
 DEDUPE_KERNEL = CudaKernel(
@@ -90,9 +104,11 @@ DEDUPE_KERNEL = CudaKernel(
 LANE_COUNTS_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_lane_counts",
     [_P, _P, _LL, _LL, _I, _P, _U, _U, _P, _P, _P, _LL, _P])
-# the look-back scans of FS4 and FS5: tiles of 1,024 slots or lanes
-# (csrc/fm_search.cu TILE)
+# FS4's look-back scan: tiles of 1,024 slots (csrc/fm_search.cu TILE)
 DEDUPE_TILE = 1024
+# FS5's: tiles of 2,048 lanes, 4 pairs of lanes a thread of 256
+# (csrc/fm_search.cu COUNT_TILE)
+COUNT_TILE = 2048
 # scratch kept across calls (gen_state): (kind, card, stream) -> [int64
 # scratch, the last call's generation, the tickets taken]. Kinds: FS4's
 # table ("dedupe"); the scan state FS4 and FS5 share ("scan": the ticket
@@ -105,22 +121,25 @@ _GEN_MAX = (1 << 30) - 1  # a generation << 2 (a status's tag) fits 32 bits
 SEARCH_WIRE_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_search_wire",
     [_P] * 4 + [_LL, _I, _P, _P, _P, _LL, _P])
-# soap3dp_verify(reads, kind, B, L, Ws, rc_len, rows, tp, read_len, M, W,
-#   pac, n_pac, out, stream)
+# soap3dp_copy_prefix(src, pitch, n, rows, dst, stream): a copy, no kernel
+COPY_PREFIX = CudaKernel(FM_SEARCH_LIB, "soap3dp_copy_prefix",
+                         [_P, _LL, _LL, _I, _P, _P])
+# soap3dp_verify(rows..., rows, tp, valid, lens, nl, M, W, pac, n_pac,
+#   out, stream)
 VERIFY_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_verify",
-    [_P, _I, _LL, _I, _I, _P, _P, _P, _P, _LL, _I, _P, _LL, _P, _P])
+    _ROWS + [_P] * 4 + [_LL, _LL, _I, _P, _LL, _P, _P])
 
-# soap3dp_prescan(reads, kind, B, L, Ws, rc_len, rows, ws, rlens, wlens, M,
-#   O, pac, n_pac, out, stream)
+# soap3dp_prescan(rows..., rows, ws, rlens, wlens, M, O, pac, n_pac, out,
+#   stream)
 PRESCAN_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_prescan",
-    [_P, _I, _LL, _I, _I] + [_P] * 5 + [_LL, _I, _P, _LL, _P, _P])
-# soap3dp_pack_problems(reads, kind, B, L, Ws, rc_len, cread, strand,
-#   win_start, P, max_win, pac, n_pac, oriented, wins, stream)
+    _ROWS + [_P] * 4 + [_LL, _I, _P, _LL, _P, _P])
+# soap3dp_pack_problems(rows..., cread, strand, win_start, P, max_win, pac,
+#   n_pac, oriented, wins, stream)
 PACK_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_pack_problems",
-    [_P, _I, _LL, _I, _I] + [_P] * 4 + [_LL, _I, _P, _LL, _P, _P, _P])
+    _ROWS + [_P] * 3 + [_LL, _I, _P, _LL, _P, _P, _P])
 # the count of an offset past a window's valid ones (and the minimum of a
 # candidate with none): above any read's mismatches
 PRESCAN_NO_VALID = 1 << 20
@@ -133,21 +152,36 @@ MODES = {"lut": 0, "packed": 1, "general": 2}
 class ReadRows(NamedTuple):
     """The rows a kernel reads bases from: ``data`` on the card, of
     ``kind``; rows 0..B-1 as stored, rows B..2B-1 their reverse
-    complements of ``rc_len`` bases; L bases a row, W words a stored
-    row of packed words."""
+    complements of ``rc_len`` bases (int32), or of ``rc_all`` each where
+    ``rc_len`` is None; L bases a row, W words a stored row of packed
+    words."""
 
     data: torch.Tensor
     kind: int
     B: int
     L: int
     W: int
-    rc_len: torch.Tensor
+    rc_len: torch.Tensor | None
+    rc_all: int = 0
+
+    def args(self) -> tuple:
+        """The kernels' row arguments: reads, kind, B, L, W, rc_len,
+        rc_all."""
+        return (self.data.data_ptr(), self.kind, self.B, self.L, self.W,
+                None if self.rc_len is None else self.rc_len.data_ptr(),
+                self.rc_all)
+
+    def tensors(self) -> dict:
+        return {"reads": self.data} if self.rc_len is None else {
+            "reads": self.data, "rc_len": self.rc_len}
 
 
-def oriented_rows(reads: torch.Tensor, L: int,
-                  rc_len: torch.Tensor) -> ReadRows:
+def oriented_rows(reads: torch.Tensor, L: int, rc_len: torch.Tensor | None,
+                  rc_all: int = 0) -> ReadRows:
     """Forward reads ((B, L) uint8 codes or (B, W) int32 packed words of
-    L bases) and their reverse complements (fmindex.OrientedReads)."""
+    L bases) and their reverse complements, of ``rc_len`` bases each
+    (int32, or int64 narrowed) or, where it is None, of ``rc_all``
+    (fmindex.OrientedReads)."""
     kind = SRC_PACKED if reads.dtype == torch.int32 else SRC_CODES
     B = reads.shape[0]
     W = reads.shape[1] if kind == SRC_PACKED else 0
@@ -157,9 +191,14 @@ def oriented_rows(reads: torch.Tensor, L: int,
                          f"got {reads.dtype} {tuple(reads.shape)}")
     if kind == SRC_PACKED and W < (L + 15) // 16:
         raise ValueError(f"{W} packed words cannot hold {L} bases")
-    if rc_len.dtype != torch.int64 or rc_len.shape != (B,):
-        raise ValueError(f"rc_len must be int64 ({B},)")
-    return ReadRows(reads, kind, B, L, W, rc_len)
+    if rc_len is not None:
+        if rc_len.dtype not in (torch.int32, torch.int64) \
+                or rc_len.shape != (B,):
+            raise ValueError(f"rc_len must be int32 or int64 ({B},)")
+        rc_len = rc_len.to(torch.int32).contiguous()
+    elif not 0 <= rc_all < 1 << 31:
+        raise ValueError(f"rc_all {rc_all} out of range")
+    return ReadRows(reads, kind, B, L, W, rc_len, rc_all)
 
 
 def _code_rows(name: str, src: ReadRows) -> None:
@@ -206,19 +245,67 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def search(idx, src: ReadRows, S: int, start: torch.Tensor,
-           length: torch.Tensor, max_steps: int,
+def _seed_args(name: str, seeds, S: int, rows: int, dev: torch.device,
+               length: bool = False) -> tuple[int, tuple]:
+    """(the lanes, the kernels' seed arguments: start, [length,] lens,
+    pos, slen, nl, segments, lo, q) of ``seeds`` (an fmindex.SeedLanes)
+    for S lanes a row of ``rows`` rows: given, (N,) int64 starts (and
+    lengths, with ``length``: FS1's); or made from (nl,) int32 read
+    lengths (nl = rows / 2: row r's read r mod nl), the pigeonhole
+    segments or the staged seeds' (nl, S) int32 positions and (nl,)
+    int32 lengths."""
+    if seeds.start is not None:
+        N = seeds.start.shape[0]
+        given = {"start": seeds.start}
+        if length:
+            if seeds.length is None:
+                raise ValueError(f"{name}: given starts need lengths")
+            given["length"] = seeds.length
+        _check(name, dev, **given)
+        for key, t in given.items():
+            _vector(name, key, t, N, torch.int64)
+    else:
+        N = rows * S
+    nl = 0
+    if seeds.lens is not None:
+        nl = seeds.lens.shape[0]
+        made = {"lens": seeds.lens}
+        if seeds.pos is not None:
+            made.update(pos=seeds.pos, slen=seeds.slen)
+        _check(name, dev, **made)
+        _vector(name, "lens", seeds.lens, nl, torch.int32)
+        if seeds.pos is not None:
+            _vector(name, "slen", seeds.slen, nl, torch.int32)
+            if seeds.pos.dtype != torch.int32 or seeds.pos.shape != (nl, S):
+                raise ValueError(f"{name}: pos must be int32 ({nl}, {S})")
+        if seeds.start is None and (2 * nl != rows or (
+                seeds.pos is None
+                and not 0 <= seeds.lo < seeds.lo + S <= seeds.segments)):
+            raise ValueError(f"{name}: {nl} read lengths for {rows} rows, "
+                             f"segments {seeds.lo}..{seeds.lo + S} of "
+                             f"{seeds.segments}")
+    elif seeds.start is None:
+        raise ValueError(f"{name}: seeds need starts or read lengths")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    head = (ptr(seeds.start),) + ((ptr(seeds.length),) if length else ())
+    return N, head + (ptr(seeds.lens), ptr(seeds.pos), ptr(seeds.slen), nl,
+                      seeds.segments, seeds.lo, seeds.seed_q)
+
+
+def search(idx, src: ReadRows, S: int, seeds, max_steps: int,
            mode: str) -> tuple[torch.Tensor, torch.Tensor]:
     """FS1: the SA interval [l, r) (int64) of each lane's segment
-    [start, start + length) of row i // S, searched right to left from a
-    LUT jumpstart in ``mode``."""
-    N = start.shape[0]
-    dev = start.device
-    _check("fm search", dev, reads=src.data, rc_len=src.rc_len, start=start,
-           length=length)
+    [start, start + length) of row i // S (``seeds``, an
+    fmindex.SeedLanes: given a lane, or made from the row's read
+    length), searched right to left from a LUT jumpstart in ``mode``."""
+    dev = src.data.device
+    _check("fm search", dev, **src.tensors())
+    N, seed_args = _seed_args("fm search", seeds, S, 2 * src.B, dev,
+                              length=True)
     _tables("fm search", idx, dev)
-    _vector("fm search", "start", start, N, torch.int64)
-    _vector("fm search", "length", length, N, torch.int64)
     if mode not in MODES:
         raise ValueError(f"fm search: unknown mode {mode!r}")
     if not 1 <= idx.lut_k <= 16 or S < 1 or src.L < 1 or max_steps < 0:
@@ -230,9 +317,8 @@ def search(idx, src: ReadRows, S: int, start: torch.Tensor,
         return l_out, r_out
     _, fn = SEARCH_KERNEL.function()
     with torch.cuda.device(dev):
-        err = fn(src.data.data_ptr(), src.kind, src.B, src.L, src.W,
-                 src.rc_len.data_ptr(), S, start.data_ptr(),
-                 length.data_ptr(), N, MODES[mode], max_steps, idx.lut_k,
+        err = fn(*src.args(), S, *seed_args, N, MODES[mode], max_steps,
+                 idx.lut_k,
                  idx.occ_blocks.data_ptr(), idx.counts.data_ptr(),
                  idx.lut_lo.data_ptr(), idx.lut_hi.data_ptr(), idx.primary,
                  idx.n + 1,
@@ -288,26 +374,28 @@ def sa_ranks(idx, rows: torch.Tensor, valid: torch.Tensor
 
 
 def _expand(kernel: CudaKernel, idx, l: torch.Tensor, incl: torch.Tensor,
-            start: torch.Tensor, olens, S: int, K: int, ranks: bool):
-    """A lane expansion of FS2: the search's (``olens`` given, the
-    dedupe keys) or the DP seeding's (``olens`` None, the candidates'
-    packed words), or either's ranks form."""
+            seeds, S: int, K: int, ranks: bool):
+    """A lane expansion of FS2: the search's (EXPAND_KERNEL, the dedupe
+    keys; ``seeds`` carry the read lengths) or the DP seeding's (the
+    candidates' packed words), or either's ranks form. ``seeds`` (an
+    fmindex.SeedLanes) give each lane's segment start."""
     RS = l.shape[0]
     dev = l.device
     name = kernel.symbol[len("soap3dp_"):].replace("_", " ")
-    _check(name, dev, l=l, incl=incl, start=start,
-           **({} if olens is None else {"olens": olens}))
+    search = kernel is EXPAND_KERNEL
+    _check(name, dev, l=l, incl=incl)
     _tables(name, idx, dev)
     _vector(name, "l", l, RS, torch.int64)
     _vector(name, "incl", incl, RS, torch.int64)
-    _vector(name, "start", start, RS, torch.int64)
-    rows = RS // S if olens is None else olens.shape[0]
-    if olens is not None and (olens.dtype != torch.int64 or olens.dim() != 1):
-        raise ValueError(f"{name}: olens must be int64 (R,)")
-    if RS < 1 or S < 1 or RS != rows * S or K < 0 or idx.sa_rate < 1:
-        raise ValueError(f"{name}: {RS} lanes, S {S}, {rows} rows, K {K}, "
+    if RS < 1 or S < 1 or RS % S or K < 0 or idx.sa_rate < 1:
+        raise ValueError(f"{name}: {RS} lanes, S {S}, K {K}, "
                          f"sa_rate {idx.sa_rate} out of range")
-    seed = olens is None and not ranks
+    if search and seeds.lens is None:
+        raise ValueError(f"{name}: the seeds must carry the read lengths")
+    N, seed_args = _seed_args(name, seeds, S, RS // S, dev)
+    if N != RS:
+        raise ValueError(f"{name}: {N} seeds for {RS} lanes")
+    seed = not search and not ranks
     if seed:
         outs = [torch.empty(3 * K, dtype=torch.int32, device=dev)]
     else:
@@ -319,12 +407,11 @@ def _expand(kernel: CudaKernel, idx, l: torch.Tensor, incl: torch.Tensor,
         return outs
     _, fn = kernel.function()
     ptrs = [o.data_ptr() for o in outs]
-    blank = [None] * (1 if olens is None else 3)
+    blank = [None] * (3 if search else 1)
     keys = blank + ptrs if ranks else ptrs + [None] * 3
-    lead = (S, K, idx.sa_rate) if olens is None \
-        else (olens.data_ptr(), S, idx.n, K, idx.sa_rate)
+    lead = (S, idx.n, K, idx.sa_rate) if search else (S, K, idx.sa_rate)
     with torch.cuda.device(dev):
-        err = fn(l.data_ptr(), incl.data_ptr(), RS, start.data_ptr(), *lead,
+        err = fn(l.data_ptr(), incl.data_ptr(), RS, *seed_args, *lead,
                  idx.mark_words.data_ptr(), idx.mark_rank.data_ptr(),
                  idx.occ_blocks.data_ptr(), idx.counts.data_ptr(),
                  idx.primary, idx.sa_samples.data_ptr(),
@@ -335,50 +422,48 @@ def _expand(kernel: CudaKernel, idx, l: torch.Tensor, incl: torch.Tensor,
     return outs
 
 
-def expand_decode(idx, l: torch.Tensor, incl: torch.Tensor,
-                  sstart: torch.Tensor, olens: torch.Tensor, S: int, K: int
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def expand_decode(idx, l: torch.Tensor, incl: torch.Tensor, seeds, S: int,
+                  K: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """FS2 with the lane expansion: output slot k (< K) of lane j (the
     first lane whose inclusive count ``incl`` exceeds k) decodes SA row
     l[j] + k - incl[j - 1]; returns the dedupe's keys (krow, ktp int64,
     pos_ok bool): the slot's oriented row j // S and text position
-    minus the segment start ``sstart[j]`` where that placement of a read
-    of ``olens[j // S]`` bases lies in the text, else the 0xFFFFFFFF
-    sentinel and False (fmindex.expand_decode)."""
-    return tuple(_expand(EXPAND_KERNEL, idx, l, incl, sstart, olens, S, K,
+    minus the segment start of lane j where that placement of the row's
+    read (its length from ``seeds``) lies in the text, else the
+    0xFFFFFFFF sentinel and False (fmindex.expand_decode)."""
+    return tuple(_expand(EXPAND_KERNEL, idx, l, incl, seeds, S, K,
                          ranks=False))
 
 
-def expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor,
-                 sstart: torch.Tensor, olens: torch.Tensor, S: int, K: int
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor, seeds, S: int,
+                 K: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """expand_decode without the sample gather, for an SA table split
     over a mesh: each slot's (lane, sample rank, LF steps), 0 lane and
     the walk of row 0 past the total count; the owner routing gathers
     the samples and checks the placements (fmindex.expand_decode)."""
-    return tuple(_expand(EXPAND_KERNEL, idx, l, incl, sstart, olens, S, K,
+    return tuple(_expand(EXPAND_KERNEL, idx, l, incl, seeds, S, K,
                          ranks=True))
 
 
-def seed_expand_decode(idx, l: torch.Tensor, incl: torch.Tensor,
-                       sp: torch.Tensor, S: int, K: int) -> torch.Tensor:
+def seed_expand_decode(idx, l: torch.Tensor, incl: torch.Tensor, seeds,
+                       S: int, K: int) -> torch.Tensor:
     """FS2s, the DP seeding's lane expansion: slot k (< K) of lane j
     decodes SA row l[j] + k - incl[j - 1] as expand_decode does; returns
     the candidates as one (3K,) int32 tensor of u32 bit patterns, [row |
     pos | valid]: the oriented row j // S (0 past the total count), and
-    the text position minus the seed start ``sp[j]`` and 1 where it is
-    not below it, else 0 and 0 (fmindex.seed_expand_decode)."""
-    return _expand(SEED_EXPAND_KERNEL, idx, l, incl, sp, None, S, K,
+    the text position minus lane j's seed start (``seeds``) and 1 where
+    it is not below it, else 0 and 0 (fmindex.seed_expand_decode)."""
+    return _expand(SEED_EXPAND_KERNEL, idx, l, incl, seeds, S, K,
                    ranks=False)[0]
 
 
-def seed_expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor,
-                      sp: torch.Tensor, S: int, K: int
+def seed_expand_ranks(idx, l: torch.Tensor, incl: torch.Tensor, seeds,
+                      S: int, K: int
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """seed_expand_decode without the sample gather, for an SA table
     split over a mesh: each slot's (lane, sample rank, LF steps), as
     expand_ranks (fmindex.seed_expand_decode)."""
-    return tuple(_expand(SEED_EXPAND_KERNEL, idx, l, incl, sp, None, S, K,
+    return tuple(_expand(SEED_EXPAND_KERNEL, idx, l, incl, seeds, S, K,
                          ranks=True))
 
 
@@ -479,8 +564,9 @@ def lane_counts(l: torch.Tensor, r: torch.Tensor, cap: int, S: int,
     flags). The seeding's (S lanes a row): the width clamped to
     [0, cap]; returns (incl, total) (fmindex.lane_counts). One launch,
     on the card's scan state for the current stream (gen_state, shared
-    with dedupe).
-    Raises unless RS >= 1 and RS x cap < 2^31 (32-bit counts)."""
+    with dedupe), its tiles of COUNT_TILE lanes.
+    Raises unless RS >= 1 and RS x cap < 2^31 (32-bit counts), or
+    where l or r does not lie on a 16-byte boundary."""
     RS = l.shape[0]
     dev = l.device
     name = "lane counts"
@@ -493,12 +579,14 @@ def lane_counts(l: torch.Tensor, r: torch.Tensor, cap: int, S: int,
             or RS * max(cap, 1) >= 1 << 31:
         raise ValueError(f"{name}: {RS} lanes, S {S}, cap {cap} out of "
                          "range")
+    if l.data_ptr() % 16 or r.data_ptr() % 16:
+        raise ValueError(f"{name}: l and r must lie on 16-byte boundaries")
     nf = flag_words(RS // (2 * S)) if search else 0
     if search:
         _vector(name, "flags", flags, nf, torch.int32)
     incl = torch.empty(RS, dtype=torch.int64, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
-    tiles = -(-RS // DEDUPE_TILE)
+    tiles = -(-RS // COUNT_TILE)
     _, fn = LANE_COUNTS_KERNEL.function()
     with torch.cuda.device(dev), _STATE_LOCK:
         stream = _stream(dev)
@@ -506,7 +594,8 @@ def lane_counts(l: torch.Tensor, r: torch.Tensor, cap: int, S: int,
         _launched(name, fn(
             l.data_ptr(), r.data_ptr(), RS, cap, S, scan.data_ptr(),
             base & 0xFFFFFFFF, gen << 2, incl.data_ptr(), total.data_ptr(),
-            flags.data_ptr() if search else None, nf, stream), dev, stream)
+            flags.data_ptr() if search else None, nf, stream), dev,
+            stream)
     LANE_COUNTS_KERNEL.count(dev, (RS, S, int(search)))
     return (incl, total, flags) if search else (incl, total)
 
@@ -549,26 +638,57 @@ def search_wire(wire: torch.Tensor, B: int, total: torch.Tensor,
     return wire
 
 
+def copy_prefix(src: torch.Tensor, rows: int, n: int) -> torch.Tensor:
+    """The first n words of each of the ``rows`` equal parts of ``src``
+    (int32 (rows x K,) on the card) as one pinned host (rows, n) int32
+    tensor: one 2-D copy on the card's current stream, no kernel (the
+    DP seeding's prefix of its packed words). Returns before the copy
+    ends: the caller waits for the stream."""
+    dev = src.device
+    _check("copy prefix", dev, src=src)
+    K = src.shape[0] // max(rows, 1)
+    if src.dtype != torch.int32 or src.dim() != 1 or rows < 1 \
+            or src.shape[0] != rows * K or not 0 <= n <= K:
+        raise ValueError(f"copy prefix: {n} of {rows} parts of "
+                         f"{src.dtype} {tuple(src.shape)}")
+    out = torch.empty((rows, n), dtype=torch.int32, pin_memory=True)
+    _, fn = COPY_PREFIX.function()
+    with torch.cuda.device(dev):
+        err = fn(src.data_ptr(), K, n, rows, out.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"copy prefix failed: CUDA error {err}")
+    return out
+
+
 def verify(idx, src: ReadRows, rows: torch.Tensor, tp: torch.Tensor,
-           read_len: torch.Tensor, W: int) -> torch.Tensor:
-    """FS3: the mismatches (int64) between the first read_len bases of
-    row ``rows[i]`` and the genome at tp[i], over W packed words."""
+           valid: torch.Tensor | None, lens: torch.Tensor,
+           W: int) -> torch.Tensor:
+    """FS3: the mismatches (int64) between the first bases of row
+    ``rows[i]`` (clamped to the 2B oriented rows), as many as its read's
+    length (row r's read is r mod n of the (n,) int32 ``lens``), and the
+    genome at tp[i] (0 where ``valid``, bool, is False; None: every
+    placement), over W packed words."""
     M = tp.shape[0]
     dev = tp.device
-    _check("verify", dev, reads=src.data, rc_len=src.rc_len, rows=rows, tp=tp,
-           read_len=read_len)
+    _check("verify", dev, rows=rows, tp=tp, lens=lens, **src.tensors(),
+           **({} if valid is None else {"valid": valid}))
     _tables("verify", idx, dev)
     _vector("verify", "tp", tp, M, torch.int64)
-    _vector("verify", "read_len", read_len, M, torch.int64)
     _vector("verify", "rows", rows, M, torch.int64)
+    if valid is not None:
+        _vector("verify", "valid", valid, M, torch.bool)
+    if lens.dtype != torch.int32 or lens.dim() != 1 or lens.shape[0] < 1:
+        raise ValueError("verify: lens must be int32 (n,), n >= 1")
+    if src.B < 1:
+        raise ValueError("verify: no rows")
     out = torch.empty(M, dtype=torch.int64, device=dev)
     if M == 0:
         return out
     _, fn = VERIFY_KERNEL.function()
     with torch.cuda.device(dev):
-        err = fn(src.data.data_ptr(), src.kind, src.B, src.L, src.W,
-                 src.rc_len.data_ptr(), rows.data_ptr(), tp.data_ptr(),
-                 read_len.data_ptr(), M, W, idx.pac.data_ptr(),
+        err = fn(*src.args(), rows.data_ptr(), tp.data_ptr(),
+                 None if valid is None else valid.data_ptr(),
+                 lens.data_ptr(), lens.shape[0], M, W, idx.pac.data_ptr(),
                  idx.pac.shape[0], out.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"verify kernel launch failed: CUDA error {err}")
@@ -587,8 +707,8 @@ def prescan(idx, src: ReadRows, rows: torch.Tensor, ws: torch.Tensor,
     M = rows.shape[0]
     dev = rows.device
     _code_rows("prescan", src)
-    _check("prescan", dev, reads=src.data, rc_len=src.rc_len, rows=rows,
-           ws=ws, rlens=rlens, wlens=wlens)
+    _check("prescan", dev, rows=rows, ws=ws, rlens=rlens, wlens=wlens,
+           **src.tensors())
     _tables("prescan", idx, dev)
     for key, t in (("rows", rows), ("ws", ws), ("rlens", rlens),
                    ("wlens", wlens)):
@@ -600,8 +720,7 @@ def prescan(idx, src: ReadRows, rows: torch.Tensor, ws: torch.Tensor,
         return out
     _, fn = PRESCAN_KERNEL.function()
     with torch.cuda.device(dev):
-        err = fn(src.data.data_ptr(), src.kind, src.B, src.L, src.W,
-                 src.rc_len.data_ptr(), rows.data_ptr(), ws.data_ptr(),
+        err = fn(*src.args(), rows.data_ptr(), ws.data_ptr(),
                  rlens.data_ptr(), wlens.data_ptr(), M, O,
                  idx.pac.data_ptr(), idx.pac.shape[0], out.data_ptr(),
                  _stream(dev))
@@ -634,9 +753,8 @@ def pack_problems(idx, src: ReadRows, cread: torch.Tensor,
     P = cread.shape[0]
     dev = cread.device
     _code_rows("pack problems", src)
-    _check("pack problems", dev, reads=src.data, rc_len=src.rc_len,
-           cread=cread, strand_rev=strand_rev, win_start=win_start,
-           pac=idx.pac)
+    _check("pack problems", dev, cread=cread, strand_rev=strand_rev,
+           win_start=win_start, pac=idx.pac, **src.tensors())
     _vector("pack problems", "cread", cread, P, torch.int64)
     _vector("pack problems", "strand_rev", strand_rev, P, torch.bool)
     _vector("pack problems", "win_start", win_start, P, torch.int64)
@@ -651,8 +769,7 @@ def pack_problems(idx, src: ReadRows, cread: torch.Tensor,
         return oriented, wins
     _, fn = PACK_KERNEL.function()
     with torch.cuda.device(dev):
-        err = fn(src.data.data_ptr(), src.kind, src.B, src.L, src.W,
-                 src.rc_len.data_ptr(), cread.data_ptr(),
+        err = fn(*src.args(), cread.data_ptr(),
                  strand_rev.data_ptr(), win_start.data_ptr(), P, max_win,
                  idx.pac.data_ptr(), idx.pac.shape[0], oriented.data_ptr(),
                  wins.data_ptr(), _stream(dev))

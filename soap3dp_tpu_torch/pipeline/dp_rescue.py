@@ -108,24 +108,34 @@ def _seed_cand_batch(idx: DeviceIndex, reads: torch.Tensor,
     Returns (packed, total): packed the (3K,) int32 bit patterns of the
     reference's u32 words [row | pos | valid], row the oriented row id,
     pos the candidate read-start text position (0 where not valid);
-    total the candidates before K (0-dim). The seeds' clamps (sp, the
-    lengths) are FS1's argument prep."""
+    total the candidates before K (0-dim). The seeds' clamps into each
+    read (the reference's concatenates, minimums and clamps) are made by
+    FS1 and FS2s from the B reads' seed_pos, seed_len and lens as they
+    load them (fmindex.SeedLanes.staged)."""
     S = seed_pos.shape[1]
-    lens = lens.to(torch.int64)
     ori = fmindex.OrientedReads.of(reads, lens)
-    sp = torch.cat([seed_pos, seed_pos], dim=0).to(torch.int64)
-    sl2 = torch.cat([seed_len, seed_len]).to(torch.int64)
-    ln2 = torch.cat([lens, lens])
-    sp = torch.minimum(sp, (ln2 - sl2).clamp(min=0)[:, None])
-    slen_arr = torch.minimum(sl2, ln2)[:, None].expand(sp.shape)
-    l, r = fmindex.seed_intervals(idx, ori, S, sp.reshape(-1),
-                                  slen_arr.reshape(-1), max_steps, "general")
+    seeds = fmindex.SeedLanes.staged(seed_pos, seed_len, lens)
+    l, r = fmindex.seed_intervals(idx, ori, S, seeds, max_steps, "general")
     # each lane's candidates (its width clamped to occ_cap) counted and
     # scanned (FS5), expanded into K slots in lane order and decoded
     # (FS2s) on the card
     incl, total = fmindex.lane_counts(l, r, occ_cap, S)
-    packed = fmindex.seed_expand_decode(idx, l, incl, sp.reshape(-1), S, K)
+    packed = fmindex.seed_expand_decode(idx, l, incl, seeds, S, K)
     return packed, total
+
+
+def _prefix_to_host(packed: torch.Tensor, K: int, n: int) -> np.ndarray:
+    """The first n words of each third of ``packed`` (3K,) as one host
+    (3, n) uint32 array, in one transfer: on the card one 2-D copy into
+    pinned memory (fm_search.copy_prefix, no kernel), then a wait on the
+    card's stream."""
+    if not packed.is_cuda:
+        return packed.view(3, K)[:, :n].numpy().view(np.uint32)
+    host = fm_search.copy_prefix(packed, 3, n)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(packed.device))
+    done.synchronize()
+    return host.numpy().view(np.uint32)
 
 
 def seed_candidates(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
@@ -171,9 +181,7 @@ def seed_candidates(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
             # are at the end), in one transfer
             Kc = min(K, K_max)
             tb = min(shapes.bucket(t, min_size=1024), Kc)
-            return torch.cat([packed[:tb], packed[Kc:Kc + tb],
-                              packed[2 * Kc:2 * Kc + tb]]
-                             ).cpu().numpy().view(np.uint32).reshape(3, -1)
+            return _prefix_to_host(packed, Kc, tb)
 
         parts = dmesh.map_shards(devices, shard)
     read, strand, posf = [], [], []
@@ -215,8 +223,7 @@ def _prescan_impl(idx: DeviceIndex, reads_p: torch.Tensor,
         if W < O + Lr - 1:
             raise ValueError(f"prescan: a window of {W} bases cannot hold "
                              f"{O} offsets of {Lr}-base reads")
-        src = fm_search.oriented_rows(reads_p.contiguous(), Lr,
-                                      fmindex._i64(lens_rows))
+        src = fm_search.oriented_rows(reads_p.contiguous(), Lr, lens_rows)
         rows = fmindex._i64(read_idx) + B * (strand == 1).to(torch.int64)
         return fm_search.prescan(idx, src, rows, fmindex._i64(ws),
                                  fmindex._i64(rlens), fmindex._i64(wlens), O)
@@ -300,7 +307,7 @@ def _pack_problems(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
     rows read in place), _pack_problems_plain on CPU tensors."""
     if reads.is_cuda:
         src = fm_search.oriented_rows(reads.contiguous(), reads.shape[1],
-                                      fmindex._i64(lens))
+                                      lens)
         return fm_search.pack_problems(idx, src, fmindex._i64(cread),
                                        strand_rev, fmindex._i64(win_start),
                                        max_win)

@@ -28,8 +28,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_golden_and_e2e_phases_on_cpu(tmp_path):
     """The golden and end-to-end phases; phase 4 keeps the first call of
-    each launch shape of FS2x, FS2s and FS4 (path_cases: each its
-    entry's real inputs, equal to its plain version here)."""
+    each launch shape of FS1 to FS6 (path_cases: each its entry's real
+    inputs, equal to its plain version here)."""
     from soap3dp_tpu_torch.fm import fmindex
 
     cpu = torch.device("cpu")
@@ -508,14 +508,15 @@ def test_fs_cases_are_the_edges_they_name(fs_index):
         assert chip_smoke._fs_diff(got, want) == (0, 0), name
         w = chip_smoke.fs_work(fn, args, want)  # its replay gives want
         if fn == "seed_intervals":
-            ori, length = args[1], args[4]
+            ori, length = args[1], args[3].length
             assert (length < k).any() and (length >= k).any()
             assert ori.B * 2 * args[2] == length.shape[0]
             if name != "packed_uniform":
-                assert (args[3] >= ori.L).any()      # starts past L
+                assert (args[3].start >= ori.L).any()      # starts past L
                 assert (ori.rc_len < k).any() and (ori.rc_len == 1).any()
         if label == "FS1":
-            assert w["lanes"] == args[-4 if fn != "backward_search" else 2
+            assert w["lanes"] == args[{"seed_intervals": 3,
+                                       "backward_search": 2}.get(fn, -4)
                                       ].shape[0]
             assert (w["steps"] > 0) == (name[:3] != "lut")
             assert w["sectors"] > w["bytes"] > 0
@@ -526,11 +527,11 @@ def test_fs_cases_are_the_edges_they_name(fs_index):
             assert w["placements"] == 512 and w["words"] > 0
         if fn == "count_mismatches_rows":
             ori, rows = args[2], args[3]
-            rc = ori.rc_len[(rows[rows >= ori.B] - ori.B)]
+            rc = ori.rc_lengths()[(rows[rows >= ori.B] - ori.B)]
             if name.startswith("verify_L"):   # the kernel's other widths
                 assert ori.L == int(name[len("verify_L"):])
             if name == "verify_uniform":
-                assert (ori.rc_len == ori.L - 10).all()
+                assert (ori.rc_lengths() == ori.L - 10).all()
             else:   # each edge length's reverse complement is verified
                 for m in chip_smoke.RC_EDGES + (ori.L,):
                     assert (rc == m).any(), (name, m)
@@ -663,7 +664,7 @@ def test_path_calls_and_kernel_rows(fs_index):
     assert {"seed_intervals", "lane_counts", "expand_decode", "dedupe",
             "count_mismatches_rows", "search_wire",
             "seed_expand_decode"} == set(fns)
-    assert fns[0] == "seed_intervals" and calls[0][1][6] == "lut"
+    assert fns[0] == "seed_intervals" and calls[0][1][5] == "lut"
     assert calls[0][1][1].L == 120      # phase 4's 120-wide rows
     # the seeding as _deep_dp_round seeds 120-wide rows: 4 seeds a read
     seed = calls[-1][1]
@@ -792,8 +793,8 @@ def test_expansion_and_block_edge_cases(fs_index):
         assert w["block_sectors"] > 0 and w["sectors"] > 0
         if fn == "expand_decode":
             totals[name] = int(args[2][-1])
-            assert w["slots"] == args[6] and w["walked"] == min(
-                args[6], totals[name])
+            assert w["slots"] == args[5] and w["walked"] == min(
+                args[5], totals[name])
         if name.startswith("blocks"):
             assert (args[0].n // 16 + 1) % 4 == int(name[9])  # BWT words
         if fn == "seed_expand_decode":   # a 64 kbp text: below the start
@@ -842,7 +843,7 @@ def test_seed_expansion_and_dedupe_cases(fs_index):
             if total:
                 cnt = incl.diff(prepend=incl.new_zeros(1))
                 assert set(cnt.tolist()) == {0, 1, 63, 64}
-                assert {0, 74} <= set(sp.tolist())
+                assert {0, 74} <= set(sp.start.tolist())
     w = work["dedupe_uniq_gt_K2"]
     assert w["uniq"] > w["K2"] and w["hb"] == 13
     assert work["dedupe_uniq_eq_K2"]["uniq"] == work["dedupe_uniq_eq_K2"]["K2"]
@@ -914,6 +915,140 @@ def test_count_and_wire_cases(fs_index):
              "spin_kernel": [1.0, 2], "search_wire_kernel": [0.01, 1]}
     assert chip_smoke.library_items(items) == {
         "void at::native::vectorized_elementwise_kernel": 3}
+
+
+def test_count_edge_cases(fs_index):
+    """Phase 2's FS5 cases at the edges of its tile: one lane; one below,
+    at and one above one and two tiles (the seeding's mode), two below,
+    at and two above a tile (the search's, S = 1); intervals past 2^31;
+    lanes x cap just under 2^31 in both modes. Each is the edge it
+    names; on the CPU the entry point is its plain version; the bound
+    counts 24 bytes a lane."""
+    from soap3dp_tpu_torch.fm import fmindex
+    from soap3dp_tpu_torch.kernels import fm_search as fs
+
+    cases = chip_smoke.count_edge_cases(np.random.default_rng(23), "cpu")
+    tile = fs.COUNT_TILE
+    lanes = {}
+    for name, fn, args in cases:
+        got = fmindex.lane_counts(*chip_smoke.fresh_args(fn, args))
+        want = fmindex.lane_counts_plain(*chip_smoke.fresh_args(fn, args))
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
+        w = chip_smoke.fs_work(fn, args, want)
+        lanes[name] = RS = args[0].shape[0]
+        assert w["bytes"] >= 24 * RS
+        if "past_2^31" in name:
+            assert int(args[0].min()) >= 1 << 31
+        if "near_2^31" in name:
+            assert (1 << 31) - RS <= RS * args[2] < 1 << 31
+            assert int(want[1]) > (1 << 31) - 2 * RS
+    assert lanes["counts_edge_one_lane"] == 1
+    assert {tile - 1, tile, tile + 1, 2 * tile - 1, 2 * tile + 1} <= set(
+        v for k, v in lanes.items() if "_seed_" in k)
+    assert {tile - 2, tile, tile + 2} <= set(
+        v for k, v in lanes.items() if "_search_" in k)
+
+
+def test_scan_share_check_on_cpu():
+    """FS5's calls around FS4's on the scan state they share
+    (chip_smoke.scan_share_check): on the CPU, the plain versions, every
+    output equal, six calls."""
+    assert chip_smoke.scan_share_check(np.random.default_rng(31), "cpu") == 6
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_fs5_edges_and_shared_scan_state_on_the_card():
+    """FS5 against lane_counts_plain on the card at its tile's edges, in
+    both modes (chip_smoke.count_edge_cases), every element, one launch a
+    call; then FS5 and FS4 calls in a row on the scan state they share
+    (chip_smoke.scan_share_check), its size, generation and tickets
+    after each call."""
+    from soap3dp_tpu_torch.fm import fmindex
+    from soap3dp_tpu_torch.kernels import fm_search as fs
+
+    dev = _card()
+    rng = np.random.default_rng(37)
+    for name, fn, args in chip_smoke.count_edge_cases(rng, dev):
+        n0 = fs.LANE_COUNTS_KERNEL.launches
+        got = fmindex.lane_counts(*chip_smoke.fresh_args(fn, args))
+        assert fs.LANE_COUNTS_KERNEL.launches == n0 + 1
+        want = fmindex.lane_counts_plain(*chip_smoke.fresh_args(fn, args))
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
+    assert chip_smoke.scan_share_check(rng, dev) == 6
+
+
+@pytest.mark.cuda
+def test_fs1_fs3_new_argument_forms_on_the_card():
+    """FS1 with its seeds made from the reads' lengths and FS3 with the
+    dedupe's placements as they are (chip_smoke.seed_bound_cases,
+    placement_cases), on a 2 Mbp index, against their plain versions,
+    every element."""
+    from soap3dp_tpu_torch import workloads
+    from soap3dp_tpu_torch.fm import fmindex
+    from soap3dp_tpu_torch.index.builder import build_index
+
+    dev = _card()
+    rng = np.random.default_rng(41)
+    genome = workloads.random_genome(rng, 2_000_000)
+    didx = fmindex.device_index(build_index(genome, sa_rate=2, lut_k=10),
+                                dev)
+    for name, fn, args in (
+            chip_smoke.seed_bound_cases(rng, didx, genome.codes, dev)
+            + chip_smoke.placement_cases(rng, didx, genome.codes, dev)):
+        got = getattr(fmindex, fn)(*args)
+        want = getattr(fmindex, chip_smoke.plain_of(fn))(*args)
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
+
+
+def test_seed_bound_and_placement_cases(fs_index):
+    """Phase 2's FS1 cases with seeds made from the reads' lengths (the
+    pigeonhole edges: reads of length 0 and shorter than S, seed_q, a
+    seed range, uneven lengths, a mesh-padded and a uniform batch; the
+    staged seeds' edges) and FS3's with the dedupe's placements as they
+    are (sentinel rows, invalid slots of any position): each is the edge
+    it names, the entry point is its plain version on the CPU, and the
+    replay behind FS1's bound gives the plain output."""
+    from soap3dp_tpu_torch.fm import fmindex
+
+    codes, didx = fs_index
+    rng = np.random.default_rng(29)
+    cases = (chip_smoke.seed_bound_cases(rng, didx, codes, "cpu", B=64)
+             + chip_smoke.placement_cases(rng, didx, codes, "cpu", B=64,
+                                          M=2000))
+    assert [c[0] for c in cases] == [
+        "seeds_len0", "seeds_shorter_than_S", "seeds_seed_q",
+        "seeds_seed_range", "seeds_uneven", "seeds_mesh_pad",
+        "seeds_uniform", "seeds_staged_short_reads",
+        "seeds_staged_pos_past_end", "seeds_staged_len0",
+        "verify_placements_ragged", "verify_placements_uniform"]
+    for name, fn, args in cases:
+        got = getattr(fmindex, fn)(*args)
+        want = getattr(fmindex, chip_smoke.plain_of(fn))(*args)
+        assert chip_smoke._fs_diff(got, want) == (0, 0), name
+        w = chip_smoke.fs_work(fn, args, want)   # FS1's replay gives want
+        assert w["bytes"] > 0
+        if fn == "seed_intervals":
+            ori, S, seeds = args[1], args[2], args[3]
+            start, length = seeds.bounds(S)
+            assert start.shape[0] == 2 * ori.B * S and seeds.start is None
+            if name in ("seeds_len0", "seeds_shorter_than_S",
+                        "seeds_staged_len0"):
+                assert (length == 0).any() and (length > 0).any()
+            if name == "seeds_seed_range":
+                assert seeds.lo == 1 and S == 2
+            if name == "seeds_staged_pos_past_end":
+                assert (seeds.pos.long().max(dim=1).values
+                        > seeds.lens.long()).any()
+        else:
+            valid = args[5]
+            assert (~valid).any() and (args[3][~valid] == 0x7FFFFFFF).all()
+            assert w["placements"] == args[1].shape[0]
 
 
 def test_rank_by_loss_over_a_launch_histogram():

@@ -243,7 +243,8 @@ def test_seed_ranks_route_matches_one_device(small_genome):
     l = torch.from_numpy(rng.integers(0, one.n - 200, RS))
     sp = torch.from_numpy(rng.integers(0, 75, RS))
     for K in (int(incl[-1]) + 50, int(incl[-1]) // 2):
-        want = tf.seed_expand_plain(one, l, incl, sp, S, K)
+        want = tf.seed_expand_plain(one, l, incl, tf.SeedLanes.given(sp), S,
+                                    K)
         k = torch.arange(K)
         live = k < incl[-1]
         lane = torch.where(live, torch.searchsorted(incl, k, right=True), 0)

@@ -294,8 +294,9 @@ def test_seed_cand_batch_matches_reference(edges, case):
         ori = tf.OrientedReads.of(torch.from_numpy(reads),
                                   torch.from_numpy(lens))
         sp2 = torch.from_numpy(np.concatenate([sp, sp])).long().reshape(-1)
-        l, r = tf.seed_intervals(td, ori, 2, sp2, torch.full_like(sp2, 26),
-                                 26, "general")
+        l, r = tf.seed_intervals(
+            td, ori, 2, tf.SeedLanes.given(sp2, torch.full_like(sp2, 26)),
+            26, "general")
         assert set((r - l).tolist()) >= {0, 1} | set(COPIES)
         live = np.arange(valid.shape[0]) < jtotal
         assert (live & ~valid).any()       # decoded below the seed start
@@ -323,6 +324,50 @@ def test_seed_cand_batch_on_sparse_lanes_matches_reference(edges, case):
     assert int(r.min()) >= 150 and int(r.max()) < n - 70   # no random read
 
 
+@pytest.mark.parametrize("case", ["short_reads", "pos_past_end",
+                                  "len0", "mesh_pad"])
+def test_seed_cand_batch_staged_seeds_match_reference(edges, case):
+    """The staged seeds' clamps into each read, which the port's FS1 and
+    FS2s make from the B reads' seed_pos, seed_len and lens as they load
+    them (fmindex.SeedLanes.staged), against the reference's concatenates,
+    minimums and clamps (soap3dp_tpu/pipeline/dp_rescue.py:155-164):
+    reads shorter than their seed, seeds past the read's end, reads of
+    length 0, and a batch padded to a mesh multiple with copies of read
+    0; the packed words equal word for word, and the total. Tolerance:
+    zero."""
+    jd, td, reads, lens, sp, sl = edges
+    rng = np.random.default_rng(["short_reads", "pos_past_end", "len0",
+                                 "mesh_pad"].index(case) + 50)
+    reads, lens, sp, sl = (a.copy() for a in (reads, lens, sp, sl))
+    if case == "short_reads":
+        lens[::3] = rng.integers(1, 26, len(lens[::3]))
+    elif case == "pos_past_end":
+        sp[::2, 1] = rng.integers(80, 150, len(sp[::2]))
+    elif case == "len0":
+        lens[::5] = 0
+    else:
+        pad = -len(lens) % 8 or 8
+        reads, lens, sp, sl = (np.concatenate([a, np.repeat(a[:1], pad, 0)])
+                               for a in (reads, lens, sp, sl))
+    for i, n in enumerate(lens):
+        reads[i, n:] = 0
+    (row, pos, valid, total), _, jtotal = _seed_batches(
+        (jd, td, reads, lens, sp, sl), lambda t: t + 100)
+    assert int(total) == jtotal > 0
+    start, length = tf.SeedLanes.staged(
+        torch.from_numpy(sp), torch.from_numpy(sl),
+        torch.from_numpy(lens)).bounds(sp.shape[1])
+    ln2 = np.concatenate([lens, lens]).astype(np.int64)
+    sl2 = np.concatenate([sl, sl]).astype(np.int64)
+    want = np.minimum(np.concatenate([sp, sp]),
+                      np.maximum(ln2 - sl2, 0)[:, None]).reshape(-1)
+    np.testing.assert_array_equal(start.numpy(), want)
+    np.testing.assert_array_equal(
+        length.numpy(), np.repeat(np.minimum(sl2, ln2), sp.shape[1]))
+    if case in ("short_reads", "len0"):
+        assert (length.numpy() < 26).any()
+
+
 def test_seed_expand_on_cpu_takes_the_plain_version(edges):
     """seed_expand_decode on CPU tensors is its plain version and
     launches nothing; the kernel wrappers refuse CPU tensors."""
@@ -331,7 +376,8 @@ def test_seed_expand_on_cpu_takes_the_plain_version(edges):
     cnt = np.minimum(rng.choice([0, 1, 63, 64, 65, 200], 600), 64)
     args = (td, torch.from_numpy(rng.integers(0, td.n - 200, 600)),
             torch.from_numpy(np.cumsum(cnt)),
-            torch.from_numpy(rng.integers(0, 75, 600)), 3, 20000)
+            tf.SeedLanes.given(torch.from_numpy(rng.integers(0, 75, 600))),
+            3, 20000)
     n0 = fs.SEED_EXPAND_KERNEL.launches
     got, want = tf.seed_expand_decode(*args), tf.seed_expand_plain(*args)
     assert got.dtype == torch.int32 and torch.equal(got, want)
@@ -353,7 +399,8 @@ def test_seed_expand_kernel_matches_plain(edges):
     for K in (int(cnt.sum()), int(cnt.sum()) // 2, 1024):
         args = (td, torch.from_numpy(rng.integers(0, td.n - 200, 600)).to(dev),
                 torch.from_numpy(np.cumsum(cnt)).to(dev),
-                torch.from_numpy(rng.integers(0, 75, 600)).to(dev), 3, K)
+                tf.SeedLanes.given(
+                    torch.from_numpy(rng.integers(0, 75, 600)).to(dev)), 3, K)
         n0 = fs.SEED_EXPAND_KERNEL.launches
         got, want = tf.seed_expand_decode(*args), tf.seed_expand_plain(*args)
         assert fs.SEED_EXPAND_KERNEL.launches == n0 + 1
@@ -494,3 +541,15 @@ def test_search_wire_kernel_matches_plain():
     got = tf.search_wire(wire.clone(), *args)
     assert fs.SEARCH_WIRE_KERNEL.launches == n0 + 1
     assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_copy_prefix_refuses_cpu_tensors():
+    """The seeding's prefix copy (fm_search.copy_prefix) takes a CUDA
+    tensor only; _prefix_to_host gives the CPU's prefix from its slices,
+    each third's first words as u32."""
+    packed = torch.arange(12, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.copy_prefix(packed, 3, 2)
+    np.testing.assert_array_equal(tr._prefix_to_host(packed, 4, 2),
+                                  np.array([[0, 1], [4, 5], [8, 9]],
+                                           np.uint32))

@@ -209,8 +209,9 @@ def test_expand_decode_plain_matches_reference_compaction(decode_pair, case):
     else:
         reps = [td]
     for rep in reps:
-        got = tf.expand_decode_plain(rep, _t(l), incl, _t(sstart), _t(olens),
-                                     S, K)
+        got = tf.expand_decode_plain(
+            rep, _t(l), incl, tf.SeedLanes.given(_t(sstart), lens=_t(olens)),
+            S, K)
         for a, b, name in zip(got, want, ("krow", "ktp", "pos_ok")):
             assert a.dtype == b.dtype and torch.equal(a, b), name
     assert want[2].sum() > 0 or total == 0 or case == "total_0"
@@ -222,7 +223,8 @@ def test_expand_decode_on_cpu_takes_the_plain_version(decode_pair):
     _, td = decode_pair
     l, width, cap, sstart, olens, K = _lanes(td, "overflow", seed=3)
     cnt = np.where(width > cap, 0, np.minimum(width, cap))
-    args = (td, _t(l), _t(np.cumsum(cnt)), _t(sstart), _t(olens), S, K)
+    args = (td, _t(l), _t(np.cumsum(cnt)),
+            tf.SeedLanes.given(_t(sstart), lens=_t(olens)), S, K)
     n0 = fs.EXPAND_KERNEL.launches
     got, want = tf.expand_decode(*args), tf.expand_decode_plain(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -309,7 +311,8 @@ def test_expand_decode_kernel_matches_plain(decode_pair, case):
     l, width, cap, sstart, olens, K = _lanes(td, case)
     cnt = np.where(width > cap, 0, np.minimum(width, cap))
     args = (td, _t(l).to(dev), _t(np.cumsum(cnt)).to(dev),
-            _t(sstart).to(dev), _t(olens).to(dev), S, K)
+            tf.SeedLanes.given(_t(sstart).to(dev), lens=_t(olens).to(dev)),
+            S, K)
     n0 = fs.EXPAND_KERNEL.launches
     got, want = tf.expand_decode(*args), tf.expand_decode_plain(*args)
     assert fs.EXPAND_KERNEL.launches == n0 + 1

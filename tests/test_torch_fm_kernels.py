@@ -142,8 +142,8 @@ def test_seed_intervals_plain_matches_reference(pair, base, mode, source,
     ori = _ori(reads, lens, source, uniform)
     np.testing.assert_array_equal(np.asarray(oriented),
                                   ori.matrix.numpy())
-    tl, tr = tf.seed_intervals_plain(td, ori, S, _t(start), _t(length), steps,
-                                     mode)
+    tl, tr = tf.seed_intervals_plain(
+        td, ori, S, tf.SeedLanes.given(_t(start), _t(length)), steps, mode)
     _eq(jl, tl)
     _eq(jr, tr)
     assert (tr > tl).any()  # seeds with hits
@@ -227,12 +227,12 @@ def test_count_mismatches_rows_plain_matches_reference(pair, base, source,
                                       words[rows], jnp.asarray(olens))
     ori = _ori(reads, lens, source, rc_uniform)
     got = tf.count_mismatches_rows_plain(td, _t(tp), ori, _t(rows),
-                                         _t(olens))
+                                         _t(lens))
     _eq(want, got)
     assert (got.numpy() > (0 if 0 < uniform <= 16 else 2)).any()
     assert (rows >= B).sum() > M // 3     # reverse complements verified
     if uniform:
-        assert (ori.rc_len == uniform).all() and uniform <= L
+        assert (ori.rc_lengths() == uniform).all() and uniform <= L
     if case == "last_word":
         assert (tp >> 4 >= n // 16 - 1).all() and (tp >> 4 == n // 16).any()
 
@@ -247,7 +247,8 @@ def test_cpu_tensors_take_the_plain_versions(pair, base):
     reads, lens = _reads(base[0], 11)
     ori = _ori(reads, lens, "packed")
     start, length = _segments(12, "general", td.lut_k)
-    args = (td, ori, S, _t(start), _t(length), 20, "general")
+    seeds = tf.SeedLanes.given(_t(start), _t(length))
+    args = (td, ori, S, seeds, 20, "general")
     for a, b in zip(tf.seed_intervals(*args), tf.seed_intervals_plain(*args)):
         assert torch.equal(a, b)
     oriented = ori.matrix
@@ -266,7 +267,7 @@ def test_cpu_tensors_take_the_plain_versions(pair, base):
     tp = _t(np.arange(0, 16 * 300, 16))
     prow = torch.arange(300) % (2 * B)
     olens = torch.cat([_t(lens), _t(lens)])[prow]
-    c = (td, tp, ori, prow, olens)
+    c = (td, tp, ori, prow, _t(lens))
     assert torch.equal(tf.count_mismatches_rows(*c),
                        tf.count_mismatches_rows_plain(*c))
     w = tf.pack_reads(oriented)[prow]
@@ -275,14 +276,14 @@ def test_cpu_tensors_take_the_plain_versions(pair, base):
     assert [k.launches for k in (fs.SEARCH_KERNEL, fs.DECODE_KERNEL,
                                  fs.VERIFY_KERNEL)] == [0, 0, 0]
     with pytest.raises(ValueError, match="CUDA"):
-        fs.search(td, ori.source(), S, _t(start).long(),
-                  _t(length).long(), 20, "general")
+        fs.search(td, ori.source(), S, seeds, 20, "general")
     with pytest.raises(ValueError, match="CUDA"):
         fs.sa_decode(td, d[1], d[2])
     with pytest.raises(ValueError, match="CUDA"):
-        fs.verify(td, ori.source(), prow, tp, olens, (L + 15) // 16)
+        fs.verify(td, ori.source(), prow, tp, None, _t(lens),
+                  (L + 15) // 16)
     with pytest.raises(ValueError, match="unknown mode"):
-        tf.seed_intervals(td, ori, S, _t(start), _t(length), 20, "fast")
+        tf.seed_intervals(td, ori, S, seeds, 20, "fast")
 
 
 def test_oriented_reads_layouts(base):
@@ -296,7 +297,7 @@ def test_oriented_reads_layouts(base):
     ori = _ori(reads, lens, "packed")
     assert ori.matrix is ori.matrix  # made once for every plain version
     u = tf.OrientedReads.of(_t(reads), _t(lens), uniform_len=L + 5)
-    assert (u.rc_len == L).all()
+    assert u.rc_len is None and (u.rc_lengths() == L).all()
     assert torch.equal(u.matrix[B:],
                        tf.revcomp_reads_uniform(_t(reads), L))
     src = _ori(reads, lens, "packed").source()
@@ -317,7 +318,10 @@ def _on(dev, x):
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     if isinstance(x, tf.OrientedReads):
-        return tf.OrientedReads(x.reads.to(dev), x.L, x.rc_len.to(dev))
+        return tf.OrientedReads(x.reads.to(dev), x.L, _on(dev, x.rc_len),
+                                x.rc_all)
+    if isinstance(x, tf.SeedLanes):
+        return tf.SeedLanes(**{k: _on(dev, v) for k, v in vars(x).items()})
     return x
 
 
@@ -337,7 +341,7 @@ def test_fs1_kernel_matches_plain(pair, base, mode, source):
     reads, lens = _reads(base[0], 15)
     start, length = _segments(16, mode, td.lut_k)
     args = [_on(dev, x) for x in (td, _ori(reads, lens, source), S,
-                                   _t(start), _t(length),
+                                   tf.SeedLanes.given(_t(start), _t(length)),
                                    {"lut": 0, "packed": 16,
                                     "general": 40}[mode], mode)]
     n0 = fs.SEARCH_KERNEL.launches
@@ -367,6 +371,6 @@ def test_fs3_kernel_matches_plain(base, source):
     tp = rng.integers(0, td.n, 1000)
     tp[:4] = [0, 16, td.n - 1, td.n - int(olens[3])]
     args = [_on(dev, x) for x in (td, _t(tp), _ori(reads, lens, source),
-                                   _t(rows), _t(olens))]
+                                   _t(rows), _t(lens))]
     _same(tf.count_mismatches_rows(*args),
           tf.count_mismatches_rows_plain(*args))

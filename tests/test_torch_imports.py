@@ -28,7 +28,8 @@ def _sources():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "compare_e2e.py",
                                            "compare_kernels.py",
                                            "compare_prescan.py",
-                                           "compare_search.py")]
+                                           "compare_search.py",
+                                           "compare_seed_forms.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -271,3 +271,135 @@ def test_search_batch_wire_matches_reference(repeat_indexes, k, setting):
     assert (ht.row[~ht.valid] == 0xFFFFFF).all()   # no hit: the clipped
     if setting == "round1":                        # sentinel
         assert ht.flagged.any() and not ht.flagged[40:].any()
+
+
+SEED_EDGES = ("len0", "shorter_than_S", "seed_q", "lut", "seed_range",
+              "uneven", "mesh_pad", "uniform")
+
+
+@pytest.mark.parametrize("edge", SEED_EDGES)
+def test_search_batch_wire_seed_bounds_match_reference(repeat_indexes, edge):
+    """The seeds' bounds, which the port's kernels make from each read's
+    length (fmindex.SeedLanes), against the reference's _seed_bounds,
+    through one dispatch's result wire, word for word, and directly
+    (SeedLanes.bounds), at their edges: reads of length 0; reads shorter
+    than S (empty segments); seed_q truncating the segments (the packed
+    branch) and at lut_k with no FM step (the LUT-only branch); the seed
+    range (1, 3) of S = 3; lengths from 1 to L; a batch padded to a mesh
+    multiple with copies of read 0; a uniform-length batch. k = 2, so
+    S = 3; 45 reads (not a multiple of 32), some in the repeat.
+    Tolerance: zero."""
+    import jax.numpy as jnp
+
+    codes, jd, td = repeat_indexes
+    rng = np.random.default_rng(SEED_EDGES.index(edge) + 300)
+    B, L, S = 45, 60, 3
+    starts = np.concatenate([rng.integers(0, 1400, 15),
+                             rng.integers(1500, len(codes) - L, B - 15)])
+    reads = np.stack([codes[p:p + L] for p in starts]).astype(np.uint8)
+    lens = rng.integers(40, L + 1, B).astype(np.int32)
+    seed_q, lo, hi, uniform = 0, 0, 0, 0
+    if edge == "len0":
+        lens[::4] = 0
+    elif edge == "shorter_than_S":
+        lens[::3] = rng.integers(1, S, len(lens[::3]))
+    elif edge == "seed_q":
+        seed_q = 6
+    elif edge == "lut":
+        seed_q = jd.lut_k
+    elif edge == "seed_range":
+        lo, hi = 1, 3
+    elif edge == "uneven":
+        lens = rng.integers(1, L + 1, B).astype(np.int32)
+    elif edge == "mesh_pad":
+        pad = 48 - B
+        reads = np.concatenate([reads, np.repeat(reads[:1], pad, 0)])
+        lens = np.concatenate([lens, np.repeat(lens[:1], pad)])
+    elif edge == "uniform":
+        lens[:] = 52
+        uniform = 52
+    for i, n in enumerate(lens):
+        reads[i, n:] = 0
+    B = reads.shape[0]
+    S_eff = (hi or S) - lo
+    if seed_q:
+        steps = 0 if edge == "lut" else js._steps_for(jd, seed_q, 0)
+    else:
+        longest = -(-L // S)
+        steps = js._steps_for(jd, longest,
+                              min(int(lens.min()) // S, longest))
+    cfg_j, cfg_t = js.SearchConfig(k=2), ts.SearchConfig(k=2)
+    cap = 64 if edge == "lut" else 4      # 4-mer intervals are wide
+    kw = dict(K2=0, uniform_len=uniform, seed_lo=lo, seed_hi=hi)
+    wj = np.asarray(js._search_batch_wire(
+        jd, jnp.asarray(reads), jnp.asarray(lens), cfg_j, cap, steps, seed_q,
+        0, **kw))
+    wt = ts._search_batch_wire(td, torch.from_numpy(reads),
+                               torch.from_numpy(lens), cfg_t, cap, steps,
+                               seed_q, 0, **kw)
+    np.testing.assert_array_equal(wt.numpy().view(np.uint32), wj)
+    tt, ut, _ = ts._parse_wire(wt.numpy(), B, 2 * B * S_eff * cap)
+    assert tt > 0 and ut > 0
+    # the bounds themselves, lane for lane
+    jstart, jlen = js._seed_bounds(jnp.asarray(np.concatenate([lens, lens])),
+                                   S, seed_q)
+    jstart, jlen = (np.asarray(x)[:, lo:hi or S].reshape(-1)
+                    for x in (jstart, jlen))
+    start, length = tf.SeedLanes.pigeonhole(
+        torch.from_numpy(lens), S, lo, seed_q).bounds(S_eff)
+    np.testing.assert_array_equal(start.numpy(), jstart)
+    np.testing.assert_array_equal(length.numpy(), jlen)
+    if edge in ("len0", "shorter_than_S"):
+        assert (length == 0).any() and (length > 0).any()
+    if edge in ("seed_q", "lut"):
+        assert int(length.max()) == seed_q and (jlen < 60 // S).all()
+
+
+@pytest.mark.parametrize("case", ["valid_mask", "sentinel_rows", "uniform"])
+def test_count_mismatches_rows_placements_match_reference(repeat_indexes,
+                                                          case):
+    """FS3's argument prep, done in the port's verify as it loads its
+    arguments (rows clamped to the 2B oriented rows, positions 0 where
+    the slot holds no placement, each row's read length from the B
+    lengths), against the reference's lines (soap3dp_tpu/fm/search.py
+    :305-310: clamp, where, olens gather, count_mismatches_packed): slots
+    past the firsts (ROW_SENTINEL, not valid), invalid slots with any
+    position, a uniform-length batch. Tolerance: zero."""
+    import jax.numpy as jnp
+
+    codes, jd, td = repeat_indexes
+    rng = np.random.default_rng(["valid_mask", "sentinel_rows",
+                                 "uniform"].index(case) + 400)
+    B, L, M = 45, 60, 3000
+    starts = rng.integers(0, len(codes) - L, B)
+    reads = np.stack([codes[p:p + L] for p in starts]).astype(np.uint8)
+    lens = rng.integers(1, L + 1, B).astype(np.int32)
+    uniform = 52 if case == "uniform" else 0
+    if uniform:
+        lens[:] = uniform
+    for i, n in enumerate(lens):
+        reads[i, n:] = 0
+    urow = rng.integers(0, 2 * B, M).astype(np.int64)
+    valid = rng.random(M) < 0.7
+    if case == "sentinel_rows":
+        urow[~valid] = 0x7FFFFFFF
+    utp = rng.integers(0, jd.n, M).astype(np.int64)
+    utp[~valid] = rng.integers(0, 1 << 32, int((~valid).sum()))
+    # the reference's lines
+    rc = (jf.revcomp_reads_uniform(jnp.asarray(reads), uniform) if uniform
+          else jf.revcomp_reads(jnp.asarray(reads), jnp.asarray(lens)))
+    oriented = jnp.concatenate([jnp.asarray(reads), rc], axis=0)
+    olens = jnp.concatenate([jnp.asarray(lens)] * 2)
+    urow_c = jnp.clip(jnp.asarray(urow.astype(np.int32)), 0, 2 * B - 1)
+    tp = jnp.where(jnp.asarray(valid), jnp.asarray(utp.astype(np.uint32)),
+                   jnp.uint32(0))
+    want = jf.count_mismatches_packed(jd, tp, jf.pack_reads(oriented)[urow_c],
+                                      olens[urow_c])
+    ori = tf.OrientedReads.of(torch.from_numpy(reads), torch.from_numpy(lens),
+                              uniform_len=uniform)
+    got = tf.count_mismatches_rows(td, torch.from_numpy(utp), ori,
+                                   torch.from_numpy(urow),
+                                   torch.from_numpy(lens),
+                                   torch.from_numpy(valid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[torch.from_numpy(valid)] < 5).any()
