@@ -6,22 +6,29 @@ Phases, each printing one line, any failure exits non-zero:
 
 1. device and build: the card's name and power limit, and the build of
    every kernel from csrc/ (one nvcc per source, started together:
-   banded_dp.cu, dp_forward.cu, fm_search.cu) with its registers and
-   spills;
+   banded_dp.cu, dp_forward.cu, dp_wire.cu, fm_search.cu) with its
+   registers and spills;
 2. each kernel against its plain-torch version on the card, outputs
    exactly equal, both times printed with each kernel's bound and
    share (a kernel's time is its device time, torch.profiler's device
    events, with the CUDA-event time of a call in a loop of calls
    beside it): K1 (the fused DP) at the main path's shapes, then at the edges
    of the forward (reads of 31, 32, 33, 127, 128 and 2047 bases, ties
-   on the best score across diagonals, anchors, a run-budget overflow
-   that re-launches K1); K2 (forward only) at K1's main shape (the
+   on the best score across diagonals, anchors, alignments of more than
+   128 runs); K2 (forward only) at K1's main shape (the
    difference is K1's traceback and scratch share) and, with TB (its
    traceback), at the mate-pair rescue window, an edge shape and a case
-   that re-launches TB, where dp_align's wide route is also held
+   of more than 128 runs, where dp_align's wide route is also held
    against K1 at the same shape and TB's window rule is replayed on K2's
    directions (every cell a walk visits inside the bytes its warp
-   fetched; the windows and 32-byte sectors counted for TB's bound);
+   fetched; the windows and 32-byte sectors counted for TB's bound), no
+   host sync counted inside the wide route's chunk loop (torch.cuda's
+   sync debug mode over it, a sync made under it counted first); DW
+   (the DP's result wire) against its plain version, every word of the
+   wire, on K1's outputs at phase 4's largest call and on K2's and TB's
+   at phase 5's, and at its edges (no lane passing, every lane passing,
+   counts of 4,095, overflowed lanes, lanes one past a block's tile and
+   an odd count of 16-bit words, one lane, 32-bit words);
    then K1 and K2 (every dirs byte) at
    the edges of the forward's two forms: reads of 255 bases at scores
    of magnitude 15 (the 16-bit form's limits: every base mismatched,
@@ -100,13 +107,17 @@ Phases, each printing one line, any failure exits non-zero:
    shape of FS1 to FS6, and after the phase each is held to its plain
    version, every element, with its device time and bound, failing on a
    launch shape no kept call ran at (the kernels line's FS2s is phase
-   4's largest seeding);
+   4's largest seeding); every dp_align call of the run (K1 and DW) is
+   kept the same way and held to the plain dp_align, the whole tuple;
 5. mate-pair: a -/+ library of 2-6 kbp inserts aligned with
    -v 2000 -u 6000 and SOAP3DP_HALF_NARROW_PAD=0 (the half rescue over
    the whole insert window, where dp_align takes K2 + TB). First 200
    pairs on a 200 kbp genome, on cuda and on cpu, SAM records equal;
    then 100,000 pairs on phase 4's 250 Mbp index, checking records,
-   recall and the launches of K1, K2, TB, GP and PK;
+   recall and the launches of K1, K2, TB, GP and PK; each launch shape
+   of its dp_align calls (K1's and the wide route's, DW) held to the
+   plain dp_align, the whole tuple, no host sync counted inside the wide
+   route's chunk loop;
 6. single-end: the port's `single` CLI over phase 4's end-1 reads on the
    same index, checking records, recall and K1 and PK launches
    (salvage);
@@ -166,7 +177,7 @@ Phases, each printing one line, any failure exits non-zero:
 
 Then a `wall:` line (each part's seconds), one JSON line with the
 kernels (K1, K2, TB, FS1, FS2, FS2x, FS3, FS4, FS2s, FS5, FS6, GP, PK,
-each with
+DW, each with
 its device time, its bound on this card, the share of the bound it
 reaches and the operations peak the bound used: int16x2, twice the
 int32 peak, where the 16-bit forward runs; its launches on the main
@@ -280,7 +291,8 @@ def main_path_problems(rng, P, Lr, Lw, read_len=None):
 
 def overflow_problems(rng, P, Lr, Lw):
     """Every other base mismatched, no free clips, a cutoff far below
-    any score: each alignment has ~Lr runs, past the first run budget."""
+    any score: each alignment has ~Lr runs, past 128, the first run
+    budget before the run budget."""
     wins = rng.integers(0, 4, size=(P, Lw)).astype(np.uint8)
     reads = wins[:, 20:20 + Lr].copy()
     reads[:, 1::2] = (reads[:, 1::2] + 1 + (np.arange(Lr)[1::2] % 3)) % 4
@@ -293,8 +305,9 @@ def overflow_problems(rng, P, Lr, Lw):
 def relaunch_problems(rng, P, Lr, Lw):
     """All-A reads against A-x-A-x windows under gap open = extend = -1
     (DPScores(1, -2, -1, -1)): the best path alternates a match and a
-    1-base deletion, ~2 Lr runs, past the traceback's first run budget;
-    the cutoff is far below any score."""
+    1-base deletion, ~2 Lr runs, past 128 (the traceback's first run
+    budget before the run budget, which re-launched it); the cutoff is
+    far below any score."""
     wins = rng.integers(1, 4, (P, Lw)).astype(np.uint8)
     wins[:, ::2] = 0
     z = np.zeros(P, np.int32)
@@ -327,7 +340,8 @@ def edge_cases(rng) -> list[tuple[str, tuple]]:
     """The edges of K1's forward, as dp_align inputs: reads of 31, 32,
     33, 127, 128 and 2047 bases (one lane's worth, word and lane
     boundaries of the cells per lane), ties on the best score across
-    diagonals, anchors, and a run-budget overflow (K1 re-launches)."""
+    diagonals, anchors, and alignments of more than 128 runs (K1's first
+    run budget before the run budget, which re-launched it)."""
     out = []
     for Lr in (31, 32, 33, 127, 128):
         out.append((f"Lr{Lr}", make_problems(rng, 256, Lr, Lr + 300)
@@ -458,35 +472,49 @@ def dp_cells(prob) -> int:
                 * np.asarray(prob[3], np.int64)).sum())
 
 
-def k1_bound(prob, mr: int, peak_ops: float) -> tuple[float, str]:
+def k1_bound(prob, runs: int, peak_ops: float) -> tuple[float, str]:
     """K1: the recurrence's operations; inputs (reads, windows, the
-    (P, 8) parameters) read once and outputs (stats (P, 8), runs and
-    counts (P, MR)) written once. Its direction scratch is internal."""
+    (P, 8) parameters) read once and outputs (stats (P, 8) and this
+    run's ``runs`` run words, 2 or 4 bytes each) written once. Its
+    direction scratch is internal."""
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
     P, Lr = prob[0].shape
-    nbytes = P * (Lr + prob[2].shape[1] + 32 + 32 + 8 * mr)
+    Lw = prob[2].shape[1]
+    nbytes = P * (Lr + Lw + 32 + 32) + runs * bd.word_bits(Lr, Lw) // 8
     return bound_ms(dp_cells(prob) * OPS_PER_CELL, nbytes, peak_ops)
 
 
 def k2_bound(prob, peak_ops: float) -> tuple[float, str]:
-    """K2: the same operations; inputs read once, stats (P, 4) and the
-    whole direction tensor (Lr+Lw, P, Lr+1), its output, written once."""
+    """K2: the same operations; inputs read once, its 4 stats words
+    (P, 4) and the whole direction tensor (Lr+Lw, P, Lr+1), its output,
+    written once."""
     P, Lr = prob[0].shape
     Lw = prob[2].shape[1]
     nbytes = P * (Lr + Lw + 32 + 16) + (Lr + Lw) * P * (Lr + 1)
     return bound_ms(dp_cells(prob) * OPS_PER_CELL, nbytes, peak_ops)
 
 
-def tb_bound(moves: int, P: int, mr: int, peak_ops: float,
+def tb_bound(moves: int, P: int, runs: int, peak_ops: float,
              path_bytes: int | None = None) -> tuple[float, str]:
     """TB: the direction byte of each cell on this run's paths (the
-    walks' moves), its (P, 4) parameters and active mask read once, runs
-    and counts (P, MR) and (P, 4) meta written once; a few operations
-    per move. With ``path_bytes`` (the sectors its windows fetch) in
-    place of the moves, the time of this design's own fetch volume,
-    which is not a bound on the function."""
+    walks' moves), each problem's rlen, clip_l and cutoff and its score
+    and best cell read once, its 4 stats words and this run's ``runs``
+    run words (4 bytes each) written once; a few operations per move.
+    With ``path_bytes`` (the sectors its windows fetch) in place of the
+    moves, the time of this design's own fetch volume, which is not a
+    bound on the function."""
     nbytes = (moves if path_bytes is None else path_bytes) \
-        + P * (16 + 1 + 8 * mr + 16)
+        + P * (12 + 12 + 16) + 4 * runs
     return bound_ms(moves * OPS_PER_CELL, nbytes, peak_ops)
+
+
+def dw_bound(n: int, words: int, bits: int) -> tuple[float, str]:
+    """DW: each lane's score, nrun, overflow flag and cutoff read once,
+    the passing lanes' run words read and written once, the header
+    written: bytes (its operations, a compare and an add a lane, are
+    nothing beside them)."""
+    return bound_ms(0, 16 * n + 2 * words * bits // 8 + 16, 1.0)
 
 
 def _dp_equal(a, b) -> tuple[bool, int]:
@@ -561,14 +589,17 @@ def _timed(fn, reps: int, symbol: str, per_call: int = 1
 
 def _k1_ms(bd, args, reps: int = 10, sc=None
            ) -> tuple[float, float, str]:
-    """(device ms, call ms, timer) of one K1 launch (no host copies),
-    _timed."""
-    reads, rlens, wins, wlens, cl, cr, al, ar, cut = args
-    params = bd._params(rlens, wlens, cl, cr, al, ar, cut)
-    mr = max(bd.MAX_RUNS, bd._max_runs_bound(reads.shape[1]))
+    """(device ms, call ms, timer) of one K1 launch into a result wire
+    (no DW, no host copies), _timed."""
+    reads, wins, params, _ = bd._packed(*args)
+    P, Lr = reads.shape
+    Lw = wins.shape[1]
+    MR = bd.run_budget(Lr, Lw)
+    wire, runs = bd._wire_buffers(P, MR, bd.word_bits(Lr, Lw), reads.device)
+    stats = bd._wire_stats(wire, P)
     sc = sc or bd.DPScores()
-    return _timed(lambda: bd._launch_dp(reads, wins, params, mr, sc), reps,
-                  "dp_align_kernel")
+    return _timed(lambda: bd._launch_dp(reads, wins, params, MR, stats, runs,
+                                        sc), reps, "dp_align_kernel")
 
 
 K1_SEED, WIDE_SEED = 20261016, 20261017  # phase 2's K1 and wide cases
@@ -593,46 +624,67 @@ def k1_cases(rng) -> list[tuple[str, tuple]]:
     ]
 
 
+# the DP kernels of dp_align's two routes (kernels/banded_dp.py)
+DP_LABELS = ("K1", "K2", "TB", "DW")
+
+
 def run_k1_case(name: str, args: list, peak_ops: float, sc=None) -> dict:
-    """One K1 case on the card: dp_align on ``args`` (its nine inputs,
-    on the card) against dp_align_plain on the same tensors, every
-    element, under scores ``sc`` (default DPScores); its launches and
-    their shapes (an overflow's re-launch among them), the kernel's
-    time, the plain version's and the bound."""
+    """One dp_align case on the card: dp_align on ``args`` (its nine
+    inputs, on the card) against dp_align_plain on the same tensors,
+    every element, under scores ``sc`` (default DPScores); the launches
+    of K1, K2, TB and DW in the call and their shapes (``held_shapes``),
+    the plain version's time, and where dp_align takes K1, K1's time and
+    bound (the wide route's K2 and TB are timed in phase_wide_kernels).
+    A wide-route case is labelled K2."""
     from soap3dp_tpu_torch.kernels import banded_dp as bd
 
     sc = sc or bd.DPScores()
-    n0, shapes0 = bd.DP_KERNEL.launches, dict(bd.DP_KERNEL.shapes)
+    kern = _kernels()
+    before = {k: (kern[k].launches, dict(kern[k].shapes)) for k in DP_LABELS}
     got, first_ms = _host_ms(lambda: bd.dp_align(*args, sc=sc))
-    n_launch = bd.DP_KERNEL.launches - n0
-    shapes = ["x".join(map(str, k)) for k, c in bd.DP_KERNEL.shapes.items()
-              if c > shapes0.get(k, 0)]
+    launched = {k: kern[k].launches - before[k][0] for k in DP_LABELS}
+    held = {k: ["x".join(map(str, shape))
+                for shape, c in kern[k].shapes.items()
+                if c > before[k][1].get(shape, 0)] for k in DP_LABELS}
     _, ms = _host_ms(lambda: bd.dp_align(*args, sc=sc), 3)
     want, plain_ms = _host_ms(lambda: bd.dp_align_plain(*args, sc))
     ok, err = _dp_equal(got, want)
-    npass = int((np.asarray(want[6]) > 0).sum())
+    nrun = np.asarray(want[6])
+    npass, runs = int((nrun > 0).sum()), int(nrun.sum())
     prob = [a.cpu().numpy() for a in args]
     P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
-    kms, kcall, ktimer = _k1_ms(bd, args, sc=sc)
-    mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
-    peak, pname = forward_peak(Lr, sc, peak_ops)
-    bms, by = k1_bound(prob, mr, peak)
-    phase("kernel banded_dp",
-          f"{name}: P={P} Lr={Lr} Lw={Lw} equal={ok} max_abs_err={err} "
-          f"passing_lanes={npass} launches={n_launch} "
-          f"first_ms={first_ms:.3f} dp_align_ms={ms:.3f} "
-          f"kernel_ms={kms:.4f} ({ktimer}) call_ms={kcall:.4f} "
-          f"GCUPS={dp_cells(prob) / (kms * 1e6):.1f} "
-          f"bound_ms={bms:.4f} ({by}, {pname} peak) "
-          f"share={bms / kms:.1%} plain_ms={plain_ms:.3f}")
+    row = {"case": name, "kernel": "K1", "shape": f"{P}x{Lr}x{Lw}",
+           "held_shapes": held, "P": P, "Lr": Lr, "Lw": Lw,
+           "launches": launched["K1"], "launched": launched,
+           "max_nrun": int(nrun.max(initial=0)), "runs": runs,
+           "max_abs_err": err, "dp_align_ms": ms, "first_ms": first_ms,
+           "plain_ms": plain_ms}
+    if bd.takes_wide_route(Lr, Lw):
+        row["kernel"] = "K2"
+        phase("kernel banded_dp",
+              f"{name}: P={P} Lr={Lr} Lw={Lw} (the wide route) equal={ok} "
+              f"max_abs_err={err} passing_lanes={npass} launches "
+              f"{launched} first_ms={first_ms:.3f} dp_align_ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f}")
+    else:
+        kms, kcall, ktimer = _k1_ms(bd, args, sc=sc)
+        peak, pname = forward_peak(Lr, sc, peak_ops)
+        bms, by = k1_bound(prob, runs, peak)
+        row.update(kernel_ms=kms, call_ms=kcall, timer=ktimer, bound_ms=bms,
+                   bound_by=by, peak=pname)
+        phase("kernel banded_dp",
+              f"{name}: P={P} Lr={Lr} Lw={Lw} equal={ok} max_abs_err={err} "
+              f"passing_lanes={npass} launches={launched} "
+              f"first_ms={first_ms:.3f} dp_align_ms={ms:.3f} "
+              f"kernel_ms={kms:.4f} ({ktimer}) call_ms={kcall:.4f} "
+              f"GCUPS={dp_cells(prob) / (kms * 1e6):.1f} "
+              f"bound_ms={bms:.4f} ({by}, {pname} peak) "
+              f"share={bms / kms:.1%} plain_ms={plain_ms:.3f}")
     if not ok:
-        fail(f"banded_dp kernel disagrees with its plain version ({name})")
-    return {"case": name, "kernel": "K1", "shape": f"{P}x{Lr}x{Lw}",
-            "launch_shapes": shapes, "P": P, "Lr": Lr, "Lw": Lw,
-            "launches": n_launch,
-            "max_abs_err": err, "dp_align_ms": ms, "kernel_ms": kms,
-            "call_ms": kcall, "timer": ktimer, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "peak": pname}
+        fail(f"dp_align disagrees with its plain version ({name})")
+    if launched["DW"] != 1:
+        fail(f"dp_align launched DW {launched['DW']} times ({name})")
+    return row
 
 
 def phase_kernels(dev, peak_ops: float) -> list[dict]:
@@ -646,19 +698,23 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in prob]
         row = run_k1_case(name, args, peak_ops)
-        if name.startswith("overflow") and row["launches"] != 2:
-            fail("overflow case did not re-launch the DP kernel")
+        if row["launches"] != 1:
+            fail(f"{name} launched K1 {row['launches']} times")
+        if name.startswith("overflow") and row["max_nrun"] <= 128:
+            fail("the overflow case's runs do not pass 128, the first run "
+                 "budget before the run budget")
         max_err = max(max_err, row["max_abs_err"])
         rows.append(row)
         if name == "Lr100_Lw768":
             # K2 on the same problems: what K1 adds is its traceback and
             # its direction scratch
             P, Lr, Lw, kms = row["P"], row["Lr"], row["Lw"], row["kernel_ms"]
-            params = bd._params(args[1], args[3], *args[4:8])
+            params = bd._packed(*args)[2]
             dirs = torch.empty((Lr + Lw, P, Lr + 1), dtype=torch.uint8,
                                device=dev)
+            st = torch.empty((P, 8), dtype=torch.int32, device=dev)
             k2_ms, _, _ = _timed(lambda: bd._launch_forward(
-                args[0], args[2], params, dirs, bd.DPScores()), 10,
+                args[0], args[2], params, dirs, st, bd.DPScores()), 10,
                 "dp_forward_kernel")
             del dirs
             phase("kernel banded_dp",
@@ -680,6 +736,20 @@ def phase_kernels(dev, peak_ops: float) -> list[dict]:
              "call_ms": main["call_ms"], "cases": rows}]
 
 
+def plain_align_from(fwd, args: list) -> tuple:
+    """dp_align_plain's tuple on dp_align's nine inputs ``args``, its
+    forward given (``fwd``: banded_dp._dp_forward_scan's outputs on the
+    same inputs), so a case that holds K2 to the plain forward runs it
+    once."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    params = bd.pack_params(args[1], *args[3:9])
+    return bd._plain_tuple(fwd, torch.from_numpy(params), params[:, 6],
+                           args[0].shape[1], args[2].shape[1])
+
+
 def phase_range_cases(dev) -> tuple[int, int]:
     """K1 and K2 at the edges of the two forward forms (range_cases),
     each exactly equal to its plain version: K1's dp_align result, K2's
@@ -696,15 +766,17 @@ def phase_range_cases(dev) -> tuple[int, int]:
                 for x in prob]
         P, Lr, Lw = prob[0].shape[0], prob[0].shape[1], prob[2].shape[1]
         n0 = bd.DP_KERNEL.launches
-        ok, e1 = _dp_equal(bd.dp_align_cuda(*args, sc=sc),
-                           bd.dp_align_plain(*args, sc=sc))
+        got = bd.dp_align_cuda(*args, sc=sc)
         n_k1 = bd.DP_KERNEL.launches - n0
         fwd = bd.dp_forward(*args[:8], sc=sc)
         plain = bd._dp_forward_scan(*args[:8], sc=sc)
         e2 = max(int((a.long() - b.long()).abs().max())
                  for a, b in zip(fwd[:4], plain[:4]))
         ndiff = int((fwd[4] != plain[4]).sum())
-        del fwd, plain
+        del fwd
+        # the plain dp_align from the same plain forward
+        ok, e1 = _dp_equal(got, plain_align_from(plain, args))
+        del plain
         form = forward_peak(Lr, sc, 1.0)[1]
         phase("kernel range",
               f"{name}: P={P} Lr={Lr} Lw={Lw} scores={scores} form={form} "
@@ -721,9 +793,10 @@ def phase_range_cases(dev) -> tuple[int, int]:
 def wide_cases(rng, small: bool = False) -> list[tuple[str, tuple, object]]:
     """The wide route's cases, as dp_align inputs with their DPScores:
     the mate-pair rescue window (2048 x 120 x 4224, reads of 100), an
-    edge shape (256 x 127 x 8192) and a case whose runs pass TB's first
-    budget (a re-launch); with ``small`` the same problems at a few
-    problems and windows of a few hundred bases, for the CPU."""
+    edge shape (256 x 127 x 8192) and a case whose runs pass 128, TB's
+    first budget before the run budget (banded_dp.run_budget); with
+    ``small`` the same problems at a few problems and windows of a few
+    hundred bases, for the CPU."""
     from soap3dp_tpu_torch.kernels import banded_dp as bd
 
     P1, Lw1, P2, Lw2, P3, Lw3 = ((16, 600, 16, 500, 4, 400) if small else
@@ -733,7 +806,7 @@ def wide_cases(rng, small: bool = False) -> list[tuple[str, tuple, object]]:
         ("mate_window", main_path_problems(rng, P1, 120, Lw1, read_len=100),
          bd.DPScores()),
         ("edge", edge + ((edge[1] * 0.3).astype(np.int32),), bd.DPScores()),
-        ("tb_relaunch", relaunch_problems(rng, P3, 127, Lw3),
+        ("tb_long_runs", relaunch_problems(rng, P3, 127, Lw3),
          bd.DPScores(1, -2, -1, -1)),
     ]
 
@@ -854,6 +927,9 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
                   for a, b in zip(fwd[:4], plain[:4]))
         ndiff = int((fwd[4] != plain[4]).sum())
+        # the plain dp_align from the same plain forward (its traceback,
+        # the plain wire and the parse)
+        want, plain_wire_ms = _host_ms(lambda: plain_align_from(plain, args))
         del plain
         # TB against the plain sweep + host RLE, on the same dirs
         act_t = fwd[0] >= args[8]
@@ -870,24 +946,25 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         t0 = time.perf_counter()
         windows, sectors = tb_replay_matches(fwd[4], *tb_args, tbp)
         replay_s = time.perf_counter() - t0
-        # kernel times on the whole problem set
-        params = bd._params(args[1], args[3], *args[4:8])
+        # kernel times on the whole problem set: K2 into stats rows, TB
+        # from them (each rewrites what it wrote)
+        params = bd._packed(*args)[2]
+        st = torch.empty((P, 8), dtype=torch.int32, device=dev)
         fwd_ms, fwd_call, fwd_timer = _timed(lambda: bd._launch_forward(
-            args[0], args[2], params, fwd[4], sc), 3, "dp_forward_kernel")
-        tbq = torch.stack([args[1], fwd[1], fwd[2], args[4]], 1).to(
-            torch.int32).contiguous()
-        actd = act_t.to(torch.uint8).contiguous()
-        mr = max(bd.MAX_RUNS, bd._max_runs_bound(Lr))
+            args[0], args[2], params, fwd[4], st, sc), 3, "dp_forward_kernel")
+        mr = bd.run_budget(Lr, Lw)
+        runs_d = torch.empty((P, mr), dtype=torch.int32, device=dev)
         tb_ms, tb_call, tb_timer = _timed(lambda: bd._launch_traceback(
-            fwd[4], tbq, actd, None, P, mr), 10, "dp_traceback_kernel")
-        del fwd
-        # dp_align's wide route against the plain dp_align and K1
+            fwd[4], params, st, runs_d, mr), 10, "dp_traceback_kernel")
+        del fwd, runs_d
+        # dp_align's wide route against the plain dp_align and K1, the
+        # host syncs inside its chunk loop counted (bd.LOOP_SYNCS)
         n_f, n_t = bd.FORWARD_KERNEL.launches, bd.TRACEBACK_KERNEL.launches
         got = bd.dp_align(*args, sc=sc)
         n_f = bd.FORWARD_KERNEL.launches - n_f
         n_t = bd.TRACEBACK_KERNEL.launches - n_t
         _, call_ms = _host_ms(lambda: bd.dp_align(*args, sc=sc), 3)
-        want, plain_ms = _host_ms(lambda: bd.dp_align_plain(*args, sc=sc))
+        plain_ms = plain_fwd_ms + plain_wire_ms
         k1, k1_ms = _host_ms(lambda: bd.dp_align_cuda(*args, sc=sc), 3)
         k1_kernel_ms, _, _ = _k1_ms(bd, args, 3, sc)
         ok_plain, e1 = _dp_equal(got, want)
@@ -897,8 +974,9 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
         f_bms, f_by = k2_bound(prob, f_peak)
         ops_t, cnt_t = np.asarray(tb[0]), np.asarray(tb[1])
         moves = int(cnt_t[(ops_t >= 1) & (ops_t <= 4)].sum())
-        t_bms, t_by = tb_bound(moves, P, mr, peak_ops)
-        t_fetch = tb_bound(moves, P, mr, peak_ops, SECTOR * sectors)[0]
+        runs = int(np.asarray(tb[2]).sum())
+        t_bms, t_by = tb_bound(moves, P, runs, peak_ops)
+        t_fetch = tb_bound(moves, P, runs, peak_ops, SECTOR * sectors)[0]
         phase("kernel dp_forward+dp_traceback",
               f"{name}: P={P} Lr={Lr} Lw={Lw} fwd stats max_abs_err={err} "
               f"dirs bytes differing={ndiff} tb max_abs_err={tb_err} "
@@ -921,10 +999,12 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
               f"K1 kernel_ms={k1_kernel_ms:.4f}")
         if err or ndiff or tb_err or not ok_plain or not ok_k1:
             fail(f"K2 / TB disagree with their plain versions ({name})")
-        if name == "tb_relaunch" and n_t <= n_f:
-            fail("the low-cutoff case did not re-launch the traceback kernel")
-        if name != "tb_relaunch" and n_t != n_f:
-            fail(f"the traceback kernel re-launched in {name}")
+        if n_t != n_f:
+            fail(f"the traceback kernel launched {n_t} times for {n_f} "
+                 f"forward launches in {name}")
+        if name == "tb_long_runs" and np.asarray(tb[2]).max() <= 128:
+            fail("the long-runs case's runs do not pass 128, TB's first "
+                 "run budget before the run budget")
         max_err = max(max_err, err, tb_err, e1, e2)
         rows.append({"case": name, "P": P, "Lr": Lr, "Lw": Lw,
                      "dp_align_ms": call_ms, "fwd_ms": fwd_ms,
@@ -957,6 +1037,169 @@ def phase_wide_kernels(dev, peak_ops: float) -> list[dict]:
                  bound_ms=main["tb_bound_ms"], bound_by=main["tb_bound_by"],
                  peak="int32", fetch_ms=main["tb_fetch_ms"],
                  windows=main["tb_windows"], sectors=main["tb_sectors"])]
+
+
+class watch_loop_syncs:
+    """The host syncs inside the wide route's chunk loop counted
+    (banded_dp.WATCH_LOOP_SYNCS, LOOP_SYNCS) while the block runs, on one
+    thread; first a sync made inside the loop's watch must be counted,
+    and on exit any counted sync fails the run."""
+
+    def __init__(self, dev, where: str):
+        self.dev, self.where = dev, where
+
+    def __enter__(self):
+        import torch
+
+        from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+        if self.dev.type != "cuda":
+            return self
+        bd.WATCH_LOOP_SYNCS, bd.LOOP_SYNCS = True, 0
+        with bd._chunk_loop():
+            torch.zeros(1, device=self.dev).item()
+        if bd.LOOP_SYNCS < 1:
+            bd.WATCH_LOOP_SYNCS = False
+            fail("the chunk loop's sync counter missed a sync (.item())")
+        bd.LOOP_SYNCS = 0
+        return self
+
+    def __exit__(self, *exc):
+        from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+        if self.dev.type != "cuda":
+            return False
+        bd.WATCH_LOOP_SYNCS = False
+        if exc[0] is None:
+            phase("dp wide chunk loop",
+                  f"{self.where}: host syncs inside the wide route's chunk "
+                  f"loop {bd.LOOP_SYNCS} (torch.cuda's sync debug mode over "
+                  "the loop; a sync made under it counted first)")
+            if bd.LOOP_SYNCS:
+                fail(f"{bd.LOOP_SYNCS} host syncs inside the wide route's "
+                     f"chunk loop ({self.where})")
+        return False
+
+
+# DW's edges (wire_edge_case): (lanes, run budget, word bits)
+WIRE_EDGES = {"none_passing": (3000, 128, 16), "all_passing": (3000, 128, 16),
+              "count_4095": (2048, 246, 16), "overflow_lanes": (5000, 246, 16),
+              "ragged_2049": (2049, 7, 16), "ragged_4097_odd": (4097, 9, 16),
+              "one_lane": (1, 5, 16), "words32": (2050, 246, 32)}
+
+
+def wire_edge_case(name: str, seed: int = 13) -> tuple:
+    """DW's inputs at one of its edges, numpy: (params (n, 8) int32, the
+    cutoff in word 6; stats (n, 8) int32; runs (n, MR) words, int16 for
+    16 bits, int32 for 32, with garbage past each row's nrun as the
+    kernels leave it): no lane passing (every cutoff above its score),
+    every lane passing, counts of 4,095 (the 16-bit word's largest),
+    overflowed lanes (excluded and counted), lanes one past a block's
+    tile and 4,097 lanes with an odd word count (the last word's zero
+    half), one lane, and 32-bit words with counts past 4,095."""
+    import soap3dp_tpu_torch.kernels.banded_dp as bd
+
+    n, MR, bits = WIRE_EDGES[name]
+    rng = np.random.default_rng(seed)
+    score = rng.integers(-50, 100, n)
+    cutoff = rng.integers(0, 60, n)
+    if name == "none_passing":
+        cutoff = score + 1
+    elif name == "all_passing":
+        cutoff = score - rng.integers(0, 5, n)
+    traced = score >= cutoff
+    nrun = np.where(traced, rng.integers(1 if name == "all_passing" else 0,
+                                         MR + 1, n), 0)
+    of = np.zeros(n, np.int64)
+    if name == "overflow_lanes":
+        over = traced & (rng.random(n) < 0.1)
+        of[over], nrun[over] = 1, MR
+    top = bd.CLIP16 if bits == 16 else (1 << 28) - 1
+    cnt = rng.integers(1, top + 1, (n, MR))
+    if name == "count_4095":
+        cnt[rng.random((n, MR)) < 0.3] = bd.CLIP16
+    words = (rng.integers(1, 6, (n, MR)) << (12 if bits == 16 else 28)) | cnt
+    if name == "ragged_4097_odd" and int(nrun[traced].sum()) % 2 == 0:
+        lane = int(np.flatnonzero(traced & (nrun < MR))[0])
+        nrun[lane] += 1
+    stats = np.stack([score, rng.integers(0, 120, n), rng.integers(0, 256, n),
+                      rng.integers(1, 4, n), rng.integers(0, 200, n), nrun,
+                      of, np.zeros(n, np.int64)], axis=1).astype(np.int32)
+    params = np.zeros((n, 8), np.int32)
+    params[:, 6] = cutoff
+    return params, stats, words.astype(np.int16 if bits == 16 else np.int32)
+
+
+def run_wire_case(name: str, params, stats, runs, reps: int = 20) -> dict:
+    """DW (banded_dp.dp_wire) against dp_wire_plain on the same inputs
+    (on the card), every word of the wire; DW's device time, its bound
+    (dw_bound) and the plain version's time."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    n, MR = runs.shape
+    bits = 16 if runs.dtype == torch.int16 else 32
+    wire = bd.dp_wire(params, stats, runs)
+    want, plain_ms = _host_ms(lambda: bd.dp_wire_plain(params, stats, runs))
+    got = wire[:len(want)].cpu()
+    err = int((got.long() - want.long()).abs().max())
+    ok = bool(torch.equal(got, want))
+    ms, call_ms, timer = _timed(lambda: bd._launch_wire(params, runs, wire),
+                                reps, "dp_wire_", per_call=2)
+    head = want[:bd.WIRE_HEADER].tolist()
+    bms, by = dw_bound(n, head[2], bits)
+    phase("kernel dp_wire",
+          f"{name}: lanes={n} MR={MR} bits={bits} wire words={len(want)} "
+          f"header={head} equal={ok} max_abs_err={err} kernel_ms={ms:.4f} "
+          f"({timer}) call_ms={call_ms:.4f} bound_ms={bms:.6f} ({by}) "
+          f"share={bms / ms:.1%} plain_ms={plain_ms:.3f}")
+    if not ok:
+        fail(f"DW disagrees with its plain version ({name})")
+    return {"case": name, "kernel": "DW", "shape": f"{n}x{MR}x{bits}",
+            "lanes": n, "MR": MR, "bits": bits, "header": head,
+            "max_abs_err": err, "kernel_ms": ms, "call_ms": call_ms,
+            "timer": timer, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
+def phase_wire(dev) -> list[dict]:
+    """DW against its plain version, every word of the wire: on K1's
+    outputs at phase 4's largest call (16,384 x 120 x 256) and on K2's
+    and TB's at phase 5's (16,384 x 120 x 4,224), then at its edges
+    (WIRE_EDGES). Returns the kernels line's DW row (phase 4's case)."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    rows = []
+    for name, seed, Lw, outputs in (
+            ("path4_K1", K1_SEED, 256, bd._k1_outputs),
+            ("path5_wide", WIDE_SEED, 4224, bd._wide_outputs)):
+        prob = main_path_problems(np.random.default_rng(seed), 16384, 120,
+                                  Lw, read_len=100)
+        reads, wins, params, _ = bd._packed(
+            *[torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+              for x in prob])
+        wire, runs = outputs(reads, wins, params, bd.DPScores())
+        stats = bd._wire_stats(wire, 16384).clone()
+        del wire, reads, wins
+        rows.append(run_wire_case(name, params, stats, runs))
+        del stats, runs
+    for name in WIRE_EDGES:
+        rows.append(run_wire_case(name, *[
+            torch.from_numpy(x).to(dev) for x in wire_edge_case(name)]))
+    torch.cuda.empty_cache()
+    main = rows[0]
+    return [{"name": "dp_wire", "route": "cuda",
+             "source": "soap3dp_tpu_torch/csrc/dp_wire.cu",
+             "replaces": "soap3dp_tpu/kernels/banded_dp.py:932",
+             "launches": 0,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": main["kernel_ms"], "timer": main["timer"],
+             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+             "bound_by": main["bound_by"], "library_ms": None,
+             "call_ms": main["call_ms"], "cases": rows}]
 
 
 # ------------------------------------------------------------------
@@ -2073,7 +2316,8 @@ class _Recorder:
                     if fn_name in DP_KEPT:  # (shards, scores): one shard
                         args = (list(args[0][0]),) + args[1:]
                     self.kept[key] = tuple(
-                        [t.clone() for t in a] if isinstance(a, list)
+                        [t.clone() if hasattr(t, "clone") else t.copy()
+                         for t in a] if isinstance(a, list)
                         else a.clone() if hasattr(a, "clone") else a
                         for a in args)
             return out
@@ -2974,20 +3218,22 @@ FS_KEPT = ("seed_intervals", "expand_decode", "seed_expand_decode",
            "count_mismatches_rows", "dedupe", "lane_counts", "search_wire")
 RESCUE_KEPT = ("_prescan_impl", "_pack_problems")
 PATH_KEPT = FS_KEPT + RESCUE_KEPT
-# K1's entry as dp_rescue calls it; phase 8 keeps every kernel's entries
+# the DP's entry as dp_rescue calls it (K1 or K2 + TB, then DW, which
+# every call launches); phase 8 keeps every kernel's entries
 DP_KEPT = ("dp_align_shards",)
 HELD_ENTRIES = tuple(FS_FUNCTIONS) + RESCUE_KEPT + DP_KEPT
 KEPT_LABEL = {"_prescan_impl": "GP", "_pack_problems": "PK",
-              "dp_align_shards": "K1"}
+              "dp_align_shards": "DW"}
 
 
 def rescue_shape(fn_name: str, args: tuple) -> tuple:
     """The launch shape of a call of dp_rescue's ``fn_name`` (GP: M x O x
-    Lr; PK: P x Lr x max_win; K1, its first shard: P x Lr x Lw)."""
+    Lr; PK: P x Lr x max_win; the DP, its first shard: P x Lr x Lw)."""
     if fn_name == "_prescan_impl":
         return (args[3].shape[0], args[8], args[1].shape[1])
     if fn_name == "dp_align_shards":
-        reads, _, wins = args[0][0][:3]
+        shard = args[0][0]
+        reads, wins = shard[0], shard[1 if len(shard) == 4 else 2]
         return (reads.shape[0], reads.shape[1], wins.shape[1])
     return (args[3].shape[0], args[1].shape[1], args[7])
 
@@ -3008,14 +3254,28 @@ def path_cases(kept: dict, tag: str = "path4"
             for i, key in enumerate(order)]
 
 
+def nine_inputs(shard: list) -> list:
+    """dp_align's nine inputs of a dp_align_shards shard: as given, or
+    from dp_align_packed's four (reads, wins, params, host cutoffs), the
+    vectors the columns of params."""
+    if len(shard) == 9:
+        return shard
+    reads, wins, params, _ = shard
+    return [reads, params[:, 0], wins] + [params[:, k] for k in range(1, 7)]
+
+
 def k1_kept_cases(kept: dict, tag: str) -> list[tuple[str, list, object]]:
-    """K1 cases, (name, dp_align's nine inputs, scores), of the calls a
+    """dp_align cases, (name, its nine inputs, scores), of the calls a
     run kept (_Recorder's ``kept``): each launch shape, its real inputs,
-    the largest first; named ``tag``_K1_PxLrxLw."""
+    the largest first; named ``tag``_K1_PxLrxLw (K2_ on the wide
+    route)."""
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
     keys = sorted((k for k in kept if k[0] in DP_KEPT),
                   key=lambda k: -k[1] * k[2] * k[3])
-    return [(f"{tag}_K1_" + "x".join(map(str, key[1:])), *kept[key])
-            for key in keys]
+    return [(f"{tag}_{'K2' if bd.takes_wide_route(*key[2:]) else 'K1'}_"
+             + "x".join(map(str, key[1:])), nine_inputs(kept[key][0]),
+             kept[key][1]) for key in keys]
 
 
 def run_held_cases(kept: dict, tag: str, dev, peak_ops: float
@@ -3028,6 +3288,29 @@ def run_held_cases(kept: dict, tag: str, dev, peak_ops: float
             + run_rescue_cases(kept, tag, dev, peak_ops)
             + [run_k1_case(name, args, peak_ops, sc)
                for name, args, sc in k1_kept_cases(kept, tag)])
+
+
+def hold_dp_calls(kept: dict, tag: str, launch_shapes: dict, dev,
+                  peak_ops: float) -> list[dict]:
+    """A phase's kept dp_align calls (k1_kept_cases), each held to the
+    plain dp_align, the whole tuple (run_k1_case); fails on a launch
+    shape of K1, K2, TB or DW (``launch_shapes``, the run's
+    _launch_shapes) that no held call ran at."""
+    import torch
+
+    rows = [run_k1_case(name, args, peak_ops, sc)
+            for name, args, sc in k1_kept_cases(kept, tag)]
+    torch.cuda.empty_cache()
+    unheld = unheld_shapes({k: v for k, v in launch_shapes.items()
+                            if k in DP_LABELS}, rows)
+    phase("kernel banded_dp path calls",
+          f"{tag}: {len(rows)} dp_align calls, each launch shape's first, "
+          "held to the plain dp_align on the same inputs: every element "
+          f"equal; launch shapes not held: {unheld or 'none'}")
+    if unheld:
+        fail(f"{tag} launched {unheld}, shapes whose calls were not held "
+             "to their plain versions")
+    return rows
 
 
 def hold_path_calls(kept: dict, launch_shapes: dict, peak_ops: float
@@ -3053,10 +3336,12 @@ def hold_path_calls(kept: dict, launch_shapes: dict, peak_ops: float
 def unheld_shapes(launch_shapes: dict, rows: list[dict]) -> dict:
     """{kernel: [launch shape]}: each shape of a run's launch-shape
     histogram (_launch_shapes) that no held case (``rows``: run_fs_case,
-    run_prescan_case, run_pack_case or run_k1_case rows; K1's with the
-    shapes of its re-launches) ran at."""
-    held = {(r["kernel"], s) for r in rows
-            for s in [r["shape"]] + r.get("launch_shapes", [])}
+    run_prescan_case, run_pack_case or run_k1_case rows; a dp_align
+    case's with the shapes each DP kernel launched at in it,
+    ``held_shapes``) ran at."""
+    held = {(r["kernel"], r["shape"]) for r in rows} | {
+        (k, s) for r in rows for k, shapes in r.get("held_shapes", {}).items()
+        for s in shapes}
     out = {k: [s for s in shapes if (k, s) not in held]
            for k, shapes in launch_shapes.items()}
     return {k: v for k, v in out.items() if v}
@@ -4263,7 +4548,7 @@ def _kernels() -> dict:
             "FS3": fs.VERIFY_KERNEL, "FS4": fs.DEDUPE_KERNEL,
             "FS2s": fs.SEED_EXPAND_KERNEL, "FS5": fs.LANE_COUNTS_KERNEL,
             "FS6": fs.SEARCH_WIRE_KERNEL, "GP": fs.PRESCAN_KERNEL,
-            "PK": fs.PACK_KERNEL}
+            "PK": fs.PACK_KERNEL, "DW": bd.WIRE_KERNEL}
 
 
 def _launches() -> dict:
@@ -4276,7 +4561,7 @@ def _launch_shapes() -> dict:
     DP kernels; lanes x L x max_steps for FS1, rows x sa_rate for FS2,
     slots x lanes x sa_rate for FS2x and FS2s, placements x words for
     FS3, K x K2 x hb for FS4, M x O x Lr for GP, P x Lr x max_win for
-    PK)."""
+    PK, lanes x run budget x word bits for DW)."""
     return {name: {"x".join(map(str, shape)): n for shape, n in
                    sorted(k.shapes.items())}
             for name, k in _kernels().items() if k.shapes}
@@ -5510,7 +5795,8 @@ def _build_all() -> None:
     from soap3dp_tpu_torch.kernels import banded_dp as bd
     from soap3dp_tpu_torch.kernels import fm_search as fs
 
-    libs = [bd.BANDED_DP_LIB, bd.DP_FORWARD_LIB, fs.FM_SEARCH_LIB]
+    libs = [bd.BANDED_DP_LIB, bd.DP_FORWARD_LIB, bd.DP_WIRE_LIB,
+            fs.FM_SEARCH_LIB]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(lambda lib: lib.load(), libs))
@@ -5562,8 +5848,11 @@ def main(argv=None) -> int:
                     f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     kernels = phase_kernels(dev, peak_ops)
     lap("K1 cases")
-    kernels += phase_wide_kernels(dev, peak_ops)
+    with watch_loop_syncs(dev, "phase 2's wide cases"):
+        kernels += phase_wide_kernels(dev, peak_ops)
     lap("K2 and TB cases")
+    dw = phase_wire(dev)
+    lap("DW cases")
     k1_err, k2_err = phase_range_cases(dev)
     lap("range cases")
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k1_err)
@@ -5576,30 +5865,36 @@ def main(argv=None) -> int:
     lap("golden")
     kept = {}
     e2e, reads = phase_e2e(dev, E2E_GENOME_BP, E2E_PAIRS, card, work, OUT_DIR,
-                           kept=kept)
+                           kept=kept, keep=PATH_KEPT + DP_KEPT)
     lap("PE default")
-    # every FS kernel, GP and PK at each of phase 4's launch shapes, its
-    # inputs
+    # every FS kernel, GP and PK, and every dp_align call (K1, DW) at each
+    # of phase 4's launch shapes, its inputs
     fs_cases += hold_path_calls(kept, e2e["launch_shapes"], peak_ops)
     rescue = run_rescue_cases(kept, "path4", dev, peak_ops)
+    dp_held = hold_dp_calls(kept, "path4", e2e["launch_shapes"], dev,
+                            peak_ops)
     del kept
     torch.cuda.empty_cache()
-    kernels += fs_kernel_rows(fs_cases) + gp_pk
+    kernels += fs_kernel_rows(fs_cases) + gp_pk + dw
     lap("phase 4's FS, GP and PK calls")
     small = phase_mate_pair_devices(
         dev, os.path.join(ROOT, "soap3dp_tpu_torch", "_build", "mp_small"))
     kept = {}
     mate, _ = phase_e2e(dev, E2E_GENOME_BP, E2E_PAIRS, card, work, OUT_DIR,
                         profile=False, mate_pair=True, kept=kept,
-                        keep=RESCUE_KEPT)
+                        keep=RESCUE_KEPT + DP_KEPT)
     lap("mate-pair, small and full")
-    # GP and PK at each of phase 5's launch shapes, its inputs
+    # GP and PK, and every dp_align call (K1, K2 + TB, DW) at each of
+    # phase 5's launch shapes, its inputs
     rescue += run_rescue_cases(kept, "path5", dev, peak_ops)
+    with watch_loop_syncs(dev, "phase 5's held calls"):
+        dp_held += hold_dp_calls(kept, "path5", mate["launch_shapes"], dev,
+                                 peak_ops)
     del kept
     torch.cuda.empty_cache()
     rescue_path_rows(kernels, rescue)
     fs_cases += gp_pk_cases + rescue
-    lap("phase 5's GP and PK calls")
+    lap("phase 5's GP, PK and DP calls")
     single = phase_single_e2e(dev, reads, card, work, OUT_DIR)
     lap("single-end")
     multi = {"card": card, "mesh": phase_mesh(dev, reads, work, OUT_DIR),
@@ -5637,6 +5932,13 @@ def main(argv=None) -> int:
     pk["launches"] = e2e["launches"]["PK"]
     pk["launches_mate_pair"] = mate["launches"]["PK"]
     pk["launches_single"] = single["launches"]["PK"]
+    dw_row = next(r for r in kernels if r["name"] == "dp_wire")
+    dw_row["launches"] = e2e["launches"]["DW"]
+    dw_row["launches_mate_pair"] = mate["launches"]["DW"]
+    dw_row["launches_single"] = single["launches"]["DW"]
+    kernels[0]["launches_mate_pair"] = mate["launches"]["K1"]
+    kernels[0]["launches_single"] = single["launches"]["K1"]
+    kernels[0]["held_path_calls"] = [r["case"] for r in dp_held]
     # launches on phase 8's repeat text, beside the main path's, and the
     # differences of its calls held to their plain versions
     repeat_text = accuracy["repeat_text"]
@@ -5646,7 +5948,7 @@ def main(argv=None) -> int:
         row["launches_ab"] = {name: ab[name]["launches"][label]
                               for name in AB_PHASES}
         row["max_abs_err"] = max([row["max_abs_err"]] + [
-            r["max_abs_err"] for held in [repeat_text["held"]] + [
+            r["max_abs_err"] for held in [repeat_text["held"], dp_held] + [
                 ab[name]["held"] for name in AB_PHASES]
             for r in held if r["kernel"] == label])
     for row in kernels:
@@ -5656,7 +5958,8 @@ def main(argv=None) -> int:
                    "repeat_search": repeat, "e2e": e2e,
                    "mate_pair_small": small, "mate_pair": mate,
                    "single": single, "multi_device": multi,
-                   "accuracy": accuracy, "ab": ab, "wall_s": walls}, fh,
+                   "dp_path_calls": dp_held, "accuracy": accuracy,
+                   "ab": ab, "wall_s": walls}, fh,
                   indent=1)
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k != "cases"} for r in kernels]}),

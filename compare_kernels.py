@@ -3,7 +3,9 @@ checkouts of the repo on one CUDA card, in the order given.
 
     python3 compare_kernels.py TREE [TREE ...]
 
-For example PARENT CHANGE CHANGE PARENT. The DP problems are made once,
+For example PARENT CHANGE CHANGE PARENT, each a checkout whose K1, K2
+and TB take their outputs as the result wire's (kernels/banded_dp.py
+run_budget and on). The DP problems are made once,
 by this checkout's chip_smoke.py with phase 2's helpers and seeds: K1 at
 phase 2's path_P8192 case (8192 x 120 x 256, reads of 100), K2 and TB at
 its mate_window case (2048 x 120 x 4224) on K2's directions. Each run is
@@ -45,29 +47,26 @@ def t(key):
 
 
 args = t("k1")
-params = bd._params(args[1], args[3], *args[4:9])
-mr = max(bd.MAX_RUNS, bd._max_runs_bound(120))
-k1 = lambda: bd._launch_dp(args[0], args[2], params, mr, bd.DPScores())
-out["K1_ms"] = cs._kernel_device_ms(k1, reps, "dp_align_kernel")
-out["K1_call_ms"] = cs._events_ms(k1, reps)
+k1_ms = cs._k1_ms(bd, args, reps)
+out["K1_ms"], out["K1_call_ms"] = k1_ms[0], k1_ms[1]
 out["K1_equal"] = cs._dp_equal(bd.dp_align(*args),
                                bd.dp_align_plain(*args))[0]
-del args, params
+del args
 
 args = t("tb")
 fwd = bd.dp_forward(*args[:8])
-params = bd._params(args[1], args[3], *args[4:8])
-k2 = lambda: bd._launch_forward(args[0], args[2], params, fwd[4],
+P, Lr = args[0].shape
+mr = bd.run_budget(Lr, args[2].shape[1])
+params = bd._packed(*args)[2]
+st = torch.empty((P, 8), dtype=torch.int32, device=dev)
+k2 = lambda: bd._launch_forward(args[0], args[2], params, fwd[4], st,
                                 bd.DPScores())
 out["K2_ms"] = cs._kernel_device_ms(k2, reps // 4, "dp_forward_kernel")
-act = fwd[0] >= args[8]
-tbq = torch.stack([args[1], fwd[1], fwd[2], args[4]], 1).to(
-    torch.int32).contiguous()
-actd = act.to(torch.uint8).contiguous()
-P = args[0].shape[0]
-tb = lambda: bd._launch_traceback(fwd[4], tbq, actd, None, P, mr)
+runs = torch.empty((P, mr), dtype=torch.int32, device=dev)
+tb = lambda: bd._launch_traceback(fwd[4], params, st, runs, mr)
 out["TB_ms"] = cs._kernel_device_ms(tb, reps, "dp_traceback_kernel")
 out["TB_call_ms"] = cs._events_ms(tb, reps)
+act = fwd[0] >= args[8]
 tb_args = (args[1], fwd[1], fwd[2], args[4], act.cpu().numpy())
 got = bd.dp_traceback(fwd[4], args[0], args[1], args[2], *tb_args[1:])
 want = bd._dp_traceback_plain(fwd[4], *tb_args)

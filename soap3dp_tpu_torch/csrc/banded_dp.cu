@@ -37,7 +37,13 @@
 //     d-1-k, nine coalesced words) into shared memory, and lane 0 walks
 //     it from there, one scratch round trip per 32 diagonals instead of
 //     one per move. It emits the same runs as the reference (right clip,
-//     ops, insert tail merged into a trailing insert, left clip).
+//     ops, insert tail merged into a trailing insert, left clip), each
+//     run one word as the TPU kernel packs it (banded_dp.py:884): 16-bit
+//     (op << 12) | min(count, 4095) where no count can pass 4095 (reads
+//     and windows below 4096), else 32-bit (op << 28) | count. Its stats
+//     row goes straight into the call's result wire (dp_wire.cu), which
+//     DW completes; nothing it writes needs zeroing first: a row past
+//     its nrun is never read.
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
@@ -54,8 +60,8 @@ __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK, C <= 4 ? 8 : 1)
 dp_align_kernel(const uint8_t* __restrict__ reads,
                 const uint8_t* __restrict__ wins,
                 const int32_t* __restrict__ params, int P, int Lr, int Lw,
-                int MR, Scores sc, int32_t* __restrict__ stats,
-                int32_t* __restrict__ ops, int32_t* __restrict__ cnts,
+                int MR, int wide_words, Scores sc,
+                int32_t* __restrict__ stats, void* __restrict__ runs,
                 uint8_t* __restrict__ scratch) {
   __shared__ uint32_t tile[WARPS_PER_BLOCK][32][TB_WORDS];
   const int lane = threadIdx.x & 31;
@@ -96,15 +102,18 @@ dp_align_kernel(const uint8_t* __restrict__ reads,
     __threadfence_block();
     __syncwarp();
 
-    int32_t* o_ops = ops + p * (long long)MR;
-    int32_t* o_cnt = cnts + p * (long long)MR;
+    uint16_t* o16 = static_cast<uint16_t*>(runs) + p * (long long)MR;
+    uint32_t* o32 = static_cast<uint32_t*>(runs) + p * (long long)MR;
     int ridx = 0, of = 0;
-    auto put = [&](int op, int cnt) {
-      if (ridx < MR) {
-        o_ops[ridx] = op;
-        o_cnt[ridx] = cnt;
-      } else {
+    auto put = [&](int op, int cnt) {  // lane 0 only
+      if (ridx >= MR) {
         of = 1;
+      } else if (wide_words) {
+        o32[ridx] = ((uint32_t)op << 28) | (uint32_t)cnt;
+      } else {
+        // the reference's clamp and flag (banded_dp.py:881-890)
+        of |= cnt > 4095;
+        o16[ridx] = (uint16_t)((op << 12) | min(cnt, 4095));
       }
       ++ridx;
     };
@@ -163,12 +172,16 @@ int resident_warps() {
 
 }  // namespace
 
+// stats: (P, 8) int32 rows (the result wire's); runs: (P, MR) words of
+// word_bits (16 or 32) bits
 extern "C" int soap3dp_dp_align(const void* reads, const void* wins,
                                 const void* params, int P, int Lr, int Lw,
-                                int MR, int match, int mismatch, int gap_open,
-                                int gap_ext, void* stats, void* ops,
-                                void* cnts, void* scratch, int cells_per_lane,
-                                int blocks, void* stream) {
+                                int MR, int word_bits, int match,
+                                int mismatch, int gap_open, int gap_ext,
+                                void* stats, void* runs, void* scratch,
+                                int cells_per_lane, int blocks,
+                                void* stream) {
+  if (word_bits != 16 && word_bits != 32) return (int)cudaErrorInvalidValue;
   if (P <= 0) return 0;
   const Scores sc{match, mismatch, gap_open, gap_ext, gap_open - gap_ext};
   const dim3 grid(blocks), block(32 * WARPS_PER_BLOCK);
@@ -177,29 +190,28 @@ extern "C" int soap3dp_dp_align(const void* reads, const void* wins,
   const auto* w = static_cast<const uint8_t*>(wins);
   const auto* pr = static_cast<const int32_t*>(params);
   auto* st = static_cast<int32_t*>(stats);
-  auto* o = static_cast<int32_t*>(ops);
-  auto* c = static_cast<int32_t*>(cnts);
+  const int ww = word_bits == 32;
   auto* scr = static_cast<uint8_t*>(scratch);
   switch (cells_per_lane) {
     case 4:
-      dp_align_kernel<4><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, sc,
-                                                st, o, c, scr);
+      dp_align_kernel<4><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, ww,
+                                                sc, st, runs, scr);
       break;
     case 8:
-      dp_align_kernel<8><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, sc,
-                                                st, o, c, scr);
+      dp_align_kernel<8><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, ww,
+                                                sc, st, runs, scr);
       break;
     case 16:
-      dp_align_kernel<16><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, sc,
-                                                 st, o, c, scr);
+      dp_align_kernel<16><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, ww,
+                                                 sc, st, runs, scr);
       break;
     case 32:
-      dp_align_kernel<32><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, sc,
-                                                 st, o, c, scr);
+      dp_align_kernel<32><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, ww,
+                                                 sc, st, runs, scr);
       break;
     case 64:
-      dp_align_kernel<64><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, sc,
-                                                 st, o, c, scr);
+      dp_align_kernel<64><<<grid, block, 0, s>>>(r, w, pr, P, Lr, Lw, MR, ww,
+                                                 sc, st, runs, scr);
       break;
     default:
       return (int)cudaErrorInvalidValue;

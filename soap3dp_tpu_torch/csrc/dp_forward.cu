@@ -6,7 +6,9 @@
 // soap3dp_dp_forward replaces the TPU kernel
 // soap3dp_tpu/kernels/banded_dp.py:238 `_dp_forward_pallas_kernel`: the
 // same cells, tie-breaks and direction bytes as `_dp_forward_scan`, and
-// the best cell (score, hit_i, hit_j, tie count) of each problem.
+// the best cell (score, hit_i, hit_j, tie count) of each problem, the
+// first four words of its stats row (P, 8) (the result wire's,
+// dp_wire.cu).
 //   Bound by integer operations (17 per cell: the 0.87 G cells of
 //   100-base reads at the mate-pair window, P = 2048 x 120 x 4224, are
 //   ~0.44 ms at twice the int32 rate, the 16-bit form's) ahead of
@@ -48,8 +50,16 @@
 //   ~100 moves: windows of 64 diagonals (half the round trips, twice the
 //   loads a lane) measured slower. It emits the runs right to left with
 //   the reference's bracketing (right clip, ops, insert tail merged into
-//   a trailing insert run, left clip), counts unpacked, and zeroes each
-//   row past its runs itself.
+//   a trailing insert run, left clip), one 32-bit word a run, (op << 28)
+//   | count: a count can pass 4095 here (windows of 4096 and more). A
+//   problem is traced where its score (K2's stats row) reaches its
+//   cutoff (its params row), decided here, so the wide route's chunks
+//   queue one after another with no host round trip; the run budget the
+//   caller gives is a hard bound on any alignment's runs (banded_dp.py
+//   run_budget), so no problem is traced twice. Its startj, nrun and
+//   overflow flag go to words 4-6 of the problem's stats row, which DW
+//   completes into the call's result wire; nothing is zeroed: a row past
+//   its nrun is never read.
 //
 // Plain C interface for ctypes; each launcher returns cudaGetLastError().
 
@@ -101,7 +111,7 @@ dp_forward_kernel(const uint8_t* __restrict__ reads,
       b = wavefront<C>(rd, wn, Lr, Lw, pb, sc, lane, sink);
     }
     if (lane == 0) {
-      int32_t* st = stats + p * 4;
+      int32_t* st = stats + p * 8;
       st[0] = b.bS;
       st[1] = b.bI;
       st[2] = b.bJ;
@@ -110,17 +120,16 @@ dp_forward_kernel(const uint8_t* __restrict__ reads,
   }
 }
 
-// tbp: (P, 4) int32 rows (rlen, hit_i, hit_j, clip_l); active: (P,)
-// uint8. Warp t walks problem lanes[t] (t itself when lanes is null),
-// grid-stride, and writes row t of ops / cnts (MR wide, zero past its
-// runs) and meta (nrun, startj, overflow, 0).
+// params: (P, 8) int32 problem rows (rlen, wlen, clip_l, clip_r,
+// anchor_l, anchor_r, cutoff, 0); stats: (P, 8) int32 rows, words 0-2
+// (score, hit_i, hit_j) read, 4-7 (startj, nrun, overflow, 0) written.
+// Warp p walks problem p, grid-stride, and writes row p of runs (MR
+// words).
 __global__ void __launch_bounds__(32 * TB_WARPS)
 dp_traceback_kernel(const uint8_t* __restrict__ dirs, int P, int Lr1, int ND,
-                    const int32_t* __restrict__ tbp,
-                    const uint8_t* __restrict__ active,
-                    const int32_t* __restrict__ lanes, int n, int MR,
-                    int32_t* __restrict__ ops, int32_t* __restrict__ cnts,
-                    int32_t* __restrict__ meta) {
+                    const int32_t* __restrict__ params,
+                    int32_t* __restrict__ stats, int MR,
+                    uint32_t* __restrict__ runs) {
   // the warp's window: tile row k holds diagonal dtop - 1 - k from its
   // cell max(0, itop - k) on, in byte 0 of word 0 (dtop, itop: the walk's
   // i + j and i where the window opened)
@@ -132,23 +141,21 @@ dp_traceback_kernel(const uint8_t* __restrict__ dirs, int P, int Lr1, int ND,
   const long long diag_stride = (long long)P * Lr1;
   const uint8_t* tb = reinterpret_cast<const uint8_t*>(&tile[wib][0][0]);
 
-  for (long long t = warp; t < n; t += nwarps) {
-    const long long p = lanes != nullptr ? lanes[t] : t;
-    int32_t* o_ops = ops + t * MR;
-    int32_t* o_cnt = cnts + t * MR;
+  for (long long p = warp; p < P; p += nwarps) {
+    const int32_t* prm = params + p * 8;
+    int32_t* st = stats + p * 8;
+    uint32_t* out = runs + p * MR;
     int ridx = 0, of = 0;
     auto put = [&](int op, int cnt) {  // lane 0 only
-      if (ridx < MR) {
-        o_ops[ridx] = op;
-        o_cnt[ridx] = cnt;
-      } else {
+      if (ridx < MR)
+        out[ridx] = ((uint32_t)op << 28) | (uint32_t)cnt;
+      else
         of = 1;
-      }
       ++ridx;
     };
-    TbWalk w{tbp[p * 4 + 1], tbp[p * 4 + 2], 0, 0, 0, 0, -1, 0};
-    if (active[p]) {  // the same on every lane
-      const int rclip = tbp[p * 4 + 0] - w.i;
+    TbWalk w{st[1], st[2], 0, 0, 0, 0, -1, 0};
+    if (st[0] >= prm[6]) {  // the same on every lane
+      const int rclip = prm[0] - w.i;
       if (lane == 0 && rclip > 0) put(OP_CLIP, rclip);
       // a cell off the table (i + j > ND or i > Lr) is never on a path;
       // i + j and i only fall, so the window loop checks it
@@ -190,19 +197,13 @@ dp_traceback_kernel(const uint8_t* __restrict__ dirs, int P, int Lr1, int ND,
         w.j = __shfl_sync(FULL, w.j, 0);
         w.done = __shfl_sync(FULL, w.done, 0);
       }
-      if (lane == 0) tb_close(w, tbp[p * 4 + 3], put);
-    }
-    const int nrun = min(__shfl_sync(FULL, ridx, 0), MR);
-    for (int c = nrun + lane; c < MR; c += 32) {
-      o_ops[c] = 0;
-      o_cnt[c] = 0;
+      if (lane == 0) tb_close(w, prm[2], put);
     }
     if (lane == 0) {
-      int32_t* m = meta + t * 4;
-      m[0] = nrun;
-      m[1] = w.startj;
-      m[2] = of;
-      m[3] = 0;
+      st[4] = w.startj;
+      st[5] = min(ridx, MR);
+      st[6] = of;
+      st[7] = 0;
     }
   }
 }
@@ -210,7 +211,7 @@ dp_traceback_kernel(const uint8_t* __restrict__ dirs, int P, int Lr1, int ND,
 // blocks of the traceback's grid: the blocks resident on the current card
 // at once (the occupancy API, asked once per card), at most one warp a
 // problem
-int traceback_blocks(int n) {
+int traceback_blocks(int P) {
   static std::atomic<int> resident[64];  // per card; 0: not asked yet
   int dev = 0;
   cudaGetDevice(&dev);
@@ -222,7 +223,7 @@ int traceback_blocks(int n) {
         &per_sm, dp_traceback_kernel, 32 * TB_WARPS, 0);
     blocks.store(std::max(1, per_sm * sms));
   }
-  return std::min(blocks.load(), (n + TB_WARPS - 1) / TB_WARPS);
+  return std::min(blocks.load(), (P + TB_WARPS - 1) / TB_WARPS);
 }
 
 }  // namespace
@@ -270,16 +271,13 @@ extern "C" int soap3dp_dp_forward(const void* reads, const void* wins,
 }
 
 extern "C" int soap3dp_dp_traceback(const void* dirs, int P, int Lr1, int ND,
-                                    const void* tbp, const void* active,
-                                    const void* lanes, int n, int MR,
-                                    void* ops, void* cnts, void* meta,
-                                    void* stream) {
-  if (n <= 0) return 0;
-  dp_traceback_kernel<<<traceback_blocks(n), 32 * TB_WARPS, 0,
+                                    const void* params, void* stats, int MR,
+                                    void* runs, void* stream) {
+  if (P <= 0) return 0;
+  dp_traceback_kernel<<<traceback_blocks(P), 32 * TB_WARPS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(dirs), P, Lr1, ND,
-      static_cast<const int32_t*>(tbp), static_cast<const uint8_t*>(active),
-      static_cast<const int32_t*>(lanes), n, MR, static_cast<int32_t*>(ops),
-      static_cast<int32_t*>(cnts), static_cast<int32_t*>(meta));
+      static_cast<const int32_t*>(params), static_cast<int32_t*>(stats), MR,
+      static_cast<uint32_t*>(runs));
   return (int)cudaGetLastError();
 }

@@ -7,14 +7,21 @@ Port of soap3dp_tpu/kernels/banded_dp.py (``dp_align``, ``dp_forward``,
   use into ``_build/`` and loaded with ctypes (see each source note).
   K1, ``csrc/banded_dp.cu``, replaces the TPU kernel
   ``_dp_align_pallas_kernel`` (soap3dp_tpu/kernels/banded_dp.py:606):
-  forward, traceback and CIGAR runs in one launch. K2 and TB,
-  ``csrc/dp_forward.cu``, replace ``_dp_forward_pallas_kernel`` (:238)
-  and the traceback sweep + host RLE that consume its directions
-  (:409-600); ``dp_align`` takes them where the reference does (windows
-  of FUSED_MAX_WINDOW and more, reads of at most 127), K1 elsewhere.
+  forward, traceback and CIGAR runs in one launch, each run one packed
+  word. K2 and TB, ``csrc/dp_forward.cu``, replace
+  ``_dp_forward_pallas_kernel`` (:238) and the traceback sweep + host
+  RLE that consume its directions (:409-600); ``dp_align`` takes them
+  where the reference does (windows of FUSED_MAX_WINDOW and more, reads
+  of at most 127), K1 elsewhere. DW, ``csrc/dp_wire.cu``, ends either
+  route: the call's result wire (header, stats rows, the passing lanes'
+  runs at their exact length), which the host downloads in two copies
+  and ``parse_wire`` turns into dp_align's tuple, in place of the
+  reference's ``_gather_runs_u16`` (:932) and the host code around it
+  (:1000-1015).
 * CPU tensors: the plain-torch version — the anti-diagonal forward of
   the reference's ``_dp_forward_scan``, its reverse traceback sweep and
-  the host run-length encoding ``_rle_runs``.
+  the host run-length encoding ``_rle_runs``, then the same wire
+  (``dp_wire_plain``) and parse.
 
 Each function takes a kernel for a CUDA tensor (or raises) and the
 plain version for a CPU tensor, and nothing else: there is no fallback
@@ -29,8 +36,10 @@ Recurrences (cells on anti-diagonal d = i + j depend on d-1 and d-2):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -48,9 +57,6 @@ DI_FRESH, DI_OPEN, DI_EXT = 0, 1, 2
 # traceback op codes
 OP_NONE, OP_MATCH, OP_MISMATCH, OP_INS, OP_DEL, OP_CLIP = 0, 1, 2, 3, 4, 5
 
-MAX_RUNS = 128  # first-launch run budget; see _max_runs_bound()
-
-
 @dataclasses.dataclass(frozen=True)
 class DPScores:
     """Scoring scheme (soap3-dp.ini [DP]: 1 / -2 / -3 / -1 defaults)."""
@@ -63,13 +69,6 @@ class DPScores:
     @property
     def gap_init(self) -> int:
         return self.gap_open - self.gap_ext
-
-
-def _max_runs_bound(max_read_len: int) -> int:
-    """Upper bound on CIGAR runs for an alignment passing the 0.3*L
-    cutoff (every non-match run costs >= 3 score), rounded up to 128."""
-    n = 2 * (7 * max_read_len // 30) + 4
-    return -(-n // 128) * 128
 
 
 # ------------------------------------------------------------------
@@ -330,19 +329,218 @@ def _rle_runs(S: np.ndarray, rclip: np.ndarray, ins_tail: np.ndarray,
     return ops, cnts_d, nrun
 
 
+
+
+# ------------------------------------------------------------------
+# The runs as words, and the result wire
+# ------------------------------------------------------------------
+
+# a (P, 8) int32 problem row: what the kernels read of a problem
+PARAM_COLUMNS = ("rlen", "wlen", "clip_l", "clip_r", "anchor_l", "anchor_r",
+                 "cutoff")
+# the result wire (csrc/dp_wire.cu): a header of WIRE_HEADER int32 words
+# (passing lanes, overflowed lanes, run words, the wire's length in int32
+# words), each lane's stats row of STATS_WORDS (score, hit_i, hit_j,
+# n_best, startj, nrun, overflow, 0), then the passing lanes' runs
+WIRE_HEADER, STATS_WORDS = 4, 8
+CLIP16 = 4095  # the largest count a 16-bit run word holds
+
+
+def run_budget(Lr: int, Lw: int) -> int:
+    """Runs that hold any alignment of a read of at most Lr bases in a
+    window of Lw: the walk's moves lower i + j, so at most Lr + Lw runs
+    and the three brackets (right clip, insert tail, left clip); and
+    every run but a deletion holds a move that lowers i, or the walk's
+    last move, and no two deletion runs touch, so at most 2 (Lr + 1) + 1
+    runs and the brackets. The kernels trace each alignment once with
+    this budget; none overflows it."""
+    return min(Lr + Lw + 4, 2 * Lr + 6)
+
+
+def word_bits(Lr: int, Lw: int) -> int:
+    """The bits of a run word: 16, (op << 12) | count, as the reference
+    packs K1's runs, where no count can pass CLIP16 (a count is at most
+    the read's or the window's length); else 32, (op << 28) | count."""
+    return 16 if max(Lr, Lw) <= CLIP16 else 32
+
+
+def pack_params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r,
+                cutoff) -> np.ndarray:
+    """The kernels' (P, 8) int32 problem rows (PARAM_COLUMNS, then 0),
+    packed on the host from arrays or tensors on any device."""
+    cols = [np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+            for x in (rlens, wlens, clip_l, clip_r, anchor_l, anchor_r,
+                      cutoff)]
+    out = np.zeros((len(cols[0]), 8), np.int32)
+    for k, c in enumerate(cols):
+        out[:, k] = c
+    return out
+
+
+def _run_words(ops, cnts, nrun, MR: int, bits: int):
+    """Runs (P, w) -> the kernels' (P, MR) words (int16 for 16 bits,
+    int32 for 32; zero past each row's runs), the stored run counts and
+    the overflow flags: more than MR runs, or (16 bits) a stored count
+    past CLIP16, clamped as the reference clamps it (banded_dp.py:884)."""
+    P = len(nrun)
+    stored = np.minimum(nrun, MR)
+    o = np.zeros((P, MR), np.int64)
+    c = np.zeros((P, MR), np.int64)
+    k = min(MR, np.shape(ops)[1])
+    o[:, :k], c[:, :k] = ops[:, :k], cnts[:, :k]
+    valid = np.arange(MR)[None, :] < stored[:, None]
+    of = nrun > MR
+    if bits == 16:
+        of |= ((c > CLIP16) & valid).any(axis=1)
+        words = (o << 12) | np.minimum(c, CLIP16)
+    else:
+        words = (o << 28) | c
+    words = np.where(valid, words, 0)
+    return (torch.from_numpy(words.astype(np.int16 if bits == 16
+                                          else np.int32)),
+            stored.astype(np.int32), of)
+
+
+def _k1_plain(reads, wins, params, MR: int, bits: int,
+              sc: DPScores = DPScores()):
+    """K1's outputs, plain torch (forward scan, then _k1_words): its
+    stats rows (P, 8) int32 (score, hit_i, hit_j, n_best, startj, nrun,
+    overflow, 0) and its runs (P, MR) as ``bits``-bit words, the TPU
+    kernel's (``_dp_align_pallas_call``'s stats and runs, at budget MR),
+    both on the host."""
+    col = [params[:, k] for k in range(6)]
+    return _k1_words(_dp_forward_scan(reads, col[0], wins, col[1], *col[2:],
+                                      sc), params, MR, bits)
+
+
+def _k1_words(fwd, params, MR: int, bits: int):
+    """K1's stats rows and run words from the plain forward's outputs
+    (best score, hit_i, hit_j, count, dirs): the traceback sweep and host
+    run-length encoding of the lanes that reach their cutoff."""
+    bS, bI, bJ, bC, dirs = fwd
+    active = (bS >= params[:, 6].to(bS.device)).cpu().numpy()
+    ops, cnts, nrun, startj = _dp_traceback_plain(
+        dirs, params[:, 0], bI, bJ, params[:, 2], active)
+    runs, stored, of = _run_words(ops, cnts, nrun, MR, bits)
+    stats = np.stack([bS.cpu().numpy(), bI.cpu().numpy(), bJ.cpu().numpy(),
+                      bC.cpu().numpy(), startj, stored, of,
+                      np.zeros(len(of))], axis=1).astype(np.int32)
+    return torch.from_numpy(stats), runs
+
+
+def _tb_plain(dirs, params, stats, MR: int):
+    """TB's outputs, plain torch: the walks of the problems whose score
+    (stats word 0) reaches their cutoff (params word 6) over ``dirs``;
+    writes words 4-7 of ``stats`` (host (P, 8) int32: startj, nrun,
+    overflow, 0) and returns the runs (P, MR) as 32-bit words."""
+    active = (stats[:, 0] >= params[:, 6]).cpu().numpy()
+    ops, cnts, nrun, startj = _dp_traceback_plain(
+        dirs, params[:, 0], stats[:, 1], stats[:, 2], params[:, 2], active)
+    runs, stored, of = _run_words(ops, cnts, nrun, MR, 32)
+    stats[:, 4] = torch.from_numpy(np.asarray(startj, np.int64))
+    stats[:, 5] = torch.from_numpy(stored)
+    stats[:, 6] = torch.from_numpy(of.astype(np.int32))
+    stats[:, 7] = 0
+    return runs
+
+
+def dp_wire_plain(params, stats, runs) -> torch.Tensor:
+    """DW's plain version: the result wire (int32, on the host) of the
+    lanes' stats rows (n, 8), their problem rows (n, 8) (the cutoff in
+    word 6) and their runs (n, MR) words (int16: 16-bit words, int32:
+    32-bit): the header, the stats, then each passing lane's (score >=
+    cutoff, nrun > 0, no overflow) first nrun words in lane order, 16-bit
+    words two to an int32 word, low half first, an odd count ending in a
+    zero half."""
+    stats, runs = stats.cpu(), runs.cpu()
+    n, MR = runs.shape
+    nrun, of = stats[:, 5], stats[:, 6]
+    traced = stats[:, 0] >= params[:, 6].cpu()
+    passing = traced & (nrun > 0) & (of == 0)
+    over = int((traced & (of != 0)).sum())
+    keep = passing[:, None] & (torch.arange(MR)[None, :] < nrun[:, None])
+    words = runs[keep].numpy()
+    if runs.dtype == torch.int16:
+        body = np.zeros(2 * (-(-len(words) // 2)), np.uint16)
+        body[:len(words)] = words.astype(np.uint16)
+        body = body.view(np.int32)
+    else:
+        body = words.astype(np.int32)
+    head = [int(passing.sum()), over, len(words),
+            WIRE_HEADER + STATS_WORDS * n + len(body)]
+    return torch.cat([torch.tensor(head, dtype=torch.int32),
+                      stats.reshape(-1).to(torch.int32),
+                      torch.from_numpy(body)])
+
+
+def parse_wire(head: np.ndarray, tail: np.ndarray, bits: int, cutoff
+               ) -> tuple:
+    """dp_align's tuple from a result wire: ``head`` its header and stats
+    (int32), ``tail`` its runs section (int32 words, ``bits``-bit run
+    words in them), ``cutoff`` the lanes' cutoffs. ops / cnts are as wide
+    as the most runs of a lane (at least 1), zero past each lane's runs.
+    Raises on a wire that disagrees with itself or holds an overflowed
+    lane (the run budget holds every alignment: a kernel fault)."""
+    n = (len(head) - WIRE_HEADER) // STATS_WORDS
+    npass, nover, nwords, length = (int(x) for x in head[:WIRE_HEADER])
+    st = head[WIRE_HEADER:].reshape(n, STATS_WORDS)
+    score, nrun, of = st[:, 0], st[:, 5], st[:, 6]
+    traced = score >= np.asarray(cutoff)
+    passing = traced & (nrun > 0) & (of == 0)
+    if nover or (traced & (of != 0)).any():
+        raise RuntimeError(f"{nover} DP lanes overflowed the run budget, "
+                           "which bounds every alignment")
+    lens = np.where(passing, nrun, 0).astype(np.int64)
+    nbody = -(-nwords * bits // 32)
+    if npass != int(passing.sum()) or nwords != int(lens.sum()) \
+            or length != len(head) + nbody or len(tail) < nbody:
+        raise RuntimeError(f"the DP result wire disagrees with itself: "
+                           f"header {head[:WIRE_HEADER].tolist()}, "
+                           f"{int(passing.sum())} passing lanes of "
+                           f"{int(lens.sum())} runs, {len(tail)} words")
+    words = np.ascontiguousarray(tail[:nbody]).view(
+        np.uint16 if bits == 16 else np.uint32)[:nwords].astype(np.int32)
+    shift = 12 if bits == 16 else 28
+    width = max(int(lens.max(initial=0)), 1)
+    # each lane's first lens words, row by row: the wire's order
+    held = np.arange(width)[None, :] < lens[:, None]
+    ops = np.zeros((n, width), np.int32)
+    cnts = np.zeros_like(ops)
+    ops[held] = words >> shift
+    cnts[held] = words & ((1 << shift) - 1)
+    return (score.copy(), st[:, 1].copy(), st[:, 2].copy(), st[:, 3].copy(),
+            ops, cnts, nrun.copy(), st[:, 4].astype(np.int64),
+            np.zeros(n, bool))
+
+
+def _plain_tuple(fwd, params, cutoff, Lr: int, Lw: int) -> tuple:
+    """dp_align's tuple from the plain forward's outputs on packed
+    problems: K1's plain words (_k1_words), DW's plain wire and the host
+    parse."""
+    bits = word_bits(Lr, Lw)
+    stats, runs = _k1_words(fwd, params, run_budget(Lr, Lw), bits)
+    wire = dp_wire_plain(params, stats, runs).numpy()
+    k = WIRE_HEADER + STATS_WORDS * len(stats)
+    return parse_wire(wire[:k], wire[k:], bits, cutoff)
+
+
+def _align_plain(reads, wins, params, cutoff, sc: DPScores):
+    """The plain dp_align of packed problems: the forward scan, then
+    _plain_tuple."""
+    col = [params[:, k] for k in range(6)]
+    fwd = _dp_forward_scan(reads, col[0], wins, col[1], *col[2:], sc)
+    return _plain_tuple(fwd, params, cutoff, reads.shape[1], wins.shape[1])
+
+
 def dp_align_plain(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
                    anchor_r, cutoff, sc: DPScores = DPScores()):
-    """The plain-torch dp_align: forward scan, traceback sweep, host RLE.
-    Same return tuple as dp_align (overflow is never set)."""
-    bS, bI, bJ, bC, dirs = _dp_forward_scan(
-        reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r, sc)
-    score = bS.cpu().numpy()
-    active = score >= cutoff.cpu().numpy()
-    ops, cnts, nrun, startj = _dp_traceback_plain(dirs, rlens, bI, bJ,
-                                                  clip_l, active)
-    return (score, bI.cpu().numpy(), bJ.cpu().numpy(), bC.cpu().numpy(),
-            ops, cnts, nrun, startj.astype(np.int64),
-            np.zeros(reads.shape[0], bool))
+    """The plain-torch dp_align: forward scan, traceback sweep, host RLE,
+    then the result wire and its parse (the route the kernels take). Same
+    return tuple as dp_align (overflow is never set)."""
+    params = pack_params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r,
+                         cutoff)
+    return _align_plain(reads, wins, torch.from_numpy(params).to(
+        reads.device), params[:, 6], sc)
 
 
 # ------------------------------------------------------------------
@@ -361,21 +559,30 @@ FUSED_MAX_WINDOW = 4096
 _P, _I = ctypes.c_void_p, ctypes.c_int
 BANDED_DP_LIB = CudaLibrary("banded_dp.cu")
 DP_FORWARD_LIB = CudaLibrary("dp_forward.cu")
+DP_WIRE_LIB = CudaLibrary("dp_wire.cu")
 # pointers and the stream as c_void_p, so none is cut to 32 bits
-# soap3dp_dp_align(reads, wins, params, P, Lr, Lw, MR, match, mismatch,
-#   gap_open, gap_ext, stats, ops, cnts, scratch, cells_per_lane, blocks,
-#   stream)
+# soap3dp_dp_align(reads, wins, params, P, Lr, Lw, MR, word_bits, match,
+#   mismatch, gap_open, gap_ext, stats, runs, scratch, cells_per_lane,
+#   blocks, stream)
 DP_KERNEL = CudaKernel(BANDED_DP_LIB, "soap3dp_dp_align",
-                       [_P, _P, _P] + [_I] * 8 + [_P] * 4 + [_I, _I, _P])
+                       [_P, _P, _P] + [_I] * 9 + [_P] * 3 + [_I, _I, _P])
 # soap3dp_dp_forward(reads, wins, params, P, Lr, Lw, match, mismatch,
 #   gap_open, gap_ext, stats, dirs, cells_per_lane, blocks, stream)
 FORWARD_KERNEL = CudaKernel(DP_FORWARD_LIB, "soap3dp_dp_forward",
                             [_P, _P, _P] + [_I] * 7 + [_P, _P, _I, _I, _P])
-# soap3dp_dp_traceback(dirs, P, Lr1, ND, tbp, active, lanes, n, MR, ops,
-#   cnts, meta, stream)
+# soap3dp_dp_traceback(dirs, P, Lr1, ND, params, stats, MR, runs, stream)
 TRACEBACK_KERNEL = CudaKernel(DP_FORWARD_LIB, "soap3dp_dp_traceback",
-                              [_P, _I, _I, _I, _P, _P, _P, _I, _I,
-                               _P, _P, _P, _P])
+                              [_P, _I, _I, _I, _P, _P, _I, _P, _P])
+# soap3dp_dp_wire(params, n, runs, MR, word_bits, wire, totals, tiles,
+#   stream): two launches, counted as one call
+WIRE_KERNEL = CudaKernel(DP_WIRE_LIB, "soap3dp_dp_wire",
+                         [_P, _I, _P, _I, _I, _P, _P, _I, _P])
+
+# host syncs counted inside the wide route's chunk loop while
+# WATCH_LOOP_SYNCS is set (torch.cuda's sync debug mode over the loop; a
+# process-wide setting, so only where one thread drives the cards)
+WATCH_LOOP_SYNCS = False
+LOOP_SYNCS = 0
 
 
 def _cells_per_lane(Lr: int) -> int:
@@ -386,24 +593,23 @@ def _cells_per_lane(Lr: int) -> int:
     return 1 << (c - 1).bit_length()
 
 
-def _check_problems(name, reads, wins, *vectors):
-    """Every tensor on one CUDA device; reads (P, Lr), wins (P, Lw) and
-    (P,) parameter vectors."""
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_packed(name, reads, wins, params):
+    """reads (P, Lr), wins (P, Lw) and params (P, 8) int32, contiguous, on
+    one CUDA device."""
     P = reads.shape[0]
-    for t in (reads, wins) + vectors:
+    for t in (reads, wins, params):
         if not t.is_cuda or t.device != reads.device:
             raise ValueError(f"{name} needs every tensor on one CUDA device")
-        if t.shape[0] != P or t.dim() != (2 if t is reads or t is wins else 1):
-            raise ValueError(f"{name}: reads (P, Lr), wins (P, Lw) and (P,) "
-                             f"parameters expected, got {tuple(t.shape)}")
-
-
-def _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r, cutoff=None):
-    """The kernels' (P, 8) int32 problem rows."""
-    z = torch.zeros_like(rlens)
-    return torch.stack(
-        [rlens, wlens, clip_l, clip_r, anchor_l, anchor_r,
-         z if cutoff is None else cutoff, z], dim=1).to(torch.int32).contiguous()
+        if t.dim() != 2 or t.shape[0] != P:
+            raise ValueError(f"{name}: reads (P, Lr), wins (P, Lw) and "
+                             f"params (P, 8) expected, got {tuple(t.shape)}")
+    if params.shape[1] != 8 or params.dtype != torch.int32 \
+            or not params.is_contiguous():
+        raise ValueError(f"{name}: params must be contiguous (P, 8) int32")
 
 
 _RESIDENT: dict[tuple[int, int], int] = {}
@@ -421,13 +627,31 @@ def _resident_warps(lib, dev: torch.device, C: int) -> int:
     return _RESIDENT[key] or _MAX_WARPS
 
 
-def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
+def _wire_buffers(P: int, MR: int, bits: int, dev: torch.device):
+    """(wire, runs) of a call: the result wire, int32, room for its
+    header, P stats rows and P x MR run words; the kernels' runs (P, MR),
+    int16 for 16-bit words, int32 for 32-bit."""
+    body = -(-P * MR * bits // 32)
+    wire = torch.empty(WIRE_HEADER + STATS_WORDS * P + body,
+                       dtype=torch.int32, device=dev)
+    runs = torch.empty((P, MR), dtype=torch.int16 if bits == 16
+                       else torch.int32, device=dev)
+    return wire, runs
+
+
+def _wire_stats(wire: torch.Tensor, P: int) -> torch.Tensor:
+    """The wire's (P, 8) stats rows, a view."""
+    return wire[WIRE_HEADER:WIRE_HEADER + STATS_WORDS * P].view(P,
+                                                                STATS_WORDS)
+
+
+def _launch_dp(reads, wins, params, MR: int, stats, runs, sc: DPScores):
     """One launch of csrc/banded_dp.cu over P problems on the current
     stream of their device, with that device made current (a launch
     must run in the context of the memory it touches). The grid is at
     most the warps resident at once, so no problem waits for a second
-    wave while the card can hold it. Returns device (stats (P, 8), ops
-    (P, MR), cnts (P, MR))."""
+    wave while the card can hold it. Writes ``stats`` (P, 8) int32 and
+    ``runs`` (P, MR) words (int16: 16 bits, int32: 32)."""
     lib, fn = DP_KERNEL.function()
     P, Lr = reads.shape
     Lw = wins.shape[1]
@@ -441,25 +665,21 @@ def _launch_dp(reads, wins, params, MR: int, sc: DPScores):
     blocks = -(-warps // wpb)
     scratch = torch.empty(blocks * wpb * per_warp, dtype=torch.uint8,
                           device=dev)
-    stats = torch.empty((P, 8), dtype=torch.int32, device=dev)
-    ops = torch.zeros((P, MR), dtype=torch.int32, device=dev)
-    cnts = torch.zeros((P, MR), dtype=torch.int32, device=dev)
+    bits = 16 if runs.dtype == torch.int16 else 32
     with torch.cuda.device(dev):
         err = fn(reads.data_ptr(), wins.data_ptr(), params.data_ptr(), P, Lr,
-                 Lw, MR, sc.match, sc.mismatch, sc.gap_open, sc.gap_ext,
-                 stats.data_ptr(), ops.data_ptr(), cnts.data_ptr(),
-                 scratch.data_ptr(), C, blocks,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 Lw, MR, bits, sc.match, sc.mismatch, sc.gap_open,
+                 sc.gap_ext, stats.data_ptr(), runs.data_ptr(),
+                 scratch.data_ptr(), C, blocks, _stream(dev))
     if err != 0:
         raise RuntimeError(f"banded DP kernel launch failed: CUDA error {err}")
     DP_KERNEL.count(dev, (P, Lr, Lw))
-    return stats, ops, cnts
 
 
-def _launch_forward(reads, wins, params, dirs, sc: DPScores):
+def _launch_forward(reads, wins, params, dirs, stats, sc: DPScores):
     """One launch of K2 (csrc/dp_forward.cu) over the P problems of
-    ``dirs`` (ND, P, Lr+1) uint8, which it fills. Returns device stats
-    (P, 4) int32: best score, hit_i, hit_j, tie count."""
+    ``dirs`` (ND, P, Lr+1) uint8, which it fills, and words 0-3 of their
+    ``stats`` rows (P, 8) int32: best score, hit_i, hit_j, tie count."""
     _, fn = FORWARD_KERNEL.function()
     P, Lr = reads.shape
     Lw = wins.shape[1]
@@ -469,74 +689,243 @@ def _launch_forward(reads, wins, params, dirs, sc: DPScores):
         raise ValueError(f"dirs must be contiguous uint8 {(Lr + Lw, P, Lr + 1)}")
     warps = max(1, min(P, _MAX_WARPS))
     blocks = -(-warps // 4)
-    stats = torch.empty((P, 4), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(reads.data_ptr(), wins.data_ptr(), params.data_ptr(), P, Lr,
                  Lw, sc.match, sc.mismatch, sc.gap_open, sc.gap_ext,
                  stats.data_ptr(), dirs.data_ptr(), _cells_per_lane(Lr),
-                 blocks, torch.cuda.current_stream(dev).cuda_stream)
+                 blocks, _stream(dev))
     if err != 0:
         raise RuntimeError(f"DP forward kernel launch failed: CUDA error {err}")
     FORWARD_KERNEL.count(dev, (P, Lr, Lw))
-    return stats
 
 
-def _launch_traceback(dirs, tbp, active, lanes, n: int, MR: int):
-    """One launch of the traceback kernel over ``n`` problems (``lanes``,
-    or all of them when None), one warp a problem on at most the warps
-    resident at once. Returns device (ops (n, MR), cnts (n, MR), both
-    zero past each row's runs; meta (n, 4): nrun, startj, overflow, 0)."""
+def _launch_traceback(dirs, params, stats, runs, MR: int):
+    """One launch of the traceback kernel over the P problems of ``dirs``,
+    one warp a problem on at most the warps resident at once: a problem
+    is traced where its score (``stats`` word 0) reaches its cutoff
+    (``params`` word 6); writes words 4-7 of its stats row and its runs
+    (``runs``: (P, MR) int32, 32-bit words)."""
     _, fn = TRACEBACK_KERNEL.function()
     ND, P, Lr1 = dirs.shape
     dev = dirs.device
-    ops = torch.empty((n, MR), dtype=torch.int32, device=dev)
-    cnts = torch.empty((n, MR), dtype=torch.int32, device=dev)
-    meta = torch.empty((n, 4), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = fn(dirs.data_ptr(), P, Lr1, ND, tbp.data_ptr(),
-                 active.data_ptr(), None if lanes is None else lanes.data_ptr(),
-                 n, MR, ops.data_ptr(), cnts.data_ptr(), meta.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(dirs.data_ptr(), P, Lr1, ND, params.data_ptr(),
+                 stats.data_ptr(), MR, runs.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"DP traceback kernel launch failed: CUDA error "
                            f"{err}")
-    TRACEBACK_KERNEL.count(dev, (n, Lr1 - 1, ND - Lr1 + 1))
-    return ops, cnts, meta
+    TRACEBACK_KERNEL.count(dev, (P, Lr1 - 1, ND - Lr1 + 1))
 
 
-def _traceback_cuda(dirs, rlens, hit_i, hit_j, clip_l, active):
-    """dp_traceback through the traceback kernel. Lanes that overflow the
-    first run budget are re-launched with a budget of ND + 4, a hard
-    bound on the runs of any alignment. Returns numpy (ops, cnts, nrun,
-    startj) with ops/cnts as wide as the largest budget launched."""
-    ND, P, Lr1 = dirs.shape
-    dev = dirs.device
-    tbp = torch.stack([rlens, hit_i, hit_j, clip_l], dim=1).to(
-        device=dev, dtype=torch.int32).contiguous()
-    act = torch.as_tensor(active, device=dev).to(torch.uint8).contiguous()
-    mr = max(MAX_RUNS, _max_runs_bound(Lr1 - 1))
-    ops_d, cnts_d, meta = _launch_traceback(dirs, tbp, act, None, P, mr)
-    m = meta.cpu().numpy()
-    nrun, startj = m[:, 0].copy(), m[:, 1].astype(np.int64)
-    redo = np.flatnonzero(m[:, 2] != 0)
-    if redo.size:
-        mr2 = ND + 4
-        lanes = torch.from_numpy(redo.astype(np.int32)).to(dev)
-        o2, c2, m2 = _launch_traceback(dirs, tbp, act, lanes, len(redo), mr2)
-        ops_d = torch.nn.functional.pad(ops_d, (0, mr2 - mr))
-        cnts_d = torch.nn.functional.pad(cnts_d, (0, mr2 - mr))
-        ops_d[lanes.long()] = o2
-        cnts_d[lanes.long()] = c2
-        nrun[redo] = m2[:, 0].cpu().numpy()
-        mr = mr2
-    ops = np.zeros((P, mr), np.int32)
-    cnts = np.zeros((P, mr), np.int32)
-    pass_idx = np.flatnonzero(nrun > 0)
-    if len(pass_idx):
-        g = torch.from_numpy(pass_idx).to(dev)
-        ops[pass_idx] = ops_d[g].cpu().numpy()
-        cnts[pass_idx] = cnts_d[g].cpu().numpy()
-    return ops, cnts, nrun, startj
+def _launch_wire(params, runs, wire):
+    """One call of DW (csrc/dp_wire.cu, two launches: the tiles' totals
+    into a scratch of its own, then the copy): the header and the runs
+    section of ``wire``, whose stats rows are written, from ``params``
+    (n, 8) and ``runs`` (n, MR) words (int16: 16 bits, int32: 32)."""
+    lib, fn = WIRE_KERNEL.function()
+    n, MR = runs.shape
+    dev = wire.device
+    bits = 16 if runs.dtype == torch.int16 else 32
+    tiles = -(-n // int(lib.soap3dp_dp_wire_tile()))
+    totals = torch.empty(3 * tiles, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(params.data_ptr(), n, runs.data_ptr(), MR, bits,
+                 wire.data_ptr(), totals.data_ptr(), tiles, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"DP wire kernel launch failed: CUDA error {err}")
+    WIRE_KERNEL.count(dev, (n, MR, bits))
+
+
+def dp_wire(params, stats, runs) -> torch.Tensor:
+    """DW on the card: the result wire (int32, as allocated; its first
+    header[3] words are the wire) of the lanes' stats rows (n, 8) int32,
+    problem rows (n, 8) int32 and runs (n, MR) words (int16: 16 bits,
+    int32: 32), all on one CUDA device; dp_wire_plain is its plain
+    version. (The DP routes launch DW on a wire their kernels filled.)"""
+    n, MR = runs.shape
+    if not (stats.is_cuda and params.is_cuda and runs.is_cuda) \
+            or len({stats.device, params.device, runs.device}) != 1:
+        raise ValueError("dp_wire needs every tensor on one CUDA device")
+    bits = 16 if runs.dtype == torch.int16 else 32
+    wire = _wire_buffers(n, MR, bits, stats.device)[0]
+    _wire_stats(wire, n).copy_(stats)
+    _launch_wire(params.contiguous(), runs.contiguous(), wire)
+    return wire
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` (on a card) as a host array: one copy into pinned memory on
+    its device's current stream, waited for."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    done.synchronize()
+    return host.numpy()
+
+
+def _download(wire, P: int, bits: int, cutoff) -> tuple:
+    """dp_align's tuple from a call's wire on the card: its header and
+    stats in one copy, then its runs at their exact length (none if no
+    lane passed)."""
+    k = WIRE_HEADER + STATS_WORDS * P
+    head = _to_host(wire[:k])
+    tail = (_to_host(wire[k:int(head[3])]) if head[3] > k
+            else np.zeros(0, np.int32))
+    return parse_wire(head, tail, bits, cutoff)
+
+
+def _empty_align():
+    z = np.zeros(0, np.int32)
+    return (z, z, z, z, np.zeros((0, 1), np.int32),
+            np.zeros((0, 1), np.int32), z, z.astype(np.int64),
+            np.zeros(0, bool))
+
+
+def _k1_outputs(reads, wins, params, sc: DPScores):
+    """K1 over packed problems: (the call's wire, its stats rows written;
+    the runs (P, run_budget) words)."""
+    P, Lr = reads.shape
+    Lw = wins.shape[1]
+    MR = run_budget(Lr, Lw)
+    wire, runs = _wire_buffers(P, MR, word_bits(Lr, Lw), reads.device)
+    _launch_dp(reads, wins, params, MR, _wire_stats(wire, P), runs, sc)
+    return wire, runs
+
+
+def _align_k1(reads, wins, params, cutoff, sc: DPScores):
+    """dp_align of packed problems through K1 and DW: K1 writes the
+    stats rows into the call's wire and its runs as words, DW the header
+    and the passing lanes' runs, and the host downloads the wire."""
+    wire, runs = _k1_outputs(reads, wins, params, sc)
+    _launch_wire(params, runs, wire)
+    return _download(wire, reads.shape[0],
+                     16 if runs.dtype == torch.int16 else 32, cutoff)
+
+
+@contextlib.contextmanager
+def _chunk_loop():
+    """The wide route's chunk loop; with WATCH_LOOP_SYNCS set, adds the
+    host syncs torch reports inside it to LOOP_SYNCS."""
+    global LOOP_SYNCS
+    if not WATCH_LOOP_SYNCS:
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    LOOP_SYNCS += sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _wide_outputs(reads, wins, params, sc: DPScores):
+    """K2 and TB over packed problems, the problem axis in chunks whose
+    directions fit _DIRS_BUDGET, one buffer serving every chunk: each
+    chunk's K2 writes its stats rows into the call's wire and its TB
+    traces the lanes that reach their cutoff into the runs, one after
+    the other on the stream with no host round trip between. Returns
+    (the wire, its stats rows written; the runs (P, run_budget) 32-bit
+    words)."""
+    P, Lr = reads.shape
+    Lw = wins.shape[1]
+    dev = reads.device
+    ND, Lr1 = Lr + Lw, Lr + 1
+    MR = run_budget(Lr, Lw)
+    wire, runs = _wire_buffers(P, MR, 32, dev)
+    stats = _wire_stats(wire, P)
+    chunk = max(1, min(P, _DIRS_BUDGET // (ND * Lr1)))
+    buf = torch.empty(ND * chunk * Lr1, dtype=torch.uint8, device=dev)
+    with _chunk_loop():
+        for p0 in range(0, P, chunk):
+            p1 = min(P, p0 + chunk)
+            dirs = buf[: ND * (p1 - p0) * Lr1].view(ND, p1 - p0, Lr1)
+            _launch_forward(reads[p0:p1], wins[p0:p1], params[p0:p1], dirs,
+                            stats[p0:p1], sc)
+            _launch_traceback(dirs, params[p0:p1], stats[p0:p1],
+                              runs[p0:p1], MR)
+    return wire, runs
+
+
+def _align_wide(reads, wins, params, cutoff, sc: DPScores):
+    """dp_align of packed problems through K2, TB and DW: the reference's
+    route for windows of FUSED_MAX_WINDOW and more (_wide_outputs); DW
+    completes the wire after the last chunk, and the host downloads
+    it."""
+    wire, runs = _wide_outputs(reads, wins, params, sc)
+    _launch_wire(params, runs, wire)
+    return _download(wire, reads.shape[0], 32, cutoff)
+
+
+def takes_wide_route(Lr: int, Lw: int) -> bool:
+    """Whether dp_align takes K2 + traceback (else K1) on CUDA: where the
+    reference leaves its fused kernel for dp_forward's Pallas kernel
+    (a window of FUSED_MAX_WINDOW or more, and Lr + 1 <= 128)."""
+    return Lw >= FUSED_MAX_WINDOW and Lr + 1 <= 128
+
+
+def dp_align_packed(reads, wins, params, cutoff, sc: DPScores = DPScores()):
+    """dp_align of problems whose vectors come packed: ``params`` (P, 8)
+    int32 rows (PARAM_COLUMNS, pack_params) on the reads' device,
+    ``cutoff`` their cutoffs on the host (the parse's). On CUDA tensors
+    the route's kernels run (or raise), with no library kernel; on CPU
+    tensors the plain version."""
+    P, Lr = reads.shape
+    if P == 0:
+        return _empty_align()
+    if reads.is_cuda:
+        _check_packed("dp_align", reads, wins, params)
+        route = _align_wide if takes_wide_route(Lr, wins.shape[1]) \
+            else _align_k1
+        return route(reads.to(torch.uint8).contiguous(),
+                     wins.to(torch.uint8).contiguous(), params,
+                     np.asarray(cutoff), sc)
+    if reads.device.type != "cpu":
+        raise ValueError(f"dp_align: no DP implementation for {reads.device}")
+    return _align_plain(reads, wins, params, cutoff, sc)
+
+
+def _packed(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
+            cutoff):
+    """dp_align's nine inputs as dp_align_packed's four: the problem rows
+    packed on the host and uploaded to the reads' device."""
+    from soap3dp_tpu_torch.fm.fmindex import to_device
+
+    params = pack_params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r,
+                         cutoff)
+    return reads, wins, to_device(params, reads.device), params[:, 6]
+
+
+def _on_route(route, name: str, nine: tuple, sc: DPScores):
+    """dp_align's nine inputs (all on one CUDA device) through ``route``
+    whatever the shape."""
+    if nine[0].shape[0] == 0:
+        return _empty_align()
+    reads, wins, params, cut = _packed(*nine)
+    _check_packed(name, reads, wins, params)
+    return route(reads.to(torch.uint8).contiguous(),
+                 wins.to(torch.uint8).contiguous(), params, cut, sc)
+
+
+def dp_align_cuda(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
+                  anchor_r, cutoff, sc: DPScores = DPScores()):
+    """dp_align through K1 and DW whatever the shape (all tensors on one
+    CUDA device)."""
+    return _on_route(_align_k1, "dp_align_cuda", (
+        reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
+        cutoff), sc)
+
+
+def dp_align_wide(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
+                  anchor_r, cutoff, sc: DPScores = DPScores()):
+    """dp_align through K2, TB and DW whatever the shape (all tensors on
+    one CUDA device)."""
+    return _on_route(_align_wide, "dp_align_wide", (
+        reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
+        cutoff), sc)
 
 
 def dp_forward(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
@@ -549,14 +938,16 @@ def dp_forward(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
     3-4 I, 5 match). On CUDA tensors K2 runs (or raises); on CPU tensors
     the plain-torch scan."""
     if reads.is_cuda:
-        _check_problems("dp_forward", reads, wins, rlens, wlens, clip_l,
-                        clip_r, anchor_l, anchor_r)
         P, Lr = reads.shape
+        r, w, params, _ = _packed(reads, rlens, wins, wlens, clip_l, clip_r,
+                                  anchor_l, anchor_r, np.zeros(P, np.int32))
+        _check_packed("dp_forward", r, w, params)
         dirs = torch.empty((Lr + wins.shape[1], P, Lr + 1), dtype=torch.uint8,
                            device=reads.device)
-        st = _launch_forward(
-            reads.to(torch.uint8).contiguous(), wins.to(torch.uint8).contiguous(),
-            _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r), dirs, sc)
+        st = torch.empty((P, STATS_WORDS), dtype=torch.int32,
+                         device=reads.device)
+        _launch_forward(r.to(torch.uint8).contiguous(),
+                        w.to(torch.uint8).contiguous(), params, dirs, st, sc)
         return st[:, 0], st[:, 1], st[:, 2], st[:, 3], dirs
     if reads.device.type != "cpu":
         raise ValueError(f"dp_forward: no DP implementation for {reads.device}")
@@ -570,119 +961,37 @@ def dp_traceback(dirs, reads, rlens, wins, hit_i, hit_j, clip_l, active):
     right-to-left runs (the first is the right clip), MR the most runs of
     any lane (at least 1); start_j the 0-based window offset where each
     alignment starts. ``reads`` and ``wins`` are accepted and unused (the
-    match bit is in dirs). On CUDA tensors the traceback kernel runs (or
-    raises); on CPU tensors the plain sweep and host run-length
-    encoding."""
+    match bit is in dirs). On CUDA tensors the traceback kernel and DW
+    run (or raise); on CPU tensors their plain versions. Either way the
+    runs go through the result wire and its parse."""
     del reads, wins
-    if dirs.is_cuda:
-        ops, cnts, nrun, startj = _traceback_cuda(dirs, rlens, hit_i, hit_j,
-                                                  clip_l, active)
-        w = max(int(nrun.max(initial=0)), 1)
-        return ops[:, :w], cnts[:, :w], nrun, startj
-    if dirs.device.type != "cpu":
+    ND, P, Lr1 = dirs.shape
+    if dirs.device.type not in ("cuda", "cpu"):
         raise ValueError(f"dp_traceback: no implementation for {dirs.device}")
-    return _dp_traceback_plain(dirs, rlens, hit_i, hit_j, clip_l, active)
+    # traced where score 0 reaches cutoff 0: the active lanes
+    params = pack_params(rlens, np.zeros(P), clip_l, np.zeros(P),
+                         np.zeros(P), np.zeros(P), np.zeros(P))
+    stats = np.zeros((P, STATS_WORDS), np.int32)
+    stats[:, 0] = np.where(np.asarray(active), 0, -1)
+    stats[:, 1] = np.asarray(hit_i.cpu())
+    stats[:, 2] = np.asarray(hit_j.cpu())
+    MR = run_budget(Lr1 - 1, ND - Lr1 + 1)
+    if dirs.is_cuda:
+        from soap3dp_tpu_torch.fm.fmindex import to_device
 
-
-def _empty_align():
-    z = np.zeros(0, np.int32)
-    return (z, z, z, z, np.zeros((0, 1), np.int32),
-            np.zeros((0, 1), np.int32), z, z.astype(np.int64),
-            np.zeros(0, bool))
-
-
-def dp_align_cuda(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
-                  anchor_r, cutoff, sc: DPScores = DPScores()):
-    """dp_align through K1 (all tensors on one CUDA device). Lanes that
-    pass the cutoff but overflow the first run budget are re-launched
-    with a budget of ND + 4, a hard bound on the runs of any alignment,
-    so no lane is left overflowed."""
-    P, Lr = reads.shape
-    Lw = wins.shape[1]
-    if P == 0:
-        return _empty_align()
-    _check_problems("dp_align_cuda", reads, wins, rlens, wlens, clip_l,
-                    clip_r, anchor_l, anchor_r, cutoff)
-    reads = reads.to(torch.uint8).contiguous()
-    wins = wins.to(torch.uint8).contiguous()
-    params = _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r, cutoff)
-    mr = max(MAX_RUNS, _max_runs_bound(Lr))
-    stats, ops_d, cnts_d = _launch_dp(reads, wins, params, mr, sc)
-    st = stats.cpu().numpy()
-    cut = cutoff.cpu().numpy()
-    redo = (st[:, 6] != 0) & (st[:, 0] >= cut)
-    if redo.any():
-        sel = torch.from_numpy(np.flatnonzero(redo)).to(reads.device)
-        mr2 = Lr + Lw + 4
-        st2, ops2, cnts2 = _launch_dp(reads[sel], wins[sel], params[sel],
-                                      mr2, sc)
-        ops_d = torch.nn.functional.pad(ops_d, (0, mr2 - mr))
-        cnts_d = torch.nn.functional.pad(cnts_d, (0, mr2 - mr))
-        ops_d[sel] = ops2
-        cnts_d[sel] = cnts2
-        st[redo] = st2.cpu().numpy()
-        mr = mr2
-    score, nrun = st[:, 0], st[:, 5]
-    ops = np.zeros((P, mr), np.int32)
-    cnts = np.zeros((P, mr), np.int32)
-    pass_idx = np.flatnonzero((score >= cut) & (nrun > 0))
-    if len(pass_idx):
-        g = torch.from_numpy(pass_idx).to(reads.device)
-        ops[pass_idx] = ops_d[g].cpu().numpy()
-        cnts[pass_idx] = cnts_d[g].cpu().numpy()
-    return (score, st[:, 1], st[:, 2], st[:, 3], ops, cnts, nrun,
-            st[:, 4].astype(np.int64), st[:, 6].astype(bool))
-
-
-def dp_align_wide(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
-                  anchor_r, cutoff, sc: DPScores = DPScores()):
-    """dp_align through K2 and the traceback kernel (all tensors on one
-    CUDA device): the reference's route for windows of FUSED_MAX_WINDOW
-    and more. The problem axis goes in chunks whose directions fit
-    _DIRS_BUDGET; one buffer serves every chunk, each traced before the
-    next forward."""
-    P, Lr = reads.shape
-    Lw = wins.shape[1]
-    if P == 0:
-        return _empty_align()
-    _check_problems("dp_align_wide", reads, wins, rlens, wlens, clip_l,
-                    clip_r, anchor_l, anchor_r, cutoff)
-    dev = reads.device
-    reads = reads.to(torch.uint8).contiguous()
-    wins = wins.to(torch.uint8).contiguous()
-    params = _params(rlens, wlens, clip_l, clip_r, anchor_l, anchor_r)
-    ND, Lr1 = Lr + Lw, Lr + 1
-    chunk = max(1, min(P, _DIRS_BUDGET // (ND * Lr1)))
-    buf = torch.empty(ND * chunk * Lr1, dtype=torch.uint8, device=dev)
-    st = np.zeros((P, 4), np.int32)
-    nrun = np.zeros(P, np.int32)
-    startj = np.zeros(P, np.int64)
-    parts = []
-    for p0 in range(0, P, chunk):
-        p1 = min(P, p0 + chunk)
-        dirs = buf[: ND * (p1 - p0) * Lr1].view(ND, p1 - p0, Lr1)
-        stats = _launch_forward(reads[p0:p1], wins[p0:p1], params[p0:p1],
-                                dirs, sc)
-        o, c, nrun[p0:p1], startj[p0:p1] = _traceback_cuda(
-            dirs, rlens[p0:p1], stats[:, 1], stats[:, 2], clip_l[p0:p1],
-            stats[:, 0] >= cutoff[p0:p1])
-        st[p0:p1] = stats.cpu().numpy()
-        parts.append((p0, p1, o, c))
-    mr = max(o.shape[1] for _, _, o, _ in parts)
-    ops = np.zeros((P, mr), np.int32)
-    cnts = np.zeros((P, mr), np.int32)
-    for p0, p1, o, c in parts:
-        ops[p0:p1, : o.shape[1]] = o
-        cnts[p0:p1, : c.shape[1]] = c
-    return (st[:, 0], st[:, 1], st[:, 2], st[:, 3], ops, cnts, nrun, startj,
-            np.zeros(P, bool))
-
-
-def takes_wide_route(Lr: int, Lw: int) -> bool:
-    """Whether dp_align takes K2 + traceback (else K1) on CUDA: where the
-    reference leaves its fused kernel for dp_forward's Pallas kernel
-    (a window of FUSED_MAX_WINDOW or more, and Lr + 1 <= 128)."""
-    return Lw >= FUSED_MAX_WINDOW and Lr + 1 <= 128
+        wire, runs = _wire_buffers(P, MR, 32, dirs.device)
+        _wire_stats(wire, P).copy_(torch.from_numpy(stats))
+        prm = to_device(params, dirs.device)
+        _launch_traceback(dirs, prm, _wire_stats(wire, P), runs, MR)
+        _launch_wire(prm, runs, wire)
+        out = _download(wire, P, 32, params[:, 6])
+    else:
+        prm, st = torch.from_numpy(params), torch.from_numpy(stats)
+        runs = _tb_plain(dirs, prm, st, MR)
+        wire = dp_wire_plain(prm, st, runs).numpy()
+        k = WIRE_HEADER + STATS_WORDS * P
+        out = parse_wire(wire[:k], wire[k:], 32, params[:, 6])
+    return out[4], out[5], out[6], out[7]
 
 
 def _concat_align(parts):
@@ -700,16 +1009,21 @@ def _concat_align(parts):
 
 
 def dp_align_shards(shards, sc: DPScores = DPScores()):
-    """dp_align over problems split into consecutive slices, each given
-    as its nine dp_align inputs on one device. Each slice is aligned on
-    its device in a host thread of its own (the wrappers wait on host
-    copies per call, so one thread would run the devices one after the
-    other; the ctypes launches release the interpreter lock), and the
-    outputs are concatenated in problem order."""
+    """dp_align over problems split into consecutive slices, each on one
+    device, given as dp_align's nine inputs or as dp_align_packed's four
+    (reads, wins, params, host cutoffs). Each slice is aligned on its
+    device in a host thread of its own (each call waits on its wire's
+    download, so one thread would run the devices one after the other;
+    the ctypes launches release the interpreter lock), and the outputs
+    are concatenated in problem order."""
     from soap3dp_tpu_torch.distributed.mesh import map_shards
 
-    parts = map_shards([s[0].device for s in shards],
-                       lambda j: dp_align(*shards[j], sc=sc))
+    def one(j):
+        s = shards[j]
+        return (dp_align_packed(*s, sc=sc) if len(s) == 4
+                else dp_align(*s, sc=sc))
+
+    parts = map_shards([s[0].device for s in shards], one)
     return parts[0] if len(parts) == 1 else _concat_align(parts)
 
 
@@ -719,13 +1033,16 @@ def dp_align(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
     ``(score, hit_i, hit_j, n_best, ops, cnts, nrun, startj, overflow)``.
 
     ops/cnts are right-to-left CIGAR runs for every lane with
-    score >= cutoff (others have nrun == 0); only the first nrun columns
-    of a row are meaningful. On CUDA tensors a Hopper kernel runs (or
-    raises): K2 + the traceback kernel where takes_wide_route, K1
-    elsewhere. On CPU tensors the plain-torch version runs. With
-    ``mesh`` (a distributed.mesh.DeviceMesh) the problem axis is split
-    into near-equal consecutive slices, slice j aligned on the mesh's
-    device j through the same choice (dp_align_shards)."""
+    score >= cutoff (others have nrun == 0), as wide as the most runs of
+    a lane; only the first nrun columns of a row are meaningful. On CUDA
+    tensors Hopper kernels run (or raise): K2 + the traceback kernel
+    where takes_wide_route, K1 elsewhere, then DW, the result wire the
+    host downloads (the problems' vectors are packed on the host first:
+    dp_align_packed takes them packed). On CPU tensors the plain-torch
+    version runs, through the same wire. With ``mesh`` (a
+    distributed.mesh.DeviceMesh) the problem axis is split into
+    near-equal consecutive slices, slice j aligned on the mesh's device j
+    through the same choice (dp_align_shards)."""
     if mesh is not None and mesh.size > 1:
         args = [a.tensor_split(mesh.size) for a in
                 (reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
@@ -733,13 +1050,13 @@ def dp_align(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l, anchor_r,
         return dp_align_shards(
             [[a[j].to(dev) for a in args]
              for j, dev in enumerate(mesh.devices)], sc)
-    if reads.is_cuda:
-        route = dp_align_wide if takes_wide_route(reads.shape[1],
-                                                  wins.shape[1]) \
-            else dp_align_cuda
-        return route(reads, rlens, wins, wlens, clip_l, clip_r, anchor_l,
-                     anchor_r, cutoff, sc)
-    if reads.device.type != "cpu":
+    if reads.device.type not in ("cuda", "cpu"):
         raise ValueError(f"dp_align: no DP implementation for {reads.device}")
+    if reads.shape[0] == 0:
+        return _empty_align()
+    if reads.is_cuda:
+        return dp_align_packed(*_packed(reads, rlens, wins, wlens, clip_l,
+                                        clip_r, anchor_l, anchor_r, cutoff),
+                               sc=sc)
     return dp_align_plain(reads, rlens, wins, wlens, clip_l, clip_r,
                           anchor_l, anchor_r, cutoff, sc)

@@ -9,8 +9,9 @@ one packed vector of u32 words), ``_prescan_impl`` (the GP kernel on
 the card, ``_prescan_plain`` on the CPU; ``_PRESCAN_CHUNK`` bounds the plain
 version's (M, O) matrix only) and ``_pack_problems`` (the PK kernel on
 the card, ``_pack_problems_plain`` on the CPU); and ``run_banded_dp``
-uploads the rows its problems name and calls the port's ``dp_align``
-(the Hopper kernels on CUDA, their plain versions on CPU), one slice of
+uploads the rows its problems name and their (P, 8) problem rows,
+packed on the host, and calls the port's ``dp_align_packed`` (the
+Hopper kernels on CUDA, their plain versions on CPU), one slice of
 problems per device on a mesh.
 """
 
@@ -27,7 +28,8 @@ from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
 from soap3dp_tpu_torch.fm.fmindex import DeviceIndex, to_device
 from soap3dp_tpu_torch.kernels import fm_search
-from soap3dp_tpu_torch.kernels.banded_dp import DPScores, dp_align_shards
+from soap3dp_tpu_torch.kernels.banded_dp import (DPScores, dp_align_shards,
+                                                 pack_params)
 
 MERGE_GAP = 50  # candidates within 50bp collapse (DP2_DIVIDE_GAP)
 _PRESCAN_CHUNK = 1 << 14  # candidates a plain prescan pass (bounds memory)
@@ -413,8 +415,10 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     anchor_l, anchor_r = pad(anchor_l), pad(anchor_r)
     cutoff = np.concatenate([np.asarray(cutoff, np.int64),
                              np.full(M_pad - M_real, 1 << 20, np.int64)])
-    rlen = lens[cand.read].astype(np.int32)
-    cutoff32 = np.minimum(cutoff, 1 << 20).astype(np.int32)
+    # the kernels' problem rows, packed here, one upload a slice; the
+    # cutoffs stay on the host too, for the result wire's parse
+    params = pack_params(lens[cand.read], win_len, clip_l, clip_r, anchor_l,
+                         anchor_r, np.minimum(cutoff, 1 << 20))
     Ms = M_pad // n
     shards = []
     with timers.stage("dp.pack"):
@@ -422,10 +426,6 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
         for j, rep in enumerate(replicas):
             dev = rep.device
             sl = slice(j * Ms, (j + 1) * Ms)
-
-            def d32(a):
-                return to_device(np.asarray(a[sl], np.int32), dev)
-
             # only the read rows the slice's problems name go up
             rows, cread = np.unique(cand.read[sl], return_inverse=True)
             rlens = lens[rows].astype(np.int64)
@@ -436,9 +436,8 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
                 to_device(cand.strand[sl] == 1, dev),
                 to_device(np.asarray(win_start[sl], np.int64), dev), un,
                 max_win)
-            shards.append((oriented, d32(rlen), wins, d32(win_len),
-                           d32(clip_l), d32(clip_r), d32(anchor_l),
-                           d32(anchor_r), d32(cutoff32)))
+            shards.append((oriented, wins, to_device(params[sl], dev),
+                           params[sl, 6]))
     with timers.stage("dp.align"):
         score, hI, hJ, nbc, ops, cnts, nrun, startj, overflow = \
             dp_align_shards(shards, sc)

@@ -334,16 +334,65 @@ def test_k1_calls_kept_and_unheld_shapes():
         assert len(args) == 9 and sc == bd.DPScores()
         ok, err = chip_smoke._dp_equal(bd.dp_align_plain(*args, sc), w)
         assert ok and err == 0, name
-    # K1's held call re-launched its overflowing lanes at a shape of its
-    # own
+    # a held dp_align call holds the shape of each DP kernel it launched
     rows = [{"kernel": "K1", "shape": "24x120x256",
-             "launch_shapes": ["24x120x256", "3x120x256"]},
+             "held_shapes": {"K1": ["24x120x256"], "DW": ["24x246x16"],
+                             "K2": [], "TB": []}},
             {"kernel": "FS1", "shape": "240x100x13"}]
-    shapes = {"K1": {"24x120x256": 2, "3x120x256": 1, "16x120x640": 1},
+    shapes = {"K1": {"24x120x256": 2, "16x120x640": 1},
+              "DW": {"24x246x16": 2, "16x246x16": 1},
               "FS1": {"240x100x13": 4}, "GP": {"4521x640x100": 1}}
     assert chip_smoke.unheld_shapes(shapes, rows) == {
-        "K1": ["16x120x640"], "GP": ["4521x640x100"]}
+        "K1": ["16x120x640"], "DW": ["16x246x16"], "GP": ["4521x640x100"]}
     assert chip_smoke.unheld_shapes({"FS1": shapes["FS1"]}, rows) == {}
+
+
+def test_packed_dp_calls_kept_as_nine_inputs():
+    """_Recorder keeps dp_align_shards' calls in run_banded_dp's packed
+    form (reads, wins, params, host cutoffs) by launch shape, the host
+    cutoffs copied; k1_kept_cases gives each as dp_align's nine inputs
+    (the columns of params), whose plain result is the call's, and names
+    a wide-route shape K2."""
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    rng = np.random.default_rng(15)
+    kept, want = {}, []
+    with chip_smoke._Recorder(record=False, kept=kept,
+                              keep=chip_smoke.HELD_ENTRIES):
+        for P, Lw in ((16, 256), (4, 4100)):
+            prob = chip_smoke.main_path_problems(rng, P, 120, Lw,
+                                                 read_len=100)
+            params = bd.pack_params(prob[1], *prob[3:9])
+            shard = (torch.from_numpy(prob[0]), torch.from_numpy(prob[2]),
+                     torch.from_numpy(params), params[:, 6])
+            want.append(dp_rescue.dp_align_shards([shard], bd.DPScores()))
+    assert sorted(kept) == [("dp_align_shards", 4, 120, 4100),
+                            ("dp_align_shards", 16, 120, 256)]
+    cases = chip_smoke.k1_kept_cases(kept, "path5")
+    assert [c[0] for c in cases] == ["path5_K2_4x120x4100",
+                                     "path5_K1_16x120x256"]
+    for (name, args, sc), w in zip(cases, (want[1], want[0])):
+        assert len(args) == 9 and sc == bd.DPScores()
+        ok, err = chip_smoke._dp_equal(bd.dp_align_plain(*args, sc), w)
+        assert ok and err == 0, name
+
+
+def test_plain_align_from_a_given_forward():
+    """plain_align_from, which phase 2's wide and range cases hold the
+    kernels' dp_align to (its forward the one K2 was held to), equals
+    dp_align_plain on the same inputs, on small copies of the wide
+    cases."""
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+
+    for name, prob, sc in chip_smoke.wide_cases(np.random.default_rng(10),
+                                                small=True):
+        args = [torch.from_numpy(np.ascontiguousarray(x)) for x in prob]
+        fwd = bd._dp_forward_scan(*args[:8], sc=sc)
+        got = chip_smoke.plain_align_from(fwd, args)
+        want = bd.dp_align_plain(*args, sc=sc)
+        ok, err = chip_smoke._dp_equal(got, want)
+        assert ok and err == 0 and got[4].shape == want[4].shape, name
 
 
 def test_dp_problem_generators():
@@ -365,8 +414,10 @@ def test_dp_problem_generators():
                                             300)
     out = bd.dp_align(*[torch.from_numpy(x) for x in relaunch],
                       sc=bd.DPScores(1, -2, -1, -1))
-    # past the traceback kernel's first run budget
-    assert (out[6] > max(bd.MAX_RUNS, bd._max_runs_bound(127))).all()
+    # past 128 runs, the traceback's first run budget before it became
+    # run_budget, and within that
+    assert (out[6] > 128).all()
+    assert (out[6] <= bd.run_budget(127, 300)).all()
     args = [torch.from_numpy(np.ascontiguousarray(x)) for x in prob]
     out = bd.dp_align(*args)
     npass = int((out[6] > 0).sum())
@@ -440,7 +491,12 @@ def test_bounds_edge_cases_and_launch_shapes(monkeypatch):
     assert by2 == "bytes" and ms2 == pytest.approx(
         (8 * (4 + 4096 + 48) + 4100 * 8 * 5) / chip_smoke.HBM_BYTES_PER_S
         * 1e3)
-    assert chip_smoke.tb_bound(1000, 10, 128, peak)[1] == "bytes"
+    # TB: 40 bytes a problem and 4 a run word beside its path's bytes
+    assert chip_smoke.tb_bound(10, 1000, 128, peak) == pytest.approx(
+        ((10 + 1000 * 40 + 4 * 128) / chip_smoke.HBM_BYTES_PER_S * 1e3,
+         "bytes"))
+    assert chip_smoke.dw_bound(100, 7, 16) == pytest.approx(
+        ((1600 + 28 + 16) / chip_smoke.HBM_BYTES_PER_S * 1e3, "bytes"))
 
     cases = dict(chip_smoke.edge_cases(np.random.default_rng(6)))
     assert list(cases) == ["Lr31", "Lr32", "Lr33", "Lr127", "Lr128",
@@ -550,7 +606,7 @@ def test_tb_replay_walks_inside_its_windows():
     from soap3dp_tpu_torch.kernels import banded_dp as bd
 
     cases = chip_smoke.wide_cases(np.random.default_rng(9), small=True)
-    assert [c[0] for c in cases] == ["mate_window", "edge", "tb_relaunch"]
+    assert [c[0] for c in cases] == ["mate_window", "edge", "tb_long_runs"]
     for name, prob, sc in cases:
         args = [torch.from_numpy(np.ascontiguousarray(x)) for x in prob]
         bS, bI, bJ, _, dirs = bd._dp_forward_scan(*args[:8], sc=sc)

@@ -152,8 +152,9 @@ def test_many_runs_overflow_shape():
     want = jb.dp_align(*[jnp.asarray(x) for x in prob[:8]], prob[8])
     got = tb.dp_align(*_torch(prob), sc=SC)
     assert_dp_equal(want, got, check_width=True)
-    budget = max(tb.MAX_RUNS, tb._max_runs_bound(260))
-    assert (np.asarray(got[6]) > budget).sum() >= 8
+    # past 128 runs, the first run budget before it became run_budget
+    assert (np.asarray(got[6]) > 128).sum() >= 8
+    assert np.asarray(got[6]).max() <= tb.run_budget(260, 360)
 
 
 def test_wrapper_routes_by_device():
@@ -320,19 +321,22 @@ EDGE_CARD = ["Lr31", "Lr32", "Lr33", "Lr127", "Lr128", "Lr2047", "ties",
 @pytest.mark.parametrize("name", EDGE_CARD)
 def test_kernel_edges_match_plain(name):
     """K1 against its plain version at chip_smoke.py's edge cases (needs
-    a CUDA card; phase 2 runs the same cases): exactly equal, and the
-    overflow case re-launches K1."""
+    a CUDA card; phase 2 runs the same cases): exactly equal, one launch
+    of K1 and one of DW each, the overflow case's runs past 128 held by
+    the run budget."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check")
     import chip_smoke
 
     cases = dict(chip_smoke.edge_cases(np.random.default_rng(11)))
     args = _torch(cases[name], "cuda")
-    before = tb.DP_KERNEL.launches
+    before, wire = tb.DP_KERNEL.launches, tb.WIRE_KERNEL.launches
     got = tb.dp_align(*args, sc=SC)
-    assert tb.DP_KERNEL.launches == before + (2 if name.startswith("overflow")
-                                              else 1)
+    assert tb.DP_KERNEL.launches == before + 1
+    assert tb.WIRE_KERNEL.launches == wire + 1
     assert_dp_equal(tb.dp_align_plain(*args, sc=SC), got)
+    if name.startswith("overflow"):
+        assert (np.asarray(got[6]) > 128).any()
 
 
 @pytest.mark.cuda

@@ -26,6 +26,7 @@ PORT = os.path.join(ROOT, "soap3dp_tpu_torch")
 
 def _sources():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "compare_e2e.py",
+                                           "compare_dp.py",
                                            "compare_kernels.py",
                                            "compare_prescan.py",
                                            "compare_search.py",
