@@ -3230,12 +3230,12 @@ def rescue_shape(fn_name: str, args: tuple) -> tuple:
     """The launch shape of a call of dp_rescue's ``fn_name`` (GP: M x O x
     Lr; PK: P x Lr x max_win; the DP, its first shard: P x Lr x Lw)."""
     if fn_name == "_prescan_impl":
-        return (args[3].shape[0], args[8], args[1].shape[1])
+        return (args[2].shape[0], args[3], args[1].shape[1])
     if fn_name == "dp_align_shards":
         shard = args[0][0]
         reads, wins = shard[0], shard[1 if len(shard) == 4 else 2]
         return (reads.shape[0], reads.shape[1], wins.shape[1])
-    return (args[3].shape[0], args[1].shape[1], args[7])
+    return (args[2].shape[0], args[1].shape[1], args[3])
 
 
 def path_cases(kept: dict, tag: str = "path4"
@@ -3347,29 +3347,48 @@ def unheld_shapes(launch_shapes: dict, rows: list[dict]) -> dict:
     return {k: v for k, v in out.items() if v}
 
 
+def rescue_case(kernel: str, reads, words, n_pac: int, *ints) -> dict:
+    """The case (run_prescan_case's or run_pack_case's dict) of a GP or PK
+    call's reads and words (host arrays or tensors) and its ints (GP: O,
+    W; PK: max_win): the words decoded (dp_rescue.rescue_fields), a
+    row's reverse-complement length each of its problems' (rescue_words
+    packs them so)."""
+    import torch
+
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    reads = reads.cpu().numpy() if torch.is_tensor(reads) else reads
+    words = torch.as_tensor(words).cpu()
+    read, rev, ws, rc_len, *more = (
+        t.numpy() for t in dp_rescue.rescue_fields(words))
+    lens = np.zeros(len(reads), np.int64)
+    lens[read] = rc_len
+    if kernel == "GP":
+        c = _prescan_inputs(reads, lens, read, rev.astype(np.int8), ws,
+                            more[0], more[1], int(ints[0]))
+        c["W"] = int(ints[1])
+        return c
+    return {"reads": reads, "lens": lens, "cread": read, "strand": rev,
+            "win_start": ws, "un": 0, "max_win": int(ints[0]),
+            "n_pac": n_pac}
+
+
 def rescue_cases(kept: dict, tag: str) -> list[tuple[str, str, dict, object]]:
     """GP and PK cases, (name, kernel, case dict as run_prescan_case and
     run_pack_case take it, the call's index), of the calls a run kept
     (_Recorder's ``kept``): each launch shape of GP and PK, its real
-    inputs, the largest first; named ``tag``_GP_MxOxLr, ``tag``_PK_PxLrxW."""
-    def host(t):
-        return t.cpu().numpy() if hasattr(t, "cpu") else t
-
+    inputs (rescue_case), the largest first; named ``tag``_GP_MxOxLr,
+    ``tag``_PK_PxLrxW."""
     out = []
     for key in sorted((k for k in kept if k[0] in RESCUE_KEPT),
                       key=lambda k: (RESCUE_KEPT.index(k[0]),
                                      -k[1] * k[2] * k[3])):
-        a = kept[key]
+        idx, *a = kept[key]
+        kernel = "GP" if key[0] == "_prescan_impl" else "PK"
         shape = "x".join(map(str, key[1:]))
-        if key[0] == "_prescan_impl":
-            c = dict(zip(("reads", "lens_rows", "read_idx", "strand", "ws",
-                          "rlens", "wlens", "O", "W"), map(host, a[1:])))
-            out.append((f"{tag}_GP_{shape}", "GP", c, a[0]))
-        else:
-            c = dict(zip(("reads", "lens", "cread", "strand", "win_start",
-                          "un", "max_win"), map(host, a[1:])))
-            c["n_pac"] = a[0].pac.shape[0]
-            out.append((f"{tag}_PK_{shape}", "PK", c, a[0]))
+        out.append((f"{tag}_{kernel}_{shape}", kernel,
+                    rescue_case(kernel, *a[:2], idx.pac.shape[0], *a[2:]),
+                    idx))
     return out
 
 
@@ -3767,15 +3786,20 @@ def prescan_synthetic_case(rng, didx, dev, M: int = 8192,
 
 
 def prescan_args(c: dict, didx, dev) -> tuple:
-    """The arguments of dp_rescue._prescan_impl of case ``c`` on
-    ``dev``."""
+    """The arguments of dp_rescue._prescan_impl of case ``c`` on ``dev``:
+    the reads and the candidates' words (dp_rescue.rescue_words, a
+    reverse complement of its row's lens_rows bases), as gapless_prescan
+    makes them."""
     import torch
 
-    def t(k):
-        return torch.from_numpy(np.ascontiguousarray(c[k])).to(dev)
+    from soap3dp_tpu_torch.pipeline import dp_rescue
 
-    return (didx, t("reads"), t("lens_rows"), t("read_idx"), t("strand"),
-            t("ws"), t("rlens"), t("wlens"), c["O"], c["W"])
+    idx = c["read_idx"]
+    words = dp_rescue.rescue_words(idx, c["strand"] == 1, c["ws"],
+                                   c["lens_rows"][idx], c["rlens"],
+                                   c["wlens"])
+    return (didx, torch.from_numpy(c["reads"]).to(dev),
+            torch.from_numpy(words).to(dev), c["O"], c["W"])
 
 
 def prescan_work(c: dict) -> dict:
@@ -3783,15 +3807,15 @@ def prescan_work(c: dict) -> dict:
     (min(O - 1, wlens - rlens) + 1, at least 0) times the words of its
     counted bases (ceil(min(rlen, L) / 16)), OPS_PRESCAN_WORD int32
     operations and a popcount each; bytes: each window's W / 16 genome
-    words, each read row referenced and the (M, 3) output once, and the
-    candidates' inputs (read, strand, ws, rlens, wlens)."""
+    words, each read row referenced and the (M, 3) int32 output once,
+    and the candidates' six words."""
     L = c["reads"].shape[1]
     rl = c["rlens"].astype(np.int64)
     valid = np.clip(np.minimum(c["O"] - 1, c["wlens"] - rl) + 1, 0, None)
     words = int((valid * ((np.clip(rl, 0, L) + 15) // 16)).sum())
     M = len(rl)
     rows = len(np.unique(c["read_idx"]))
-    nbytes = M * (c["W"] // 16) * 4 + rows * (L + 4) + M * (24 + 8 + 1 + 16)
+    nbytes = M * (c["W"] // 16) * 4 + rows * L + M * (12 + 24)
     return {"candidates": M, "valid_offsets": int(valid.sum()),
             "words": words, "ops": OPS_PRESCAN_WORD * words,
             "popcounts": words, "bytes": nbytes}
@@ -3824,16 +3848,16 @@ def pack_work(c: dict) -> dict:
     n_pac): the (P, L) oriented reads and (P, max_win) window codes
     written once; each distinct pac word of the windows (ceil(max_win /
     16) + 1 words from win_start // 16, clamped) read once; each
-    distinct read row named (its L code bytes and its 8-byte length) read
-    once; and the problems' cread (8 B), strand (1 B) and win_start (8 B).
-    No arithmetic to speak of: bytes only."""
+    distinct read row named (its L code bytes) read once; and the
+    problems' four words (16 B). No arithmetic to speak of: bytes
+    only."""
     L = c["reads"].shape[1]
     P, W = len(c["cread"]), int(c["max_win"])
     nw = (W + 15) // 16
     words = _distinct_words(np.asarray(c["win_start"], np.int64) >> 4, nw,
                             int(c["n_pac"])) if P and W else 0
     rows = len(np.unique(c["cread"]))
-    nbytes = P * (L + W) + 4 * words + rows * (L + 8) + P * (8 + 1 + 8)
+    nbytes = P * (L + W) + 4 * words + rows * L + P * 16
     return {"problems": P, "pac_words": words, "read_rows": rows,
             "bytes": nbytes}
 
@@ -3854,11 +3878,14 @@ def prescan_conv1d(args: tuple):
 
     from soap3dp_tpu_torch.fm import fmindex
 
-    idx, reads, lens_rows, read_idx, strand, ws, rlens, wlens, O, W = args
-    M, L = read_idx.shape[0], reads.shape[1]
-    ori = torch.where(strand[:, None] == 1,
-                      fmindex.revcomp_reads(reads, lens_rows)[read_idx],
-                      reads[read_idx])
+    from soap3dp_tpu_torch.pipeline import dp_rescue
+
+    idx, reads, words, O, W = args
+    read, rev, ws, rc_len, rlens, wlens = dp_rescue.rescue_fields(words)
+    M, L = read.shape[0], reads.shape[1]
+    rows = reads[read]
+    ori = torch.where(rev[:, None], fmindex.revcomp_reads(rows, rc_len),
+                      rows)
     keep = torch.arange(L, device=ws.device)[None, :] \
         < rlens.long()[:, None]
     rd = (F.one_hot(ori.long().clamp(max=4), 5)[..., :4] * keep[..., None]
@@ -4133,15 +4160,18 @@ def pack_synthetic_case(rng, didx, P: int = 16384, rows: int = 8655,
 
 
 def pack_args(c: dict, didx, dev) -> tuple:
-    """The arguments of dp_rescue._pack_problems of case ``c`` on
-    ``dev``."""
+    """The arguments of dp_rescue._pack_problems of case ``c`` on ``dev``:
+    the reads and the problems' words (dp_rescue.rescue_words, a reverse
+    complement of its row's ``lens`` bases), as run_banded_dp makes
+    them."""
     import torch
 
-    def t(k):
-        return torch.from_numpy(np.ascontiguousarray(c[k])).to(dev)
+    from soap3dp_tpu_torch.pipeline import dp_rescue
 
-    return (didx, t("reads"), t("lens"), t("cread"), t("strand"),
-            t("win_start"), int(c["un"]), int(c["max_win"]))
+    words = dp_rescue.rescue_words(c["cread"], c["strand"], c["win_start"],
+                                   c["lens"][c["cread"]])
+    return (didx, torch.from_numpy(np.ascontiguousarray(c["reads"])).to(dev),
+            torch.from_numpy(words).to(dev), int(c["max_win"]))
 
 
 def run_pack_case(name: str, c: dict, didx, dev, reps: int = 20) -> dict:

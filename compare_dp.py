@@ -44,17 +44,7 @@ CALLS = {"k1": (16384, 120, 256), "wide": (16384, 120, 4224)}
 DP_SYMBOLS = ("dp_align_kernel", "dp_forward_kernel", "dp_traceback_kernel",
               "dp_wire_")
 
-RUN = """
-import time
-from torch.profiler import ProfilerActivity, profile
-from soap3dp_tpu_torch.fm.fmindex import to_device
-from soap3dp_tpu_torch.kernels import banded_dp as bd
-
-sc = bd.DPScores()
-d = np.load({inputs!r})
-symbols = {symbols!r}
-packed = hasattr(bd, "pack_params")
-out = {{"packed_form": packed}}
+COUNTING = """
 copies, syncs = [], [0]
 cpu, copy_, item, tolist = (torch.Tensor.cpu, torch.Tensor.copy_,
                             torch.Tensor.item, torch.Tensor.tolist)
@@ -110,8 +100,20 @@ def counting(on):
     torch.cuda.Event.synchronize = c_ev if on else ev_sync
     torch.cuda.Stream.synchronize = c_st if on else st_sync
     torch.cuda.synchronize = c_dev if on else dev_sync
+"""
 
+RUN = """
+import time
+from torch.profiler import ProfilerActivity, profile
+from soap3dp_tpu_torch.fm.fmindex import to_device
+from soap3dp_tpu_torch.kernels import banded_dp as bd
 
+sc = bd.DPScores()
+d = np.load({inputs!r})
+symbols = {symbols!r}
+packed = hasattr(bd, "pack_params")
+out = {{"packed_form": packed}}
+""" + COUNTING + """
 for key in ("k1", "wide"):
     reads = torch.from_numpy(d[key + "_0"]).to(dev)
     wins = torch.from_numpy(d[key + "_2"]).to(dev)

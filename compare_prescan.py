@@ -23,13 +23,13 @@ prescan_bound, so every checkout is held to the same one
 It measures the DP rescue's problem pack (dp_rescue._pack_problems, which
 run_banded_dp calls before every dp_align) the same way: each phase's
 pack calls (a histogram of their problems x read width x max_win, the
-bytes of reads and lengths each uploads, the timers dp.pack and
+bytes of reads and words each uploads, the timers dp.pack and
 dp.align), then the largest call (by bytes written) and the most
 frequent call shape of each phase replayed through that checkout's
 _pack_problems: its device time and device events between marker
 kernels, its peak extra device memory (max_memory_allocated over the
 call, less what was allocated before it), the device time of the
-upload of that call's reads and lengths, and whether it equals the
+upload of that call's reads and words, and whether it equals the
 plain version (the prescan's largest call too). The run saves the
 replayed inputs; this process counts PK's bound on them with
 chip_smoke.pack_work and pack_bound.
@@ -67,7 +67,11 @@ writes them to compare_prescan.json in chip_smoke.py's output
 directory; exits non-zero after that if a replayed call (or the largest calls above) disagrees
 with its plain version. Both phases share phase 4's cached index and
 seeded reads. The rescue queue's flushes follow the host's timing, so
-a run's pack shapes may differ from another's.
+a run's pack shapes may differ from another's. GP's and PK's calls are
+kept and replayed in their word-block form (the reads, then one block
+of words a call, dp_rescue.rescue_words); a checkout whose GP and PK
+take separate vectors cannot run this version (compare_rescue.py holds
+that form against this one).
 """
 
 import argparse
@@ -164,10 +168,10 @@ def gp(idx, reads, lens, cand, win_start, win_len, max_win):
     return orig_gp(idx, reads, lens, cand, win_start, win_len, max_win)
 
 
-def counted_impl(idx, reads_p, *a):
+def counted_impl(idx, reads_p, words, O, W):
     impl[phase_of[0], "calls"] += 1
-    keep("GP", (a[1].shape[0], a[-2], reads_p.shape[1]), (reads_p,) + a)
-    return orig_impl(idx, reads_p, *a)
+    keep("GP", (words.shape[0], O, reads_p.shape[1]), (reads_p, words, O, W))
+    return orig_impl(idx, reads_p, words, O, W)
 
 
 def counted_plain(*a):
@@ -175,15 +179,13 @@ def counted_plain(*a):
     return orig_plain(*a)
 
 
-def pack(idx, reads, lens, cread, strand_rev, win_start, un, max_win):
-    key = (phase_of[0], cread.shape[0], reads.shape[1], max_win)
+def pack(idx, reads, words, max_win):
+    key = (phase_of[0], words.shape[0], reads.shape[1], max_win)
     packs[key[0]].append(key[1:] + (
         reads.numel() * reads.element_size()
-        + lens.numel() * lens.element_size(),))
-    keep("PK", key[1:], (reads, lens, cread, strand_rev, win_start, un,
-                         max_win))
-    return orig_pack(idx, reads, lens, cread, strand_rev, win_start, un,
-                     max_win)
+        + words.numel() * words.element_size(),))
+    keep("PK", key[1:], (reads, words, max_win))
+    return orig_pack(idx, reads, words, max_win)
 
 
 dp_rescue.gapless_prescan = gp
@@ -296,9 +298,7 @@ for key in ("phase4", "phase5"):
              "ws": ws[:M].astype(np.int64),
              "rlens": np.asarray(lens[:M], np.int32),
              "wlens": np.asarray(wl[:M], np.int32), "O": O, "W": W}}
-    a = [didx] + [fmindex.to_device(case[k], dev) for k in (
-        "reads", "lens_rows", "read_idx", "strand", "ws", "rlens",
-        "wlens")] + [O, W]
+    a = cs.prescan_args(case, didx, dev)
     npz = os.path.join({work!r}, f"prescan_{{os.getpid()}}_{{key}}.npz")
     np.savez(npz, **case)
     out[key]["replay"] = {{"M": M, "M_call": Mall, "O": O, "W": W, "Lr": L,
@@ -329,15 +329,12 @@ for key in ("phase4", "phase5"):
             out[key]["pack_replay"][0]["what"] += " and most_frequent"
             continue
         a = first[key, "PK", "x".join(map(str, shp))]
-        reads, lens = a[0], a[1]
         P, L, max_win = shp
-        host = [reads.cpu().numpy(), lens.cpu().numpy()]
+        host = [a[0].cpu().numpy(), a[1].cpu().numpy()]
         npz = os.path.join({work!r},
                            f"pack_{{os.getpid()}}_{{key}}_{{what}}.npz")
-        np.savez(npz, reads=host[0], lens=host[1],
-                 cread=a[2].cpu().numpy(), strand=a[3].cpu().numpy(),
-                 win_start=a[4].cpu().numpy(), un=a[5], max_win=max_win,
-                 n_pac=didx.pac.shape[0])
+        np.savez(npz, **cs.rescue_case("PK", *host, didx.pac.shape[0],
+                                       max_win))
         row = {{"what": what, "P": P, "Lr": L, "max_win": max_win,
                "calls_of_shape": shapes_n[shp], "case": npz,
                "output_bytes": P * (L + max_win),
@@ -540,18 +537,14 @@ def replay_work(kernel: str, args: list, didx, dev, peak: float) -> dict:
         return {"bound_ms": bms, "bound_by": by,
                 **{k: v for k, v in work.items() if k not in (
                     "sectors", "block_sectors")}}
+    # GP's (reads, words, O, W), PK's (reads, words, max_win)
+    c = cs.rescue_case(kernel, args[0], args[1], didx.pac.shape[0],
+                       *args[2:])
     if kernel == "GP":
-        reads, lens_rows, read_idx, strand, ws, rlens, wlens, O, W = args
-        need = cs.prescan_work({
-            "reads": reads, "lens_rows": lens_rows, "read_idx": read_idx,
-            "strand": strand, "ws": ws, "rlens": rlens, "wlens": wlens,
-            "O": int(O), "W": int(W)})
+        need = cs.prescan_work(c)
         bms, by = cs.prescan_bound(need, peak)
     else:
-        reads, lens, cread, strand, ws, un, max_win = args
-        need = cs.pack_work({"reads": reads, "cread": cread,
-                             "win_start": ws, "max_win": int(max_win),
-                             "n_pac": didx.pac.shape[0]})
+        need = cs.pack_work(c)
         bms, by = cs.pack_bound(need)
     return {"bound_ms": bms, "bound_by": by, **need}
 

@@ -123,8 +123,12 @@
 // fold, mask, popcount and add: ~0.14 ms of int32 work at the mate-pair
 // cell's 16,384 x 4,224 x 120 against ~5 us of bytes); at the paired-end
 // cell's O = 384 a candidate has ~190 valid offsets, so its set-up, the
-// read's words and the window's, is as long as its offset loop. Design:
-// one warp a candidate (its ~26 groups of offsets fill it); its scalars,
+// read's words and the window's, is as long as its offset loop. Its
+// arguments are the host's: a row of words a candidate (the read, its
+// strand, its window start as two u32 words, its lengths), the row
+// index and the 64-bit start made here, and the result written as int32,
+// so the call runs no other kernel. Design:
+// one warp a candidate (its ~26 groups of offsets fill it); its words,
 // its window's first words and its read row are all loaded before any
 // is waited on, the row as whole aligned words (lane j reads bytes
 // 16j..16j+15 with oriented16, two or three 8-byte loads, and packs them
@@ -148,9 +152,12 @@
 // mate-pair cell's largest call, 16,384 x 4,224); no arithmetic to speak
 // of. At the paired-end cell's 256-wide windows a call is a few
 // microseconds, and the bytes do not hold it: a read unit's chain of
-// dependent loads (the problem's row, then the read's length, then its
-// bytes) does, and a block that held read units beside window units
-// would wait on them. The plain version's cost is its temporaries: the
+// dependent loads (the problem's words, then the read's bytes) does, and
+// a block that held read units beside window units would wait on them.
+// Its arguments are the host's: a row of four words a problem (the read
+// row and strand, the window start as two u32 words, the reverse
+// complement's length: the problem's own read length), so the call
+// uploads one block and runs no other kernel. The plain version's cost is its temporaries: the
 // batch's reverse complement and a gather of it, and an (M, W, 16) int64
 // code tensor (554 MB at that call). Design: no temporaries. One thread a
 // unit of 16 output bytes, with a 32-bit index (the wrapper keeps P
@@ -158,7 +165,7 @@
 // their own, so no warp diverges between the two. A read unit is one
 // oriented16 (the 16 bytes of its oriented row from two or three aligned
 // 8-byte loads, reversed and complemented in registers for a reverse
-// strand, the read's length read once) and one store. A window unit is
+// strand) and one store. A window unit is
 // the funnel shift of two pac words (pac_word, the index clamped as
 // aligned_genome_words clamps it; a shift of 0 takes no bits of the
 // second word), spread to 16 code bytes and stored as one 16-byte
@@ -1425,13 +1432,15 @@ __device__ __forceinline__ uint32_t byte_mask(int64_t k) {
 
 // bytes i0 .. i0+15 (0 <= i0 < L) of oriented row `row` of code rows, as
 // base_at gives them, in v[0..3] (bytes past L are the next row's or 0).
-// A reverse complement of n bases (its length read once): forward bytes
-// n-16-i0 .. n-1-i0 reversed (__byte_perm) and complemented ((3 - c) &
-// 0xFF, __vsub4), bytes at i >= n zeroed; where n > L a source byte past
-// L-1 is byte L-1 (revcomp_reads clamps the index). GP and PK read their
-// rows with it alone: their wrappers refuse packed rows.
+// A reverse complement of n bases (the caller's problem word, not
+// Reads.rc_len): forward bytes n-16-i0 .. n-1-i0 reversed (__byte_perm)
+// and complemented ((3 - c) & 0xFF, __vsub4), bytes at i >= n zeroed;
+// where n > L a source byte past L-1 is byte L-1 (revcomp_reads clamps
+// the index). GP and PK read their rows with it alone: their wrappers
+// refuse packed rows.
 __device__ __forceinline__ void oriented16(const Reads& s, int64_t row,
-                                           int i0, uint32_t v[4]) {
+                                           int64_t n, int i0,
+                                           uint32_t v[4]) {
   const uint8_t* data = static_cast<const uint8_t*>(s.data);
   const int64_t total = s.B * s.L;
   if (row < s.B) {
@@ -1439,7 +1448,6 @@ __device__ __forceinline__ void oriented16(const Reads& s, int64_t row,
     return;
   }
   const int64_t b = row - s.B;
-  const int64_t n = rc_bases(s, b);
   const int64_t z = n - i0;  // bytes of the 16 inside the reverse complement
   if (z <= 0) {
     v[0] = v[1] = v[2] = v[3] = 0u;
@@ -1462,22 +1470,40 @@ __device__ __forceinline__ void oriented16(const Reads& s, int64_t row,
            byte_mask(z - 4 * q);
 }
 
-// GP: the gapless prescan. Candidate m's oriented row rows[m] (its
-// first min(L, rlens[m]) bases) against the genome window at ws[m]:
-// mm(o) = the bases l where window base o + l differs from read base l,
-// over the valid offsets o <= min(O - 1, wlens[m] - rlens[m]); out[m] =
-// (the least mm, its leftmost offset, the count of offsets with mm 0),
-// or (NO_VALID, 0, 0) where no offset is valid.
+// a GP candidate's or PK problem's words, one row of int32 bit patterns of
+// u32 words as the host packs them (dp_rescue.rescue_words): its read row
+// with the strand in bit 31, its window start's low and high 32 bits
+// (positions pass 2^31 on a 3.1 Gbp text), the reverse complement's
+// length; GP's rows add the counted bases and the window's length
+constexpr int PK_WORDS = 4, GP_WORDS = 6;
+constexpr uint32_t STRAND_BIT = 0x80000000u;
+
+// the oriented row of a problem's word 0: rows B..2B-1 the reverse
+// complements
+__device__ __forceinline__ int64_t word_row(uint32_t w, int64_t B) {
+  return static_cast<int64_t>(w & ~STRAND_BIT) + ((w & STRAND_BIT) ? B : 0);
+}
+
+// a problem's window start from its words 1 and 2
+__device__ __forceinline__ int64_t word_start(const int32_t* w) {
+  return static_cast<int64_t>((static_cast<uint64_t>(u32_at(w, 2)) << 32) |
+                              u32_at(w, 1));
+}
+
+// GP: the gapless prescan. Candidate m's oriented row (its first
+// min(L, rlen) bases; a reverse complement of its rc_len) against the
+// genome window at its start: mm(o) = the bases l where window base
+// o + l differs from read base l, over the valid offsets o <= min(O - 1,
+// wlen - rlen); out[m] = (the least mm, its leftmost offset, the count of
+// offsets with mm 0), or (NO_VALID, 0, 0) where no offset is valid; all
+// three fit int32 (NO_VALID, offsets below O < 2^30).
 constexpr int GP_GROUP = 8;  // consecutive offsets a thread counts
 constexpr int GP_CHUNK = 8;  // read words a pass over them
 constexpr int GP_EARLY = 2;  // rounds of window words loaded with the scalars
 constexpr int64_t GP_NO_VALID = 1 << 20;
 
 struct Prescan {
-  const int64_t* rows;   // (M,) oriented rows
-  const int64_t* ws;     // (M,) window starts
-  const int64_t* rlens;  // (M,) read lengths
-  const int64_t* wlens;  // (M,) window lengths
+  const int32_t* words;  // (M, GP_WORDS) the candidates' words
   int64_t M;
   int O;                 // offsets a window
   int cap;               // window words a warp holds
@@ -1526,7 +1552,7 @@ __device__ __forceinline__ int read_word_mask(const uint32_t v[4], int64_t k,
 // count) over the warp by shuffles
 __global__ void __launch_bounds__(THREADS)
 prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
-               int64_t n_pac, int64_t* __restrict__ out) {
+               int64_t n_pac, int32_t* __restrict__ out) {
   extern __shared__ uint32_t gp_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t m =
@@ -1535,10 +1561,11 @@ prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
   uint32_t* win = gp_smem + warp * (c.cap + 2 * c.nrw);
   uint32_t* rw = win + c.cap;
   uint32_t* rm = rw + c.nrw;
-  const int64_t row = ld64(c.rows + m);
-  const int64_t p = ld64(c.ws + m);
-  const int64_t rlen = ld64(c.rlens + m);
-  const int64_t wlen = ld64(c.wlens + m);
+  const int32_t* words = c.words + GP_WORDS * m;
+  const int64_t row = word_row(u32_at(words, 0), s.B);
+  const int64_t p = word_start(words);
+  const int64_t rlen = __ldg(words + 4);
+  const int64_t wlen = __ldg(words + 5);
   const int64_t w0 = p >> 4;
   uint32_t early[GP_EARLY];
 #pragma unroll
@@ -1548,7 +1575,11 @@ prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
   int other = 0;
   for (int j = lane; 16 * j < s.L; j += 32) {
     uint32_t v[4];
-    oriented16(s, row, 16 * j, v);
+    // the reverse complement's length loaded here, beside the row's
+    // bytes: loaded with the other words and held, it made the offset
+    // loop 5% slower on an H100 at O = 4,224 (another register
+    // allocation, the loop scheduled worse)
+    oriented16(s, row, __ldg(words + 3), 16 * j, v);
     other += read_word_mask(v, nb - 16 * j, rw + j, rm + j);
   }
 #pragma unroll
@@ -1625,20 +1656,19 @@ prescan_kernel(Reads s, Prescan c, const int32_t* __restrict__ pac,
     zeros += __shfl_xor_sync(FULL, zeros, d);
   }
   if (lane == 0) {
-    out[3 * m] = best;
+    out[3 * m] = static_cast<int32_t>(best);
     out[3 * m + 1] = best_o;
     out[3 * m + 2] = zeros;
   }
 }
 
 // PK: the DP rescue's problem pack. Problem p's read row, oriented by
-// its strand (cread[p], or that read's reverse complement where
-// strand[p] is 1: rows B..2B-1 of Reads), to oriented[p] (L bytes), and
-// its genome window's max_win 2-bit codes from win_start[p] to wins[p].
+// its strand (its row, or that read's reverse complement of its rc_len
+// bases where the strand bit is set: rows B..2B-1 of Reads), to
+// oriented[p] (L bytes), and its genome window's max_win 2-bit codes from
+// its window start to wins[p].
 struct Pack {
-  const int64_t* cread;      // (P,) read rows
-  const uint8_t* strand;     // (P,) 1: the reverse complement
-  const int64_t* win_start;  // (P,) window starts (text positions)
+  const int32_t* words;      // (P, PK_WORDS) the problems' words
   uint32_t P;
   int max_win;               // window bases a problem
   uint32_t nw;               // window units a problem: ceil(max_win / 16)
@@ -1705,10 +1735,10 @@ pack_kernel(Reads s, Pack c, const int32_t* __restrict__ pac, int64_t n_pac,
     const uint32_t p = t / c.nr;
     if (p >= c.P) return;
     const int i0 = 16 * static_cast<int>(t - p * c.nr);
-    const int64_t row =
-        ld64(c.cread + p) + (__ldg(c.strand + p) ? s.B : 0);
+    const int32_t* words = c.words + PK_WORDS * static_cast<int64_t>(p);
+    const int64_t row = word_row(u32_at(words, 0), s.B);
     uint32_t v[4];
-    oriented16(s, row, i0, v);
+    oriented16(s, row, __ldg(words + 3), i0, v);
     const int n = s.L - i0;
     store_bytes(oriented + static_cast<int64_t>(p) * s.L + i0,
                 make_uint4(v[0], v[1], v[2], v[3]), n < 16 ? n : 16);
@@ -1718,7 +1748,7 @@ pack_kernel(Reads s, Pack c, const int32_t* __restrict__ pac, int64_t n_pac,
   const uint32_t p = t / c.nw;
   if (p >= c.P) return;
   const uint32_t u = t - p * c.nw;
-  const int64_t ws = ld64(c.win_start + p);
+  const int64_t ws = word_start(c.words + PK_WORDS * static_cast<int64_t>(p));
   const int64_t k = (ws >> 4) + u;
   const uint32_t sh = 2 * static_cast<uint32_t>(ws & 15);
   const uint32_t w = __funnelshift_r(pac_word(pac, n_pac, k),
@@ -1935,10 +1965,8 @@ int soap3dp_verify(const void* reads, int kind, long long B, int L, int Ws,
 // one warp up to the 227 KB a block may have)
 int soap3dp_prescan(const void* reads, int kind, long long B, int L, int Ws,
                     const int32_t* rc_len, long long rc_all,
-                    const int64_t* rows,
-                    const int64_t* ws, const int64_t* rlens,
-                    const int64_t* wlens, long long M, int O,
-                    const int32_t* pac, long long n_pac, int64_t* out,
+                    const int32_t* words, long long M, int O,
+                    const int32_t* pac, long long n_pac, int32_t* out,
                     void* stream) {
   const Reads s{reads, rc_len, rc_all, B, kind, L, Ws};
   const int nrw = ((L + 15) / 16 + GP_CHUNK - 1) / GP_CHUNK * GP_CHUNK;
@@ -1954,7 +1982,7 @@ int soap3dp_prescan(const void* reads, int kind, long long B, int L, int Ws,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const Prescan c{rows, ws, rlens, wlens, M, O, cap, nrw};
+  const Prescan c{words, M, O, cap, nrw};
   prescan_kernel<<<static_cast<unsigned>((M + warps - 1) / warps),
                    static_cast<unsigned>(32 * warps),
                    static_cast<size_t>(smem),
@@ -1965,15 +1993,13 @@ int soap3dp_prescan(const void* reads, int kind, long long B, int L, int Ws,
 
 int soap3dp_pack_problems(const void* reads, int kind, long long B, int L,
                           int Ws, const int32_t* rc_len, long long rc_all,
-                          const int64_t* cread, const uint8_t* strand,
-                          const int64_t* win_start, long long P, int max_win,
+                          const int32_t* words, long long P, int max_win,
                           const int32_t* pac, long long n_pac,
                           uint8_t* oriented, uint8_t* wins, void* stream) {
   const Reads s{reads, rc_len, rc_all, B, kind, L, Ws};
   const uint32_t nw = (max_win + 15) / 16, nr = (L + 15) / 16;
   const unsigned rblocks = blocks_for(P * nr);
-  const Pack c{cread, strand, win_start, static_cast<uint32_t>(P), max_win,
-               nw, nr, rblocks};
+  const Pack c{words, static_cast<uint32_t>(P), max_win, nw, nr, rblocks};
   pack_kernel<<<rblocks + blocks_for(P * nw), THREADS, 0,
                 static_cast<cudaStream_t>(stream)>>>(s, c, pac, n_pac,
                                                      oriented, wins);

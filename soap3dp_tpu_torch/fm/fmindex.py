@@ -127,6 +127,27 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
+def stage_to_device(arrays, device) -> list[torch.Tensor]:
+    """Host arrays -> tensors on ``device`` in one upload: packed into one
+    buffer, each from a 16-byte boundary (on the way to a card the buffer
+    is pinned, so one pinned allocation and one non-blocking copy a call
+    where to_device makes one of each an array); each returned as a view
+    of the device buffer with its own dtype and shape."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += -(-a.nbytes // 16) * 16
+    cuda = torch.device(device).type == "cuda"
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
+    flat = host.numpy()
+    for a, o in zip(arrays, offs):
+        flat[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(device, non_blocking=True) if cuda else host
+    return [buf[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .view(a.shape) for a, o in zip(arrays, offs)]
+
+
 def occ_block_table(occ: np.ndarray, bwt: np.ndarray) -> np.ndarray:
     """The occ blocks of the FM steps, from the host index's occ counts
     (4 per BWT word) and BWT words: block j (uint32, (ceil(nw / 4), 8))

@@ -36,10 +36,13 @@ nvcc at first use into ``_build/`` and loaded with ctypes:
   (soap3dp_tpu/fm/search.py:312, :322-346);
 * GP ``prescan``: the DP rescue's gapless prescan, each candidate's
   mismatches at every window offset reduced to (min, leftmost argmin,
-  zero count) in the kernel (soap3dp_tpu/pipeline/dp_rescue.py:276);
+  zero count) in the kernel (soap3dp_tpu/pipeline/dp_rescue.py:276),
+  its candidates given as the host's words (the row index, the 64-bit
+  start and the lengths made in the kernel) and its result int32;
 * PK ``pack_problems``: the DP rescue's problem pack, each problem's
   read oriented by its strand and its genome window's codes
-  (soap3dp_tpu/pipeline/dp_rescue.py:357).
+  (soap3dp_tpu/pipeline/dp_rescue.py:357), its problems given as the
+  host's words.
 
 These are the launch wrappers: every tensor must lie on one CUDA device
 (anything else raises; there is no fallback). ``fm/fmindex.py`` (GP, PK:
@@ -130,16 +133,17 @@ VERIFY_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_verify",
     _ROWS + [_P] * 4 + [_LL, _LL, _I, _P, _LL, _P, _P])
 
-# soap3dp_prescan(rows..., rows, ws, rlens, wlens, M, O, pac, n_pac, out,
-#   stream)
+# soap3dp_prescan(rows..., words, M, O, pac, n_pac, out, stream)
 PRESCAN_KERNEL = CudaKernel(
-    FM_SEARCH_LIB, "soap3dp_prescan",
-    _ROWS + [_P] * 4 + [_LL, _I, _P, _LL, _P, _P])
-# soap3dp_pack_problems(rows..., cread, strand, win_start, P, max_win, pac,
-#   n_pac, oriented, wins, stream)
+    FM_SEARCH_LIB, "soap3dp_prescan", _ROWS + [_P, _LL, _I, _P, _LL, _P, _P])
+# soap3dp_pack_problems(rows..., words, P, max_win, pac, n_pac, oriented,
+#   wins, stream)
 PACK_KERNEL = CudaKernel(
     FM_SEARCH_LIB, "soap3dp_pack_problems",
-    _ROWS + [_P] * 3 + [_LL, _I, _P, _LL, _P, _P, _P])
+    _ROWS + [_P, _LL, _I, _P, _LL, _P, _P, _P])
+# the words of a PK problem and a GP candidate (csrc/fm_search.cu PK_WORDS,
+# GP_WORDS; pipeline/dp_rescue.py rescue_words packs them)
+PK_WORDS, GP_WORDS = 4, 6
 # the count of an offset past a window's valid ones (and the minimum of a
 # candidate with none): above any read's mismatches
 PRESCAN_NO_VALID = 1 << 20
@@ -203,9 +207,13 @@ def oriented_rows(reads: torch.Tensor, L: int, rc_len: torch.Tensor | None,
 
 def _code_rows(name: str, src: ReadRows) -> None:
     """GP and PK read (B, L) uint8 code rows only (no caller passes
-    packed words)."""
+    packed words), their reverse complements' lengths in their problem
+    words (none in ``src``)."""
     if src.kind != SRC_CODES:
         raise ValueError(f"{name} reads code rows, not packed words")
+    if src.rc_len is not None:
+        raise ValueError(f"{name} takes the reverse complements' lengths "
+                         "from its words, not from the rows")
 
 
 def _check(name: str, dev: torch.device, **tensors) -> None:
@@ -696,34 +704,39 @@ def verify(idx, src: ReadRows, rows: torch.Tensor, tp: torch.Tensor,
     return out
 
 
-def prescan(idx, src: ReadRows, rows: torch.Tensor, ws: torch.Tensor,
-            rlens: torch.Tensor, wlens: torch.Tensor, O: int) -> torch.Tensor:
-    """GP: candidate m's oriented row ``rows[m]`` placed gapless at each
-    offset o < O of the genome window at ``ws[m]``; its mismatches over
-    the first min(L, rlens[m]) bases, at the valid offsets o <=
-    wlens[m] - rlens[m] (PRESCAN_NO_VALID elsewhere), reduced to (least
-    count, its leftmost offset, the count of zero-mismatch offsets):
-    (M, 3) int64 (dp_rescue._prescan_impl)."""
-    M = rows.shape[0]
-    dev = rows.device
+def _words(name: str, words: torch.Tensor, k: int) -> int:
+    """The rows of an (n, k) int32 block of problem words."""
+    if words.dtype != torch.int32 or words.dim() != 2 \
+            or words.shape[1] != k:
+        raise ValueError(f"{name}: words must be int32 (n, {k}), got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    return words.shape[0]
+
+
+def prescan(idx, src: ReadRows, words: torch.Tensor, O: int) -> torch.Tensor:
+    """GP: candidate m's oriented row placed gapless at each offset o < O
+    of its genome window; its mismatches over the first min(L, rlen)
+    bases, at the valid offsets o <= wlen - rlen (PRESCAN_NO_VALID
+    elsewhere), reduced to (least count, its leftmost offset, the count
+    of zero-mismatch offsets): (M, 3) int32 (dp_rescue._prescan_impl).
+    Row m of ``words`` ((M, GP_WORDS) int32, dp_rescue.rescue_words):
+    read | strand << 31, the window start's low and high words, the
+    reverse complement's length, rlen, wlen; ``src`` carries no lengths
+    (the candidates' words do)."""
+    dev = words.device
     _code_rows("prescan", src)
-    _check("prescan", dev, rows=rows, ws=ws, rlens=rlens, wlens=wlens,
-           **src.tensors())
+    _check("prescan", dev, words=words, **src.tensors())
+    M = _words("prescan", words, GP_WORDS)
     _tables("prescan", idx, dev)
-    for key, t in (("rows", rows), ("ws", ws), ("rlens", rlens),
-                   ("wlens", wlens)):
-        _vector("prescan", key, t, M, torch.int64)
     if not 1 <= O < (1 << 30) or not 1 <= src.L < PRESCAN_NO_VALID:
         raise ValueError(f"prescan: O {O}, L {src.L} out of range")
-    out = torch.empty((M, 3), dtype=torch.int64, device=dev)
+    out = torch.empty((M, 3), dtype=torch.int32, device=dev)
     if M == 0:
         return out
     _, fn = PRESCAN_KERNEL.function()
     with torch.cuda.device(dev):
-        err = fn(*src.args(), rows.data_ptr(), ws.data_ptr(),
-                 rlens.data_ptr(), wlens.data_ptr(), M, O,
-                 idx.pac.data_ptr(), idx.pac.shape[0], out.data_ptr(),
-                 _stream(dev))
+        err = fn(*src.args(), words.data_ptr(), M, O, idx.pac.data_ptr(),
+                 idx.pac.shape[0], out.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"prescan kernel launch failed: CUDA error {err}")
     PRESCAN_KERNEL.count(dev, (M, O, src.L))
@@ -743,21 +756,19 @@ def pack_units(P: int, L: int, max_win: int) -> int:
     return units
 
 
-def pack_problems(idx, src: ReadRows, cread: torch.Tensor,
-                  strand_rev: torch.Tensor, win_start: torch.Tensor,
+def pack_problems(idx, src: ReadRows, words: torch.Tensor,
                   max_win: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """PK: problem p's oriented row (row ``cread[p]``, or its reverse
-    complement where ``strand_rev[p]``), (P, L) uint8, and the 2-bit
-    genome codes at [win_start[p], win_start[p] + max_win), (P, max_win)
-    uint8 (dp_rescue._pack_problems); pack_units checks the range."""
-    P = cread.shape[0]
-    dev = cread.device
+    """PK: problem p's oriented row (its row, or that row's reverse
+    complement of its rc_len bases where its strand bit is set), (P, L)
+    uint8, and the 2-bit genome codes at [ws, ws + max_win) of its window
+    start ws, (P, max_win) uint8 (dp_rescue._pack_problems). Row p of
+    ``words`` ((P, PK_WORDS) int32, dp_rescue.rescue_words): row | strand
+    << 31, the window start's low and high words, rc_len; ``src``
+    carries no lengths. pack_units checks the range."""
+    dev = words.device
     _code_rows("pack problems", src)
-    _check("pack problems", dev, cread=cread, strand_rev=strand_rev,
-           win_start=win_start, pac=idx.pac, **src.tensors())
-    _vector("pack problems", "cread", cread, P, torch.int64)
-    _vector("pack problems", "strand_rev", strand_rev, P, torch.bool)
-    _vector("pack problems", "win_start", win_start, P, torch.int64)
+    _check("pack problems", dev, words=words, pac=idx.pac, **src.tensors())
+    P = _words("pack problems", words, PK_WORDS)
     if idx.pac.dtype != torch.int32 or idx.pac.dim() != 1 \
             or idx.pac.shape[0] < 1:
         raise ValueError("pack problems: the index's pac must be int32 "
@@ -769,8 +780,7 @@ def pack_problems(idx, src: ReadRows, cread: torch.Tensor,
         return oriented, wins
     _, fn = PACK_KERNEL.function()
     with torch.cuda.device(dev):
-        err = fn(*src.args(), cread.data_ptr(),
-                 strand_rev.data_ptr(), win_start.data_ptr(), P, max_win,
+        err = fn(*src.args(), words.data_ptr(), P, max_win,
                  idx.pac.data_ptr(), idx.pac.shape[0], oriented.data_ptr(),
                  wins.data_ptr(), _stream(dev))
     if err != 0:

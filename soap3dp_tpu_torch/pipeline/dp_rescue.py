@@ -8,11 +8,12 @@ the FS1, FS5 and FS2s kernels on the card, the candidates fetched as
 one packed vector of u32 words), ``_prescan_impl`` (the GP kernel on
 the card, ``_prescan_plain`` on the CPU; ``_PRESCAN_CHUNK`` bounds the plain
 version's (M, O) matrix only) and ``_pack_problems`` (the PK kernel on
-the card, ``_pack_problems_plain`` on the CPU); and ``run_banded_dp``
-uploads the rows its problems name and their (P, 8) problem rows,
-packed on the host, and calls the port's ``dp_align_packed`` (the
-Hopper kernels on CUDA, their plain versions on CPU), one slice of
-problems per device on a mesh.
+the card, ``_pack_problems_plain`` on the CPU), both given their
+candidates or problems as one block of words packed on the host
+(``rescue_words``); and ``run_banded_dp`` uploads the rows its problems
+name, their (P, 8) problem rows and PK's words in one copy, and calls
+the port's ``dp_align_packed`` (the Hopper kernels on CUDA, their plain
+versions on CPU), one slice of problems per device on a mesh.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from soap3dp_tpu_torch.index.builder import Index
 from soap3dp_tpu_torch.utils import shapes, timers
 from soap3dp_tpu_torch.distributed import mesh as dmesh
 from soap3dp_tpu_torch.fm import fmindex
-from soap3dp_tpu_torch.fm.fmindex import DeviceIndex, to_device
+from soap3dp_tpu_torch.fm.fmindex import DeviceIndex, stage_to_device
 from soap3dp_tpu_torch.kernels import fm_search
 from soap3dp_tpu_torch.kernels.banded_dp import (DPScores, dp_align_shards,
                                                  pack_params)
@@ -208,56 +209,84 @@ def seed_candidates(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     return Candidates(read=read, strand=strand, pos=posf)
 
 
+def rescue_words(read, rev, ws, rc_len, *more) -> np.ndarray:
+    """The words of GP's candidates and PK's problems, packed on the
+    host: row i is (read[i] | rev[i] << 31, ws[i]'s low and high 32
+    bits, rc_len[i], then each of ``more``), as the int32 bit patterns
+    of u32 words. ``read`` indexes the rows (below 2^31), ``rev`` (bool)
+    takes its reverse complement of rc_len[i] bases, ``ws`` is the
+    window start (0 <= ws < 2^63); rc_len and ``more`` (GP: the counted
+    bases, the window's length) are int32 values."""
+    read, ws = np.asarray(read, np.int64), np.asarray(ws, np.int64)
+    cols = [read | (np.asarray(rev, bool).astype(np.int64) << 31), ws,
+            ws >> 32, rc_len, *more]
+    words = np.empty((len(read), len(cols)), np.uint32)
+    for k, c in enumerate(cols):
+        words[:, k] = np.asarray(c, np.int64) & 0xFFFFFFFF
+    return words.view(np.int32)
+
+
+def rescue_fields(words: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """rescue_words decoded (the plain versions' and the tools' reading of
+    GP's and PK's words): (read, rev, ws, rc_len, *more), int64 but rev
+    (bool); rc_len and ``more`` signed."""
+    u = words[:, :3].to(torch.int64) & 0xFFFFFFFF
+    return ((u[:, 0] & 0x7FFFFFFF), (u[:, 0] >> 31) == 1,
+            u[:, 1] | (u[:, 2] << 32),
+            *(words[:, k].to(torch.int64) for k in range(3, words.shape[1])))
+
+
+def _oriented(reads: torch.Tensor, read: torch.Tensor, rev: torch.Tensor,
+              rc_len: torch.Tensor) -> torch.Tensor:
+    """The plain versions' oriented rows: row read[i], or its reverse
+    complement of rc_len[i] bases where rev[i]."""
+    rows = reads[read]
+    return torch.where(rev[:, None], fmindex.revcomp_reads(rows, rc_len),
+                       rows)
+
+
 def _prescan_impl(idx: DeviceIndex, reads_p: torch.Tensor,
-                  lens_rows: torch.Tensor, read_idx: torch.Tensor,
-                  strand: torch.Tensor, ws: torch.Tensor,
-                  rlens: torch.Tensor, wlens: torch.Tensor, O: int, W: int
-                  ) -> torch.Tensor:
-    """Mismatch counts mm[m, o] of read ``read_idx[m]`` (its reverse
-    complement of ``lens_rows`` bases where ``strand[m] == 1``) placed
-    gapless at offset o of the genome window [ws[m], ws[m] + W), over
-    its first rlens[m] bases; offsets past wlens[m] - rlens[m] score
-    1 << 20. Returns (M, 3) [min_mm, leftmost best offset, #zero-mismatch
-    offsets]. GP on CUDA tensors (no (M, O) matrix), _prescan_plain on
-    CPU tensors."""
+                  words: torch.Tensor, O: int, W: int) -> torch.Tensor:
+    """Mismatch counts mm[m, o] of candidate m's oriented row (its read,
+    or that read's reverse complement of rc_len bases) placed gapless at
+    offset o of the genome window [ws, ws + W), over its first rlen
+    bases; offsets past wlen - rlen score 1 << 20. ``words`` is the
+    (M, 6) int32 block of rescue_words (read, strand, ws, rc_len, rlen,
+    wlen). Returns (M, 3) int32 [min_mm, leftmost best offset,
+    #zero-mismatch offsets]. GP on CUDA tensors (no (M, O) matrix; the
+    row index, the start and the lengths read from the words in the
+    kernel), _prescan_plain on CPU tensors."""
     if reads_p.is_cuda:
-        B, Lr = reads_p.shape
+        Lr = reads_p.shape[1]
         if W < O + Lr - 1:
             raise ValueError(f"prescan: a window of {W} bases cannot hold "
                              f"{O} offsets of {Lr}-base reads")
-        src = fm_search.oriented_rows(reads_p.contiguous(), Lr, lens_rows)
-        rows = fmindex._i64(read_idx) + B * (strand == 1).to(torch.int64)
-        return fm_search.prescan(idx, src, rows, fmindex._i64(ws),
-                                 fmindex._i64(rlens), fmindex._i64(wlens), O)
+        return fm_search.prescan(
+            idx, fm_search.oriented_rows(reads_p, Lr, None), words, O)
     fmindex._require_cpu("_prescan_impl", reads_p)
-    return _prescan_plain(idx, reads_p, lens_rows, read_idx, strand, ws,
-                          rlens, wlens, O, W)
+    return _prescan_plain(idx, reads_p, words, O, W)
 
 
 def _prescan_plain(idx: DeviceIndex, reads_p: torch.Tensor,
-                   lens_rows: torch.Tensor, read_idx: torch.Tensor,
-                   strand: torch.Tensor, ws: torch.Tensor,
-                   rlens: torch.Tensor, wlens: torch.Tensor, O: int, W: int
-                   ) -> torch.Tensor:
-    """The plain version of _prescan_impl: Lr shift-and-add steps over
-    the (M, O) matrix of mismatch counts."""
-    rc = fmindex.revcomp_reads(reads_p, lens_rows)
-    oriented = torch.where(strand[:, None] == 1, rc[read_idx],
-                           reads_p[read_idx])
+                   words: torch.Tensor, O: int, W: int) -> torch.Tensor:
+    """The plain version of _prescan_impl: the words decoded, then Lr
+    shift-and-add steps over the (M, O) matrix of mismatch counts."""
+    read, rev, ws, rc_len, rlens, wlens = rescue_fields(words)
+    oriented = _oriented(reads_p, read, rev, rc_len)
     wins = fmindex.extract_genome(idx, ws, W)
     M, Lr = oriented.shape
-    rlens = rlens.to(torch.int64)
     mm = torch.zeros((M, O), dtype=torch.int32, device=reads_p.device)
     for l in range(Lr):
         ne = (wins[:, l:l + O] != oriented[:, l:l + 1]) & (l < rlens)[:, None]
         mm += ne.to(torch.int32)
     o = torch.arange(O, device=mm.device)[None, :]
-    valid = o <= (wlens.to(torch.int64) - rlens)[:, None]
+    valid = o <= (wlens - rlens)[:, None]
     mm = torch.where(valid, mm, 1 << 20)
     min_mm = mm.min(dim=1).values
     best = torch.argmax((mm == min_mm[:, None]).to(torch.int32), dim=1)
     n0 = (mm == 0).sum(dim=1)
-    return torch.stack([min_mm.to(torch.int64), best, n0], dim=1)
+    return torch.stack([min_mm, best.to(torch.int32), n0.to(torch.int32)],
+                       dim=1)
 
 
 def gapless_prescan(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
@@ -267,7 +296,10 @@ def gapless_prescan(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     """Per-candidate best gapless placement in the window: (min_mm,
     leftmost best offset, #0-mismatch offsets). A candidate with
     min_mm == 0 scores the global maximum L*match, so the caller may
-    emit it without running DP."""
+    emit it without running DP. A call uploads the reads and one block
+    of the candidates' words (rescue_words) together (stage_to_device)
+    and downloads one (M, 3) int32 result: on the card one copy each
+    way, one GP launch and nothing else."""
     M = cand.read.shape[0]
     if M == 0:
         z = np.zeros(0, np.int32)
@@ -276,59 +308,46 @@ def gapless_prescan(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     B, L = reads.shape
     O = shapes.bucket_multiple(max_win, 128)
     W = O + ((L + 127) // 128) * 128
+    lens = np.asarray(lens, np.int32)[:M]
+    # a reverse complement is as long as the last of its read's candidates
+    # says (the reference's per-row lengths, assigned in candidate order)
     lens_rows = np.zeros(B, np.int32)
-    lens_rows[cand.read] = np.asarray(lens, np.int32)[:M]
-    reads_d = to_device(np.asarray(reads), dev)
-    lens_rows_d = to_device(lens_rows, dev)
-    outs = []
+    lens_rows[cand.read] = lens
+    words = rescue_words(cand.read, cand.strand == 1, win_start[:M],
+                         lens_rows[cand.read], lens, win_len[:M])
+    reads_d, words_d = stage_to_device([reads, words], dev)
     # the plain version's (M, O) matrix is cut into chunks; GP holds none
     chunk = M if dev.type == "cuda" else _PRESCAN_CHUNK
-    for s0 in range(0, M, chunk):
-        sl = slice(s0, min(s0 + chunk, M))
-        outs.append(_prescan_impl(
-            idx, reads_d, lens_rows_d,
-            to_device(cand.read[sl].astype(np.int64), dev),
-            to_device(cand.strand[sl].astype(np.int8), dev),
-            to_device(np.asarray(win_start[sl], np.int64), dev),
-            to_device(np.asarray(lens[sl], np.int32), dev),
-            to_device(np.asarray(win_len[sl], np.int32), dev), O, W))
-    out = torch.cat(outs).cpu().numpy()
-    return (out[:, 0].astype(np.int32), out[:, 1].astype(np.int32),
-            out[:, 2].astype(np.int32))
+    outs = [_prescan_impl(idx, reads_d, words_d[s0:s0 + chunk], O, W)
+            for s0 in range(0, M, chunk)]
+    out = (outs[0] if len(outs) == 1 else torch.cat(outs)).cpu().numpy()
+    return tuple(out.T.copy())
 
 
-def _pack_problems(idx: DeviceIndex, reads: torch.Tensor, lens: torch.Tensor,
-                   cread: torch.Tensor, strand_rev: torch.Tensor,
-                   win_start: torch.Tensor, un: int, max_win: int):
+def _pack_problems(idx: DeviceIndex, reads: torch.Tensor,
+                   words: torch.Tensor, max_win: int):
     """Device pack of DP problems: orient reads per candidate strand
-    (read cread[p], or its reverse complement of lens[cread[p]] bases
-    where strand_rev[p]) and extract the genome windows of max_win bases
-    at win_start: ((P, L), (P, max_win)) uint8. ``un``, where not 0, is
-    the length of every read (the plain version's uniform branch; PK
-    reads ``lens`` either way). PK on CUDA tensors (one launch, the read
-    rows read in place), _pack_problems_plain on CPU tensors."""
+    (row read, or its reverse complement of rc_len bases where its
+    strand is reverse) and extract the genome windows of max_win bases
+    at the window starts: ((P, L), (P, max_win)) uint8. ``words`` is
+    the (P, 4) int32 block of rescue_words (read, strand, ws, rc_len).
+    PK on CUDA tensors (one launch, the read rows read in place),
+    _pack_problems_plain on CPU tensors."""
     if reads.is_cuda:
-        src = fm_search.oriented_rows(reads.contiguous(), reads.shape[1],
-                                      lens)
-        return fm_search.pack_problems(idx, src, fmindex._i64(cread),
-                                       strand_rev, fmindex._i64(win_start),
-                                       max_win)
+        src = fm_search.oriented_rows(reads, reads.shape[1], None)
+        return fm_search.pack_problems(idx, src, words, max_win)
     fmindex._require_cpu("_pack_problems", reads)
-    return _pack_problems_plain(idx, reads, lens, cread, strand_rev,
-                                win_start, un, max_win)
+    return _pack_problems_plain(idx, reads, words, max_win)
 
 
 def _pack_problems_plain(idx: DeviceIndex, reads: torch.Tensor,
-                         lens: torch.Tensor, cread: torch.Tensor,
-                         strand_rev: torch.Tensor, win_start: torch.Tensor,
-                         un: int, max_win: int):
-    """The plain version of _pack_problems: the batch's reverse
-    complement gathered by strand, and extract_genome."""
-    rc = fmindex.revcomp_reads_uniform(reads, un) if un \
-        else fmindex.revcomp_reads(reads, lens)
-    oriented = torch.where(strand_rev[:, None], rc[cread], reads[cread])
-    wins = fmindex.extract_genome(idx, win_start, max_win)
-    return oriented, wins
+                         words: torch.Tensor, max_win: int):
+    """The plain version of _pack_problems: the words decoded, each
+    problem's row gathered and reverse-complemented by strand, and
+    extract_genome."""
+    read, rev, ws, rc_len = rescue_fields(words)
+    return (_oriented(reads, read, rev, rc_len),
+            fmindex.extract_genome(idx, ws, max_win))
 
 
 @dataclasses.dataclass
@@ -393,8 +412,10 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     unreachable cutoff, so they never survive). On a mesh the problem
     axis is padded to a mesh multiple and split evenly: each replica
     packs its slice's problems and aligns them on its device
-    (dp_align_shards). Only the read rows a slice's problems name are
-    uploaded (cread indexes them)."""
+    (dp_align_shards). A slice makes one upload (stage_to_device): the
+    read rows its problems name, its (P, 8) problem rows and PK's words
+    (rescue_words: the named row, the strand, the window start, the
+    read's length)."""
     M_real = cand.read.shape[0]
     if M_real == 0:
         return empty_dpresult()
@@ -415,8 +436,8 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
     anchor_l, anchor_r = pad(anchor_l), pad(anchor_r)
     cutoff = np.concatenate([np.asarray(cutoff, np.int64),
                              np.full(M_pad - M_real, 1 << 20, np.int64)])
-    # the kernels' problem rows, packed here, one upload a slice; the
-    # cutoffs stay on the host too, for the result wire's parse
+    # the kernels' problem rows, packed here; the cutoffs stay on the
+    # host too, for the result wire's parse
     params = pack_params(lens[cand.read], win_len, clip_l, clip_r, anchor_l,
                          anchor_r, np.minimum(cutoff, 1 << 20))
     Ms = M_pad // n
@@ -426,18 +447,17 @@ def run_banded_dp(idx: DeviceIndex, reads: np.ndarray, lens: np.ndarray,
         for j, rep in enumerate(replicas):
             dev = rep.device
             sl = slice(j * Ms, (j + 1) * Ms)
-            # only the read rows the slice's problems name go up
+            # only the read rows the slice's problems name go up, with
+            # the slice's problem rows and PK's words (a reverse
+            # complement's length is its problem's, params column 0), in
+            # one upload
             rows, cread = np.unique(cand.read[sl], return_inverse=True)
-            rlens = lens[rows].astype(np.int64)
-            un = int(rlens[0]) if (rlens == rlens[0]).all() else 0
-            oriented, wins = _pack_problems(
-                rep, to_device(reads[rows], dev), to_device(rlens, dev),
-                to_device(cread.astype(np.int64), dev),
-                to_device(cand.strand[sl] == 1, dev),
-                to_device(np.asarray(win_start[sl], np.int64), dev), un,
-                max_win)
-            shards.append((oriented, wins, to_device(params[sl], dev),
-                           params[sl, 6]))
+            words = rescue_words(cread, cand.strand[sl] == 1, win_start[sl],
+                                 params[sl, 0])
+            reads_d, params_d, words_d = stage_to_device(
+                [reads[rows], params[sl], words], dev)
+            oriented, wins = _pack_problems(rep, reads_d, words_d, max_win)
+            shards.append((oriented, wins, params_d, params[sl, 6]))
     with timers.stage("dp.align"):
         score, hI, hJ, nbc, ops, cnts, nrun, startj, overflow = \
             dp_align_shards(shards, sc)

@@ -1257,7 +1257,7 @@ def test_pack_cases_and_kernel_row(fs_index):
         assert w["read_rows"] == 40 and w["problems"] == 64
         assert w["pac_words"] <= 64 * (W // 16 + 1)
         assert w["bytes"] == (64 * (120 + W) + 4 * w["pac_words"]
-                              + 40 * 128 + 64 * 17)
+                              + 40 * 120 + 64 * 16)
         ms, by = chip_smoke.pack_bound(w)
         assert by == "bytes" and ms == w["bytes"] / 3.35e12 * 1e3
     genome = chip_smoke.prescan_genome()

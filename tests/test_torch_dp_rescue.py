@@ -173,7 +173,8 @@ def test_run_banded_dp_equal(work, with_host):
 def test_run_banded_dp_uploads_the_rows_it_names(work, monkeypatch):
     """The problems name a few rows of a large batch of mixed lengths:
     run_banded_dp equals the JAX package's, and the pack is given only
-    the rows named, with their lengths."""
+    the rows named, each problem's words naming its row with its
+    length."""
     index, jd, td, reads, lens = work
     cand, ws, wl = _windows(work, 3)
     keep = np.flatnonzero(cand.read % 7 == 0)
@@ -199,9 +200,9 @@ def test_run_banded_dp_uploads_the_rows_it_names(work, monkeypatch):
     packed = []
     pack = tr._pack_problems
 
-    def spy(idx, reads_d, lens_d, *rest):
-        packed.append((reads_d.numpy(), lens_d.numpy()))
-        return pack(idx, reads_d, lens_d, *rest)
+    def spy(idx, reads_d, words_d, *rest):
+        packed.append((reads_d.numpy(), tr.rescue_fields(words_d)))
+        return pack(idx, reads_d, words_d, *rest)
 
     monkeypatch.setattr(tr, "_pack_problems", spy)
     b = tr.run_banded_dp(td, big, big_lens,
@@ -216,7 +217,10 @@ def test_run_banded_dp_uploads_the_rows_it_names(work, monkeypatch):
     assert len(packed) == 1 and len(rows) < B // 20
     assert len(set(big_lens[rows])) > 1
     np.testing.assert_array_equal(packed[0][0], big[rows])
-    np.testing.assert_array_equal(packed[0][1], big_lens[rows])
+    read, _, _, rc_len = (t.numpy() for t in packed[0][1])
+    named = np.concatenate([cand.read, np.zeros(len(read) - M, np.int32)])
+    np.testing.assert_array_equal(rows[read], named)
+    np.testing.assert_array_equal(rc_len, big_lens[named])
     assert a.read.size > M // 4
     for f in ("read", "strand", "pos", "score", "nrun", "win_start",
               "n_best_cells", "problem"):
@@ -225,6 +229,87 @@ def test_run_banded_dp_uploads_the_rows_it_names(work, monkeypatch):
         n = int(a.nrun[i])
         np.testing.assert_array_equal(a.ops[i, :n], b.ops[i, :n])
         np.testing.assert_array_equal(a.cnts[i, :n], b.cnts[i, :n])
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_run_banded_dp_uploads_and_words(work, monkeypatch, replicas):
+    """A shard of run_banded_dp makes one upload (stage_to_device) of its
+    named read rows, its (P, 8) problem rows and PK's words (the named
+    row, the strand, the window start and the read's length, params
+    column 0), on one device and on a mesh of two; the results equal the
+    JAX package's."""
+    from soap3dp_tpu_torch.distributed import mesh as tmesh
+
+    index, jd, td, reads, lens = work
+    cand, ws, wl = _windows(work, 2)
+    M = cand.read.size
+    clip_l = np.where(cand.strand == 1, 49, 20)
+    clip_r = np.where(cand.strand == 1, 20, 49)
+    al = np.full(M, int(wl.max()) + 1, np.int32)
+    ar = np.zeros(M, np.int32)
+    cutoff = (lens[cand.read] * 0.3).astype(int)
+    didx = td if replicas == 1 else tmesh.replicate_index(
+        index[1], tmesh.make_mesh(["cpu"] * replicas))
+    ups, shards = [], []
+    up, align = tr.stage_to_device, tr.dp_align_shards
+
+    def spy(arrays, device):
+        ups.append([np.asarray(a) for a in arrays])
+        return up(arrays, device)
+
+    def held(parts, sc):
+        shards.extend(parts)
+        return align(parts, sc)
+
+    monkeypatch.setattr(tr, "stage_to_device", spy)
+    monkeypatch.setattr(tr, "dp_align_shards", held)
+    b = tr.run_banded_dp(didx, reads, lens,
+                         tr.Candidates(cand.read, cand.strand, cand.pos),
+                         ws, wl, int(wl.max()), clip_l, clip_r, al, ar,
+                         cutoff, TScores())
+    monkeypatch.undo()
+    a = jr.run_banded_dp(jd, reads, lens, cand, ws, wl, int(wl.max()),
+                         clip_l, clip_r, al, ar, cutoff, JScores())
+    assert len(shards) == replicas and len(ups) == replicas
+    P = shards[0][2].shape[0]
+    ws_pad = np.concatenate([ws, np.zeros(P * replicas - M, ws.dtype)])
+    for j, (oriented, wins, params, cut) in enumerate(shards):
+        rows_up, params_up, words = ups[j]
+        assert params_up.dtype == np.int32 and params_up.shape == (P, 8)
+        np.testing.assert_array_equal(params.numpy(), params_up)
+        assert words.dtype == np.int32 and words.shape == (P, fs.PK_WORDS)
+        read, rev, wstart, rc_len = (
+            t.numpy() for t in tr.rescue_fields(torch.from_numpy(words)))
+        np.testing.assert_array_equal(rc_len, params[:, 0].numpy())
+        assert rows_up.shape[0] == len(np.unique(read))
+        np.testing.assert_array_equal(oriented.numpy()[~rev],
+                                      rows_up[read[~rev]])
+        np.testing.assert_array_equal(wstart, ws_pad[j * P:(j + 1) * P])
+        assert params.is_contiguous() and cut.shape == (P,)
+    for f in ("read", "strand", "pos", "score", "nrun", "win_start",
+              "n_best_cells", "problem"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+
+
+@pytest.mark.parametrize("sizes", [(1, 7, 0), (16, 24, 3), (33, 0, 1000)])
+def test_stage_to_device_views(sizes):
+    """stage_to_device: several host arrays through one buffer, each a
+    contiguous view from a 16-byte boundary with its own dtype, shape
+    and values (uint8 rows, int32 words with the sign bit set, bool, an
+    empty array)."""
+    rng = np.random.default_rng(sum(sizes))
+    n8, n32, nb = sizes
+    arrays = [rng.integers(0, 256, (n8, 5)).astype(np.uint8),
+              rng.integers(-(1 << 31), 1 << 31, (n32, 6)).astype(np.int32),
+              rng.random(nb) < 0.5, np.zeros((0, 4), np.int32)]
+    got = tf.stage_to_device(arrays, "cpu")
+    base = got[0].untyped_storage().data_ptr()
+    for g, a in zip(got, arrays):
+        assert g.is_contiguous() and tuple(g.shape) == a.shape
+        assert g.dtype == torch.from_numpy(a).dtype
+        np.testing.assert_array_equal(g.numpy(), a)
+        assert g.untyped_storage().data_ptr() == base
+        assert (g.data_ptr() - base) % 16 == 0
 
 
 def test_concat_and_empty_results():

@@ -29,6 +29,7 @@ def _sources():
                                            "compare_dp.py",
                                            "compare_kernels.py",
                                            "compare_prescan.py",
+                                           "compare_rescue.py",
                                            "compare_search.py",
                                            "compare_seed_forms.py")]
     for d, _, files in os.walk(PORT):
@@ -123,3 +124,18 @@ def test_cli_run_leaves_jax_unimported(tmp_path):
     assert "NOJAX" in res.stdout
     recs = [l for l in open(tmp_path / "out.sam") if not l.startswith("@")]
     assert len(recs) == 16
+
+
+def test_tests_package_is_this_directory():
+    """The tests import their helpers as ``tests.<module>``: ``tests``
+    is this directory as a regular package, so an installed top-level
+    ``tests`` package (some Python installations hold one) cannot shadow
+    it, as such a package shadows a namespace package."""
+    import tests
+
+    assert tests.__file__ is not None
+    assert os.path.dirname(os.path.abspath(tests.__file__)) == os.path.join(
+        ROOT, "tests")
+    from tests import conftest
+
+    assert os.path.dirname(conftest.__file__) == os.path.join(ROOT, "tests")

@@ -119,20 +119,46 @@ def test_pack_problems_equal(genome, name):
 
 def test_pack_kernel_refuses_cpu_tensors(genome):
     a = chip_smoke.pack_args(_case(genome, "ragged"), genome[2], "cpu")
-    src = fs.oriented_rows(a[1], a[1].shape[1], a[2])
+    src = fs.oriented_rows(a[1], a[1].shape[1], None)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        fs.pack_problems(a[0], src, a[3], a[4], a[5], a[7])
+        fs.pack_problems(a[0], src, a[2], a[3])
 
 
 def test_pack_kernel_refuses_packed_rows(genome):
     """PK reads code rows only: packed words are refused before any
-    launch, on any device."""
+    launch, on any device; and rows that carry their own lengths, since
+    PK takes each reverse complement's length from its problem's
+    words."""
     a = chip_smoke.pack_args(_case(genome, "ragged"), genome[2], "cpu")
     B, L = a[1].shape
     src = fs.oriented_rows(torch.zeros((B, (L + 15) // 16), dtype=torch.int32),
-                           L, a[2])
+                           L, None)
     with pytest.raises(ValueError, match="code rows, not packed"):
-        fs.pack_problems(a[0], src, a[3], a[4], a[5], a[7])
+        fs.pack_problems(a[0], src, a[2], a[3])
+    src = fs.oriented_rows(a[1], L, torch.full((B,), L, dtype=torch.int32))
+    with pytest.raises(ValueError, match="lengths from its words"):
+        fs.pack_problems(a[0], src, a[2], a[3])
+
+
+@pytest.mark.parametrize("name", ["ragged", "text_end", "width_250"])
+def test_pack_words_round_trip(genome, name):
+    """pack_args' words (rescue_words, as run_banded_dp packs them) give
+    back each problem's row, strand, window start and its row's length;
+    and at window starts past 2^31 and 2^32 (a 3.1 Gbp text's), both
+    strands."""
+    c = _case(genome, name)
+    words = chip_smoke.pack_args(c, genome[2], "cpu")[2]
+    assert words.dtype == torch.int32 and words.shape == (
+        len(c["cread"]), fs.PK_WORDS)
+    read, rev, ws, rc_len = (t.numpy() for t in tr.rescue_fields(words))
+    np.testing.assert_array_equal(read, c["cread"])
+    np.testing.assert_array_equal(rev, c["strand"])
+    np.testing.assert_array_equal(ws, c["win_start"])
+    np.testing.assert_array_equal(rc_len, c["lens"][c["cread"]])
+    far = c["win_start"] + np.where(c["strand"], 1 << 32, 3_100_000_000)
+    words = torch.from_numpy(tr.rescue_words(c["cread"], c["strand"], far,
+                                             c["lens"][c["cread"]]))
+    np.testing.assert_array_equal(tr.rescue_fields(words)[2].numpy(), far)
 
 
 def test_pack_units_range():

@@ -128,22 +128,105 @@ def test_prescan_kernel_refuses_cpu_tensors(genome):
     codes, _, td = genome
     a = chip_smoke.prescan_args(
         chip_smoke.prescan_edge_case("one", codes), td, "cpu")
-    src = fs.oriented_rows(a[1], a[1].shape[1], a[2].to(torch.int64))
+    src = fs.oriented_rows(a[1], a[1].shape[1], None)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        fs.prescan(td, src, a[3], a[5], a[6].long(), a[7].long(), a[8])
+        fs.prescan(td, src, a[2], a[3])
 
 
 def test_prescan_kernel_refuses_packed_rows(genome):
     """GP reads code rows only: packed words are refused before any
-    launch, on any device."""
+    launch, on any device; and rows that carry their own lengths, since
+    GP takes each reverse complement's length from its candidate's
+    words."""
     codes, _, td = genome
     a = chip_smoke.prescan_args(
         chip_smoke.prescan_edge_case("one", codes), td, "cpu")
     B, L = a[1].shape
     src = fs.oriented_rows(torch.zeros((B, (L + 15) // 16), dtype=torch.int32),
-                           L, a[2].to(torch.int64))
+                           L, None)
     with pytest.raises(ValueError, match="code rows, not packed"):
-        fs.prescan(td, src, a[3], a[5], a[6].long(), a[7].long(), a[8])
+        fs.prescan(td, src, a[2], a[3])
+    src = fs.oriented_rows(a[1], L, torch.full((B,), L, dtype=torch.int32))
+    with pytest.raises(ValueError, match="lengths from its words"):
+        fs.prescan(td, src, a[2], a[3])
+
+
+# window starts (a candidate's words carry them as two u32 words): on
+# either side of 2^31 and 2^32, and near the largest a 63-bit start holds
+WORD_STARTS = (0, 15, (1 << 31) - 1, 1 << 31, (1 << 32) - 16, 1 << 32,
+               (1 << 32) + 17, 3_100_000_123, (1 << 62) + 5)
+
+
+@pytest.mark.parametrize("O", [384, 4224, 8320])
+def test_prescan_words_round_trip(O):
+    """rescue_words packs GP's candidates and rescue_fields, the plain
+    version's reading of them, gives every field back: both strands,
+    window starts past 2^31 and 2^32, reads of 1-250 bases, reverse
+    complements past the row, windows up to O and past it, and a window
+    shorter than its read (no valid offset)."""
+    rng = np.random.default_rng(O)
+    M = 300
+    read = rng.integers(0, (1 << 31) - 1, M)
+    read[:3] = (0, 1, (1 << 31) - 1)
+    rev = np.arange(M) % 2 == 1
+    ws = rng.integers(0, 1 << 40, M)
+    ws[:len(WORD_STARTS)] = WORD_STARTS
+    rlen = rng.integers(1, 251, M)
+    rlen[:4] = (1, 16, 17, 250)
+    rc_len = rlen + rng.integers(-3, 6, M)
+    wlen = rlen + rng.integers(-20, O + 40, M)
+    wlen[-1] = O + 250
+    words = tr.rescue_words(read, rev, ws, rc_len, rlen, wlen)
+    assert words.dtype == np.int32 and words.shape == (M, fs.GP_WORDS)
+    got = [t.numpy() for t in tr.rescue_fields(torch.from_numpy(words))]
+    for g, w in zip(got, (read, rev, ws, rc_len, rlen, wlen)):
+        np.testing.assert_array_equal(g, w)
+    # the words as the kernel reads them: bit 31 the strand, then the
+    # start's low and high 32 bits
+    u = words.view(np.uint32).astype(np.int64)
+    np.testing.assert_array_equal(u[:, 0] >> 31, rev)
+    np.testing.assert_array_equal(u[:, 1] + (u[:, 2] << 32), ws)
+
+
+@pytest.mark.parametrize("name", ["shared_read", "above_chunk"])
+def test_gapless_prescan_uploads_and_result(genome, monkeypatch, name):
+    """A gapless_prescan call makes one upload (stage_to_device) of two
+    arrays, the reads and one block of the candidates' words (an int32
+    row of GP_WORDS each, a reverse complement as long as its read's last
+    candidate says), and its result is int32, equal to the JAX package's
+    field by field."""
+    codes, jd, td = genome
+    c = chip_smoke.prescan_edge_case(name, codes)
+    cand = (c["read_idx"].astype(np.int32), c["strand"], c["ws"])
+    ups = []
+    up = tr.stage_to_device
+
+    def spy(arrays, device):
+        ups.append([np.asarray(a) for a in arrays])
+        return up(arrays, device)
+
+    monkeypatch.setattr(tr, "stage_to_device", spy)
+    b = tr.gapless_prescan(td, c["reads"], c["rlens"], tr.Candidates(*cand),
+                           c["ws"], c["wlens"], int(c["wlens"].max()))
+    monkeypatch.undo()
+    a = jr.gapless_prescan(jd, c["reads"], c["rlens"], jr.Candidates(*cand),
+                           c["ws"], c["wlens"], int(c["wlens"].max()))
+    assert len(ups) == 1 and len(ups[0]) == 2
+    reads_up, words_up = ups[0]
+    np.testing.assert_array_equal(reads_up, c["reads"])
+    M = len(c["ws"])
+    assert words_up.dtype == np.int32 and words_up.shape == (M, fs.GP_WORDS)
+    read, rev, ws, rc_len, rlen, wlen = (
+        t.numpy() for t in tr.rescue_fields(torch.from_numpy(words_up)))
+    lens_rows = np.zeros(len(c["reads"]), np.int32)
+    lens_rows[c["read_idx"]] = c["rlens"]
+    np.testing.assert_array_equal(rc_len, lens_rows[c["read_idx"]])
+    for g, w in ((read, c["read_idx"]), (rev, c["strand"] == 1),
+                 (ws, c["ws"]), (rlen, c["rlens"]), (wlen, c["wlens"])):
+        np.testing.assert_array_equal(g, w)
+    for x, y in zip(a, b):
+        assert y.dtype == np.int32 and y.shape == (M,)
+        np.testing.assert_array_equal(np.asarray(x), y)
 
 
 def test_prescan_impl_routes_cpu_to_plain(genome, monkeypatch):
