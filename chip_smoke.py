@@ -28,7 +28,11 @@ Phases, each printing one line, any failure exits non-zero:
    wire, on K1's outputs at phase 4's largest call and on K2's and TB's
    at phase 5's, and at its edges (no lane passing, every lane passing,
    counts of 4,095, overflowed lanes, lanes one past a block's tile and
-   an odd count of 16-bit words, one lane, 32-bit words);
+   an odd count of 16-bit words, one lane, 32-bit words), in 20 calls
+   in a row on one stream whose shapes grow and shrink (DW_SEQUENCE)
+   and from two host threads on two streams at once; beside phase 4's
+   and 5's calls torch.masked_select of their runs (its library_ms) and
+   an empty launch's device time;
    then K1 and K2 (every dirs byte) at
    the edges of the forward's two forms: reads of 255 bases at scores
    of magnitude 15 (the 16-bit form's limits: every base mismatched,
@@ -1088,7 +1092,7 @@ WIRE_EDGES = {"none_passing": (3000, 128, 16), "all_passing": (3000, 128, 16),
               "one_lane": (1, 5, 16), "words32": (2050, 246, 32)}
 
 
-def wire_edge_case(name: str, seed: int = 13) -> tuple:
+def wire_edge_case(name: str, seed: int = 13, shape=None) -> tuple:
     """DW's inputs at one of its edges, numpy: (params (n, 8) int32, the
     cutoff in word 6; stats (n, 8) int32; runs (n, MR) words, int16 for
     16 bits, int32 for 32, with garbage past each row's nrun as the
@@ -1096,10 +1100,12 @@ def wire_edge_case(name: str, seed: int = 13) -> tuple:
     every lane passing, counts of 4,095 (the 16-bit word's largest),
     overflowed lanes (excluded and counted), lanes one past a block's
     tile and 4,097 lanes with an odd word count (the last word's zero
-    half), one lane, and 32-bit words with counts past 4,095."""
+    half), one lane, and 32-bit words with counts past 4,095. With
+    ``shape`` (lanes, run budget, word bits) and a name of no edge, a
+    random mix of passing, failing and empty lanes of that shape."""
     import soap3dp_tpu_torch.kernels.banded_dp as bd
 
-    n, MR, bits = WIRE_EDGES[name]
+    n, MR, bits = shape or WIRE_EDGES[name]
     rng = np.random.default_rng(seed)
     score = rng.integers(-50, 100, n)
     cutoff = rng.integers(0, 60, n)
@@ -1111,7 +1117,7 @@ def wire_edge_case(name: str, seed: int = 13) -> tuple:
     nrun = np.where(traced, rng.integers(1 if name == "all_passing" else 0,
                                          MR + 1, n), 0)
     of = np.zeros(n, np.int64)
-    if name == "overflow_lanes":
+    if name in ("overflow_lanes", "random"):
         over = traced & (rng.random(n) < 0.1)
         of[over], nrun[over] = 1, MR
     top = bd.CLIP16 if bits == 16 else (1 << 28) - 1
@@ -1130,10 +1136,27 @@ def wire_edge_case(name: str, seed: int = 13) -> tuple:
     return params, stats, words.astype(np.int16 if bits == 16 else np.int32)
 
 
-def run_wire_case(name: str, params, stats, runs, reps: int = 20) -> dict:
+def dw_library_call(params, stats, runs):
+    """A callable of DW's one PyTorch call (LIBRARY_CALLS["DW"]) on the
+    card, its mask made beforehand from the same inputs."""
+    import torch
+
+    n, MR = runs.shape
+    nrun = stats[:, 5]
+    passing = ((stats[:, 0] >= params[:, 6]) & (nrun > 0)
+               & (stats[:, 6] == 0))
+    keep = passing[:, None] & (torch.arange(MR, device=runs.device)[None, :]
+                               < nrun[:, None])
+    return lambda: torch.masked_select(runs, keep)
+
+
+def run_wire_case(name: str, params, stats, runs, reps: int = 20,
+                  library: bool = False) -> dict:
     """DW (banded_dp.dp_wire) against dp_wire_plain on the same inputs
-    (on the card), every word of the wire; DW's device time, its bound
-    (dw_bound) and the plain version's time."""
+    (on the card), every word of the wire; DW's device time (one kernel
+    a call), its bound (dw_bound) and the plain version's time; with
+    ``library``, the time of its one PyTorch call (dw_library_call)
+    between marker kernels."""
     import torch
 
     from soap3dp_tpu_torch.kernels import banded_dp as bd
@@ -1146,21 +1169,121 @@ def run_wire_case(name: str, params, stats, runs, reps: int = 20) -> dict:
     err = int((got.long() - want.long()).abs().max())
     ok = bool(torch.equal(got, want))
     ms, call_ms, timer = _timed(lambda: bd._launch_wire(params, runs, wire),
-                                reps, "dp_wire_", per_call=2)
+                                reps, "dp_wire_")
+    library_ms = (_library_ms(dw_library_call(params, stats, runs), reps)
+                  if library else None)
     head = want[:bd.WIRE_HEADER].tolist()
     bms, by = dw_bound(n, head[2], bits)
     phase("kernel dp_wire",
-          f"{name}: lanes={n} MR={MR} bits={bits} wire words={len(want)} "
-          f"header={head} equal={ok} max_abs_err={err} kernel_ms={ms:.4f} "
-          f"({timer}) call_ms={call_ms:.4f} bound_ms={bms:.6f} ({by}) "
-          f"share={bms / ms:.1%} plain_ms={plain_ms:.3f}")
+          f"{name}: lanes={n} MR={MR} bits={bits} tiles={bd.wire_tiles(n)} "
+          f"wire words={len(want)} header={head} equal={ok} "
+          f"max_abs_err={err} kernel_ms={ms:.4f} ({timer}) "
+          f"call_ms={call_ms:.4f} "
+          f"bound_ms={bms:.6f} ({by}) share={bms / ms:.1%} "
+          f"plain_ms={plain_ms:.3f}"
+          + ("" if library_ms is None else
+             f" library_ms={library_ms:.4f} ({LIBRARY_CALLS['DW']})"))
     if not ok:
         fail(f"DW disagrees with its plain version ({name})")
     return {"case": name, "kernel": "DW", "shape": f"{n}x{MR}x{bits}",
             "lanes": n, "MR": MR, "bits": bits, "header": head,
             "max_abs_err": err, "kernel_ms": ms, "call_ms": call_ms,
             "timer": timer, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, "library_ms": library_ms}
+
+
+# DW calls in a row on one stream (dw_repeat_check): (lanes, run budget,
+# word bits), growing and shrinking across its tile (64 lanes) and the
+# path's shapes, both word widths
+DW_SEQUENCE = [(1, 5, 16), (64, 246, 16), (65, 246, 16), (3000, 128, 16),
+               (16384, 246, 16), (200, 9, 16), (4097, 9, 16),
+               (2049, 7, 16), (1, 246, 32), (9000, 246, 32), (63, 12, 16),
+               (16384, 246, 32), (128, 246, 16), (129, 3, 32),
+               (20000, 31, 16), (7, 246, 16), (4096, 246, 16),
+               (640, 246, 32), (1, 1, 16), (12345, 100, 16)]
+
+
+def dw_repeat_check(dev, shapes=DW_SEQUENCE) -> dict:
+    """DW's calls in a row on one stream, its inputs' shapes growing and
+    shrinking (``shapes``, made by wire_edge_case), each wire word for
+    word against dp_wire_plain, after every call was queued (so each
+    call's statuses and tickets lie where the call before left its own);
+    the scan state's generations and tickets they took (None where a
+    call made the state anew, larger). Returns {"calls", "equal",
+    "generations", "tickets", "tiles"}."""
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+    from soap3dp_tpu_torch.kernels import fm_search as fs
+
+    cases = [[torch.from_numpy(x).to(dev) for x in wire_edge_case(
+        "random", 100 + k, shape)] for k, shape in enumerate(shapes)]
+    torch.cuda.synchronize(dev)
+    key = ("scan", dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    # the state as large as the sequence needs, so no call makes it anew
+    tiles = [bd.wire_tiles(n) for n, _, _ in shapes]
+    with fs._STATE_LOCK:
+        before = fs.gen_state("scan", dev, key[2], 2 * max(tiles) + 1)
+    wires = [bd.dp_wire(*c) for c in cases]
+    equal = []
+    for c, wire in zip(cases, wires):
+        want = bd.dp_wire_plain(*c)
+        equal.append(bool(torch.equal(wire[:len(want)].cpu(), want)))
+    scan, gen, base = fs._STATES[key]
+    same = scan is before[0]
+    return {"calls": len(shapes), "equal": equal,
+            "generations": gen - before[1] if same else None,
+            "tickets": base - before[2] if same else None,
+            "tiles": sum(tiles)}
+
+
+def dw_thread_check(dev, calls: int = 10) -> dict:
+    """DW from two host threads at once, each on a stream of its own
+    (as a mesh's threads or the rescue flush's worker run their DP
+    calls), ``calls`` calls each on inputs of its own, started together;
+    every wire word for word against dp_wire_plain. Returns {"equal",
+    "states"}: the scan states the two streams hold."""
+    import threading
+
+    import torch
+
+    from soap3dp_tpu_torch.kernels import banded_dp as bd
+    from soap3dp_tpu_torch.kernels import fm_search as fs
+
+    shapes = [DW_SEQUENCE[k % len(DW_SEQUENCE)] for k in range(2 * calls)]
+    cases = [[torch.from_numpy(x).to(dev) for x in wire_edge_case(
+        "random", 200 + k, shape)] for k, shape in enumerate(shapes)]
+    torch.cuda.synchronize(dev)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    start = threading.Barrier(2)
+    got: list = [None] * len(cases)
+    errors = []
+
+    def run(j):
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(streams[j]):
+                start.wait()
+                mine = range(j, len(cases), 2)
+                wires = [bd.dp_wire(*cases[k]) for k in mine]
+                for k, wire in zip(mine, wires):
+                    got[k] = wire.cpu()
+        except Exception as e:  # reported below, in the calling thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(j,)) for j in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    equal = []
+    for c, wire in zip(cases, got):
+        want = bd.dp_wire_plain(*c)
+        equal.append(bool(torch.equal(wire[:len(want)], want)))
+    states = sum(("scan", dev.index, s.cuda_stream) in fs._STATES
+                 for s in streams)
+    return {"equal": equal, "states": states}
 
 
 def phase_wire(dev) -> list[dict]:
@@ -1184,11 +1307,37 @@ def phase_wire(dev) -> list[dict]:
         wire, runs = outputs(reads, wins, params, bd.DPScores())
         stats = bd._wire_stats(wire, 16384).clone()
         del wire, reads, wins
-        rows.append(run_wire_case(name, params, stats, runs))
+        rows.append(run_wire_case(name, params, stats, runs,
+                                  library=True))
         del stats, runs
     for name in WIRE_EDGES:
         rows.append(run_wire_case(name, *[
             torch.from_numpy(x).to(dev) for x in wire_edge_case(name)]))
+    repeat = dw_repeat_check(dev)
+    threads = dw_thread_check(dev)
+    floor = _kernel_device_ms(lambda: torch.cuda._sleep(0), 50,
+                              "spin_kernel")
+    phase("kernel dp_wire checks",
+          f"{repeat['calls']} calls in a row on one stream "
+          f"(DW_SEQUENCE): equal {sum(repeat['equal'])}/{repeat['calls']}, "
+          f"generations {repeat['generations']}, tickets "
+          f"{repeat['tickets']} of {repeat['tiles']} tiles; two threads on "
+          f"two streams: equal {sum(threads['equal'])}/"
+          f"{len(threads['equal'])}, scan states {threads['states']}; "
+          f"path4_K1 {rows[0]['kernel_ms']:.4f} ms, path5_wide "
+          f"{rows[1]['kernel_ms']:.4f} ms beside an empty launch "
+          f"{floor:.4f} ms of device time (torch.cuda._sleep(0)), one "
+          "launch's floor")
+    if not all(repeat["equal"]) or not all(threads["equal"]):
+        fail("DW disagrees with its plain version in calls in a row or "
+             "from two threads")
+    if repeat["generations"] not in (None, repeat["calls"]) \
+            or repeat["tickets"] not in (None, repeat["tiles"]):
+        fail(f"DW's calls in a row took {repeat['generations']} "
+             f"generations and {repeat['tickets']} tickets, not "
+             f"{repeat['calls']} and {repeat['tiles']}")
+    if threads["states"] != 2:
+        fail("DW's two streams did not each keep a scan state")
     torch.cuda.empty_cache()
     main = rows[0]
     return [{"name": "dp_wire", "route": "cuda",
@@ -1198,8 +1347,16 @@ def phase_wire(dev) -> list[dict]:
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "ms": main["kernel_ms"], "timer": main["timer"],
              "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-             "bound_by": main["bound_by"], "library_ms": None,
-             "call_ms": main["call_ms"], "cases": rows}]
+             "bound_by": main["bound_by"],
+             "library_ms": main["library_ms"],
+             "library_call": LIBRARY_CALLS["DW"],
+             "call_ms": main["call_ms"],
+             "wide_ms": rows[1]["kernel_ms"],
+             "wide_library_ms": rows[1]["library_ms"],
+             "empty_launch_ms": floor,
+             "repeat": {**repeat, "equal": sum(repeat["equal"])},
+             "threads": {**threads, "equal": sum(threads["equal"])},
+             "cases": rows}]
 
 
 # ------------------------------------------------------------------
@@ -2862,8 +3019,12 @@ def _cold_device_ms(fn, reps: int, symbol: str, dev) -> float:
 
 # the one PyTorch call that computes (part of) a kernel's function, the
 # kernels line's "library_ms": FS5's scan alone, torch.cumsum over the
-# lanes' counts (not their counts or the flagged words)
-LIBRARY_CALLS = {"FS5": "torch.cumsum over the counts, the scan alone"}
+# lanes' counts (not their counts or the flagged words); DW's
+# compaction alone, the runs selected by the passing lanes' nrun
+# prefixes (dw_library_call; not the counts, the header or the stats)
+LIBRARY_CALLS = {"FS5": "torch.cumsum over the counts, the scan alone",
+                 "DW": "torch.masked_select of the runs by the passing "
+                       "lanes' arange(MR) < nrun mask, the compaction alone"}
 
 
 def library_call(fn: str, args: tuple, want):

@@ -26,7 +26,14 @@ each device-to-host copy moves and the host syncs of the call
 (torch.Tensor.cpu / item / tolist, a blocking copy_, and the event,
 stream and device synchronizes, counted where Python calls them); and
 times torch.empty of the wide route's direction buffer through the
-caching allocator. Prints one line a run and writes compare_dp.json in
+caching allocator. Then DW alone: DW_REPS calls of the call's wire
+kernel on one set of its route's outputs (K1's, or K2's and TB's), each
+between two marker kernels of one profile (chip_smoke._call_span_ms:
+the median span from a call's first wire kernel to its last, and the
+median sum of their device times, whatever the design's launches), its
+CUDA-event time a call in a loop (the wrapper's host work included),
+and an empty launch's device time (torch.cuda._sleep(0)), the floor of
+one launch. Prints one line a run and writes compare_dp.json in
 chip_smoke.py's output directory.
 """
 
@@ -40,6 +47,7 @@ import chip_smoke as cs
 from compare_e2e import ROOT, run_in_tree
 
 REPS = 10
+DW_REPS = 30
 CALLS = {"k1": (16384, 120, 256), "wide": (16384, 120, 4224)}
 DP_SYMBOLS = ("dp_align_kernel", "dp_forward_kernel", "dp_traceback_kernel",
               "dp_wire_")
@@ -191,6 +199,15 @@ for key in ("k1", "wide"):
         "dtoh_bytes": list(copies), "host_syncs": syncs[0],
         "between_chunks": between,
         "passing": int((np.asarray(got[6]) > 0).sum())}}
+    if packed:   # DW alone on one set of the route's outputs
+        params = to_device(bd.pack_params(*vec), dev)
+        outputs = bd._k1_outputs if key == "k1" else bd._wide_outputs
+        wire, runs = outputs(reads, wins, params, sc)
+        dw = lambda: bd._launch_wire(params, runs, wire)
+        span, ev = cs._call_span_ms(dw, {dw_reps}, "dp_wire_")
+        out[key].update(dw_span_ms=span, dw_events_ms=ev,
+                        dw_call_ms=cs._events_ms(dw, {dw_reps}))
+        del wire, runs
     np.savez({result!r}.format(key), *got)
     del reads, wins
     torch.cuda.empty_cache()
@@ -205,6 +222,8 @@ for _ in range(20):
     alloc.append((time.perf_counter() - t0) * 1e3)
     del buf
 out["dirs_empty_ms"] = float(np.median(alloc))
+out["empty_launch_ms"] = cs._kernel_device_ms(lambda: torch.cuda._sleep(0),
+                                              50, "spin_kernel")
 out["dirs_bytes"] = nbytes
 print("RESULT " + json.dumps(out), flush=True)
 """
@@ -243,7 +262,8 @@ def main(argv=None) -> int:
     for i, tree in enumerate(args.trees):
         result = path[:-4] + f"_{i}_{{}}.npz"
         res = run_in_tree(tree, RUN, inputs=path, reps=REPS,
-                          symbols=DP_SYMBOLS, result=result)
+                          dw_reps=DW_REPS, symbols=DP_SYMBOLS,
+                          result=result)
         for key in CALLS:
             with np.load(result.format(key)) as z:
                 mine = [z[f"arr_{k}"] for k in range(9)]
@@ -252,13 +272,15 @@ def main(argv=None) -> int:
             res[key]["equal_to_first"] = same_tuple(mine, first[key])
         runs.append({"tree": tree, "card": card, **res})
         line = {"tree": tree, "packed_form": res["packed_form"],
-                "dirs_empty_ms": res["dirs_empty_ms"]}
+                "dirs_empty_ms": res["dirs_empty_ms"],
+                "empty_launch_ms": res["empty_launch_ms"]}
         for key in CALLS:
             r = res[key]
             line[key] = {k: r[k] for k in (
                 "wall_ms", "device_ms", "library_launches", "library",
                 "dtoh", "dtoh_ms", "dtoh_bytes", "host_syncs", "kernel_ms",
-                "passing", "equal_to_first", "marked")}
+                "passing", "equal_to_first", "marked", "dw_span_ms",
+                "dw_events_ms", "dw_call_ms") if k in r}
             if key == "wide":
                 line[key]["between_chunks"] = r["between_chunks"]
         print(json.dumps(line), flush=True)

@@ -180,7 +180,12 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_lookback.cuh"
+
 namespace {
+
+using soap3dp_lookback::tile_lookback;
+using soap3dp_lookback::warp_scan;
 
 constexpr uint32_t LANES = 0x55555555u;  // one bit per 2-bit base slot
 constexpr int64_t MASK32 = 0xFFFFFFFFll;
@@ -789,7 +794,8 @@ seed_expand_kernel(Lanes e, int64_t K, Marks mk, Tables t, Slots o) {
 // look-back over the tiles before it (a 64-bit status word a tile: a
 // flag and its count, or the count of every first up to it), so it
 // waits only on blocks that already run. The statuses and the ticket
-// counter are kept across calls too, shared with FS5 (status_word).
+// counter are kept across calls too, shared with FS5 and DW
+// (tile_lookback.cuh).
 constexpr uint32_t HASH_ROW = 0x9E3779B1u;
 constexpr uint32_t HASH_TP = 0x85EBCA77u;
 constexpr uint32_t HASH_MIX = 0xC2B2AE3Du;
@@ -797,9 +803,6 @@ constexpr int64_t ROW_SENTINEL = 0x7FFFFFFFll;  // fm/search.py ROW_SENTINEL
 constexpr int WARPS = THREADS / 32;
 constexpr int DEDUPE_ROWS = 4;                // slots a thread of a tile
 constexpr int TILE = DEDUPE_ROWS * THREADS;   // slots a tile
-constexpr int LOOKBACK = 8;                   // status words a lane a round
-constexpr uint32_t ST_AGG = 1u;               // the tile's own count
-constexpr uint32_t ST_INCL = 2u;              // the count up to the tile
 
 // the table slot of a key (32-bit products, as fmindex.mul32)
 __device__ __forceinline__ uint32_t dedupe_slot(int64_t row, int64_t tp,
@@ -831,103 +834,6 @@ dedupe_scatter_kernel(const int64_t* __restrict__ krow,
   atomicMax(table + dedupe_slot(ld64(krow + k), ld64(ktp + k), hb),
             (static_cast<unsigned long long>(gen) << 32) |
                 static_cast<uint32_t>(K - k));
-}
-
-// the inclusive scan of x over a warp
-__device__ __forceinline__ int32_t warp_scan(int32_t x, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int32_t y = __shfl_up_sync(FULL, x, d);
-    if (lane >= d) x += y;
-  }
-  return x;
-}
-
-__device__ __forceinline__ uint64_t ld_status(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
-
-__device__ __forceinline__ void st_status(unsigned long long* p,
-                                          uint64_t v) {
-  *reinterpret_cast<volatile unsigned long long*>(p) = v;
-}
-
-// A tile's status word: the high 32 bits its tag (the call's
-// generation << 2) and state (1: its own count, 2: the count of every
-// tile up to it), the low 32 bits the count. FS4 and FS5 keep their
-// statuses and ticket counter across calls on one card and stream (the
-// wrappers' scan state, zeroed once); each call takes a generation above
-// every earlier call's there, so a word an earlier call left reads as
-// not yet written, and counts its tickets from the ones they took.
-__device__ __forceinline__ uint64_t status_word(uint32_t tag, uint32_t state,
-                                                uint32_t count) {
-  return (static_cast<uint64_t>(tag | state) << 32) | count;
-}
-
-// one warp: publish tile t's count, sum the counts of the tiles before
-// it back to the nearest that holds its inclusive count (before tile 0
-// an inclusive 0), publish its inclusive count; returns the count
-// before the tile. A round reads the status words of the 256 tiles
-// before the last round's at once (8 a lane), so a tile that finds no
-// inclusive count near it walks back 256 tiles a round, not 32. The
-// single-pass scan of FS4 (the firsts) and FS5 (the lanes' counts).
-// With ACQUIRE the warp fences after the statuses it read and before it
-// publishes its own (FS5's flagged words: what tile 0 wrote before its
-// status is seen before the tile's ORs), while none of its stores is in
-// flight.
-template <bool ACQUIRE>
-__device__ int32_t tile_lookback(unsigned long long* status, int64_t t,
-                                 int32_t count, int lane, uint32_t tag) {
-  const uint32_t agg = tag | ST_AGG, incl = tag | ST_INCL;
-  const uint32_t own = static_cast<uint32_t>(count);
-  if (t == 0) {
-    if (lane == 0) st_status(status, status_word(tag, ST_INCL, own));
-    return 0;
-  }
-  if (lane == 0) st_status(status + t, status_word(tag, ST_AGG, own));
-  int32_t before = 0;
-  for (int64_t j = t - 1;; j -= 32 * LOOKBACK) {
-    uint64_t s[LOOKBACK];
-#pragma unroll
-    for (int q = 0; q < LOOKBACK; ++q) {
-      const int64_t i = j - 32 * q - lane;
-      s[q] = i >= 0 ? ld_status(status + i) : status_word(tag, ST_INCL, 0);
-    }
-    for (;;) {  // until every word holds a count of this call
-      bool wait = false;
-#pragma unroll
-      for (int q = 0; q < LOOKBACK; ++q) {
-        const uint32_t hi = static_cast<uint32_t>(s[q] >> 32);
-        wait |= hi != agg && hi != incl;
-      }
-      if (!__any_sync(FULL, wait)) break;
-      __nanosleep(32);
-#pragma unroll
-      for (int q = 0; q < LOOKBACK; ++q) {
-        const uint32_t hi = static_cast<uint32_t>(s[q] >> 32);
-        if (hi != agg && hi != incl)
-          s[q] = ld_status(status + j - 32 * q - lane);
-      }
-    }
-    // the nearest inclusive count: the least distance 32 q + lane
-    int near = 32 * LOOKBACK;
-#pragma unroll
-    for (int q = LOOKBACK - 1; q >= 0; --q)
-      if (static_cast<uint32_t>(s[q] >> 32) == incl) near = 32 * q + lane;
-    near = __reduce_min_sync(FULL, near);
-    uint32_t sum = 0;
-#pragma unroll
-    for (int q = 0; q < LOOKBACK; ++q)
-      if (32 * q + lane <= near) sum += static_cast<uint32_t>(s[q]);
-    before += static_cast<int32_t>(__reduce_add_sync(FULL, sum));
-    if (near < 32 * LOOKBACK) break;
-  }
-  if (ACQUIRE) __threadfence();
-  if (lane == 0)
-    st_status(status + t, status_word(tag, ST_INCL,
-                                      static_cast<uint32_t>(before + count)));
-  return before;
 }
 
 // the first test of a tile's slots, the firsts before each (look-back;

@@ -44,6 +44,7 @@ import warnings
 import numpy as np
 import torch
 
+from soap3dp_tpu_torch.kernels import fm_search as fs
 from soap3dp_tpu_torch.kernels.cudalib import CudaKernel, CudaLibrary
 
 NEG = -32000          # DP_SCORE_NEG_INFINITY (DV-DPfunctions.cu:52)
@@ -573,10 +574,13 @@ FORWARD_KERNEL = CudaKernel(DP_FORWARD_LIB, "soap3dp_dp_forward",
 # soap3dp_dp_traceback(dirs, P, Lr1, ND, params, stats, MR, runs, stream)
 TRACEBACK_KERNEL = CudaKernel(DP_FORWARD_LIB, "soap3dp_dp_traceback",
                               [_P, _I, _I, _I, _P, _P, _I, _P, _P])
-# soap3dp_dp_wire(params, n, runs, MR, word_bits, wire, totals, tiles,
-#   stream): two launches, counted as one call
+# soap3dp_dp_wire(params, n, runs, MR, word_bits, wire, scan, base, tag,
+#   tiles, stream): one launch
 WIRE_KERNEL = CudaKernel(DP_WIRE_LIB, "soap3dp_dp_wire",
-                         [_P, _I, _P, _I, _I, _P, _P, _I, _P])
+                         [_P, _I, _P, _I, _I, _P, _P, ctypes.c_uint,
+                          ctypes.c_uint, _I, _P])
+# DW's look-back scan: tiles of 64 lanes (csrc/dp_wire.cu TILE)
+WIRE_TILE = 64
 
 # host syncs counted inside the wide route's chunk loop while
 # WATCH_LOOP_SYNCS is set (torch.cuda's sync debug mode over the loop; a
@@ -627,13 +631,29 @@ def _resident_warps(lib, dev: torch.device, C: int) -> int:
     return _RESIDENT[key] or _MAX_WARPS
 
 
+def wire_words(P: int, MR: int, bits: int) -> int:
+    """The int32 words of a call's wire: its header, P stats rows and
+    room for P x MR run words of ``bits`` bits. Raises where they pass
+    2^31 (the wire's header and offsets are int32)."""
+    n = WIRE_HEADER + STATS_WORDS * P + -(-P * MR * bits // 32)
+    if P < 0 or MR < 1 or n >= 1 << 31:
+        raise ValueError(f"DP wire: {P} lanes of {MR} {bits}-bit run words "
+                         "do not fit an int32 wire")
+    return n
+
+
+def wire_tiles(n: int) -> int:
+    """DW's tiles (blocks) for n lanes: ceil(n / WIRE_TILE), and one for
+    no lanes (it writes the header)."""
+    return max(1, -(-n // WIRE_TILE))
+
+
 def _wire_buffers(P: int, MR: int, bits: int, dev: torch.device):
     """(wire, runs) of a call: the result wire, int32, room for its
-    header, P stats rows and P x MR run words; the kernels' runs (P, MR),
-    int16 for 16-bit words, int32 for 32-bit."""
-    body = -(-P * MR * bits // 32)
-    wire = torch.empty(WIRE_HEADER + STATS_WORDS * P + body,
-                       dtype=torch.int32, device=dev)
+    header, P stats rows and P x MR run words (wire_words); the kernels'
+    runs (P, MR), int16 for 16-bit words, int32 for 32-bit."""
+    wire = torch.empty(wire_words(P, MR, bits), dtype=torch.int32,
+                       device=dev)
     runs = torch.empty((P, MR), dtype=torch.int16 if bits == 16
                        else torch.int32, device=dev)
     return wire, runs
@@ -718,22 +738,46 @@ def _launch_traceback(dirs, params, stats, runs, MR: int):
 
 
 def _launch_wire(params, runs, wire):
-    """One call of DW (csrc/dp_wire.cu, two launches: the tiles' totals
-    into a scratch of its own, then the copy): the header and the runs
-    section of ``wire``, whose stats rows are written, from ``params``
-    (n, 8) and ``runs`` (n, MR) words (int16: 16 bits, int32: 32)."""
-    lib, fn = WIRE_KERNEL.function()
+    """One call of DW (csrc/dp_wire.cu, one launch of wire_tiles(n)
+    blocks on the card's scan state for the current stream,
+    fm_search.gen_state("scan", ...), shared with FS4 and FS5): the
+    header and the runs section of ``wire``, whose stats rows are
+    written, from ``params`` (n, 8) and ``runs`` (n, MR) words (int16:
+    16 bits, int32: 32). ``wire`` and ``params`` lie on 16-byte
+    boundaries (the kernel reads and writes 16-byte vectors)."""
     n, MR = runs.shape
     dev = wire.device
     bits = 16 if runs.dtype == torch.int16 else 32
-    tiles = -(-n // int(lib.soap3dp_dp_wire_tile()))
-    totals = torch.empty(3 * tiles, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(params.data_ptr(), n, runs.data_ptr(), MR, bits,
-                 wire.data_ptr(), totals.data_ptr(), tiles, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"DP wire kernel launch failed: CUDA error {err}")
+    if wire.numel() < wire_words(n, MR, bits):
+        raise ValueError(f"DP wire: {wire.numel()} words, "
+                         f"{wire_words(n, MR, bits)} needed")
+    if wire.data_ptr() % 16 or params.data_ptr() % 16:
+        raise ValueError("DP wire: the wire and params must lie on 16-byte "
+                         "boundaries")
+    _, fn = WIRE_KERNEL.function()
+    with torch.cuda.device(dev), fs._STATE_LOCK:
+        stream = _stream(dev)
+        scan, tag, base = _wire_scan(dev, stream, n)
+        fs._launched("DP wire", fn(
+            params.data_ptr(), n, runs.data_ptr(), MR, bits,
+            wire.data_ptr(), scan.data_ptr(), base, tag, wire_tiles(n),
+            stream), dev, stream)
     WIRE_KERNEL.count(dev, (n, MR, bits))
+
+
+def _wire_scan(dev: torch.device, stream: int, n: int
+               ) -> tuple[torch.Tensor, int, int]:
+    """DW's look-back state for a call of n lanes on ``stream``: the scan
+    state FS4 and FS5 keep for the card and stream (fm_search.gen_state
+    "scan": the ticket counter, then at least 2 wire_tiles(n) words, the
+    tiles' statuses and their lanes words), the call's tag (its
+    generation << 2) and its ticket base (the tickets earlier calls took
+    there, 32 bits). The caller holds fm_search._STATE_LOCK until its
+    launch is queued."""
+    tiles = wire_tiles(n)
+    scan, gen, base = fs.gen_state("scan", dev, stream, 2 * tiles + 1,
+                                   tiles)
+    return scan, gen << 2, base & 0xFFFFFFFF
 
 
 def dp_wire(params, stats, runs) -> torch.Tensor:

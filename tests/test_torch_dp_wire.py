@@ -329,3 +329,136 @@ def test_routes_match_plain_on_the_card(Lw):
     got = tb.dp_align(*args, sc=SC)
     assert tb.WIRE_KERNEL.launches == n0 + 1
     assert_dp_equal(tb.dp_align_plain(*args, sc=SC), got, check_width=True)
+
+
+def test_wire_tiles_and_words():
+    """DW's tiles: one for no lanes (it writes the header), one up to a
+    tile of WIRE_TILE lanes, one more one past it, 16,384 at 2^20 lanes;
+    WIRE_TILE is the kernel's TILE; the wire's words, and a wire past
+    2^31 words refused."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(tb.__file__), "..", "csrc",
+                       "dp_wire.cu")
+    with open(src) as fh:
+        tile = int(re.search(r"constexpr int TILE = (\d+);", fh.read())[1])
+    assert tb.WIRE_TILE == tile == 64
+    assert [tb.wire_tiles(n) for n in (0, 1, 63, 64, 65, 128, 129)] == [
+        1, 1, 1, 1, 2, 2, 3]
+    assert tb.wire_tiles(16384) == 256
+    assert tb.wire_tiles(1 << 20) == 16384
+    assert tb.wire_words(0, 5, 16) == tb.WIRE_HEADER
+    assert tb.wire_words(3, 5, 16) == 4 + 24 + 8
+    assert tb.wire_words(3, 5, 32) == 4 + 24 + 15
+    assert tb.wire_words(16384, 246, 16) == 4 + 8 * 16384 + 16384 * 123
+    with pytest.raises(ValueError):
+        tb.wire_words(1 << 20, 4100, 32)
+    wire, runs = tb._wire_buffers(3, 5, 16, torch.device("cpu"))
+    assert wire.numel() == tb.wire_words(3, 5, 16)
+    assert runs.shape == (3, 5) and runs.dtype == torch.int16
+
+
+def test_dw_scan_state_on_the_cpu():
+    """DW's look-back state (_wire_scan) is the scan state FS4 and FS5
+    keep for each card and stream (fm_search.gen_state "scan", 2 words
+    a tile after the ticket counter: the tiles' statuses and their lanes
+    words): a call of n lanes takes the next generation (its tag, << 2) and
+    wire_tiles(n) tickets after the ones earlier calls took on that
+    stream, whatever kernel took them; a call larger than the state
+    makes it anew, larger, its generations and tickets from 0."""
+    from soap3dp_tpu_torch.kernels import fm_search as fs
+
+    cpu = torch.device("cpu")
+    stream = 9021
+    key = ("scan", None, stream)
+    fs._STATES.pop(key, None)
+    try:
+        fs.gen_state("scan", cpu, stream, 513, 512)  # an FS5 call's
+        gen, taken = 1, 512
+        for n in (1, 65, 16384, 3):
+            scan, tag, base = tb._wire_scan(cpu, stream, n)
+            gen += 1
+            assert (tag, base) == (gen << 2, taken), n
+            assert scan.numel() == 513 and not scan.any()
+            taken += tb.wire_tiles(n)
+        assert fs._STATES[key][1:] == [gen, taken]
+        scan, tag, base = tb._wire_scan(cpu, stream, 1 << 20)
+        assert (tag, base, scan.numel()) == (1 << 2, 0, 2 * 16384 + 1)
+        assert fs._STATES[key][1:] == [1, 16384]
+        assert tb._wire_scan(cpu, stream + 1, 64)[1:] == (1 << 2, 0)
+    finally:
+        fs._STATES.pop(key, None)
+        fs._STATES.pop(("scan", None, stream + 1), None)
+
+
+def test_dp_wire_refuses_cpu_tensors_and_bad_wires():
+    """dp_wire takes CUDA tensors only (dp_wire_plain is the CPU's); DW's
+    launcher refuses a wire too short for its runs, or a wire or params
+    off a 16-byte boundary, before it builds or launches anything."""
+    params, stats, runs = (torch.from_numpy(x)
+                           for x in chip_smoke.wire_edge_case("ragged_2049"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.dp_wire(params, stats, runs)
+    n, MR = runs.shape
+    short = torch.zeros(tb.wire_words(n, MR, 16) - 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="needed"):
+        tb._launch_wire(params, runs, short)
+    wire = torch.zeros(tb.wire_words(n, MR, 16) + 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte"):
+        tb._launch_wire(params, runs, wire[1:])
+    flat = torch.zeros(8 * n + 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte"):
+        tb._launch_wire(flat[1:1 + 8 * n].view(n, 8), runs, wire[:-4])
+
+
+def test_dw_sequence_plain():
+    """The shapes of DW's calls in a row (chip_smoke.DW_SEQUENCE) through
+    the plain wire: each header counts its passing and overflowed lanes
+    and its words, grows and shrinks across the kernel's tile, and
+    holds every word of both widths."""
+    seq = chip_smoke.DW_SEQUENCE
+    assert len(seq) == 20 and {b for _, _, b in seq} == {16, 32}
+    tiles = [tb.wire_tiles(n) for n, _, _ in seq]
+    assert min(tiles) == 1 and max(tiles) > 256
+    assert any(a > b for a, b in zip(tiles, tiles[1:]))
+    for k, shape in enumerate(seq):
+        params, stats, runs = (torch.from_numpy(x) for x in
+                               chip_smoke.wire_edge_case("random", 100 + k,
+                                                         shape))
+        assert tuple(runs.shape) == shape[:2]
+        wire = tb.dp_wire_plain(params, stats, runs).numpy()
+        traced = stats[:, 0] >= params[:, 6]
+        passing = traced & (stats[:, 5] > 0) & (stats[:, 6] == 0)
+        assert wire[:3].tolist() == [
+            int(passing.sum()), int((traced & (stats[:, 6] != 0)).sum()),
+            int(stats[:, 5][passing].sum())], shape
+        assert len(wire) == wire[3] == tb.WIRE_HEADER + 8 * shape[0] + -(
+            -int(wire[2]) * shape[2] // 32)
+
+
+@pytest.mark.cuda
+def test_dw_calls_in_a_row_on_the_card():
+    """DW's 20 calls in a row on one stream, shapes growing and shrinking
+    (chip_smoke.dw_repeat_check), each wire word for word against
+    dp_wire_plain; the calls took one generation each and their tiles'
+    tickets (needs a CUDA card; chip_smoke.py phase 2 runs the same
+    check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check")
+    res = chip_smoke.dw_repeat_check(torch.device("cuda", 0))
+    assert all(res["equal"]) and len(res["equal"]) == 20
+    assert (res["generations"], res["tickets"]) == (20, res["tiles"])
+
+
+@pytest.mark.cuda
+def test_dw_two_threads_on_two_streams():
+    """DW from two host threads at once, each on a stream of its own
+    (chip_smoke.dw_thread_check), every wire word for word against
+    dp_wire_plain, each stream with a scan state of its own (needs a
+    CUDA card; chip_smoke.py phase 2 runs the same check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check")
+    res = chip_smoke.dw_thread_check(torch.device("cuda", 0))
+    assert all(res["equal"]) and len(res["equal"]) == 20
+    assert res["states"] == 2
