@@ -13,6 +13,7 @@ only collective is a handful of host integers).
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 
@@ -137,28 +138,28 @@ def _load(index_arg: str, devices: list[torch.device]):
     from soap3dp_tpu_torch.index.builder import load_index
     from soap3dp_tpu_torch.distributed import mesh as dmesh
     from soap3dp_tpu_torch.fm.fmindex import device_index_ladder
+    from soap3dp_tpu_torch.utils import timers
 
     path = index_arg if index_arg.endswith(".t3i") else index_arg + ".t3i"
-    t0 = time.time()
-    index = load_index(path)
-    t1 = time.time()
-    upload = None
-    if len(devices) > 1:
-        mesh = dmesh.make_mesh(devices)
-        upload = lambda ix: dmesh.replicate_index(ix, mesh)  # noqa: E731
-    budgets = [_hbm_budget(d) for d in devices]
-    didx, index = device_index_ladder(
-        index, devices[0], upload=upload,
-        hbm_budget=None if None in budgets else min(budgets))
-    for d in set(devices):
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
-    t2 = time.time()
+    with timers.clocked("runner.load") as span:
+        index = load_index(path)
+        loaded = span.elapsed()
+        upload = None
+        if len(devices) > 1:
+            mesh = dmesh.make_mesh(devices)
+            upload = lambda ix: dmesh.replicate_index(ix, mesh)  # noqa: E731
+        budgets = [_hbm_budget(d) for d in devices]
+        didx, index = device_index_ladder(
+            index, devices[0], upload=upload,
+            hbm_budget=None if None in budgets else min(budgets))
+        for d in set(devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
     if len(devices) > 1:
         print(f"[soap3dp] device mesh: {len(devices)} chips", file=sys.stderr)
-    print(f"[soap3dp] index loaded in {t1 - t0:.2f}s, uploaded to "
-          f"{','.join(map(str, devices))} in {t2 - t1:.2f}s ({index.n} bp, "
-          f"{len(index.names)} sequences)", file=sys.stderr)
+    print(f"[soap3dp] index loaded in {loaded:.2f}s, uploaded to "
+          f"{','.join(map(str, devices))} in {span.elapsed() - loaded:.2f}s "
+          f"({index.n} bp, {len(index.names)} sequences)", file=sys.stderr)
     return index, didx
 
 
@@ -224,6 +225,16 @@ def _writer(opts, index, path):
 
 def run_single(args) -> int:
     """The ``single`` command."""
+    from soap3dp_tpu_torch.utils import timers
+
+    try:
+        with timers.stage("runner.job"):
+            return _run_single(args)
+    finally:
+        timers.report()
+
+
+def _run_single(args) -> int:
     hosts, host_id = _init_hosts(args)
 
     from soap3dp_tpu_torch.cli.main import _build_options
@@ -292,6 +303,16 @@ def run_single(args) -> int:
 
 def run_pair(args, devices: list[torch.device] | None = None) -> int:
     """The ``pair`` command; ``devices`` overrides --device/--devices."""
+    from soap3dp_tpu_torch.utils import timers
+
+    try:
+        with timers.stage("runner.job"):
+            return _run_pair(args, devices)
+    finally:
+        timers.report()
+
+
+def _run_pair(args, devices: list[torch.device] | None) -> int:
     hosts, host_id = _init_hosts(args)
 
     from soap3dp_tpu_torch.cli.main import _build_options
@@ -310,56 +331,67 @@ def run_pair(args, devices: list[torch.device] | None = None) -> int:
         opts.output_prefix += f".{host_id}"
     index, didx = _load(args.index, devices)
     total = PairSummary()
-    with _writer(opts, index, opts.output_prefix) as w:
-        # double-buffered batch loop: batch i+1's search is enqueued on
-        # the device before batch i's host work; rescue failures queue
-        # across batches and flush on a worker thread
-        rq = RescueQueue(index, didx, opts)
-        p2q = Phase2Queue(index, didx, opts)
-        it = prefetch(_stride(read_pairs(args.reads1, args.reads2,
-                                         opts.batch_size, opts.max_read_len),
-                              hosts, host_id))
 
-        def _report_flush(qn, fs):
-            if qn:
-                print(f"[soap3dp] rescue flush: {qn} pairs -> "
-                      f"{fs.paired_dp} DP-paired, "
-                      f"{fs.single_rescued} singly aligned, "
-                      f"{fs.unaligned} unaligned", file=sys.stderr)
+    def _report_flush(qn, fs):
+        if qn:
+            print(f"[soap3dp] rescue flush: {qn} pairs -> "
+                  f"{fs.paired_dp} DP-paired, "
+                  f"{fs.single_rescued} singly aligned, "
+                  f"{fs.unaligned} unaligned", file=sys.stderr)
 
-        flusher = AsyncFlusher(rq, w, on_flush=_report_flush)
-        cur = next(it, None)
-        if cur:
-            _fix_quals(opts, *cur)
-        pending = dispatch_pair_search(didx, *cur, opts) if cur else None
+    with contextlib.ExitStack() as job:
+        with timers.stage("runner.setup"):
+            w = job.enter_context(_writer(opts, index, opts.output_prefix))
+            # double-buffered batch loop: batch i+1's search is enqueued
+            # on the device before batch i's host work; rescue failures
+            # queue across batches and flush on a worker thread
+            rq = RescueQueue(index, didx, opts)
+            p2q = Phase2Queue(index, didx, opts)
+            it = prefetch(_stride(read_pairs(args.reads1, args.reads2,
+                                             opts.batch_size,
+                                             opts.max_read_len),
+                                  hosts, host_id))
+            flusher = AsyncFlusher(rq, w, on_flush=_report_flush)
+            cur = next(it, None)
+            if cur:
+                _fix_quals(opts, *cur)
+        with timers.stage("runner.dispatch"):
+            pending = dispatch_pair_search(didx, *cur, opts) if cur else None
+        ordinal = 0
         while cur is not None:
-            w.poll()
-            b1, b2 = cur
-            nxt = next(it, None)
-            if nxt:
-                _fix_quals(opts, *nxt)
-            with timers.stage("runner.dispatch"):
-                nxt_pending = dispatch_pair_search(didx, *nxt, opts) \
-                    if nxt else None
-            t0 = time.time()
-            s = _align_backoff(
-                lambda x1, x2, p: align_pair_batch(index, didx, x1, x2, opts,
-                                                   w, pending_search=p,
-                                                   rescue_queue=rq,
-                                                   phase2_queue=p2q),
-                PairSummary, (b1, b2), devices, pending=pending)
-            total.add(s)
-            flusher.maybe_submit()
-            cur, pending = nxt, nxt_pending
-            print(f"[soap3dp] batch: {s.num_pairs} pairs, "
-                  f"{s.paired_bwt} BWT-paired ({time.time() - t0:.2f}s)",
-                  file=sys.stderr)
+            with timers.batch(ordinal):
+                with timers.stage("runner.poll"):
+                    w.poll()
+                b1, b2 = cur
+                nxt = next(it, None)
+                if nxt:
+                    _fix_quals(opts, *nxt)
+                with timers.stage("runner.dispatch"):
+                    nxt_pending = dispatch_pair_search(didx, *nxt, opts) \
+                        if nxt else None
+                t0 = time.time()
+                s = _align_backoff(
+                    lambda x1, x2, p: align_pair_batch(
+                        index, didx, x1, x2, opts, w, pending_search=p,
+                        rescue_queue=rq, phase2_queue=p2q),
+                    PairSummary, (b1, b2), devices, pending=pending)
+                total.add(s)
+                with timers.stage("runner.flush_submit"):
+                    flusher.maybe_submit()
+                cur, pending = nxt, nxt_pending
+                print(f"[soap3dp] batch: {s.num_pairs} pairs, "
+                      f"{s.paired_bwt} BWT-paired ({time.time() - t0:.2f}s)",
+                      file=sys.stderr)
+            ordinal += 1
         # end-of-run drain: rescue backlog first (on the worker), then the
-        # last batch's deferred escalations, then what those re-queued
-        flusher.submit()
-        total.add(p2q.process(w, rq))
-        flusher.submit()
-        flusher.join(total.add)
+        # last batch's deferred escalations, then what those re-queued,
+        # then the writer's queue
+        with timers.stage("runner.drain"):
+            flusher.submit()
+            total.add(p2q.process(w, rq))
+            flusher.submit()
+            flusher.join(total.add)
+            w.close()
     _summary(opts, total)
     if hosts > 1:
         _merge_summary(total, hosts)
@@ -394,9 +426,6 @@ def run_multi(cmd: str, args) -> int:
 
 
 def _summary(opts, total) -> None:
-    from soap3dp_tpu_torch.utils import timers
-
-    timers.report()
     print(f"[soap3dp] done: {total}", file=sys.stderr)
     flagged = getattr(total, "still_flagged", 0)
     capped = getattr(total, "capped_anchors", 0)

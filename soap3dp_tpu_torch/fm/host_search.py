@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 
 from soap3dp_tpu_torch.index.builder import Index, _popcount_u32
+from soap3dp_tpu_torch.utils import timers
 
 _LANES = np.uint32(0x5555_5555)
 
@@ -300,6 +301,7 @@ def realign_flagged(index: Index, h, codes: np.ndarray, lens: np.ndarray,
               "device-truncated hit sets kept (see run summary)",
               file=sys.stderr)
         return h
+    timers.count("search.host_realign_reads", len(sel))
     row, tp, nm, va, _ = h.to_host()
     B = len(flagged)
     read_of = np.where(row >= B, row - B, row)

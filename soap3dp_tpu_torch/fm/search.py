@@ -244,7 +244,8 @@ class _HostCopy:
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            with timers.wait("search.sync"):
+                self._event.synchronize()
         return self._host.numpy()
 
 
@@ -293,10 +294,13 @@ def _run_compacted(idx, reads, lens, cfg, cap, steps, seed_q, B, S,
         Kc = min(K, K_max)
         wire = _search_batch_wire(idx, reads, lens, cfg, cap, steps, seed_q,
                                   Kc, uniform_len=uniform_len)
-        t, u, hits = _parse_wire(_HostCopy(wire).numpy(), B, Kc)
+        words = _HostCopy(wire).numpy()
+        with timers.stage("search.parse"):
+            t, u, hits = _parse_wire(words, B, Kc)
         if t <= Kc or K >= K_max:
             break
         K = min(shapes.bucket(t), K_max)
+        timers.count("search.redispatch_reads", B)
     tb = min(shapes.bucket(u, min_size=1024), hits.row.shape[0])
     if tb < hits.row.shape[0]:
         hits = HitArrays(row=hits.row[:tb], tp=hits.tp[:tb],
@@ -343,6 +347,8 @@ class PendingSearch:
         S = cfg.num_seeds
         if self.B == 0:
             return
+        if self.seed_lo == 0:
+            timers.count("search.phase1_reads", self.B_ext)
         self.lens = dmesh.split_rows(self.devices, self.lens_h)
         with timers.stage("dispatch.pack"):
             packed_h = pack_read_matrix(self.reads_h)
@@ -384,15 +390,20 @@ class PendingSearch:
         Bs = self.B // n
         K_max, K2_max = self.K_max // n, self.K2_max // n
         K, K2 = -(-self.K // n), -(-self.K2 // n)
-        t, u, hits = _parse_wire(self._out[j].numpy(), Bs, min(K2, K2_max))
+        words = self._out[j].numpy()
+        with timers.stage("search.parse"):
+            t, u, hits = _parse_wire(words, Bs, min(K2, K2_max))
         while ((t > min(K, K_max) or u > min(K2, K2_max))
                and (K < K_max or K2 < K2_max)):
             if t > min(K, K_max):
                 K = min(shapes.bucket(t), K_max)
             if u > min(K2, K2_max):
                 K2 = min(shapes.bucket(u), K2_max)
-            t, u, hits = _parse_wire(self._dispatch(j, K, K2).numpy(), Bs,
-                                     min(K2, K2_max))
+            timers.count("search.redispatch_reads", Bs)
+            with timers.stage("search.redispatch"):
+                words = self._dispatch(j, K, K2).numpy()
+                with timers.stage("search.parse"):
+                    t, u, hits = _parse_wire(words, Bs, min(K2, K2_max))
         tb = min(shapes.bucket(u, min_size=1024), hits.row.shape[0])
         if tb < hits.row.shape[0]:
             hits = HitArrays(row=hits.row[:tb], tp=hits.tp[:tb],
@@ -431,7 +442,7 @@ class PendingSearch:
         prev_cap_eff = self.cap1 if (
             (self.seed_lo, self.seed_hi) == (0, cfg.num_seeds)
             and self.seed_q >= self.longest_seg) else 0
-        for cap in (cfg.occ_cap_round2, cfg.occ_cap_round3):
+        for rnd, cap in ((2, cfg.occ_cap_round2), (3, cfg.occ_cap_round3)):
             if cap <= 0:
                 break
             flagged = np.asarray(hits.flagged)
@@ -446,17 +457,21 @@ class PendingSearch:
             if cap_eff <= prev_cap_eff:
                 break
             prev_cap_eff = cap_eff
-            sel_pad = np.concatenate([sel, np.zeros(nb - len(sel), np.int64)]) \
-                if len(sel) < nb else sel[:nb]
-            r2 = dmesh.split_rows(self.devices, self.reads_h[sel_pad])
-            lh = self.lens_h[sel_pad]
-            l2 = dmesh.split_rows(self.devices, lh)
-            un2 = int(lh[0]) if (lh == lh[0]).all() else 0
-            parts = dmesh.map_shards(self.devices, lambda j: _run_compacted(
-                self.replicas[j], r2[j], l2[j], cfg, cap_eff, steps2, 0,
-                nb // n, S, uniform_len=un2))
-            hits2 = _join_shards(parts, nb // n)
-            hits = _merge_round2(hits, hits2, sel, B, nb)
+            timers.count(f"search.round{rnd}_reads", len(sel))
+            with timers.stage(f"search.round{rnd}"):
+                sel_pad = np.concatenate(
+                    [sel, np.zeros(nb - len(sel), np.int64)]) \
+                    if len(sel) < nb else sel[:nb]
+                r2 = dmesh.split_rows(self.devices, self.reads_h[sel_pad])
+                lh = self.lens_h[sel_pad]
+                l2 = dmesh.split_rows(self.devices, lh)
+                un2 = int(lh[0]) if (lh == lh[0]).all() else 0
+                parts = dmesh.map_shards(
+                    self.devices, lambda j: _run_compacted(
+                        self.replicas[j], r2[j], l2[j], cfg, cap_eff, steps2,
+                        0, nb // n, S, uniform_len=un2))
+                hits2 = _join_shards(parts, nb // n)
+                hits = _merge_round2(hits, hits2, sel, B, nb)
         return self._strip_pad(hits)
 
 

@@ -45,7 +45,7 @@ def prefetch(it: Iterable[T], depth: int = 2) -> Iterator[T]:
     t.start()
     while True:
         # consumer-side wall time blocked waiting on the reader
-        with timers.stage("io.reader_wait"):
+        with timers.wait("io.reader_wait"):
             item = q.get()
         if item is _SENTINEL:
             if err:
@@ -88,6 +88,7 @@ class AsyncWriter:
         self._err: list[BaseException] = []
         self._buf: list = []
         self._lock = threading.Lock()
+        self._closed = False
         if hasattr(inner, "write_block"):
             self.write_block = self._make("write_block")
         self._t = threading.Thread(target=self._run, daemon=True,
@@ -124,7 +125,11 @@ class AsyncWriter:
     def _put(self, name, args, kw):
         if self._err:
             raise self._err[0]
-        self._q.put((name, args, kw))
+        try:
+            self._q.put_nowait((name, args, kw))
+        except queue.Full:
+            with timers.wait("io.writer_put_wait"):
+                self._q.put((name, args, kw))
 
     def _flush_buf(self):
         if self._buf:
@@ -147,10 +152,15 @@ class AsyncWriter:
                 self._flush_buf()
 
     def close(self):
+        """Write what is queued and close the writer; later calls do
+        nothing."""
+        if self._closed:
+            return
+        self._closed = True
         with self._lock:
             self._flush_buf()
         self._q.put(_SENTINEL)
-        with timers.stage("io.writer_drain"):
+        with timers.wait("io.writer_drain"):
             self._t.join()
         self.inner.close()
         if self._err:

@@ -19,6 +19,8 @@ from __future__ import annotations
 import concurrent.futures as cf
 from typing import Callable
 
+from soap3dp_tpu_torch.utils import timers
+
 
 class AsyncFlusher:
     """Run `queue.flush_items(queue.drain(), writer)` on a worker thread.
@@ -38,11 +40,23 @@ class AsyncFlusher:
         self._ex = cf.ThreadPoolExecutor(max_workers=1,
                                          thread_name_prefix="soap3dp-flush")
         self._futs: list = []
+        # the runner batches whose work the queue holds (for the flush
+        # spans), noted when its pending count has grown
+        self._batches: list[int] = []
+        self._seen = 0
+
+    def _note_batch(self) -> None:
+        if self.queue.pending > self._seen:
+            b = timers.batch_id()
+            if not self._batches or self._batches[-1] != b:
+                self._batches.append(b)
+        self._seen = self.queue.pending
 
     def maybe_submit(self) -> None:
         """Submit when the queue's own threshold fires, or eagerly when
         the worker is idle and at least ``eager_min`` items wait (keeps
         the end-of-run backlog near one batch's worth)."""
+        self._note_batch()
         if self.queue.should_flush():
             self.submit()
         elif (self.queue.pending >= self.eager_min
@@ -56,26 +70,34 @@ class AsyncFlusher:
             live = [f for f in self._futs if not f.done()]
             if len(live) < 2:
                 break
-            cf.wait(live, return_when=cf.FIRST_COMPLETED)
+            with timers.wait("overlap.submit_wait"):
+                cf.wait(live, return_when=cf.FIRST_COMPLETED)
+        self._note_batch()
         qn = self.queue.pending
         items = self.queue.drain()
+        batches, self._batches, self._seen = self._batches, [], 0
         if not items:
             return
-        self._futs.append(self._ex.submit(self._run, items, qn))
+        self._futs.append(self._ex.submit(self._run, items, qn,
+                                          timers.current(), batches))
 
-    def _run(self, items, qn: int):
-        s = self.queue.flush_items(items, self.writer)
-        if self.on_flush is not None:
-            self.on_flush(qn, s)
+    def _run(self, items, qn: int, parent: int, batches: list[int]):
+        # the one span whose parent is on another thread: the batch
+        # loop's span that submitted it
+        with timers.linked("overlap.flush", parent, batches):
+            s = self.queue.flush_items(items, self.writer)
+            if self.on_flush is not None:
+                self.on_flush(qn, s)
         return s
 
     def join(self, summary_add) -> None:
         """Wait for all flushes; fold their summaries via
         ``summary_add(s)``. Re-raises the first worker failure."""
         futs, self._futs = self._futs, []
-        for f in futs:
-            summary_add(f.result())
-        self._ex.shutdown(wait=True)
+        with timers.wait("overlap.join"):
+            for f in futs:
+                summary_add(f.result())
+            self._ex.shutdown(wait=True)
 
     def __enter__(self):
         return self

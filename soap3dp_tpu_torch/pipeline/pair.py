@@ -288,8 +288,9 @@ def align_pair_batch(
         if todo.size:
             # dispatch segments {2..k} for the unresolved pairs NOW: the
             # device searches while phase-A emission runs on the host
-            pend2, sel2, nb2 = _dispatch_phase2(didx, b1, b2, todo,
-                                                lens1, lens2, k)
+            with timers.stage("pair.phase2_prep"):
+                pend2, sel2, nb2 = _dispatch_phase2(didx, b1, b2, todo,
+                                                    lens1, lens2, k)
     if resolved.size:
         with timers.stage("A.emit"):
             _emit_bwt_pairs_batch(index, writer, b1, b2, t1, t2, st1, st2,
@@ -303,12 +304,13 @@ def align_pair_batch(
         # ---- phase A2: merged-table retry of the escalated pairs ----
         # (union of phase-1 and phase-2 segments = the full pigeonhole
         # search: escalated pairs see exactly the complete <= k set)
-        item = _Phase2Item(
-            pend2=pend2, k=k, nt=len(todo), nb=nb2,
-            sb1=_subset_batch(b1, sel2), sb2=_subset_batch(b2, sel2),
-            l1=lens1[sel2], l2=lens2[sel2],
-            t1sub=hits.subset_table(t1, todo),
-            t2sub=hits.subset_table(t2, todo))
+        with timers.stage("pair.phase2_prep"):
+            item = _Phase2Item(
+                pend2=pend2, k=k, nt=len(todo), nb=nb2,
+                sb1=_subset_batch(b1, sel2), sb2=_subset_batch(b2, sel2),
+                l1=lens1[sel2], l2=lens2[sel2],
+                t1sub=hits.subset_table(t1, todo),
+                t2sub=hits.subset_table(t2, todo))
         if phase2_queue is not None:
             # deferred: fetched at the start of the NEXT batch's
             # align, hiding the device latency + D2H sync behind a
@@ -322,7 +324,8 @@ def align_pair_batch(
     if todo.size and rescue_queue is not None:
         # phases B-E run deferred: failures from several input batches
         # flush as one large rescue batch (see RescueQueue)
-        rescue_queue.add(b1, b2, todo, t1, t2)
+        with timers.stage("pair.rescue_enqueue"):
+            rescue_queue.add(b1, b2, todo, t1, t2)
     elif todo.size:
         _run_rescue_phases(index, didx, b1, b2, t1, t2, st1, st2, todo,
                            lens1, lens2, opts, sc, writer, summary)
@@ -437,7 +440,8 @@ def _phase2_finish(index, didx, it: _Phase2Item, opts, sc, writer,
     left = np.flatnonzero(left_m)
     if left.size:
         if rescue_queue is not None:
-            rescue_queue.add(sb1, sb2, left, mt1, mt2)
+            with timers.stage("pair.rescue_enqueue"):
+                rescue_queue.add(sb1, sb2, left, mt1, mt2)
         else:
             _run_rescue_phases(index, didx, sb1, sb2, mt1, mt2, mst1,
                                mst2, left, sl1, sl2, opts, sc, writer,
@@ -676,19 +680,20 @@ def _search_both_ends(didx, b1, b2, lens1, lens2, cfg, pending=None):
         h = search_reads(didx, reads_all, lens_all, cfg)
     else:
         h = pending.result()
-    row, tp, nm, va, flagged = h.to_host()
-    B2 = 2 * B
-    strand = (row >= B2) & va
-    rid = np.where(va, row - strand * B2, 0)
-    is2 = rid >= B
-    out = []
-    for endsel in (~is2, is2):
-        m = va & endsel
-        r = rid[m] - (B if endsel is is2 else 0) + strand[m] * B
-        out.append(HitArrays(
-            row=r.astype(np.int32), tp=tp[m], nmis=nm[m],
-            valid=np.ones(r.shape[0], bool),
-            flagged=flagged[:B] if endsel is not is2 else flagged[B:]))
+    with timers.stage("pair.split_hits"):
+        row, tp, nm, va, flagged = h.to_host()
+        B2 = 2 * B
+        strand = (row >= B2) & va
+        rid = np.where(va, row - strand * B2, 0)
+        is2 = rid >= B
+        out = []
+        for endsel in (~is2, is2):
+            m = va & endsel
+            r = rid[m] - (B if endsel is is2 else 0) + strand[m] * B
+            out.append(HitArrays(
+                row=r.astype(np.int32), tp=tp[m], nmis=nm[m],
+                valid=np.ones(r.shape[0], bool),
+                flagged=flagged[:B] if endsel is not is2 else flagged[B:]))
     return out[0], out[1]
 
 
@@ -1096,23 +1101,24 @@ def _half_seeded_round(index, didx, b1, b2, t1, t2, st1, st2, half,
     rr = res.read[order]
     firstw = np.concatenate([[True], rr[1:] != rr[:-1]])
     rescued = []
-    for i in order[firstw]:
-        ci = int(res.problem[i])
-        sub = int(res.read[i])
-        b = int(sel[sub])
-        is2 = bool(mate_is_2[sub])     # True: mate = end2, anchor = end1
-        ta_, sta, batch_a = (t1, st1, b1) if is2 else (t2, st2, b2)
-        r = int(arow[ci])
-        mq_a = int(mapq.bwa_like_single(sta.x0[b], sta.x1[b])[()]) \
-            if opts.bwa_like_score else opts.max_mapq
-        e_anchor = _gapless_end(index, batch_a, ta_, r, b, mq_a, sta, opts)
-        e_mate = _dp_end(index, res, i, int(mlens[sub]), opts)
-        e_mate.mapq = min(mq_a, 29)
-        if is2:
-            emit_pair(writer, b1, b2, b, e_anchor, e_mate, proper=True)
-        else:
-            emit_pair(writer, b1, b2, b, e_mate, e_anchor, proper=True)
-        rescued.append(b)
+    with timers.stage("rescue.half_emit"):
+        for i in order[firstw]:
+            ci = int(res.problem[i])
+            sub = int(res.read[i])
+            b = int(sel[sub])
+            is2 = bool(mate_is_2[sub])     # True: mate = end2, anchor = end1
+            ta_, sta, batch_a = (t1, st1, b1) if is2 else (t2, st2, b2)
+            r = int(arow[ci])
+            mq_a = int(mapq.bwa_like_single(sta.x0[b], sta.x1[b])[()]) \
+                if opts.bwa_like_score else opts.max_mapq
+            e_anchor = _gapless_end(index, batch_a, ta_, r, b, mq_a, sta, opts)
+            e_mate = _dp_end(index, res, i, int(mlens[sub]), opts)
+            e_mate.mapq = min(mq_a, 29)
+            if is2:
+                emit_pair(writer, b1, b2, b, e_anchor, e_mate, proper=True)
+            else:
+                emit_pair(writer, b1, b2, b, e_mate, e_anchor, proper=True)
+            rescued.append(b)
     return np.asarray(rescued, int)
 
 
@@ -1130,65 +1136,66 @@ def _half_aligned_round(index, didx, b1, b2, t1, t2, st1, st2, half,
     """
     u, v = opts.max_insert, opts.min_insert
     n = int(index.n)
-    parts = []  # (pair, anchor_end, anchor_row, win_start, win_len, strand)
-    for (ta, anchor_end) in ((t1, 0), (t2, 1)):
-        cnt = (np.minimum(ta.counts()[half], max_anchors)
-               - skip_anchors).clip(min=0).astype(np.int64)
-        if not cnt.sum():
-            continue
-        rep = np.repeat(half, cnt).astype(np.int64)            # pair ids
-        rk = skip_anchors + (np.arange(len(rep)) - np.repeat(
-            np.concatenate(([0], np.cumsum(cnt)[:-1])), cnt))  # rank in group
-        rows = ta.start[rep] + rk                              # anchor rows
-        apos = ta.pos[rows].astype(np.int64)
-        astrand = ta.strand[rows].astype(np.int64)
-        lens_a = (lens1 if anchor_end == 0 else lens2)[rep].astype(np.int64)
-        mate_len = (lens2 if anchor_end == 0 else lens1)[rep].astype(np.int64)
-        is_left = astrand == opts.strand_left_leg
-        is_right = ~is_left & (astrand == opts.strand_right_leg)
-        aend = apos + lens_a
-        ws = np.where(is_left, np.maximum(apos + v - mate_len, apos), aend - u)
-        we = np.where(is_left, apos + u,
-                      np.minimum(aend - v + mate_len, aend - 1))
-        mstr = np.where(is_left, opts.strand_right_leg, opts.strand_left_leg)
-        # clamp the mate window to the ANCHOR's chromosome: the genome
-        # is a boundary-less concatenation, so an unclamped window near
-        # a junction would DP the mate into the neighboring chromosome
-        # and emit a FLAG_PROPER cross-chromosome pair
-        ci = np.searchsorted(index.offsets, apos, side="right")
-        c_lo = index.offsets[np.maximum(ci - 1, 0)].astype(np.int64)
-        c_hi = index.offsets[np.minimum(ci, len(index.offsets) - 1)
-                             ].astype(np.int64)
-        ws = np.clip(ws, c_lo, c_hi)
-        we = np.clip(we, c_lo, c_hi)
-        ok = (is_left | is_right) & (we - ws >= mate_len // 2)
-        if ok.any():
-            parts.append((rep[ok].astype(np.int32),
-                          np.full(int(ok.sum()), anchor_end, np.int8),
-                          rows[ok].astype(np.int64),
-                          ws[ok], (we - ws)[ok].astype(np.int32),
-                          mstr[ok].astype(np.int8)))
-    if not parts:
-        return np.zeros(0, int)
-    pair, anchor_end, anchor_row, win_start, win_len, mstrand = (
-        np.concatenate([p[i] for p in parts]) for i in range(6))
+    with timers.stage("rescue.windows"):
+        parts = []  # (pair, anchor_end, anchor_row, win_start, win_len, strand)
+        for (ta, anchor_end) in ((t1, 0), (t2, 1)):
+            cnt = (np.minimum(ta.counts()[half], max_anchors)
+                   - skip_anchors).clip(min=0).astype(np.int64)
+            if not cnt.sum():
+                continue
+            rep = np.repeat(half, cnt).astype(np.int64)            # pair ids
+            rk = skip_anchors + (np.arange(len(rep)) - np.repeat(
+                np.concatenate(([0], np.cumsum(cnt)[:-1])), cnt))  # rank in group
+            rows = ta.start[rep] + rk                              # anchor rows
+            apos = ta.pos[rows].astype(np.int64)
+            astrand = ta.strand[rows].astype(np.int64)
+            lens_a = (lens1 if anchor_end == 0 else lens2)[rep].astype(np.int64)
+            mate_len = (lens2 if anchor_end == 0 else lens1)[rep].astype(np.int64)
+            is_left = astrand == opts.strand_left_leg
+            is_right = ~is_left & (astrand == opts.strand_right_leg)
+            aend = apos + lens_a
+            ws = np.where(is_left, np.maximum(apos + v - mate_len, apos), aend - u)
+            we = np.where(is_left, apos + u,
+                          np.minimum(aend - v + mate_len, aend - 1))
+            mstr = np.where(is_left, opts.strand_right_leg, opts.strand_left_leg)
+            # clamp the mate window to the ANCHOR's chromosome: the genome
+            # is a boundary-less concatenation, so an unclamped window near
+            # a junction would DP the mate into the neighboring chromosome
+            # and emit a FLAG_PROPER cross-chromosome pair
+            ci = np.searchsorted(index.offsets, apos, side="right")
+            c_lo = index.offsets[np.maximum(ci - 1, 0)].astype(np.int64)
+            c_hi = index.offsets[np.minimum(ci, len(index.offsets) - 1)
+                                 ].astype(np.int64)
+            ws = np.clip(ws, c_lo, c_hi)
+            we = np.clip(we, c_lo, c_hi)
+            ok = (is_left | is_right) & (we - ws >= mate_len // 2)
+            if ok.any():
+                parts.append((rep[ok].astype(np.int32),
+                              np.full(int(ok.sum()), anchor_end, np.int8),
+                              rows[ok].astype(np.int64),
+                              ws[ok], (we - ws)[ok].astype(np.int32),
+                              mstr[ok].astype(np.int8)))
+        if not parts:
+            return np.zeros(0, int)
+        pair, anchor_end, anchor_row, win_start, win_len, mstrand = (
+            np.concatenate([p[i] for p in parts]) for i in range(6))
 
-    # build the mate-read subset: one problem per candidate
-    L = max(b1.codes.shape[1], b2.codes.shape[1])
-    mreads = np.zeros((len(pair), L), np.uint8)
-    mlens = np.zeros(len(pair), np.int32)
-    m0 = anchor_end == 0
-    mreads[np.flatnonzero(m0), :b2.codes.shape[1]] = b2.codes[pair[m0]]
-    mreads[np.flatnonzero(~m0), :b1.codes.shape[1]] = b1.codes[pair[~m0]]
-    mlens[m0] = b2.lens[pair[m0]]
-    mlens[~m0] = b1.lens[pair[~m0]]
-    cand = dp_rescue.Candidates(
-        read=np.arange(len(pair), dtype=np.int32),
-        strand=mstrand, pos=win_start)
-    max_win = int(win_len.max())
-    clip_l = np.where(mstrand == 1, opts.max_end_clip, opts.max_front_clip)
-    clip_r = np.where(mstrand == 1, opts.max_front_clip, opts.max_end_clip)
-    cutoff = opts.dp_cutoff(mlens)
+        # build the mate-read subset: one problem per candidate
+        L = max(b1.codes.shape[1], b2.codes.shape[1])
+        mreads = np.zeros((len(pair), L), np.uint8)
+        mlens = np.zeros(len(pair), np.int32)
+        m0 = anchor_end == 0
+        mreads[np.flatnonzero(m0), :b2.codes.shape[1]] = b2.codes[pair[m0]]
+        mreads[np.flatnonzero(~m0), :b1.codes.shape[1]] = b1.codes[pair[~m0]]
+        mlens[m0] = b2.lens[pair[m0]]
+        mlens[~m0] = b1.lens[pair[~m0]]
+        cand = dp_rescue.Candidates(
+            read=np.arange(len(pair), dtype=np.int32),
+            strand=mstrand, pos=win_start)
+        max_win = int(win_len.max())
+        clip_l = np.where(mstrand == 1, opts.max_end_clip, opts.max_front_clip)
+        clip_r = np.where(mstrand == 1, opts.max_front_clip, opts.max_end_clip)
+        cutoff = opts.dp_cutoff(mlens)
 
     # gapless mate prescan (VERDICT r2 item 3): a window holding a
     # 0-mismatch full-length placement scores the global max L*match —
@@ -1223,36 +1230,37 @@ def _half_aligned_round(index, didx, b1, b2, t1, t2, st1, st2, half,
         return dataclasses.replace(r, problem=sub[r.problem])
 
     import os as _os
-    pad_n = int(_os.environ.get("SOAP3DP_HALF_NARROW_PAD",
-                                opts.half_narrow_pad))
-    if dp_idx.size and pad_n > 0:
-        # narrow window centered on the gapless argmax: the prescan's
-        # best offset tracks the DP optimum through mismatches, clips
-        # and <= pad_n-base indels, at ~(len+2*pad)/insert-window the
-        # diagonal cost (the dominant rescue device time at 3.1 Gbp:
-        # BC.half_rescue 18s/pass full-window). Failures with a
-        # plausibly-elsewhere placement (window min-mm <= fb_mm) re-run
-        # on the full window.
-        ml = mlens[dp_idx].astype(np.int64)
-        base = win_start[dp_idx]
-        off = poff[dp_idx].astype(np.int64)
-        ns = np.maximum(base + off - pad_n, base)
-        ne = np.minimum(base + off + ml + pad_n,
-                        base + win_len[dp_idx].astype(np.int64))
-        rn = _dp(dp_idx, ns, (ne - ns).astype(np.int32))
-        ok = np.zeros(len(pair), bool)
-        if rn is not None:
-            ok[rn.problem] = True
-        fb = dp_idx[~ok[dp_idx]
-                    & (pmm[dp_idx] <= int(opts.half_narrow_fb_mm))]
-        rf = _dp(fb, win_start[fb], win_len[fb].astype(np.int32))
-        res = dp_rescue.concat_dpresults([rn, rf])
-    else:
-        res = _dp(dp_idx, win_start[dp_idx],
-                  win_len[dp_idx].astype(np.int32)) if dp_idx.size \
-            else None
-        if res is None:
-            res = dp_rescue.empty_dpresult()
+    with timers.stage("rescue.dp"):
+        pad_n = int(_os.environ.get("SOAP3DP_HALF_NARROW_PAD",
+                                    opts.half_narrow_pad))
+        if dp_idx.size and pad_n > 0:
+            # narrow window centered on the gapless argmax: the prescan's
+            # best offset tracks the DP optimum through mismatches, clips
+            # and <= pad_n-base indels, at ~(len+2*pad)/insert-window the
+            # diagonal cost (the dominant rescue device time at 3.1 Gbp:
+            # BC.half_rescue 18s/pass full-window). Failures with a
+            # plausibly-elsewhere placement (window min-mm <= fb_mm) re-run
+            # on the full window.
+            ml = mlens[dp_idx].astype(np.int64)
+            base = win_start[dp_idx]
+            off = poff[dp_idx].astype(np.int64)
+            ns = np.maximum(base + off - pad_n, base)
+            ne = np.minimum(base + off + ml + pad_n,
+                            base + win_len[dp_idx].astype(np.int64))
+            rn = _dp(dp_idx, ns, (ne - ns).astype(np.int32))
+            ok = np.zeros(len(pair), bool)
+            if rn is not None:
+                ok[rn.problem] = True
+            fb = dp_idx[~ok[dp_idx]
+                        & (pmm[dp_idx] <= int(opts.half_narrow_fb_mm))]
+            rf = _dp(fb, win_start[fb], win_len[fb].astype(np.int32))
+            res = dp_rescue.concat_dpresults([rn, rf])
+        else:
+            res = _dp(dp_idx, win_start[dp_idx],
+                      win_len[dp_idx].astype(np.int32)) if dp_idx.size \
+                else None
+            if res is None:
+                res = dp_rescue.empty_dpresult()
     di = np.flatnonzero(direct)
     if di.size:
         from soap3dp_tpu_torch.kernels.banded_dp import OP_MATCH
@@ -1283,25 +1291,26 @@ def _half_aligned_round(index, didx, b1, b2, t1, t2, st1, st2, half,
     first = np.concatenate([[True], bb[1:] != bb[:-1]]) if len(bb) else \
         np.zeros(0, bool)
     rescued = []
-    for i in order[first]:
-        ci = int(res.read[i])
-        b = int(pair[ci])
-        ae = int(anchor_end[ci])
-        ta, sta, lens_a = (t1, st1, lens1) if ae == 0 else (t2, st2, lens2)
-        batch_a, batch_m = (b1, b2) if ae == 0 else (b2, b1)
-        lens_m = lens2 if ae == 0 else lens1
-        r = int(anchor_row[ci])
-        mq_a = int(mapq.bwa_like_single(sta.x0[b], sta.x1[b])[()]) \
-            if opts.bwa_like_score else opts.max_mapq
-        e_anchor = _gapless_end(index, batch_a, ta, r, b, mq_a,
-                                sta, opts)
-        e_mate = _dp_end(index, res, i, int(lens_m[b]), opts)
-        e_mate.mapq = min(mq_a, 29)  # mate rescued by anchor: capped quality
-        if ae == 0:
-            emit_pair(writer, b1, b2, b, e_anchor, e_mate, proper=True)
-        else:
-            emit_pair(writer, b1, b2, b, e_mate, e_anchor, proper=True)
-        rescued.append(b)
+    with timers.stage("rescue.half_emit"):
+        for i in order[first]:
+            ci = int(res.read[i])
+            b = int(pair[ci])
+            ae = int(anchor_end[ci])
+            ta, sta, lens_a = (t1, st1, lens1) if ae == 0 else (t2, st2, lens2)
+            batch_a, batch_m = (b1, b2) if ae == 0 else (b2, b1)
+            lens_m = lens2 if ae == 0 else lens1
+            r = int(anchor_row[ci])
+            mq_a = int(mapq.bwa_like_single(sta.x0[b], sta.x1[b])[()]) \
+                if opts.bwa_like_score else opts.max_mapq
+            e_anchor = _gapless_end(index, batch_a, ta, r, b, mq_a,
+                                    sta, opts)
+            e_mate = _dp_end(index, res, i, int(lens_m[b]), opts)
+            e_mate.mapq = min(mq_a, 29)  # mate rescued by anchor: capped quality
+            if ae == 0:
+                emit_pair(writer, b1, b2, b, e_anchor, e_mate, proper=True)
+            else:
+                emit_pair(writer, b1, b2, b, e_mate, e_anchor, proper=True)
+            rescued.append(b)
     return np.asarray(rescued, int)
 
 
@@ -1499,14 +1508,15 @@ def _deep_dp_round(index, didx, b1, b2, deep, lens1, lens2, opts, sc,
     b_subs = rd[common.astype(np.int64)]
     order = np.lexsort((-score, b_subs))
     firstm = np.concatenate([[True], b_subs[order][1:] != b_subs[order][:-1]])
-    for m in order[firstm]:
-        b_sub, i, j = int(b_subs[m]), int(ia[m]), int(ib[m])
-        b = int(deep[b_sub])
-        e1 = _dp_end(index, r1, i, int(lens1[b]), opts)
-        e2 = _dp_end(index, r2, j, int(lens2[b]), opts)
-        e1.mapq = e2.mapq = _deep_dp_mapq(r1, r2, i, j, opts)
-        emit_pair(writer, b1, b2, b, e1, e2, proper=True)
-        rescued.append(b)
+    with timers.stage("rescue.deep_emit"):
+        for m in order[firstm]:
+            b_sub, i, j = int(b_subs[m]), int(ia[m]), int(ib[m])
+            b = int(deep[b_sub])
+            e1 = _dp_end(index, r1, i, int(lens1[b]), opts)
+            e2 = _dp_end(index, r2, j, int(lens2[b]), opts)
+            e1.mapq = e2.mapq = _deep_dp_mapq(r1, r2, i, j, opts)
+            emit_pair(writer, b1, b2, b, e1, e2, proper=True)
+            rescued.append(b)
     return np.asarray(rescued, int)
 
 
@@ -1547,39 +1557,40 @@ def _single_salvage_pairs(index, didx, b1, b2, leftover, lens1, lens2,
         0: {int(leftover[i]): e for i, e in got_all.items() if i < nlo},
         1: {int(leftover[i - nlo]): e for i, e in got_all.items() if i >= nlo},
     }
-    for b in leftover:
-        got1 = results[0].get(int(b))
-        got2 = results[1].get(int(b))
-        for (end, batch, got, mate_got) in ((0, b1, got1, got2),
-                                            (1, b2, got2, got1)):
-            flag = sam.FLAG_PAIRED | (sam.FLAG_FIRST if end == 0 else sam.FLAG_SECOND)
-            if got is None:
-                flag |= sam.FLAG_UNMAPPED
-                if mate_got is None:
-                    flag |= sam.FLAG_MATE_UNMAPPED
-                writer.write(SamRecord(
-                    qname=batch.names[b], flag=flag, chrom=-1, pos=-1,
-                    mapq=0, cigar="", seq=_seq_bytes(batch, b, writer),
-                    qual=_qual_bytes(batch, b, writer),
-                    mate_chrom=mate_got.chrom if mate_got else -1,
-                    mate_pos=mate_got.pos if mate_got else 0))
-            else:
-                if mate_got is None:
-                    flag |= sam.FLAG_MATE_UNMAPPED
+    with timers.stage("rescue.salvage_emit"):
+        for b in leftover:
+            got1 = results[0].get(int(b))
+            got2 = results[1].get(int(b))
+            for (end, batch, got, mate_got) in ((0, b1, got1, got2),
+                                                (1, b2, got2, got1)):
+                flag = sam.FLAG_PAIRED | (sam.FLAG_FIRST if end == 0 else sam.FLAG_SECOND)
+                if got is None:
+                    flag |= sam.FLAG_UNMAPPED
+                    if mate_got is None:
+                        flag |= sam.FLAG_MATE_UNMAPPED
+                    writer.write(SamRecord(
+                        qname=batch.names[b], flag=flag, chrom=-1, pos=-1,
+                        mapq=0, cigar="", seq=_seq_bytes(batch, b, writer),
+                        qual=_qual_bytes(batch, b, writer),
+                        mate_chrom=mate_got.chrom if mate_got else -1,
+                        mate_pos=mate_got.pos if mate_got else 0))
                 else:
-                    flag |= sam.FLAG_MATE_REVERSE if mate_got.strand else 0
-                flag |= sam.FLAG_REVERSE if got.strand else 0
-                writer.write(SamRecord(
-                    qname=batch.names[b], flag=flag, chrom=got.chrom,
-                    pos=got.pos, mapq=got.mapq, cigar=got.cigar,
-                    seq=_seq_bytes(batch, b, writer), qual=_qual_bytes(batch, b, writer),
-                    mate_chrom=mate_got.chrom if mate_got else -1,
-                    mate_pos=mate_got.pos if mate_got else 0,
-                    tags=got.tags))
-                summary.single_rescued += 1
-            n_records += 1
-        if got1 is None and got2 is None:
-            summary.unaligned += 1
+                    if mate_got is None:
+                        flag |= sam.FLAG_MATE_UNMAPPED
+                    else:
+                        flag |= sam.FLAG_MATE_REVERSE if mate_got.strand else 0
+                    flag |= sam.FLAG_REVERSE if got.strand else 0
+                    writer.write(SamRecord(
+                        qname=batch.names[b], flag=flag, chrom=got.chrom,
+                        pos=got.pos, mapq=got.mapq, cigar=got.cigar,
+                        seq=_seq_bytes(batch, b, writer), qual=_qual_bytes(batch, b, writer),
+                        mate_chrom=mate_got.chrom if mate_got else -1,
+                        mate_pos=mate_got.pos if mate_got else 0,
+                        tags=got.tags))
+                    summary.single_rescued += 1
+                n_records += 1
+            if got1 is None and got2 is None:
+                summary.unaligned += 1
     return n_records
 
 
@@ -1607,25 +1618,26 @@ def _salvage_reads(index, didx, reads, sl, opts, sc) -> dict[int, EndInfo]:
     # with the DP MAPQ (best/second-best ratio) — the same scheme the
     # SE salvage uses (_dp_salvage; getMapQualScoreForSingleDP analog,
     # BGS-IO.cpp:2370-2412), so phase-E salvaged ends no longer diverge
-    order = np.lexsort((res.pos, res.strand, -res.score, res.read))
-    by_read: dict[int, list[int]] = {}
-    seen: set[tuple] = set()
-    for i in order:
-        key = (int(res.read[i]), int(res.strand[i]), int(res.pos[i]))
-        if key in seen:
-            continue
-        seen.add(key)
-        by_read.setdefault(int(res.read[i]), []).append(int(i))
-    for b, rows in by_read.items():
-        best = int(res.score[rows[0]])
-        x0 = sum(1 for i in rows if int(res.score[i]) == best)
-        x1 = len(rows) - x0
-        rlen = int(sl[b])
-        e = _dp_end(index, res, rows[0], rlen, opts)
-        e.mapq = int(mapq.dp_single(
-            rlen * opts.match_score, 20, x0, 0, x1, best,
-            int(res.score[rows[1]]) if len(rows) > 1 else 0,
-            int(opts.dp_cutoff(rlen)), opts.max_mapq, opts.min_mapq,
-            opts.bwa_like_score)[()])
-        out[b] = e
+    with timers.stage("rescue.salvage_emit"):
+        order = np.lexsort((res.pos, res.strand, -res.score, res.read))
+        by_read: dict[int, list[int]] = {}
+        seen: set[tuple] = set()
+        for i in order:
+            key = (int(res.read[i]), int(res.strand[i]), int(res.pos[i]))
+            if key in seen:
+                continue
+            seen.add(key)
+            by_read.setdefault(int(res.read[i]), []).append(int(i))
+        for b, rows in by_read.items():
+            best = int(res.score[rows[0]])
+            x0 = sum(1 for i in rows if int(res.score[i]) == best)
+            x1 = len(rows) - x0
+            rlen = int(sl[b])
+            e = _dp_end(index, res, rows[0], rlen, opts)
+            e.mapq = int(mapq.dp_single(
+                rlen * opts.match_score, 20, x0, 0, x1, best,
+                int(res.score[rows[1]]) if len(rows) > 1 else 0,
+                int(opts.dp_cutoff(rlen)), opts.max_mapq, opts.min_mapq,
+                opts.bwa_like_score)[()])
+            out[b] = e
     return out
