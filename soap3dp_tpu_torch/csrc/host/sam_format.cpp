@@ -17,6 +17,11 @@
 //  * seq_src lets a paired-end block keep mate-1/mate-2 code+qual
 //    matrices separate: src >= 0 reads seq_codes row src, src < 0 reads
 //    seq2_codes row ~src — the 2x(N,L) interleave copy never happens
+//  * xa_off/xa_ent carry a record's XA:Z alternates as a CSR group:
+//    record i's entries are rows xa_off[i] .. xa_off[i+1] - 1 of the
+//    (E, 4) rows (chrom, strand, pos, nm), each written as
+//    "name,(+|-)pos+1,<seq_len>M,nm;" after the X0..XG block; a record
+//    with none gets no XA tag, and xa_off NULL writes no XA at all
 //
 // C ABI (ctypes): sam_format_block(...) writes SAM text lines for n
 // records into `out` and returns the byte count, or -1 if out_cap is
@@ -66,6 +71,7 @@ int64_t sam_format_block(
     const int64_t* seq_src, int64_t L2,
     int32_t has_tags, const int64_t* x0, const int64_t* x1,
     const int64_t* xm,
+    const int64_t* xa_off, const int64_t* xa_ent,
     uint8_t* out, int64_t out_cap) {
   char* p = (char*)out;
   char* end = (char*)out + out_cap;
@@ -177,6 +183,22 @@ int64_t sam_format_block(
       std::memcpy(p, "\tX1:i:", 6); p += 6; p = put_i64(p, x1[i]);
       std::memcpy(p, "\tXM:i:", 6); p += 6; p = put_i64(p, xm[i]);
       std::memcpy(p, "\tXO:i:0\tXG:i:0", 14); p += 14;
+    }
+    if (xa_off) {
+      for (int64_t e = xa_off[i]; e < xa_off[i + 1]; ++e) {
+        const int64_t* x = xa_ent + 4 * e;
+        size_t rl = (size_t)(rname_off[x[0] + 1] - rname_off[x[0]]);
+        // the tag's head, the name, three numbers of up to 21 bytes,
+        // 6 marks, the newline
+        if (end - p < (int64_t)rl + 80) return -1;
+        if (e == xa_off[i]) { std::memcpy(p, "\tXA:Z:", 6); p += 6; }
+        std::memcpy(p, rnames + rname_off[x[0]], rl); p += rl;
+        *p++ = ',';
+        *p++ = x[1] ? '-' : '+';
+        p = put_i64(p, x[2] + 1); *p++ = ',';
+        p = put_i64(p, seq_lens[i]); *p++ = 'M'; *p++ = ',';
+        p = put_i64(p, x[3]); *p++ = ';';
+      }
     }
     *p++ = '\n';
   }

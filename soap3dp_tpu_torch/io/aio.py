@@ -84,6 +84,7 @@ class AsyncWriter:
         self.inner = inner
         self.needs_seq = getattr(inner, "needs_seq", True)
         self.needs_tags = getattr(inner, "needs_tags", True)
+        self.block_alternates = getattr(inner, "block_alternates", False)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._err: list[BaseException] = []
         self._buf: list = []

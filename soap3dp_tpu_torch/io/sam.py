@@ -23,6 +23,7 @@ from typing import Sequence
 import numpy as np
 
 from soap3dp_tpu_torch.index.builder import Index
+from soap3dp_tpu_torch.io.ragged import flatten_bytes, offsets_of, scatter_idx
 from soap3dp_tpu_torch.utils import dna
 from soap3dp_tpu_torch.version import __version__
 
@@ -85,6 +86,10 @@ def _gather_pair(seq_codes, quals, seq_src):
 
 class SamWriter:
     """Streaming SAM text writer."""
+
+    # write_block takes xa, each record's XA alternates as a column;
+    # emitters keep a writer without it on the per-record path
+    block_alternates = True
 
     def __init__(self, out, index: Index, read_group: str = "default",
                  sample: str = "default", rg_option: str = ""):
@@ -168,7 +173,7 @@ class SamWriter:
     def write_block(self, names, flags, chroms, poss, mapqs, cigars, nms, *,
                     mate_chroms=None, mate_poss=None, tlens=None,
                     seq_codes=None, seq_lens=None, quals=None,
-                    tags=None, seq_src=None) -> None:
+                    tags=None, seq_src=None, xa=None) -> None:
         """Columnar bulk write of N gapless records (the SAM-text analog
         of the succinct block writer; the reference buffers via its OCC
         cache, OCCFlushCacheSAMAPI): every field is assembled with
@@ -185,6 +190,12 @@ class SamWriter:
         pairs with seq_src per-record row indices (src >= 0 ->
         mate1[src], src < 0 -> mate2[~src]) so PE emitters skip the
         (2N, L) interleave copy.
+
+        xa = (off, chrom, strand, pos, nm) gives the records' XA:Z
+        alternates as a CSR group: record i's are entries off[i] ..
+        off[i+1] - 1, written after the X0..XG block in sam.xa_entry's
+        form with "<seq_len>M" as their cigar; a record with none gets
+        no XA tag.
         """
         N = len(names)
         if N == 0:
@@ -201,7 +212,8 @@ class SamWriter:
                 text = sam_native.format_block(
                     names, flags, self._rname_buf, self._rname_off, chroms,
                     poss, mapqs, cigars, mate_chroms, mate_poss, tlens,
-                    seq_codes, seq_lens, quals, tags, seq_src=seq_src)
+                    seq_codes, seq_lens, quals, tags, seq_src=seq_src,
+                    xa=xa)
             if text is not None:
                 with timers.stage("io.sam.fwrite"):
                     self._fh.write(text)
@@ -273,18 +285,46 @@ class SamWriter:
             x0, x1, xm = (np.asarray(t) for t in tags)
             parts += [b"\tX0:i:", dec(x0), b"\tX1:i:", dec(x1),
                       b"\tXM:i:", dec(xm), b"\tXO:i:0\tXG:i:0"]
-        parts.append(b"\n")
+        if xa is None:
+            parts.append(b"\n")
 
         line = parts[0]
         for p in parts[1:]:
             line = np.char.add(line, p)
-        line = np.ascontiguousarray(line)
-        W = line.dtype.itemsize
-        ln = np.char.str_len(line).astype(np.int64)
-        keep = np.arange(W, dtype=np.int64)[None, :] < ln[:, None]
-        data = line.view(np.uint8).reshape(N, W)[keep].tobytes()
+        ln, flat = flatten_bytes(line)
+        if xa is not None:
+            flat, ln = self._append_xa(flat, ln, xa, seq_lens, name_tab)
+        data = flat.tobytes()
         self._fh.write(data)
         self._advance(len(data))
+
+    @staticmethod
+    def _append_xa(flat, ln, xa, seq_lens, name_tab):
+        """(flat, ln) of ragged lines with each one's XA tag and the
+        newline appended: the numpy form of the C formatter's."""
+        off, chrom, strand, pos, nm = (np.asarray(a, np.int64) for a in xa)
+        cnt = np.diff(off)
+        rec = np.repeat(np.arange(len(ln)), cnt)
+        ent = name_tab[chrom]
+        for p in (b",", np.where(strand != 0, b"-", b"+"),
+                  np.char.mod(b"%d", pos + 1), b",",
+                  np.char.mod(b"%d", np.asarray(seq_lens, np.int64)[rec]),
+                  b"M,", np.char.mod(b"%d", nm), b";"):
+            ent = np.char.add(ent, p)
+        eln, ebuf = flatten_bytes(ent)
+        eoff = offsets_of(eln)
+        xln = eoff[off[1:]] - eoff[off[:-1]]
+        head = 6 * (cnt > 0)
+        out_ln = ln + head + xln + 1
+        start = offsets_of(out_ln)[:-1]
+        out = np.empty(int(out_ln.sum()), np.uint8)
+        out[scatter_idx(start, ln)] = flat
+        out[scatter_idx(start + ln, head)] = np.tile(
+            np.frombuffer(b"\tXA:Z:", np.uint8), int((cnt > 0).sum()))
+        out[scatter_idx(start + ln + head, xln)] = \
+            ebuf[eoff[off[0]]:eoff[off[-1]]]
+        out[start + out_ln - 1] = ord("\n")
+        return out, out_ln
 
     def close(self) -> None:
         if self._own:

@@ -53,6 +53,7 @@ def _load():
             ctypes.c_int32, _U8P,                 # has_qual, quals
             _U8P, _U8P, _I64P, ctypes.c_int64,    # seq2, quals2, seq_src, L2
             ctypes.c_int32, _I64P, _I64P, _I64P,  # has_tags, x0, x1, xm
+            _I64P, _I64P,                         # xa_off, xa_ent
             _U8P, ctypes.c_int64]                 # out, out_cap
         _lib = lib
         return _lib
@@ -94,7 +95,7 @@ def _p8(a):
 
 def format_block(names, flags, rname_buf, rname_off, chroms, poss, mapqs,
                  cigars, mate_chroms, mate_poss, tlens, seq_codes, seq_lens,
-                 quals, tags, seq_src=None) -> memoryview | None:
+                 quals, tags, seq_src=None, xa=None) -> memoryview | None:
     """SAM text for a columnar block, or None when native is unavailable.
 
     rname_buf/rname_off are the writer's precomputed chrom-name table;
@@ -109,6 +110,8 @@ def format_block(names, flags, rname_buf, rname_off, chroms, poss, mapqs,
       * seq_codes/quals may each be a (mate1, mate2) matrix pair with
         seq_src giving per-record rows (src >= 0 -> mate1[src],
         src < 0 -> mate2[~src]) so PE blocks skip the interleave copy
+      * xa = (off, chrom, strand, pos, nm): each record's XA alternates
+        as a CSR group (SamWriter.write_block), formatted in C
     """
     lib = _load()
     if lib is None:
@@ -165,7 +168,8 @@ def format_block(names, flags, rname_buf, rname_off, chroms, poss, mapqs,
     else:
         seq_codes = np.zeros((0, 0), np.uint8)
         L = 0
-        seq_lens = flags
+        # an XA entry's cigar is its record's length, with or without SEQ
+        seq_lens = flags if seq_lens is None else i64(seq_lens)
     if has_seq and seq_src is not None:
         src_a = i64(seq_src)
     has_qual = quals is not None
@@ -185,6 +189,12 @@ def format_block(names, flags, rname_buf, rname_off, chroms, poss, mapqs,
     rn_max = int((rn[1:] - rn[:-1]).max()) if len(rn) > 1 else 1
     cap = name_total + int(cig_off[-1] if cig_off is not None else 22 * n) \
         + n * (2 * max(L, L2) + 2 * max(rn_max, 1) + 170)
+    xa_off = xa_ent = None
+    if xa is not None:
+        xa_off = i64(xa[0])
+        xa_ent = np.ascontiguousarray(np.stack([i64(a) for a in xa[1:]],
+                                               axis=1))
+        cap += len(xa_ent) * (rn_max + 80)
     out = np.empty(cap, np.uint8)
     written = lib.sam_format_block(
         n, _p8(name_buf),
@@ -199,6 +209,8 @@ def format_block(names, flags, rname_buf, rname_off, chroms, poss, mapqs,
         _p8(seq2), _p8(qual2),
         _p64(src_a) if src_a is not None else None, L2,
         1 if has_tags else 0, _p64(x0), _p64(x1), _p64(xm),
+        _p64(xa_off) if xa is not None else None,
+        _p64(xa_ent) if xa is not None else None,
         _p8(out), cap)
     if written < 0:
         return None  # capacity miss: numpy fallback handles it

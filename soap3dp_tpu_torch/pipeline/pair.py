@@ -33,6 +33,7 @@ from soap3dp_tpu_torch.fm.search import (SearchConfig, config_for,
 from soap3dp_tpu_torch.index.builder import Index
 from soap3dp_tpu_torch.io import sam
 from soap3dp_tpu_torch.io.fastq import ReadBatch
+from soap3dp_tpu_torch.io.ragged import offsets_of
 from soap3dp_tpu_torch.io.sam import SamRecord, SamWriter
 from soap3dp_tpu_torch.kernels.banded_dp import DPScores
 from soap3dp_tpu_torch.pipeline import cigar as cig
@@ -707,8 +708,10 @@ def _empty_table(B):
 def _emit_bwt_pairs_batch(index, writer, b1, b2, t1, t2, st1, st2, combos,
                           paired, lens1, lens2, opts):
     """Vectorized phase-A emission: all per-pair math is batched; the
-    per-record loop only assembles the pre-computed columns. Pairs that
-    need XA alternates or MD tags take a per-record slow path."""
+    per-record loop only assembles the pre-computed columns. Pairs with
+    XA alternates go through the block writer too where its block form
+    takes them (``block_alternates``); under -p (MD/NM), for a writer
+    without it, and for -h 3's unmapped ties, the per-record path."""
     mode = opts.output_mode
     s = combos.start
     tnm = combos.total_nm
@@ -780,7 +783,7 @@ def _emit_bwt_pairs_batch(index, writer, b1, b2, t1, t2, st1, st2, combos,
           | np.where(s1 == 1, sam.FLAG_MATE_REVERSE, 0))
 
     needs_tags = getattr(writer, "needs_tags", True) or opts.output_md
-    # how many hits the mode reports per pair (alternates -> slow path)
+    # how many hits the mode reports per pair (alternates -> XA)
     if mode == opt.OUTPUT_ALL_VALID:
         n_sel = np.minimum(n_total, opts.max_output_per_pair)
     elif mode == opt.OUTPUT_ALL_BEST:
@@ -789,11 +792,8 @@ def _emit_bwt_pairs_batch(index, writer, b1, b2, t1, t2, st1, st2, combos,
         n_sel = np.ones(len(paired), np.int64)
     slow = (n_sel > 1) | opts.output_md
 
-    # fast path: plain proper pairs with no alternates/MD go through the
-    # columnar block writer when the output format supports it
-    fast = ok & ~slow
-    if fast.any() and hasattr(writer, "write_block"):
-        fi = np.flatnonzero(fast)
+    def block(fi, xa=None):
+        """Both records of the pairs paired[fi] in one write_block."""
         bsel = paired[fi]
         n1a = np.asarray(b1.names)[bsel]
         n2a = np.asarray(b2.names)[bsel]
@@ -828,14 +828,44 @@ def _emit_bwt_pairs_batch(index, writer, b1, b2, t1, t2, st1, st2, combos,
             kw["tags"] = (inter(st1.x0[paired], st2.x0[paired]),
                           inter(st1.x1[paired], st2.x1[paired]),
                           inter(t1.nmis[r1], t2.nmis[r2]))
+        if xa is not None:
+            kw["xa"] = xa
         writer.write_block(
             names, inter(f1, f2), inter(c1, c2), inter(o1, o2),
             inter(mq1, mq2), None, np.zeros(2 * len(fi), np.int32),
             mate_chroms=inter(c2, c1), mate_poss=inter(o2, o1),
             tlens=inter(tlen1, -tlen1), **kw)
+
+    # plain proper pairs go through the columnar block writer when the
+    # output format supports it; pairs with alternates follow as a
+    # second block, their XA as a column, where the writer formats it
+    keep = np.ones(len(paired), bool)
+    if hasattr(writer, "write_block"):
+        fast = ok & ~slow
+        if fast.any():
+            block(np.flatnonzero(fast))
         keep = ~fast
-    else:
-        keep = np.ones(len(paired), bool)
+        if getattr(writer, "block_alternates", False) and not opts.output_md:
+            ti = np.flatnonzero(ok & (n_sel > 1))
+            timers.count("pair.tie_block_pairs", len(ti))
+            if len(ti):
+                with timers.stage("pair.tie_emit"):
+                    xa = _pair_alternates(index, t1, t2, combos, first[ti],
+                                          n_sel[ti])
+                    block(ti, xa)
+                timers.count("pair.xa_entries", len(xa[1]))
+            keep[ti] = False
+    # the pairs with alternates left to the per-record loop: their XA
+    # tags from the same alternates, formatted a record at a time
+    ri = np.flatnonzero(keep & ok & (n_sel > 1))
+    timers.count("pair.tie_record_pairs", len(ri))
+    xa_tags = {}
+    if len(ri):
+        xa = _pair_alternates(index, t1, t2, combos, first[ri], n_sel[ri])
+        timers.count("pair.xa_entries", len(xa[1]))
+        lens = np.stack([l1[ri], l2[ri]], axis=1).reshape(-1)
+        tags = _xa_tags(index, xa, lens)
+        xa_tags = dict(zip(paired[ri].tolist(), zip(tags[0::2], tags[1::2])))
 
     cols = list(zip(
         paired[keep].tolist(), ok[keep].tolist(), prim[keep].tolist(),
@@ -845,11 +875,10 @@ def _emit_bwt_pairs_batch(index, writer, b1, b2, t1, t2, st1, st2, combos,
         int_list(mq2[keep]),
         tlen1[keep].tolist(), f1[keep].tolist(), f2[keep].tolist(),
         t1.nmis[r1[keep]].tolist(), t2.nmis[r2[keep]].tolist(),
-        n_sel[keep].tolist(), slow[keep].tolist(),
         st1.x0[paired[keep]].tolist(), st1.x1[paired[keep]].tolist(),
         st2.x0[paired[keep]].tolist(), st2.x1[paired[keep]].tolist()))
     for (b, okb, pr, ch1, of1, st1b, m1, ch2, of2, st2b, m2, tlb, fl1, fl2,
-         nm1, nm2, nsel, sl, x01, x11, x02, x12) in cols:
+         nm1, nm2, x01, x11, x02, x12) in cols:
         if not okb:
             _emit_unmapped_pair(writer, b1, b2, b)
             continue
@@ -862,9 +891,13 @@ def _emit_bwt_pairs_batch(index, writer, b1, b2, t1, t2, st1, st2, combos,
         else:
             tags1 = []
             tags2 = []
-        if sl:
-            _slow_pair_tags(index, b1, b2, b, t1, t2, combos, pr, first,
-                            paired, nsel, tags1, tags2, rl1, rl2, opts)
+        if opts.output_md:
+            _md_tags(index, b1, b2, b, t1, t2, combos, pr, tags1, tags2,
+                     rl1, rl2)
+        if b in xa_tags:
+            for tags, xt in zip((tags1, tags2), xa_tags[b]):
+                if xt:
+                    tags.append(xt)
         writer.write(SamRecord(
             qname=b1.names[b], flag=fl1, chrom=ch1, pos=of1, mapq=m1,
             cigar=f"{rl1}M", seq=_seq_bytes(b1, b, writer), qual=_qual_bytes(b1, b, writer),
@@ -879,27 +912,50 @@ def int_list(x) -> list:
     return np.asarray(x).tolist()
 
 
-def _slow_pair_tags(index, b1, b2, b, t1, t2, combos, prim, first, paired,
-                    n_sel, tags1, tags2, rl1, rl2, opts):
-    """Per-record extras: MD/NM and XA alternate lists."""
+def _md_tags(index, b1, b2, b, t1, t2, combos, prim, tags1, tags2, rl1,
+             rl2):
+    """Per-record extras under -p: NM first, MD last."""
     from soap3dp_tpu_torch.utils import dna
 
-    g0 = int(combos.start[b])
-    if opts.output_md:
-        for (batch, table, row, rl, tags) in ((b1, t1, combos.row1[prim], rl1, tags1),
-                                              (b2, t2, combos.row2[prim], rl2, tags2)):
-            codes = batch.codes[b, :rl]
-            if table.strand[row]:
-                codes = dna.revcomp_codes(codes)
-            md, nm = sam.mismatch_md(index, int(table.pos[row]), codes)
-            tags.insert(0, f"NM:i:{nm}")
-            tags.append(f"MD:Z:{md}")
-    if n_sel > 1:
-        alts = [r for r in range(g0, g0 + int(n_sel)) if r != prim]
-        e1 = EndInfo(0, 0, 0, "", 0, 0, tags1)
-        e2 = EndInfo(0, 0, 0, "", 0, 0, tags2)
-        _append_pair_xa(index, e1, t1, combos.row1[alts], rl1, opts)
-        _append_pair_xa(index, e2, t2, combos.row2[alts], rl2, opts)
+    for (batch, table, row, rl, tags) in ((b1, t1, combos.row1[prim], rl1, tags1),
+                                          (b2, t2, combos.row2[prim], rl2, tags2)):
+        codes = batch.codes[b, :rl]
+        if table.strand[row]:
+            codes = dna.revcomp_codes(codes)
+        md, nm = sam.mismatch_md(index, int(table.pos[row]), codes)
+        tags.insert(0, f"NM:i:{nm}")
+        tags.append(f"MD:Z:{md}")
+
+
+def _pair_alternates(index, t1, t2, combos, first, n_sel):
+    """The XA alternates of T pairs, for write_block's ``xa``: one CSR
+    group over their 2T records, end 1 and end 2 of each pair in turn.
+    A pair's alternates are its combos first + 1 .. first + n_sel - 1
+    (under -h 1 and -h 2 the primary is the first, and n_sel is already
+    cut to max_output_per_pair); each end drops a (pos, strand) it has
+    already listed, keeping the first."""
+    T = len(first)
+    n = np.asarray(n_sel, np.int64) - 1
+    grp = np.repeat(np.arange(T, dtype=np.int64), n)
+    rows = (np.repeat(first + 1 - offsets_of(n)[:-1], n)
+            + np.arange(len(grp), dtype=np.int64))
+    rec, pos, strand, nm = [], [], [], []
+    for e, (t, crow) in enumerate(((t1, combos.row1), (t2, combos.row2))):
+        r = crow[rows]
+        p = t.pos[r].astype(np.int64)
+        s = t.strand[r].astype(np.int64)
+        # np.unique's index is each key's first occurrence
+        keep = np.sort(np.unique((grp << 34) | (p << 1) | s,
+                                 return_index=True)[1])
+        rec.append(2 * grp[keep] + e)
+        pos.append(p[keep])
+        strand.append(s[keep])
+        nm.append(t.nmis[r[keep]])
+    rec = np.concatenate(rec)
+    order = np.argsort(rec, kind="stable")
+    chrom, off = sam.translate_pos(index, np.concatenate(pos)[order])
+    return (offsets_of(np.bincount(rec, minlength=2 * T)), chrom,
+            np.concatenate(strand)[order], off, np.concatenate(nm)[order])
 
 
 def _gapless_end(index, batch, table, row, b, mq, st, opts) -> EndInfo:
@@ -919,20 +975,18 @@ def _gapless_end(index, batch, table, row, b, mq, st, opts) -> EndInfo:
                    span=rlen, mapq=mq, tags=tags)
 
 
-def _append_pair_xa(index, end: EndInfo, table, rows, rlen, opts):
-    entries = []
-    seen = set()
-    for r in np.asarray(rows)[: opts.max_output_per_pair]:
-        key = (int(table.pos[r]), int(table.strand[r]))
-        if key in seen:
-            continue
-        seen.add(key)
-        c, o = sam.translate_pos(index, np.asarray([table.pos[r]]))
-        entries.append(sam.xa_entry(index.names[int(c[0])].encode(),
-                                    int(table.strand[r]), int(o[0]),
-                                    f"{int(rlen)}M", int(table.nmis[r])))
-    if entries:
-        end.tags.append("XA:Z:" + "".join(entries))
+def _xa_tags(index, xa, lens) -> list[str]:
+    """Each record's "XA:Z:..." tag ("" for none) from _pair_alternates'
+    group, in sam.xa_entry's form; lens gives each record's length."""
+    off, chrom, strand, pos, nm = (np.asarray(a).tolist() for a in xa)
+    names = [n.encode() for n in index.names]
+    out = []
+    for i, rl in enumerate(np.asarray(lens).tolist()):
+        ents = "".join(sam.xa_entry(names[chrom[e]], strand[e], pos[e],
+                                    f"{rl}M", nm[e])
+                       for e in range(off[i], off[i + 1]))
+        out.append("XA:Z:" + ents if ents else "")
+    return out
 
 
 def emit_pair(writer, b1, b2, b, e1: EndInfo, e2: EndInfo, proper: bool):

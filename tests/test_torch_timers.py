@@ -308,3 +308,30 @@ def test_traced_job_writes_what_the_untraced_one_does(traced_job):
     assert strip(on) == strip(off)
     assert "[timers]" not in traced_job["off"]
     assert "[trace]" not in traced_job["off"]
+
+
+def test_tie_block_counters_and_span(tracing):
+    """Phase A's tied pairs: the block's span and counters, and none
+    written a record at a time through a SAM writer without -p; a
+    writer whose block form takes no alternates counts them there."""
+    from soap3dp_tpu_torch.io.sam import SamWriter
+    from soap3dp_tpu_torch.pipeline.options import AlignOptions
+    from tests.test_torch_pair_tie_block import RecordTieSam, run_sam
+
+    opts = AlignOptions(min_insert=100, max_insert=700)
+    run_sam(SamWriter, opts)
+    obj = _export()
+    c = obj["counters"]
+    assert c["pair.tie_block_pairs"] > 0 and c["pair.xa_entries"] > 0
+    assert c["pair.tie_record_pairs"] == 0
+    rows = _rows(obj)
+    ids = {r["id"]: r for r in rows}
+    spans = [r for r in rows if r["name"] == "pair.tie_emit"]
+    assert spans and all(ids[r["parent"]]["name"] == "A.emit" for r in spans)
+    run_sam(RecordTieSam, opts)
+    obj = _export()
+    c2 = obj["counters"]
+    assert c2["pair.tie_record_pairs"] == c["pair.tie_block_pairs"]
+    assert c2["pair.xa_entries"] == c["pair.xa_entries"]
+    assert "pair.tie_block_pairs" not in c2
+    assert "pair.tie_emit" not in obj["names"]
